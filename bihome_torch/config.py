@@ -1,0 +1,77 @@
+"""Config loading and model assembly for the port (counterpart of
+``bihome_tpu/config.py:22-134``).
+
+Reads the same reference-schema YAMLs. ``build_model`` assembles the
+Rethinking backbone with the PerceptualHead predict chain; other families
+raise ``ValueError('not ported yet: ...')``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import yaml
+
+from bihome_torch.data.pipeline import PairSpec, check_ported
+from bihome_torch.heads.assembled import AssembledModel
+from bihome_torch.heads.config import HeadConfig
+from bihome_torch.models.backbones import build_backbone
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    with open(path, 'r') as f:
+        return yaml.full_load(f)
+
+
+def apply_overrides(config: Dict[str, Any], overrides) -> Dict[str, Any]:
+    """Apply dotted-key CLI overrides in place: 'A.B.C=val'.
+
+    Values parse as YAML scalars ('1e-3' -> float, 'true' -> bool, bare
+    words -> str); intermediate dicts are created as needed."""
+    for item in overrides or ():
+        key, sep, raw = item.partition('=')
+        if not sep:
+            raise ValueError(f'--set expects KEY=VALUE, got {item!r}')
+        node = config
+        parts = key.split('.')
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                raise ValueError(f'{key}: {part} is not a mapping')
+        value = yaml.safe_load(raw) if raw != '' else ''
+        if isinstance(value, str):
+            # YAML 1.1 only floats '1.0e-4', not '1e-4' — accept both.
+            try:
+                value = int(value)
+            except ValueError:
+                try:
+                    value = float(value)
+                except ValueError:
+                    pass
+        node[parts[-1]] = value
+    return config
+
+
+@dataclasses.dataclass
+class BuiltModel:
+    model: AssembledModel
+    head_cfg: HeadConfig
+    test_pair_spec: PairSpec
+    config: Dict[str, Any]
+
+
+def build_model(config: Dict[str, Any]) -> BuiltModel:
+    """Assemble the eval model (float32; weights from the module init —
+    callers seed or load them)."""
+    model_cfg = config['MODEL']
+    if model_cfg.get('DTYPE', 'float32') != 'float32':
+        raise ValueError(f"not ported yet: MODEL.DTYPE {model_cfg['DTYPE']}")
+    head_cfg = HeadConfig.from_yaml(model_cfg['HEAD'], model_cfg['BACKBONE'])
+    backbone = build_backbone(model_cfg['BACKBONE'])
+    model = AssembledModel(backbone, head_cfg)
+    test_pair_spec = PairSpec.from_transforms(
+        config['DATA'].get('TEST_TRANSFORM', config['DATA']['TRANSFORMS']))
+    check_ported(test_pair_spec)
+    return BuiltModel(model=model, head_cfg=head_cfg,
+                      test_pair_spec=test_pair_spec, config=config)

@@ -1,0 +1,259 @@
+"""On-device synthetic homography-pair generation (counterpart of
+``bihome_tpu/data/pipeline.py``).
+
+Ported: ``PairSpec.from_transforms``, the deterministic pair assembly, the
+window-first assembly and per-sample synthesis (the eval protocol). Each
+sample's draws come from its own ``torch.Generator`` seeded by
+(seed, sample ordinal), so synthesis does not depend on how samples are
+grouped into batches. Photometric distortion, full-image emission and
+'all_points' targets are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from bihome_torch import geometry
+from bihome_torch.ops import color
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class PairSpec:
+    """Static datagen configuration; the same fields as
+    ``bihome_tpu.data.pipeline.PairSpec`` (ref: src/data/transforms.py:
+    441-454 plus the grayscale/standardize transforms)."""
+    rho: int = 32
+    patch_size: int = 128
+    photometric_keys: Tuple[str, ...] = ('image_1', 'image_2')
+    max_delta: float = 32.0
+    target_gen: str = '4_points'            # '4_points' | 'all_points'
+    grayscale_keys: Tuple[str, ...] = ('patch_1', 'patch_2')
+    standardize_mean: float = 0.443
+    standardize_std: float = 0.129
+    standardize_keys: Tuple[str, ...] = ('patch_1', 'patch_2')
+    emit_images: Tuple[str, ...] = ()
+    change_aware_keys: Tuple[str, ...] = ()
+    blob_porosity: float = 0.0
+    blobiness: float = 1.0
+    warp_dtype: str = 'float32'
+    host_prep: Tuple[Tuple[str, Tuple[Any, ...]], ...] = ()
+    photometric_full_keys: Tuple[str, ...] = ()
+
+    @staticmethod
+    def from_transforms(transforms: Sequence[Dict[str, List[Any]]],
+                        emit_images: Sequence[str] = ()) -> 'PairSpec':
+        """Build from a reference-format TRANSFORMS yaml list, each entry
+        {ClassName: [args...]} (ref: train.py:110-120)."""
+        kwargs: Dict[str, Any] = {}
+        host_prep: List[Tuple[str, Tuple[Any, ...]]] = []
+        for entry in transforms:
+            (name, args), = entry.items()
+            if name == 'HomographyNetPrep':
+                kwargs['rho'] = int(args[0])
+                kwargs['patch_size'] = int(args[1])
+                kwargs['photometric_keys'] = tuple(args[2] or ())
+                if len(args) > 3:
+                    kwargs['max_delta'] = float(args[3])
+                if len(args) > 4:
+                    kwargs['target_gen'] = str(args[4])
+            elif name == 'DictToGrayscale':
+                kwargs['grayscale_keys'] = tuple(args[0])
+            elif name == 'DictStandardize':
+                mean, std = args[0], args[1]
+                kwargs['standardize_mean'] = float(
+                    mean[0] if isinstance(mean, (list, tuple)) else mean)
+                kwargs['standardize_std'] = float(
+                    std[0] if isinstance(std, (list, tuple)) else std)
+                kwargs['standardize_keys'] = tuple(args[2])
+            elif name == 'ChangeAwarePrep':
+                keys = tuple(args[0]) if args and args[0] else (
+                    'patch_1', 'patch_2')
+                kwargs['change_aware_keys'] = keys
+            elif name in ('DictToTensor', 'ToTensorWithTarget'):
+                pass  # NHWC layout throughout; nothing to do.
+            elif name == 'PhotometricDistort':
+                kwargs['photometric_full_keys'] = tuple(args[0])
+            elif name in ('Rescale', 'RandomCrop', 'CenterCrop'):
+                size = args[0]
+                size = tuple(size) if isinstance(size, (list, tuple)) else size
+                host_prep.append((name, (size,)))
+            elif name == 'ToGrayscale':
+                host_prep.append((name, ()))
+            elif name == 'Standardize':
+                host_prep.append((name, (args[0], args[1])))
+            else:
+                raise ValueError(f'Unknown transform in config: {name}')
+        return PairSpec(emit_images=tuple(emit_images),
+                        host_prep=tuple(host_prep), **kwargs)
+
+
+def check_ported(spec: PairSpec) -> None:
+    """Raise for the datagen features this port does not have yet."""
+    missing = []
+    if spec.max_delta > 0 and {'image_1', 'image_2'} & set(
+            spec.photometric_keys):
+        missing.append('photometric distortion (HomographyNetPrep max_delta'
+                       f'={spec.max_delta:g})')
+    if spec.photometric_full_keys:
+        missing.append('PhotometricDistort')
+    if spec.change_aware_keys:
+        missing.append('ChangeAwarePrep')
+    if spec.host_prep:
+        missing.append('host-side prep transforms')
+    if spec.emit_images:
+        missing.append('full-image emission')
+    if spec.target_gen != '4_points':
+        missing.append(f'target_gen {spec.target_gen!r}')
+    if spec.warp_dtype != 'float32':
+        missing.append(f'warp_dtype {spec.warp_dtype!r}')
+    if missing:
+        raise ValueError('not ported yet: ' + ', '.join(missing))
+
+
+def _corners_from_position(pos_x: Tensor, pos_y: Tensor,
+                           patch_size: int) -> Tensor:
+    """[(x0,y0),(x1,y0),(x1,y1),(x0,y1)] per sample
+    (ref: src/data/transforms.py:517-520)."""
+    half = patch_size // 2
+    x0, x1 = pos_x - half, pos_x + half
+    y0, y1 = pos_y - half, pos_y + half
+    return torch.stack([torch.stack([x0, y0], -1), torch.stack([x1, y0], -1),
+                        torch.stack([x1, y1], -1), torch.stack([x0, y1], -1)],
+                       dim=1)
+
+
+def _warp_patches(images: Tensor, homography: Tensor, corners0: Tensor,
+                  patch_size: int, rho: int) -> Tensor:
+    """Sample the warped second patches directly from the (ps+2·rho)²
+    window around each patch: patch(i, j) = image(H · (x0+j, y0+i))."""
+    ps = patch_size
+    b, h, w, c = images.shape
+    ws_x = min(ps + 2 * rho, w)
+    ws_y = min(ps + 2 * rho, h)
+    ox = (corners0[:, 0].long() - rho).clamp(0, w - ws_x)
+    oy = (corners0[:, 1].long() - rho).clamp(0, h - ws_y)
+    windows = geometry.crop_integer(images, ox, oy, (ws_y, ws_x)).contiguous()
+    u, v = geometry.homography_grid(homography, (ps, ps),
+                                    offset=corners0.float())
+    u = u - ox.float()[:, None]
+    v = v - oy.float()[:, None]
+    out = geometry.batched_sample(windows, u, v)
+    return out.reshape(b, ps, ps, c)
+
+
+def generate_pairs_deterministic(
+        image: Tensor, corners: Tensor, delta: Tensor, spec: PairSpec,
+        image_1: Optional[Tensor] = None,
+        image_2: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Pair assembly given sampled (corners, delta): image/image_1/image_2
+    [B,H,W,3] float, corners [B,4,2] (integer-valued), delta [B,4,2]."""
+    check_ported(spec)
+    image_1 = image if image_1 is None else image_1
+    image_2 = image if image_2 is None else image_2
+    ps = spec.patch_size
+    x0 = corners[:, 0, 0].long()
+    y0 = corners[:, 0, 1].long()
+
+    # Grayscale commutes with cropping and bilinear warping (both linear in
+    # pixel values): convert first and sample one channel instead of three.
+    patch_1_gray = 'patch_1' in spec.grayscale_keys and image_1.shape[-1] == 3
+    patch_2_gray = 'patch_2' in spec.grayscale_keys and image_2.shape[-1] == 3
+    patch_1_src = color.rgb_to_grayscale(image_1) if patch_1_gray else image_1
+    patch_2_src = color.rgb_to_grayscale(image_2) if patch_2_gray else image_2
+
+    patch_1 = geometry.crop_integer(patch_1_src, x0, y0, (ps, ps))
+    homography = geometry.four_point_to_homography(corners, delta)
+    patch_2 = _warp_patches(patch_2_src, homography, corners[:, 0].float(),
+                            ps, spec.rho)
+
+    batch: Dict[str, Tensor] = {
+        'patch_1': patch_1,
+        'patch_2': patch_2,
+        'corners': corners.float(),
+        'delta': delta.float(),
+        'homography': homography,
+    }
+    batch['target'] = batch['delta']
+    for key in spec.grayscale_keys:
+        if key in batch and batch[key].shape[-1] != 1:
+            batch[key] = color.rgb_to_grayscale(batch[key])
+    for key in spec.standardize_keys:
+        if key in batch:
+            batch[key] = ((batch[key] / 255.0 - spec.standardize_mean)
+                          / spec.standardize_std)
+    return batch
+
+
+def take_images(pool: Tensor, idx: Tensor) -> Tensor:
+    """``pool[idx]``: [N,H,W,3] pool, [B] indices -> [B,H,W,3]."""
+    return pool[idx]
+
+
+def sample_seed(seed: int, ordinal: int) -> int:
+    """Seed of sample ``ordinal``'s generator under run seed ``seed``."""
+    return (int(seed) << 32) + int(ordinal)
+
+
+def draw_corners_delta(seeds: Sequence[int], image_hw: Tuple[int, int],
+                       spec: PairSpec) -> Tuple[Tensor, Tensor]:
+    """Per-sample patch corners [B,4,2] and corner perturbations [B,4,2]
+    (int64, CPU), each sample from its own ``torch.Generator``.
+
+    Patch centres are uniform in [rho + ps/2, dim - rho - ps/2] (ref:
+    src/data/transforms.py:504-509), deltas uniform in [-rho, rho)
+    (np.random.randint semantics, ref: transforms.py:538)."""
+    h, w = image_hw
+    ps, rho = spec.patch_size, spec.rho
+    pos, deltas = [], []
+    for seed in seeds:
+        gen = torch.Generator().manual_seed(seed)
+        if ps != w:
+            px = torch.randint(rho + ps // 2, w - rho - ps // 2 + 1, (),
+                               generator=gen)
+            py = torch.randint(rho + ps // 2, h - rho - ps // 2 + 1, (),
+                               generator=gen)
+        else:
+            px, py = torch.tensor(w // 2), torch.tensor(h // 2)
+        pos.append(torch.stack([px, py]))
+        deltas.append(torch.randint(-rho, rho, (4, 2), generator=gen))
+    pos_t = torch.stack(pos)
+    corners = _corners_from_position(pos_t[:, 0], pos_t[:, 1], ps)
+    return corners, torch.stack(deltas)
+
+
+def generate_pairs_per_sample(images: Tensor, seeds: Sequence[int],
+                              spec: PairSpec) -> Dict[str, Tensor]:
+    """uint8/float images [B,H,W,3] + one seed per sample -> batch dict.
+    Every sample's randomness derives only from its own seed (the eval
+    protocol's batch-size invariance, ref: eval.py:360)."""
+    images = images.float()
+    corners, delta = draw_corners_delta(seeds, images.shape[1:3], spec)
+    return _assemble_pairs(images, corners.to(images.device),
+                           delta.to(images.device), spec)
+
+
+def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
+                    spec: PairSpec) -> Dict[str, Tensor]:
+    """Window-first assembly: patch_1 and patch_2 read only the (ps+2·rho)²
+    window around the patch, so only the window is cropped and converted.
+    Returns absolute-frame corners and homography."""
+    check_ported(spec)
+    _, h, w, _ = images.shape
+    ps, rho = spec.patch_size, spec.rho
+    ws_x = min(ps + 2 * rho, w)
+    ws_y = min(ps + 2 * rho, h)
+    ox = (corners[:, 0, 0] - rho).clamp(0, w - ws_x)
+    oy = (corners[:, 0, 1] - rho).clamp(0, h - ws_y)
+    windows = geometry.crop_integer(images, ox, oy, (ws_y, ws_x))
+    origin = torch.stack([ox, oy], dim=-1)[:, None, :]             # [B,1,2]
+    batch = generate_pairs_deterministic(windows, (corners - origin).float(),
+                                         delta.float(), spec)
+    batch['corners'] = corners.float()
+    batch['homography'] = geometry.four_point_to_homography(
+        batch['corners'], batch['delta'])
+    return batch

@@ -1,0 +1,153 @@
+"""Eval entry point of the port — MACE over the test protocol
+(counterpart of ``eval.py:104-306``).
+
+    python -m bihome_torch.eval --config_file X.yaml [--batch_size N]
+        [--steps N] [--synthetic] [--image_size W H] [--set K=V]
+        [--torch_ckpt F] [--skip_timing] [--device cuda|cpu]
+
+Prints ``Number of params``, ``Mean mace`` and ``Mean model time`` (ms per
+batch) like the JAX entry point. Protocol: TEST_SAMPLES_PER_EPOCH samples
+drawn with replacement by the seeded epoch sampler, each sample's pair
+synthesized from its own generator seeded by (TEST_SEED, ordinal) — so MACE
+does not depend on ``--batch_size`` — and DSAC draws seeded by
+(TEST_SEED + 1, iteration). Timing covers predict only, over batches
+generated beforehand, each call ended by ``torch.cuda.synchronize()``; the
+first iteration is dropped.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
+raises rather than falling back. Without ``--torch_ckpt`` the weights are
+initialised from a fixed seed (no trained checkpoint ships with the repo).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from bihome_torch import config as config_lib
+from bihome_torch.data import datasets, pipeline
+from bihome_torch.device import resolve_device
+from bihome_torch.models import backbones, weights
+
+INIT_SEED = 0
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--config_file', type=str, required=True)
+    parser.add_argument('--torch_ckpt', type=str, default='',
+                        help='reference .pth: a backbone state dict or a '
+                             'training checkpoint {"model": {"0.*": ...}}')
+    parser.add_argument('--batch_size', type=int, default=1)
+    parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--skip_timing', action='store_true')
+    parser.add_argument('--steps', type=int, default=0)
+    parser.add_argument('--image_size', type=int, nargs=2,
+                        default=(320, 240))
+    parser.add_argument('--set', action='append', default=[],
+                        metavar='KEY=VALUE', help='dotted config override')
+    parser.add_argument('--device', type=str, default='cuda',
+                        choices=('cuda', 'cpu'))
+    return parser.parse_args(argv)
+
+
+def load_backbone_weights(backbone: torch.nn.Module, path: str) -> None:
+    """Load a reference .pth into the backbone: either its own state dict
+    or a training checkpoint of nn.Sequential(backbone, head), whose
+    backbone keys carry the '0.' prefix (ref: train.py:696)."""
+    state = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(state, dict) and 'model' in state:
+        state = state['model']
+    if any(k.startswith('0.') for k in state):
+        state = {k[2:]: v for k, v in state.items() if k.startswith('0.')}
+    weights.load_state_dict(backbone, state)
+
+
+def dsac_generator(test_seed: int, iteration: int) -> torch.Generator:
+    """Generator of the DSAC draws for eval iteration ``iteration``."""
+    return torch.Generator().manual_seed(
+        pipeline.sample_seed(test_seed + 1, iteration))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """Run the eval; returns the printed numbers plus the built model and
+    the generated batches (for callers that check them further)."""
+    args = parse_args(argv)
+    if not args.synthetic:
+        raise ValueError('not ported yet: real datasets; pass --synthetic')
+    device = resolve_device(args.device)
+    if device.type == 'cuda':
+        # Full fp32, as the JAX reference computes on CPU; TF32 would keep
+        # ~3 decimal digits in every conv.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    config = config_lib.load_config(args.config_file)
+    config_lib.apply_overrides(config, args.set)
+    sampler_cfg = config['DATA']['SAMPLER']
+    test_seed = int(sampler_cfg.get('TEST_SEED', 42))
+    batch_size = args.batch_size
+    test_samples = sampler_cfg['TEST_SAMPLES_PER_EPOCH']
+    if args.steps:
+        test_samples = min(test_samples, args.steps * batch_size)
+    num_iters = test_samples // batch_size
+    if num_iters < 1:
+        raise ValueError(f'--batch_size {batch_size} exceeds the '
+                         f'{test_samples} test samples')
+    n_eval = num_iters * batch_size
+
+    built = config_lib.build_model(config)
+    model = built.model
+    if args.torch_ckpt:
+        load_backbone_weights(model.backbone, args.torch_ckpt)
+    else:
+        backbones.init_weights(model.backbone,
+                               torch.Generator().manual_seed(INIT_SEED))
+    model = model.to(device).eval()
+
+    ds = datasets.SyntheticDataset(image_size=tuple(args.image_size), seed=1)
+    indices = datasets.EpochSampler(len(ds), n_eval,
+                                    random_seed=test_seed).epoch_indices()
+    uniq, inv = np.unique(indices, return_inverse=True)
+    pool = torch.from_numpy(
+        np.stack([ds.load_image(int(i)) for i in uniq])).to(device)
+    sample_to_pool = torch.from_numpy(inv.reshape(num_iters, batch_size))
+
+    spec = built.test_pair_spec
+    batches: List[Dict[str, torch.Tensor]] = []
+    for it in range(num_iters):
+        seeds = [pipeline.sample_seed(test_seed, it * batch_size + i)
+                 for i in range(batch_size)]
+        images = pipeline.take_images(pool, sample_to_pool[it].to(device))
+        batches.append(pipeline.generate_pairs_per_sample(images, seeds, spec))
+
+    maces, times = [], []
+    for it, batch in enumerate(batches):
+        start = time.perf_counter()
+        delta_hat = model.predict(batch,
+                                  generator=dsac_generator(test_seed, it))
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - start)
+        diff = batch['delta'] - delta_hat
+        maces.append(torch.linalg.vector_norm(diff, dim=-1).mean(-1).cpu())
+    maces_np = torch.cat(maces).numpy()
+    timed = times[1:] if len(times) > 1 else times
+    per_batch_ms = float(np.mean(timed)) * 1000.0
+
+    num_params = sum(p.numel() for p in model.parameters())
+    print(f'Number of params: {num_params}')
+    print(f'Mean mace: {float(np.mean(maces_np))}')
+    if not args.skip_timing:
+        print(f'Mean model time: {per_batch_ms}')
+    return {'num_params': num_params, 'mean_mace': float(np.mean(maces_np)),
+            'maces': maces_np, 'per_batch_ms': per_batch_ms,
+            'batch_size': batch_size, 'num_iters': num_iters,
+            'test_seed': test_seed, 'model': model, 'batches': batches}
+
+
+if __name__ == '__main__':
+    main()
