@@ -2,8 +2,9 @@
 ``bihome_tpu/config.py:22-134``).
 
 Reads the same reference-schema YAMLs. ``build_model`` assembles the
-Rethinking backbone with the PerceptualHead predict chain; other families
-raise ``ValueError('not ported yet: ...')``.
+Rethinking backbone with the PerceptualHead (predict chain and biHomE
+loss) and the pair specs; ``solver_kwargs`` reads the optimizer settings.
+Other families raise ``ValueError('not ported yet: ...')``.
 """
 
 from __future__ import annotations
@@ -57,21 +58,42 @@ def apply_overrides(config: Dict[str, Any], overrides) -> Dict[str, Any]:
 class BuiltModel:
     model: AssembledModel
     head_cfg: HeadConfig
+    pair_spec: PairSpec
     test_pair_spec: PairSpec
+    loss_name: str
     config: Dict[str, Any]
 
 
 def build_model(config: Dict[str, Any]) -> BuiltModel:
-    """Assemble the eval model (float32; weights from the module init —
-    callers seed or load them)."""
+    """Assemble the model (float32; weights from the module init — callers
+    seed or load them) and the train/test pair specs."""
     model_cfg = config['MODEL']
     if model_cfg.get('DTYPE', 'float32') != 'float32':
         raise ValueError(f"not ported yet: MODEL.DTYPE {model_cfg['DTYPE']}")
     head_cfg = HeadConfig.from_yaml(model_cfg['HEAD'], model_cfg['BACKBONE'])
     backbone = build_backbone(model_cfg['BACKBONE'])
     model = AssembledModel(backbone, head_cfg)
+    pair_spec = PairSpec.from_transforms(config['DATA']['TRANSFORMS'])
     test_pair_spec = PairSpec.from_transforms(
         config['DATA'].get('TEST_TRANSFORM', config['DATA']['TRANSFORMS']))
     check_ported(test_pair_spec)
-    return BuiltModel(model=model, head_cfg=head_cfg,
-                      test_pair_spec=test_pair_spec, config=config)
+    return BuiltModel(model=model, head_cfg=head_cfg, pair_spec=pair_spec,
+                      test_pair_spec=test_pair_spec,
+                      loss_name=config['SOLVER']['LOSS'], config=config)
+
+
+def solver_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:
+    """Optimizer settings of the SOLVER section (ref:
+    bihome_tpu/config.py:122-134)."""
+    solver = config['SOLVER']
+    if solver.get('OPTIMIZER', 'Adam') != 'Adam':
+        raise ValueError(f"not ported yet: optimizer {solver['OPTIMIZER']}")
+    return dict(
+        lr=float(solver['LR']),
+        milestones=solver.get('MILESTONES', []),
+        decay=float(solver.get('LR_DECAY', 0.1)),
+        beta1=float(solver.get('MOMENTUM_1', 0.9)),
+        beta2=float(solver.get('MOMENTUM_2', 0.999)),
+        weight_decay=float(solver.get('L2_WEIGHT_DECAY', 0.0)),
+        gradient_clip=float(solver.get('GRADIENT_CLIP', -1)),
+    )

@@ -2,11 +2,13 @@
 ``bihome_tpu/data/pipeline.py``).
 
 Ported: ``PairSpec.from_transforms``, the deterministic pair assembly, the
-window-first assembly and per-sample synthesis (the eval protocol). Each
+window-first assembly, per-sample synthesis (the eval protocol: each
 sample's draws come from its own ``torch.Generator`` seeded by
 (seed, sample ordinal), so synthesis does not depend on how samples are
-grouped into batches. Photometric distortion, full-image emission and
-'all_points' targets are not ported yet and raise.
+grouped into batches) and ``generate_pairs`` (the training draws, one
+generator per batch; corners and deltas can be injected). Photometric
+distortion, full-image emission and 'all_points' targets are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -257,3 +259,41 @@ def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
     batch['homography'] = geometry.four_point_to_homography(
         batch['corners'], batch['delta'])
     return batch
+
+
+def draw_corners_delta_batch(batch: int, image_hw: Tuple[int, int],
+                             spec: PairSpec,
+                             generator: Optional[torch.Generator] = None
+                             ) -> Tuple[Tensor, Tensor]:
+    """Training draws for a whole batch from one generator (CPU, int64):
+    patch centres uniform in [rho + ps/2, dim - rho - ps/2] and deltas
+    uniform in [-rho, rho) (ref: bihome_tpu/data/pipeline.py:145-160,
+    383-386)."""
+    h, w = image_hw
+    ps, rho = spec.patch_size, spec.rho
+    if ps != w:
+        pos_x = torch.randint(rho + ps // 2, w - rho - ps // 2 + 1, (batch,),
+                              generator=generator)
+        pos_y = torch.randint(rho + ps // 2, h - rho - ps // 2 + 1, (batch,),
+                              generator=generator)
+    else:
+        pos_x = torch.full((batch,), w // 2, dtype=torch.long)
+        pos_y = torch.full((batch,), h // 2, dtype=torch.long)
+    delta = torch.randint(-rho, rho, (batch, 4, 2), generator=generator)
+    return _corners_from_position(pos_x, pos_y, ps), delta
+
+
+def generate_pairs(images: Tensor, spec: PairSpec,
+                   generator: Optional[torch.Generator] = None,
+                   corners: Optional[Tensor] = None,
+                   delta: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Training pair synthesis (counterpart of
+    ``bihome_tpu/data/pipeline.py:generate_pairs``): uint8/float images
+    [B,H,W,3] -> batch dict. The corners and deltas are drawn from
+    ``generator`` unless both are given (integer-valued [B,4,2])."""
+    images = images.float()
+    if corners is None or delta is None:
+        corners, delta = draw_corners_delta_batch(
+            images.shape[0], tuple(images.shape[1:3]), spec, generator)
+    return _assemble_pairs(images, corners.long().to(images.device),
+                           delta.long().to(images.device), spec)

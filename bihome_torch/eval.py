@@ -138,7 +138,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     timed = times[1:] if len(times) > 1 else times
     per_batch_ms = float(np.mean(timed)) * 1000.0
 
-    num_params = sum(p.numel() for p in model.parameters())
+    # The predict model: the backbone (the frozen loss extractor is not
+    # part of predict).
+    num_params = sum(p.numel() for p in model.backbone.parameters())
     print(f'Number of params: {num_params}')
     print(f'Mean mace: {float(np.mean(maces_np))}')
     if not args.skip_timing:

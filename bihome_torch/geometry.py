@@ -29,6 +29,12 @@ def image_corners(height: int, width: int, batch_size: Optional[int] = None,
     return corners
 
 
+def _floating(t: Tensor) -> Tensor:
+    """float32 for integer input; floating input keeps its precision (the
+    CPU path also runs in float64, as a reference for float32)."""
+    return t if t.is_floating_point() else t.float()
+
+
 def _similarity(scale: Tensor, tx: Tensor, ty: Tensor) -> Tensor:
     """[B,3,3] rows (s,0,tx), (0,s,ty), (0,0,1)."""
     zero = torch.zeros_like(scale)
@@ -108,8 +114,7 @@ def get_perspective_transform(src: Tensor, dst: Tensor) -> Tensor:
     """Exact homography mapping 4 src points onto 4 dst points.
     src/dst [B,4,2] -> H [B,3,3], composed from two closed-form
     square->quad maps on normalized coordinates."""
-    src = src.float()
-    dst = dst.float()
+    src, dst = _floating(src), _floating(dst)
     t_src, src_n = _normalization_transform(src)
     _, dst_n = _normalization_transform(dst)
     h_n = _square_to_quad(dst_n) @ inv3x3(_square_to_quad(src_n))
@@ -153,9 +158,12 @@ def bilinear_sample(image: Tensor, x: Tensor, y: Tensor) -> Tensor:
 
 
 def batched_sample(images: Tensor, u: Tensor, v: Tensor) -> Tensor:
-    """images [B,H,W,C], u/v [B,P] -> [B,P,C]. The warp hot path: the
-    hand-written CUDA kernel on the card, the plain gather on the CPU."""
-    return warp.bilinear_sample_batched(images, u, v)
+    """images [B,H,W,C], u/v [B,P] -> [B,P,C]. The warp hot path, with
+    gradients into the points (and the images, when they require grad):
+    the hand-written CUDA kernels on the card, the plain gather on the
+    CPU (``ops/warp.BilinearSample``)."""
+    return warp.BilinearSample.apply(images.contiguous(), u.contiguous(),
+                                     v.contiguous())
 
 
 def crop_integer(images: Tensor, x0: Tensor, y0: Tensor,
@@ -179,14 +187,15 @@ def homography_grid(homography: Tensor, target_hw: Tuple[int, int],
     Returns (u, v) each [B, th*tw]; ``offset`` [B,2] shifts the grid."""
     th, tw = target_hw
     dev = homography.device
-    ys, xs = torch.meshgrid(torch.arange(th, dtype=torch.float32, device=dev),
-                            torch.arange(tw, dtype=torch.float32, device=dev),
+    dt = homography.dtype
+    ys, xs = torch.meshgrid(torch.arange(th, dtype=dt, device=dev),
+                            torch.arange(tw, dtype=dt, device=dev),
                             indexing='ij')
     grid = torch.stack([xs.reshape(-1), ys.reshape(-1),
-                        torch.ones(th * tw, device=dev)], dim=0)    # [3,P]
+                        torch.ones(th * tw, dtype=dt, device=dev)], dim=0)
     if offset is not None:
         b = homography.shape[0]
-        grid = torch.cat([grid[:2] + offset.float()[..., None],
+        grid = torch.cat([grid[:2] + offset.to(dt)[..., None],
                           grid[2:].expand(b, 1, th * tw)], dim=-2)
         mapped = torch.einsum('bij,bjp->bip', homography, grid)
     else:
@@ -195,6 +204,17 @@ def homography_grid(homography: Tensor, target_hw: Tuple[int, int],
     denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12),
                         denom)
     return mapped[:, 0] / denom, mapped[:, 1] / denom
+
+
+def ones_warp_mask(u: Tensor, v: Tensor, source_hw: Tuple[int, int]
+                   ) -> Tensor:
+    """Closed form of warping an all-ones image: the bilinear support mask,
+    exactly 1 inside, a linear ramp over the 1-pixel border band, 0
+    outside (ref: bihome_tpu/geometry.py:505-522). u, v [B,P] -> [B,P]."""
+    sh, sw = source_hw
+    gu = torch.clamp(torch.minimum(u + 1.0, sw - u), 0.0, 1.0)
+    gv = torch.clamp(torch.minimum(v + 1.0, sh - v), 0.0, 1.0)
+    return gu * gv
 
 
 def _normalize_point_cloud(points: Tensor) -> Tuple[Tensor, Tensor]:
@@ -245,8 +265,8 @@ def find_homography_dlt(points1: Tensor, points2: Tensor,
     points1/points2 [B,N,2], weights [B,N] -> H [B,3,3]."""
     if method != 'cholesky':
         raise ValueError(f'not ported yet: DLT method {method!r}')
-    p1n, t1 = _normalize_point_cloud(points1.float())
-    p2n, t2 = _normalize_point_cloud(points2.float())
+    p1n, t1 = _normalize_point_cloud(_floating(points1))
+    p2n, t2 = _normalize_point_cloud(_floating(points2))
     x, y = p1n[..., 0], p1n[..., 1]
     u, v = p2n[..., 0], p2n[..., 1]
     zeros = torch.zeros_like(x)

@@ -62,7 +62,7 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
                                pf.device)
     sel = torch.gather(pf.reshape(b, n_points, 2), 1,
                        idx[..., None].expand(-1, -1, 2))
-    p1 = torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
+    p1 = torch.stack([idx % w, idx // w], dim=-1).to(pf.dtype)
     p2 = p1 + sel
     p1 = p1.reshape(b * hypothesis_no, points_per_hypothesis, 2)
     p2 = p2.reshape(b * hypothesis_no, points_per_hypothesis, 2)

@@ -1,5 +1,7 @@
 """The Rethinking backbone and its PF head (counterpart of
-``bihome_tpu/models/backbones.py:30-101,139-233``), eval mode.
+``bihome_tpu/models/backbones.py:30-101,139-233``), in eval and training
+mode. Every BatchNorm has flax's training semantics
+(:mod:`bihome_torch.models.norm`).
 
 Only the ResNet34 flavour is ported. The backbone takes the batch dict
 (NHWC patches) and returns NHWC perspective fields; inside it runs NCHW.
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from bihome_torch.models import blocks
+from bihome_torch.models.norm import BatchNorm2d
 from bihome_torch.ops import fused_head
 from bihome_torch.ops.pool import max_pool_3x3_s2
 
@@ -22,21 +25,34 @@ from bihome_torch.ops.pool import max_pool_3x3_s2
 class PFHead(nn.Sequential):
     """Stage-8 perspective-field head: 1x1 conv -> BN -> ReLU -> 1x1 conv
     (ref: src/backbones/Rethinking.py:140-149), computed by the fused
-    kernel with the BN running statistics. Eval only: training needs batch
-    statistics and the backward kernel, which are not ported yet."""
+    kernels (:class:`bihome_torch.ops.fused_head.FusedPFHead`).
+
+    Eval mode normalises with the running statistics. Training mode
+    normalises with the batch statistics (``batch_stats_affine``, the
+    middle never formed) and then moves the running statistics toward
+    them with momentum 0.1 and the biased variance, as
+    ``bihome_tpu/models/backbones.py:96-100`` does."""
 
     def __init__(self, in_channels: int, mid: int, out: int = 2):
-        super().__init__(nn.Conv2d(in_channels, mid, 1), nn.BatchNorm2d(mid),
+        super().__init__(nn.Conv2d(in_channels, mid, 1), BatchNorm2d(mid),
                          nn.ReLU(), nn.Conv2d(mid, out, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                'not ported yet: PF head in training mode; call .eval()')
         conv1, bn, _, conv2 = self
-        return fused_head.fused_pf_head_fwd(
+        if not self.training:
+            return fused_head.FusedPFHead.apply(
+                x, conv1.weight, conv1.bias, bn.weight, bn.bias,
+                conv2.weight, conv2.bias, bn.running_mean, bn.running_var,
+                bn.eps, False)
+        with torch.no_grad():
+            mean, var = fused_head.batch_stats_affine(x, conv1.weight,
+                                                      conv1.bias)
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+            bn.num_batches_tracked.add_(1)
+        return fused_head.FusedPFHead.apply(
             x, conv1.weight, conv1.bias, bn.weight, bn.bias, conv2.weight,
-            conv2.bias, bn.running_mean, bn.running_var, bn.eps)
+            conv2.bias, mean, var, bn.eps, True)
 
 
 class RethinkingBackbone(nn.Module):
@@ -58,7 +74,7 @@ class RethinkingBackbone(nn.Module):
         deconv = blocks.ResNet50DeconvBlock
         self.layer1 = nn.Sequential(
             nn.Conv2d(2, 64, 7, stride=2, padding=3, bias=False),
-            nn.BatchNorm2d(64), nn.ReLU())
+            BatchNorm2d(64), nn.ReLU())
         self.layer2 = nn.Sequential(r34c(64, 64, 1), r34i(64), r34i(64))
         self.layer3 = nn.Sequential(r34c(64, 128, 2),
                                     *[r34i(128) for _ in range(3)])

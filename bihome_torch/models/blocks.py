@@ -1,5 +1,7 @@
 """Residual and upsampling blocks of the Rethinking backbone (counterpart
-of ``bihome_tpu/models/blocks.py:69-114,173-233``), NCHW.
+of ``bihome_tpu/models/blocks.py:69-114,173-233``), NCHW. BatchNorm is
+:class:`bihome_torch.models.norm.BatchNorm2d` (flax's biased running
+variance in training mode).
 
 State-dict keys follow the reference (``upper_branch.j`` /
 ``lower_branch.j``, ref: src/backbones/utils.py:4-152), so reference
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from bihome_torch.models.norm import BatchNorm2d
 from bihome_torch.ops.deconv import conv_transpose_2x2
 
 
@@ -26,13 +29,13 @@ class ResNet34ConvBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, stride: int = 1):
         super().__init__()
         self.upper_branch = nn.Sequential(
-            _conv3x3(in_channels, features, stride), nn.BatchNorm2d(features),
-            nn.ReLU(), _conv3x3(features, features), nn.BatchNorm2d(features))
+            _conv3x3(in_channels, features, stride), BatchNorm2d(features),
+            nn.ReLU(), _conv3x3(features, features), BatchNorm2d(features))
         if in_channels != features:
             self.lower_branch = nn.Sequential(
                 nn.Conv2d(in_channels, features, 1, stride=stride,
                           bias=False),
-                nn.BatchNorm2d(features))
+                BatchNorm2d(features))
         else:
             self.lower_branch = nn.Identity()
 
@@ -47,8 +50,8 @@ class ResNet34IdentityBlock(nn.Module):
     def __init__(self, features: int):
         super().__init__()
         self.upper_branch = nn.Sequential(
-            _conv3x3(features, features), nn.BatchNorm2d(features), nn.ReLU(),
-            _conv3x3(features, features), nn.BatchNorm2d(features))
+            _conv3x3(features, features), BatchNorm2d(features), nn.ReLU(),
+            _conv3x3(features, features), BatchNorm2d(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.upper_branch(x) + x)
@@ -63,11 +66,11 @@ class ResNet50DeconvBlock(nn.Module):
         half = features // 2
         self.upper_branch = nn.Sequential(
             conv_transpose_2x2(features, features, bias=True),
-            _conv3x3(features, features), nn.BatchNorm2d(features), nn.ReLU(),
-            nn.Conv2d(features, half, 1, bias=False), nn.BatchNorm2d(half))
+            _conv3x3(features, features), BatchNorm2d(features), nn.ReLU(),
+            nn.Conv2d(features, half, 1, bias=False), BatchNorm2d(half))
         self.lower_branch = nn.Sequential(
             conv_transpose_2x2(features, half, bias=False),
-            nn.BatchNorm2d(half))
+            BatchNorm2d(half))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.upper_branch(x) + self.lower_branch(x))

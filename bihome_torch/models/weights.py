@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from bihome_torch.utils import aux_store
+
 # flax name -> (index in the reference block's branch, kind), per block
 # type (ref: src/backbones/utils.py:4-152).
 _R34 = {'upper_conv1': ('upper_branch.0', 'conv'),
@@ -57,8 +59,25 @@ def _block(block: str):
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax RethinkingBackbone ``{'params', 'batch_stats'}`` tree of numpy
-    arrays -> port state dict (every key but ``num_batches_tracked``)."""
+    """Flax ``{'params', 'batch_stats'}`` tree of numpy arrays -> port
+    state dict (every key but ``num_batches_tracked``).
+
+    Takes either a RethinkingBackbone tree (-> the backbone's keys,
+    including the PF head's running statistics) or a whole AssembledModel
+    train state, whose top level holds ``backbone`` and
+    ``auxiliary_resnet`` (-> ``backbone.*`` and ``auxiliary_resnet.*``,
+    the extractor mapped by ``utils/aux_store``)."""
+    if 'backbone' in variables['params']:
+        def sub(name):
+            return {c: variables.get(c, {}).get(name, {})
+                    for c in ('params', 'batch_stats')}
+        out_t = {f'backbone.{k}': v
+                 for k, v in state_dict_from_jax(sub('backbone')).items()}
+        if 'auxiliary_resnet' in variables['params']:
+            aux, _ = aux_store.state_dict_from_aux(sub('auxiliary_resnet'),
+                                                   output_layer=4)
+            out_t.update({f'auxiliary_resnet.{k}': v for k, v in aux.items()})
+        return out_t
     out: Dict[str, np.ndarray] = {}
     for block, leaves in variables['params'].items():
         if block == 'layer1_conv':

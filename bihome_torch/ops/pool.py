@@ -1,7 +1,13 @@
-"""Max-pool forward (counterpart of ``bihome_tpu/ops/pool.py:max_pool``).
+"""Max-pool (counterpart of ``bihome_tpu/ops/pool.py:max_pool``).
 
-The JAX module's custom backward (first-max tie routing) is training-only
-and not ported yet.
+Forward and backward are ``F.max_pool2d``'s. Its backward sends each
+window's cotangent to the window's first maximum in row-major order (the
+index it records with a strict ``>``), which is the routing of XLA's
+SelectAndScatter and of the JAX module's tap backward
+(``bihome_tpu/ops/pool.py:79-128``). That matters here: the stem's pool
+follows a ReLU, so ties among zeros are the common case;
+``tests/test_torch_pool.py`` pins the routing on tie-heavy input against
+JAX. In JAX the pool is an XLA op, not a Pallas kernel.
 """
 
 from __future__ import annotations

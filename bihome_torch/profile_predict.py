@@ -28,12 +28,19 @@ from bihome_torch import eval as teval
 from bihome_torch.device import resolve_device
 
 CONFIG = 'config/s-coco/zeng-bihome-lr-1e-3.yaml'
-# First match wins: cuDNN's batch-norm kernels before its conv kernels.
+# First match wins: the port's kernels by name (K4/K5 before K3, whose
+# name they extend), cuDNN's batch-norm kernels before its conv kernels.
 # cuDNN runs some convs as FFTs (fft2d_*, pointwise_mult_and_sum_complex)
 # and the transposed convs as dgrad kernels.
 GROUPS = (('pf_head_fwd', 'PF head kernel (K1)'),
+          ('pf_head_bwd', 'PF head backward kernel (K2)'),
+          ('reduce_rows', 'PF head backward kernel (K2)'),
+          ('bilinear_sample_bwd_uv', 'warp backward kernel (K4)'),
+          ('bilinear_sample_bwd_img', 'warp image-gradient kernel (K5)'),
           ('bilinear_sample', 'warp kernel (K3)'),
-          ('bn_fw', 'batch norm'), ('batch_norm', 'batch norm'),
+          ('multi_tensor_apply', 'optimizer'),
+          ('bn_fw', 'batch norm'), ('bn_bw', 'batch norm'),
+          ('batch_norm', 'batch norm'),
           ('max_pool', 'max-pool'),
           ('conv', 'convolutions'), ('gemm', 'convolutions'),
           ('xmma', 'convolutions'), ('cudnn', 'convolutions'),
@@ -95,14 +102,20 @@ def main(argv=None) -> None:
             predict(i, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    n = len(batches)
+    summarize(prof, len(batches), wall_ms, 'predict')
+
+
+def summarize(prof, n: int, wall_ms: float, unit: str) -> None:
+    """Print device time, launches and idle share per ``unit`` of a
+    profiled window of ``n`` units lasting ``wall_ms`` on the host clock,
+    then the device time by kind of kernel and the top kernels."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f'profiled {n} predicts: host {wall_ms / n:.3f} ms, device kernels '
+    print(f'profiled {n} {unit}s: host {wall_ms / n:.3f} ms, device kernels '
           f'{device_us / 1e3 / n:.3f} ms, launches {launches / n:.0f} per '
-          f'predict; device idle share {1 - device_us / 1e3 / wall_ms:.3f}')
+          f'{unit}; device idle share {1 - device_us / 1e3 / wall_ms:.3f}')
     if device_us == 0:
         print('the profiler recorded no device time')
         return
@@ -113,12 +126,11 @@ def main(argv=None) -> None:
         counts[_group(e.key)] += e.count
     for group, us in groups.most_common():
         print(f'  {group}: {us / 1e3 / n:.3f} ms, {counts[group] / n:.0f} '
-              f'launches per predict ({us / device_us:.1%})')
+              f'launches per {unit} ({us / device_us:.1%})')
     print('top kernels by device time:')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f'  {e.self_device_time_total / 1e3 / n:8.3f} ms '
               f'{e.count / n:5.0f}x  {e.key[:100]}')
-
 
 if __name__ == '__main__':
     main()

@@ -111,3 +111,24 @@ def test_photometric_config_is_not_ported_yet():
     spec = tpipe.PairSpec.from_transforms(_transforms(ZENG[1]))
     with pytest.raises(ValueError, match='not ported yet'):
         tpipe.check_ported(spec)
+
+
+def test_generate_pairs_injected_equals_assembly_and_draws_in_range():
+    spec = _small_spec(tpipe)
+    images, corners, delta = _injected(seed=3)
+    got = tpipe.generate_pairs(torch.from_numpy(images).to(torch.uint8),
+                               spec, corners=torch.from_numpy(corners),
+                               delta=torch.from_numpy(delta))
+    want = tpipe._assemble_pairs(torch.from_numpy(images),
+                                 torch.from_numpy(corners).long(),
+                                 torch.from_numpy(delta).long(), spec)
+    for key in KEYS:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+    gen = torch.Generator().manual_seed(0)
+    drawn = tpipe.generate_pairs(torch.from_numpy(images), spec, gen)
+    assert drawn['patch_2'].shape == (2, 32, 32, 1)
+    corners_d, delta_d = tpipe.draw_corners_delta_batch(
+        500, (64, 64), spec, torch.Generator().manual_seed(1))
+    centres = corners_d[:, 0] + 16
+    assert int(centres.min()) == 24 and int(centres.max()) == 40
+    assert int(delta_d.min()) == -8 and int(delta_d.max()) == 7

@@ -201,3 +201,66 @@ def test_mace():
     b = rs.uniform(-8, 8, (5, 4, 2)).astype(np.float32)
     _close(tgeo.mace(_t(a), _t(b)), jgeo.mace(jnp.asarray(a),
                                               jnp.asarray(b)), atol=1e-5)
+
+
+def test_ones_warp_mask_and_its_gradient():
+    rs = np.random.RandomState(7)
+    u = rs.uniform(-3, 35, (2, 400)).astype(np.float32)
+    v = rs.uniform(-3, 27, (2, 400)).astype(np.float32)
+    g = rs.randn(2, 400).astype(np.float32)
+    import jax
+    want = jgeo.ones_warp_mask(jnp.asarray(u), jnp.asarray(v), (24, 32))
+    want_du, want_dv = jax.grad(
+        lambda a, b: jnp.sum(jgeo.ones_warp_mask(a, b, (24, 32)) * g),
+        argnums=(0, 1))(jnp.asarray(u), jnp.asarray(v))
+    tu, tv = _t(u).requires_grad_(True), _t(v).requires_grad_(True)
+    got = tgeo.ones_warp_mask(tu, tv, (24, 32))
+    (got * _t(g)).sum().backward()
+    _close(got.detach(), want, 0, 1e-6)
+    assert 0 < float(got.detach().mean()) < 1
+    _close(tu.grad, want_du, 0, 1e-6)
+    _close(tv.grad, want_dv, 0, 1e-6)
+
+
+def test_warp_chain_gradients_match_jax():
+    """Gradient of a scalar of the loss-warp chain with respect to the
+    corner offsets: four_point_to_homography -> homography_grid ->
+    ones_warp_mask, and transform_points, against jax.grad (1e-4
+    relative to the largest entry; no in-place op breaks autograd)."""
+    import jax
+    rs = np.random.RandomState(8)
+    corners = np.broadcast_to(np.array([[0, 0], [32, 0], [32, 32], [0, 32]],
+                                       np.float32), (3, 4, 2)).copy()
+    deltas = rs.uniform(-6, 6, (3, 4, 2)).astype(np.float32)
+    pts = rs.uniform(0, 32, (3, 9, 2)).astype(np.float32)
+
+    def chain(geo, c, d, p):
+        hom = geo.four_point_to_homography(c, d)
+        u, v = geo.homography_grid(hom, (32, 32))
+        mask = geo.ones_warp_mask(u, v, (32, 32))
+        return (mask * (u + 0.5 * v)).sum() + (geo.transform_points(
+            hom, p) ** 2).sum()
+
+    want = jax.grad(lambda d: chain(jgeo, jnp.asarray(corners),
+                                    d, jnp.asarray(pts)))(jnp.asarray(deltas))
+    td = _t(deltas).requires_grad_(True)
+    chain(tgeo, _t(corners), td, _t(pts)).backward()
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(td.grad / scale, np.asarray(want) / scale, 0, 1e-4)
+
+
+def test_dlt_gradients_match_jax():
+    """find_homography_dlt's gradient with respect to the target points
+    (the path DSAC sends the loss into the perspective field), 128 points:
+    1e-3 relative to the largest entry (the normal equations' solve)."""
+    import jax
+    rs = np.random.RandomState(9)
+    p1 = rs.uniform(0, 32, (2, 128, 2)).astype(np.float32)
+    p2 = (p1 + rs.randn(2, 128, 2) * 2).astype(np.float32)
+    w = rs.randn(2, 3, 3).astype(np.float32)
+    want = jax.grad(lambda b: jnp.sum(jgeo.find_homography_dlt(
+        jnp.asarray(p1), b) * w))(jnp.asarray(p2))
+    tp2 = _t(p2).requires_grad_(True)
+    (tgeo.find_homography_dlt(_t(p1), tp2) * _t(w)).sum().backward()
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(tp2.grad / scale, np.asarray(want) / scale, 0, 1e-3)
