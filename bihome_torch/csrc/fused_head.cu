@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 template <int CIN, int COUT>
@@ -85,171 +87,411 @@ __global__ void pf_head_fwd_kernel(const float* __restrict__ x,
 // The rank-Cin batch-statistics corrections stay outside, in torch, as they
 // are XLA ops outside Pallas in JAX.
 //
-// Bound on the H100: operations. At the zeng training shape (M = 2,097,152
-// pixels, Cin 16, Cmid 128, Cout 2) the pass does ~14.5 kflop per pixel
-// (~30 GFLOP, ~0.45 ms at 67 TFLOP/s fp32) against ~0.29 GB of x, g and dx
-// traffic (~0.09 ms). The cross-pixel sums cannot live in a thread's
-// registers and Hopper's blocks run in no order, so the design is:
+// Bound on the H100. At the zeng training shape (M = 2,097,152 pixels, Cin
+// 16, Cmid 128, Cout 2) the pass does 30.3 GFLOP, 25.8 of them in the three
+// Cin x Cmid products mid, dx and dw1, and must move 0.285 GB (x and g read,
+// dx written). On the fp32 cores alone that is 0.45 ms of operations. With
+// the three products on the tensor cores in 3xTF32 (3 x 25.8 GFLOP at 495
+// TFLOP/s: 0.156 ms; the other 4.5 GFLOP on the fp32 cores beside them) the
+// bound is bytes: 0.085 ms at 3.35 TB/s.
 //
-//   * a block of 256 threads walks pixel tiles of 32 (grid-stride, a few
-//     blocks per SM); per tile, each warp computes e, mask and mask*mid for
-//     16 of the 128 middle channels of all 32 pixels (lane = pixel) into
-//     shared memory, rows padded to 33 floats so both the pixel-major writes
-//     and the channel-major reads are free of bank conflicts;
-//   * the block then does the small products from shared memory: dx for
-//     the tile (thread = pixel x two input channels), and dw1, M0, M1, db2
-//     accumulated in registers across all of the block's tiles (thread =
-//     middle channel x half of the outputs);
+// Precision: 3xTF32. Each fp32 operand a is split into big = tf32(a) and
+// small = tf32(a - big) (cvt.rna), and each product accumulates big*big +
+// big*small + small*big in fp32, as CUTLASS's OpMultiplyAddFastF32 does;
+// the two small terms go to an accumulator of their own. That keeps fp32
+// error, so the port's fp32 tolerances stand. Single-pass TF32 (~1e-3
+// relative per product) is not used: tests/test_torch_fused_head.py measures
+// both on the CPU at this head's widths.
+//
+// Design:
+//   * persistent blocks of 256 threads (8 warps), two per SM, walk tiles of
+//     64 pixels within one image (the last tile of an image is masked). A
+//     tile's x [16][64] and g [2][64] come in by cp.async into a double
+//     buffer while the block works on the tile before: 16-byte copies when
+//     HW is a multiple of 4, else 4-byte ones; pixels past the image's end
+//     are zero-filled, so they add 0 to every sum;
+//   * the three products are mma.sync.m16n8k8 tf32 (warp-level tensor-core
+//     MMA). Each has Cin = 16 as one dimension, which fills a 16-row
+//     mma.sync tile exactly, and mma.sync lets each product take an operand
+//     from registers in the layout the one before left it in. (A version
+//     with all three on wgmma, m64nNk8, one block of two warpgroups per SM
+//     at 255 registers a thread, measured slower on the H100: its products,
+//     epilogue and shared-memory traffic ran one after another, with no
+//     second block to fill the gaps);
+//   * once per tile, all threads split the x tile into (big, small) pairs,
+//     written twice: in pixel order (A of dw1) and with the pixels of each
+//     8 in the order 0,4,1,5,2,6,3,7 (B of mid), so that no warp splits x
+//     again:
+//       - mid: warp w owns middle channels 16w..16w+15. mid^T [16 ch, 64 px]
+//         = w1t rows (A, registers for the whole kernel) x the x tile (B),
+//         K = Cin. Row r of the warp's tile is channel 16w + 2r for r < 8
+//         and 16w + 2(r - 8) + 1 above, so a lane holds two adjacent
+//         channels; the permuted pixel order gives it pixels t and t + 4 of
+//         each 8. The epilogue (a, mask, e, mask*mid; M0, M1 and db2 summed
+//         per lane) runs on the accumulator registers;
+//       - dw1 [16 k, the warp's 16 ch] += x tile (A) x e^T (B): B is exactly
+//         the e values the lane holds in mid's accumulator, split once;
+//       - dx: e goes to shared memory as (big, small) pairs [pixel][channel];
+//         warp w then takes pixels 8w..8w+7 over all 128 channels (A = w1t^T,
+//         split once into shared memory; B = e) and stores float2s;
+//   * M0 and M1 (N = 2) and db2 stay on the fp32 cores, in registers across
+//     all of the block's tiles with dw1, and are folded over the 4 lanes
+//     that share channels at the end;
+//   * row strides of the shared arrays (136 and 264 words) make every
+//     fragment load and store free of bank conflicts;
+//   * the tensor-core products, run as mma.sync among the epilogue's
+//     fp32 work, take most of the kernel's time; python -m
+//     bihome_torch.profile_k2 cuts each part out and times the rest;
 //   * each block writes its sums to its own row of a [blocks, 2562] scratch
 //     and a second kernel adds the rows in block order: deterministic, no
 //     atomics.
-//
-// The weights sit in shared memory and every read of them is uniform across
-// a warp (a broadcast). All of it runs on the fp32 cores; tensor cores are
-// later work.
 
-constexpr int kBwdTile = 32;       // pixels per tile (one per lane)
-constexpr int kBwdThreads = 256;   // 8 warps
-constexpr int kPad = kBwdTile + 1; // padded row of the [Cmid][tile] arrays
 constexpr int kCin = 16;
 constexpr int kCmid = 128;
 constexpr int kCout = 2;
+constexpr int kTile = 64;          // pixels per tile, within one image
+constexpr int kBwdThreads = 256;   // 8 warps, 16 middle channels each
+constexpr int kSX = 136;           // row stride of split x [Cin][kTile][2]
+constexpr int kSE = 264;           // row stride of split e [kTile][Cmid][2]
+constexpr int kSW = 264;           // row stride of split w1t^T [Cin][Cmid][2]
 // Partial-sum row: dw1 [Cin,Cmid], M0 [Cmid,Cout], M1 [Cmid,Cout], db2.
 constexpr int kPartial = kCin * kCmid + 2 * kCmid * kCout + kCout;
+// Shared memory in words: the cp.async double buffer of x and g, split x
+// twice, split e, split w1t^T.
+constexpr int kBwdSmemFloats = 2 * kCin * kTile + 2 * kCout * kTile +
+                               2 * kCin * kSX + kTile * kSE + kCin * kSW;
 
-__global__ void __launch_bounds__(kBwdThreads)
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return r;
+}
+
+struct Split {
+  uint32_t big, small;
+};
+
+__device__ __forceinline__ Split split(float a) {
+  const uint32_t big = to_tf32(a);
+  return {big, to_tf32(a - __uint_as_float(big))};
+}
+
+// d += a b on the tensor cores: m16n8k8, tf32 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: big*big into hh, big*small + small*big into hs.
+__device__ __forceinline__ void mma3(float* hh, float* hs, const uint32_t* ab,
+                                     const uint32_t* as, const uint32_t* bb,
+                                     const uint32_t* bs) {
+  mma_tf32(hs, ab, bs);
+  mma_tf32(hs, as, bb);
+  mma_tf32(hh, ab, bb);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Start the copies of a tile's x [Cin][kTile] and g [Cout][kTile] into
+// shared memory; pixels past the image's end are filled with 0 (the source
+// then points at the tensor's start and no byte of it is read).
+template <bool kVec>
+__device__ __forceinline__ void load_tile(const float* x, const float* g,
+                                          float* sx, float* sg,
+                                          long long tile, int tpi, int hw) {
+  const int t = threadIdx.x;
+  const long long n = tile / tpi;
+  const int s0 = (int)(tile - n * tpi) * kTile;
+  const float* xn = x + n * kCin * hw;
+  const float* gn = g + n * kCout * hw;
+  if (kVec) {  // HW % 4 == 0: a chunk of 4 pixels is all in or all out
+    const int k = t >> 4, q = (t & 15) * 4;
+    const bool in = s0 + q < hw;
+    cp_async16(sx + k * kTile + q, in ? xn + (long long)k * hw + s0 + q : x,
+               in ? 16 : 0);
+    if (t < kCout * 16) {  // g: row k < Cout
+      cp_async16(sg + k * kTile + q, in ? gn + (long long)k * hw + s0 + q : g,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = t; i < kCin * kTile; i += kBwdThreads) {
+      const int k = i / kTile, p = i % kTile;
+      const bool in = s0 + p < hw;
+      cp_async4(sx + k * kTile + p, in ? xn + (long long)k * hw + s0 + p : x,
+                in ? 4 : 0);
+    }
+    if (t < kCout * kTile) {
+      const int o = t / kTile, p = t % kTile;
+      const bool in = s0 + p < hw;
+      cp_async4(sg + o * kTile + p, in ? gn + (long long)o * hw + s0 + p : g,
+                in ? 4 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 pf_head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                    const float* __restrict__ w1t, const float* __restrict__ gis,
                    const float* __restrict__ c1,
                    const float* __restrict__ w2gis, float* __restrict__ dx,
-                   float* __restrict__ partial, long long m, int hw,
+                   float* __restrict__ partial, int hw, int tpi,
                    long long ntiles) {
   extern __shared__ __align__(16) float smem[];
-  float* s_w1t = smem;                        // [Cmid][Cin]
-  float* s_gis = s_w1t + kCmid * kCin;        // [Cmid]
-  float* s_c1 = s_gis + kCmid;                // [Cmid]
-  float* s_w2 = s_c1 + kCmid;                 // [Cmid][Cout]
-  float* s_x = s_w2 + kCmid * kCout;          // [tile][Cin+1]
-  float* s_g = s_x + kBwdTile * (kCin + 1);   // [Cout][tile]
-  float* s_e = s_g + kCout * kBwdTile;        // [Cmid][kPad]
-  float* s_mk = s_e + kCmid * kPad;           // [Cmid][kPad] mask
-  float* s_mm = s_mk + kCmid * kPad;          // [Cmid][kPad] mask*mid
+  float* s_x = smem;                          // [2][Cin][kTile], cp.async
+  float* s_g = s_x + 2 * kCin * kTile;        // [2][Cout][kTile], cp.async
+  // (big, small) pairs: x[k][p] at k * kSX + 2p (xA); the same with p
+  // taken at its permuted position (xB); e[c][p] at p * kSE + 2c; w1t[c][k]
+  // at k * kSW + 2c.
+  uint32_t* s_xa = reinterpret_cast<uint32_t*>(s_g + 2 * kCout * kTile);
+  uint32_t* s_xb = s_xa + kCin * kSX;
+  uint32_t* s_e = s_xb + kCin * kSX;
+  uint32_t* s_w = s_e + kTile * kSE;
 
   const int t = threadIdx.x;
-  for (int i = t; i < kCmid * kCin; i += kBwdThreads) s_w1t[i] = w1t[i];
-  for (int i = t; i < kCmid; i += kBwdThreads) {
-    s_gis[i] = gis[i];
-    s_c1[i] = c1[i];
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  long long tile = blockIdx.x;
+  if (tile < ntiles) {
+    load_tile<kVec>(x, g, s_x, s_g, tile, tpi, hw);
   }
-  for (int i = t; i < kCmid * kCout; i += kBwdThreads) s_w2[i] = w2gis[i];
+  for (int i = t; i < kCin * kCmid; i += kBwdThreads) {
+    const int c = i / kCin, k = i % kCin;
+    const Split s = split(w1t[i]);
+    s_w[k * kSW + 2 * c] = s.big;
+    s_w[k * kSW + 2 * c + 1] = s.small;
+  }
 
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  // Reduction role: middle channel rc, half rh (0: dw1 rows 0-7 and M0;
-  // 1: dw1 rows 8-15 and M1).
-  const int rc = t & (kCmid - 1);
-  const int rh = t >> 7;
-  float acc_dw1[8];
+  // The lane's two middle channels: rows gid and gid + 8 of the warp's
+  // 16-row tiles.
+  const int ca = warp * 16 + 2 * gid, cb = ca + 1;
+  uint32_t am_b[2][4], am_s[2][4];  // A of mid^T, both k-steps
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc_dw1[j] = 0.0f;
-  float acc_m[kCout] = {0.0f, 0.0f};
-  float acc_db2 = 0.0f;
-
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long pix0 = tile * kBwdTile;
-    __syncthreads();  // weights loaded / previous tile's reads done
-    // Stage x and g of the tile; pixels past M read as 0 and so add 0.
-    for (int i = t; i < kCin * kBwdTile; i += kBwdThreads) {
-      const int k = i / kBwdTile;
-      const int p = i - k * kBwdTile;
-      const long long pix = pix0 + p;
-      float val = 0.0f;
-      if (pix < m) {
-        const long long n = pix / hw;
-        val = x[(n * kCin + k) * hw + (pix - n * hw)];
-      }
-      s_x[p * (kCin + 1) + k] = val;
+  for (int ks = 0; ks < 2; ++ks) {
+    const int k = ks * 8 + tig;
+    const float a[4] = {w1t[ca * kCin + k], w1t[cb * kCin + k],
+                        w1t[ca * kCin + k + 4], w1t[cb * kCin + k + 4]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const Split s = split(a[r]);
+      am_b[ks][r] = s.big;
+      am_s[ks][r] = s.small;
     }
-    if (t < kCout * kBwdTile) {
-      const int o = t / kBwdTile;
-      const int p = t - o * kBwdTile;
-      const long long pix = pix0 + p;
-      float val = 0.0f;
-      if (pix < m) {
-        const long long n = pix / hw;
-        val = g[(n * kCout + o) * hw + (pix - n * hw)];
-      }
-      s_g[o * kBwdTile + p] = val;
-    }
-    __syncthreads();
+  }
+  const float gis_c[2] = {gis[ca], gis[cb]};
+  const float c1_c[2] = {c1[ca], c1[cb]};
+  const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
+                            {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
 
-    // Phase A: lane = pixel, warp = 16 middle channels.
+  // Block sums. dw1 n-tile nt, register r: k = gid + 8 (r >> 1), channel
+  // 16w + 2 (2 tig + (r & 1)) + nt.
+  float dw_hh[2][4] = {}, dw_hs[2][4] = {};
+  float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
+  float db[2] = {};
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x and g in; the tile before done by all
+    const long long next = tile + gridDim.x;
+    if (next < ntiles) {
+      load_tile<kVec>(x, g, s_x + (buf ^ 1) * kCin * kTile,
+                      s_g + (buf ^ 1) * kCout * kTile, next, tpi, hw);
+    }
+    const float* sx = s_x + buf * kCin * kTile;
+    const float* sg = s_g + buf * kCout * kTile;
+
+    // Split the x tile once: pixels p..p+3 of channel k to xA, and each to
+    // its position in xB, where the pixels of each 8 run 0,4,1,5,2,6,3,7.
     {
-      float xv[kCin];
+      const int k = t >> 4, p = (t & 15) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(sx + k * kTile + p);
+      const Split sp[4] = {split(v.x), split(v.y), split(v.z), split(v.w)};
+      uint32_t* xa = s_xa + k * kSX + 2 * p;
+      *reinterpret_cast<uint4*>(xa) =
+          make_uint4(sp[0].big, sp[0].small, sp[1].big, sp[1].small);
+      *reinterpret_cast<uint4*>(xa + 4) =
+          make_uint4(sp[2].big, sp[2].small, sp[3].big, sp[3].small);
 #pragma unroll
-      for (int k = 0; k < kCin; ++k) xv[k] = s_x[lane * (kCin + 1) + k];
-      const float g0 = s_g[lane];
-      const float g1 = s_g[kBwdTile + lane];
-      const int c0 = warp * (kCmid / 8);
-      for (int c = c0; c < c0 + kCmid / 8; ++c) {
-        const float* w = s_w1t + c * kCin;
-        float mid = 0.0f;
+      for (int i = 0; i < 4; ++i) {
+        const int q = (p & ~7) + 2 * i + ((p & 7) >> 2);
+        *reinterpret_cast<uint2*>(s_xb + k * kSX + 2 * q) =
+            make_uint2(sp[i].big, sp[i].small);
+      }
+    }
+    __syncthreads();  // xA, xB of the tile complete
+
+#pragma unroll 2
+    for (int j = 0; j < kTile / 8; ++j) {
+      const int p0 = j * 8;
+      // mid^T (B: xB, column n = position p0 + n): register r is channel
+      // (r < 2 ? ca : cb), pixel p0 + tig + 4 (r & 1).
+      float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int k = 0; k < kCin; ++k) mid = fmaf(w[k], xv[k], mid);
-        const float a = fmaf(s_gis[c], mid, s_c1[c]);
+      for (int ks = 0; ks < 2; ++ks) {
+        const uint2 b0 = *reinterpret_cast<const uint2*>(
+            s_xb + (ks * 8 + tig) * kSX + 2 * (p0 + gid));
+        const uint2 b1 = *reinterpret_cast<const uint2*>(
+            s_xb + (ks * 8 + tig + 4) * kSX + 2 * (p0 + gid));
+        const uint32_t bb[2] = {b0.x, b1.x}, bs[2] = {b0.y, b1.y};
+        mma3(hh, hs, am_b[ks], am_s[ks], bb, bs);
+      }
+      const float gv[2][2] = {{sg[p0 + tig], sg[p0 + tig + 4]},
+                              {sg[kTile + p0 + tig], sg[kTile + p0 + tig + 4]}};
+      Split e[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ch = r >> 1, px = r & 1;
+        const float mid = hh[r] + hs[r];
+        const float a = fmaf(gis_c[ch], mid, c1_c[ch]);
         const float mk = a > 0.0f ? 1.0f : 0.0f;
-        const float eun = fmaf(s_w2[c * kCout], g0, s_w2[c * kCout + 1] * g1);
-        s_e[c * kPad + lane] = mk * eun;
-        s_mk[c * kPad + lane] = mk;
-        s_mm[c * kPad + lane] = mk * mid;
-      }
-    }
-    __syncthreads();
-
-    // Phase B1: dx of the tile; lane = pixel, warp = input channels 2w, 2w+1.
-    {
-      const int k = warp * 2;
-      float d0 = 0.0f, d1 = 0.0f;
-      for (int c = 0; c < kCmid; ++c) {
-        const float e = s_e[c * kPad + lane];
-        d0 = fmaf(s_w1t[c * kCin + k], e, d0);
-        d1 = fmaf(s_w1t[c * kCin + k + 1], e, d1);
-      }
-      const long long pix = pix0 + lane;
-      if (pix < m) {
-        const long long n = pix / hw;
-        const long long s = pix - n * hw;
-        dx[(n * kCin + k) * hw + s] = d0;
-        dx[(n * kCin + k + 1) * hw + s] = d1;
-      }
-    }
-
-    // Phase B2: the cross-pixel sums; thread = (middle channel, half).
-    {
-      const float* er = s_e + rc * kPad;
-      const float* mr = (rh == 0 ? s_mk : s_mm) + rc * kPad;
-      for (int p = 0; p < kBwdTile; ++p) {
-        const float e = er[p];
-        const float* xr = s_x + p * (kCin + 1) + rh * 8;
+        const float eun = fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
+        e[r] = split(mk * eun);
+        const float mm = mk * mid;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc_dw1[j] = fmaf(xr[j], e, acc_dw1[j]);
-        const float mv = mr[p];
-        acc_m[0] = fmaf(mv, s_g[p], acc_m[0]);
-        acc_m[1] = fmaf(mv, s_g[kBwdTile + p], acc_m[1]);
+        for (int o = 0; o < kCout; ++o) {
+          m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);
+          m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);
+        }
       }
-      if (t < kCout) {
-        for (int p = 0; p < kBwdTile; ++p) acc_db2 += s_g[t * kBwdTile + p];
+      db[0] += gv[0][0] + gv[0][1];
+      db[1] += gv[1][0] + gv[1][1];
+      // e to shared memory for dx: channels ca and cb are adjacent.
+#pragma unroll
+      for (int px = 0; px < 2; ++px) {
+        *reinterpret_cast<uint4*>(s_e + (p0 + tig + 4 * px) * kSE + 2 * ca) =
+            make_uint4(e[px].big, e[px].small, e[2 + px].big, e[2 + px].small);
+      }
+      // dw1 += x (A: xA rows k = gid, gid + 8; K = pixels p0 + tig, then
+      // p0 + tig + 4) times e^T (B: the e just made; n-tile 0 holds the
+      // channels ca of the 8 groups, n-tile 1 their cb).
+      const uint32_t* xa = s_xa + gid * kSX + 2 * (p0 + tig);
+      const uint2 a0 = *reinterpret_cast<const uint2*>(xa);
+      const uint2 a1 = *reinterpret_cast<const uint2*>(xa + 8 * kSX);
+      const uint2 a2 = *reinterpret_cast<const uint2*>(xa + 8);
+      const uint2 a3 = *reinterpret_cast<const uint2*>(xa + 8 * kSX + 8);
+      const uint32_t ab[4] = {a0.x, a1.x, a2.x, a3.x};
+      const uint32_t as[4] = {a0.y, a1.y, a2.y, a3.y};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint32_t bb[2] = {e[2 * nt].big, e[2 * nt + 1].big};
+        const uint32_t bs[2] = {e[2 * nt].small, e[2 * nt + 1].small};
+        mma3(dw_hh[nt], dw_hs[nt], ab, as, bb, bs);
       }
     }
+    __syncthreads();  // e of the whole tile in shared memory
+
+    // dx for pixels 8w..8w+7: rows k = gid, gid + 8; K = the 128 channels.
+    {
+      float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const uint32_t* ep = s_e + (warp * 8 + gid) * kSE;
+#pragma unroll 4
+      for (int ks = 0; ks < kCmid / 8; ++ks) {
+        const int c = ks * 8 + tig;
+        const uint2 w0 = *reinterpret_cast<const uint2*>(s_w + gid * kSW + 2 * c);
+        const uint2 w1 =
+            *reinterpret_cast<const uint2*>(s_w + (gid + 8) * kSW + 2 * c);
+        const uint2 w2 =
+            *reinterpret_cast<const uint2*>(s_w + gid * kSW + 2 * c + 8);
+        const uint2 w3 = *reinterpret_cast<const uint2*>(
+            s_w + (gid + 8) * kSW + 2 * c + 8);
+        const uint32_t ab[4] = {w0.x, w1.x, w2.x, w3.x};
+        const uint32_t as[4] = {w0.y, w1.y, w2.y, w3.y};
+        const uint2 b0 = *reinterpret_cast<const uint2*>(ep + 2 * c);
+        const uint2 b1 = *reinterpret_cast<const uint2*>(ep + 2 * c + 8);
+        const uint32_t bb[2] = {b0.x, b1.x}, bs[2] = {b0.y, b1.y};
+        mma3(hh, hs, ab, as, bb, bs);
+      }
+      // Register r: k = gid + 8 (r >> 1), pixel 8w + 2 tig + (r & 1).
+      const long long n = tile / tpi;
+      const int s = (int)(tile - n * tpi) * kTile + warp * 8 + 2 * tig;
+      float* d0 = dx + (n * kCin + gid) * hw + s;
+      float* d1 = d0 + 8LL * hw;
+      if (kVec) {  // s even and HW % 4 == 0: both pixels in, or neither
+        if (s < hw) {
+          *reinterpret_cast<float2*>(d0) =
+              make_float2(hh[0] + hs[0], hh[1] + hs[1]);
+          *reinterpret_cast<float2*>(d1) =
+              make_float2(hh[2] + hs[2], hh[3] + hs[3]);
+        }
+      } else {
+        if (s < hw) {
+          d0[0] = hh[0] + hs[0];
+          d1[0] = hh[2] + hs[2];
+        }
+        if (s + 1 < hw) {
+          d0[1] = hh[1] + hs[1];
+          d1[1] = hh[3] + hs[3];
+        }
+      }
+    }
+    buf ^= 1;
+  }
+
+  // Fold M0, M1 and db2 over the 4 lanes of a group (same channels, other
+  // pixels).
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
+        m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
+      }
+    }
+  }
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
+    db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
   }
 
   float* row = partial + (long long)blockIdx.x * kPartial;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) row[(rh * 8 + j) * kCmid + rc] = acc_dw1[j];
-  float* mrow = row + kCin * kCmid + rh * kCmid * kCout;
-  mrow[rc * kCout] = acc_m[0];
-  mrow[rc * kCout + 1] = acc_m[1];
-  if (t < kCout) row[kPartial - kCout + t] = acc_db2;
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = gid + 8 * (r >> 1);
+      const int c = warp * 16 + 2 * (2 * tig + (r & 1)) + nt;
+      row[k * kCmid + c] = dw_hh[nt][r] + dw_hs[nt][r];
+    }
+  }
+  if (tig == 0) {
+    float* m0row = row + kCin * kCmid;
+    float* m1row = m0row + kCmid * kCout;
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+      m0row[ca * kCout + o] = m0[0][o];
+      m0row[cb * kCout + o] = m0[1][o];
+      m1row[ca * kCout + o] = m1[0][o];
+      m1row[cb * kCout + o] = m1[1][o];
+    }
+  }
+  if (t == 0) {
+    row[kPartial - 2] = db[0];
+    row[kPartial - 1] = db[1];
+  }
 }
 
 // out[j] = sum over rows b (in order) of partial[b, j].
@@ -265,17 +507,18 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-// Number of blocks pf_head_bwd launches for m pixels (the wrapper sizes the
-// [blocks, pf_head_bwd_partial_cols()] scratch with it).
-extern "C" int pf_head_bwd_blocks(long long m) {
+// Number of blocks pf_head_bwd launches for n images of hw pixels (the
+// wrapper sizes the [blocks, pf_head_bwd_partial_cols()] scratch with it):
+// two per SM, fewer if there are fewer tiles.
+extern "C" int pf_head_bwd_blocks(long long n, int hw) {
   int device = 0, sms = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
           cudaSuccess) {
     return -1;
   }
-  const long long ntiles = (m + kBwdTile - 1) / kBwdTile;
-  const long long want = 3LL * sms;
+  const long long ntiles = n * ((hw + kTile - 1) / kTile);
+  const long long want = 2LL * sms;
   return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
 }
 
@@ -293,18 +536,17 @@ extern "C" int pf_head_bwd(const float* x, const float* g, const float* w1t,
       blocks <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long m = n * hw;
-  const long long ntiles = (m + kBwdTile - 1) / kBwdTile;
-  const size_t smem =
-      (size_t)(kCmid * kCin + 2 * kCmid + kCmid * kCout +
-               kBwdTile * (kCin + 1) + kCout * kBwdTile + 3 * kCmid * kPad) *
-      sizeof(float);
-  auto kernel = pf_head_bwd_kernel;
+  const int tpi = (hw + kTile - 1) / kTile;
+  const long long ntiles = n * tpi;
+  const bool vec = hw % 4 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
+  const size_t smem = (size_t)kBwdSmemFloats * sizeof(float);
+  auto kernel = vec ? pf_head_bwd_kernel<true> : pf_head_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, kBwdThreads, smem, (cudaStream_t)stream>>>(
-      x, g, w1t, gis, c1, w2gis, dx, partial, m, hw, ntiles);
+      x, g, w1t, gis, c1, w2gis, dx, partial, hw, tpi, ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_rows_kernel<<<(kPartial + 255) / 256, 256, 0,

@@ -5,20 +5,32 @@
 // by _forward and tent_sample_batched), which computes the same function as
 // two tent-weight contractions so the TPU matrix unit does the work. On
 // Hopper that contraction would spend H+W multiply-adds per point; this is
-// the 4-tap gather of bihome_tpu/geometry.py:bilinear_sample instead, one
-// thread per point, each tap zero outside the image.
+// the 4-tap gather of bihome_tpu/geometry.py:bilinear_sample instead, each
+// tap zero outside the image.
 //
 // Bound on the H100: bytes. At the eval datagen shape (N=64 windows of
-// 192x192x1, P=16384) the call must move ~22 MB (image read once, u/v read,
-// output written) against ~20 flops per point, so it is a few microseconds
-// of HBM traffic. Neighbouring threads take neighbouring points, so u/v
-// loads and output stores coalesce; the taps are gathers that mostly hit
-// L1/L2 because neighbouring points map to neighbouring pixels.
+// 192x192x1, P=16384) the call must move 22 MB (image read once, u/v read,
+// output written), 0.0066 ms at 3.35 TB/s, against ~15 flops per point; at
+// the loss warp (N=128 patches of 128x128x1) 34 MB, 0.0100 ms.
+//
+// Design for C = 1, the only C on the zeng path (bilinear_sample_c1_kernel):
+// a 2-D grid, blockIdx.y = image, so a thread finds its image without a
+// 64-bit division and addresses its taps with 32-bit offsets inside it.
+// Each thread takes 2 consecutive points: float2 loads of u and v and a
+// float2 store of out when P is even (every image's row is then 8-byte
+// aligned), else scalar loads, the last thread of an image taking only the
+// point below P. (4 points a thread with float4 measured slower on the H100
+// at the datagen shape than 2, and than grid_sample: fewer threads in
+// flight for the same gathers.) The taps are gathers through the read-only
+// path (__ldg); neighbouring points map to neighbouring pixels, so they
+// mostly hit L1/L2. C > 1 keeps the generic kernel, one thread per point.
 //
 // floorf, not an integer cast, gives the top-left tap: coordinates go
 // negative near the border and a cast rounds toward zero.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -60,6 +72,67 @@ __global__ void bilinear_sample_kernel(const float* __restrict__ img,
     const float t10 = (vy1 && vx0) ? base[(r1 + x0) * c + ci] : 0.0f;
     const float t11 = (vy1 && vx1) ? base[(r1 + x0 + 1) * c + ci] : 0.0f;
     out[i * c + ci] = t00 * w00 + t01 * w01 + t10 * w10 + t11 * w11;
+  }
+}
+
+// One point of a single-channel image, as bilinear_sample_kernel computes
+// it for C = 1.
+__device__ __forceinline__ float sample_c1(const float* __restrict__ img,
+                                          int h, int w, float x, float y) {
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float wx1 = x - x0f;
+  const float wy1 = y - y0f;
+  const float wx0 = 1.0f - wx1;
+  const float wy0 = 1.0f - wy1;
+  const int x0 = (int)fminf(fmaxf(x0f, -2.0f), (float)w + 1.0f);
+  const int y0 = (int)fminf(fmaxf(y0f, -2.0f), (float)h + 1.0f);
+  const bool vx0 = (unsigned)x0 < (unsigned)w;
+  const bool vx1 = (unsigned)(x0 + 1) < (unsigned)w;
+  const bool vy0 = (unsigned)y0 < (unsigned)h;
+  const bool vy1 = (unsigned)(y0 + 1) < (unsigned)h;
+  const float w00 = wy0 * wx0;
+  const float w01 = wy0 * wx1;
+  const float w10 = wy1 * wx0;
+  const float w11 = wy1 * wx1;
+  const int r0 = y0 * w + x0;
+  const int r1 = r0 + w;
+  const float t00 = (vy0 && vx0) ? __ldg(img + r0) : 0.0f;
+  const float t01 = (vy0 && vx1) ? __ldg(img + r0 + 1) : 0.0f;
+  const float t10 = (vy1 && vx0) ? __ldg(img + r1) : 0.0f;
+  const float t11 = (vy1 && vx1) ? __ldg(img + r1 + 1) : 0.0f;
+  return t00 * w00 + t01 * w01 + t10 * w10 + t11 * w11;
+}
+
+constexpr int kC1Threads = 256;
+
+// C = 1: grid (ceil(P / (2 * 256)), N); thread = points 2q, 2q + 1 of image
+// blockIdx.y. kVec: P even and u, v, out 8-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(kC1Threads)
+bilinear_sample_c1_kernel(const float* __restrict__ img,
+                          const float* __restrict__ u,
+                          const float* __restrict__ v,
+                          float* __restrict__ out, int h, int w, int p) {
+  const int q = (blockIdx.x * kC1Threads + threadIdx.x) * 2;
+  if (q >= p) return;
+  const long long row = (long long)blockIdx.y * p;
+  const float* im = img + (long long)blockIdx.y * h * w;
+  const float* ur = u + row;
+  const float* vr = v + row;
+  float* orow = out + row;
+  if (kVec) {
+    const float2 uu = __ldg(reinterpret_cast<const float2*>(ur + q));
+    const float2 vv = __ldg(reinterpret_cast<const float2*>(vr + q));
+    float2 o;
+    o.x = sample_c1(im, h, w, uu.x, vv.x);
+    o.y = sample_c1(im, h, w, uu.y, vv.y);
+    *reinterpret_cast<float2*>(orow + q) = o;
+  } else {
+    const int end = q + 2 < p ? q + 2 : p;
+    for (int i = q; i < end; ++i) {
+      orow[i] = sample_c1(im, h, w, __ldg(ur + i), __ldg(vr + i));
+    }
   }
 }
 
@@ -204,11 +277,25 @@ extern "C" int bilinear_sample_bwd_img(const float* u, const float* v,
   return (int)cudaGetLastError();
 }
 
+// img [N,H,W,C], u/v [N,P] -> out [N,P,C].
 extern "C" int bilinear_sample(const float* img, const float* u,
                                const float* v, float* out, int n, int h,
                                int w, int c, long long p, void* stream) {
   const long long total = (long long)n * p;
   if (total == 0) return 0;
+  if (c == 1 && n <= 65535 && p <= (1LL << 30) &&
+      (long long)(h + 2) * w < (1LL << 31)) {
+    const bool vec =
+        p % 2 == 0 &&
+        (((uintptr_t)u | (uintptr_t)v | (uintptr_t)out) & 7) == 0;
+    const dim3 grid((unsigned)((p + 2 * kC1Threads - 1) / (2 * kC1Threads)),
+                    (unsigned)n);
+    auto kernel = vec ? bilinear_sample_c1_kernel<true>
+                      : bilinear_sample_c1_kernel<false>;
+    kernel<<<grid, kC1Threads, 0, (cudaStream_t)stream>>>(img, u, v, out, h,
+                                                         w, (int)p);
+    return (int)cudaGetLastError();
+  }
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   bilinear_sample_kernel<<<(unsigned)blocks, threads, 0,

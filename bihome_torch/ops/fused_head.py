@@ -38,7 +38,7 @@ _SIGNATURES = {
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     'pf_head_bwd': [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    'pf_head_bwd_blocks': [ctypes.c_longlong],
+    'pf_head_bwd_blocks': [ctypes.c_longlong, ctypes.c_int],
     'pf_head_bwd_partial_cols': [],
 }
 
@@ -145,8 +145,9 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
                       c1: Tensor, w2gis: Tensor
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """The backward pass (see :func:`pf_head_bwd_plain`); on the card one
-    launch of the K2 kernel plus its fixed-order reduction of the
-    per-block sums. Takes Cin=16, Cmid=128, Cout=2."""
+    launch of the K2 kernel (its three products on the tensor cores in
+    3xTF32) plus its fixed-order reduction of the per-block sums. Takes
+    Cin=16, Cmid=128, Cout=2."""
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
     _cuda.check_cuda_tensor(x, 'x', 4)
@@ -163,7 +164,7 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
                     ('w2gis', w2gis)):
         _cuda.check_cuda_tensor(t, name, t.dim())
     lib = _cuda.library('fused_head', _SIGNATURES)
-    blocks = lib.pf_head_bwd_blocks(n * h * w)
+    blocks = lib.pf_head_bwd_blocks(n, h * w)
     if blocks <= 0:
         raise RuntimeError('pf_head_bwd_blocks: no CUDA device')
     cols = lib.pf_head_bwd_partial_cols()

@@ -9,7 +9,10 @@
    parallel, into build/kernels/) and prints the build time.
 3. Holds each kernel against its plain-torch version on the card and
    times kernel, plain version and, where one PyTorch call computes the
-   same function, that call (CUDA events, median of repeated launches):
+   same function, that call (median device time of 50 launches, each
+   behind an L2-flushing 100 MB write, CUDA events tightly around each;
+   bihome_torch/utils/timing.py), and prints the host's cost per call of
+   K3 and grid_sample:
    K1 and K3 at the eval shapes (batch 64), K2, K3, K4 and K5 at the
    training shapes (batch 64, both directions stacked: 128 images).
 4. Drives the port's eval entry point (zeng-biHomE S-COCO config,
@@ -37,7 +40,6 @@ device it exits non-zero before printing any result.
 import contextlib
 import copy
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -45,12 +47,15 @@ import time
 
 import torch
 
+from bihome_torch.utils.timing import host_us, time_ms
+
 CONFIG = 'config/s-coco/zeng-bihome-lr-1e-3.yaml'
 BATCH = 64
 STEPS = 4
 # Published H100 SXM peaks (NVIDIA data sheet) for the roofline bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_TC_FLOP_PER_S = 495e12       # dense TF32 on the tensor cores
 # The one-step check (compare_train_step): the PF head's output conv scale
 # of the conditioned network, the gradient limits, and the planted faults
 # that must fail them. Readings (relative L2 over all gradients, worst
@@ -64,26 +69,11 @@ STEP_PER_TENSOR = 0.1
 FAULTS = ('K4 du negated', 'K2 dw1 zeroed')
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median device time of ``fn`` in ms, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
+    """(ms, 'bytes' or 'operations'): the larger of bytes over HBM rate and
+    flops over ``flop_per_s`` (the fp32 cores unless stated)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -135,18 +125,23 @@ def check_warp(dev, gen):
     ms = time_ms(lambda: warp.bilinear_sample_batched(windows, u, v))
     plain_ms = time_ms(lambda: warp.bilinear_sample_plain(windows, u, v))
     library_ms = time_ms(library)
+    host = {'kernel': host_us(lambda: warp.bilinear_sample_batched(windows, u,
+                                                                   v)),
+            'grid_sample': host_us(library)}
     p = ps * ps
     nbytes = 4 * (n * ws * ws + 2 * n * p + n * p)
     flops = 15 * n * p          # 4 tap weights + 4 products + 3 adds + floors
     bms, by = bound_ms(nbytes, flops)
     print(f'K3 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  '
           f'grid_sample {library_ms:.4f} (max abs diff {lib_err:.2e})  '
-          f'bound {bms:.4f} ({by})')
+          f'bound {bms:.4f} ({by}); host us per call: kernel '
+          f'{host["kernel"]:.1f}  grid_sample {host["grid_sample"]:.1f}')
     return {'name': 'bilinear_sample_batched', 'route': 'cuda',
             'source': 'bihome_torch/csrc/warp.cu',
             'replaces': 'bihome_tpu/ops/warp_pallas.py:55',
             'max_abs_err': max(err, err3), 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bms, 'bound_by': by, 'library_ms': library_ms}
+            'bound_ms': bms, 'bound_by': by, 'library_ms': library_ms,
+            'host_us': host}
 
 
 def check_pf_head(dev, gen):
@@ -180,14 +175,19 @@ def check_pf_head(dev, gen):
     nbytes = 4 * (m * cin + m * cout + cmid * cin + 3 * cmid + cout * cmid
                   + cout + cmid)
     flops = 2 * m * (cin * cmid + cmid * cout)
+    # K1 runs on the fp32 cores: its bound is theirs. The tensor-core bound
+    # is shown beside it, for the redesign still queued.
     bms, by = bound_ms(nbytes, flops)
+    btc, bytc = bound_ms(nbytes, flops, TF32_TC_FLOP_PER_S)
     print(f'K1 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  '
-          f'bound {bms:.4f} ({by})')
+          f'bound {bms:.4f} ({by}, fp32 cores); tensor-core bound {btc:.4f} '
+          f'({bytc})')
     return {'name': 'fused_pf_head_fwd', 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:93',
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bms, 'bound_by': by, 'library_ms': None}
+            'bound_ms': bms, 'bound_by': by, 'library_ms': None,
+            'bound_fp32_ms': bms, 'bound_tc_ms': btc}
 
 
 def run_eval_path(counters):
@@ -290,17 +290,24 @@ def check_pf_head_bwd(dev, gen):
     w2gis = (w2.reshape(cout, cmid).t() * gis[:, None]).contiguous()
     margs = (x, g, w1t, gis, c1, w2gis)
     ms = time_ms(lambda: fh.fused_pf_head_bwd(*margs))
-    plain_ms = time_ms(lambda: fh.pf_head_bwd_plain(*margs), reps=5)
+    plain_ms = time_ms(lambda: fh.pf_head_bwd_plain(*margs))
     m = n * hw * hw
     nbytes = 4 * (m * cin + m * cout + m * cin + cmid * cin + 2 * cmid
                   + cmid * cout + cin * cmid + 2 * cmid * cout + cout)
     # mid, dx, dw1: 2*cin*cmid each; per middle channel: a (2), mask (1),
     # e (2*cout + 1), M0 (2*cout), M1 (1 + 2*cout); db2: cout.
     flops = m * (6 * cin * cmid + cmid * (5 + 6 * cout) + cout)
-    bms, by = bound_ms(nbytes, flops)
+    # K2 runs its three products on the tensor cores: it is measured
+    # against the tensor-core bound. The fp32-core bound is shown beside it,
+    # and the time of the 3xTF32 tensor work alone (3 passes of the
+    # products) as the floor of that precision choice.
+    bfp, byfp = bound_ms(nbytes, flops)
+    bms, by = bound_ms(nbytes, flops, TF32_TC_FLOP_PER_S)
+    tc3 = 3 * m * 6 * cin * cmid / TF32_TC_FLOP_PER_S * 1e3
     print(f'K2 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  '
-          f'bound {bms:.4f} ({by}, {flops / 1e9:.2f} GFLOP, '
-          f'{nbytes / 1e9:.3f} GB)')
+          f'bound {bms:.4f} ({by}, tensor cores; {flops / 1e9:.2f} GFLOP, '
+          f'{nbytes / 1e9:.3f} GB); fp32-core bound {bfp:.4f} ({byfp}); '
+          f'3xTF32 tensor work {tc3:.4f}')
     return {'name': 'fused_pf_head_bwd', 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:110',
@@ -308,7 +315,8 @@ def check_pf_head_bwd(dev, gen):
                                zip((dx_got, *got[1:]), (dx_want, *want[1:]))),
             'max_rel_err': err, 'kink_pixels': len(bad), 'ms': ms,
             'plain_ms': plain_ms,
-            'bound_ms': bms, 'bound_by': by, 'library_ms': None}
+            'bound_ms': bms, 'bound_by': by, 'library_ms': None,
+            'bound_fp32_ms': bfp, 'bound_tc_ms': bms, 'tc_3xtf32_ms': tc3}
 
 
 def _loss_warp_points(dev, gen, n, ps):
@@ -390,6 +398,11 @@ def check_warp_bwd(dev, gen):
         align_corners=True))
     ms3 = time_ms(lambda: warp.bilinear_sample_batched(images, u, v))
     plain3 = time_ms(lambda: warp.bilinear_sample_plain(images, u, v))
+    host3 = {'kernel': host_us(lambda: warp.bilinear_sample_batched(images, u,
+                                                                    v)),
+             'grid_sample': host_us(lambda: torch.nn.functional.grid_sample(
+                 img_nchw, grid.detach(), mode='bilinear',
+                 padding_mode='zeros', align_corners=True))}
     lib4 = time_ms(lambda: torch.autograd.grad(out_grid, grid, g_nchw,
                                                retain_graph=True))
     lib5 = time_ms(lambda: torch.autograd.grad(out_img, img_req, g_nchw,
@@ -411,7 +424,9 @@ def check_warp_bwd(dev, gen):
     # products with g, 4 adds.
     b5, by5 = bound_ms(4 * (2 * n * p + n * p + n * ps * ps), 20 * n * p)
     print(f'K3 times at the loss warp (ms): kernel {ms3:.4f}  plain '
-          f'{plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} ({by3})')
+          f'{plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} ({by3}); '
+          f'host us per call: kernel {host3["kernel"]:.1f}  grid_sample '
+          f'{host3["grid_sample"]:.1f}')
     print(f'K4 times (ms): kernel {ms4:.4f}  plain {plain4:.4f}  '
           f'grid_sample grid-grad {lib4:.4f}  bound {b4:.4f} ({by4})')
     print(f'K5 times (ms): kernel {ms5:.4f} (with zeroing dimg)  plain '
@@ -420,7 +435,7 @@ def check_warp_bwd(dev, gen):
     common = {'route': 'cuda', 'source': 'bihome_torch/csrc/warp.cu'}
     k3 = {'max_abs_err': float((out - want_out).abs().max()),
           'max_rel_err': err3, 'ms': ms3, 'plain_ms': plain3, 'bound_ms': b3,
-          'bound_by': by3, 'library_ms': lib3}
+          'bound_by': by3, 'library_ms': lib3, 'host_us': host3}
     k4 = dict(common, name='bilinear_sample_bwd_uv',
               replaces='bihome_tpu/ops/warp_pallas.py:75',
               max_abs_err=max(float((du - want_du).abs().max()),

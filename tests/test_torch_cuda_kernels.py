@@ -5,9 +5,9 @@ it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts,
-points far outside, exactly on the border or on integer coordinates,
-input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
+Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts
+(K2's 64-pixel tiles, K3's pairs of points), points far outside,
+exactly on the border or on integer coordinates, input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
 backward (the kernel sums over pixels per block, then over blocks);
@@ -45,6 +45,35 @@ def test_warp_kernel_matches_plain(cuda, channels):
     assert warp.bilinear_sample_batched.launches == before + 1
     want = warp.bilinear_sample_plain(img, u, v)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize('n,p,outside', [(2, 1024, 0.3), (3, 1001, 0.3),
+                                          (1, 6, 0.5), (5, 1, 0.0),
+                                          (7, 4097, 1.0)])
+def test_warp_kernel_c1_tiling(cuda, n, p, outside):
+    # K3's C = 1 kernel: 2 points a thread, float2 when P is even (P =
+    # 1024, 6), scalar loads and a lone last point otherwise (P = 1001, 1,
+    # 4097; N*P odd for 3x1001, 5x1 and 7x4097), and points outside the
+    # image (a share of ``outside`` on average, all of them far outside for
+    # outside = 1.0).
+    gen = torch.Generator().manual_seed(p)
+    h, w = 19, 26
+    img = (torch.rand((n, h, w, 1), generator=gen) * 255).to(cuda)
+    spread = 1.0 + 2.0 * outside
+    u = (torch.rand((n, p), generator=gen) - 0.5) * spread * w + w / 2
+    v = (torch.rand((n, p), generator=gen) - 0.5) * spread * h + h / 2
+    if outside == 1.0:
+        u = u + 10 * w
+    u, v = u.to(cuda), v.to(cuda)
+    before = warp.bilinear_sample_batched.launches
+    got = warp.bilinear_sample_batched(img, u, v)
+    torch.cuda.synchronize()
+    assert warp.bilinear_sample_batched.launches == before + 1
+    want = warp.bilinear_sample_plain(img, u, v)
+    assert got.shape == (n, p, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    if outside == 1.0:
+        assert torch.all(got == 0)
 
 
 def test_warp_kernel_rejects_bad_input(cuda):
@@ -98,7 +127,11 @@ def _bwd_args(gen, n, h, w, cuda):
     return x, g, w1.reshape(128, 16).contiguous(), gis, c1, w2gis
 
 
-@pytest.mark.parametrize('shape', [(3, 17, 19), (2, 128, 128), (1, 1, 1)])
+# K2 walks 64-pixel tiles inside each image: HW = 323 and 1 are not
+# multiples of 4 (4-byte copies); 48 is one image smaller than a tile, 400
+# and 4420 end in a ragged tile (16-byte copies).
+@pytest.mark.parametrize('shape', [(3, 17, 19), (2, 128, 128), (1, 1, 1),
+                                   (2, 8, 6), (3, 20, 20), (1, 68, 65)])
 def test_pf_head_bwd_kernel_matches_plain(cuda, shape):
     args = _bwd_args(torch.Generator().manual_seed(2), *shape, cuda)
     before = fused_head.fused_pf_head_bwd.launches

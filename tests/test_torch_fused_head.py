@@ -144,6 +144,103 @@ def test_train_head_matches_pallas_kernel(m):
                                    atol=5e-4, err_msg=name)
 
 
+def _tf32(a):
+    """Round float32 to TF32 (10 mantissa bits), to nearest even."""
+    bits = a.contiguous().view(torch.int32)
+    lsb = (bits >> 13) & 1
+    return ((bits + 0xFFF + lsb) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(mode):
+    """A float32 matmul on emulated tensor cores: 'single' rounds both
+    operands to TF32 once; 'split' is 3xTF32, big*big + big*small +
+    small*big with big = tf32(a), small = tf32(a - big). The products of
+    TF32 values are exact in float32, as on the card; the sums are float32."""
+    def mm(a, b):
+        a_big, b_big = _tf32(a), _tf32(b)
+        if mode == 'single':
+            return a_big @ b_big
+        a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+        return a_big @ b_big + (a_big @ b_small + a_small @ b_big)
+    return mm
+
+
+def _moments_tf32(mode):
+    """K2's one-pass moments with its three Cin x Cmid products (mid, dx,
+    dw1) through :func:`_tf32_product`; the rest in float32, as the
+    kernel runs it on the fp32 cores."""
+    mm = _tf32_product(mode)
+
+    def moments(x, g, w1t, gis, c1, w2gis):
+        n, cin, h, w = x.shape
+        x2 = x.permute(1, 0, 2, 3).reshape(cin, -1)                # [Cin,M]
+        g2 = g.permute(1, 0, 2, 3).reshape(g.shape[1], -1)         # [Cout,M]
+        mid = mm(w1t, x2)                                          # [Cmid,M]
+        mask = (gis[:, None] * mid + c1[:, None] > 0).to(x.dtype)
+        e = mask * (w2gis @ g2)
+        dx = mm(w1t.t().contiguous(), e)                           # [Cin,M]
+        dx = dx.reshape(cin, n, h, w).permute(1, 0, 2, 3)
+        return (dx, mask @ g2.t(), (mask * mid) @ g2.t(), g2.sum(1),
+                mm(x2, e.t().contiguous()))
+    return moments
+
+
+def test_k2_precision_3xtf32_against_single_pass():
+    # The precision choice of the K2 kernel (csrc/fused_head.cu), grounded
+    # at its widths (Cin 16, Cmid 128, Cout 2, M = 4096, batch statistics):
+    # each of the seven gradients through emulated 3xTF32 products stays
+    # within chip_smoke's 1e-3 of max|ref| of float64, and single-pass TF32
+    # strays at least 10x further. dx is compared off the pixels where a
+    # middle channel's pre-activation lies within 1e-5 of the ReLU kink in
+    # float64 (chip_smoke's rule); db1 (0 analytically) on dbeta's scale.
+    rs = np.random.RandomState(11)
+    n, h, w = 4, 32, 32
+    x = np.maximum(rs.randn(n, 16, h, w), 0.0).astype(np.float32)
+    w1, b1, gamma, beta, w2, _, _, _ = _params(rs)
+    cot = rs.randn(n, 2, h, w).astype(np.float32)
+
+    def grads(dtype, moments):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        xt, w1t = t(x), t(w1.T)[:, :, None, None]
+        b1t, w2t = t(b1), t(w2.T)[:, :, None, None]
+        mean, var = tfh.batch_stats_affine(xt, w1t, b1t)
+        return tfh.pf_head_backward(xt, t(cot), w1t, b1t, t(gamma), t(beta),
+                                    w2t, mean, var, 1e-5, True,
+                                    moments=moments)
+
+    ref = grads(torch.float64, tfh.pf_head_bwd_plain)
+    x64 = torch.from_numpy(x).double()
+    w1_64 = torch.from_numpy(w1).double()
+    mean, var = tfh.batch_stats_affine(
+        x64, w1_64.t()[:, :, None, None], torch.from_numpy(b1).double())
+    gis = torch.from_numpy(gamma).double() * torch.rsqrt(var + 1e-5)
+    c1 = gis * (torch.from_numpy(b1).double() - mean) + \
+        torch.from_numpy(beta).double()
+    pre = torch.einsum('nkhw,kc->nchw', x64, w1_64) * gis[:, None, None] + \
+        c1[:, None, None]
+    at_kink = (pre.abs() < 1e-5).any(1, keepdim=True)              # [N,1,H,W]
+    names = ('dx', 'dw1', 'db1', 'dgamma', 'dbeta', 'dw2', 'db2')
+
+    def errors(got):
+        out = {}
+        for i, name in enumerate(names):
+            a, b = got[i].double(), ref[i]
+            scale = ref[4] if name == 'db1' else b
+            if name == 'dx':
+                a, b = a.masked_fill(at_kink, 0), b.masked_fill(at_kink, 0)
+            out[name] = float((a - b).abs().max() / scale.abs().max())
+        return out
+
+    split = errors(grads(torch.float32, _moments_tf32('split')))
+    single = errors(grads(torch.float32, _moments_tf32('single')))
+    print('error / max|float64| per gradient, 3xTF32:',
+          {k: f'{v:.2e}' for k, v in split.items()})
+    print('error / max|float64| per gradient, single-pass TF32:',
+          {k: f'{v:.2e}' for k, v in single.items()})
+    assert max(split.values()) <= 1e-3, split
+    assert max(single.values()) >= 10 * max(split.values()), (single, split)
+
+
 def test_train_head_updates_running_stats_like_flax():
     rs = np.random.RandomState(7)
     x = rs.randn(3, 16, 16, 16).astype(np.float32)
