@@ -1,6 +1,9 @@
-// Perspective-field head forward, eval mode: 1x1 conv -> BatchNorm (given
-// statistics) -> ReLU -> 1x1 conv, fused so the [M, Cmid] middle never
-// reaches device memory.
+// Perspective-field head on the H100: the forward (K1) and the backward
+// (K2), both with their Cin x Cmid products on the tensor cores in 3xTF32.
+//
+// ---------------------------------------------------------------------------
+// Forward (K1), eval mode: 1x1 conv -> BatchNorm (given statistics) -> ReLU
+// -> 1x1 conv, fused so the [M, Cmid] middle never reaches device memory.
 //
 //   out[n,o,s] = b2[o] + sum_j w2[o,j] * relu(c1[j] + sum_k g1t[j,k] x[n,k,s])
 //
@@ -10,19 +13,67 @@
 // Replaces the TPU kernel bihome_tpu/ops/fused_head.py:_fwd_kernel (driven
 // by _run_fwd and fused_pf_head), which keeps pixels in lanes and channels
 // in sublanes ([Cin, M] layout). The backbone's NCHW activation already has
-// that layout per image: for a fixed channel the pixels are contiguous, so
-// thread t reading pixel s+t of channel k coalesces, and the wrapper makes
-// no transposed copy.
+// that layout per image: the kernel reads it in place, no transposed copy.
 //
-// Bound on the H100: operations. At the zeng eval shape (M = 2B*128*128 =
-// 2,097,152 pixels for B=64, Cin=16, Cmid=128, Cout=2) the call moves
-// ~151 MB but does 2*M*(Cin*Cmid + Cmid*Cout) ~ 9.7 GFLOP, ~0.14 ms on the
-// fp32 CUDA cores against ~45 us of HBM traffic. This first version stays
-// on the fp32 cores: one thread per pixel, the Cin inputs in registers, the
-// folded weights in shared memory (every thread of a warp reads the same
-// weight, a broadcast), and the two outputs accumulated in registers over
-// the Cmid middle channels. Tensor cores (the [M,16]x[16,128] product is a
-// natural wgmma tile) are later work.
+// Bound on the H100. At the zeng eval shape (M = 2B*128*128 = 2,097,152
+// pixels for B = 64, Cin 16, Cmid 128, Cout 2) the call must move ~151 MB,
+// 0.045 ms at 3.35 TB/s, and does 9.7 GFLOP, 8.6 of them in the [M,16] x
+// [16,128] product: 0.144 ms on the fp32 cores alone. With the product on
+// the tensor cores in 3xTF32 (3 x 8.6 GFLOP at 495 TFLOP/s: 0.052 ms) and
+// the epilogue on the fp32 cores beside it (~0.024 ms), the bound is
+// ~0.052 ms (operations).
+//
+// Precision: 3xTF32, as K2 (below): fp32-level error, so the port's fp32
+// tolerances stand; tests/test_torch_fused_head.py measures 3xTF32 and
+// single-pass TF32 on the CPU at this head's widths.
+//
+// Takes Cin = 16, Cout = 2 and any Cmid that is a multiple of 16 up to
+// kFwdMaxCmid (128 for the ResNet34-flavour head, 512 for the
+// ResNet50-flavour one).
+//
+// Design:
+//   * orientation: pixels are the mma's M dimension and middle channels
+//     its N, mid^T [16 px, 8 ch] = x^T [16 px, Cin] g1t^T [Cin, 8 ch]
+//     (mma.sync.m16n8k8 tf32, K = Cin in two steps). A lane's accumulator
+//     then holds 2 pixels x 2 channels, so the ReLU and the Cout = 2 output
+//     sums run on it in place and stay in registers across all Cmid / 8
+//     n-tiles; the 4 lanes that share a pixel pair fold their sums with 3
+//     shuffles at the end. There is no cross-warp sum and no output buffer
+//     in shared memory. (K2's orientation, channels as M with each warp
+//     owning 16 of them, would need each tile's outputs summed over the
+//     block's 8 warps through shared memory);
+//   * persistent blocks of 256 threads (8 warps), as many as fit on the
+//     card at once (two per SM at Cmid 128 and 512), walk tiles of 256
+//     pixels within one image. A tile's x [16][256] comes in by cp.async
+//     into a double buffer while the block works on the tile before:
+//     16-byte copies when HW is a multiple of 4, else 4-byte ones; pixels
+//     past the image's end are zero-filled, computed, and not stored;
+//   * warp w owns pixels 32w..32w+31 of a tile, two m-tiles of 16. It
+//     loads their A fragments from the x tile once per tile and splits
+//     each value into (big, small) in registers: every x value is read by
+//     exactly one warp, so a split copy in shared memory would buy no
+//     reuse. The x tile's row stride, 264 words (8 mod 32), makes those
+//     loads free of bank conflicts;
+//   * g1t is split once per block, into shared memory in fragment order:
+//     one conflict-free 16-byte load gives a lane its (big, small) B
+//     fragment of an n-tile and k-step, and serves both m-tiles. c1 and w2
+//     of the lane's two channels sit beside it (broadcast loads);
+//   * per n-tile the big*big accumulator starts at c1 and the small-term
+//     one at 0, so the epilogue is one add, the ReLU and two FMAs per
+//     middle value on the fp32 cores; b2 is added at the store;
+//   * tile indices are 32-bit: a 64-bit division per tile is a long
+//     software routine on the card.
+//
+// What holds it back (H100 80GB HBM3, 700 W; python -m
+// bihome_torch.profile_kernels --kernel k1 cuts each part out and times
+// the rest): the tensor-core products. Each mma.sync.m16n8k8 tf32 costs its
+// SM sub-partition ~8 cycles, a warp issues 12 of them per n-tile (3
+// passes x 2 k-steps x 2 m-tiles), and the fp32 epilogue adds its own
+// cycles on top rather than hiding under them, even with the next
+// n-tile's products issued before it by hand (measured no faster, not
+// kept); the loads and stores alone take ~0.06 ms and do hide. 3xTF32 on
+// mma.sync is ~4x the 3xTF32 bound at this shape; wgmma (asynchronous, at
+// the tensor cores' full rate) is the next step.
 
 #include <cuda_runtime.h>
 
@@ -30,47 +81,268 @@
 
 namespace {
 
-template <int CIN, int COUT>
-__global__ void pf_head_fwd_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ g1t,
-                                   const float* __restrict__ c1,
-                                   const float* __restrict__ w2,
-                                   const float* __restrict__ b2,
-                                   float* __restrict__ out, long long m,
-                                   int hw, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_g1t = smem;                  // [cmid, CIN]
-  float* s_c1 = s_g1t + cmid * CIN;     // [cmid]
-  float* s_w2 = s_c1 + cmid;            // [COUT, cmid]
-  for (int i = threadIdx.x; i < cmid * CIN; i += blockDim.x) s_g1t[i] = g1t[i];
-  for (int i = threadIdx.x; i < cmid; i += blockDim.x) s_c1[i] = c1[i];
-  for (int i = threadIdx.x; i < COUT * cmid; i += blockDim.x) s_w2[i] = w2[i];
-  __syncthreads();
+constexpr int kCin = 16;
+constexpr int kCout = 2;
 
-  const long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= m) return;  // ragged edge: M need not be a multiple of 256
-  const long long n = pix / hw;
-  const long long s = pix - n * hw;
-  const float* xp = x + n * CIN * hw + s;
-  float xv[CIN];
-#pragma unroll
-  for (int k = 0; k < CIN; ++k) xv[k] = xp[(long long)k * hw];
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return r;
+}
 
-  float acc[COUT];
-#pragma unroll
-  for (int o = 0; o < COUT; ++o) acc[o] = 0.0f;
-  for (int j = 0; j < cmid; ++j) {
-    const float* g = s_g1t + j * CIN;
-    float a = 0.0f;
-#pragma unroll
-    for (int k = 0; k < CIN; ++k) a = fmaf(g[k], xv[k], a);
-    a = fmaxf(a + s_c1[j], 0.0f);
-#pragma unroll
-    for (int o = 0; o < COUT; ++o) acc[o] = fmaf(s_w2[o * cmid + j], a, acc[o]);
+struct Split {
+  uint32_t big, small;
+};
+
+__device__ __forceinline__ Split split(float a) {
+  const uint32_t big = to_tf32(a);
+  return {big, to_tf32(a - __uint_as_float(big))};
+}
+
+// d = a b + c on the tensor cores: m16n8k8, tf32 operands, fp32
+// accumulator; d may be c.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b, const float* c) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// 3xTF32: hh = big*big + chh, hs = big*small + small*big + chs.
+__device__ __forceinline__ void mma3(float* hh, float* hs, const uint32_t* ab,
+                                     const uint32_t* as, const uint32_t* bb,
+                                     const uint32_t* bs, const float* chh,
+                                     const float* chs) {
+  mma_tf32(hs, ab, bs, chs);
+  mma_tf32(hs, as, bb, hs);
+  mma_tf32(hh, ab, bb, chh);
+}
+
+// 3xTF32, accumulating: hh += big*big, hs += big*small + small*big.
+__device__ __forceinline__ void mma3(float* hh, float* hs, const uint32_t* ab,
+                                     const uint32_t* as, const uint32_t* bb,
+                                     const uint32_t* bs) {
+  mma3(hh, hs, ab, as, bb, bs, hh, hs);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Start the copies of pixels s0..s0+kPx-1 of rows 0..kRows-1 of one image's
+// [kRows][hw] block src into dst (row stride kStride words), by a block of
+// kThreads threads. Pixels past hw are filled with 0 (the source then
+// points at ``any``, the tensor's start, and no byte of it is read). kVec:
+// 16-byte copies (HW % 4 == 0 and src 16-byte aligned, so a chunk of 4
+// pixels is all in or all out), else 4-byte ones.
+template <int kRows, int kPx, int kStride, int kThreads, bool kVec>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          const float* any, int s0, int hw) {
+  if (kVec) {
+    for (int i = threadIdx.x; i < kRows * kPx / 4; i += kThreads) {
+      const int k = i / (kPx / 4), q = i % (kPx / 4) * 4;
+      const bool in = s0 + q < hw;
+      cp_async16(dst + k * kStride + q,
+                 in ? src + (long long)k * hw + s0 + q : any, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kPx; i += kThreads) {
+      const int k = i / kPx, p = i % kPx;
+      const bool in = s0 + p < hw;
+      cp_async4(dst + k * kStride + p,
+                in ? src + (long long)k * hw + s0 + p : any, in ? 4 : 0);
+    }
   }
-  float* op = out + n * COUT * hw + s;
+}
+
+constexpr int kFwdTile = 256;         // pixels per tile, within one image
+constexpr int kFwdThreads = 256;      // 8 warps, 32 pixels each
+constexpr int kFwdSX = kFwdTile + 8;  // row stride of the x tile (words)
+constexpr int kFwdMaxCmid = 1024;
+
+// K1's shared memory in bytes: the cp.async double buffer of x; g1t^T's B
+// fragments, a uint4 (big, small at k and at k + 4) per lane, k-step and
+// n-tile; and per n-tile and lane quad c1 and w2 of the quad's two
+// channels, in 8 floats.
+constexpr size_t fwd_smem_bytes(int cmid) {
+  return sizeof(float) * 2 * kCin * kFwdSX +
+         sizeof(uint4) * (size_t)(cmid / 8) * 2 * 32 +
+         sizeof(float) * (size_t)(cmid / 8) * 4 * 8;
+}
+
+// K1's products of n-tile nt for a warp's two m-tiles: hh[mt] = c1 +
+// big*big, hs[mt] = big*small + small*big. Register r of an m-tile is
+// pixel gid + 8 (r >> 1), channel nt * 8 + 2 tig + (r & 1).
+__device__ __forceinline__ void fwd_products(
+    const uint4* s_b, const float* s_c, int nt, int lane,
+    const uint32_t (&ab)[2][2][4], const uint32_t (&as)[2][2][4],
+    float (&hh)[2][4], float (&hs)[2][4]) {
+  const uint4 f0 = s_b[nt * 64 + lane];
+  const uint4 f1 = s_b[nt * 64 + 32 + lane];
+  const uint32_t bb[2][2] = {{f0.x, f0.z}, {f1.x, f1.z}};
+  const uint32_t bs[2][2] = {{f0.y, f0.w}, {f1.y, f1.w}};
+  const float2 c =
+      *reinterpret_cast<const float2*>(s_c + (nt * 4 + (lane & 3)) * 8);
+  const float c1r[4] = {c.x, c.y, c.x, c.y};
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int o = 0; o < COUT; ++o) op[(long long)o * hw] = acc[o] + b2[o];
+  for (int mt = 0; mt < 2; ++mt) {
+    mma3(hh[mt], hs[mt], ab[mt][0], as[mt][0], bb[0], bs[0], c1r, zero);
+    mma3(hh[mt], hs[mt], ab[mt][1], as[mt][1], bb[1], bs[1]);
+  }
+}
+
+// K1's epilogue of n-tile nt on the fp32 cores: the ReLU, and the Cout = 2
+// sums over the lane's two channels into acc[mt][pixel gid + 8 px][o].
+__device__ __forceinline__ void fwd_epilogue(const float* s_c, int nt,
+                                             int lane,
+                                             const float (&hh)[2][4],
+                                             const float (&hs)[2][4],
+                                             float (&acc)[2][2][2]) {
+  const float4 w =
+      *reinterpret_cast<const float4*>(s_c + (nt * 4 + (lane & 3)) * 8 + 4);
+  const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = fmaxf(hh[mt][r] + hs[mt][r], 0.0f);
+      const int px = r >> 1, ch = r & 1;
+      acc[mt][px][0] = fmaf(wo[0][ch], a, acc[mt][px][0]);
+      acc[mt][px][1] = fmaf(wo[1][ch], a, acc[mt][px][1]);
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_fwd_tile(const float* x, float* sx,
+                                              int tile, int tpi, int hw) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kFwdTile;
+  copy_rows<kCin, kFwdTile, kFwdSX, kFwdThreads, kVec>(
+      sx, x + (long long)n * kCin * hw, x, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+pf_head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ g1t,
+                   const float* __restrict__ c1, const float* __restrict__ w2,
+                   const float* __restrict__ b2, float* __restrict__ out,
+                   int hw, int tpi, int ntiles, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  const int ntn = cmid / 8;                    // n-tiles of 8 channels
+  float* s_x = smem;                           // [2][Cin][kFwdSX], cp.async
+  uint4* s_b = reinterpret_cast<uint4*>(s_x + 2 * kCin * kFwdSX);
+  float* s_c = reinterpret_cast<float*>(s_b + ntn * 2 * 32);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) load_fwd_tile<kVec>(x, s_x, tile, tpi, hw);
+  // B fragment of g1t^T for n-tile nt, k-step ks, lane l: channel
+  // nt * 8 + l / 4 at k = ks * 8 + l % 4 and at k + 4.
+  for (int i = t; i < ntn * 64; i += kFwdThreads) {
+    const int l = i & 31, ks = (i >> 5) & 1, nt = i >> 6;
+    const float* row = g1t + (nt * 8 + (l >> 2)) * kCin + ks * 8 + (l & 3);
+    const Split lo = split(row[0]), hi = split(row[4]);
+    s_b[i] = make_uint4(lo.big, lo.small, hi.big, hi.small);
+  }
+  // The accumulator columns of lane quad q of n-tile nt are channels
+  // nt * 8 + 2q and + 1: their c1 at 0, 1 and w2 at 4..7 ([o][channel]).
+  for (int i = t; i < ntn * 4; i += kFwdThreads) {
+    const int ch = (i >> 2) * 8 + 2 * (i & 3);
+    float* c = s_c + i * 8;
+    c[0] = c1[ch];
+    c[1] = c1[ch + 1];
+    c[2] = 0.0f;
+    c[3] = 0.0f;
+    c[4] = w2[ch];
+    c[5] = w2[ch + 1];
+    c[6] = w2[cmid + ch];
+    c[7] = w2[cmid + ch + 1];
+  }
+  const float b2_0 = b2[0], b2_1 = b2[1];
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x in; the tile before done by all
+    const int next = tile + gridDim.x;
+    if (next < ntiles) {
+      load_fwd_tile<kVec>(x, s_x + (buf ^ 1) * kCin * kFwdSX, next, tpi, hw);
+    }
+    const float* sx = s_x + buf * kCin * kFwdSX;
+
+    // A fragments of the warp's m-tiles mt (pixels 32w + 16mt + 0..15),
+    // both k-steps, split: register r is pixel gid + 8 (r & 1) at k = tig
+    // + 4 (r >> 1) of the k-step.
+    uint32_t ab[2][2][4], as[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const float* p = sx + (ks * 8 + tig) * kFwdSX + warp * 32 + mt * 16 +
+                         gid;
+        const float a[4] = {p[0], p[8], p[4 * kFwdSX], p[4 * kFwdSX + 8]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const Split s = split(a[r]);
+          ab[mt][ks][r] = s.big;
+          as[mt][ks][r] = s.small;
+        }
+      }
+    }
+
+    // acc[mt][px][o]: output o of pixel gid + 8 px of m-tile mt, summed
+    // over the lane's channels.
+    float acc[2][2][2] = {};
+    for (int nt = 0; nt < ntn; ++nt) {
+      float hh[2][4], hs[2][4];
+      fwd_products(s_b, s_c, nt, lane, ab, as, hh, hs);
+      fwd_epilogue(s_c, nt, lane, hh, hs, acc);
+    }
+
+    // Fold the sums over the lane quad, leaving lane tig with pixel gid +
+    // 8 (tig >> 1), output tig & 1: exchange the other pixel's pair with
+    // lane tig ^ 2, then the other output with lane tig ^ 1.
+    const int n = tile / tpi;
+    const int s0 = (tile - n * tpi) * kFwdTile + warp * 32 + gid;
+    const int px = tig >> 1, o = tig & 1;
+    float* on = out + ((long long)n * kCout + o) * hw;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float keep[2];
+#pragma unroll
+      for (int oo = 0; oo < 2; ++oo) {
+        const float mine = px ? acc[mt][1][oo] : acc[mt][0][oo];
+        const float other = px ? acc[mt][0][oo] : acc[mt][1][oo];
+        keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+      }
+      const float mine = o ? keep[1] : keep[0];
+      const float other = o ? keep[0] : keep[1];
+      const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+      const int s = s0 + mt * 16 + 8 * px;
+      if (s < hw) on[s] = v + (o ? b2_1 : b2_0);
+    }
+    buf ^= 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -141,14 +413,13 @@ __global__ void pf_head_fwd_kernel(const float* __restrict__ x,
 //     fragment load and store free of bank conflicts;
 //   * the tensor-core products, run as mma.sync among the epilogue's
 //     fp32 work, take most of the kernel's time; python -m
-//     bihome_torch.profile_k2 cuts each part out and times the rest;
+//     bihome_torch.profile_kernels --kernel k2 cuts each part out and
+//     times the rest;
 //   * each block writes its sums to its own row of a [blocks, 2562] scratch
 //     and a second kernel adds the rows in block order: deterministic, no
 //     atomics.
 
-constexpr int kCin = 16;
 constexpr int kCmid = 128;
-constexpr int kCout = 2;
 constexpr int kTile = 64;          // pixels per tile, within one image
 constexpr int kBwdThreads = 256;   // 8 warps, 16 middle channels each
 constexpr int kSX = 136;           // row stride of split x [Cin][kTile][2]
@@ -161,90 +432,18 @@ constexpr int kPartial = kCin * kCmid + 2 * kCmid * kCout + kCout;
 constexpr int kBwdSmemFloats = 2 * kCin * kTile + 2 * kCout * kTile +
                                2 * kCin * kSX + kTile * kSE + kCin * kSW;
 
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
-  return r;
-}
-
-struct Split {
-  uint32_t big, small;
-};
-
-__device__ __forceinline__ Split split(float a) {
-  const uint32_t big = to_tf32(a);
-  return {big, to_tf32(a - __uint_as_float(big))};
-}
-
-// d += a b on the tensor cores: m16n8k8, tf32 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: big*big into hh, big*small + small*big into hs.
-__device__ __forceinline__ void mma3(float* hh, float* hs, const uint32_t* ab,
-                                     const uint32_t* as, const uint32_t* bb,
-                                     const uint32_t* bs) {
-  mma_tf32(hs, ab, bs);
-  mma_tf32(hs, as, bb);
-  mma_tf32(hh, ab, bb);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
 // Start the copies of a tile's x [Cin][kTile] and g [Cout][kTile] into
-// shared memory; pixels past the image's end are filled with 0 (the source
-// then points at the tensor's start and no byte of it is read).
+// shared memory; pixels past the image's end are filled with 0.
 template <bool kVec>
 __device__ __forceinline__ void load_tile(const float* x, const float* g,
                                           float* sx, float* sg,
                                           long long tile, int tpi, int hw) {
-  const int t = threadIdx.x;
   const long long n = tile / tpi;
   const int s0 = (int)(tile - n * tpi) * kTile;
-  const float* xn = x + n * kCin * hw;
-  const float* gn = g + n * kCout * hw;
-  if (kVec) {  // HW % 4 == 0: a chunk of 4 pixels is all in or all out
-    const int k = t >> 4, q = (t & 15) * 4;
-    const bool in = s0 + q < hw;
-    cp_async16(sx + k * kTile + q, in ? xn + (long long)k * hw + s0 + q : x,
-               in ? 16 : 0);
-    if (t < kCout * 16) {  // g: row k < Cout
-      cp_async16(sg + k * kTile + q, in ? gn + (long long)k * hw + s0 + q : g,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int i = t; i < kCin * kTile; i += kBwdThreads) {
-      const int k = i / kTile, p = i % kTile;
-      const bool in = s0 + p < hw;
-      cp_async4(sx + k * kTile + p, in ? xn + (long long)k * hw + s0 + p : x,
-                in ? 4 : 0);
-    }
-    if (t < kCout * kTile) {
-      const int o = t / kTile, p = t % kTile;
-      const bool in = s0 + p < hw;
-      cp_async4(sg + o * kTile + p, in ? gn + (long long)o * hw + s0 + p : g,
-                in ? 4 : 0);
-    }
-  }
+  copy_rows<kCin, kTile, kTile, kBwdThreads, kVec>(sx, x + n * kCin * hw, x,
+                                                   s0, hw);
+  copy_rows<kCout, kTile, kTile, kBwdThreads, kVec>(sg, g + n * kCout * hw, g,
+                                                    s0, hw);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
@@ -561,21 +760,33 @@ extern "C" int pf_head_fwd(const float* x, const float* g1t, const float* c1,
                            const float* w2, const float* b2, float* out,
                            long long n, int cin, int hw, int cmid, int cout,
                            void* stream) {
-  if (cin != 16 || cout != 2 || cmid <= 0 || hw <= 0) {
+  const int tpi = hw > 0 ? (hw + kFwdTile - 1) / kFwdTile : 0;
+  // Tile indices are 32-bit (room left for the block stride).
+  if (cin != kCin || cout != kCout || cmid <= 0 || cmid % 16 != 0 ||
+      cmid > kFwdMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long m = n * hw;
-  if (m == 0) return 0;
-  const size_t smem = (size_t)(cmid * cin + cmid + cout * cmid) * sizeof(float);
-  auto kernel = pf_head_fwd_kernel<16, 2>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  const int ntiles = (int)(n * tpi);
+  const bool vec = hw % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const size_t smem = fwd_smem_bytes(cmid);
+  auto kernel = vec ? pf_head_fwd_kernel<true> : pf_head_fwd_kernel<false>;
+  // Persistent blocks: as many as fit on the card at once.
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
+    return (int)err;
   }
-  const int threads = 256;
-  const long long blocks = (m + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      x, g1t, c1, w2, b2, out, m, hw, cmid);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
+  kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
+      x, g1t, c1, w2, b2, out, hw, tpi, ntiles, cmid);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,9 @@
 // at the datagen shape than 2, and than grid_sample: fewer threads in
 // flight for the same gathers.) The taps are gathers through the read-only
 // path (__ldg); neighbouring points map to neighbouring pixels, so they
-// mostly hit L1/L2. C > 1 keeps the generic kernel, one thread per point.
+// mostly hit L1/L2. Their positions, weights and validity come from
+// taps_c1, which K4's C = 1 kernel shares. C > 1 keeps the generic kernel,
+// one thread per point.
 //
 // floorf, not an integer cast, gives the top-left tap: coordinates go
 // negative near the border and a cast rounds toward zero.
@@ -75,33 +77,59 @@ __global__ void bilinear_sample_kernel(const float* __restrict__ img,
   }
 }
 
-// One point of a single-channel image, as bilinear_sample_kernel computes
-// it for C = 1.
-__device__ __forceinline__ float sample_c1(const float* __restrict__ img,
-                                          int h, int w, float x, float y) {
+// The 4 taps of one point of a single-channel image, for the C = 1
+// kernels: the bilinear weights, the offset r0 of the top-left tap (y0, x0)
+// inside the image (32-bit: their launch requires (h + 2) * w < 2^31), and
+// which taps lie inside the image. Any tap more than one pixel outside is
+// invalid either way; clamping the float first keeps the conversion
+// defined for huge coordinates.
+struct TapsC1 {
+  float wx0, wx1, wy0, wy1;
+  int r0;
+  bool v00, v01, v10, v11;
+};
+
+__device__ __forceinline__ TapsC1 taps_c1(int h, int w, float x, float y) {
   const float x0f = floorf(x);
   const float y0f = floorf(y);
-  const float wx1 = x - x0f;
-  const float wy1 = y - y0f;
-  const float wx0 = 1.0f - wx1;
-  const float wy0 = 1.0f - wy1;
+  TapsC1 t;
+  t.wx1 = x - x0f;
+  t.wy1 = y - y0f;
+  t.wx0 = 1.0f - t.wx1;
+  t.wy0 = 1.0f - t.wy1;
   const int x0 = (int)fminf(fmaxf(x0f, -2.0f), (float)w + 1.0f);
   const int y0 = (int)fminf(fmaxf(y0f, -2.0f), (float)h + 1.0f);
   const bool vx0 = (unsigned)x0 < (unsigned)w;
   const bool vx1 = (unsigned)(x0 + 1) < (unsigned)w;
   const bool vy0 = (unsigned)y0 < (unsigned)h;
   const bool vy1 = (unsigned)(y0 + 1) < (unsigned)h;
-  const float w00 = wy0 * wx0;
-  const float w01 = wy0 * wx1;
-  const float w10 = wy1 * wx0;
-  const float w11 = wy1 * wx1;
-  const int r0 = y0 * w + x0;
-  const int r1 = r0 + w;
-  const float t00 = (vy0 && vx0) ? __ldg(img + r0) : 0.0f;
-  const float t01 = (vy0 && vx1) ? __ldg(img + r0 + 1) : 0.0f;
-  const float t10 = (vy1 && vx0) ? __ldg(img + r1) : 0.0f;
-  const float t11 = (vy1 && vx1) ? __ldg(img + r1 + 1) : 0.0f;
-  return t00 * w00 + t01 * w01 + t10 * w10 + t11 * w11;
+  t.v00 = vy0 && vx0;
+  t.v01 = vy0 && vx1;
+  t.v10 = vy1 && vx0;
+  t.v11 = vy1 && vx1;
+  t.r0 = y0 * w + x0;
+  return t;
+}
+
+// The tap values (x: (y0,x0), y: (y0,x0+1), z: (y0+1,x0), w: (y0+1,x0+1)),
+// each 0 outside the image.
+__device__ __forceinline__ float4 fetch_c1(const float* __restrict__ img,
+                                           int w, const TapsC1& t) {
+  const int r1 = t.r0 + w;
+  return make_float4(t.v00 ? __ldg(img + t.r0) : 0.0f,
+                     t.v01 ? __ldg(img + t.r0 + 1) : 0.0f,
+                     t.v10 ? __ldg(img + r1) : 0.0f,
+                     t.v11 ? __ldg(img + r1 + 1) : 0.0f);
+}
+
+// One point of a single-channel image, as bilinear_sample_kernel computes
+// it for C = 1.
+__device__ __forceinline__ float sample_c1(const float* __restrict__ img,
+                                          int h, int w, float x, float y) {
+  const TapsC1 t = taps_c1(h, w, x, y);
+  const float4 v = fetch_c1(img, w, t);
+  return v.x * (t.wy0 * t.wx0) + v.y * (t.wy0 * t.wx1) +
+         v.z * (t.wy1 * t.wx0) + v.w * (t.wy1 * t.wx1);
 }
 
 constexpr int kC1Threads = 256;
@@ -154,9 +182,17 @@ bilinear_sample_c1_kernel(const float* __restrict__ img,
 //
 // Bound on the H100: bytes. At the loss-warp shape (N = 128 images of
 // 128x128x1, P = 16,384) the call must read the images, u, v and g and
-// write du and dv, ~50 MB (~15 us), against ~30 flops per point. One thread
-// per point; neighbouring threads take neighbouring points, so the point
-// arrays coalesce and the taps mostly hit L1/L2.
+// write du and dv, ~50 MB (~15 us), against ~30 flops per point.
+//
+// Design for C = 1, the loss warp's C (bilinear_sample_bwd_uv_c1_kernel):
+// K3's C = 1 layout. A 2-D grid, blockIdx.y = image, so no 64-bit division
+// and 32-bit tap offsets inside the image; 2 consecutive points a thread,
+// with float2 loads of u, v and g and float2 stores of du and dv when P is
+// even and every pointer 8-byte aligned, else scalar accesses, the last
+// thread of an image taking only the point below P; the taps through
+// __ldg, their positions, weights and validity from K3's taps_c1, so the
+// two kernels cannot drift apart. C > 1 keeps the generic kernel below:
+// one thread per point, a loop over the channels.
 __global__ void bilinear_sample_bwd_uv_kernel(
     const float* __restrict__ img, const float* __restrict__ u,
     const float* __restrict__ v, const float* __restrict__ g,
@@ -194,6 +230,50 @@ __global__ void bilinear_sample_bwd_uv_kernel(
   }
   du[i] = wx1 == 0.0f ? 0.0f : su;
   dv[i] = wy1 == 0.0f ? 0.0f : sv;
+}
+
+// K4 at one point of a single-channel image with cotangent g: (du, dv).
+__device__ __forceinline__ float2 sample_grad_c1(
+    const float* __restrict__ img, int h, int w, float x, float y, float g) {
+  const TapsC1 t = taps_c1(h, w, x, y);
+  const float4 v = fetch_c1(img, w, t);
+  return make_float2(
+      t.wx1 == 0.0f ? 0.0f : g * (t.wy0 * (v.y - v.x) + t.wy1 * (v.w - v.z)),
+      t.wy1 == 0.0f ? 0.0f : g * (t.wx0 * (v.z - v.x) + t.wx1 * (v.w - v.y)));
+}
+
+// K4, C = 1: grid (ceil(P / (2 * 256)), N); thread = points 2q, 2q + 1 of
+// image blockIdx.y. kVec: P even and u, v, g, du, dv 8-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(kC1Threads)
+bilinear_sample_bwd_uv_c1_kernel(const float* __restrict__ img,
+                                 const float* __restrict__ u,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ du,
+                                 float* __restrict__ dv, int h, int w,
+                                 int p) {
+  const int q = (blockIdx.x * kC1Threads + threadIdx.x) * 2;
+  if (q >= p) return;
+  const long long row = (long long)blockIdx.y * p;
+  const float* im = img + (long long)blockIdx.y * h * w;
+  if (kVec) {
+    const float2 uu = __ldg(reinterpret_cast<const float2*>(u + row + q));
+    const float2 vv = __ldg(reinterpret_cast<const float2*>(v + row + q));
+    const float2 gg = __ldg(reinterpret_cast<const float2*>(g + row + q));
+    const float2 a = sample_grad_c1(im, h, w, uu.x, vv.x, gg.x);
+    const float2 b = sample_grad_c1(im, h, w, uu.y, vv.y, gg.y);
+    *reinterpret_cast<float2*>(du + row + q) = make_float2(a.x, b.x);
+    *reinterpret_cast<float2*>(dv + row + q) = make_float2(a.y, b.y);
+  } else {
+    const int end = q + 2 < p ? q + 2 : p;
+    for (int i = q; i < end; ++i) {
+      const float2 d = sample_grad_c1(im, h, w, __ldg(u + row + i),
+                                      __ldg(v + row + i), __ldg(g + row + i));
+      du[row + i] = d.x;
+      dv[row + i] = d.y;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -243,6 +323,18 @@ __global__ void bilinear_sample_bwd_img_kernel(
   }
 }
 
+// The C = 1 kernels take a call when the grid's y dimension holds the
+// images and 32-bit offsets hold a point's index and its taps.
+bool c1_path(int n, int h, int w, int c, long long p) {
+  return c == 1 && n <= 65535 && p <= (1LL << 30) &&
+         (long long)(h + 2) * w < (1LL << 31);
+}
+
+dim3 c1_grid(int n, long long p) {
+  return dim3((unsigned)((p + 2 * kC1Threads - 1) / (2 * kC1Threads)),
+              (unsigned)n);
+}
+
 }  // namespace
 
 // img [N,H,W,C], u/v [N,P], g [N,P,C] -> du/dv [N,P].
@@ -253,6 +345,16 @@ extern "C" int bilinear_sample_bwd_uv(const float* img, const float* u,
                                       void* stream) {
   const long long total = (long long)n * p;
   if (total == 0) return 0;
+  if (c1_path(n, h, w, c, p)) {
+    const bool vec = p % 2 == 0 && (((uintptr_t)u | (uintptr_t)v |
+                                     (uintptr_t)g | (uintptr_t)du |
+                                     (uintptr_t)dv) & 7) == 0;
+    auto kernel = vec ? bilinear_sample_bwd_uv_c1_kernel<true>
+                      : bilinear_sample_bwd_uv_c1_kernel<false>;
+    kernel<<<c1_grid(n, p), kC1Threads, 0, (cudaStream_t)stream>>>(
+        img, u, v, g, du, dv, h, w, (int)p);
+    return (int)cudaGetLastError();
+  }
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   bilinear_sample_bwd_uv_kernel<<<(unsigned)blocks, threads, 0,
@@ -283,17 +385,14 @@ extern "C" int bilinear_sample(const float* img, const float* u,
                                int w, int c, long long p, void* stream) {
   const long long total = (long long)n * p;
   if (total == 0) return 0;
-  if (c == 1 && n <= 65535 && p <= (1LL << 30) &&
-      (long long)(h + 2) * w < (1LL << 31)) {
+  if (c1_path(n, h, w, c, p)) {
     const bool vec =
         p % 2 == 0 &&
         (((uintptr_t)u | (uintptr_t)v | (uintptr_t)out) & 7) == 0;
-    const dim3 grid((unsigned)((p + 2 * kC1Threads - 1) / (2 * kC1Threads)),
-                    (unsigned)n);
     auto kernel = vec ? bilinear_sample_c1_kernel<true>
                       : bilinear_sample_c1_kernel<false>;
-    kernel<<<grid, kC1Threads, 0, (cudaStream_t)stream>>>(img, u, v, out, h,
-                                                         w, (int)p);
+    kernel<<<c1_grid(n, p), kC1Threads, 0, (cudaStream_t)stream>>>(
+        img, u, v, out, h, w, (int)p);
     return (int)cudaGetLastError();
   }
   const int threads = 256;

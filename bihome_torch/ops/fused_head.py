@@ -41,6 +41,8 @@ _SIGNATURES = {
     'pf_head_bwd_blocks': [ctypes.c_longlong, ctypes.c_int],
     'pf_head_bwd_partial_cols': [],
 }
+# The largest Cmid the forward kernel takes (kFwdMaxCmid in the source).
+_FWD_MAX_CMID = 1024
 
 
 def fold_bn(w1: Tensor, b1: Tensor, gamma: Tensor, beta: Tensor,
@@ -90,15 +92,19 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
                       var: Tensor, eps: float = 1e-5) -> Tensor:
     """x [N,Cin,H,W] float32 (NCHW), conv weights in torch layout
     (w1 [Cmid,Cin,1,1], w2 [Cout,Cmid,1,1]) -> [N,Cout,H,W].
-    The CUDA kernel takes Cin=16, Cout=2 (the ResNet34-flavour head)."""
+    The CUDA kernel (its Cin x Cmid product on the tensor cores in 3xTF32)
+    takes Cin=16, Cout=2 and Cmid a multiple of 16 up to 1024: 128 for the
+    ResNet34-flavour head, 512 for the ResNet50-flavour one."""
     if x.device.type == 'cpu':
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
     _cuda.check_cuda_tensor(x, 'x', 4)
     n, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
-    if cin != 16 or cout != 2 or w1.reshape(cmid, -1).shape[1] != cin:
-        raise ValueError(f'the PF-head kernel takes Cin=16, Cout=2; got '
+    if (cin != 16 or cout != 2 or w1.reshape(cmid, -1).shape[1] != cin
+            or cmid % 16 != 0 or not 16 <= cmid <= _FWD_MAX_CMID):
+        raise ValueError(f'the PF-head kernel takes Cin=16, Cout=2 and Cmid '
+                         f'a multiple of 16 up to {_FWD_MAX_CMID}; got '
                          f'x {tuple(x.shape)}, w1 {tuple(w1.shape)}, '
                          f'w2 {tuple(w2.shape)}')
     g1t, c1 = fold_bn(w1, b1, gamma, beta, mean, var, eps)

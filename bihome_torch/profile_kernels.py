@@ -1,0 +1,297 @@
+"""Where a hand-written kernel spends its time on the card, and how it
+compares with another version of its source.
+
+    python -m bihome_torch.profile_kernels --kernel k1|k2|k4 \\
+        [--baseline FILE] [--cmid 128] [--batch_size 64] [--rounds 2]
+
+No kernel profiler runs on the machine with the card, so this builds
+variants of the kernel's source (``csrc/fused_head.cu`` for K1 and K2,
+``csrc/warp.cu`` for K4) with one part cut out or done another way, each
+with nvcc (the port's flags) into its own library under
+``build/kernels/``, and times each against the kernel as built at the
+main path's shape with the timer of chip_smoke.py
+(``bihome_torch/utils/timing.py``), in turns. What a cut saves is what
+that part costs where it does not overlap the rest; the savings need not
+add up. The cut variants compute wrong results on purpose: only their
+times mean anything. ``--baseline FILE`` builds another version
+of the same source (an earlier commit's, unpacked under ``build/``) and
+times it beside the kernel as built, with the host cost per call of each
+(the C entry point through ctypes, without the Python wrapper). It also
+prints what the compiler made of the kernel (its 16-byte-copy or float2
+variant): its SASS instruction count by opcode, from cuobjdump. Shapes:
+K1 and K2 x [2B,16,128,128], Cmid 128 (K1: ``--cmid``), Cout 2 (K2 with a
+cotangent); K4 the loss warp, 2B images of 128x128x1 at P = 16,384 points
+each. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import re
+import subprocess
+from pathlib import Path
+
+import torch
+
+from bihome_torch import geometry
+from bihome_torch.ops import _cuda
+from bihome_torch.ops import fused_head as fh
+from bihome_torch.ops import warp
+from bihome_torch.utils.timing import host_us, time_ms
+
+
+def _cut(old: str, new: str, then=None):
+    """Replace ``old`` by ``new`` in the source (then apply ``then``)."""
+    def apply(src: str) -> str:
+        if old not in src:
+            raise RuntimeError(f'profile_kernels: {old!r} not in the source')
+        src = src.replace(old, new)
+        return then(src) if then else src
+    return apply
+
+
+# With the tensor-core products cut, each accumulator keeps its input.
+_NO_MMA = ('no tensor-core products', lambda src: re.sub(
+    r'asm\("mma\.sync.*?\);', 'for (int i = 0; i < 4; ++i) d[i] = c[i];', src,
+    count=1, flags=re.S))
+_SINGLE_PASS = ('single-pass products (big*big only)', _cut(
+    '  mma_tf32(hs, ab, bs, chs);\n  mma_tf32(hs, as, bb, hs);\n',
+    '  for (int r = 0; r < 4; ++r) hs[r] = chs[r];\n'))
+
+# Each turns the source into a variant without one part of the kernel, or
+# with it done another way.
+CUTS = {
+    'k1': dict([
+        ('one accumulator for all three passes (small terms first)', _cut(
+            '    mma3(hh[mt], hs[mt], ab[mt][0], as[mt][0], bb[0], bs[0], '
+            'c1r, zero);\n'
+            '    mma3(hh[mt], hs[mt], ab[mt][1], as[mt][1], bb[1], bs[1]);\n',
+            '    mma_tf32(hh[mt], as[mt][0], bb[0], c1r);\n'
+            '    mma_tf32(hh[mt], ab[mt][0], bs[0], hh[mt]);\n'
+            '    mma_tf32(hh[mt], as[mt][1], bb[1], hh[mt]);\n'
+            '    mma_tf32(hh[mt], ab[mt][1], bs[1], hh[mt]);\n'
+            '    mma_tf32(hh[mt], ab[mt][0], bb[0], hh[mt]);\n'
+            '    mma_tf32(hh[mt], ab[mt][1], bb[1], hh[mt]);\n'
+            '    for (int r = 0; r < 4; ++r) hs[mt][r] = 0.0f;\n',
+            _cut('fmaxf(hh[mt][r] + hs[mt][r], 0.0f)',
+                 'fmaxf(hh[mt][r], 0.0f)'))),
+        ('n-tile loop software-pipelined by hand', _cut(
+            '    for (int nt = 0; nt < ntn; ++nt) {\n'
+            '      float hh[2][4], hs[2][4];\n'
+            '      fwd_products(s_b, s_c, nt, lane, ab, as, hh, hs);\n'
+            '      fwd_epilogue(s_c, nt, lane, hh, hs, acc);\n',
+            '    float hh0[2][4], hs0[2][4], hh1[2][4], hs1[2][4];\n'
+            '    fwd_products(s_b, s_c, 0, lane, ab, as, hh0, hs0);\n'
+            '    for (int nt = 0; nt < ntn; nt += 2) {\n'
+            '      fwd_products(s_b, s_c, nt + 1, lane, ab, as, hh1, hs1);\n'
+            '      fwd_epilogue(s_c, nt, lane, hh0, hs0, acc);\n'
+            '      if (nt + 2 < ntn) fwd_products(s_b, s_c, nt + 2, lane, ab, '
+            'as, hh0, hs0);\n'
+            '      fwd_epilogue(s_c, nt + 1, lane, hh1, hs1, acc);\n')),
+        ('three blocks per SM (85 registers a thread)', _cut(
+            '__launch_bounds__(kFwdThreads, 2)\npf_head_fwd_kernel(',
+            '__launch_bounds__(kFwdThreads, 3)\npf_head_fwd_kernel(')),
+        _SINGLE_PASS,
+        ('no ReLU and output FMAs (one add per value)', _cut(
+            '      const float a = fmaxf(hh[mt][r] + hs[mt][r], 0.0f);\n'
+            '      const int px = r >> 1, ch = r & 1;\n'
+            '      acc[mt][px][0] = fmaf(wo[0][ch], a, acc[mt][px][0]);\n'
+            '      acc[mt][px][1] = fmaf(wo[1][ch], a, acc[mt][px][1]);\n',
+            '      acc[mt][r >> 1][r & 1] += hh[mt][r] + hs[mt][r];\n')),
+        ('no stores', _cut('if (s < hw) on[s] =',
+                           'if (s < hw && v == -1.25e-30f) on[s] =')),
+        ('no n-tile loop (loads, stores, per-tile work)', _cut(
+            'for (int nt = 0; nt < ntn; ++nt) {',
+            'for (int nt = 0; nt < 0; ++nt) {')),
+        ('no x loads after the first tile', _cut(
+            '    if (next < ntiles) {\n      load_fwd_tile<kVec>',
+            '    if (next < 0) {\n      load_fwd_tile<kVec>')),
+        _NO_MMA,
+    ]),
+    'k2': dict([
+        _SINGLE_PASS,
+        ('dx single-pass', _cut(
+            '        mma3(hh, hs, ab, as, bb, bs);\n      }\n'
+            '      // Register r: k',
+            '        mma_tf32(hh, ab, bb, hh);\n      }\n'
+            '      // Register r: k')),
+        ('no M0/M1 sums', _cut(
+            '          m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);\n'
+            '          m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
+        _NO_MMA,
+    ]),
+    'k4': {},
+}
+SOURCES = {'k1': 'fused_head', 'k2': 'fused_head', 'k4': 'warp'}
+# The kernel whose SASS is counted (its mangled name starts so).
+SASS_NAMES = {'k1': 'pf_head_fwd_kernelILb1', 'k2': 'pf_head_bwd_kernelILb1',
+              'k4': 'bilinear_sample_bwd_uv_c1_kernelILb1'}
+SIGNATURES = {'fused_head': fh._SIGNATURES, 'warp': warp._SIGNATURES}
+
+
+def _build(sources: dict, entry_points: str) -> dict:
+    """Compile each {name: source text} as lib<name> into build/kernels,
+    all nvcc processes started together, and load each with the entry
+    points of csrc/<entry_points>.cu."""
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        cu = _cuda.BUILD_DIR / f'{name}.cu'
+        cu.write_text(src)
+        so = _cuda.BUILD_DIR / f'lib{name}.so'
+        # The sources include nothing from csrc/: each compiles on its own.
+        procs[name] = (so, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-o', str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed for {name}:\n{log}')
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in SIGNATURES[entry_points].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def sass_counts(so: Path, kernel: str) -> collections.Counter:
+    """Opcode counts of the SASS of the function whose mangled name
+    starts with ``kernel`` in ``so``."""
+    cuobjdump = Path(_cuda._nvcc()).with_name('cuobjdump')
+    sass = subprocess.run([str(cuobjdump), '-sass', str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    counts = collections.Counter()
+    inside = False
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            inside = kernel in line
+            continue
+        m = re.match(r'\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)',
+                     line)
+        if inside and m:
+            counts[m.group(1)] += 1
+    return counts
+
+
+def _runner_factory(kernel: str, batch: int, cmid: int):
+    """(describe, lib -> call): the kernel's C entry point at the main
+    path's shape on seeded inputs."""
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device('cuda')
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    n = 2 * batch
+    if kernel == 'k4':
+        ps, p = 128, 128 * 128
+        images = torch.randn((n, ps, ps, 1), generator=gen).to(dev)
+        # The patch grid through homographies of corner offsets of a few
+        # pixels, as the loss warp samples it.
+        corners = geometry.image_corners(ps, ps, batch_size=n)
+        delta = torch.rand((n, 4, 2), generator=gen) * 16 - 8
+        u, v = geometry.homography_grid(
+            geometry.four_point_to_homography(corners, delta), (ps, ps))
+        u, v = u.to(dev), v.to(dev)
+        g = torch.randn((n, p, 1), generator=gen).to(dev)
+        du, dv = torch.empty_like(u), torch.empty_like(v)
+
+        def make(lib):
+            return lambda: _cuda.check_status(lib.bilinear_sample_bwd_uv(
+                images.data_ptr(), u.data_ptr(), v.data_ptr(), g.data_ptr(),
+                du.data_ptr(), dv.data_ptr(), n, ps, ps, 1, p, stream()),
+                'K4')
+        return f'K4 at images [{n},{ps},{ps},1], P = {p}', make
+
+    cin, cout, hw = 16, 2, 128 * 128
+    x = torch.relu(torch.randn((n, cin, hw), generator=gen)).to(dev)
+    w1t = (torch.randn((cmid, cin), generator=gen) * 0.3).to(dev)
+    c1 = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
+    if kernel == 'k1':
+        w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
+        b2 = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        out = torch.empty((n, cout, hw), device=dev)
+
+        def make(lib):
+            return lambda: _cuda.check_status(lib.pf_head_fwd(
+                x.data_ptr(), w1t.data_ptr(), c1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), out.data_ptr(), n, cin, hw, cmid, cout,
+                stream()), 'K1')
+        return f'K1 at x [{n},{cin},128,128], Cmid {cmid}', make
+
+    g = torch.randn((n, cout, hw), generator=gen).to(dev)
+    gis = (torch.randn(cmid, generator=gen) * 0.2 + 1.0).to(dev)
+    w2gis = (torch.randn((cmid, cout), generator=gen) * 0.3).to(dev)
+    dx = torch.empty_like(x)
+
+    def make(lib):
+        blocks = lib.pf_head_bwd_blocks(n, hw)
+        partial = torch.empty((blocks, lib.pf_head_bwd_partial_cols()),
+                              device=dev)
+        sums = torch.empty(partial.shape[1], device=dev)
+        return lambda: _cuda.check_status(lib.pf_head_bwd(
+            x.data_ptr(), g.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
+            c1.data_ptr(), w2gis.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), sums.data_ptr(), n, cin, hw, cmid, cout,
+            blocks, stream()), 'K2')
+    return f'K2 at x [{n},{cin},128,128], Cmid {cmid}', make
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--kernel', choices=sorted(CUTS), default='k2')
+    parser.add_argument('--baseline', type=Path, default=None,
+                        help='another version of the kernel\'s source file, '
+                        'timed beside the one in csrc/')
+    parser.add_argument('--cmid', type=int, default=128,
+                        help='K1\'s middle width (K2 takes 128 only)')
+    parser.add_argument('--batch_size', type=int, default=64)
+    parser.add_argument('--rounds', type=int, default=2)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_kernels needs a CUDA device')
+    name, source = args.kernel, SOURCES[args.kernel]
+    src = (_cuda.CSRC / f'{source}.cu').read_text()
+    labels = {f'{name}_as_built': 'as built'}
+    sources = {f'{name}_as_built': src}
+    if args.baseline is not None:
+        labels[f'{name}_baseline'] = f'baseline {args.baseline}'
+        sources[f'{name}_baseline'] = args.baseline.read_text()
+    for i, (cut_name, cut) in enumerate(CUTS[name].items()):
+        labels[f'{name}_variant{i}'] = cut_name
+        sources[f'{name}_variant{i}'] = cut(src)
+    libs = {labels[k]: lib for k, lib in _build(sources, source).items()}
+    counts = sass_counts(_cuda.BUILD_DIR / f'lib{name}_as_built.so',
+                         SASS_NAMES[name])
+    print(f'{name.upper()} SASS: {sum(counts.values())} instructions; '
+          + ', '.join(f'{op} {k}' for op, k in counts.most_common(12)))
+
+    describe, make = _runner_factory(name, args.batch_size, args.cmid)
+    runs = {label: make(lib) for label, lib in libs.items()}
+    times = {label: [] for label in runs}
+    for _ in range(args.rounds):
+        for label, run in runs.items():
+            times[label].append(time_ms(run))
+        times['as built'].append(time_ms(runs['as built']))
+    print(f'{describe} on {torch.cuda.get_device_name(0)}: ms per call '
+          f'(every reading), and the median saved against the kernel as '
+          f'built')
+    base = sorted(times['as built'])[len(times['as built']) // 2]
+    for label, ts in times.items():
+        mid = sorted(ts)[len(ts) // 2]
+        print(f'  {label:48s} {" ".join(f"{t:.4f}" for t in ts)}'
+              + ('' if label == 'as built' else f'  saves {base - mid:.4f}'))
+    if args.baseline is not None:
+        hosts = {label: [] for label in runs
+                 if label == 'as built' or label.startswith('baseline')}
+        for _ in range(3):
+            for label in hosts:
+                hosts[label].append(host_us(runs[label]))
+        print('  host us per call (C entry point, in turns): ' + '; '.join(
+            f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
+            for label, readings in hosts.items()))
+
+
+if __name__ == '__main__':
+    main()

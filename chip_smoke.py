@@ -6,15 +6,19 @@
 1. Prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, and turns TF32 off for matmuls and cuDNN convolutions.
 2. Builds every CUDA kernel (K1-K5) from bihome_torch/csrc with nvcc (in
-   parallel, into build/kernels/) and prints the build time.
+   parallel, into build/kernels/) and prints the build time and, per
+   kernel (by its mangled name), ptxas's registers and spills.
 3. Holds each kernel against its plain-torch version on the card and
    times kernel, plain version and, where one PyTorch call computes the
    same function, that call (median device time of 50 launches, each
    behind an L2-flushing 100 MB write, CUDA events tightly around each;
    bihome_torch/utils/timing.py), and prints the host's cost per call of
-   K3 and grid_sample:
+   the K1, K3 and K4 wrappers and of grid_sample:
    K1 and K3 at the eval shapes (batch 64), K2, K3, K4 and K5 at the
-   training shapes (batch 64, both directions stacked: 128 images).
+   training shapes (batch 64, both directions stacked: 128 images). K1
+   and K2, whose Cin x Cmid products run on the tensor cores in 3xTF32,
+   are held to the tensor-core bound, with the time of that 3xTF32
+   tensor work printed beside it.
 4. Drives the port's eval entry point (zeng-biHomE S-COCO config,
    synthetic images, batch 64, 4 steps) with the launch counters set to 0
    just before and read just after; fails unless K1 and K3 launched, MACE
@@ -29,7 +33,8 @@
    the CPU in float32, each against the CPU plain path in float64 (batch
    4, the same conditioned weights, pairs and draws); then on the card
    with a planted fault in K4's or K2's output, which the same limits
-   must catch.
+   must catch. The CPU references (here and in step 4) run torch's CPU
+   ops on one thread.
 7. Prints one {"kernels": [...]} line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -75,6 +80,20 @@ def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """Run torch's CPU ops on one thread, so that the CPU references are
+    the same in every run: computed on 8 threads, the eval batch's CPU
+    delta_hat once came out pixels off on its first call, and right on
+    the next, on the machine with the card."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _grid(u, v, h, w):
@@ -171,23 +190,35 @@ def check_pf_head(dev, gen):
         raise AssertionError(f'PF-head kernel disagrees with plain: {err}')
     ms = time_ms(lambda: fused_head.fused_pf_head_fwd(*args))
     plain_ms = time_ms(lambda: fused_head.pf_head_fwd_plain(*args))
+    host = {'kernel': host_us(lambda: fused_head.fused_pf_head_fwd(*args))}
     m = n * hw * hw
     nbytes = 4 * (m * cin + m * cout + cmid * cin + 3 * cmid + cout * cmid
                   + cout + cmid)
     flops = 2 * m * (cin * cmid + cmid * cout)
-    # K1 runs on the fp32 cores: its bound is theirs. The tensor-core bound
-    # is shown beside it, for the redesign still queued.
-    bms, by = bound_ms(nbytes, flops)
-    btc, bytc = bound_ms(nbytes, flops, TF32_TC_FLOP_PER_S)
+    # K1 runs its [M,Cin] x [Cin,Cmid] product on the tensor cores in
+    # 3xTF32 (three passes) and the epilogue (the sum of the two passes'
+    # accumulators, the ReLU, Cout FMAs: 2 + 2 Cout flops per middle value)
+    # on the fp32 cores beside them: its bound is the largest of the bytes,
+    # the 3xTF32 tensor work and the epilogue. The fp32-core bound of the
+    # whole function is shown beside it.
+    tc3 = 3 * 2 * m * cin * cmid / TF32_TC_FLOP_PER_S * 1e3
+    epilogue = m * cmid * (2 + 2 * cout) / FP32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bms = max(t_bytes, tc3, epilogue)
+    by = 'bytes' if bms == t_bytes else 'operations'
+    bfp, byfp = bound_ms(nbytes, flops)
     print(f'K1 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  '
-          f'bound {bms:.4f} ({by}, fp32 cores); tensor-core bound {btc:.4f} '
-          f'({bytc})')
+          f'bound {bms:.4f} ({by}, tensor cores: 3xTF32 tensor work '
+          f'{tc3:.4f}, fp32 epilogue {epilogue:.4f}, bytes {t_bytes:.4f}); '
+          f'fp32-core bound {bfp:.4f} ({byfp}); host us per call: kernel '
+          f'{host["kernel"]:.1f}')
     return {'name': 'fused_pf_head_fwd', 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:93',
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': None,
-            'bound_fp32_ms': bms, 'bound_tc_ms': btc}
+            'bound_fp32_ms': bfp, 'bound_tc_ms': bms, 'tc_3xtf32_ms': tc3,
+            'host_us': host}
 
 
 def run_eval_path(counters):
@@ -218,7 +249,8 @@ def run_eval_path(counters):
     model_cpu = copy.deepcopy(model).cpu()
     batch_cpu = {k: v.cpu() for k, v in batch.items()}
     gen = teval.dsac_generator(result['test_seed'], 0)
-    delta_cpu = model_cpu.predict(batch_cpu, generator=gen)
+    with one_cpu_thread():
+        delta_cpu = model_cpu.predict(batch_cpu, generator=gen)
     err = (delta_cuda - delta_cpu).abs().max().item()
     print(f'delta_hat CUDA vs CPU plain path, batch 0: max abs err '
           f'{err:.3e} px (max |delta_hat| {delta_cpu.abs().max().item():.2f};'
@@ -408,6 +440,8 @@ def check_warp_bwd(dev, gen):
     lib5 = time_ms(lambda: torch.autograd.grad(out_img, img_req, g_nchw,
                                                retain_graph=True))
     ms4 = time_ms(lambda: warp.bilinear_sample_bwd_uv(images, u, v, g))
+    host4 = {'kernel': host_us(lambda: warp.bilinear_sample_bwd_uv(images, u,
+                                                                   v, g))}
     plain4 = time_ms(lambda: warp.bilinear_sample_bwd_uv_plain(images, u, v,
                                                                g))
     shape = tuple(images.shape)
@@ -428,7 +462,8 @@ def check_warp_bwd(dev, gen):
           f'host us per call: kernel {host3["kernel"]:.1f}  grid_sample '
           f'{host3["grid_sample"]:.1f}')
     print(f'K4 times (ms): kernel {ms4:.4f}  plain {plain4:.4f}  '
-          f'grid_sample grid-grad {lib4:.4f}  bound {b4:.4f} ({by4})')
+          f'grid_sample grid-grad {lib4:.4f}  bound {b4:.4f} ({by4}); host '
+          f'us per call: kernel {host4["kernel"]:.1f}')
     print(f'K5 times (ms): kernel {ms5:.4f} (with zeroing dimg)  plain '
           f'{plain5:.4f}  grid_sample input-grad {lib5:.4f}  bound {b5:.4f} '
           f'({by5})')
@@ -441,7 +476,7 @@ def check_warp_bwd(dev, gen):
               max_abs_err=max(float((du - want_du).abs().max()),
                               float((dv - want_dv).abs().max())),
               max_rel_err=err4, ms=ms4, plain_ms=plain4, bound_ms=b4,
-              bound_by=by4, library_ms=lib4)
+              bound_by=by4, library_ms=lib4, host_us=host4)
     k5 = dict(common, name='bilinear_sample_bwd_img',
               replaces='bihome_tpu/ops/warp_pallas.py:101',
               max_abs_err=float((dimg - want_img).abs().max()),
@@ -607,9 +642,11 @@ def compare_train_step(result, batch=4):
     data = (pool, corners, delta, uniforms)
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
 
-    ref = one_step_grads(built, state, data, cpu, torch.float64)
+    with one_cpu_thread():
+        ref = one_step_grads(built, state, data, cpu, torch.float64)
+        cpu32 = one_step_grads(built, state, data, cpu)
     runs = {'card': one_step_grads(built, state, data, cuda),
-            'CPU fp32': one_step_grads(built, state, data, cpu)}
+            'CPU fp32': cpu32}
     for fault in FAULTS:
         with planted_fault(fault):
             runs[fault] = one_step_grads(built, state, data, cuda)
@@ -660,7 +697,8 @@ def main():
     print(f'built {sorted(logs)} in {time.perf_counter() - start:.1f} s')
     for name, log in logs.items():
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if ('entry function' in line or 'registers' in line
+                    or 'spill' in line):
                 print(f'  {name}: {line.strip()}')
 
     dev = torch.device('cuda')

@@ -6,7 +6,8 @@ it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts
-(K2's 64-pixel tiles, K3's pairs of points), points far outside,
+(K1's 256-pixel and K2's 64-pixel tiles, K3's and K4's pairs of points),
+K1 at Cmid 512, misaligned inputs, points far outside,
 exactly on the border or on integer coordinates, input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
@@ -47,15 +48,17 @@ def test_warp_kernel_matches_plain(cuda, channels):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize('n,p,outside', [(2, 1024, 0.3), (3, 1001, 0.3),
-                                          (1, 6, 0.5), (5, 1, 0.0),
-                                          (7, 4097, 1.0)])
-def test_warp_kernel_c1_tiling(cuda, n, p, outside):
-    # K3's C = 1 kernel: 2 points a thread, float2 when P is even (P =
-    # 1024, 6), scalar loads and a lone last point otherwise (P = 1001, 1,
-    # 4097; N*P odd for 3x1001, 5x1 and 7x4097), and points outside the
-    # image (a share of ``outside`` on average, all of them far outside for
-    # outside = 1.0).
+@pytest.mark.parametrize('n,p,outside,misalign', [
+    (2, 1024, 0.3, False), (3, 1001, 0.3, False), (1, 6, 0.5, False),
+    (5, 1, 0.0, False), (7, 4097, 1.0, False), (2, 1024, 0.3, True)])
+def test_warp_kernel_c1_tiling(cuda, n, p, outside, misalign):
+    # The C = 1 kernels of K3 and K4 on the same points: 2 points a thread,
+    # float2 accesses when P is even (P = 1024, 6), scalar ones and a lone
+    # last point otherwise (P = 1001, 1, 4097; N*P odd for 3x1001, 5x1 and
+    # 7x4097) or when u, v and g sit 4 bytes off an 8-byte boundary; points
+    # outside the image (a share of ``outside`` on average, all of them far
+    # outside for outside = 1.0); a quarter of the points on integer u and
+    # an eighth on integer u and v, where K4's du (dv) must be exactly 0.
     gen = torch.Generator().manual_seed(p)
     h, w = 19, 26
     img = (torch.rand((n, h, w, 1), generator=gen) * 255).to(cuda)
@@ -64,16 +67,37 @@ def test_warp_kernel_c1_tiling(cuda, n, p, outside):
     v = (torch.rand((n, p), generator=gen) - 0.5) * spread * h + h / 2
     if outside == 1.0:
         u = u + 10 * w
-    u, v = u.to(cuda), v.to(cuda)
-    before = warp.bilinear_sample_batched.launches
+    u[:, ::4] = torch.round(u[:, ::4])
+    v[:, ::8] = torch.round(v[:, ::8])
+    g = torch.randn((n, p, 1), generator=gen)
+
+    def place(t):
+        # Contiguous, on the card, 4 bytes past an 8-byte boundary if asked.
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        out = flat[int(misalign):int(misalign) + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+    u, v, g = place(u), place(v), place(g)
+    before = (warp.bilinear_sample_batched.launches,
+              warp.bilinear_sample_bwd_uv.launches)
     got = warp.bilinear_sample_batched(img, u, v)
+    du, dv = warp.bilinear_sample_bwd_uv(img, u, v, g)
     torch.cuda.synchronize()
-    assert warp.bilinear_sample_batched.launches == before + 1
+    assert (warp.bilinear_sample_batched.launches,
+            warp.bilinear_sample_bwd_uv.launches) == (before[0] + 1,
+                                                      before[1] + 1)
     want = warp.bilinear_sample_plain(img, u, v)
     assert got.shape == (n, p, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    want_du, want_dv = warp.bilinear_sample_bwd_uv_plain(img, u, v, g)
+    assert du.shape == dv.shape == (n, p)
+    for got_d, want_d in ((du, want_du), (dv, want_dv)):
+        tol = 1e-3 * (1.0 + want_d.abs().max().item())
+        torch.testing.assert_close(got_d, want_d, rtol=0, atol=tol)
+    assert torch.all(du[:, ::4] == 0) and torch.all(dv[:, ::8] == 0)
     if outside == 1.0:
-        assert torch.all(got == 0)
+        assert torch.all(got == 0) and torch.all(du == 0) and \
+            torch.all(dv == 0)
 
 
 def test_warp_kernel_rejects_bad_input(cuda):
@@ -87,20 +111,36 @@ def test_warp_kernel_rejects_bad_input(cuda):
         warp.bilinear_sample_batched(img, u[:1], u[:1])
 
 
-def _head_args(gen, n, h, w, cuda):
+def _head_args(gen, n, h, w, cuda, cmid=128):
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(cuda)
-    gamma = rnd(128, scale=0.2, shift=1.0)
+    gamma = rnd(cmid, scale=0.2, shift=1.0)
     gamma[0] = 0.0
-    return (rnd(n, 16, h, w), rnd(128, 16, 1, 1, scale=0.3),
-            rnd(128, scale=0.2), gamma, rnd(128, scale=0.1),
-            rnd(2, 128, 1, 1, scale=0.3), rnd(2, scale=0.1),
-            rnd(128, scale=0.1), (torch.rand(128, generator=gen) + 0.5).to(cuda))
+    return (rnd(n, 16, h, w), rnd(cmid, 16, 1, 1, scale=0.3),
+            rnd(cmid, scale=0.2), gamma, rnd(cmid, scale=0.1),
+            rnd(2, cmid, 1, 1, scale=0.3), rnd(2, scale=0.1),
+            rnd(cmid, scale=0.1),
+            (torch.rand(cmid, generator=gen) + 0.5).to(cuda))
 
 
-@pytest.mark.parametrize('shape', [(3, 17, 19), (2, 128, 128), (1, 1, 1)])
-def test_pf_head_kernel_matches_plain(cuda, shape):
-    args = _head_args(torch.Generator().manual_seed(0), *shape, cuda)
+# K1 walks 256-pixel tiles inside each image: HW = 323, 1, 48 and 4420 are
+# not multiples of 4 or of the tile (4-byte copies for 323 and 1; 48 is one
+# image smaller than a tile; 400 and 4420 end in a ragged tile). Cmid 512
+# is the ResNet50-flavour head's. The last case has HW % 4 == 0 but x 4
+# bytes off a 16-byte boundary (4-byte copies).
+@pytest.mark.parametrize('shape,cmid,misalign', [
+    ((3, 17, 19), 128, False), ((2, 128, 128), 128, False),
+    ((1, 1, 1), 128, False), ((2, 8, 6), 128, False),
+    ((3, 20, 20), 128, False), ((1, 68, 65), 128, False),
+    ((2, 33, 31), 512, False), ((2, 16, 16), 128, True)])
+def test_pf_head_kernel_matches_plain(cuda, shape, cmid, misalign):
+    args = list(_head_args(torch.Generator().manual_seed(0), *shape, cuda,
+                           cmid))
+    if misalign:
+        flat = torch.empty(args[0].numel() + 1, device=cuda)
+        x = flat[1:].view(args[0].shape)
+        x.copy_(args[0])
+        args[0] = x
     before = fused_head.fused_pf_head_fwd.launches
     got = fused_head.fused_pf_head_fwd(*args)
     torch.cuda.synchronize()
@@ -116,6 +156,13 @@ def test_pf_head_kernel_rejects_other_widths(cuda):
     args[1] = args[1][:, :8].contiguous()
     with pytest.raises(ValueError, match='Cin=16'):
         fused_head.fused_pf_head_fwd(*args)
+    # K1 takes Cmid a multiple of 16 up to 1024 (its shared memory holds
+    # g1t's split fragments).
+    for cmid in (40, 2048):
+        args = _head_args(torch.Generator().manual_seed(1), 1, 4, 4, cuda,
+                          cmid)
+        with pytest.raises(ValueError, match='Cmid'):
+            fused_head.fused_pf_head_fwd(*args)
 
 
 def _bwd_args(gen, n, h, w, cuda):

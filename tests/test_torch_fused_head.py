@@ -241,6 +241,38 @@ def test_k2_precision_3xtf32_against_single_pass():
     assert max(single.values()) >= 10 * max(split.values()), (single, split)
 
 
+def test_k1_precision_3xtf32_against_single_pass():
+    # The precision choice of the K1 kernel (csrc/fused_head.cu), grounded
+    # at its widths (Cin 16, Cmid 128, Cout 2, M = 4096, eval statistics):
+    # the forward's mid product through emulated 3xTF32 stays within the
+    # card tests' 1e-4 (1 + max|out|) of float64, and single-pass TF32
+    # strays past it (printed beside). The rest (c1, ReLU, the Cout = 2
+    # sums) runs in float32, as the kernel runs it on the fp32 cores.
+    rs = np.random.RandomState(12)
+    n, h, w = 4, 32, 32
+    x = rs.randn(n, 16, h, w).astype(np.float32)
+    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs)
+    t = torch.from_numpy
+    args = (t(w1.T.copy())[:, :, None, None], t(b1), t(gamma), t(beta),
+            t(w2.T.copy())[:, :, None, None], t(b2), t(mean), t(var))
+    want = tfh.pf_head_fwd_plain(t(x).double(), *(a.double() for a in args))
+    g1t, c1 = tfh.fold_bn(*args[:3], args[3], args[6], args[7], 1e-5)
+    x2 = t(x).permute(1, 0, 2, 3).reshape(16, -1)                  # [Cin,M]
+    w2m = args[4].reshape(2, -1)
+
+    def forward(mode):
+        mid = _tf32_product(mode)(g1t, x2)                         # [Cmid,M]
+        out = w2m @ torch.relu(mid + c1[:, None]) + args[5][:, None]
+        return out.reshape(2, n, h, w).permute(1, 0, 2, 3)
+
+    scale = float(want.abs().max())
+    split, single = (float((forward(mode).double() - want).abs().max())
+                     for mode in ('split', 'single'))
+    print(f'K1 forward, max abs error against float64 (max|out| {scale:.2f}):'
+          f' 3xTF32 {split:.2e}, single-pass TF32 {single:.2e}')
+    assert split <= 1e-4 * (1.0 + scale) < single, (split, single)
+
+
 def test_train_head_updates_running_stats_like_flax():
     rs = np.random.RandomState(7)
     x = rs.randn(3, 16, 16, 16).astype(np.float32)
