@@ -2,20 +2,22 @@
 ``bihome_tpu/config.py:22-134``).
 
 Reads the same reference-schema YAMLs. ``build_model`` assembles the
-Rethinking backbone with the PerceptualHead (predict chain and biHomE
-loss) and the pair specs; ``solver_kwargs`` reads the optimizer settings.
-Other families raise ``ValueError('not ported yet: ...')``.
+backbone (``build_backbone``: Rethinking or ResNet34) with its head
+(NoOpHead, PhotometricHead or PerceptualHead) and the pair specs, which
+emit the full ``image_1`` where the PhotometricHead reads it;
+``solver_kwargs`` reads the optimizer settings. Other families raise
+``ValueError('not ported yet: ...')``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import yaml
 
 from bihome_torch.data.pipeline import PairSpec, check_ported
-from bihome_torch.heads.assembled import AssembledModel
+from bihome_torch.heads.assembled import AssembledModel, needs_dsac
 from bihome_torch.heads.config import HeadConfig
 from bihome_torch.models.backbones import build_backbone
 
@@ -54,6 +56,14 @@ def apply_overrides(config: Dict[str, Any], overrides) -> Dict[str, Any]:
     return config
 
 
+def _emit_images_for(head_cfg: HeadConfig) -> Tuple[str, ...]:
+    """The full-size images the head reads: the PhotometricHead's
+    LEARNING_KEYS[1] (``bihome_tpu/config.py:59-69``), else none."""
+    if head_cfg.name == 'PhotometricHead':
+        return (head_cfg.learning_keys[1],)
+    return ()
+
+
 @dataclasses.dataclass
 class BuiltModel:
     model: AssembledModel
@@ -62,6 +72,10 @@ class BuiltModel:
     test_pair_spec: PairSpec
     loss_name: str
     config: Dict[str, Any]
+
+    @property
+    def needs_dsac_rng(self) -> bool:
+        return needs_dsac(self.head_cfg)
 
 
 def build_model(config: Dict[str, Any]) -> BuiltModel:
@@ -73,9 +87,12 @@ def build_model(config: Dict[str, Any]) -> BuiltModel:
     head_cfg = HeadConfig.from_yaml(model_cfg['HEAD'], model_cfg['BACKBONE'])
     backbone = build_backbone(model_cfg['BACKBONE'])
     model = AssembledModel(backbone, head_cfg)
-    pair_spec = PairSpec.from_transforms(config['DATA']['TRANSFORMS'])
+    emit = _emit_images_for(head_cfg)
+    pair_spec = PairSpec.from_transforms(config['DATA']['TRANSFORMS'], emit)
     test_pair_spec = PairSpec.from_transforms(
-        config['DATA'].get('TEST_TRANSFORM', config['DATA']['TRANSFORMS']))
+        config['DATA'].get('TEST_TRANSFORM', config['DATA']['TRANSFORMS']),
+        emit)
+    check_ported(pair_spec)
     check_ported(test_pair_spec)
     return BuiltModel(model=model, head_cfg=head_cfg, pair_spec=pair_spec,
                       test_pair_spec=test_pair_spec,

@@ -1,14 +1,19 @@
 """On-device synthetic homography-pair generation (counterpart of
 ``bihome_tpu/data/pipeline.py``).
 
-Ported: ``PairSpec.from_transforms``, the deterministic pair assembly, the
-window-first assembly, per-sample synthesis (the eval protocol: each
-sample's draws come from its own ``torch.Generator`` seeded by
-(seed, sample ordinal), so synthesis does not depend on how samples are
-grouped into batches) and ``generate_pairs`` (the training draws, one
-generator per batch; corners and deltas can be injected). Photometric
-distortion, full-image emission and 'all_points' targets are not ported
-yet and raise.
+Ported: ``PairSpec.from_transforms``, the deterministic pair assembly with
+the '4_points' and 'all_points' targets, ``_assemble_pairs`` (one
+window-first path for both of the JAX branches: when a head consumes
+``image_1`` the whole frame is distorted and emitted beside the pair),
+the PDS photometric distortion
+(:mod:`bihome_torch.data.photometric`) of either copy, per-sample
+synthesis (the eval protocol: each sample's draws come from its own
+``torch.Generator`` seeded by (seed, sample ordinal), so synthesis does
+not depend on how samples are grouped into batches) and ``generate_pairs``
+(the training draws, one generator per batch; corners, deltas and
+photometric draws can be injected). The dict-stage ``PhotometricDistort``,
+``ChangeAwarePrep``, host-side prep, blobs and emitting ``image_2`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from bihome_torch import geometry
+from bihome_torch.data import photometric
 from bihome_torch.ops import color
 
 Tensor = torch.Tensor
@@ -97,19 +103,16 @@ class PairSpec:
 def check_ported(spec: PairSpec) -> None:
     """Raise for the datagen features this port does not have yet."""
     missing = []
-    if spec.max_delta > 0 and {'image_1', 'image_2'} & set(
-            spec.photometric_keys):
-        missing.append('photometric distortion (HomographyNetPrep max_delta'
-                       f'={spec.max_delta:g})')
     if spec.photometric_full_keys:
         missing.append('PhotometricDistort')
     if spec.change_aware_keys:
         missing.append('ChangeAwarePrep')
     if spec.host_prep:
         missing.append('host-side prep transforms')
-    if spec.emit_images:
-        missing.append('full-image emission')
-    if spec.target_gen != '4_points':
+    unported_images = sorted(set(spec.emit_images) - {'image_1'})
+    if unported_images:
+        missing.append(f'emitting {unported_images}')
+    if spec.target_gen not in ('4_points', 'all_points'):
         missing.append(f'target_gen {spec.target_gen!r}')
     if spec.warp_dtype != 'float32':
         missing.append(f'warp_dtype {spec.warp_dtype!r}')
@@ -148,12 +151,31 @@ def _warp_patches(images: Tensor, homography: Tensor, corners0: Tensor,
     return out.reshape(b, ps, ps, c)
 
 
+def _perspective_field(homography: Tensor, corners0: Tensor,
+                       patch_size: int) -> Tensor:
+    """The dense 'all_points' target over the patch: pf(p) = H·p - p at the
+    absolute coordinates p of its pixels (``bihome_tpu/data/pipeline.py:
+    216-229``; ref: src/data/transforms.py:635-685). -> [B,ps,ps,2]."""
+    ps = patch_size
+    ys, xs = torch.meshgrid(torch.arange(ps, dtype=torch.float32,
+                                         device=homography.device),
+                            torch.arange(ps, dtype=torch.float32,
+                                         device=homography.device),
+                            indexing='ij')
+    grid = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)   # [P,2]
+    pts = grid[None] + corners0[:, None, :]
+    diff = geometry.transform_points(homography, pts) - pts
+    return diff.reshape(-1, ps, ps, 2)
+
+
 def generate_pairs_deterministic(
         image: Tensor, corners: Tensor, delta: Tensor, spec: PairSpec,
         image_1: Optional[Tensor] = None,
         image_2: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """Pair assembly given sampled (corners, delta): image/image_1/image_2
-    [B,H,W,3] float, corners [B,4,2] (integer-valued), delta [B,4,2]."""
+    [B,H,W,3] float (image_1/image_2 the distorted copies, default image),
+    corners [B,4,2] (integer-valued), delta [B,4,2]. ``image_1`` is emitted
+    when the spec asks for it."""
     check_ported(spec)
     image_1 = image if image_1 is None else image_1
     image_2 = image if image_2 is None else image_2
@@ -180,7 +202,20 @@ def generate_pairs_deterministic(
         'delta': delta.float(),
         'homography': homography,
     }
-    batch['target'] = batch['delta']
+    if spec.target_gen == '4_points':
+        batch['target'] = batch['delta']
+    else:
+        batch['target'] = _perspective_field(homography,
+                                             batch['corners'][:, 0], ps)
+    if 'image_1' in spec.emit_images:
+        batch['image_1'] = image_1
+    return _gray_standardize(batch, spec)
+
+
+def _gray_standardize(batch: Dict[str, Tensor],
+                      spec: PairSpec) -> Dict[str, Tensor]:
+    """Grayscale, then standardize, the spec's keys of ``batch`` (in
+    place), in the order of the config's transform list."""
     for key in spec.grayscale_keys:
         if key in batch and batch[key].shape[-1] != 1:
             batch[key] = color.rgb_to_grayscale(batch[key])
@@ -201,17 +236,37 @@ def sample_seed(seed: int, ordinal: int) -> int:
     return (int(seed) << 32) + int(ordinal)
 
 
-def draw_corners_delta(seeds: Sequence[int], image_hw: Tuple[int, int],
-                       spec: PairSpec) -> Tuple[Tensor, Tensor]:
-    """Per-sample patch corners [B,4,2] and corner perturbations [B,4,2]
-    (int64, CPU), each sample from its own ``torch.Generator``.
+def _photometric_copies(spec: PairSpec) -> Tuple[bool, bool]:
+    """Whether image_1 / image_2 are distorted (``bihome_tpu/data/
+    pipeline.py:455-456``)."""
+    on = spec.max_delta > 0
+    return (on and 'image_1' in spec.photometric_keys,
+            on and 'image_2' in spec.photometric_keys)
+
+
+def _draw_photometric(batch: int, spec: PairSpec,
+                      generator: Optional[torch.Generator]
+                      ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """The distortion draws of image_1 then image_2 ([batch, 12] each, CPU),
+    None for a copy that is not distorted."""
+    return tuple(photometric.draw_photometric_params(batch, spec.max_delta,
+                                                     generator) if on
+                 else None for on in _photometric_copies(spec))
+
+
+def draw_per_sample(seeds: Sequence[int], image_hw: Tuple[int, int],
+                    spec: PairSpec):
+    """Per-sample draws, each sample from its own ``torch.Generator``, in
+    the order patch centre, corner perturbations, the photometric draws of
+    image_1 then image_2 (CPU) -> (corners [B,4,2], delta [B,4,2], pd1,
+    pd2), pd1/pd2 [B,12] or None.
 
     Patch centres are uniform in [rho + ps/2, dim - rho - ps/2] (ref:
     src/data/transforms.py:504-509), deltas uniform in [-rho, rho)
     (np.random.randint semantics, ref: transforms.py:538)."""
     h, w = image_hw
     ps, rho = spec.patch_size, spec.rho
-    pos, deltas = [], []
+    pos, deltas, pds = [], [], []
     for seed in seeds:
         gen = torch.Generator().manual_seed(seed)
         if ps != w:
@@ -223,9 +278,20 @@ def draw_corners_delta(seeds: Sequence[int], image_hw: Tuple[int, int],
             px, py = torch.tensor(w // 2), torch.tensor(h // 2)
         pos.append(torch.stack([px, py]))
         deltas.append(torch.randint(-rho, rho, (4, 2), generator=gen))
+        pds.append(_draw_photometric(1, spec, gen))
     pos_t = torch.stack(pos)
     corners = _corners_from_position(pos_t[:, 0], pos_t[:, 1], ps)
-    return corners, torch.stack(deltas)
+    pd1, pd2 = (None if p[0] is None else torch.cat(p) for p in zip(*pds))
+    return corners, torch.stack(deltas), pd1, pd2
+
+
+def _params_to(device, pd1: Optional[Tensor], pd2: Optional[Tensor]):
+    """Both copies' photometric draws on ``device``, in one copy."""
+    drawn = [p for p in (pd1, pd2) if p is not None]
+    if not drawn:
+        return pd1, pd2
+    moved = iter(torch.stack(drawn).to(device).unbind(0))
+    return tuple(None if p is None else next(moved) for p in (pd1, pd2))
 
 
 def generate_pairs_per_sample(images: Tensor, seeds: Sequence[int],
@@ -234,17 +300,29 @@ def generate_pairs_per_sample(images: Tensor, seeds: Sequence[int],
     Every sample's randomness derives only from its own seed (the eval
     protocol's batch-size invariance, ref: eval.py:360)."""
     images = images.float()
-    corners, delta = draw_corners_delta(seeds, images.shape[1:3], spec)
+    corners, delta, pd1, pd2 = draw_per_sample(seeds, images.shape[1:3],
+                                               spec)
     return _assemble_pairs(images, corners.to(images.device),
-                           delta.to(images.device), spec)
+                           delta.to(images.device), spec,
+                           *_params_to(images.device, pd1, pd2))
 
 
 def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
-                    spec: PairSpec) -> Dict[str, Tensor]:
-    """Window-first assembly: patch_1 and patch_2 read only the (ps+2·rho)²
-    window around the patch, so only the window is cropped and converted.
-    Returns absolute-frame corners and homography."""
+                    spec: PairSpec, pd1: Optional[Tensor] = None,
+                    pd2: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Photometric distortion of the two copies with the draws ``pd1`` and
+    ``pd2`` ([B,12] on the images' device), then the pair
+    (``bihome_tpu/data/pipeline.py:443-488``), window-first: patch_1 and
+    patch_2 read only the (ps+2·rho)² window around the patch, so only the
+    window is cropped, distorted and converted. The distortion is per
+    pixel under per-sample draws, so this equals JAX's full-image branch
+    too, which a spec that emits ``image_1`` takes: here the whole frame is
+    distorted with pd1 and emitted beside the pair. Returns absolute-frame
+    corners and homography."""
     check_ported(spec)
+    on_1, on_2 = _photometric_copies(spec)
+    if (on_1 and pd1 is None) or (on_2 and pd2 is None):
+        raise ValueError('photometric distortion needs its draws')
     _, h, w, _ = images.shape
     ps, rho = spec.patch_size, spec.rho
     ws_x = min(ps + 2 * rho, w)
@@ -252,12 +330,18 @@ def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
     ox = (corners[:, 0, 0] - rho).clamp(0, w - ws_x)
     oy = (corners[:, 0, 1] - rho).clamp(0, h - ws_y)
     windows = geometry.crop_integer(images, ox, oy, (ws_y, ws_x))
+    win_1 = photometric.apply_photometric(windows, pd1) if on_1 else windows
+    win_2 = photometric.apply_photometric(windows, pd2) if on_2 else windows
     origin = torch.stack([ox, oy], dim=-1)[:, None, :]             # [B,1,2]
-    batch = generate_pairs_deterministic(windows, (corners - origin).float(),
-                                         delta.float(), spec)
+    batch = generate_pairs_deterministic(
+        windows, (corners - origin).float(), delta.float(),
+        dataclasses.replace(spec, emit_images=()), win_1, win_2)
     batch['corners'] = corners.float()
     batch['homography'] = geometry.four_point_to_homography(
         batch['corners'], batch['delta'])
+    if 'image_1' in spec.emit_images:
+        image_1 = photometric.apply_photometric(images, pd1) if on_1 else images
+        batch.update(_gray_standardize({'image_1': image_1}, spec))
     return batch
 
 
@@ -286,14 +370,22 @@ def draw_corners_delta_batch(batch: int, image_hw: Tuple[int, int],
 def generate_pairs(images: Tensor, spec: PairSpec,
                    generator: Optional[torch.Generator] = None,
                    corners: Optional[Tensor] = None,
-                   delta: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                   delta: Optional[Tensor] = None,
+                   photometric_params: Optional[Sequence[Optional[Tensor]]]
+                   = None) -> Dict[str, Tensor]:
     """Training pair synthesis (counterpart of
     ``bihome_tpu/data/pipeline.py:generate_pairs``): uint8/float images
     [B,H,W,3] -> batch dict. The corners and deltas are drawn from
-    ``generator`` unless both are given (integer-valued [B,4,2])."""
+    ``generator`` unless both are given (integer-valued [B,4,2]), then the
+    photometric draws of image_1 and image_2 unless ``photometric_params``
+    = (pd1, pd2) gives them ([B,12] or None each)."""
     images = images.float()
+    b = images.shape[0]
     if corners is None or delta is None:
         corners, delta = draw_corners_delta_batch(
-            images.shape[0], tuple(images.shape[1:3]), spec, generator)
+            b, tuple(images.shape[1:3]), spec, generator)
+    if photometric_params is None:
+        photometric_params = _draw_photometric(b, spec, generator)
     return _assemble_pairs(images, corners.long().to(images.device),
-                           delta.long().to(images.device), spec)
+                           delta.long().to(images.device), spec,
+                           *_params_to(images.device, *photometric_params))

@@ -1,24 +1,34 @@
-"""Backbone + PerceptualHead: the predict chain and the biHomE training
-loss (counterpart of ``bihome_tpu/heads/assembled.py``).
+"""Backbone + head: the predict chain and the training forward
+(counterpart of ``bihome_tpu/heads/assembled.py``).
 
-Ported:
+Ported heads:
 
-* ``predict`` for PerceptualHead with one DSAC hypothesis and no scoring —
-  the zeng-biHomE eval chain: backbone perspective field -> sampled points
-  -> DLT -> corner deltas (``assembled.py:354-396,762-826``).
-* ``forward`` (the training loss, ``_perceptual_forward`` and
-  ``_triplet_resnet_loss``, ``:330-728``) for the double-line, mask-less,
-  l1, downsample-mask biHomE variant of every shipped ``*-bihome`` config:
-  DSAC in both directions with gradients flowing, one warp of both
-  patches with the closed-form support mask, the frozen extractor run
-  twice (plain patches without gradient, warped patches with input
-  gradients), the fused triplet tail and the ``TRIPLET_MU`` homography
-  consistency term, plus the metrics of ``:652-725`` under the same keys.
+* ``NoOpHead`` with '4_points' (``assembled.py:166-184``): the backbone's
+  corner deltas against the ground truth under a tensor loss.
+* ``PhotometricHead`` (``:188-208``): warp-then-crop of the full
+  ``image_1`` by the homography of the predicted deltas, sampled directly
+  at the patch grid offset to the patch corner, against ``patch_2`` under
+  a tensor loss.
+* ``PerceptualHead`` with one DSAC hypothesis and no scoring (zeng-biHomE:
+  backbone perspective fields -> sampled points -> DLT -> corner deltas,
+  ``:354-396``), or with ``DELTA_HAT_KEYS`` (detone-biHomE: the
+  regression backbone's deltas of both directions, n = 1, ``:336-340``).
+  Its training forward is the double-line, mask-less, l1, downsample-mask
+  biHomE loss of every shipped ``*-bihome`` config (``_triplet_resnet_loss``,
+  ``:482-728``): one warp of both patches with the closed-form support
+  mask, the frozen extractor run twice (plain patches without gradient,
+  warped patches with input gradients), the fused triplet tail and the
+  ``TRIPLET_MU`` homography consistency term, plus the metrics of
+  ``:652-725`` under the same keys.
+* ``predict`` for all three (``:762-826``).
 
-Other heads and variants raise ``not ported yet``. The auxiliary extractor
-is frozen: its parameters never require grad and it stays in eval mode
-(``auxiliary_resnet_bn_train`` False, ``heads/config.py:40``) even when
-the model is put in training mode.
+``forward`` returns the JAX keys: ``{'ground_truth', 'network_output',
+'delta_gt', 'delta_hat', 'metrics'}`` for the tensor-loss heads, ``{'loss',
+'delta_gt', 'delta_hat', 'metrics'}`` for the biHomE loss. Other heads and
+variants raise ``not ported yet``. The PerceptualHead's auxiliary
+extractor is frozen: its parameters never require grad and it stays in
+eval mode (``auxiliary_resnet_bn_train`` False, ``heads/config.py:40``)
+even when the model is put in training mode.
 """
 
 from __future__ import annotations
@@ -38,27 +48,37 @@ from bihome_torch.ops import fused_loss
 Tensor = torch.Tensor
 
 
+def needs_dsac(cfg: HeadConfig) -> bool:
+    """Whether the head draws DSAC points (``bihome_tpu/config.py:81-84``)."""
+    return cfg.name == 'PerceptualHead' and not cfg.delta_hat_keys
+
+
 def check_ported(cfg: HeadConfig) -> None:
     """Raise for the head features this port does not have yet."""
     missing = []
-    if cfg.name != 'PerceptualHead':
+    if cfg.name not in ('NoOpHead', 'PhotometricHead', 'PerceptualHead'):
         missing.append(f'head {cfg.name!r}')
-    if cfg.delta_hat_keys:
-        missing.append('DELTA_HAT_KEYS (regression-backbone perceptual mode)')
-    if cfg.hypothesis_no != 1:
-        missing.append(f'RANSAC_HYPOTHESIS_NO={cfg.hypothesis_no}')
-    if cfg.scoring_method == 'score_cnn':
-        missing.append('score_cnn scoring')
-    if cfg.dsac_predict_refine:
-        missing.append('DSAC_PREDICT_REFINE')
-    if cfg.dsac_predict_bidirectional:
-        missing.append('DSAC_PREDICT_BIDIRECTIONAL')
+    if cfg.name == 'NoOpHead' and cfg.target_gen != '4_points':
+        missing.append(f'NoOpHead TARGET_GEN {cfg.target_gen!r} (RANSAC '
+                       'predict)')
+    if needs_dsac(cfg):
+        if cfg.hypothesis_no != 1:
+            missing.append(f'RANSAC_HYPOTHESIS_NO={cfg.hypothesis_no}')
+        if cfg.scoring_method == 'score_cnn':
+            missing.append('score_cnn scoring')
+        if cfg.dsac_predict_refine:
+            missing.append('DSAC_PREDICT_REFINE')
+        if cfg.dsac_predict_bidirectional:
+            missing.append('DSAC_PREDICT_BIDIRECTIONAL')
     if missing:
         raise ValueError('not ported yet: ' + ', '.join(missing))
 
 
 def check_trainable(cfg: HeadConfig) -> None:
-    """Raise for the loss variants the training forward does not have."""
+    """Raise for the biHomE loss variants the training forward does not
+    have (the tensor-loss heads have none)."""
+    if cfg.name != 'PerceptualHead':
+        return
     missing = []
     if cfg.triplet_loss != 'double-line':
         missing.append(f'TRIPLET_LOSS {cfg.triplet_loss!r}')
@@ -74,29 +94,32 @@ def check_trainable(cfg: HeadConfig) -> None:
         missing.append('AUXILIARY_RESNET_FREEZE false')
     if cfg.auxiliary_resnet_bn_train:
         missing.append('AUXILIARY_RESNET_BN_TRAIN')
-    if len(cfg.pf_keys) != 2:
+    if len(cfg.delta_hat_keys or cfg.pf_keys) != 2:
         missing.append('a one-line backbone')
     if missing:
         raise ValueError('not ported yet: ' + ', '.join(missing))
 
 
 class AssembledModel(nn.Module):
-    """The backbone plus the PerceptualHead (predict chain and loss)."""
+    """The backbone plus its head (predict chain and training forward)."""
 
     def __init__(self, backbone: nn.Module, head: HeadConfig):
         super().__init__()
         check_ported(head)
         self.backbone = backbone
         self.head = head
-        self.auxiliary_resnet = ResNet(
-            arch=head.auxiliary_resnet,
-            output_layer=head.auxiliary_resnet_output_layer)
-        self.auxiliary_resnet.requires_grad_(False)
-        self.auxiliary_resnet.eval()
+        self.auxiliary_resnet = None
+        if head.name == 'PerceptualHead':
+            self.auxiliary_resnet = ResNet(
+                arch=head.auxiliary_resnet,
+                output_layer=head.auxiliary_resnet_output_layer)
+            self.auxiliary_resnet.requires_grad_(False)
+            self.auxiliary_resnet.eval()
 
     def train(self, mode: bool = True) -> 'AssembledModel':
         super().train(mode)
-        self.auxiliary_resnet.eval()      # frozen, eval-mode BN always
+        if self.auxiliary_resnet is not None:
+            self.auxiliary_resnet.eval()  # frozen, eval-mode BN always
         return self
 
     def dsac_deltas(self, pf: Tensor, uniforms: Optional[Tensor] = None,
@@ -118,12 +141,18 @@ class AssembledModel(nn.Module):
     def predict(self, batch: Dict[str, Tensor],
                 uniforms: Optional[Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        """Batch dict (NHWC patches) -> delta_hat [B,4,2]. ``uniforms``
-        [B, points_per_hypothesis] injects the DSAC draws; otherwise they
-        come from ``generator``."""
+        """Batch dict (NHWC patches) -> delta_hat [B,4,2]
+        (``bihome_tpu/heads/assembled.py:762-826``): the backbone's deltas,
+        or the DSAC fit of its perspective field, whose draws ``uniforms``
+        [B, points_per_hypothesis] injects (otherwise they come from
+        ``generator``)."""
+        cfg = self.head
         outputs = self.backbone(batch)
-        return self.dsac_deltas(outputs[self.head.pf_keys[0]], uniforms,
-                                generator)
+        if cfg.name in ('NoOpHead', 'PhotometricHead'):
+            return outputs[cfg.learning_keys[3]]
+        if cfg.delta_hat_keys:
+            return outputs[cfg.delta_hat_keys[0]]
+        return self.dsac_deltas(outputs[cfg.pf_keys[0]], uniforms, generator)
 
     def aux_features(self, x: Tensor) -> Tensor:
         """Frozen-extractor features of NHWC patches, returned NHWC (a view
@@ -135,14 +164,51 @@ class AssembledModel(nn.Module):
                 uniforms: Optional[Sequence[Tensor]] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, object]:
-        """The biHomE training loss. ``uniforms`` = (12 draws, 21 draws),
-        each [B, points_per_hypothesis], injects the DSAC draws of the two
-        directions; otherwise both come from ``generator``, 12 first.
-        -> {'loss', 'delta_gt', 'delta_hat', 'metrics'}."""
-        check_trainable(self.head)
+        """The training forward: the backbone, then the head. For the
+        PerceptualHead with DSAC, ``uniforms`` = (12 draws, 21 draws), each
+        [B, points_per_hypothesis], injects the draws of the two
+        directions; otherwise both come from ``generator``, 12 first. The
+        other heads draw nothing."""
+        cfg = self.head
+        check_trainable(cfg)
         outputs = self.backbone(batch)
-        delta_12, delta_21 = self.dsac_both(outputs, uniforms, generator)
+        data = {**batch, **outputs}
+        if cfg.name == 'NoOpHead':
+            return self.noop_head(data)
+        if cfg.name == 'PhotometricHead':
+            return self.photometric_head(data)
+        if cfg.delta_hat_keys:
+            delta_12, delta_21 = (data[k] for k in cfg.delta_hat_keys)
+        else:
+            delta_12, delta_21 = self.dsac_both(outputs, uniforms, generator)
         return self.bihome_loss(batch, delta_12, delta_21)
+
+    def noop_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
+        """NoOpHead, '4_points' (``assembled.py:166-184``)."""
+        gt, out, delta_gt, delta_hat = (data[k] for k in
+                                        self.head.learning_keys)
+        return {'ground_truth': gt, 'network_output': out,
+                'delta_gt': delta_gt, 'delta_hat': delta_hat, 'metrics': {}}
+
+    def photometric_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
+        """PhotometricHead (``assembled.py:188-208``): patch(i, j) =
+        image(H · (x0 + j, y0 + i)) sampled straight from the full image,
+        where H maps the corners to the corners plus the predicted deltas
+        (the reference warps the whole image, then crops)."""
+        keys = self.head.learning_keys
+        corners = data['corners']
+        delta_hat = data[keys[3]]
+        image = data[keys[1]]
+        patch_gt = data[keys[0]]
+        b, ps = patch_gt.shape[0], patch_gt.shape[1]
+        homography = geometry.four_point_to_homography(corners, delta_hat)
+        u, v = geometry.homography_grid(homography, (ps, ps),
+                                        offset=corners[:, 0])
+        patch_hat = geometry.batched_sample(image, u, v).reshape(
+            b, ps, ps, image.shape[-1])
+        return {'ground_truth': patch_gt, 'network_output': patch_hat,
+                'delta_gt': data[keys[2]], 'delta_hat': delta_hat,
+                'metrics': {}}
 
     def dsac_both(self, outputs: Dict[str, Tensor],
                   uniforms: Optional[Sequence[Tensor]] = None,

@@ -1,12 +1,14 @@
-"""The Rethinking backbone and its PF head (counterpart of
-``bihome_tpu/models/backbones.py:30-101,139-233``), in eval and training
-mode. Every BatchNorm has flax's training semantics
-(:mod:`bihome_torch.models.norm`).
+"""The backbones (counterpart of ``bihome_tpu/models/backbones.py``), in
+eval and training mode. Every BatchNorm has flax's training semantics
+(:mod:`bihome_torch.models.norm`). Each takes the batch dict (NHWC
+patches); inside they run NCHW.
 
-Only the ResNet34 flavour is ported. The backbone takes the batch dict
-(NHWC patches) and returns NHWC perspective fields; inside it runs NCHW.
-State-dict keys are the reference's (``layer1.0`` stem conv, ``layer1.1``
-its BN, ``layerK.i.upper_branch.j``, ``layer8.{0,1,3}`` the PF head).
+* ``RethinkingBackbone`` (``:30-101,139-233``), ResNet34 flavour, with its
+  PF head: NHWC perspective fields. State-dict keys are the reference's
+  (``layer1.0`` stem conv, ``layer1.1`` its BN, ``layerK.i.upper_branch.j``,
+  ``layer8.{0,1,3}`` the PF head).
+* ``ResNet34Backbone`` (``:109-136``), the DeTone-style regressor:
+  corner deltas [B,4,2]. Keys ``resnet34.*`` (torchvision's).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from bihome_torch.models import blocks
 from bihome_torch.models.norm import BatchNorm2d
+from bihome_torch.models.resnet import ResNet
 from bihome_torch.ops import fused_head
 from bihome_torch.ops.pool import max_pool_3x3_s2
 
@@ -55,21 +58,45 @@ class PFHead(nn.Sequential):
             conv2.bias, mean, var, bn.eps, True)
 
 
-class RethinkingBackbone(nn.Module):
-    """'Rethinking' (Zeng et al.) encoder/decoder producing a dense
-    2-channel perspective field at patch resolution
-    (ref: src/backbones/Rethinking.py:27-149), ResNet34 flavour.
+class _PairBackbone(nn.Module):
+    """The batch-dict interface both backbones share: the two patches
+    (NHWC) concatenated on the channel axis, one forward of
+    :meth:`_forward` on NCHW, one output per direction. DoubleLine stacks
+    ``[cat(p1,p2); cat(p2,p1)]`` on the batch axis and runs one [2B]
+    forward, as the JAX modules do (so in training mode the batch
+    statistics cover both directions)."""
 
-    DoubleLine stacks ``[cat(p1,p2); cat(p2,p1)]`` on the batch axis and
-    runs one [2B] forward."""
-
-    def __init__(self, patch_keys: Sequence[str] = ('patch_1', 'patch_2'),
-                 target_keys: Sequence[str] = ('pf_hat_12',),
-                 variant: str = 'oneline'):
+    def __init__(self, patch_keys: Sequence[str], target_keys: Sequence[str],
+                 variant: str):
         super().__init__()
         self.patch_keys = tuple(patch_keys)
         self.target_keys = tuple(target_keys)
         self.variant = variant
+
+    def forward(self, data: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        p1 = data[self.patch_keys[0]]
+        p2 = data[self.patch_keys[1]]
+        x = torch.cat([p1, p2], dim=-1)                            # NHWC
+        if self.variant == 'doubleline':
+            x = torch.cat([x, torch.cat([p2, p1], dim=-1)], dim=0)
+        out = self._forward(x.permute(0, 3, 1, 2).contiguous())
+        if self.variant == 'doubleline':
+            b = p1.shape[0]
+            return {self.target_keys[0]: out[:b],
+                    self.target_keys[1]: out[b:]}
+        return {self.target_keys[0]: out}
+
+
+class RethinkingBackbone(_PairBackbone):
+    """'Rethinking' (Zeng et al.) encoder/decoder producing a dense
+    2-channel perspective field at patch resolution, NHWC
+    (ref: src/backbones/Rethinking.py:27-149), ResNet34 flavour."""
+
+    def __init__(self, patch_keys: Sequence[str] = ('patch_1', 'patch_2'),
+                 target_keys: Sequence[str] = ('pf_hat_12',),
+                 variant: str = 'oneline'):
+        super().__init__(patch_keys, target_keys, variant)
         r34c, r34i = blocks.ResNet34ConvBlock, blocks.ResNet34IdentityBlock
         deconv = blocks.ResNet50DeconvBlock
         self.layer1 = nn.Sequential(
@@ -93,26 +120,29 @@ class RethinkingBackbone(nn.Module):
         for layer in (self.layer2, self.layer3, self.layer4, self.layer5,
                       self.layer6, self.layer7, self.layer8):
             x = layer(x)
-        return x
+        return x.permute(0, 2, 3, 1)                               # NHWC
 
-    def forward(self, data: Dict[str, torch.Tensor]
-                ) -> Dict[str, torch.Tensor]:
-        p1 = data[self.patch_keys[0]]
-        p2 = data[self.patch_keys[1]]
-        x = torch.cat([p1, p2], dim=-1)                            # NHWC
-        if self.variant == 'doubleline':
-            x = torch.cat([x, torch.cat([p2, p1], dim=-1)], dim=0)
-        pf = self._forward(x.permute(0, 3, 1, 2).contiguous())
-        pf = pf.permute(0, 2, 3, 1)                                # NHWC
-        if self.variant == 'doubleline':
-            b = p1.shape[0]
-            return {self.target_keys[0]: pf[:b], self.target_keys[1]: pf[b:]}
-        return {self.target_keys[0]: pf}
+
+class ResNet34Backbone(_PairBackbone):
+    """'ResNet34', the DeTone-style regression backbone
+    (ref: src/backbones/ResNet34.py): torchvision resnet34 with a 2-channel
+    stem and an 8-unit ``fc`` reshaped to corner deltas [B,4,2]."""
+
+    def __init__(self, patch_keys: Sequence[str] = ('patch_1', 'patch_2'),
+                 target_keys: Sequence[str] = ('delta_hat_12',),
+                 variant: str = 'oneline'):
+        super().__init__(patch_keys, target_keys, variant)
+        self.resnet34 = ResNet('resnet34', output_layer=None, in_channels=2,
+                               num_classes=8)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.resnet34(x).reshape(-1, 4, 2)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init: conv kernels from N(0, 2/fan_out) (the JAX package's
-    ``conv_init`` scale), biases zero, BN the identity affine with
+    ``conv_init`` scale), linear kernels from N(0, 1/fan_in) (flax
+    ``Dense``'s lecun scale), biases zero, BN the identity affine with
     running statistics (0, 1). Each PF head's output conv is then scaled
     by 1/100: unscaled, a random backbone's field is hundreds of pixels
     and the DSAC fit is ill-conditioned; scaled, it is a few pixels, the
@@ -125,6 +155,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                                         generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                nn.init.normal_(m.weight, std=m.in_features ** -0.5,
+                                generator=generator)
+                m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
         for m in module.modules():
@@ -132,15 +166,18 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m[3].weight.mul_(0.01)
 
 
-def build_backbone(cfg: Dict) -> RethinkingBackbone:
-    """Backbone from a reference MODEL.BACKBONE yaml section."""
+def build_backbone(cfg: Dict) -> nn.Module:
+    """Backbone from a reference MODEL.BACKBONE yaml section
+    (``bihome_tpu/models/backbones.py:373-405``)."""
     name = cfg['NAME']
+    kwargs = dict(patch_keys=tuple(cfg['PATCH_KEYS']),
+                  target_keys=tuple(cfg['TARGET_KEYS']),
+                  variant=str(cfg.get('VARIANT', 'OneLine')).lower())
+    if name == 'ResNet34':
+        return ResNet34Backbone(**kwargs)
     if name != 'Rethinking':
         raise ValueError(f'not ported yet: backbone {name!r}')
     flavour = cfg.get('RESNET_BLOCK', 'ResNet34')
     if flavour != 'ResNet34':
         raise ValueError(f'not ported yet: Rethinking {flavour} flavour')
-    return RethinkingBackbone(
-        patch_keys=tuple(cfg['PATCH_KEYS']),
-        target_keys=tuple(cfg['TARGET_KEYS']),
-        variant=str(cfg.get('VARIANT', 'OneLine')).lower())
+    return RethinkingBackbone(**kwargs)

@@ -1,17 +1,23 @@
-"""Torchvision-layout ResNet, truncated (counterpart of
-``bihome_tpu/models/resnet.py:31-154``), NCHW.
+"""Torchvision-layout ResNet (counterpart of
+``bihome_tpu/models/resnet.py:31-154``), NCHW. Used two ways:
 
-The port uses it as the frozen biHomE auxiliary extractor: resnet34 cut
-after ``output_layer`` (1 for every shipped config), with a 1-channel
-stem. The reference repeats the grayscale patch to 3 channels for the
-ImageNet stem; the three channels are equal, so the stem kernel summed
-over its input channels gives the same result on the 1-channel patch
-(``bihome_tpu/heads/assembled.py:88-98``). State-dict keys are
-torchvision's (``conv1``, ``bn1``, ``layer1.0.conv1``, ...,
-``layerK.0.downsample.{0,1}``).
+* the frozen biHomE auxiliary extractor: resnet34 cut after
+  ``output_layer`` (1 for every shipped config), with a 1-channel stem.
+  The reference repeats the grayscale patch to 3 channels for the ImageNet
+  stem; the three channels are equal, so the stem kernel summed over its
+  input channels gives the same result on the 1-channel patch
+  (``bihome_tpu/heads/assembled.py:88-98``);
+* whole (``output_layer=None``): the 'ResNet34' regression backbone's
+  resnet34 with a 2-channel stem and an 8-unit ``fc``
+  (``bihome_tpu/models/backbones.py:109-136``).
+
+State-dict keys are torchvision's (``conv1``, ``bn1``, ``layer1.0.conv1``,
+..., ``layerK.0.downsample.{0,1}``, ``fc``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -48,23 +54,24 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """BasicBlock ResNet feature extractor cut after ``output_layer``
-    (k in 1..4 -> the map after layer k, [N, C, H/2^(k+1), W/2^(k+1)]).
-    The classifier head is not ported: every caller truncates."""
+    """BasicBlock ResNet. ``output_layer`` k in 1..4 cuts it after layer k
+    (-> the map [N, C, H/2^(k+1), W/2^(k+1)]); None keeps all four layers,
+    then the spatial mean and ``fc`` (-> [N, num_classes])."""
 
-    def __init__(self, arch: str = 'resnet34', output_layer: int = 1,
-                 in_channels: int = 1):
+    def __init__(self, arch: str = 'resnet34',
+                 output_layer: Optional[int] = 1, in_channels: int = 1,
+                 num_classes: int = 1000):
         super().__init__()
         if arch not in _ARCHS:
-            raise ValueError(f'not ported yet: auxiliary resnet {arch!r}')
-        if output_layer not in (1, 2, 3, 4):
-            raise ValueError('not ported yet: an untruncated ResNet '
-                             f'(output_layer={output_layer!r})')
+            raise ValueError(f'not ported yet: resnet {arch!r}')
+        if output_layer not in (None, 1, 2, 3, 4):
+            raise ValueError(f'output_layer {output_layer!r} not in 1..4')
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3,
                                bias=False)
         self.bn1 = BatchNorm2d(64)
         features, cin = 64, 64
-        for stage, blocks in enumerate(_ARCHS[arch][:output_layer]):
+        depth = 4 if output_layer is None else output_layer
+        for stage, blocks in enumerate(_ARCHS[arch][:depth]):
             layer = []
             for i in range(blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
@@ -72,11 +79,15 @@ class ResNet(nn.Module):
                 cin = features
             self.add_module(f'layer{stage + 1}', nn.Sequential(*layer))
             features *= 2
-        self.output_layer = output_layer
+        self.depth = depth
+        self.fc = (nn.Linear(cin, num_classes) if output_layer is None
+                   else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = max_pool_3x3_s2(torch.relu(self.bn1(self.conv1(x))))
-        for k in range(1, self.output_layer + 1):
+        for k in range(1, self.depth + 1):
             x = getattr(self, f'layer{k}')(x)
-        return x
+        if self.fc is None:
+            return x
+        return self.fc(x.mean(dim=(2, 3)))
 

@@ -2,10 +2,12 @@
 
 ``state_dict_from_jax`` is the inverse of
 ``bihome_tpu/models/torch_port.py:port_rethinking_full`` (layout rules at
-``torch_port.py:53-61``): conv kernels HWIO -> OIHW, ConvTranspose kernels
-(kh,kw,out,in) -> (in,out,kh,kw), BN scale/bias/mean/var ->
-weight/bias/running_mean/running_var. The port keeps its own copy of the
-block maps, since the JAX package cannot be imported without JAX.
+``torch_port.py:53-61``) and, for the ResNet34Backbone, of
+``torch_port.py:72-127,404-408``: conv kernels HWIO -> OIHW, ConvTranspose
+kernels (kh,kw,out,in) -> (in,out,kh,kw), Dense kernels transposed, BN
+scale/bias/mean/var -> weight/bias/running_mean/running_var. The port
+keeps its own copy of the block maps, since the JAX package cannot be
+imported without JAX.
 """
 
 from __future__ import annotations
@@ -62,11 +64,18 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``{'params', 'batch_stats'}`` tree of numpy arrays -> port
     state dict (every key but ``num_batches_tracked``).
 
-    Takes either a RethinkingBackbone tree (-> the backbone's keys,
-    including the PF head's running statistics) or a whole AssembledModel
-    train state, whose top level holds ``backbone`` and
-    ``auxiliary_resnet`` (-> ``backbone.*`` and ``auxiliary_resnet.*``,
-    the extractor mapped by ``utils/aux_store``)."""
+    Takes a RethinkingBackbone tree (-> the backbone's keys, including the
+    PF head's running statistics), a ResNet34Backbone tree (top level
+    ``resnet34`` -> the reference's ``resnet34.*`` keys) or a whole
+    AssembledModel train state, whose top level holds ``backbone`` and, for
+    the PerceptualHead, ``auxiliary_resnet`` (-> ``backbone.*`` and
+    ``auxiliary_resnet.*``; both ResNets mapped by ``utils/aux_store``)."""
+    if 'resnet34' in {**variables['params'], **variables.get('batch_stats',
+                                                            {})}:
+        tree = {c: variables.get(c, {}).get('resnet34', {})
+                for c in ('params', 'batch_stats')}
+        state, _ = aux_store.state_dict_from_aux(tree, output_layer=4)
+        return {f'resnet34.{k}': v for k, v in state.items()}
     if 'backbone' in variables['params']:
         def sub(name):
             return {c: variables.get(c, {}).get(name, {})

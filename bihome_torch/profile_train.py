@@ -4,10 +4,11 @@
         [--batch_size 64] [--steps 6]
 
 Builds the model, optimizer and image pool as ``bihome_torch.train`` does
-(synthetic images, seeded backbone, the extractor from ``aux_clfbh.npz``),
-then runs ``--steps`` calls of the real ``training.trainer.train_step``
-after two warm-up calls, each split into phases by CUDA events that hooks
-record around and inside the call:
+(synthetic images, seeded backbone, a PerceptualHead's extractor from
+``aux_clfbh.npz``), then runs ``--steps`` calls of the real
+``training.trainer.train_step`` after two warm-up calls, each split into
+phases by CUDA events that hooks record around and inside the call. For
+zeng-biHomE (a head with DSAC):
 
   datagen (pair synthesis, K3) | backbone forward (K1) | DSAC both ways |
   loss forward (warp K3, extractor twice, triplet tail) | loss backward
@@ -15,12 +16,22 @@ record around and inside the call:
   DSAC backward (DLT, down to the perspective fields) | backbone backward
   (K2, cuDNN) | optimizer (gradient norm, Adam) | metrics
 
-The hooks: the backbone's forward pre-hook and hook, gradient hooks on
-its perspective fields and on the corner deltas (the last of each pair
-ends its phase), the model's forward hook, and wrappers of this model's
-``dsac_both`` and this optimizer's ``global_norm`` and ``step``. Hooks on
-the frozen extractor time its share of the loss phases (both forward
-passes; its input-gradient backward). It then profiles the same steps with
+For the heads without DSAC (the ResNet34 family):
+
+  datagen (pair synthesis with the PDS distortion, K3) | backbone forward
+  | head/loss forward (the head: detone-biHomE's warp K3, extractor twice
+  and triplet tail; the PhotometricHead's warp of the full image, K3) |
+  head/loss backward down to the backbone's deltas (with the tensor
+  loss's forward; extractor input grads, K4) | backbone backward |
+  optimizer | metrics
+
+The hooks: the backbone's forward pre-hook and hook, gradient hooks on its
+outputs (perspective fields or deltas) and, with DSAC, on the corner
+deltas (the last of each pair ends its phase), the model's forward hook,
+and wrappers of this model's ``dsac_both`` and this optimizer's
+``global_norm`` and ``step``. Hooks on the frozen extractor, where the
+head has one, time its share of the loss phases (both forward passes; its
+input-gradient backward). It then profiles the same steps with
 ``torch.profiler``: device kernel time and launches per step, the device
 idle share of the host-clock window, and the device time by kind of
 kernel (each of the port's kernels by name). Needs a CUDA device; it does
@@ -47,6 +58,8 @@ CONFIG = 'config/s-coco/zeng-bihome-lr-1e-3.yaml'
 PHASES = ('datagen', 'backbone fwd', 'dsac fwd', 'loss fwd',
           'loss bwd to the deltas', 'dsac bwd', 'backbone bwd', 'optimizer',
           'metrics')
+PHASES_NO_DSAC = ('datagen', 'backbone fwd', 'head/loss fwd',
+                  'head/loss bwd', 'backbone bwd', 'optimizer', 'metrics')
 
 
 def _event() -> torch.cuda.Event:
@@ -64,7 +77,8 @@ def main(argv=None) -> None:
     device = resolve_device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f'device {torch.cuda.get_device_name(device)}')
+    print(f'device {torch.cuda.get_device_name(device)}; config '
+          f'{args.config_file}, batch {args.batch_size}')
     config = config_lib.load_config(args.config_file)
     config_lib.apply_overrides(
         config, ['MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz'])
@@ -94,14 +108,18 @@ def main(argv=None) -> None:
             mark(name, later=True)
         return hook
 
+    dsac = built.needs_dsac_rng
+    phases = PHASES if dsac else PHASES_NO_DSAC
+
     def backbone_done(_module, _inputs, outputs):
         mark('backbone fwd')
         if timing['on']:
-            for key in built.head_cfg.pf_keys:
-                outputs[key].register_hook(grad_mark('dsac bwd'))
+            for key in (built.head_cfg.pf_keys if dsac else outputs):
+                outputs[key].register_hook(grad_mark(
+                    'dsac bwd' if dsac else 'head/loss bwd'))
     model.backbone.register_forward_pre_hook(lambda *_: mark('datagen'))
     model.backbone.register_forward_hook(backbone_done)
-    model.register_forward_hook(lambda *_: mark('loss fwd'))
+    model.register_forward_hook(lambda *_: mark(phases[2 + dsac]))
     dsac_both, global_norm, step = (model.dsac_both, optimizer.global_norm,
                                     optimizer.step)
 
@@ -121,7 +139,8 @@ def main(argv=None) -> None:
         lr = step()
         mark('optimizer')
         return lr
-    model.dsac_both = timed_dsac_both
+    if dsac:
+        model.dsac_both = timed_dsac_both
     optimizer.global_norm = timed_global_norm
     optimizer.step = timed_step
 
@@ -131,10 +150,11 @@ def main(argv=None) -> None:
                 aux_marks[kind].append(_event())
         return hook
     aux = model.auxiliary_resnet
-    aux.register_forward_pre_hook(aux_hook('extractor fwd'))
-    aux.register_forward_hook(aux_hook('extractor fwd'))
-    aux.register_full_backward_pre_hook(aux_hook('extractor bwd'))
-    aux.register_full_backward_hook(aux_hook('extractor bwd'))
+    if aux is not None:
+        aux.register_forward_pre_hook(aux_hook('extractor fwd'))
+        aux.register_forward_hook(aux_hook('extractor fwd'))
+        aux.register_full_backward_pre_hook(aux_hook('extractor bwd'))
+        aux.register_full_backward_hook(aux_hook('extractor bwd'))
 
     def one_step():
         idx = torch.randint(0, len(pool), (args.batch_size,), generator=gen)
@@ -158,21 +178,23 @@ def main(argv=None) -> None:
         timing['on'] = False
         marks['metrics'].synchronize()
         host.append((time.perf_counter() - start) * 1e3)
-        ends = [marks[name] for name in PHASES]
-        for name, a, b in zip(PHASES, [first] + ends[:-1], ends):
+        ends = [marks[name] for name in phases]
+        for name, a, b in zip(phases, [first] + ends[:-1], ends):
             events[name].append(a.elapsed_time(b))
         for kind, evs in aux_marks.items():
             events[kind].append(sum(a.elapsed_time(b) for a, b in
                                     zip(evs[::2], evs[1::2])))
     total = 0.0
-    for name in PHASES:
+    for name in phases:
         ms = statistics.median(events[name])
         total += ms
         print(f'{name}: median {ms:.3f} ms per step (CUDA events)')
-    for name, within in (('extractor fwd', 'loss fwd, both passes'),
+    for name, within in (('extractor fwd', f'{phases[2 + dsac]}, both '
+                                           'passes'),
                          ('extractor bwd', 'loss bwd, input gradients')):
-        print(f'  {name}: median {statistics.median(events[name]):.3f} ms '
-              f'per step (within {within})')
+        if events[name]:
+            print(f'  {name}: median {statistics.median(events[name]):.3f} '
+                  f'ms per step (within {within})')
     print(f'phases sum {total:.3f} ms; host step {statistics.median(host):.3f}'
           f' ms (median of {args.steps}, each ended by a synchronize); '
           f'pairs/s {args.batch_size / (statistics.median(host) / 1e3):.1f}')

@@ -8,9 +8,13 @@ synthetic, non-clevr, streamed-batch case).
 Reads the same reference-schema YAML. Each epoch draws
 TRAIN_SAMPLES_PER_EPOCH images (capped by ``--steps`` x batch) with the
 seeded epoch sampler from the synthetic pool, which lives on the device;
-each step synthesizes its pairs on the device and runs
-``training.trainer.train_step`` (DoubleLine backbone in training mode,
-DSAC both ways, the biHomE loss, Adam with per-step MultiStepLR). Every
+each step synthesizes its pairs on the device (with the PDS photometric
+distortion where the config asks for it) and runs
+``training.trainer.train_step`` (backbone in training mode, the head and
+its loss: zeng-biHomE's DSAC both ways and biHomE loss, detone-biHomE's
+biHomE loss on the regressed deltas, the NoOp head's MSE or L1 on them,
+the PhotometricHead's L1 on the warped full image; Adam with per-step
+MultiStepLR). Every
 LOGGING.STEP steps the step's metrics go to
 ``<LOGGING.DIR>/metrics.jsonl``; at each epoch's end a checkpoint
 ``<LOGGING.DIR>/model_<step>.pth`` in the reference layout
@@ -18,11 +22,11 @@ LOGGING.STEP steps the step's metrics go to
 which ``bihome_torch.eval --torch_ckpt`` reads) is written and the test
 loss and MACE over TEST_SAMPLES_PER_EPOCH (capped likewise) are logged.
 
-The frozen auxiliary extractor loads from MODEL.HEAD.AUXILIARY_RESNET_PATH
-when it names an ``.npz`` that exists (``aux_*.npz``); otherwise it and
-the backbone come from a fixed seed. Runs on ``cuda`` unless ``--device
-cpu`` is given, and raises without a card; TF32 is off. Resume, real
-datasets and photometric distortion are not ported yet.
+The PerceptualHead's frozen auxiliary extractor loads from
+MODEL.HEAD.AUXILIARY_RESNET_PATH when it names an ``.npz`` that exists
+(``aux_*.npz``); otherwise it and the backbone come from a fixed seed.
+Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
+card; TF32 is off. Resume and real datasets are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,12 +69,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def init_model(built: config_lib.BuiltModel) -> List[str]:
-    """Seeded init of the backbone and the extractor, then the extractor's
-    weights from MODEL.HEAD.AUXILIARY_RESNET_PATH when it names an existing
-    ``.npz``. Returns the messages to print."""
+    """Seeded init of the backbone and the extractor (if the head has one),
+    then the extractor's weights from MODEL.HEAD.AUXILIARY_RESNET_PATH when
+    it names an existing ``.npz``. Returns the messages to print."""
     model = built.model
     gen = torch.Generator().manual_seed(INIT_SEED)
     backbones.init_weights(model.backbone, gen)
+    if model.auxiliary_resnet is None:
+        return []
     backbones.init_weights(model.auxiliary_resnet, gen)
     path = built.config['MODEL']['HEAD'].get('AUXILIARY_RESNET_PATH')
     if not (path and path.endswith('.npz') and os.path.exists(path)):
@@ -88,11 +94,12 @@ def init_model(built: config_lib.BuiltModel) -> List[str]:
 def checkpoint(model: torch.nn.Module, optimizer: Optimizer,
                step: int) -> Dict[str, Any]:
     """The reference checkpoint layout: nn.Sequential(backbone, head) keys,
-    the backbone under '0.' and the head's extractor under '1.'."""
+    the backbone under '0.' and the head's extractor (if any) under '1.'."""
     state = {f'0.{k}': v.detach().cpu()
              for k, v in model.backbone.state_dict().items()}
-    state.update({f'1.auxiliary_resnet.{k}': v.detach().cpu()
-                  for k, v in model.auxiliary_resnet.state_dict().items()})
+    if model.auxiliary_resnet is not None:
+        state.update({f'1.auxiliary_resnet.{k}': v.detach().cpu() for k, v
+                      in model.auxiliary_resnet.state_dict().items()})
     return {'model': state, 'optimizer': optimizer.state_dict(),
             'step': step}
 

@@ -2,13 +2,16 @@
 ``bihome_tpu/training/trainer.py:47-98`` and ``:240-262``).
 
 The train step, in the JAX step's order: synthesize a batch of pairs on
-the device from uint8 images (``generate_pairs``), run the model in
-training mode (batch-statistics BN, DSAC in both directions with gradients
-flowing, the biHomE loss), backward, then one optimizer update. The frozen
+the device from uint8 images (``generate_pairs``, with the photometric
+distortion where the spec asks for it), run the model in training mode
+(batch-statistics BN, then the head: DSAC in both directions with
+gradients flowing for zeng-biHomE, the regressed deltas otherwise), the
+loss (the head's own biHomE loss, or SOLVER.LOSS on its ground_truth and
+network_output), backward, then one optimizer update. The frozen
 auxiliary extractor gets no parameter gradients (its parameters do not
 require grad), while input gradients still flow through it. Randomness
 comes from two generators, one for the pair draws and one for the DSAC
-draws, or is injected (tests).
+draws (drawn from only by heads with DSAC), or is injected (tests).
 """
 
 from __future__ import annotations
@@ -39,15 +42,18 @@ def train_step(model: torch.nn.Module, optimizer: Optimizer,
                dsac_generator: Optional[torch.Generator] = None,
                corners: Optional[Tensor] = None,
                delta: Optional[Tensor] = None,
-               uniforms: Optional[Sequence[Tensor]] = None
+               uniforms: Optional[Sequence[Tensor]] = None,
+               photometric_params: Optional[Sequence] = None
                ) -> Dict[str, Tensor]:
     """images [B,H,W,3] (uint8 pool rows, on the model's device) -> the
     metrics dict with the JAX keys (loss/train, g_norm/value, lr/value,
-    mace/train and the head's metrics), as device tensors."""
+    mace/train and the head's metrics), as device tensors. ``corners``,
+    ``delta`` and ``photometric_params`` inject the pair draws
+    (``pipeline.generate_pairs``), ``uniforms`` the DSAC draws."""
     model.train()
     with torch.no_grad():
         batch = pipeline.generate_pairs(images, spec, datagen_generator,
-                                        corners, delta)
+                                        corners, delta, photometric_params)
     optimizer.zero_grad()
     out = model(batch, uniforms=uniforms, generator=dsac_generator)
     loss = losses.compute_loss(loss_name, out)

@@ -57,9 +57,10 @@ def _torch_name(module: str) -> str:
 
 def state_dict_from_aux(variables: Mapping, output_layer: int
                         ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """flax extractor tree {'params', 'batch_stats'} (numpy) -> (ResNet
-    state dict without ``num_batches_tracked``, sorted list of the flax
-    top-level modules dropped because they lie beyond ``output_layer``)."""
+    """flax ResNet tree {'params', 'batch_stats'} (numpy) -> (ResNet state
+    dict without ``num_batches_tracked``, sorted list of the flax top-level
+    modules dropped because they lie beyond ``output_layer``). An ``fc``
+    (the untruncated ResNet's) maps to ``fc.weight``/``fc.bias``."""
     out: Dict[str, np.ndarray] = {}
     dropped = set()
 
@@ -78,13 +79,14 @@ def state_dict_from_aux(variables: Mapping, output_layer: int
             if collection == 'batch_stats':
                 out[f'{name}.{_BN_STATS[k]}'] = v
             elif k == 'kernel':
-                # HWIO -> OIHW.
-                out[f'{name}.weight'] = np.transpose(v, (3, 2, 0, 1))
+                # HWIO -> OIHW; a Dense kernel [in, out] -> Linear [out, in].
+                out[f'{name}.weight'] = (np.transpose(v, (3, 2, 0, 1))
+                                         if v.ndim == 4 else v.T)
             else:
                 out[f'{name}.{_BN_PARAMS[k]}'] = v
 
     for collection in ('params', 'batch_stats'):
         walk(variables.get(collection, {}), '', collection)
-    state = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    state = {k: torch.from_numpy(np.array(v, dtype=np.float32, order='C'))
              for k, v in out.items()}
     return state, sorted(dropped)

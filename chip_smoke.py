@@ -13,30 +13,52 @@
    same function, that call (median device time of 50 launches, each
    behind an L2-flushing 100 MB write, CUDA events tightly around each;
    bihome_torch/utils/timing.py), and prints the host's cost per call of
-   the K1, K3 and K4 wrappers and of grid_sample:
-   K1 and K3 at the eval shapes (batch 64), K2, K3, K4 and K5 at the
-   training shapes (batch 64, both directions stacked: 128 images). K1
+   each kernel's wrapper and of grid_sample:
+   K1 and K3 at the eval shapes (batch 64; K3 also at the 128 datagen
+   windows of the batch-128 configs), K2, K3, K4 and K5 at the training
+   shapes (batch 64, both directions stacked: 128 images). K1
    and K2, whose Cin x Cmid products run on the tensor cores in 3xTF32,
    are held to the tensor-core bound, with the time of that 3xTF32
    tensor work printed beside it.
 4. Drives the port's eval entry point (zeng-biHomE S-COCO config,
    synthetic images, batch 64, 4 steps) with the launch counters set to 0
-   just before and read just after; fails unless K1 and K3 launched, MACE
-   is finite, and one batch's delta_hat matches the same batch and weights
-   through the plain path on the CPU.
+   just before and read just after; fails unless K1 and K3 launched (and
+   no other kernel), MACE is finite, and one batch's delta_hat matches the
+   same batch and weights through the plain path on the CPU.
 5. Drives the port's train entry point (the same config at full width,
    batch 64, 4 steps, the extractor from aux_clfbh.npz), counted the same
-   way; fails unless K1-K4 launched, the loss is finite every step, the
-   backbone's parameters and BN statistics moved and the frozen
+   way; fails unless K1-K4 launched (K5 not), the loss is finite every
+   step, the backbone's parameters and BN statistics moved and the frozen
    extractor's did not. Prints ms per step, pairs/s and peak memory.
 6. One training step's loss and backbone gradients on the card and on
    the CPU in float32, each against the CPU plain path in float64 (batch
    4, the same conditioned weights, pairs and draws); then on the card
    with a planted fault in K4's or K2's output, which the same limits
-   must catch. The CPU references (here and in step 4) run torch's CPU
-   ops on one thread.
-7. Prints one {"kernels": [...]} line, then as the last line
-   {"ok": true, "device": {...}}.
+   must catch. The CPU references (here and in steps 4, 9 and 10) run
+   torch's CPU ops on one thread.
+7. K3 and K4 at the PhotometricHead's shape (S-COCO nguyen-orig at
+   bench.py's batch 128: the full 240x320 image, P = 16,384 points per
+   image offset into it) against their plain versions, timed beside
+   grid_sample and its grid gradient, with the bytes bound of the pixels
+   the points touch.
+8. The PDS photometric distortion on the card against the CPU plain
+   path on the same draws (full frames, and the pairs of
+   pds-coco/zeng-biHomE), within 1e-3 on the 0..255 scale.
+9. The train entry point for each of PDS_RUNS (pds-coco zeng-biHomE,
+   detone-orig, detone-biHomE, nguyen-orig, then S-COCO nguyen-orig, the
+   PhotometricHead), at bench.py's batches, PDS_STEPS steps each, counted:
+   each run must launch exactly its kernels (K1 and K2 only on zeng, K4
+   only where a loss warps by the predicted deltas), with the checks of
+   step 5. Prints ms per step, pairs/s and peak memory of each. After
+   the runs of S-COCO nguyen-orig (PhotometricHead, L1) and
+   pds-coco/detone-biHomE (the biHomE loss on the deltas, the distortion
+   inside the step), the one-step check of step 6 at batch 8, with K4's
+   du negated as the planted fault.
+10. The eval entry point for pds-coco/detone-orig (batch 128, 4 steps):
+   K3 only, and delta_hat against the CPU plain path within 1e-2 px.
+11. Prints one {"pds_distortion": ..., "train_runs": [...]} line, one
+   {"kernels": [...]} line (launches summed over every path above, and
+   by path), then as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -72,6 +94,31 @@ STEP_LOSS = 1e-3
 STEP_L2 = 2e-2
 STEP_PER_TENSOR = 0.1
 FAULTS = ('K4 du negated', 'K2 dw1 zeroed')
+# The kernels each path must launch (all others must not): zeng-biHomE runs
+# K1-K4; the ResNet34 family has no PF head (no K1, K2), and K4 runs only
+# where a loss warps by the predicted deltas (detone-biHomE's loss warp,
+# the PhotometricHead's warp of the full image). K5 runs on no shipped
+# config: every warped source is data.
+ZENG_KERNELS = ('fused_pf_head_fwd', 'fused_pf_head_bwd',
+                'bilinear_sample_batched', 'bilinear_sample_bwd_uv')
+WARP_KERNELS = ('bilinear_sample_batched', 'bilinear_sample_bwd_uv')
+# The PDS-COCO configs that bench.py tracks and this port runs, at
+# bench.py's batches, then S-COCO nguyen-orig, the PhotometricHead (the
+# PDS nguyen-orig config is a NoOpHead with an L1 loss on the deltas).
+PDS_RUNS = (('config/pds-coco/zeng-bihome-lr-1e-3.yaml', 64, ZENG_KERNELS),
+            ('config/pds-coco/detone-orig-lr-5e-3.yaml', 128,
+             ('bilinear_sample_batched',)),
+            ('config/pds-coco/detone-bihome-lr-5e-3.yaml', 64, WARP_KERNELS),
+            ('config/pds-coco/nguyen-orig-lr-5e-3.yaml', 128,
+             ('bilinear_sample_batched',)),
+            ('config/s-coco/nguyen-orig-lr-5e-3.yaml', 128, WARP_KERNELS))
+PDS_STEPS = 3
+# The one-step checks of the PDS slice, each right after its train run, at
+# its batch, with K4's du negated as the planted fault: S-COCO nguyen-orig
+# (the PhotometricHead, L1) and pds-coco/detone-biHomE (the biHomE loss on
+# the predicted deltas, the distortion inside the step).
+STEP_CHECKS = {'config/s-coco/nguyen-orig-lr-5e-3.yaml': 8,
+               'config/pds-coco/detone-bihome-lr-5e-3.yaml': 8}
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -101,13 +148,15 @@ def _grid(u, v, h, w):
                         v * (2.0 / (h - 1)) - 1.0], dim=-1)[:, None]
 
 
-def check_warp(dev, gen):
-    """K3 at the eval datagen shape: 64 grayscale 192x192 windows, the
-    128x128 warped patch grid of random corner perturbations (rho 32)."""
+def check_warp(dev, gen, n=BATCH):
+    """K3 at the datagen shape: ``n`` grayscale 192x192 windows (64 for
+    zeng-biHomE and detone-biHomE, 128 for detone-orig and nguyen-orig),
+    the 128x128 warped patch grid of random corner perturbations (rho
+    32)."""
     from bihome_torch import geometry
     from bihome_torch.ops import warp
 
-    n, ws, ps, rho = BATCH, 192, 128, 32
+    ws, ps, rho = 192, 128, 32
     windows = (torch.rand((n, ws, ws, 1), generator=gen) * 255).to(dev)
     corners = geometry.image_corners(ps, ps, batch_size=n) + rho
     delta = torch.randint(-rho, rho, (n, 4, 2), generator=gen).float()
@@ -158,6 +207,7 @@ def check_warp(dev, gen):
     return {'name': 'bilinear_sample_batched', 'route': 'cuda',
             'source': 'bihome_torch/csrc/warp.cu',
             'replaces': 'bihome_tpu/ops/warp_pallas.py:55',
+            'shape': [n, ws, ws, 1], 'points': p,
             'max_abs_err': max(err, err3), 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': library_ms,
             'host_us': host}
@@ -221,24 +271,30 @@ def check_pf_head(dev, gen):
             'host_us': host}
 
 
-def run_eval_path(counters):
-    """The port's eval entry point on the card, counted; then one batch
-    against the plain path on the CPU with the same weights and draws."""
+def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
+                  expect=('bilinear_sample_batched', 'fused_pf_head_fwd')):
+    """The port's eval entry point on the card, counted (the kernels in
+    ``expect`` must launch, the others in ``counters`` must not); then one
+    batch against the plain path on the CPU with the same weights and
+    draws."""
     from bihome_torch import eval as teval
 
     for fn in counters.values():
         fn.launches = 0
-    result = teval.main(['--config_file', CONFIG, '--synthetic',
-                         '--batch_size', str(BATCH), '--steps', str(STEPS),
-                         '--device', 'cuda'])
+    result = teval.main(['--config_file', config, '--synthetic',
+                         '--batch_size', str(batch_size),
+                         '--steps', str(steps), '--device', 'cuda'])
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f'launches on the eval path: {launches}')
+    print(f'launches on the eval path of {config} (batch {batch_size}, '
+          f'{steps} steps): {launches}')
     for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f'{name} never launched on the eval path')
+        if (count > 0) != (name in expect):
+            raise AssertionError(
+                f'{name} launched {count} times on the eval path of '
+                f'{config}; expected {"some" if name in expect else "none"}')
     if not all(torch.isfinite(torch.as_tensor(result['maces']))):
         raise AssertionError('non-finite MACE')
-    pairs_per_s = BATCH / (result['per_batch_ms'] / 1e3)
+    pairs_per_s = batch_size / (result['per_batch_ms'] / 1e3)
     print(f'eval: Mean mace {result["mean_mace"]}  Mean model time '
           f'{result["per_batch_ms"]} ms/batch  pairs/s {pairs_per_s:.1f}')
 
@@ -255,7 +311,7 @@ def run_eval_path(counters):
     print(f'delta_hat CUDA vs CPU plain path, batch 0: max abs err '
           f'{err:.3e} px (max |delta_hat| {delta_cpu.abs().max().item():.2f};'
           f' tolerance 1e-2 px)')
-    if not (delta_cuda.shape == (BATCH, 4, 2) and err <= 1e-2):
+    if not (delta_cuda.shape == (batch_size, 4, 2) and err <= 1e-2):
         raise AssertionError(f'CUDA predict disagrees with CPU: {err}')
     return launches, result, pairs_per_s
 
@@ -323,6 +379,7 @@ def check_pf_head_bwd(dev, gen):
     margs = (x, g, w1t, gis, c1, w2gis)
     ms = time_ms(lambda: fh.fused_pf_head_bwd(*margs))
     plain_ms = time_ms(lambda: fh.pf_head_bwd_plain(*margs))
+    host = {'kernel': host_us(lambda: fh.fused_pf_head_bwd(*margs))}
     m = n * hw * hw
     nbytes = 4 * (m * cin + m * cout + m * cin + cmid * cin + 2 * cmid
                   + cmid * cout + cin * cmid + 2 * cmid * cout + cout)
@@ -339,7 +396,8 @@ def check_pf_head_bwd(dev, gen):
     print(f'K2 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  '
           f'bound {bms:.4f} ({by}, tensor cores; {flops / 1e9:.2f} GFLOP, '
           f'{nbytes / 1e9:.3f} GB); fp32-core bound {bfp:.4f} ({byfp}); '
-          f'3xTF32 tensor work {tc3:.4f}')
+          f'3xTF32 tensor work {tc3:.4f}; host us per call: kernel '
+          f'{host["kernel"]:.1f}')
     return {'name': 'fused_pf_head_bwd', 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:110',
@@ -348,7 +406,8 @@ def check_pf_head_bwd(dev, gen):
             'max_rel_err': err, 'kink_pixels': len(bad), 'ms': ms,
             'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': None,
-            'bound_fp32_ms': bfp, 'bound_tc_ms': bms, 'tc_3xtf32_ms': tc3}
+            'bound_fp32_ms': bfp, 'bound_tc_ms': bms, 'tc_3xtf32_ms': tc3,
+            'host_us': host}
 
 
 def _loss_warp_points(dev, gen, n, ps):
@@ -446,6 +505,8 @@ def check_warp_bwd(dev, gen):
                                                                g))
     shape = tuple(images.shape)
     ms5 = time_ms(lambda: warp.bilinear_sample_bwd_img(u, v, g, shape))
+    host5 = {'kernel': host_us(lambda: warp.bilinear_sample_bwd_img(u, v, g,
+                                                                    shape))}
     plain5 = time_ms(lambda: warp.bilinear_sample_bwd_img_plain(u, v, g,
                                                                 shape))
     # K3 as in check_warp.
@@ -466,7 +527,7 @@ def check_warp_bwd(dev, gen):
           f'us per call: kernel {host4["kernel"]:.1f}')
     print(f'K5 times (ms): kernel {ms5:.4f} (with zeroing dimg)  plain '
           f'{plain5:.4f}  grid_sample input-grad {lib5:.4f}  bound {b5:.4f} '
-          f'({by5})')
+          f'({by5}); host us per call: kernel {host5["kernel"]:.1f}')
     common = {'route': 'cuda', 'source': 'bihome_torch/csrc/warp.cu'}
     k3 = {'max_abs_err': float((out - want_out).abs().max()),
           'max_rel_err': err3, 'ms': ms3, 'plain_ms': plain3, 'bound_ms': b3,
@@ -481,29 +542,168 @@ def check_warp_bwd(dev, gen):
               replaces='bihome_tpu/ops/warp_pallas.py:101',
               max_abs_err=float((dimg - want_img).abs().max()),
               max_rel_err=max(err5, err5c3), ms=ms5, plain_ms=plain5,
-              bound_ms=b5, bound_by=by5, library_ms=lib5)
+              bound_ms=b5, bound_by=by5, library_ms=lib5, host_us=host5)
     return k3, [k4, k5]
 
 
-def run_train_path(counters, log_dir):
-    """The port's train entry point on the card, counted."""
+def _touched_pixels(u, v, h, w):
+    """Pixels, over all images, that some in-bounds tap of the points
+    [N,P] reads: what a warp must read of its source on these points."""
+    from bihome_torch.ops import warp
+
+    _, taps = warp._taps(h, w, u, v)
+    offset = torch.arange(u.shape[0], device=u.device)[:, None] * (h * w)
+    seen = torch.zeros(u.shape[0] * h * w, dtype=torch.bool, device=u.device)
+    for idx, valid, _ in taps:
+        seen[(idx + offset)[valid]] = True
+    return int(seen.sum())
+
+
+def check_warp_nguyen(dev, gen):
+    """K3 and K4 at the PhotometricHead's shape (S-COCO nguyen-orig,
+    bench.py's batch 128): the full standardized 240x320 image_1, the
+    128x128 patch grid offset to each patch's corner, through the
+    homography of non-integer corner deltas of a few pixels, P = 16,384
+    points per image, a dense random cotangent. Returns K3's and K4's
+    figures at this shape."""
+    from bihome_torch import geometry
+    from bihome_torch.data import pipeline
+    from bihome_torch.ops import warp
+
+    n, h, w, ps = 128, 240, 320, 128
+    p = ps * ps
+    spec = pipeline.PairSpec(rho=32, patch_size=ps)
+    corners, _ = pipeline.draw_corners_delta_batch(n, (h, w), spec, gen)
+    corners = corners.float()
+    delta_hat = torch.rand((n, 4, 2), generator=gen) * 16 - 8
+    hom = geometry.four_point_to_homography(corners, delta_hat)
+    u, v = geometry.homography_grid(hom, (ps, ps), offset=corners[:, 0])
+    u, v = u.to(dev), v.to(dev)
+    image = torch.randn((n, h, w, 1), generator=gen).to(dev)
+    g = torch.randn((n, p, 1), generator=gen).to(dev)
+    out = warp.bilinear_sample_batched(image, u, v)
+    want = warp.bilinear_sample_plain(image, u, v)
+    err3 = _rel_err(out, want)
+    du, dv = warp.bilinear_sample_bwd_uv(image, u, v, g)
+    want_du, want_dv = warp.bilinear_sample_bwd_uv_plain(image, u, v, g)
+    err4 = max(_rel_err(du, want_du), _rel_err(dv, want_dv))
+    print(f'K3 at the PhotometricHead warp [{n},{h},{w},1] P={p} (points '
+          f'offset into the full image): error / max|ref| {err3:.2e} '
+          f'(tolerance 1e-5); K4 there: {err4:.2e} (tolerance 1e-4)')
+    if not (err3 <= 1e-5 and err4 <= 1e-4):
+        raise AssertionError(f'warp kernels disagree at the nguyen shape: '
+                             f'{err3}, {err4}')
+    img_nchw = image.permute(0, 3, 1, 2).contiguous()
+    grid = _grid(u, v, h, w)
+    g_nchw = g.permute(0, 2, 1)[:, :, None, :].contiguous()
+    grid_req = grid.clone().requires_grad_(True)
+    out_grid = torch.nn.functional.grid_sample(
+        img_nchw, grid_req, mode='bilinear', padding_mode='zeros',
+        align_corners=True)
+    ms3 = time_ms(lambda: warp.bilinear_sample_batched(image, u, v))
+    plain3 = time_ms(lambda: warp.bilinear_sample_plain(image, u, v))
+    lib3 = time_ms(lambda: torch.nn.functional.grid_sample(
+        img_nchw, grid, mode='bilinear', padding_mode='zeros',
+        align_corners=True))
+    ms4 = time_ms(lambda: warp.bilinear_sample_bwd_uv(image, u, v, g))
+    plain4 = time_ms(lambda: warp.bilinear_sample_bwd_uv_plain(image, u, v,
+                                                               g))
+    lib4 = time_ms(lambda: torch.autograd.grad(out_grid, grid_req, g_nchw,
+                                               retain_graph=True))
+    host3 = host_us(lambda: warp.bilinear_sample_batched(image, u, v))
+    host4 = host_us(lambda: warp.bilinear_sample_bwd_uv(image, u, v, g))
+    # What the warp must read of the image is the pixels its taps touch on
+    # these points (about a sixth of the frame over a (ps + 16)^2 region),
+    # not the whole frame; the bound counts those, and the frame's bound
+    # is printed beside it.
+    touched = _touched_pixels(u, v, h, w)
+    b3, by3 = bound_ms(4 * (touched + 3 * n * p), 15 * n * p)
+    b4, by4 = bound_ms(4 * (touched + 5 * n * p), 30 * n * p)
+    frame3, _ = bound_ms(4 * (n * h * w + 3 * n * p), 15 * n * p)
+    frame4, _ = bound_ms(4 * (n * h * w + 5 * n * p), 30 * n * p)
+    print(f'K3 times at the PhotometricHead warp (ms): kernel {ms3:.4f}  '
+          f'plain {plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} '
+          f'({by3}; {touched / (n * h * w):.3f} of the frame touched; '
+          f'reading the whole frame {frame3:.4f}); host us per call '
+          f'{host3:.1f}')
+    print(f'K4 times at the PhotometricHead warp (ms): kernel {ms4:.4f}  '
+          f'plain {plain4:.4f}  grid_sample grid-grad {lib4:.4f}  bound '
+          f'{b4:.4f} ({by4}; whole frame {frame4:.4f}); host us per call '
+          f'{host4:.1f}')
+    k3 = {'shape': [n, h, w, 1], 'points': p,
+          'max_abs_err': float((out - want).abs().max()),
+          'max_rel_err': err3, 'ms': ms3, 'plain_ms': plain3, 'bound_ms': b3,
+          'bound_by': by3, 'library_ms': lib3,
+          'host_us': {'kernel': host3}}
+    k4 = {'shape': [n, h, w, 1], 'points': p,
+          'max_abs_err': max(float((du - want_du).abs().max()),
+                             float((dv - want_dv).abs().max())),
+          'max_rel_err': err4, 'ms': ms4, 'plain_ms': plain4, 'bound_ms': b4,
+          'bound_by': by4, 'library_ms': lib4,
+          'host_us': {'kernel': host4}}
+    return k3, k4
+
+
+def check_pds(dev, gen):
+    """The PDS photometric distortion on the card against the CPU plain
+    path, on the same draws: the distorted full images (64 synthetic
+    240x320 frames) and the pairs of pds-coco/zeng-biHomE's spec
+    (window-first, both copies distorted), on the 0..255 scale."""
+    from bihome_torch import config as config_lib
+    from bihome_torch.data import datasets, photometric, pipeline
+
+    n = BATCH
+    spec = config_lib.build_model(config_lib.load_config(
+        PDS_RUNS[0][0])).pair_spec
+    pool = torch.from_numpy(datasets.SyntheticDataset(seed=3).pool[:n])
+    corners, delta = pipeline.draw_corners_delta_batch(
+        n, tuple(pool.shape[1:3]), spec, gen)
+    pds = [photometric.draw_photometric_params(n, spec.max_delta, gen)
+           for _ in range(2)]
+    images = pool.float()
+    got = photometric.apply_photometric(images.to(dev), pds[0].to(dev))
+    want = photometric.apply_photometric(images, pds[0])
+    err_img = float((got.cpu() - want).abs().max())
+    card, cpu = (pipeline.generate_pairs(pool.to(d), spec, corners=corners,
+                                         delta=delta, photometric_params=pds)
+                 for d in (dev, torch.device('cpu')))
+    to_255 = spec.standardize_std * 255.0
+    err_pair = max(float((card[k].cpu() - cpu[k]).abs().max()) * to_255
+                   for k in ('patch_1', 'patch_2'))
+    moved = float((want - images).abs().mean())
+    print(f'PDS distortion [{n},240,320,3] on the card vs the CPU plain path,'
+          f' same draws: max abs err {err_img:.3e} (0..255; mean change of '
+          f'a pixel {moved:.2f}); pds-coco/zeng pairs: patch_1/patch_2 max '
+          f'abs err {err_pair:.3e} on the 0..255 scale (tolerance 1e-3)')
+    if not (err_img <= 1e-3 and err_pair <= 1e-3 and moved > 1.0):
+        raise AssertionError(f'PDS distortion disagrees: {err_img}, '
+                             f'{err_pair}')
+    return {'image_max_abs_err': err_img, 'pairs_max_abs_err': err_pair}
+
+
+def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
+                   steps=STEPS, expect=ZENG_KERNELS):
+    """The port's train entry point on the card, counted: the kernels in
+    ``expect`` must launch and the others in ``counters`` must not."""
     from bihome_torch import train
 
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    result = train.main(['--config_file', CONFIG, '--synthetic',
-                         '--batch_size', str(BATCH), '--steps', str(STEPS),
+    result = train.main(['--config_file', config, '--synthetic',
+                         '--batch_size', str(batch), '--steps', str(steps),
                          '--epochs', '1', '--device', 'cuda',
                          '--set', 'MODEL.HEAD.AUXILIARY_RESNET_PATH='
                          'aux_clfbh.npz', '--set', f'LOGGING.DIR={log_dir}'])
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f'launches on the train path: {launches}')
-    for name in ('fused_pf_head_fwd', 'fused_pf_head_bwd',
-                 'bilinear_sample_batched', 'bilinear_sample_bwd_uv'):
-        if launches[name] < 1:
-            raise AssertionError(f'{name} never launched on the train path')
+    print(f'launches on the train path of {config} (batch {batch}, {steps} '
+          f'steps, then {steps} eval steps): {launches}')
+    for name, count in launches.items():
+        if (count > 0) != (name in expect):
+            raise AssertionError(
+                f'{name} launched {count} times on the train path of '
+                f'{config}; expected {"some" if name in expect else "none"}')
     losses = result['losses']
     print(f'train losses per step: {losses.tolist()}')
     if not bool(torch.isfinite(losses).all()):
@@ -515,66 +715,82 @@ def run_train_path(counters, log_dir):
     params = {f'backbone.{k}' for k, _ in model.backbone.named_parameters()}
     stats = {k for k in final if k.startswith('backbone.')
              and k.endswith(('running_mean', 'running_var'))}
-    aux_same = all(torch.equal(final[k].cpu(), initial[k]) for k in final
-                   if k.startswith('auxiliary_resnet.'))
+    aux_keys = [k for k in final if k.startswith('auxiliary_resnet.')]
+    aux_same = all(torch.equal(final[k].cpu(), initial[k]) for k in aux_keys)
     print(f'moved: {len(params & set(moved))}/{len(params)} backbone '
           f'parameters, {len(stats & set(moved))}/{len(stats)} BN running '
-          f'statistics; frozen extractor bitwise unchanged: {aux_same}')
+          f'statistics; frozen extractor bitwise unchanged: '
+          f'{aux_same if aux_keys else "(no extractor)"}')
     if not (params & set(moved) and stats & set(moved) and aux_same):
         raise AssertionError('training did not move the backbone, or moved '
                              'the frozen extractor')
     step_ms = result['median_step_ms']
-    pairs_per_s = BATCH / (step_ms / 1e3)
-    print(f'train: {step_ms:.2f} ms per step (median of steps 2-{STEPS}, '
-          f'each ended by a synchronize; all: '
+    pairs_per_s = batch / (step_ms / 1e3)
+    print(f'train {config}: {step_ms:.2f} ms per step (median of steps '
+          f'2-{steps}, each ended by a synchronize; all: '
           f'{[round(t, 2) for t in result["step_ms"]]}), pairs/s '
           f'{pairs_per_s:.1f}, peak memory allocated {peak_gb:.2f} GB')
+    result['summary'] = {'config': config, 'batch': batch,
+                         'ms_per_step': step_ms, 'pairs_per_s': pairs_per_s,
+                         'peak_gb': peak_gb, 'launches': launches}
     return launches, result
 
 
 def _condition(model):
     """Scale the last BN of each residual branch by 1/4, as
-    tests/test_torch_train_step.py does, and the PF head's output conv by
-    PF_SCALE, so that the field is a few pixels (the seeded init gives
-    less than one; the DLT fit of sub-pixel deltas is ill-conditioned in
-    float32). Undamped, the seeded network's float32 backward is
-    ill-conditioned; damped, float32 follows float64 closely (readings
-    above) and a wrong gradient stands out."""
+    tests/test_torch_train_step.py and tests/test_torch_resnet34.py do,
+    and a PF head's output conv by PF_SCALE, so that the field is a few
+    pixels (the seeded init gives less than one; the DLT fit of sub-pixel
+    deltas is ill-conditioned in float32). Undamped, the seeded network's
+    float32 backward is ill-conditioned; damped, float32 follows float64
+    closely (readings above) and a wrong gradient stands out."""
+    from bihome_torch.models.backbones import RethinkingBackbone
+
+    last_bn = ('upper_branch.4'
+               if isinstance(model.backbone, RethinkingBackbone) else 'bn2')
     with torch.no_grad():
         for name, mod in model.backbone.named_modules():
-            if (name.endswith('upper_branch.4')
+            if (name.endswith(last_bn)
                     and isinstance(mod, torch.nn.BatchNorm2d)):
                 mod.weight.mul_(0.25)
-        model.backbone.layer8[3].weight.mul_(PF_SCALE)
-        model.backbone.layer8[3].bias.mul_(PF_SCALE)
+        if isinstance(model.backbone, RethinkingBackbone):
+            model.backbone.layer8[3].weight.mul_(PF_SCALE)
+            model.backbone.layer8[3].bias.mul_(PF_SCALE)
 
 
 def one_step_grads(built, state, data, device, dtype=torch.float32):
     """Loss and backbone gradients (float64, on the CPU) of one conditioned
     training step from ``state`` on ``device`` in ``dtype``; ``data`` =
-    (uint8 pool rows, corners, delta, DSAC uniforms). No optimizer."""
+    (uint8 pool rows, corners, delta, the photometric draws (pd1, pd2),
+    DSAC uniforms or None). No optimizer."""
     from bihome_torch import config as config_lib
     from bihome_torch.data import pipeline
+    from bihome_torch.training import losses
 
-    pool, corners, delta, uniforms = data
+    pool, corners, delta, pds, uniforms = data
     model = config_lib.build_model(built.config).model
     model.load_state_dict(state)
     _condition(model)
     model = model.to(device=device, dtype=dtype).train()
     batch = pipeline.generate_pairs(pool.to(device), built.pair_spec,
-                                    corners=corners, delta=delta)
+                                    corners=corners, delta=delta,
+                                    photometric_params=pds)
     out = model({k: v.to(dtype) for k, v in batch.items()},
                 uniforms=uniforms)
-    out['loss'].backward()
-    # The loss is ln1 + ln2 + mu*ln3, whose terms largely cancel: its error
-    # is measured on the sum of their magnitudes.
-    scale = sum(abs(out['metrics'][f'loss_comp/ln{i}'].item())
-                for i in (1, 2, 3))
+    loss = losses.compute_loss(built.loss_name, out)
+    loss.backward()
+    if 'loss_comp/ln1' in out['metrics']:
+        # The biHomE loss is ln1 + ln2 + mu*ln3, whose terms largely
+        # cancel: its error is measured on the sum of their magnitudes.
+        scale = sum(abs(out['metrics'][f'loss_comp/ln{i}'].item())
+                    for i in (1, 2, 3))
+    else:
+        scale = abs(loss.item())
     # layer8.0.bias (the PF head's first conv bias) is left out: its
     # gradient is 0 analytically under batch statistics.
-    return out['loss'].item(), scale, {n: p.grad.cpu().double() for n, p in
-                                       model.backbone.named_parameters()
-                                       if n != 'layer8.0.bias'}
+    return loss.item(), scale, {n: p.grad.cpu().double() for n, p in
+                                model.backbone.named_parameters()
+                                if n != 'layer8.0.bias'}
 
 
 def step_errors(got, ref):
@@ -622,15 +838,17 @@ def planted_fault(name):
         setattr(owner, attr, saved)
 
 
-def compare_train_step(result, batch=4):
+def compare_train_step(result, batch=4, faults=FAULTS):
     """One step's loss and backbone gradients on the card (float32) and
     through the plain path on the CPU (float32), each against the plain
     path on the CPU in float64: the run's initial weights, conditioned
-    (``_condition``), the same pairs and DSAC draws; no optimizer. Then the
+    (``_condition``), the same pairs, photometric draws (PDS) and DSAC
+    draws; no optimizer. Then the
     card's step again under each planted fault, which must fail the same
-    limits: the loss within STEP_LOSS of the sum of its terms' magnitudes,
-    the gradients within STEP_L2 relative L2 over all tensors and within
-    STEP_PER_TENSOR relative L2 for every tensor."""
+    limits: the loss within STEP_LOSS of the sum of its terms' magnitudes
+    (of the loss itself for a tensor loss), the gradients within STEP_L2
+    relative L2 over all tensors and within STEP_PER_TENSOR relative L2
+    for every tensor."""
     from bihome_torch.data import datasets, pipeline
 
     built, state = result['built'], result['initial_state']
@@ -638,8 +856,10 @@ def compare_train_step(result, batch=4):
     pool = torch.from_numpy(datasets.SyntheticDataset(seed=2).pool[:batch])
     corners, delta = pipeline.draw_corners_delta_batch(
         batch, tuple(pool.shape[1:3]), built.pair_spec, gen)
-    uniforms = [torch.rand((batch, 128), generator=gen) for _ in range(2)]
-    data = (pool, corners, delta, uniforms)
+    pds = pipeline._draw_photometric(batch, built.pair_spec, gen)
+    uniforms = ([torch.rand((batch, 128), generator=gen) for _ in range(2)]
+                if built.needs_dsac_rng else None)
+    data = (pool, corners, delta, pds, uniforms)
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
 
     with one_cpu_thread():
@@ -647,13 +867,14 @@ def compare_train_step(result, batch=4):
         cpu32 = one_step_grads(built, state, data, cpu)
     runs = {'card': one_step_grads(built, state, data, cuda),
             'CPU fp32': cpu32}
-    for fault in FAULTS:
+    for fault in faults:
         with planted_fault(fault):
             runs[fault] = one_step_grads(built, state, data, cuda)
     readings = {}
     for name, run in runs.items():
         loss_err, l2, per, worst = readings[name] = step_errors(run, ref)
-        print(f'one train step (batch {batch}), {name} against the CPU '
+        print(f'one train step of {result["summary"]["config"]} (batch '
+              f'{batch}), {name} against the CPU '
               f'plain path in float64: loss {run[0]:.6f} vs {ref[0]:.6f} '
               f'(terms {ref[1]:.4f}), error / terms {loss_err:.2e} (limit '
               f'{STEP_LOSS:.0e}); backbone gradients relative L2 {l2:.2e} '
@@ -667,7 +888,7 @@ def compare_train_step(result, batch=4):
     if not holds('card'):
         raise AssertionError('CUDA training step strays from the float64 '
                              'plain path')
-    caught = {fault: not holds(fault) for fault in FAULTS}
+    caught = {fault: not holds(fault) for fault in faults}
     print(f'planted faults caught by the step check: {caught}')
     if not all(caught.values()):
         raise AssertionError(f'the step check misses a planted fault: '
@@ -692,7 +913,7 @@ def main():
     print(f'allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} '
           f'cudnn={torch.backends.cudnn.allow_tf32}')
 
-    start = time.perf_counter()
+    begin = start = time.perf_counter()
     logs = _cuda.build(['warp', 'fused_head'])
     print(f'built {sorted(logs)} in {time.perf_counter() - start:.1f} s')
     for name, log in logs.items():
@@ -707,23 +928,56 @@ def main():
                check_pf_head_bwd(dev, gen)]
     k3_loss_warp, bwd_kernels = check_warp_bwd(dev, gen)
     kernels[0]['at_loss_warp'] = k3_loss_warp
+    # K3 at the datagen windows of the batch-128 configs.
+    kernels[0]['at_datagen_128'] = {
+        k: v for k, v in check_warp(dev, torch.Generator().manual_seed(128),
+                                    128).items()
+        if k not in ('name', 'route', 'source', 'replaces')}
+    kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
+                                    kernels[0]['at_datagen_128']['max_abs_err'])
     kernels += bwd_kernels
     counters = {'bilinear_sample_batched': warp.bilinear_sample_batched,
                 'fused_pf_head_fwd': fused_head.fused_pf_head_fwd,
                 'fused_pf_head_bwd': fused_head.fused_pf_head_bwd,
                 'bilinear_sample_bwd_uv': warp.bilinear_sample_bwd_uv,
                 'bilinear_sample_bwd_img': warp.bilinear_sample_bwd_img}
-    eval_launches, _, _ = run_eval_path(
-        {k: counters[k] for k in ('bilinear_sample_batched',
-                                  'fused_pf_head_fwd')})
+    paths = {}
+    paths['eval'], _, _ = run_eval_path(counters)
     with tempfile.TemporaryDirectory() as log_dir:
-        train_launches, result = run_train_path(counters, log_dir)
+        paths['train'], result = run_train_path(counters, log_dir)
     compare_train_step(result)
+    del result
+
+    # The PDS slice: K3 and K4 at the PhotometricHead's shape, the
+    # distortion on the card, the train runs of PDS_RUNS with the one-step
+    # checks of STEP_CHECKS, the eval of pds-coco/detone-orig.
+    kernels[0]['at_photometric_head'], kernels[3]['at_photometric_head'] = (
+        check_warp_nguyen(dev, gen))
+    pds_check = check_pds(dev, gen)
+    runs = []
+    for config, batch, expect in PDS_RUNS:
+        with tempfile.TemporaryDirectory() as log_dir:
+            paths[f'train {config}'], result = run_train_path(
+                counters, log_dir, config, batch, PDS_STEPS, expect)
+        runs.append(result['summary'])
+        if config in STEP_CHECKS:
+            # Batch 8: on the CPU nguyen's float32 step reads 8.3e-3
+            # relative L2 from float64 at batch 4 (worst tensor 1.8e-2),
+            # 3.1e-4 at batch 8 (2.0e-3), far inside STEP_L2.
+            compare_train_step(result, batch=STEP_CHECKS[config],
+                               faults=('K4 du negated',))
+        del result
+    detone = PDS_RUNS[1]
+    paths[f'eval {detone[0]}'], _, _ = run_eval_path(
+        counters, detone[0], detone[1], STEPS, detone[2])
     for k in kernels:
-        by_path = {'eval': eval_launches.get(k['name'], 0),
-                   'train': train_launches[k['name']]}
+        by_path = {path: launches[k['name']]
+                   for path, launches in paths.items()}
         k['launches'] = sum(by_path.values())
         k['launches_by_path'] = by_path
+    print(f'chip_smoke: all checks passed in '
+          f'{time.perf_counter() - begin:.1f} s')
+    print(json.dumps({'pds_distortion': pds_check, 'train_runs': runs}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -108,8 +108,13 @@ def test_per_sample_synthesis_is_batch_invariant():
 
 
 def test_photometric_config_is_not_ported_yet():
-    spec = tpipe.PairSpec.from_transforms(_transforms(ZENG[1]))
-    with pytest.raises(ValueError, match='not ported yet'):
+    """HomographyNetPrep's PDS distortion is ported
+    (tests/test_torch_photometric.py); the dict-stage full-SSD
+    ``PhotometricDistort`` transform is not yet."""
+    tpipe.check_ported(tpipe.PairSpec.from_transforms(_transforms(ZENG[1])))
+    spec = tpipe.PairSpec.from_transforms(
+        _transforms(ZENG[1]) + [{'PhotometricDistort': [['patch_1']]}])
+    with pytest.raises(ValueError, match='not ported yet: PhotometricDistort'):
         tpipe.check_ported(spec)
 
 

@@ -56,6 +56,30 @@ print(len(names))
 '''
 
 
+# The modules of the PDS / ResNet34 slice, each checked by name so that a
+# rename cannot drop it from the checks above unnoticed.
+SLICE_MODULES = ('bihome_torch/data/photometric.py',
+                 'bihome_torch/ops/color.py',
+                 'bihome_torch/data/pipeline.py',
+                 'bihome_torch/models/backbones.py',
+                 'bihome_torch/models/resnet.py',
+                 'bihome_torch/heads/assembled.py',
+                 'bihome_torch/training/losses.py')
+
+
+@pytest.mark.parametrize('rel', SLICE_MODULES)
+def test_slice_module_is_checked_and_imports_with_jax_blocked(rel):
+    assert REPO / rel in SOURCES
+    module = rel[:-3].replace('/', '.')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    code = _BLOCKED_IMPORT.split('import bihome_torch')[0] + (
+        f'import importlib; importlib.import_module({module!r}); print(1)')
+    proc = subprocess.run(
+        [sys.executable, '-c', code.format(forbidden=FORBIDDEN)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_every_module_imports_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
