@@ -2,8 +2,9 @@
 ``bihome_tpu/config.py:22-134``).
 
 Reads the same reference-schema YAMLs. ``build_model`` assembles the
-backbone (``build_backbone``: Rethinking or ResNet34) with its head
-(NoOpHead, PhotometricHead or PerceptualHead) and the pair specs, which
+backbone (``build_backbone``: Rethinking of either flavour, ResNet34 or
+ContentAware) with its head (NoOpHead, PhotometricHead, PerceptualHead or
+TripletHead) and the pair specs, which
 emit the full ``image_1`` where the PhotometricHead reads it;
 ``solver_kwargs`` reads the optimizer settings. Other families raise
 ``ValueError('not ported yet: ...')``.

@@ -28,8 +28,8 @@
 // single-pass TF32 on the CPU at this head's widths.
 //
 // Takes Cin = 16, Cout = 2 and any Cmid that is a multiple of 16 up to
-// kFwdMaxCmid (128 for the ResNet34-flavour head, 512 for the
-// ResNet50-flavour one).
+// kFwdMaxCmid (128 for the ResNet34-flavour head). The ResNet50-flavour
+// head (Cin 64, Cmid 512) has kernels of its own, at the end of this file.
 //
 // Design:
 //   * orientation: pixels are the mma's M dimension and middle channels
@@ -704,6 +704,557 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
   out[j] = s;
 }
 
+// ---------------------------------------------------------------------------
+// The ResNet50-flavour head: Cin = 64, Cmid a multiple of 128 (512), Cout 2.
+// The same functions as K1 and K2 above; the TPU kernels run them on a
+// grid of 4096-pixel programs (_TP_WIDE, bihome_tpu/ops/fused_head.py:55).
+//
+// Bound on the H100 at M = 2B*128*128 = 2,097,152 pixels (B = 64):
+//   * forward: the Cin x Cmid product is 137.4 GFLOP; in 3xTF32 on the
+//     tensor cores (3 x 137.4 at 495 TFLOP/s) 0.833 ms, against 0.165 ms of
+//     bytes (x read, the output written): operations;
+//   * backward: three such products (mid, dx, dw1), 2.50 ms in 3xTF32,
+//     against 0.33 ms of bytes (x and g read, dx written): operations.
+//
+// Why the narrow kernels cannot simply be widened: at Cin 64 the forward's
+// split g1t fragments alone are (Cmid/8)(Cin/8) x 32 lanes x 16 B = 262 KB
+// at Cmid 512, and the backward's split e tile and split w1t^T 264 KB each,
+// beyond the 227 KB a block may hold. So both stream the weights through
+// shared memory in chunks of middle channels:
+//   * pixels are the mma's M dimension (as in K1): warp w owns 16 pixels of
+//     a 128-pixel tile and holds their split x as A fragments in registers
+//     for the whole tile (8 k-steps x 4 x 2 words), so each x value is split
+//     once. For each chunk of 64 middle channels the block stages the B
+//     fragments of the chunk's weights, split, in shared memory (32 KB), and
+//     every warp runs its 16 pixels against them;
+//   * forward (pf_head_fwd_wide_kernel): the epilogue of K1 (ReLU, the
+//     Cout = 2 sums in registers, 3 shuffles at the end);
+//   * backward, dx (pf_head_bwd_wide_dx_kernel): the epilogue forms the
+//     mask and e in registers; e is then, as it lies in mid's accumulator,
+//     the A fragment of dx^T [16 px, 8 k] = e [16 px, 8 ch] w1t [8 ch, 8 k]
+//     (the chunk's w1t staged a second time, in the channel order the
+//     accumulator gives: k-index t is channel 2t, t + 4 is 2t + 1), so dx
+//     sums over every middle channel in registers, with no reduction
+//     across blocks;
+//   * backward, the cross-pixel sums (pf_head_bwd_wide_sums_kernel): dw1,
+//     M0, M1 and db2 need e with channels as M, as K2 forms it; the grid's
+//     y dimension takes 128-channel chunks (8 warps x 16 channels, K2's
+//     orientation with Cin = 64: w1t rows in registers, x split into
+//     shared memory twice per 64-pixel tile), each block walks its share of
+//     the tiles (summing each tile apart first, so that no fp32 accumulator
+//     takes thousands of adds), writes its sums to its row of a scratch, and
+//     reduce_rows_kernel adds the rows in order: deterministic, no atomics;
+//   * so the backward computes mid twice: four products where the TPU
+//     kernel has three, a floor of 3.33 ms in 3xTF32; the price of a dx
+//     that needs no reduction and a dw1 that needs no transposed e;
+//   * dx and dw1 accumulate the three TF32 passes in one accumulator
+//     (fp32 error all the same; registers are what these kernels lack).
+
+constexpr int kWCin = 64;
+constexpr int kWKs = kWCin / 8;       // k-steps of the Cin contraction
+constexpr int kWTile = 128;           // pixels per tile: 8 warps x 16
+constexpr int kWThreads = 256;
+constexpr int kWSX = kWTile + 8;      // row stride of the x tile (words)
+constexpr int kWChunk = 64;           // middle channels per staged chunk
+constexpr int kWNt = kWChunk / 8;     // n-tiles per chunk
+constexpr int kWSumChunk = 128;       // channels per block of the sums kernel
+constexpr int kWSTile = 64;           // pixels per tile of the sums kernel
+constexpr int kWMaxCmid = 1024;
+
+// 3xTF32 into one accumulator: d += big*big + big*small + small*big.
+__device__ __forceinline__ void mma3_acc1(float* d, const uint32_t* ab,
+                                          const uint32_t* as,
+                                          const uint32_t* bb,
+                                          const uint32_t* bs) {
+  mma_tf32(d, as, bb, d);
+  mma_tf32(d, ab, bs, d);
+  mma_tf32(d, ab, bb, d);
+}
+
+// Stage the B fragments of mid^T = x^T w^T for middle channels ch0 ..
+// ch0 + kWChunk - 1 of w [Cmid][Cin] (g1t or w1t): s_b[(nt * kWKs + ks) *
+// 32 + l] = (big, small) of w[ch0 + nt*8 + l/4][ks*8 + l%4] and of k + 4.
+__device__ __forceinline__ void stage_mid_b(uint4* s_b, const float* w,
+                                            int ch0) {
+  for (int i = threadIdx.x; i < kWNt * kWKs * 32; i += kWThreads) {
+    const int l = i & 31, ks = (i >> 5) % kWKs, nt = (i >> 5) / kWKs;
+    const float* row =
+        w + (long long)(ch0 + nt * 8 + (l >> 2)) * kWCin + ks * 8 + (l & 3);
+    const Split lo = split(row[0]), hi = split(row[4]);
+    s_b[i] = make_uint4(lo.big, lo.small, hi.big, hi.small);
+  }
+}
+
+// The x tile's A fragments for warp w's 16 pixels, all k-steps, split:
+// register r is pixel 16w + gid + 8 (r & 1) at k = ks*8 + tig + 4 (r >> 1).
+__device__ __forceinline__ void wide_a_fragments(const float* sx, int warp,
+                                                 int lane,
+                                                 uint32_t (&ab)[kWKs][4],
+                                                 uint32_t (&as)[kWKs][4]) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kWKs; ++ks) {
+    const float* p = sx + (ks * 8 + tig) * kWSX + warp * 16 + gid;
+    const float a[4] = {p[0], p[8], p[4 * kWSX], p[4 * kWSX + 8]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const Split s = split(a[r]);
+      ab[ks][r] = s.big;
+      as[ks][r] = s.small;
+    }
+  }
+}
+
+// mid^T of n-tile nt of the staged chunk for the warp's pixels: hh = chh +
+// big*big, hs = big*small + small*big. Register r is pixel gid + 8 (r >> 1),
+// channel nt*8 + 2 tig + (r & 1) of the chunk.
+__device__ __forceinline__ void wide_mid(const uint4* s_b, int nt, int lane,
+                                         const uint32_t (&ab)[kWKs][4],
+                                         const uint32_t (&as)[kWKs][4],
+                                         const float* chh, float (&hh)[4],
+                                         float (&hs)[4]) {
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int ks = 0; ks < kWKs; ++ks) {
+    const uint4 f = s_b[(nt * kWKs + ks) * 32 + lane];
+    const uint32_t bb[2] = {f.x, f.z}, bs[2] = {f.y, f.w};
+    if (ks == 0) {
+      mma3(hh, hs, ab[ks], as[ks], bb, bs, chh, zero);
+    } else {
+      mma3(hh, hs, ab[ks], as[ks], bb, bs);
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kWThreads, 2)
+pf_head_fwd_wide_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g1t,
+                        const float* __restrict__ c1,
+                        const float* __restrict__ w2,
+                        const float* __restrict__ b2, float* __restrict__ out,
+                        int hw, int tpi, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_x = smem;                                           // [Cin][kWSX]
+  uint4* s_b = reinterpret_cast<uint4*>(s_x + kWCin * kWSX);   // a chunk
+  float* s_c = reinterpret_cast<float*>(s_b + kWNt * kWKs * 32);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int tile = blockIdx.x;
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kWTile;
+  copy_rows<kWCin, kWTile, kWSX, kWThreads, kVec>(
+      s_x, x + (long long)n * kWCin * hw, x, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // c1 and w2 of every channel, laid out as K1's (quad q of n-tile nt:
+  // channels nt*8 + 2q and + 1, c1 at 0, 1 and w2 [o][channel] at 4..7).
+  for (int i = t; i < cmid / 2; i += kWThreads) {
+    const int ch = (i >> 2) * 8 + 2 * (i & 3);
+    float* c = s_c + i * 8;
+    c[0] = c1[ch];
+    c[1] = c1[ch + 1];
+    c[2] = 0.0f;
+    c[3] = 0.0f;
+    c[4] = w2[ch];
+    c[5] = w2[ch + 1];
+    c[6] = w2[cmid + ch];
+    c[7] = w2[cmid + ch + 1];
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  uint32_t ab[kWKs][4], as[kWKs][4];
+  wide_a_fragments(s_x, warp, lane, ab, as);
+  float acc[2][2] = {};  // [pixel gid + 8 px][o], over the lane's channels
+  for (int ch0 = 0; ch0 < cmid; ch0 += kWChunk) {
+    __syncthreads();  // every warp done with the chunk before
+    stage_mid_b(s_b, g1t, ch0);
+    __syncthreads();
+#pragma unroll 2
+    for (int nt = 0; nt < kWNt; ++nt) {
+      const float* cq = s_c + ((ch0 / 8 + nt) * 4 + tig) * 8;
+      const float2 c = *reinterpret_cast<const float2*>(cq);
+      const float c1r[4] = {c.x, c.y, c.x, c.y};
+      float hh[4], hs[4];
+      wide_mid(s_b, nt, lane, ab, as, c1r, hh, hs);
+      const float4 w = *reinterpret_cast<const float4*>(cq + 4);
+      const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = fmaxf(hh[r] + hs[r], 0.0f);
+        const int px = r >> 1, ch = r & 1;
+        acc[px][0] = fmaf(wo[0][ch], a, acc[px][0]);
+        acc[px][1] = fmaf(wo[1][ch], a, acc[px][1]);
+      }
+    }
+  }
+
+  // Fold over the lane quad as K1 does: lane tig keeps pixel gid + 8
+  // (tig >> 1), output tig & 1.
+  const int px = tig >> 1, o = tig & 1;
+  float keep[2];
+#pragma unroll
+  for (int oo = 0; oo < 2; ++oo) {
+    const float mine = px ? acc[1][oo] : acc[0][oo];
+    const float other = px ? acc[0][oo] : acc[1][oo];
+    keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+  }
+  const float mine = o ? keep[1] : keep[0];
+  const float other = o ? keep[0] : keep[1];
+  const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+  const int s = s0 + warp * 16 + gid + 8 * px;
+  if (s < hw) out[((long long)n * kCout + o) * hw + s] = v + b2[o];
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kWThreads, 1)
+pf_head_bwd_wide_dx_kernel(const float* __restrict__ x,
+                           const float* __restrict__ g,
+                           const float* __restrict__ w1t,
+                           const float* __restrict__ gis,
+                           const float* __restrict__ c1,
+                           const float* __restrict__ w2gis,
+                           float* __restrict__ dx, int hw, int tpi, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_x = smem;                                           // [Cin][kWSX]
+  float* s_g = s_x + kWCin * kWSX;                             // [Cout][tile]
+  uint4* s_b = reinterpret_cast<uint4*>(s_g + kCout * kWTile); // mid's B
+  uint4* s_d = s_b + kWNt * kWKs * 32;                         // dx's B
+  float4* s_p = reinterpret_cast<float4*>(s_d + kWNt * 8 * 32);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int tile = blockIdx.x;
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kWTile;
+  copy_rows<kWCin, kWTile, kWSX, kWThreads, kVec>(
+      s_x, x + (long long)n * kWCin * hw, x, s0, hw);
+  copy_rows<kCout, kWTile, kWTile, kWThreads, kVec>(
+      s_g, g + (long long)n * kCout * hw, g, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int c = t; c < cmid; c += kWThreads) {
+    s_p[c] = make_float4(gis[c], c1[c], w2gis[2 * c], w2gis[2 * c + 1]);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  uint32_t ab[kWKs][4], as[kWKs][4];
+  wide_a_fragments(s_x, warp, lane, ab, as);
+  float gv[2][2];  // [pixel gid + 8 px][o]
+#pragma unroll
+  for (int px = 0; px < 2; ++px) {
+    gv[px][0] = s_g[warp * 16 + gid + 8 * px];
+    gv[px][1] = s_g[kWTile + warp * 16 + gid + 8 * px];
+  }
+  // dx^T n-tile j: register r is pixel gid + 8 (r >> 1), k = 8j + 2 tig +
+  // (r & 1).
+  float dxa[kWCin / 8][4] = {};
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int ch0 = 0; ch0 < cmid; ch0 += kWChunk) {
+    __syncthreads();  // every warp done with the chunk before
+    stage_mid_b(s_b, w1t, ch0);
+    // dx's B fragment of middle n-tile nt and k n-tile j, lane l: w1t at
+    // channel ch0 + nt*8 + 2 (l%4) (and + 1) and k = 8j + l/4.
+    for (int i = t; i < kWNt * 8 * 32; i += kWThreads) {
+      const int l = i & 31, j = (i >> 5) & 7, nt = i >> 8;
+      const float* p =
+          w1t + (long long)(ch0 + nt * 8 + 2 * (l & 3)) * kWCin + 8 * j +
+          (l >> 2);
+      const Split b0 = split(p[0]), b1 = split(p[kWCin]);
+      s_d[i] = make_uint4(b0.big, b0.small, b1.big, b1.small);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int nt = 0; nt < kWNt; ++nt) {
+      float hh[4], hs[4];
+      wide_mid(s_b, nt, lane, ab, as, zero, hh, hs);
+      const int ch = ch0 + nt * 8 + 2 * tig;
+      const float4 pc[2] = {s_p[ch], s_p[ch + 1]};
+      Split e[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 q = pc[r & 1];
+        const int px = r >> 1;
+        const float a = fmaf(q.x, hh[r] + hs[r], q.y);
+        const float eun = fmaf(q.z, gv[px][0], q.w * gv[px][1]);
+        e[r] = split(a > 0.0f ? eun : 0.0f);
+      }
+      // A of dx^T: (pixel gid, k-index tig) is channel 2 tig, k-index
+      // tig + 4 channel 2 tig + 1: registers 0, 2, 1, 3 of e.
+      const uint32_t eb[4] = {e[0].big, e[2].big, e[1].big, e[3].big};
+      const uint32_t es[4] = {e[0].small, e[2].small, e[1].small,
+                              e[3].small};
+#pragma unroll
+      for (int j = 0; j < kWCin / 8; ++j) {
+        const uint4 f = s_d[(nt * 8 + j) * 32 + lane];
+        const uint32_t bb[2] = {f.x, f.z}, bs[2] = {f.y, f.w};
+        mma3_acc1(dxa[j], eb, es, bb, bs);
+      }
+    }
+  }
+
+  float* dn = dx + (long long)n * kWCin * hw;
+#pragma unroll
+  for (int j = 0; j < kWCin / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = s0 + warp * 16 + gid + 8 * (r >> 1);
+      const int k = 8 * j + 2 * tig + (r & 1);
+      if (s < hw) dn[(long long)k * hw + s] = dxa[j][r];
+    }
+  }
+}
+
+// Start the copies of a 64-pixel tile's x [Cin][64] and g [Cout][64].
+template <bool kVec>
+__device__ __forceinline__ void load_wide_sums_tile(const float* x,
+                                                    const float* g, float* sx,
+                                                    float* sg, long long tile,
+                                                    int tpi, int hw) {
+  const long long n = tile / tpi;
+  const int s0 = (int)(tile - n * tpi) * kWSTile;
+  copy_rows<kWCin, kWSTile, kWSTile, kWThreads, kVec>(
+      sx, x + n * kWCin * hw, x, s0, hw);
+  copy_rows<kCout, kWSTile, kWSTile, kWThreads, kVec>(
+      sg, g + n * kCout * hw, g, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// dw1, M0, M1 and db2 of middle channels 128 blockIdx.y .. + 127 over the
+// block's tiles (K2's orientation; see pf_head_bwd_kernel). Block b writes
+// its sums into row b of partial [gridDim.x][cols] (cols = Cin*Cmid +
+// 4*Cmid + 2): its chunk's columns of dw1 [Cin][Cmid], M0 and M1 [Cmid][2];
+// db2 from the blocks of chunk 0.
+template <bool kVec>
+__global__ void __launch_bounds__(kWThreads, 1)
+pf_head_bwd_wide_sums_kernel(const float* __restrict__ x,
+                             const float* __restrict__ g,
+                             const float* __restrict__ w1t,
+                             const float* __restrict__ gis,
+                             const float* __restrict__ c1,
+                             const float* __restrict__ w2gis,
+                             float* __restrict__ partial, int hw, int tpi,
+                             long long ntiles, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_x = smem;                                  // [2][Cin][64], cp.async
+  float* s_g = s_x + 2 * kWCin * kWSTile;             // [2][Cout][64]
+  uint32_t* s_xa = reinterpret_cast<uint32_t*>(s_g + 2 * kCout * kWSTile);
+  uint32_t* s_xb = s_xa + kWCin * kSX;
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int c0 = blockIdx.y * kWSumChunk + warp * 16;
+  const int ca = c0 + 2 * gid, cb = ca + 1;
+
+  long long tile = blockIdx.x;
+  if (tile < ntiles) load_wide_sums_tile<kVec>(x, g, s_x, s_g, tile, tpi, hw);
+  uint32_t am_b[kWKs][4], am_s[kWKs][4];  // A of mid^T: w1t rows ca, cb
+#pragma unroll
+  for (int ks = 0; ks < kWKs; ++ks) {
+    const int k = ks * 8 + tig;
+    const float a[4] = {w1t[ca * kWCin + k], w1t[cb * kWCin + k],
+                        w1t[ca * kWCin + k + 4], w1t[cb * kWCin + k + 4]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const Split s = split(a[r]);
+      am_b[ks][r] = s.big;
+      am_s[ks][r] = s.small;
+    }
+  }
+  const float gis_c[2] = {gis[ca], gis[cb]};
+  const float c1_c[2] = {c1[ca], c1[cb]};
+  const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
+                            {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
+
+  // dw1 m-tile kt (k 16kt..16kt+15), n-tile nt, register r: k = 16kt + gid
+  // + 8 (r >> 1), channel c0 + 2 (2 tig + (r & 1)) + nt. The sums run in
+  // two levels, over a tile (t*), then over the block's tiles, so that no
+  // fp32 accumulator takes more than a few hundred adds.
+  float dw[kWCin / 16][2][4] = {};
+  float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
+  float db[2] = {};
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x and g in; the tile before done by all
+    const long long next = tile + gridDim.x;
+    if (next < ntiles) {
+      load_wide_sums_tile<kVec>(x, g, s_x + (buf ^ 1) * kWCin * kWSTile,
+                                s_g + (buf ^ 1) * kCout * kWSTile, next, tpi,
+                                hw);
+    }
+    const float* sx = s_x + buf * kWCin * kWSTile;
+    const float* sg = s_g + buf * kCout * kWSTile;
+
+    // Split the x tile once, as K2 does: pixels in order (xA) and with the
+    // pixels of each 8 in the order 0,4,1,5,2,6,3,7 (xB).
+#pragma unroll
+    for (int it = 0; it < kWCin * kWSTile / (4 * kWThreads); ++it) {
+      const int idx = t + it * kWThreads;
+      const int k = idx >> 4, p = (idx & 15) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(sx + k * kWSTile + p);
+      const Split sp[4] = {split(v.x), split(v.y), split(v.z), split(v.w)};
+      uint32_t* xa = s_xa + k * kSX + 2 * p;
+      *reinterpret_cast<uint4*>(xa) =
+          make_uint4(sp[0].big, sp[0].small, sp[1].big, sp[1].small);
+      *reinterpret_cast<uint4*>(xa + 4) =
+          make_uint4(sp[2].big, sp[2].small, sp[3].big, sp[3].small);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = (p & ~7) + 2 * i + ((p & 7) >> 2);
+        *reinterpret_cast<uint2*>(s_xb + k * kSX + 2 * q) =
+            make_uint2(sp[i].big, sp[i].small);
+      }
+    }
+    __syncthreads();  // xA, xB of the tile complete
+
+    float tdw[kWCin / 16][2][4] = {};
+    float tm0[2][2] = {}, tm1[2][2] = {};
+    float tdb[2] = {};
+#pragma unroll 1
+    for (int j = 0; j < kWSTile / 8; ++j) {
+      const int p0 = j * 8;
+      // mid^T: register r is channel (r < 2 ? ca : cb), pixel p0 + tig +
+      // 4 (r & 1).
+      float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int ks = 0; ks < kWKs; ++ks) {
+        const uint2 b0 = *reinterpret_cast<const uint2*>(
+            s_xb + (ks * 8 + tig) * kSX + 2 * (p0 + gid));
+        const uint2 b1 = *reinterpret_cast<const uint2*>(
+            s_xb + (ks * 8 + tig + 4) * kSX + 2 * (p0 + gid));
+        const uint32_t bb[2] = {b0.x, b1.x}, bs[2] = {b0.y, b1.y};
+        mma3(hh, hs, am_b[ks], am_s[ks], bb, bs);
+      }
+      const float gv[2][2] = {
+          {sg[p0 + tig], sg[p0 + tig + 4]},
+          {sg[kWSTile + p0 + tig], sg[kWSTile + p0 + tig + 4]}};
+      Split e[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ch = r >> 1, px = r & 1;
+        const float mid = hh[r] + hs[r];
+        const float a = fmaf(gis_c[ch], mid, c1_c[ch]);
+        const float mk = a > 0.0f ? 1.0f : 0.0f;
+        const float eun = fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
+        e[r] = split(mk * eun);
+        const float mm = mk * mid;
+#pragma unroll
+        for (int o = 0; o < kCout; ++o) {
+          tm0[ch][o] = fmaf(mk, gv[o][px], tm0[ch][o]);
+          tm1[ch][o] = fmaf(mm, gv[o][px], tm1[ch][o]);
+        }
+      }
+      tdb[0] += gv[0][0] + gv[0][1];
+      tdb[1] += gv[1][0] + gv[1][1];
+      // dw1 += x (A: xA rows k, K = pixels p0 + tig, then + 4) times e^T
+      // (B: n-tile 0 the channels ca of the 8 groups, n-tile 1 their cb).
+#pragma unroll
+      for (int kt = 0; kt < kWCin / 16; ++kt) {
+        const uint32_t* xa = s_xa + (kt * 16 + gid) * kSX + 2 * (p0 + tig);
+        const uint2 a0 = *reinterpret_cast<const uint2*>(xa);
+        const uint2 a1 = *reinterpret_cast<const uint2*>(xa + 8 * kSX);
+        const uint2 a2 = *reinterpret_cast<const uint2*>(xa + 8);
+        const uint2 a3 = *reinterpret_cast<const uint2*>(xa + 8 * kSX + 8);
+        const uint32_t ab[4] = {a0.x, a1.x, a2.x, a3.x};
+        const uint32_t as[4] = {a0.y, a1.y, a2.y, a3.y};
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint32_t bb[2] = {e[2 * nt].big, e[2 * nt + 1].big};
+          const uint32_t bs[2] = {e[2 * nt].small, e[2 * nt + 1].small};
+          mma3_acc1(tdw[kt][nt], ab, as, bb, bs);
+        }
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < kWCin / 16; ++kt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dw[kt][nt][r] += tdw[kt][nt][r];
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+      for (int o = 0; o < kCout; ++o) {
+        m0[ch][o] += tm0[ch][o];
+        m1[ch][o] += tm1[ch][o];
+      }
+    }
+    db[0] += tdb[0];
+    db[1] += tdb[1];
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
+        m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
+      }
+    }
+  }
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
+    db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
+  }
+
+  const long long cols = (long long)kWCin * cmid + 4LL * cmid + kCout;
+  float* row = partial + (long long)blockIdx.x * cols;
+#pragma unroll
+  for (int kt = 0; kt < kWCin / 16; ++kt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = kt * 16 + gid + 8 * (r >> 1);
+        const int c = c0 + 2 * (2 * tig + (r & 1)) + nt;
+        row[(long long)k * cmid + c] = dw[kt][nt][r];
+      }
+    }
+  }
+  if (tig == 0) {
+    float* m0row = row + (long long)kWCin * cmid;
+    float* m1row = m0row + 2 * cmid;
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+      m0row[ca * kCout + o] = m0[0][o];
+      m0row[cb * kCout + o] = m0[1][o];
+      m1row[ca * kCout + o] = m1[0][o];
+      m1row[cb * kCout + o] = m1[1][o];
+    }
+  }
+  if (blockIdx.y == 0 && t == 0) {
+    row[cols - 2] = db[0];
+    row[cols - 1] = db[1];
+  }
+}
+
+constexpr size_t fwd_wide_smem_bytes(int cmid) {
+  return sizeof(float) * kWCin * kWSX + sizeof(uint4) * kWNt * kWKs * 32 +
+         sizeof(float) * 4 * (size_t)cmid;
+}
+
+constexpr size_t bwd_wide_dx_smem_bytes(int cmid) {
+  return sizeof(float) * (kWCin * kWSX + kCout * kWTile) +
+         sizeof(uint4) * (kWNt * kWKs * 32 + kWNt * 8 * 32) +
+         sizeof(float4) * (size_t)cmid;
+}
+
+constexpr size_t kWSumsSmemBytes =
+    sizeof(float) * (2 * kWCin * kWSTile + 2 * kCout * kWSTile +
+                     2 * kWCin * kSX);
+
 }  // namespace
 
 // Number of blocks pf_head_bwd launches for n images of hw pixels (the
@@ -788,5 +1339,95 @@ extern "C" int pf_head_fwd(const float* x, const float* g1t, const float* c1,
   const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
   kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
       x, g1t, c1, w2, b2, out, hw, tpi, ntiles, cmid);
+  return (int)cudaGetLastError();
+}
+
+// The ResNet50-flavour forward: x [N,64,HW], g1t [Cmid,64], c1 [Cmid],
+// w2 [2,Cmid], b2 [2], out [N,2,HW]; Cmid a multiple of 128 up to 1024.
+extern "C" int pf_head_fwd_wide(const float* x, const float* g1t,
+                                const float* c1, const float* w2,
+                                const float* b2, float* out, long long n,
+                                int cin, int hw, int cmid, int cout,
+                                void* stream) {
+  const int tpi = hw > 0 ? (hw + kWTile - 1) / kWTile : 0;
+  if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
+      cmid > kWMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  const bool vec = hw % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const size_t smem = fwd_wide_smem_bytes(cmid);
+  auto kernel =
+      vec ? pf_head_fwd_wide_kernel<true> : pf_head_fwd_wide_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(int)(n * tpi), kWThreads, smem, (cudaStream_t)stream>>>(
+      x, g1t, c1, w2, b2, out, hw, tpi, cmid);
+  return (int)cudaGetLastError();
+}
+
+// Rows of the scratch pf_head_bwd_wide sizes [rows, Cin*Cmid + 4*Cmid + 2]
+// with: the x extent of the sums kernel's grid, two blocks per SM for each
+// of the Cmid / 128 chunks (about 8,000 pixels a block at the zeng training
+// shape, as K2's), fewer if there are fewer 64-pixel tiles.
+extern "C" int pf_head_bwd_wide_blocks(long long n, int hw, int cmid) {
+  int device = 0, sms = 0;
+  if (cmid <= 0 || cmid % kWSumChunk != 0 ||
+      cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return -1;
+  }
+  const long long ntiles = n * ((hw + kWSTile - 1) / kWSTile);
+  const long long want = 2LL * sms;
+  return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
+}
+
+// The ResNet50-flavour backward: x [N,64,HW], g [N,2,HW], w1t [Cmid,64],
+// gis, c1 [Cmid], w2gis [Cmid,2]; dx [N,64,HW]; partial [blocks, cols]
+// scratch; sums [cols] = dw1 [64,Cmid] | M0 [Cmid,2] | M1 [Cmid,2] | db2.
+// Three launches: dx, the sums per block, their fixed-order reduction.
+extern "C" int pf_head_bwd_wide(const float* x, const float* g,
+                                const float* w1t, const float* gis,
+                                const float* c1, const float* w2gis,
+                                float* dx, float* partial, float* sums,
+                                long long n, int cin, int hw, int cmid,
+                                int cout, int blocks, void* stream) {
+  const int tpi = hw > 0 ? (hw + kWTile - 1) / kWTile : 0;
+  if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
+      cmid > kWMaxCmid || hw <= 0 || n <= 0 || blocks <= 0 ||
+      n * tpi > (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool vec = hw % 4 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t dx_smem = bwd_wide_dx_smem_bytes(cmid);
+  auto dx_kernel = vec ? pf_head_bwd_wide_dx_kernel<true>
+                       : pf_head_bwd_wide_dx_kernel<false>;
+  auto sums_kernel = vec ? pf_head_bwd_wide_sums_kernel<true>
+                         : pf_head_bwd_wide_sums_kernel<false>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(dx_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)dx_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(sums_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kWSumsSmemBytes)) != cudaSuccess) {
+    return (int)err;
+  }
+  dx_kernel<<<(int)(n * tpi), kWThreads, dx_smem, s>>>(x, g, w1t, gis, c1,
+                                                       w2gis, dx, hw, tpi,
+                                                       cmid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int stpi = (hw + kWSTile - 1) / kWSTile;
+  sums_kernel<<<dim3(blocks, cmid / kWSumChunk), kWThreads, kWSumsSmemBytes,
+                s>>>(x, g, w1t, gis, c1, w2gis, partial, hw, stpi,
+                     n * stpi, cmid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int cols = kWCin * cmid + 4 * cmid + kCout;
+  reduce_rows_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, sums, blocks,
+                                                        cols);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,13 @@ Ported heads:
   warped patches with input gradients), the fused triplet tail and the
   ``TRIPLET_MU`` homography consistency term, plus the metrics of
   ``:652-725`` under the same keys.
-* ``predict`` for all three (``:762-826``).
+* ``TripletHead`` (Zhang et al.'s CA-UDHN loss, ``:212-326``): both
+  patches warped by the predicted deltas, the support mask in closed form
+  under FIX_MASK (else the predicted masks warped too), the backbone's
+  feature extractor re-run in the model's mode on each warped patch, the
+  fused triplet tail with learned features on both sides (DoubleLine) or
+  the open-coded one-line loss, and the ``MU`` consistency term.
+* ``predict`` for all four (``:762-826``).
 
 ``forward`` returns the JAX keys: ``{'ground_truth', 'network_output',
 'delta_gt', 'delta_hat', 'metrics'}`` for the tensor-loss heads, ``{'loss',
@@ -56,7 +62,8 @@ def needs_dsac(cfg: HeadConfig) -> bool:
 def check_ported(cfg: HeadConfig) -> None:
     """Raise for the head features this port does not have yet."""
     missing = []
-    if cfg.name not in ('NoOpHead', 'PhotometricHead', 'PerceptualHead'):
+    if cfg.name not in ('NoOpHead', 'PhotometricHead', 'PerceptualHead',
+                        'TripletHead'):
         missing.append(f'head {cfg.name!r}')
     if cfg.name == 'NoOpHead' and cfg.target_gen != '4_points':
         missing.append(f'NoOpHead TARGET_GEN {cfg.target_gen!r} (RANSAC '
@@ -150,6 +157,8 @@ class AssembledModel(nn.Module):
         outputs = self.backbone(batch)
         if cfg.name in ('NoOpHead', 'PhotometricHead'):
             return outputs[cfg.learning_keys[3]]
+        if cfg.name == 'TripletHead':
+            return outputs[cfg.target_keys[0]]
         if cfg.delta_hat_keys:
             return outputs[cfg.delta_hat_keys[0]]
         return self.dsac_deltas(outputs[cfg.pf_keys[0]], uniforms, generator)
@@ -177,6 +186,8 @@ class AssembledModel(nn.Module):
             return self.noop_head(data)
         if cfg.name == 'PhotometricHead':
             return self.photometric_head(data)
+        if cfg.name == 'TripletHead':
+            return self.triplet_head(data)
         if cfg.delta_hat_keys:
             delta_12, delta_21 = (data[k] for k in cfg.delta_hat_keys)
         else:
@@ -277,3 +288,78 @@ class AssembledModel(nn.Module):
                        'h/h1': ((h1 - eye) ** 2).sum()}
         return {'loss': loss, 'delta_gt': batch.get('delta'),
                 'delta_hat': delta_12, 'metrics': metrics}
+
+    def triplet_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
+        """The TripletHead's loss (``_triplet_head_forward``,
+        ``assembled.py:212-326``) on the ContentAware backbone's outputs.
+        In training mode each ``extract_features`` call updates the
+        extractor's BN running statistics (patch_1' first, then patch_2'),
+        after the backbone's own pass, as flax does."""
+        cfg = self.head
+        if not hasattr(self.backbone, 'extract_features'):
+            raise ValueError('the TripletHead needs the ContentAware backbone')
+        patch_1, patch_2 = (data[k] for k in cfg.patch_keys)
+        mask_1, mask_2 = (data[k] for k in cfg.mask_keys)
+        f1, f2 = (data[k] for k in cfg.feature_keys)
+        b, ps = patch_1.shape[0], patch_1.shape[1]
+        corners = geometry.image_corners(ps, ps, batch_size=b,
+                                         dtype=patch_1.dtype,
+                                         device=patch_1.device)
+
+        def warp_pair(patch, mask, delta):
+            # FIX_MASK masks are all ones: warp(mask) is the bilinear
+            # support mask in closed form (ref: assembled.py:224-240).
+            hom = geometry.four_point_to_homography(corners, delta)
+            u, v = geometry.homography_grid(hom, (ps, ps))
+            warped = geometry.batched_sample(patch, u, v).reshape(patch.shape)
+            if self.backbone.fix_mask:
+                wmask = geometry.ones_warp_mask(u, v, (ps, ps))
+            else:
+                wmask = geometry.batched_sample(mask, u, v)
+            return warped, wmask.reshape(b, ps, ps), hom
+
+        eye = torch.eye(3, dtype=patch_1.dtype, device=patch_1.device)
+        p1p, m1p, h1 = warp_pair(patch_1, mask_1, data[cfg.target_keys[0]])
+        f1p = self.backbone.extract_features(p1p)
+        m1, m2 = mask_1[..., 0], mask_2[..., 0]
+        if cfg.variant == 'doubleline':
+            p2p, m2p, h2 = warp_pair(patch_2, mask_2,
+                                     data[cfg.target_keys[1]])
+            f2p = self.backbone.extract_features(p2p)
+            # Learned features on both sides, the plain margin twice (ref:
+            # TripletHead.py:86-100).
+            ln1, ln2, fm = fused_loss.triplet_double_line(
+                torch.cat([f1p, f2p], dim=0), torch.cat([f1, f2], dim=0),
+                m1p * m2, m2p * m1, cfg.triplet_margin,
+                cfg.triplet_aggregation, False, True)
+            ln3 = ((h1 @ h2 - eye) ** 2).sum()
+            loss = ln1 + ln2 + cfg.mu * ln3
+            mean_l1, mean_l2, mean_l3, mean_f1, mean_f2, mean_f1p = fm[:6]
+            with torch.no_grad():
+                metrics = {'loss_comp/l1': mean_l1, 'loss_comp/l2': mean_l2,
+                           'loss_comp/l3': mean_l3,
+                           'loss_comp/ln1': ln1.detach(),
+                           'loss_comp/ln2': ln2.detach(),
+                           'loss_comp/ln3': cfg.mu * ln3,
+                           'h/h1': ((h1 - eye) ** 2).sum(),
+                           'h/h2': ((h2 - eye) ** 2).sum(),
+                           'feature_space/patch_2_f': mean_f2,
+                           'feature_space/patch_1_f_prime': mean_f1p,
+                           'feature_space/patch_1_f': mean_f1}
+        else:
+            # The open-coded one-line loss (ref: assembled.py:286-304).
+            l1 = (f1p - f2).abs()
+            l3 = (f1 - f2).abs()
+            _, loss_mat = fused_loss.hinge_aggregate(
+                l1, l3, cfg.triplet_margin, cfg.triplet_aggregation, False)
+            w = m1p * m2
+            loss = ((w * loss_mat).sum(dim=(-2, -1))
+                    / w.sum(dim=(-2, -1)).clamp_min(1.0)).sum()
+            with torch.no_grad():
+                metrics = {'loss_comp/l1': l1.mean(), 'loss_comp/l3': l3.mean(),
+                           'h/h1': ((h1 - eye) ** 2).sum(),
+                           'feature_space/patch_2_f': f2.mean(),
+                           'feature_space/patch_1_f_prime': f1p.mean(),
+                           'feature_space/patch_1_f': f1.mean()}
+        return {'loss': loss, 'delta_gt': data.get('delta'),
+                'delta_hat': data[cfg.target_keys[0]], 'metrics': metrics}

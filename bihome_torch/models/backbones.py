@@ -3,12 +3,17 @@ eval and training mode. Every BatchNorm has flax's training semantics
 (:mod:`bihome_torch.models.norm`). Each takes the batch dict (NHWC
 patches); inside they run NCHW.
 
-* ``RethinkingBackbone`` (``:30-101,139-233``), ResNet34 flavour, with its
-  PF head: NHWC perspective fields. State-dict keys are the reference's
+* ``RethinkingBackbone`` (``:30-101,139-233``), ResNet34 or ResNet50
+  flavour, with its PF head (``PFHead(16, 128)`` or ``PFHead(64, 512)``):
+  NHWC perspective fields. State-dict keys are the reference's
   (``layer1.0`` stem conv, ``layer1.1`` its BN, ``layerK.i.upper_branch.j``,
   ``layer8.{0,1,3}`` the PF head).
 * ``ResNet34Backbone`` (``:109-136``), the DeTone-style regressor:
   corner deltas [B,4,2]. Keys ``resnet34.*`` (torchvision's).
+* ``ContentAwareBackbone`` (``:236-336``), Zhang et al.'s: a mask
+  predictor and a feature extractor per patch, the ResNet34 regressor on
+  the masked features. Keys ``mask_predictor.layerK.{0,1}``,
+  ``feature_extractor.layerK.{0,1}`` and ``resnet34.*``, the reference's.
 """
 
 from __future__ import annotations
@@ -91,29 +96,42 @@ class _PairBackbone(nn.Module):
 class RethinkingBackbone(_PairBackbone):
     """'Rethinking' (Zeng et al.) encoder/decoder producing a dense
     2-channel perspective field at patch resolution, NHWC
-    (ref: src/backbones/Rethinking.py:27-149), ResNet34 flavour."""
+    (ref: src/backbones/Rethinking.py:27-149). ``resnet_block`` picks the
+    flavour: ResNet34 (basic blocks, 256 channels deepest, head Cin 16 /
+    Cmid 128) or ResNet50 (bottleneck blocks, 1024 channels deepest, head
+    Cin 64 / Cmid 512). Both use the ResNet50-flavour deconv blocks."""
 
     def __init__(self, patch_keys: Sequence[str] = ('patch_1', 'patch_2'),
                  target_keys: Sequence[str] = ('pf_hat_12',),
-                 variant: str = 'oneline'):
+                 variant: str = 'oneline', resnet_block: str = 'ResNet34'):
         super().__init__(patch_keys, target_keys, variant)
-        r34c, r34i = blocks.ResNet34ConvBlock, blocks.ResNet34IdentityBlock
+        self.resnet_block = resnet_block
         deconv = blocks.ResNet50DeconvBlock
+        if resnet_block == 'ResNet50':
+            conv, ident = blocks.ResNet50ConvBlock, blocks.ResNet50IdentityBlock
+            widths, head = (256, 512, 1024), (64, 512)
+        elif resnet_block == 'ResNet34':
+            conv, ident = blocks.ResNet34ConvBlock, blocks.ResNet34IdentityBlock
+            widths, head = (64, 128, 256), (16, 128)
+        else:
+            raise ValueError(f'not ported yet: Rethinking {resnet_block} '
+                             'flavour')
+        w2, w3, w4 = widths
         self.layer1 = nn.Sequential(
             nn.Conv2d(2, 64, 7, stride=2, padding=3, bias=False),
             BatchNorm2d(64), nn.ReLU())
-        self.layer2 = nn.Sequential(r34c(64, 64, 1), r34i(64), r34i(64))
-        self.layer3 = nn.Sequential(r34c(64, 128, 2),
-                                    *[r34i(128) for _ in range(3)])
-        self.layer4 = nn.Sequential(r34c(128, 256, 2),
-                                    *[r34i(256) for _ in range(5)],
-                                    deconv(256))
-        self.layer5 = nn.Sequential(*[r34i(128) for _ in range(3)],
-                                    deconv(128))
-        self.layer6 = nn.Sequential(*[r34i(64) for _ in range(2)],
-                                    deconv(64))
-        self.layer7 = nn.Sequential(r34i(32), deconv(32))
-        self.layer8 = PFHead(16, 128, 2)
+        self.layer2 = nn.Sequential(conv(64, w2, 1), ident(w2), ident(w2))
+        self.layer3 = nn.Sequential(conv(w2, w3, 2),
+                                    *[ident(w3) for _ in range(3)])
+        self.layer4 = nn.Sequential(conv(w3, w4, 2),
+                                    *[ident(w4) for _ in range(5)],
+                                    deconv(w4))
+        self.layer5 = nn.Sequential(*[ident(w4 // 2) for _ in range(3)],
+                                    deconv(w4 // 2))
+        self.layer6 = nn.Sequential(*[ident(w4 // 4) for _ in range(2)],
+                                    deconv(w4 // 4))
+        self.layer7 = nn.Sequential(ident(w4 // 8), deconv(w4 // 8))
+        self.layer8 = PFHead(*head, 2)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = max_pool_3x3_s2(self.layer1(x))
@@ -137,6 +155,117 @@ class ResNet34Backbone(_PairBackbone):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.resnet34(x).reshape(-1, 4, 2)
+
+
+def _conv_bn(cin: int, cout: int) -> nn.Sequential:
+    """The reference's ``layerK``: a 3x3 conv and its BN."""
+    return nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1, bias=False),
+                         BatchNorm2d(cout))
+
+
+class MaskPredictor(nn.Module):
+    """Five 3x3 conv + BN layers on a grayscale patch (4, 8, 16, 32, 1
+    channels; ReLU between, a sigmoid last), optionally normalised by each
+    sample's maximum times ``normalization_strength`` and clipped to [0, 1]
+    (ref: src/backbones/ContentAware.py:6-52). With ``fix_mask`` it has no
+    layers and returns ones, as the JAX module does."""
+
+    def __init__(self, fix_mask: bool = False,
+                 normalization_strength: float = -1.0):
+        super().__init__()
+        self.fix_mask = fix_mask
+        self.normalization_strength = normalization_strength
+        if not fix_mask:
+            for i, (cin, cout) in enumerate(zip((1, 4, 8, 16, 32),
+                                                (4, 8, 16, 32, 1))):
+                self.add_module(f'layer{i + 1}', _conv_bn(cin, cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fix_mask:
+            return torch.ones_like(x)
+        out = x
+        for i in range(1, 6):
+            out = getattr(self, f'layer{i}')(out)
+            out = torch.sigmoid(out) if i == 5 else torch.relu(out)
+        if self.normalization_strength > 0:
+            peak = out.reshape(out.shape[0], -1).amax(1)
+            out = out / (peak.reshape(-1, 1, 1, 1)
+                         * self.normalization_strength)
+            out = out.clamp(0.0, 1.0)
+        return out
+
+
+class FeatureExtractor(nn.Sequential):
+    """Three 3x3 conv + BN + ReLU layers (4, 8, 1 channels) on a grayscale
+    patch (ref: src/backbones/ContentAware.py:55-80)."""
+
+    def __init__(self):
+        super().__init__()
+        for i, (cin, cout) in enumerate(zip((1, 4, 8), (4, 8, 1))):
+            self.add_module(f'layer{i + 1}', _conv_bn(cin, cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            x = torch.relu(layer(x))
+        return x
+
+
+class ContentAwareBackbone(nn.Module):
+    """'ContentAware', Zhang et al.'s CA-UDHN
+    (ref: src/backbones/ContentAware.py:83-193): the mask predictor and the
+    feature extractor run once on both patches stacked [2B]; the ResNet34
+    regressor takes the masked features of the pair on the channel axis
+    (DoubleLine stacks both orders, [2B]) -> corner deltas [B,4,2]. Also
+    returns the masks and features (NHWC) under MASK_KEYS and
+    FEATURE_KEYS. :meth:`extract_features` re-runs the extractor, for the
+    TripletHead's warped patches; in training mode each run updates the
+    extractor's BN running statistics, as the flax module does."""
+
+    def __init__(self, patch_keys: Sequence[str] = ('patch_1', 'patch_2'),
+                 mask_keys: Sequence[str] = ('mask_1', 'mask_2'),
+                 feature_keys: Sequence[str] = ('feature_1', 'feature_2'),
+                 target_keys: Sequence[str] = ('delta_hat_12',),
+                 variant: str = 'doubleline', fix_mask: bool = False,
+                 mask_normalization_strength: float = -1.0):
+        super().__init__()
+        self.patch_keys = tuple(patch_keys)
+        self.mask_keys = tuple(mask_keys)
+        self.feature_keys = tuple(feature_keys)
+        self.target_keys = tuple(target_keys)
+        self.variant = variant
+        self.fix_mask = fix_mask
+        self.mask_predictor = MaskPredictor(fix_mask,
+                                            mask_normalization_strength)
+        self.feature_extractor = FeatureExtractor()
+        self.resnet34 = ResNet('resnet34', output_layer=None, in_channels=2,
+                               num_classes=8)
+
+    def forward(self, data: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        p1 = data[self.patch_keys[0]]
+        p2 = data[self.patch_keys[1]]
+        b = p1.shape[0]
+        stacked = torch.cat([p1, p2], dim=0).permute(0, 3, 1, 2).contiguous()
+        m = self.mask_predictor(stacked)
+        f = self.feature_extractor(stacked)
+        g = m * f
+        g12 = torch.cat([g[:b], g[b:]], dim=1)
+        if self.variant == 'doubleline':
+            g21 = torch.cat([g[b:], g[:b]], dim=1)
+            o = self.resnet34(torch.cat([g12, g21], dim=0)).reshape(-1, 4, 2)
+            deltas = {self.target_keys[0]: o[:b], self.target_keys[1]: o[b:]}
+        else:
+            deltas = {self.target_keys[0]:
+                      self.resnet34(g12).reshape(-1, 4, 2)}
+        m, f = m.permute(0, 2, 3, 1), f.permute(0, 2, 3, 1)          # NHWC
+        return {self.mask_keys[0]: m[:b], self.mask_keys[1]: m[b:],
+                self.feature_keys[0]: f[:b], self.feature_keys[1]: f[b:],
+                **deltas}
+
+    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
+        """The feature extractor on NHWC patches -> NHWC features."""
+        nchw = x.permute(0, 3, 1, 2).contiguous()
+        return self.feature_extractor(nchw).permute(0, 2, 3, 1)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -175,9 +304,14 @@ def build_backbone(cfg: Dict) -> nn.Module:
                   variant=str(cfg.get('VARIANT', 'OneLine')).lower())
     if name == 'ResNet34':
         return ResNet34Backbone(**kwargs)
-    if name != 'Rethinking':
-        raise ValueError(f'not ported yet: backbone {name!r}')
-    flavour = cfg.get('RESNET_BLOCK', 'ResNet34')
-    if flavour != 'ResNet34':
-        raise ValueError(f'not ported yet: Rethinking {flavour} flavour')
-    return RethinkingBackbone(**kwargs)
+    if name == 'Rethinking':
+        return RethinkingBackbone(
+            **kwargs, resnet_block=cfg.get('RESNET_BLOCK', 'ResNet34'))
+    if name == 'ContentAware':
+        return ContentAwareBackbone(
+            **kwargs, mask_keys=tuple(cfg['MASK_KEYS']),
+            feature_keys=tuple(cfg['FEATURE_KEYS']),
+            fix_mask=bool(cfg.get('FIX_MASK', False)),
+            mask_normalization_strength=float(
+                cfg.get('MASK_NORMALIZATION_STRENGTH', -1)))
+    raise ValueError(f'not ported yet: backbone {name!r}')

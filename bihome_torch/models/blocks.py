@@ -1,5 +1,5 @@
 """Residual and upsampling blocks of the Rethinking backbone (counterpart
-of ``bihome_tpu/models/blocks.py:69-114,173-233``), NCHW. BatchNorm is
+of ``bihome_tpu/models/blocks.py:69-233``), NCHW. BatchNorm is
 :class:`bihome_torch.models.norm.BatchNorm2d` (flax's biased running
 variance in training mode).
 
@@ -57,9 +57,49 @@ class ResNet34IdentityBlock(nn.Module):
         return torch.relu(self.upper_branch(x) + x)
 
 
+class ResNet50ConvBlock(nn.Module):
+    """Bottleneck block with a projection shortcut: 1x1 (strided) -> 3x3
+    -> 1x1 to ``features`` (ref: src/backbones/utils.py:4-29). The middle
+    width is ``in_channels // stride``, not ``features // 4``, and the
+    stride sits on the first 1x1 conv and on the shortcut."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1):
+        super().__init__()
+        mid = in_channels // stride
+        self.upper_branch = nn.Sequential(
+            nn.Conv2d(in_channels, mid, 1, stride=stride, bias=False),
+            BatchNorm2d(mid), nn.ReLU(), _conv3x3(mid, mid), BatchNorm2d(mid),
+            nn.ReLU(), nn.Conv2d(mid, features, 1, bias=False),
+            BatchNorm2d(features))
+        self.lower_branch = nn.Sequential(
+            nn.Conv2d(in_channels, features, 1, stride=stride, bias=False),
+            BatchNorm2d(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.upper_branch(x) + self.lower_branch(x))
+
+
+class ResNet50IdentityBlock(nn.Module):
+    """Bottleneck ``features`` -> ``features // 4`` -> ``features // 4`` ->
+    ``features`` with an identity shortcut (ref: src/backbones/utils.py:
+    32-57)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        mid = features // 4
+        self.upper_branch = nn.Sequential(
+            nn.Conv2d(features, mid, 1, bias=False), BatchNorm2d(mid),
+            nn.ReLU(), _conv3x3(mid, mid), BatchNorm2d(mid), nn.ReLU(),
+            nn.Conv2d(mid, features, 1, bias=False), BatchNorm2d(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.upper_branch(x) + x)
+
+
 class ResNet50DeconvBlock(nn.Module):
     """2x upsampling block, ``features`` -> ``features // 2`` channels
-    (ref: src/backbones/utils.py:60-82); used by the ResNet34 flavour too."""
+    (ref: src/backbones/utils.py:60-82); used by both flavours (1024, 512,
+    256 and 128 input channels in the ResNet50 one)."""
 
     def __init__(self, features: int):
         super().__init__()

@@ -1,9 +1,10 @@
 """Weights between the JAX package's flax tree and the port's state dict.
 
 ``state_dict_from_jax`` is the inverse of
-``bihome_tpu/models/torch_port.py:port_rethinking_full`` (layout rules at
-``torch_port.py:53-61``) and, for the ResNet34Backbone, of
-``torch_port.py:72-127,404-408``: conv kernels HWIO -> OIHW, ConvTranspose
+``bihome_tpu/models/torch_port.py:port_rethinking_full`` (both flavours;
+layout rules at ``torch_port.py:53-61``), for the ResNet34Backbone of
+``torch_port.py:72-127,404-408`` and for the ContentAwareBackbone of
+``port_content_aware`` (``:309-332``): conv kernels HWIO -> OIHW, ConvTranspose
 kernels (kh,kw,out,in) -> (in,out,kh,kw), Dense kernels transposed, BN
 scale/bias/mean/var -> weight/bias/running_mean/running_var. The port
 keeps its own copy of the block maps, since the JAX package cannot be
@@ -26,6 +27,14 @@ _R34 = {'upper_conv1': ('upper_branch.0', 'conv'),
         'upper_bn1': ('upper_branch.1', 'bn'),
         'upper_conv2': ('upper_branch.3', 'conv'),
         'upper_bn2': ('upper_branch.4', 'bn'),
+        'lower_conv': ('lower_branch.0', 'conv'),
+        'lower_bn': ('lower_branch.1', 'bn')}
+_R50 = {'upper_conv1': ('upper_branch.0', 'conv'),
+        'upper_bn1': ('upper_branch.1', 'bn'),
+        'upper_conv2': ('upper_branch.3', 'conv'),
+        'upper_bn2': ('upper_branch.4', 'bn'),
+        'upper_conv3': ('upper_branch.6', 'conv'),
+        'upper_bn3': ('upper_branch.7', 'bn'),
         'lower_conv': ('lower_branch.0', 'conv'),
         'lower_bn': ('lower_branch.1', 'bn')}
 _DECONV50 = {'upper_deconv': ('upper_branch.0', 'ct'),
@@ -51,31 +60,53 @@ def _kernel(val: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(val, (3, 2, 0, 1)))
 
 
-def _block(block: str):
+def _block(block: str, r50: bool):
     """flax block name ('layer3_1', 'layer4_deconv') -> (state-dict prefix,
-    field map)."""
+    field map); ``r50`` for the ResNet50 flavour's bottleneck blocks."""
     stage, idx = block.split('_')
     if idx == 'deconv':
         return f'{stage}.{_DECONV_INDEX[stage]}', _DECONV50
-    return f'{stage}.{idx}', _R34
+    return f'{stage}.{idx}', _R50 if r50 else _R34
+
+
+def _conv_bn_layers(prefix: str, variables: Mapping) -> Dict[str, np.ndarray]:
+    """A ContentAware mask predictor's or feature extractor's flax
+    ``convK``/``bnK`` -> ``{prefix}.layerK.0.weight`` and ``.1.*``."""
+    out: Dict[str, np.ndarray] = {}
+    for coll, names in (('params', _BN_FIELDS), ('batch_stats', _BN_STATS)):
+        for name, leaf in variables.get(coll, {}).get(prefix, {}).items():
+            k = name[-1]
+            if name.startswith('conv'):
+                out[f'{prefix}.layer{k}.0.weight'] = _kernel(leaf['kernel'])
+            else:
+                for field, v in leaf.items():
+                    out[f'{prefix}.layer{k}.1.{names[field]}'] = v
+    return out
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``{'params', 'batch_stats'}`` tree of numpy arrays -> port
     state dict (every key but ``num_batches_tracked``).
 
-    Takes a RethinkingBackbone tree (-> the backbone's keys, including the
-    PF head's running statistics), a ResNet34Backbone tree (top level
-    ``resnet34`` -> the reference's ``resnet34.*`` keys) or a whole
-    AssembledModel train state, whose top level holds ``backbone`` and, for
-    the PerceptualHead, ``auxiliary_resnet`` (-> ``backbone.*`` and
-    ``auxiliary_resnet.*``; both ResNets mapped by ``utils/aux_store``)."""
-    if 'resnet34' in {**variables['params'], **variables.get('batch_stats',
-                                                            {})}:
+    Takes a RethinkingBackbone tree of either flavour (-> the backbone's
+    keys, including the PF head's running statistics), a ResNet34Backbone
+    tree (top level ``resnet34`` -> the reference's ``resnet34.*`` keys), a
+    ContentAwareBackbone tree (``mask_predictor``, absent under FIX_MASK,
+    ``feature_extractor`` and ``resnet34``) or a whole AssembledModel train
+    state, whose top level holds ``backbone`` and, for the PerceptualHead,
+    ``auxiliary_resnet`` (-> ``backbone.*`` and ``auxiliary_resnet.*``;
+    every ResNet mapped by ``utils/aux_store``)."""
+    top = {**variables['params'], **variables.get('batch_stats', {})}
+    if 'resnet34' in top:
         tree = {c: variables.get(c, {}).get('resnet34', {})
                 for c in ('params', 'batch_stats')}
         state, _ = aux_store.state_dict_from_aux(tree, output_layer=4)
-        return {f'resnet34.{k}': v for k, v in state.items()}
+        out_r = {f'resnet34.{k}': v for k, v in state.items()}
+        for prefix in ('mask_predictor', 'feature_extractor'):
+            out_r.update({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                          for k, v in _conv_bn_layers(prefix,
+                                                      variables).items()})
+        return out_r
     if 'backbone' in variables['params']:
         def sub(name):
             return {c: variables.get(c, {}).get(name, {})
@@ -88,6 +119,8 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             out_t.update({f'auxiliary_resnet.{k}': v for k, v in aux.items()})
         return out_t
     out: Dict[str, np.ndarray] = {}
+    r50 = any('upper_bn3' in leaves for c in ('params', 'batch_stats')
+              for leaves in variables.get(c, {}).values())
     for block, leaves in variables['params'].items():
         if block == 'layer1_conv':
             out['layer1.0.weight'] = _kernel(leaves['kernel'])
@@ -99,7 +132,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 out[f'layer8.{_HEAD[k]}'] = (
                     _kernel(v) if k.endswith('kernel') else v)
         else:
-            prefix, fields = _block(block)
+            prefix, fields = _block(block, r50)
             for name, leaf in leaves.items():
                 path, kind = fields[name]
                 for k, v in leaf.items():
@@ -117,7 +150,7 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             for k, v in leaves.items():
                 out[f'layer8.{_HEAD_STATS[k]}'] = v
         else:
-            prefix, fields = _block(block)
+            prefix, fields = _block(block, r50)
             for name, leaf in leaves.items():
                 for k, v in leaf.items():
                     out[f'{prefix}.{fields[name][0]}.{_BN_STATS[k]}'] = v

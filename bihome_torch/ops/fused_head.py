@@ -40,9 +40,34 @@ _SIGNATURES = {
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     'pf_head_bwd_blocks': [ctypes.c_longlong, ctypes.c_int],
     'pf_head_bwd_partial_cols': [],
+    'pf_head_fwd_wide': [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    'pf_head_bwd_wide': [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    'pf_head_bwd_wide_blocks': [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int],
 }
-# The largest Cmid the forward kernel takes (kFwdMaxCmid in the source).
-_FWD_MAX_CMID = 1024
+# The largest Cmid the kernels take (kFwdMaxCmid and kWMaxCmid in the
+# source); the wide ones (Cin 64) take multiples of 128.
+_MAX_CMID = 1024
+_WIDE_CIN, _WIDE_CMID_STEP = 64, 128
+
+
+def _kernel_width(cin: int, cmid: int, cout: int) -> str:
+    """'narrow' (the ResNet34-flavour kernels: Cin 16, Cmid a multiple of
+    16), 'wide' (the ResNet50-flavour ones: Cin 64, Cmid a multiple of
+    128), or '' for a shape neither takes; Cout 2, Cmid up to 1024."""
+    if cout != 2 or not 0 < cmid <= _MAX_CMID:
+        return ''
+    if cin == 16 and cmid % 16 == 0:
+        return 'narrow'
+    if cin == _WIDE_CIN and cmid % _WIDE_CMID_STEP == 0:
+        return 'wide'
+    return ''
+
+
+_WIDTHS = ('Cout=2 with Cin=16 and Cmid a multiple of 16, or Cin=64 and '
+           'Cmid a multiple of 128, Cmid up to 1024')
 
 
 def fold_bn(w1: Tensor, b1: Tensor, gamma: Tensor, beta: Tensor,
@@ -92,19 +117,19 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
                       var: Tensor, eps: float = 1e-5) -> Tensor:
     """x [N,Cin,H,W] float32 (NCHW), conv weights in torch layout
     (w1 [Cmid,Cin,1,1], w2 [Cout,Cmid,1,1]) -> [N,Cout,H,W].
-    The CUDA kernel (its Cin x Cmid product on the tensor cores in 3xTF32)
-    takes Cin=16, Cout=2 and Cmid a multiple of 16 up to 1024: 128 for the
-    ResNet34-flavour head, 512 for the ResNet50-flavour one."""
+    On the card one launch of a K1 kernel (its Cin x Cmid product on the
+    tensor cores in 3xTF32), chosen by shape: Cin=16 (the ResNet34-flavour
+    head, Cmid 128) or Cin=64 (the ResNet50-flavour one, Cmid 512); any
+    other shape raises (see :func:`_kernel_width`)."""
     if x.device.type == 'cpu':
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
     _cuda.check_cuda_tensor(x, 'x', 4)
     n, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
-    if (cin != 16 or cout != 2 or w1.reshape(cmid, -1).shape[1] != cin
-            or cmid % 16 != 0 or not 16 <= cmid <= _FWD_MAX_CMID):
-        raise ValueError(f'the PF-head kernel takes Cin=16, Cout=2 and Cmid '
-                         f'a multiple of 16 up to {_FWD_MAX_CMID}; got '
+    width = _kernel_width(cin, cmid, cout)
+    if not width or w1.reshape(cmid, -1).shape[1] != cin:
+        raise ValueError(f'the PF-head kernels take {_WIDTHS}; got '
                          f'x {tuple(x.shape)}, w1 {tuple(w1.shape)}, '
                          f'w2 {tuple(w2.shape)}')
     g1t, c1 = fold_bn(w1, b1, gamma, beta, mean, var, eps)
@@ -117,11 +142,16 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     out = torch.empty((n, cout, h, w), dtype=torch.float32, device=x.device)
     lib = _cuda.library('fused_head', _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.pf_head_fwd(x.data_ptr(), g1t.data_ptr(), c1.data_ptr(),
-                             w2m.data_ptr(), b2c.data_ptr(), out.data_ptr(),
-                             n, cin, h * w, cmid, cout, stream)
-    _cuda.check_status(status, 'pf_head_fwd')
-    fused_pf_head_fwd.launches += 1
+    entry = 'pf_head_fwd' if width == 'narrow' else 'pf_head_fwd_wide'
+    status = getattr(lib, entry)(x.data_ptr(), g1t.data_ptr(), c1.data_ptr(),
+                                 w2m.data_ptr(), b2c.data_ptr(),
+                                 out.data_ptr(), n, cin, h * w, cmid, cout,
+                                 stream)
+    _cuda.check_status(status, entry)
+    if width == 'narrow':
+        fused_pf_head_fwd.launches += 1
+    else:
+        fused_pf_head_fwd.wide_launches += 1
     return out
 
 
@@ -151,49 +181,64 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
                       c1: Tensor, w2gis: Tensor
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """The backward pass (see :func:`pf_head_bwd_plain`); on the card one
-    launch of the K2 kernel (its three products on the tensor cores in
-    3xTF32) plus its fixed-order reduction of the per-block sums. Takes
-    Cin=16, Cmid=128, Cout=2."""
+    launch of K2 (its products on the tensor cores in 3xTF32) with its
+    fixed-order reduction of the per-block sums. Takes Cin=16, Cmid=128
+    (the ResNet34-flavour head: one kernel), or Cin=64 and Cmid a multiple
+    of 128 (the ResNet50-flavour one, Cmid 512: a dx kernel and a sums
+    kernel over 128-channel chunks); Cout=2."""
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
     _cuda.check_cuda_tensor(x, 'x', 4)
     _cuda.check_cuda_tensor(g, 'g', 4)
     n, cin, h, w = x.shape
     cmid, cout = w2gis.shape
-    if (cin, cmid, cout) != (16, 128, 2) or tuple(g.shape) != (n, cout, h, w) \
+    width = _kernel_width(cin, cmid, cout)
+    if width == 'narrow' and cmid != 128:
+        width = ''
+    if not width or tuple(g.shape) != (n, cout, h, w) \
             or tuple(w1t.shape) != (cmid, cin):
-        raise ValueError(f'the PF-head backward kernel takes Cin=16, '
-                         f'Cmid=128, Cout=2; got x {tuple(x.shape)}, '
-                         f'g {tuple(g.shape)}, w1t {tuple(w1t.shape)}, '
-                         f'w2gis {tuple(w2gis.shape)}')
+        raise ValueError(f'the PF-head backward kernels take Cin=16, '
+                         f'Cmid=128, or Cin=64 and Cmid a multiple of 128 up '
+                         f'to {_MAX_CMID}, with Cout=2; got x '
+                         f'{tuple(x.shape)}, g {tuple(g.shape)}, w1t '
+                         f'{tuple(w1t.shape)}, w2gis {tuple(w2gis.shape)}')
     for name, t in (('w1t', w1t), ('gis', gis), ('c1', c1),
                     ('w2gis', w2gis)):
         _cuda.check_cuda_tensor(t, name, t.dim())
     lib = _cuda.library('fused_head', _SIGNATURES)
-    blocks = lib.pf_head_bwd_blocks(n, h * w)
+    if width == 'narrow':
+        entry = 'pf_head_bwd'
+        blocks = lib.pf_head_bwd_blocks(n, h * w)
+        cols = lib.pf_head_bwd_partial_cols()
+    else:
+        entry = 'pf_head_bwd_wide'
+        blocks = lib.pf_head_bwd_wide_blocks(n, h * w, cmid)
+        cols = cin * cmid + 2 * cmid * cout + cout
     if blocks <= 0:
-        raise RuntimeError('pf_head_bwd_blocks: no CUDA device')
-    cols = lib.pf_head_bwd_partial_cols()
+        raise RuntimeError(f'{entry}: no CUDA device')
     dx = torch.empty_like(x)
     partial = torch.empty((blocks, cols), dtype=torch.float32,
                           device=x.device)
     sums = torch.empty((cols,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.pf_head_bwd(x.data_ptr(), g.data_ptr(), w1t.data_ptr(),
-                             gis.data_ptr(), c1.data_ptr(), w2gis.data_ptr(),
-                             dx.data_ptr(), partial.data_ptr(),
-                             sums.data_ptr(), n, cin, h * w, cmid, cout,
-                             blocks, stream)
-    _cuda.check_status(status, 'pf_head_bwd')
-    fused_pf_head_bwd.launches += 1
+    status = getattr(lib, entry)(
+        x.data_ptr(), g.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
+        c1.data_ptr(), w2gis.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        sums.data_ptr(), n, cin, h * w, cmid, cout, blocks, stream)
+    _cuda.check_status(status, entry)
+    if width == 'narrow':
+        fused_pf_head_bwd.launches += 1
+    else:
+        fused_pf_head_bwd.wide_launches += 1
     dw1, m0, m1, db2 = torch.split(sums, [cin * cmid, cmid * cout,
                                           cmid * cout, cout])
     return (dx, m0.view(cmid, cout), m1.view(cmid, cout), db2,
             dw1.view(cin, cmid))
 
 
-fused_pf_head_fwd.launches = 0
-fused_pf_head_bwd.launches = 0
+# Launches of the narrow (Cin 16) and the wide (Cin 64) kernels, apart.
+fused_pf_head_fwd.launches = fused_pf_head_fwd.wide_launches = 0
+fused_pf_head_bwd.launches = fused_pf_head_bwd.wide_launches = 0
 
 
 def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,

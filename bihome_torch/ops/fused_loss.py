@@ -30,8 +30,8 @@ import torch
 Tensor = torch.Tensor
 
 
-def _hinge(l_pos: Tensor, l3: Tensor, margin, aggregation: str,
-           second: bool) -> Tuple[Tensor, Tensor]:
+def hinge_aggregate(l_pos: Tensor, l3: Tensor, margin, aggregation: str,
+                    second: bool) -> Tuple[Tensor, Tensor]:
     """-> (hinge mask broadcastable to [.,h,w,C], loss mat [.,h,w])."""
     if isinstance(margin, str):                       # 'inf': no hinge
         return torch.ones((), dtype=l_pos.dtype, device=l_pos.device), \
@@ -59,8 +59,8 @@ class TripletDoubleLine(torch.autograd.Function):
         l1 = (f1p - f2).abs()
         l2 = (f2p - f1).abs()
         l3 = (f1 - f2).abs()
-        _, lm1 = _hinge(l1, l3, margin, aggregation, False)
-        _, lm2 = _hinge(l2, l3, margin, aggregation, second_scale)
+        _, lm1 = hinge_aggregate(l1, l3, margin, aggregation, False)
+        _, lm2 = hinge_aggregate(l2, l3, margin, aggregation, second_scale)
         den1 = w1.sum(dim=(-2, -1))
         den2 = w2.sum(dim=(-2, -1))
         ln1_b = (w1 * lm1).sum(dim=(-2, -1)) / den1.clamp_min(1.0)
@@ -86,8 +86,9 @@ class TripletDoubleLine(torch.autograd.Function):
         e2 = f2p - f1
         e3 = f1 - f2
         l3 = e3.abs()
-        h1, lm1 = _hinge(e1.abs(), l3, margin, aggregation, False)
-        h2, lm2 = _hinge(e2.abs(), l3, margin, aggregation, second_scale)
+        h1, lm1 = hinge_aggregate(e1.abs(), l3, margin, aggregation, False)
+        h2, lm2 = hinge_aggregate(e2.abs(), l3, margin, aggregation,
+                                  second_scale)
 
         a1 = (g1 * w1 / den1e[:, None, None])[..., None]          # [B,h,w,1]
         a2 = (g2 * w2 / den2e[:, None, None])[..., None]

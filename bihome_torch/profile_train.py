@@ -1,7 +1,7 @@
 """Where the training step's time goes on the card.
 
     python -m bihome_torch.profile_train [--config_file X.yaml]
-        [--batch_size 64] [--steps 6]
+        [--batch_size 64] [--steps 6] [--set K=V]
 
 Builds the model, optimizer and image pool as ``bihome_torch.train`` does
 (synthetic images, seeded backbone, a PerceptualHead's extractor from
@@ -16,7 +16,7 @@ zeng-biHomE (a head with DSAC):
   DSAC backward (DLT, down to the perspective fields) | backbone backward
   (K2, cuDNN) | optimizer (gradient norm, Adam) | metrics
 
-For the heads without DSAC (the ResNet34 family):
+For the heads without DSAC (the ResNet34 and zhang families):
 
   datagen (pair synthesis with the PDS distortion, K3) | backbone forward
   | head/loss forward (the head: detone-biHomE's warp K3, extractor twice
@@ -73,15 +73,17 @@ def main(argv=None) -> None:
     parser.add_argument('--config_file', default=CONFIG)
     parser.add_argument('--batch_size', type=int, default=64)
     parser.add_argument('--steps', type=int, default=6)
+    parser.add_argument('--set', action='append', default=[],
+                        metavar='KEY=VALUE', help='dotted config override')
     args = parser.parse_args(argv)
     device = resolve_device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f'device {torch.cuda.get_device_name(device)}; config '
-          f'{args.config_file}, batch {args.batch_size}')
+          f'{args.config_file} {" ".join(args.set)}, batch {args.batch_size}')
     config = config_lib.load_config(args.config_file)
     config_lib.apply_overrides(
-        config, ['MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz'])
+        config, ['MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz', *args.set])
     built = config_lib.build_model(config)
     for line in train.init_model(built):
         print(line)
@@ -115,8 +117,9 @@ def main(argv=None) -> None:
         mark('backbone fwd')
         if timing['on']:
             for key in (built.head_cfg.pf_keys if dsac else outputs):
-                outputs[key].register_hook(grad_mark(
-                    'dsac bwd' if dsac else 'head/loss bwd'))
+                if outputs[key].requires_grad:   # not FIX_MASK's ones
+                    outputs[key].register_hook(grad_mark(
+                        'dsac bwd' if dsac else 'head/loss bwd'))
     model.backbone.register_forward_pre_hook(lambda *_: mark('datagen'))
     model.backbone.register_forward_hook(backbone_done)
     model.register_forward_hook(lambda *_: mark(phases[2 + dsac]))

@@ -1,8 +1,9 @@
 """The port's train and eval entry points on the CPU for the PDS-COCO
 configs this port runs (with the plain versions of the kernels): two
 training steps at batch 4 run to ``DONE!`` with finite logged losses, and
-eval prints a finite MACE. The ResNet34 checkpoint that train writes is
-read back by ``eval --torch_ckpt`` (the reference ``0.resnet34.*`` keys).
+eval prints a finite MACE. The ResNet34 and ContentAware checkpoints
+that train writes are read back by ``eval --torch_ckpt`` (the reference
+``0.resnet34.*`` and ``0.feature_extractor.*`` keys).
 """
 
 import json
@@ -16,7 +17,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PDS = ('zeng-bihome-lr-1e-3', 'detone-orig-lr-5e-3', 'detone-bihome-lr-5e-3',
-       'nguyen-orig-lr-5e-3')
+       'nguyen-orig-lr-5e-3', 'zhang-orig-lr-1e-2')
+# Parameters of the predict model (the backbone).
+PARAMS = {'detone-orig-lr-5e-3': 21_285_640, 'zhang-orig-lr-1e-2': 21_286_062}
 
 
 def _run(args, timeout=600):
@@ -62,10 +65,12 @@ def test_train_cli_runs_pds_config_on_cpu(name, tmp_path):
     else:
         assert '0.resnet34.fc.weight' in keys
         assert ('1.auxiliary_resnet.conv1.weight' in keys) == bihome
-        if name == 'detone-orig-lr-5e-3':
+        assert ('0.feature_extractor.layer3.1.running_var' in keys) == \
+            name.startswith('zhang')
+        if name in PARAMS:
             lines = _eval(config, '--torch_ckpt',
                           str(log_dir / 'model_000002.pth'))
-            assert int(lines['Number of params']) == 21_285_640
+            assert int(lines['Number of params']) == PARAMS[name]
             assert np.isfinite(float(lines['Mean mace']))
 
 

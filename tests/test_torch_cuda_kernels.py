@@ -6,8 +6,9 @@ it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts
-(K1's 256-pixel and K2's 64-pixel tiles, K3's and K4's pairs of points),
-K1 at Cmid 512, misaligned inputs, points far outside,
+(K1's 256-pixel and K2's 64-pixel tiles, the ResNet50-flavour kernels'
+128-pixel tiles and 64-pixel sums tiles, K3's and K4's pairs of points),
+K1 at Cmid 512 and Cin 16, misaligned inputs, points far outside,
 exactly on the border or on integer coordinates, input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
@@ -111,12 +112,12 @@ def test_warp_kernel_rejects_bad_input(cuda):
         warp.bilinear_sample_batched(img, u[:1], u[:1])
 
 
-def _head_args(gen, n, h, w, cuda, cmid=128):
+def _head_args(gen, n, h, w, cuda, cmid=128, cin=16):
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(cuda)
     gamma = rnd(cmid, scale=0.2, shift=1.0)
     gamma[0] = 0.0
-    return (rnd(n, 16, h, w), rnd(cmid, 16, 1, 1, scale=0.3),
+    return (rnd(n, cin, h, w), rnd(cmid, cin, 1, 1, scale=0.3),
             rnd(cmid, scale=0.2), gamma, rnd(cmid, scale=0.1),
             rnd(2, cmid, 1, 1, scale=0.3), rnd(2, scale=0.1),
             rnd(cmid, scale=0.1),
@@ -165,13 +166,14 @@ def test_pf_head_kernel_rejects_other_widths(cuda):
             fused_head.fused_pf_head_fwd(*args)
 
 
-def _bwd_args(gen, n, h, w, cuda):
-    x, w1, b1, gamma, beta, w2, _, mean, var = _head_args(gen, n, h, w, cuda)
+def _bwd_args(gen, n, h, w, cuda, cmid=128, cin=16):
+    x, w1, b1, gamma, beta, w2, _, mean, var = _head_args(gen, n, h, w, cuda,
+                                                          cmid, cin)
     g = torch.randn((n, 2, h, w), generator=gen).to(cuda)
     gis = gamma * torch.rsqrt(var + 1e-5)
     c1 = gis * (b1 - mean) + beta
-    w2gis = (w2.reshape(2, 128).t() * gis[:, None]).contiguous()
-    return x, g, w1.reshape(128, 16).contiguous(), gis, c1, w2gis
+    w2gis = (w2.reshape(2, cmid).t() * gis[:, None]).contiguous()
+    return x, g, w1.reshape(cmid, cin).contiguous(), gis, c1, w2gis
 
 
 # K2 walks 64-pixel tiles inside each image: HW = 323 and 1 are not
@@ -205,6 +207,50 @@ def test_pf_head_train_gradients_match_plain(cuda):
     for a, b in zip(got, want):
         tol = 1e-4 * (1.0 + b.abs().max().item())
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol)
+
+
+# The ResNet50-flavour kernels (Cin 64): K1 and K2's dx kernel walk
+# 128-pixel tiles, K2's sums kernel 64-pixel tiles over 128-channel chunks.
+# HW = 323 and 1 are not multiples of 4 (4-byte copies), 48 is smaller than
+# a tile, 400 and 4420 end in ragged tiles; Cmid 128 is one chunk, 512 the
+# head's four. Each has a gamma == 0 channel.
+@pytest.mark.parametrize('shape,cmid', [
+    ((3, 17, 19), 512), ((2, 64, 64), 512), ((1, 1, 1), 512),
+    ((2, 8, 6), 128), ((3, 20, 20), 512), ((1, 68, 65), 256)])
+def test_wide_pf_head_kernels_match_plain(cuda, shape, cmid):
+    gen = torch.Generator().manual_seed(4)
+    args = _head_args(gen, *shape, cuda, cmid, cin=64)
+    def counts():
+        return (fused_head.fused_pf_head_fwd.launches,
+                fused_head.fused_pf_head_fwd.wide_launches,
+                fused_head.fused_pf_head_bwd.launches,
+                fused_head.fused_pf_head_bwd.wide_launches)
+    before = counts()
+    got = fused_head.fused_pf_head_fwd(*args)
+    bargs = _bwd_args(gen, *shape, cuda, cmid, cin=64)
+    got_bwd = fused_head.fused_pf_head_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    want = fused_head.pf_head_fwd_plain(*args)
+    tol = 1e-4 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    want_bwd = fused_head.pf_head_bwd_plain(*bargs)
+    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), got_bwd,
+                          want_bwd):
+        assert a.shape == b.shape, name
+        tol = 1e-4 * (1.0 + b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+
+
+def test_wide_pf_head_kernels_reject_other_widths(cuda):
+    gen = torch.Generator().manual_seed(6)
+    for cin, cmid in ((64, 192), (32, 512)):
+        with pytest.raises(ValueError, match='Cin=64'):
+            fused_head.fused_pf_head_fwd(*_head_args(gen, 1, 4, 4, cuda, cmid,
+                                                     cin))
+        with pytest.raises(ValueError, match='Cin=64'):
+            fused_head.fused_pf_head_bwd(*_bwd_args(gen, 1, 4, 4, cuda, cmid,
+                                                    cin))
 
 
 def _warp_points(gen, n, p, h, w, cuda):

@@ -1,10 +1,13 @@
 """Port PF head (bihome_torch.ops.fused_head) against the JAX reference
 ``fused_head.fused_pf_head``, the TPU kernels run in Pallas interpret
-mode, at M = 2048 and 4096 pixels with one gamma == 0 channel.
+mode, with one gamma == 0 channel: the ResNet34-flavour head (Cin 16,
+Cmid 128) at M = 2048 and 4096 pixels, and the ResNet50-flavour one (Cin
+64, Cmid 512) at M = 8192, where the TPU kernels' 4096-pixel programs
+(``_TP_WIDE``) make a grid of two.
 
 On the CPU the wrappers take the plain paths (launch counters stay 0).
 Tolerances: eval forward rtol 1e-4, atol 1e-4 — float32 on both sides, the
-same BN fold, sums in different orders over Cin=16 and Cmid=128. Training
+same BN fold, sums in different orders over Cin and Cmid. Training
 (batch statistics): forward and statistics 2e-4; each gradient within
 5e-4 of its largest entry (the tolerance of the JAX kernel's own test,
 tests/test_fused_head.py), db1 — exactly 0 analytically — at the noise
@@ -36,12 +39,18 @@ def _params(rs, cin=16, cmid=128, cout=2):
     return w1, b1, gamma, beta, w2, b2, mean, var
 
 
-@pytest.mark.parametrize('m', [2048, 4096])
-def test_plain_head_matches_pallas_kernel(m):
+# (Cin, Cmid, M): both flavours' heads.
+SHAPES = [pytest.param(16, 128, 2048, id='2048'),
+          pytest.param(16, 128, 4096, id='4096'),
+          pytest.param(64, 512, 8192, id='r50-8192')]
+
+
+@pytest.mark.parametrize('cin,cmid,m', SHAPES)
+def test_plain_head_matches_pallas_kernel(cin, cmid, m):
     rs = np.random.RandomState(m)
     n, hw = m // 1024, (32, 32)
-    x = rs.randn(n, hw[0], hw[1], 16).astype(np.float32)          # NHWC
-    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs)
+    x = rs.randn(n, hw[0], hw[1], cin).astype(np.float32)         # NHWC
+    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs, cin, cmid)
     want, mu_out, var_out = jfh.fused_pf_head(
         jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(gamma),
         jnp.asarray(beta), jnp.asarray(w2), jnp.asarray(b2),
@@ -55,6 +64,7 @@ def test_plain_head_matches_pallas_kernel(m):
     got = tfh.fused_pf_head_fwd(x_nchw, w1_t, t(b1), t(gamma), t(beta), w2_t,
                                 t(b2), t(mean), t(var))
     assert tfh.fused_pf_head_fwd.launches == 0
+    assert tfh.fused_pf_head_fwd.wide_launches == 0
     assert got.shape == (n, 2) + hw
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), rtol=1e-4, atol=1e-4)
@@ -97,12 +107,12 @@ def _torch_args(x, w1, b1, gamma, beta, w2, b2):
     return [a.clone().requires_grad_(True) for a in args]
 
 
-@pytest.mark.parametrize('m', [2048, 4096])
-def test_train_head_matches_pallas_kernel(m):
+@pytest.mark.parametrize('cin,cmid,m', SHAPES)
+def test_train_head_matches_pallas_kernel(cin, cmid, m):
     rs = np.random.RandomState(10 + m)
     n, hw = m // 1024, (32, 32)
-    x = rs.randn(n, hw[0], hw[1], 16).astype(np.float32)
-    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs)
+    x = rs.randn(n, hw[0], hw[1], cin).astype(np.float32)
+    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs, cin, cmid)
     cot = rs.randn(n, hw[0], hw[1], 2).astype(np.float32)
 
     def jloss(*a):
@@ -123,11 +133,13 @@ def test_train_head_matches_pallas_kernel(m):
                                atol=2e-4)
     got = tfh.FusedPFHead.apply(*targs, mu_t, var_t, 1e-5, True)
     assert tfh.fused_pf_head_fwd.launches == 0
+    assert tfh.fused_pf_head_fwd.wide_launches == 0
     np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), rtol=2e-4, atol=2e-4)
     (got * torch.from_numpy(
         np.ascontiguousarray(cot.transpose(0, 3, 1, 2)))).sum().backward()
     assert tfh.fused_pf_head_bwd.launches == 0
+    assert tfh.fused_pf_head_bwd.wide_launches == 0
     # JAX layouts: x NHWC, w1 [Cin,Cmid], w2 [Cmid,Cout].
     tgrads = [targs[0].grad.permute(0, 2, 3, 1),
               targs[1].grad[:, :, 0, 0].t()] + \
@@ -273,19 +285,21 @@ def test_k1_precision_3xtf32_against_single_pass():
     assert split <= 1e-4 * (1.0 + scale) < single, (split, single)
 
 
-def test_train_head_updates_running_stats_like_flax():
+@pytest.mark.parametrize('cin,cmid', [(16, 128), (64, 512)],
+                         ids=['16-128', '64-512'])
+def test_train_head_updates_running_stats_like_flax(cin, cmid):
     rs = np.random.RandomState(7)
-    x = rs.randn(3, 16, 16, 16).astype(np.float32)
-    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs)
+    x = rs.randn(3, 16, 16, cin).astype(np.float32)
+    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs, cin, cmid)
     variables = {'params': {'conv1_kernel': w1[None, None],
                             'conv1_bias': b1, 'bn_scale': gamma,
                             'bn_bias': beta, 'conv2_kernel': w2[None, None],
                             'conv2_bias': b2},
                  'batch_stats': {'bn_mean': mean, 'bn_var': var}}
-    want, mutated = jbb.PFHead(mid=128).apply(
+    want, mutated = jbb.PFHead(mid=cmid).apply(
         variables, jnp.asarray(x), train=True, mutable=['batch_stats'])
 
-    head = tbb.PFHead(16, 128, 2)
+    head = tbb.PFHead(cin, cmid, 2)
     with torch.no_grad():
         for p, v in zip((head[0].weight, head[0].bias, head[1].weight,
                          head[1].bias, head[3].weight, head[3].bias),
