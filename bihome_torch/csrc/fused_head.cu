@@ -718,37 +718,22 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
 //
 // Why the narrow kernels cannot simply be widened: at Cin 64 the forward's
 // split g1t fragments alone are (Cmid/8)(Cin/8) x 32 lanes x 16 B = 262 KB
-// at Cmid 512, and the backward's split e tile and split w1t^T 264 KB each,
-// beyond the 227 KB a block may hold. So both stream the weights through
-// shared memory in chunks of middle channels:
-//   * pixels are the mma's M dimension (as in K1): warp w owns 16 pixels of
-//     a 128-pixel tile and holds their split x as A fragments in registers
-//     for the whole tile (8 k-steps x 4 x 2 words), so each x value is split
-//     once. For each chunk of 64 middle channels the block stages the B
-//     fragments of the chunk's weights, split, in shared memory (32 KB), and
-//     every warp runs its 16 pixels against them;
-//   * forward (pf_head_fwd_wide_kernel): the epilogue of K1 (ReLU, the
+// at Cmid 512, and the narrow backward's split e tile and split w1t^T 264
+// KB each, beyond the 227 KB a block may hold. So the weights stream
+// through shared memory in chunks of middle channels:
+//   * forward (pf_head_fwd_wide_kernel, mma.sync): pixels are the mma's M
+//     dimension (as in K1): warp w owns 16 pixels of a 128-pixel tile and
+//     holds their split x as A fragments in registers for the whole tile
+//     (8 k-steps x 4 x 2 words), so each x value is split once. For each
+//     chunk of 64 middle channels the block stages the B fragments of the
+//     chunk's g1t, split, in shared memory (32 KB), every warp runs its 16
+//     pixels against them, and the epilogue of K1 follows (ReLU, the
 //     Cout = 2 sums in registers, 3 shuffles at the end);
-//   * backward, dx (pf_head_bwd_wide_dx_kernel): the epilogue forms the
-//     mask and e in registers; e is then, as it lies in mid's accumulator,
-//     the A fragment of dx^T [16 px, 8 k] = e [16 px, 8 ch] w1t [8 ch, 8 k]
-//     (the chunk's w1t staged a second time, in the channel order the
-//     accumulator gives: k-index t is channel 2t, t + 4 is 2t + 1), so dx
-//     sums over every middle channel in registers, with no reduction
-//     across blocks;
-//   * backward, the cross-pixel sums (pf_head_bwd_wide_sums_kernel): dw1,
-//     M0, M1 and db2 need e with channels as M, as K2 forms it; the grid's
-//     y dimension takes 128-channel chunks (8 warps x 16 channels, K2's
-//     orientation with Cin = 64: w1t rows in registers, x split into
-//     shared memory twice per 64-pixel tile), each block walks its share of
-//     the tiles (summing each tile apart first, so that no fp32 accumulator
-//     takes thousands of adds), writes its sums to its row of a scratch, and
-//     reduce_rows_kernel adds the rows in order: deterministic, no atomics;
-//   * so the backward computes mid twice: four products where the TPU
-//     kernel has three, a floor of 3.33 ms in 3xTF32; the price of a dx
-//     that needs no reduction and a dw1 that needs no transposed e;
-//   * dx and dw1 accumulate the three TF32 passes in one accumulator
-//     (fp32 error all the same; registers are what these kernels lack).
+//   * backward (wgmma, described before its kernels below): a dx kernel
+//     with pixels as M, whose e goes from mid's accumulator straight into
+//     dx's A operand (no reduction across blocks), and a sums kernel with
+//     channels as M over 128-channel chunks (dw1 needs no transposed e),
+//     so mid is computed twice.
 
 constexpr int kWCin = 64;
 constexpr int kWKs = kWCin / 8;       // k-steps of the Cin contraction
@@ -761,18 +746,8 @@ constexpr int kWSumChunk = 128;       // channels per block of the sums kernel
 constexpr int kWSTile = 64;           // pixels per tile of the sums kernel
 constexpr int kWMaxCmid = 1024;
 
-// 3xTF32 into one accumulator: d += big*big + big*small + small*big.
-__device__ __forceinline__ void mma3_acc1(float* d, const uint32_t* ab,
-                                          const uint32_t* as,
-                                          const uint32_t* bb,
-                                          const uint32_t* bs) {
-  mma_tf32(d, as, bb, d);
-  mma_tf32(d, ab, bs, d);
-  mma_tf32(d, ab, bb, d);
-}
-
 // Stage the B fragments of mid^T = x^T w^T for middle channels ch0 ..
-// ch0 + kWChunk - 1 of w [Cmid][Cin] (g1t or w1t): s_b[(nt * kWKs + ks) *
+// ch0 + kWChunk - 1 of w [Cmid][Cin] (g1t): s_b[(nt * kWKs + ks) *
 // 32 + l] = (big, small) of w[ch0 + nt*8 + l/4][ks*8 + l%4] and of k + 4.
 __device__ __forceinline__ void stage_mid_b(uint4* s_b, const float* w,
                                             int ch0) {
@@ -908,107 +883,458 @@ pf_head_fwd_wide_kernel(const float* __restrict__ x,
   if (s < hw) out[((long long)n * kCout + o) * hw + s] = v + b2[o];
 }
 
+// ---------------------------------------------------------------------------
+// The wide backward on wgmma (sm_90a; PTX ISA "Asynchronous Warpgroup Level
+// Matrix Multiply-Accumulate", wgmma.mma_async .m64nNk8 .tf32 and its
+// matrix descriptor). Each 64 x 64 x 8 step is one
+//   wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32
+// of a warpgroup (4 warps, 128 threads): D [64, 64] fp32 in 32 registers a
+// thread (warp w of the group rows 16w..16w+15, laid out per 8 columns as
+// mma.m16n8's accumulator), A [64, 8] from 4 registers a thread (the
+// mma.m16n8k8 tf32 A fragment per warp) or from shared memory, B [8, 64]
+// from shared memory. tf32 operands in shared memory must be K-major: the
+// transpose bits exist only for 16-bit types, and an MN-major tf32
+// descriptor reads wrong numbers without a fault. So every operand in
+// shared memory here is an "image" of 64 rows (M or N) by 64 K values in
+// the no-swizzle canonical layout: core matrices of 8 rows x 16 bytes (4
+// K values), 128 contiguous bytes each, core matrix (K quad kc, row group
+// rg) at (kc * 8 + rg) * 128 bytes. The descriptor's leading byte offset
+// (between K-adjacent core matrices) is then 1024 bytes, its stride byte
+// offset (between row groups) 128, and k-step ks starts 2048 ks bytes in.
+// tests/test_torch_cuda_kernels.py checks one such tile against
+// torch.matmul with A from registers and from shared memory.
+//
+// 3xTF32 as above: each fp32 operand is split into big = tf32(a) and
+// small = tf32(a - big) (cvt.rna, the low 13 bits zero) and each product
+// takes three passes, small*big, big*small, then big*big, into one
+// accumulator (a second one would spill).
+//
+//   * pf_head_wide_prep_kernel splits w1t once per call into two images
+//     per 64 middle channels, written to a scratch buffer of their own
+//     (img of the C entry): w1t itself (rows = channels, K = Cin: B of the dx kernel's
+//     mid, A of the sums kernel's mid), and w1 = w1t^T (rows = Cin, K =
+//     channels, within each 8 in the order 0,2,4,6,1,3,5,7: the order in
+//     which mid's accumulator hands e on as A, register r of n-block j
+//     being A register ((r & 1) << 1) | (r >> 1) of k-step j). Each
+//     chunk's four images (big, small of each) are one contiguous 64 KB
+//     block, and the dx kernel copies each image pair with one 1-D bulk
+//     copy (cp.async.bulk, completion counted on an mbarrier): no tensor
+//     map, no split per tile;
+//   * dx kernel (pf_head_bwd_wide_dx_kernel): persistent blocks of two
+//     warpgroups, one block per SM, walk 128-pixel tiles; warpgroup w owns
+//     pixels 64w..64w+63 and holds their split x as A fragments in
+//     registers. Per 64-channel chunk: mid^T [px, ch] = x^T w1t^T (48
+//     wgmma m64n32k8, in two commit groups of 32 channels), the epilogue
+//     (mask, e) in registers, dx^T [px, Cin] += e w1 (24 m64n64k8, e as A
+//     straight from mid's accumulator). The epilogue of mid's first half
+//     runs while the tensor cores do its second, that of the second while
+//     they do dx over the first; and chunk c + 1's mid is issued before
+//     chunk c's dx is waited for, so the tensor cores are not left idle
+//     across the step's barriers. The weight images are double-buffered
+//     in two streams: chunk c + 1's w1t images start as soon as chunk c -
+//     1's mid is done, its w1 images once chunk c - 1's dx is (512 KB of
+//     images a tile at Cmid 512, 8.6 GB a call at M = 2M, from L2);
+//   * sums kernel (pf_head_bwd_wide_sums_kernel): the grid's y takes
+//     128-channel chunks, warpgroup w 64 of them, with w1t's images
+//     resident in shared memory as A. Each 64-pixel tile's x is split once
+//     into two images: x^T (rows = pixels, K = Cin: B of mid [ch, px]) and
+//     x (rows = Cin, K = pixels in the order above: B of dw1^T [ch, Cin] +=
+//     e x^T, e as A from mid's accumulator). The images are
+//     double-buffered: the next tile's are split while dw1's products
+//     run, and the epilogue's second half (32 pixels) is formed while the
+//     tensor cores do dw1 over the first. M0, M1 and db2 are summed from
+//     the epilogue on the fp32 cores. Sums run in two levels, over a tile
+//     (a fresh accumulator), then over the block's tiles; each block
+//     writes its row of the scratch, and reduce_rows_kernel adds the rows
+//     in order: deterministic, no atomics;
+//   * both kernels fence shared memory written by threads or cp.async
+//     (fence.proxy.async) before wgmma reads it, issue wgmma.fence before
+//     products whose A registers or accumulators were just written, and
+//     wait_group (with the groups still allowed in flight counted) before
+//     an epilogue reads an accumulator or registers are reused;
+//   * so mid is computed twice: four products, a floor of 3.33 ms in
+//     3xTF32 at M = 2M (dx and sums 1.67 ms each), against the function's
+//     bound of 2.50.
+//
+// What holds it back (H100 80GB HBM3, 700 W; python -m
+// bihome_torch.profile_kernels --kernel k2w cuts each part out and times
+// the rest, kernel by kernel): at x [128,64,128,128], Cmid 512 the dx
+// kernel takes ~2.8 ms and the sums kernel ~3.8, against 1.67 each of
+// tensor work. In both the products and the fp32 work (epilogue, splits,
+// loads) add up rather than overlap: cutting the products leaves ~1.3 and
+// ~1.9 ms. The two warpgroups of a block meet at every step's barriers, so
+// their epilogues fall together; a warpgroup's own epilogue overlaps only
+// the half of its products issued before it. Streaming the weight images
+// by 16-byte cp.async cost the dx kernel ~0.7 ms more than the bulk copies
+// do now (~0.2). The sums kernel's mid has both operands in shared memory
+// (A from shared memory costs it as much shared-memory bandwidth as
+// tensor time). Measured no faster, not kept: each dx block starting its
+// walk at its own chunk (the SMs then read different L2 lines), and the
+// sums grid ordered so that a tile group's four chunk blocks run together
+// and share x through L2. Warp-specialised warpgroups that take turns on
+// the tensor cores, and one pass for mid (ROADMAP), are the next steps.
+
+constexpr int kWImg = 64 * 64;        // floats of one 64 x 64 operand image
+constexpr int kWPrep = 4 * kWImg;     // floats of one chunk's four images
+constexpr int kWSXS = kWSTile + 4;    // row stride of the sums kernel's x
+
+// Offset in floats of element (row r, K index k) of a 64 x 64 image.
+__host__ __device__ constexpr int img_at(int r, int k) {
+  return (((k >> 2) * 8 + (r >> 3)) * 8 + (r & 7)) * 4 + (k & 3);
+}
+
+// K position of channel (or pixel) k in the accumulator-to-A order: within
+// each 8, k-index t is 2t and t + 4 is 2t + 1.
+__host__ __device__ constexpr int perm_k(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k >> 1) & 3);
+}
+
+// Descriptor of an image in shared memory (no swizzle; LBO 1024 bytes, SBO
+// 128 bytes, both in 16-byte units). k-step ks: add 128 ks (2048 bytes).
+__device__ __forceinline__ uint64_t img_desc(const float* img) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(img);
+  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most kPending committed groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Reads of an accumulator after wgmma_wait stay after it.
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#define WG_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_D32_OPS(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+
+// d = a b (scale_d 0) or d += a b: A [64, 8] from registers, B from the
+// image descriptor b.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// The same with A from the image descriptor a.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : WG_D32_OPS(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#define WG_D16                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_D16_OPS(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// The same at N = 32 (m64n32k8: 16 accumulator registers a thread).
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WG_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_D16_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " WG_D16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : WG_D16_OPS(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Copy nfloats (a multiple of 4 * kThreads) from src to dst by 16-byte
+// cp.async; both 16-byte aligned.
+template <int kThreads>
+__device__ __forceinline__ void copy_flat(float* dst, const float* src,
+                                          int nfloats) {
+  for (int i = threadIdx.x * 4; i < nfloats; i += kThreads * 4) {
+    cp_async16(dst + i, src + i, 16);
+  }
+}
+
+// mbarrier-tracked bulk copies (PTX ISA: mbarrier, cp.async.bulk): one
+// thread starts a copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) and sets the barrier to expect them; waiters spin on the phase.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred ready;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, ready;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The weight images of channels 64 c .. 64 c + 63 at img + c * kWPrep:
+// [0] w1t big, [1] w1t small (rows = channels, K = Cin), [2] w1 big, [3]
+// w1 small (rows = Cin, K = channels at perm_k).
+__global__ void pf_head_wide_prep_kernel(const float* __restrict__ w1t,
+                                         float* __restrict__ img, int cmid) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cmid * kWCin) return;
+  const int c = i / kWCin, k = i % kWCin, cl = c & 63;
+  const Split s = split(w1t[i]);
+  float* chunk = img + (long long)(c >> 6) * kWPrep;
+  chunk[img_at(cl, k)] = __uint_as_float(s.big);
+  chunk[kWImg + img_at(cl, k)] = __uint_as_float(s.small);
+  chunk[2 * kWImg + img_at(k, perm_k(cl))] = __uint_as_float(s.big);
+  chunk[3 * kWImg + img_at(k, perm_k(cl))] = __uint_as_float(s.small);
+}
+
+// Start the copies of a 128-pixel tile's x [Cin][128] (row stride kWSX)
+// and g [Cout][128].
+template <bool kVec>
+__device__ __forceinline__ void load_wide_dx_tile(const float* x,
+                                                  const float* g, float* sx,
+                                                  float* sg, int tile, int tpi,
+                                                  int hw) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kWTile;
+  copy_rows<kWCin, kWTile, kWSX, kWThreads, kVec>(
+      sx, x + (long long)n * kWCin * hw, x, s0, hw);
+  copy_rows<kCout, kWTile, kWTile, kWThreads, kVec>(
+      sg, g + (long long)n * kCout * hw, g, s0, hw);
+}
+
+// dx [N,64,HW] over persistent 128-pixel tiles (see above).
 template <bool kVec>
 __global__ void __launch_bounds__(kWThreads, 1)
 pf_head_bwd_wide_dx_kernel(const float* __restrict__ x,
                            const float* __restrict__ g,
-                           const float* __restrict__ w1t,
+                           const float* __restrict__ wimg,
                            const float* __restrict__ gis,
                            const float* __restrict__ c1,
                            const float* __restrict__ w2gis,
-                           float* __restrict__ dx, int hw, int tpi, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_x = smem;                                           // [Cin][kWSX]
-  float* s_g = s_x + kWCin * kWSX;                             // [Cout][tile]
-  uint4* s_b = reinterpret_cast<uint4*>(s_g + kCout * kWTile); // mid's B
-  uint4* s_d = s_b + kWNt * kWKs * 32;                         // dx's B
-  float4* s_p = reinterpret_cast<float4*>(s_d + kWNt * 8 * 32);
+                           float* __restrict__ dx, int hw, int tpi,
+                           int ntiles, int cmid) {
+  extern __shared__ __align__(128) float smem[];
+  // [2 buffers][kWPrep]: a chunk's w1t and w1 images, by bulk copies.
+  float* s_w = smem;
+  float* s_x = s_w + 2 * kWPrep;                     // [Cin][kWSX]
+  float* s_g = s_x + kWCin * kWSX;                   // [Cout][kWTile]
+  float4* s_p = reinterpret_cast<float4*>(s_g + kCout * kWTile);  // [cmid]
+  // Barriers of the bulk copies into buffer b: w1t images, w1 images.
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_p + cmid);  // [2][2]
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int tile = blockIdx.x;
-  const int n = tile / tpi;
-  const int s0 = (tile - n * tpi) * kWTile;
-  copy_rows<kWCin, kWTile, kWSX, kWThreads, kVec>(
-      s_x, x + (long long)n * kWCin * hw, x, s0, hw);
-  copy_rows<kCout, kWTile, kWTile, kWThreads, kVec>(
-      s_g, g + (long long)n * kCout * hw, g, s0, hw);
+  const int nch = cmid / 64;
+  constexpr uint32_t kHalfBytes = 2 * kWImg * sizeof(float);  // 32 KB
+
+  int tile = blockIdx.x;
+  load_wide_dx_tile<kVec>(x, g, s_x, s_g, tile, tpi, hw);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (t == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(s_bar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bulk_load(s_w, wimg, kHalfBytes, s_bar);
+    bulk_load(s_w + 2 * kWImg, wimg + 2 * kWImg, kHalfBytes, s_bar + 1);
+  }
   for (int c = t; c < cmid; c += kWThreads) {
     s_p[c] = make_float4(gis[c], c1[c], w2gis[2 * c], w2gis[2 * c + 1]);
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
+  __syncthreads();  // the barriers initialised
 
-  uint32_t ab[kWKs][4], as[kWKs][4];
-  wide_a_fragments(s_x, warp, lane, ab, as);
-  float gv[2][2];  // [pixel gid + 8 px][o]
+  uint32_t ab[kWKs][4], as[kWKs][4];  // x^T's A fragments, split
+  float gv[2][2];                     // [pixel gid + 8 px][o]
+  // dx^T: register 4j + r is pixel 16 warp + gid + 8 (r >> 1), k = 8j +
+  // 2 tig + (r & 1).
+  float dxa[32];
+  int step = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    for (int c = 0; c < nch; ++c, ++step) {
+      const bool more = c + 1 < nch || next < ntiles;  // a step after this
+      const long long cn = (long long)((c + 1) % nch) * kWPrep;
+      float* w_now = s_w + (step & 1) * 4 * kWImg;
+      float* w_next = s_w + ((step + 1) & 1) * 4 * kWImg;
+      // Chunk c's w1t images (copied during the step before) and, at c ==
+      // 0, the tile's x are in; mid of chunk c - 1 is done in both
+      // warpgroups, so its w1t buffer takes chunk c + 1's.
+      mbar_wait(s_bar + 2 * (step & 1), (step >> 1) & 1);
+      if (c == 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      if (c == 0) {
+        wide_a_fragments(s_x, warp, lane, ab, as);
 #pragma unroll
-  for (int px = 0; px < 2; ++px) {
-    gv[px][0] = s_g[warp * 16 + gid + 8 * px];
-    gv[px][1] = s_g[kWTile + warp * 16 + gid + 8 * px];
-  }
-  // dx^T n-tile j: register r is pixel gid + 8 (r >> 1), k = 8j + 2 tig +
-  // (r & 1).
-  float dxa[kWCin / 8][4] = {};
-  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int ch0 = 0; ch0 < cmid; ch0 += kWChunk) {
-    __syncthreads();  // every warp done with the chunk before
-    stage_mid_b(s_b, w1t, ch0);
-    // dx's B fragment of middle n-tile nt and k n-tile j, lane l: w1t at
-    // channel ch0 + nt*8 + 2 (l%4) (and + 1) and k = 8j + l/4.
-    for (int i = t; i < kWNt * 8 * 32; i += kWThreads) {
-      const int l = i & 31, j = (i >> 5) & 7, nt = i >> 8;
-      const float* p =
-          w1t + (long long)(ch0 + nt * 8 + 2 * (l & 3)) * kWCin + 8 * j +
-          (l >> 2);
-      const Split b0 = split(p[0]), b1 = split(p[kWCin]);
-      s_d[i] = make_uint4(b0.big, b0.small, b1.big, b1.small);
+        for (int px = 0; px < 2; ++px) {
+          gv[px][0] = s_g[warp * 16 + gid + 8 * px];
+          gv[px][1] = s_g[kWTile + warp * 16 + gid + 8 * px];
+        }
+      }
+      if (more && t == 0) {
+        bulk_load(w_next, wimg + cn, kHalfBytes, s_bar + 2 * ((step + 1) & 1));
+      }
+
+      // mid^T [px, ch] in two halves of 32 channels, each its own commit
+      // group, so that the epilogue of one half and dx's products over it
+      // run while the tensor cores work on the next: register 4j + r of
+      // half h is pixel gid + 8 (r >> 1), channel 64c + 32h + 8j + 2 tig +
+      // (r & 1). (B of half h: the w1t image from row 32h, 512 h bytes in.)
+      float mid[2][16];
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+          for (int ks = 0; ks < kWKs; ++ks) {
+            const uint32_t(&a)[4] = pass == 0 ? as[ks] : ab[ks];
+            wgmma_rs32(mid[h], a,
+                       img_desc(w_now + (pass == 1 ? kWImg : 0) + 128 * h) +
+                           128 * ks,
+                       pass != 0 || ks != 0);
+          }
+        }
+        wgmma_commit();
+      }
+
+      // dx's products of chunk c - 1, the two groups before mid's, done in
+      // both warpgroups (its e registers and w1 buffer free), and chunk c's
+      // w1 images in for all threads: then chunk c + 1's w1 and, at c == 0,
+      // the next tile's x (every warp has read this tile's) start.
+      wgmma_wait<2>();
+      mbar_wait(s_bar + 2 * (step & 1) + 1, (step >> 1) & 1);
+      __syncthreads();
+      if (more && t == 0) {
+        bulk_load(w_next + 2 * kWImg, wimg + cn + 2 * kWImg, kHalfBytes,
+                  s_bar + 2 * ((step + 1) & 1) + 1);
+      }
+      if (c == 0 && next < ntiles) {
+        load_wide_dx_tile<kVec>(x, g, s_x, s_g, next, tpi, hw);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+
+      uint32_t eb[8][4], es[8][4];  // A of dx^T, k-step j: channels 8j..
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wgmma_wait<1>();  // mid's half h in (h = 1: dx's first half behind)
+        fence_acc(mid[h]);
+#pragma unroll
+        for (int j = 4 * h; j < 4 * h + 4; ++j) {
+          const int ch = c * 64 + 8 * j + 2 * tig;
+          const float4 pc[2] = {s_p[ch], s_p[ch + 1]};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 q = pc[r & 1];
+            const int px = r >> 1;
+            const float a = fmaf(q.x, mid[h][4 * (j - 4 * h) + r], q.y);
+            const float eun = fmaf(q.z, gv[px][0], q.w * gv[px][1]);
+            const Split e = split(a > 0.0f ? eun : 0.0f);
+            const int slot = ((r & 1) << 1) | (r >> 1);
+            eb[j][slot] = e.big;
+            es[j][slot] = e.small;
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+          for (int j = 4 * h; j < 4 * h + 4; ++j) {
+            const uint32_t(&a)[4] = pass == 0 ? es[j] : eb[j];
+            wgmma_rs(dxa, a,
+                     img_desc(w_now + (pass == 1 ? 3 : 2) * kWImg) + 128 * j,
+                     c != 0 || pass != 0 || j != 0);
+          }
+        }
+        wgmma_commit();
+      }
     }
-    __syncthreads();
-#pragma unroll 1
-    for (int nt = 0; nt < kWNt; ++nt) {
-      float hh[4], hs[4];
-      wide_mid(s_b, nt, lane, ab, as, zero, hh, hs);
-      const int ch = ch0 + nt * 8 + 2 * tig;
-      const float4 pc[2] = {s_p[ch], s_p[ch + 1]};
-      Split e[4];
+    wgmma_wait<0>();
+    fence_acc(dxa);
+
+    const int n = tile / tpi;
+    const int s0 = (tile - n * tpi) * kWTile + warp * 16 + gid;
+    float* dn = dx + (long long)n * kWCin * hw;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float4 q = pc[r & 1];
-        const int px = r >> 1;
-        const float a = fmaf(q.x, hh[r] + hs[r], q.y);
-        const float eun = fmaf(q.z, gv[px][0], q.w * gv[px][1]);
-        e[r] = split(a > 0.0f ? eun : 0.0f);
+        const int s = s0 + 8 * (r >> 1);
+        const int k = 8 * j + 2 * tig + (r & 1);
+        if (s < hw) dn[(long long)k * hw + s] = dxa[4 * j + r];
       }
-      // A of dx^T: (pixel gid, k-index tig) is channel 2 tig, k-index
-      // tig + 4 channel 2 tig + 1: registers 0, 2, 1, 3 of e.
-      const uint32_t eb[4] = {e[0].big, e[2].big, e[1].big, e[3].big};
-      const uint32_t es[4] = {e[0].small, e[2].small, e[1].small,
-                              e[3].small};
-#pragma unroll
-      for (int j = 0; j < kWCin / 8; ++j) {
-        const uint4 f = s_d[(nt * 8 + j) * 32 + lane];
-        const uint32_t bb[2] = {f.x, f.z}, bs[2] = {f.y, f.w};
-        mma3_acc1(dxa[j], eb, es, bb, bs);
-      }
-    }
-  }
-
-  float* dn = dx + (long long)n * kWCin * hw;
-#pragma unroll
-  for (int j = 0; j < kWCin / 8; ++j) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int s = s0 + warp * 16 + gid + 8 * (r >> 1);
-      const int k = 8 * j + 2 * tig + (r & 1);
-      if (s < hw) dn[(long long)k * hw + s] = dxa[j][r];
     }
   }
 }
 
-// Start the copies of a 64-pixel tile's x [Cin][64] and g [Cout][64].
+// Start the copies of a 64-pixel tile's x [Cin][64] (row stride kWSXS)
+// and g [Cout][64].
 template <bool kVec>
 __device__ __forceinline__ void load_wide_sums_tile(const float* x,
                                                     const float* g, float* sx,
@@ -1016,169 +1342,204 @@ __device__ __forceinline__ void load_wide_sums_tile(const float* x,
                                                     int tpi, int hw) {
   const long long n = tile / tpi;
   const int s0 = (int)(tile - n * tpi) * kWSTile;
-  copy_rows<kWCin, kWSTile, kWSTile, kWThreads, kVec>(
+  copy_rows<kWCin, kWSTile, kWSXS, kWThreads, kVec>(
       sx, x + n * kWCin * hw, x, s0, hw);
   copy_rows<kCout, kWSTile, kWSTile, kWThreads, kVec>(
       sg, g + n * kCout * hw, g, s0, hw);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Split a 64-pixel tile's raw x [Cin][kWSXS] into its four images at img:
+// x^T big, small (rows = pixels, K = Cin), then x big, small (rows = Cin, K
+// = pixels at perm_k); copy its g [Cout][64] to sg. By all kWThreads.
+__device__ __forceinline__ void split_sums_tile(const float* s_x,
+                                                const float* s_graw,
+                                                float* img, float* sg) {
+  const int t = threadIdx.x;
+  // x^T: thread (pixel p, Cin k..k+3) stores one 16-byte row piece.
+#pragma unroll
+  for (int it = 0; it < kWCin * kWSTile / (4 * kWThreads); ++it) {
+    const int idx = t + it * kWThreads;
+    const int p = idx & 63, k = (idx >> 6) * 4;
+    Split sp[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sp[i] = split(s_x[(k + i) * kWSXS + p]);
+    *reinterpret_cast<uint4*>(img + img_at(p, k)) =
+        make_uint4(sp[0].big, sp[1].big, sp[2].big, sp[3].big);
+    *reinterpret_cast<uint4*>(img + kWImg + img_at(p, k)) =
+        make_uint4(sp[0].small, sp[1].small, sp[2].small, sp[3].small);
+  }
+  // x: thread (Cin k, pixels 8j..8j+7) stores K quads 2j and 2j + 1.
+#pragma unroll
+  for (int it = 0; it < kWCin * kWSTile / (8 * kWThreads); ++it) {
+    const int idx = t + it * kWThreads;
+    const int k = (idx & 7) | ((idx >> 6) << 3), j = (idx >> 3) & 7;
+    const float4 lo =
+        *reinterpret_cast<const float4*>(s_x + k * kWSXS + 8 * j);
+    const float4 hi =
+        *reinterpret_cast<const float4*>(s_x + k * kWSXS + 8 * j + 4);
+    const Split v[8] = {split(lo.x), split(lo.y), split(lo.z), split(lo.w),
+                        split(hi.x), split(hi.y), split(hi.z), split(hi.w)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* dst = img + 2 * kWImg + img_at(k, 8 * j + 4 * h);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(v[h].big, v[h + 2].big, v[h + 4].big, v[h + 6].big);
+      *reinterpret_cast<uint4*>(dst + kWImg) = make_uint4(
+          v[h].small, v[h + 2].small, v[h + 4].small, v[h + 6].small);
+    }
+  }
+  if (t < kCout * kWSTile) sg[t] = s_graw[t];
+}
+
 // dw1, M0, M1 and db2 of middle channels 128 blockIdx.y .. + 127 over the
-// block's tiles (K2's orientation; see pf_head_bwd_kernel). Block b writes
-// its sums into row b of partial [gridDim.x][cols] (cols = Cin*Cmid +
-// 4*Cmid + 2): its chunk's columns of dw1 [Cin][Cmid], M0 and M1 [Cmid][2];
-// db2 from the blocks of chunk 0.
+// 64-pixel tiles blockIdx.x, + gridDim.x, ... Block (b, chunk) writes its
+// sums into row b of partial [gridDim.x][cols] (cols = Cin*Cmid + 4*Cmid +
+// 2): its chunk's columns of dw1 [Cin][Cmid], M0 and M1 [Cmid][2]; db2 from
+// the blocks of chunk 0.
 template <bool kVec>
 __global__ void __launch_bounds__(kWThreads, 1)
 pf_head_bwd_wide_sums_kernel(const float* __restrict__ x,
                              const float* __restrict__ g,
-                             const float* __restrict__ w1t,
+                             const float* __restrict__ wimg,
                              const float* __restrict__ gis,
                              const float* __restrict__ c1,
                              const float* __restrict__ w2gis,
                              float* __restrict__ partial, int hw, int tpi,
                              long long ntiles, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_x = smem;                                  // [2][Cin][64], cp.async
-  float* s_g = s_x + 2 * kWCin * kWSTile;             // [2][Cout][64]
-  uint32_t* s_xa = reinterpret_cast<uint32_t*>(s_g + 2 * kCout * kWSTile);
-  uint32_t* s_xb = s_xa + kWCin * kSX;
+  extern __shared__ __align__(128) float smem[];
+  float* s_a = smem;                    // [warpgroup][big, small] w1t images
+  // [2 buffers][x^T big, x^T small, x big, x small] images of a tile.
+  float* s_img = s_a + 4 * kWImg;
+  float* s_x = s_img + 8 * kWImg;       // [Cin][kWSXS] raw, cp.async
+  float* s_graw = s_x + kWCin * kWSXS;  // [Cout][64] raw, cp.async
+  float* s_g = s_graw + kCout * kWSTile;  // [2 buffers][Cout][64]
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int c0 = blockIdx.y * kWSumChunk + warp * 16;
-  const int ca = c0 + 2 * gid, cb = ca + 1;
+  const int wg = t >> 7;
+  // The thread's two channels: rows gid and gid + 8 of its warp's 16.
+  const int ca = blockIdx.y * 128 + wg * 64 + (warp & 3) * 16 + gid;
+  const int cb = ca + 8;
 
   long long tile = blockIdx.x;
-  if (tile < ntiles) load_wide_sums_tile<kVec>(x, g, s_x, s_g, tile, tpi, hw);
-  uint32_t am_b[kWKs][4], am_s[kWKs][4];  // A of mid^T: w1t rows ca, cb
+  if (tile >= ntiles) return;  // (the grid has at most one block per tile)
 #pragma unroll
-  for (int ks = 0; ks < kWKs; ++ks) {
-    const int k = ks * 8 + tig;
-    const float a[4] = {w1t[ca * kWCin + k], w1t[cb * kWCin + k],
-                        w1t[ca * kWCin + k + 4], w1t[cb * kWCin + k + 4]};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const Split s = split(a[r]);
-      am_b[ks][r] = s.big;
-      am_s[ks][r] = s.small;
-    }
+  for (int h = 0; h < 2; ++h) {
+    copy_flat<kWThreads>(s_a + h * 2 * kWImg,
+                         wimg + (long long)(2 * blockIdx.y + h) * kWPrep,
+                         2 * kWImg);
   }
+  load_wide_sums_tile<kVec>(x, g, s_x, s_graw, tile, tpi, hw);
   const float gis_c[2] = {gis[ca], gis[cb]};
   const float c1_c[2] = {c1[ca], c1[cb]};
   const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
                             {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
+  const float* a_big = s_a + wg * 2 * kWImg;
 
-  // dw1 m-tile kt (k 16kt..16kt+15), n-tile nt, register r: k = 16kt + gid
-  // + 8 (r >> 1), channel c0 + 2 (2 tig + (r & 1)) + nt. The sums run in
-  // two levels, over a tile (t*), then over the block's tiles, so that no
-  // fp32 accumulator takes more than a few hundred adds.
-  float dw[kWCin / 16][2][4] = {};
+  // The first tile's images, then the raw copy of the second.
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  split_sums_tile(s_x, s_graw, s_img, s_g);
+  fence_async_smem();
+  __syncthreads();
+  if (tile + gridDim.x < ntiles) {
+    load_wide_sums_tile<kVec>(x, g, s_x, s_graw, tile + gridDim.x, tpi, hw);
+  }
+
+  // dw1^T [ch, Cin]: register 4j + r is channel (r < 2 ? ca : cb), k = 8j +
+  // 2 tig + (r & 1). Two levels: over a tile (tdw), then the block's tiles.
+  float dw[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dw[i] = 0.0f;
   float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
   float db[2] = {};
 
-  int buf = 0;
-  for (; tile < ntiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // this tile's x and g in; the tile before done by all
-    const long long next = tile + gridDim.x;
-    if (next < ntiles) {
-      load_wide_sums_tile<kVec>(x, g, s_x + (buf ^ 1) * kWCin * kWSTile,
-                                s_g + (buf ^ 1) * kCout * kWSTile, next, tpi,
-                                hw);
-    }
-    const float* sx = s_x + buf * kWCin * kWSTile;
+  for (int buf = 0; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const float* xt = s_img + buf * 4 * kWImg;  // x^T big, small
+    const float* xp = xt + 2 * kWImg;           // x big, small
     const float* sg = s_g + buf * kCout * kWSTile;
 
-    // Split the x tile once, as K2 does: pixels in order (xA) and with the
-    // pixels of each 8 in the order 0,4,1,5,2,6,3,7 (xB).
+    // mid [ch, px]: register 4j + r is channel (r < 2 ? ca : cb), pixel 8j +
+    // 2 tig + (r & 1).
+    float mid[32];
+    wgmma_fence();
 #pragma unroll
-    for (int it = 0; it < kWCin * kWSTile / (4 * kWThreads); ++it) {
-      const int idx = t + it * kWThreads;
-      const int k = idx >> 4, p = (idx & 15) * 4;
-      const float4 v = *reinterpret_cast<const float4*>(sx + k * kWSTile + p);
-      const Split sp[4] = {split(v.x), split(v.y), split(v.z), split(v.w)};
-      uint32_t* xa = s_xa + k * kSX + 2 * p;
-      *reinterpret_cast<uint4*>(xa) =
-          make_uint4(sp[0].big, sp[0].small, sp[1].big, sp[1].small);
-      *reinterpret_cast<uint4*>(xa + 4) =
-          make_uint4(sp[2].big, sp[2].small, sp[3].big, sp[3].small);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = (p & ~7) + 2 * i + ((p & 7) >> 2);
-        *reinterpret_cast<uint2*>(s_xb + k * kSX + 2 * q) =
-            make_uint2(sp[i].big, sp[i].small);
-      }
-    }
-    __syncthreads();  // xA, xB of the tile complete
-
-    float tdw[kWCin / 16][2][4] = {};
-    float tm0[2][2] = {}, tm1[2][2] = {};
-    float tdb[2] = {};
-#pragma unroll 1
-    for (int j = 0; j < kWSTile / 8; ++j) {
-      const int p0 = j * 8;
-      // mid^T: register r is channel (r < 2 ? ca : cb), pixel p0 + tig +
-      // 4 (r & 1).
-      float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int pass = 0; pass < 3; ++pass) {
 #pragma unroll
       for (int ks = 0; ks < kWKs; ++ks) {
-        const uint2 b0 = *reinterpret_cast<const uint2*>(
-            s_xb + (ks * 8 + tig) * kSX + 2 * (p0 + gid));
-        const uint2 b1 = *reinterpret_cast<const uint2*>(
-            s_xb + (ks * 8 + tig + 4) * kSX + 2 * (p0 + gid));
-        const uint32_t bb[2] = {b0.x, b1.x}, bs[2] = {b0.y, b1.y};
-        mma3(hh, hs, am_b[ks], am_s[ks], bb, bs);
-      }
-      const float gv[2][2] = {
-          {sg[p0 + tig], sg[p0 + tig + 4]},
-          {sg[kWSTile + p0 + tig], sg[kWSTile + p0 + tig + 4]}};
-      Split e[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ch = r >> 1, px = r & 1;
-        const float mid = hh[r] + hs[r];
-        const float a = fmaf(gis_c[ch], mid, c1_c[ch]);
-        const float mk = a > 0.0f ? 1.0f : 0.0f;
-        const float eun = fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
-        e[r] = split(mk * eun);
-        const float mm = mk * mid;
-#pragma unroll
-        for (int o = 0; o < kCout; ++o) {
-          tm0[ch][o] = fmaf(mk, gv[o][px], tm0[ch][o]);
-          tm1[ch][o] = fmaf(mm, gv[o][px], tm1[ch][o]);
-        }
-      }
-      tdb[0] += gv[0][0] + gv[0][1];
-      tdb[1] += gv[1][0] + gv[1][1];
-      // dw1 += x (A: xA rows k, K = pixels p0 + tig, then + 4) times e^T
-      // (B: n-tile 0 the channels ca of the 8 groups, n-tile 1 their cb).
-#pragma unroll
-      for (int kt = 0; kt < kWCin / 16; ++kt) {
-        const uint32_t* xa = s_xa + (kt * 16 + gid) * kSX + 2 * (p0 + tig);
-        const uint2 a0 = *reinterpret_cast<const uint2*>(xa);
-        const uint2 a1 = *reinterpret_cast<const uint2*>(xa + 8 * kSX);
-        const uint2 a2 = *reinterpret_cast<const uint2*>(xa + 8);
-        const uint2 a3 = *reinterpret_cast<const uint2*>(xa + 8 * kSX + 8);
-        const uint32_t ab[4] = {a0.x, a1.x, a2.x, a3.x};
-        const uint32_t as[4] = {a0.y, a1.y, a2.y, a3.y};
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const uint32_t bb[2] = {e[2 * nt].big, e[2 * nt + 1].big};
-          const uint32_t bs[2] = {e[2 * nt].small, e[2 * nt + 1].small};
-          mma3_acc1(tdw[kt][nt], ab, as, bb, bs);
-        }
+        wgmma_ss(mid, img_desc(a_big + (pass == 0 ? kWImg : 0)) + 128 * ks,
+                 img_desc(xt + (pass == 1 ? kWImg : 0)) + 128 * ks,
+                 pass != 0 || ks != 0);
       }
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(mid);
+
+    // The epilogue in two halves of 32 pixels: dw1's products over the
+    // first run while the second is formed.
+    uint32_t eb[8][4], es[8][4];  // A of dw1^T, k-step j: pixels 8j..
+    float tm0[2][2] = {}, tm1[2][2] = {}, tdb[2] = {};
+    float tdw[32];
 #pragma unroll
-    for (int kt = 0; kt < kWCin / 16; ++kt) {
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int j = 4 * h; j < 4 * h + 4; ++j) {
+        const float2 g0 = *reinterpret_cast<const float2*>(sg + 8 * j + 2 * tig);
+        const float2 g1 =
+            *reinterpret_cast<const float2*>(sg + kWSTile + 8 * j + 2 * tig);
+        const float gp[2][2] = {{g0.x, g1.x}, {g0.y, g1.y}};  // [pixel][o]
 #pragma unroll
-        for (int r = 0; r < 4; ++r) dw[kt][nt][r] += tdw[kt][nt][r];
+        for (int r = 0; r < 4; ++r) {
+          const int ch = r >> 1, px = r & 1;
+          const float m = mid[4 * j + r];
+          const float a = fmaf(gis_c[ch], m, c1_c[ch]);
+          const float mk = a > 0.0f ? 1.0f : 0.0f;
+          const float eun =
+              fmaf(w2_c[ch][0], gp[px][0], w2_c[ch][1] * gp[px][1]);
+          const Split e = split(mk * eun);
+          const int slot = ((r & 1) << 1) | (r >> 1);
+          eb[j][slot] = e.big;
+          es[j][slot] = e.small;
+          const float mm = mk * m;
+#pragma unroll
+          for (int o = 0; o < kCout; ++o) {
+            tm0[ch][o] = fmaf(mk, gp[px][o], tm0[ch][o]);
+            tm1[ch][o] = fmaf(mm, gp[px][o], tm1[ch][o]);
+          }
+        }
+        tdb[0] += g0.x + g0.y;
+        tdb[1] += g1.x + g1.y;
       }
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+        for (int j = 4 * h; j < 4 * h + 4; ++j) {
+          const uint32_t(&a)[4] = pass == 0 ? es[j] : eb[j];
+          wgmma_rs(tdw, a, img_desc(xp + (pass == 1 ? kWImg : 0)) + 128 * j,
+                   pass != 0 || j != 0);
+        }
+      }
+      wgmma_commit();
     }
+
+    // While dw1's products run: the next tile's images into the other
+    // buffer (its last readers, the tile before's products, are done).
+    const long long next = tile + gridDim.x;
+    if (next < ntiles) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // the next tile's raw x and g in for all threads
+      split_sums_tile(s_x, s_graw, s_img + (buf ^ 1) * 4 * kWImg,
+                      s_g + (buf ^ 1) * kCout * kWSTile);
+      fence_async_smem();
+    }
+    wgmma_wait<0>();
+    fence_acc(tdw);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dw[i] += tdw[i];
 #pragma unroll
     for (int ch = 0; ch < 2; ++ch) {
 #pragma unroll
@@ -1189,22 +1550,23 @@ pf_head_bwd_wide_sums_kernel(const float* __restrict__ x,
     }
     db[0] += tdb[0];
     db[1] += tdb[1];
-    buf ^= 1;
+    __syncthreads();  // the next images complete; this tile's products done
+    if (next + gridDim.x < ntiles) {
+      load_wide_sums_tile<kVec>(x, g, s_x, s_graw, next + gridDim.x, tpi, hw);
+    }
   }
 
+  // Fold M0, M1 and db2 over the 4 lanes that share rows (other pixels).
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
+  for (int sh = 1; sh < 4; sh <<= 1) {
 #pragma unroll
-    for (int o = 0; o < kCout; ++o) {
+    for (int ch = 0; ch < 2; ++ch) {
 #pragma unroll
-      for (int sh = 1; sh < 4; sh <<= 1) {
+      for (int o = 0; o < kCout; ++o) {
         m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
         m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
       }
     }
-  }
-#pragma unroll
-  for (int sh = 1; sh < 4; sh <<= 1) {
     db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
     db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
   }
@@ -1212,15 +1574,11 @@ pf_head_bwd_wide_sums_kernel(const float* __restrict__ x,
   const long long cols = (long long)kWCin * cmid + 4LL * cmid + kCout;
   float* row = partial + (long long)blockIdx.x * cols;
 #pragma unroll
-  for (int kt = 0; kt < kWCin / 16; ++kt) {
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int k = kt * 16 + gid + 8 * (r >> 1);
-        const int c = c0 + 2 * (2 * tig + (r & 1)) + nt;
-        row[(long long)k * cmid + c] = dw[kt][nt][r];
-      }
+    for (int r = 0; r < 4; ++r) {
+      const int k = 8 * j + 2 * tig + (r & 1);
+      row[(long long)k * cmid + (r < 2 ? ca : cb)] = dw[4 * j + r];
     }
   }
   if (tig == 0) {
@@ -1240,20 +1598,84 @@ pf_head_bwd_wide_sums_kernel(const float* __restrict__ x,
   }
 }
 
+// One 64 x 64 x 64 product d = a b^T on wgmma, for the card tests: a
+// [64][64] (M x K), b [64][64] (N x K), d [64][64], TF32 values, one
+// warpgroup. mode & 1: A from shared memory (wgmma_ss*), else from
+// registers (wgmma_rs*); mode & 2: as two m64n32k8 halves of N (B from
+// image row 32h), else one m64n64k8.
+__global__ void __launch_bounds__(128, 1)
+wgmma_tile_test_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ d,
+                       int mode) {
+  __shared__ __align__(128) float s_a[kWImg];
+  __shared__ __align__(128) float s_b[kWImg];
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  for (int i = t; i < kWImg; i += 128) {
+    s_a[img_at(i / 64, i % 64)] = a[i];
+    s_b[img_at(i / 64, i % 64)] = b[i];
+  }
+  fence_async_smem();
+  __syncthreads();
+  uint32_t af[kWKs][4];
+#pragma unroll
+  for (int ks = 0; ks < kWKs; ++ks) {
+    const float* p = a + (warp * 16 + gid) * 64 + ks * 8 + tig;
+    af[ks][0] = __float_as_uint(p[0]);
+    af[ks][1] = __float_as_uint(p[8 * 64]);
+    af[ks][2] = __float_as_uint(p[4]);
+    af[ks][3] = __float_as_uint(p[8 * 64 + 4]);
+  }
+  float acc[32];
+  float half[2][16];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kWKs; ++ks) {
+    const uint64_t da = img_desc(s_a) + 128 * ks;
+    switch (mode) {
+      case 0: wgmma_rs(acc, af[ks], img_desc(s_b) + 128 * ks, ks != 0); break;
+      case 1: wgmma_ss(acc, da, img_desc(s_b) + 128 * ks, ks != 0); break;
+      case 2:
+        wgmma_rs32(half[0], af[ks], img_desc(s_b) + 128 * ks, ks != 0);
+        wgmma_rs32(half[1], af[ks], img_desc(s_b + 128) + 128 * ks, ks != 0);
+        break;
+      default:
+        wgmma_ss32(half[0], da, img_desc(s_b) + 128 * ks, ks != 0);
+        wgmma_ss32(half[1], da, img_desc(s_b + 128) + 128 * ks, ks != 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_acc(half[0]);
+  fence_acc(half[1]);
+  if (mode & 2) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = half[i / 16][i % 16];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      d[(warp * 16 + gid + 8 * (r >> 1)) * 64 + 8 * j + 2 * tig + (r & 1)] =
+          acc[4 * j + r];
+    }
+  }
+}
+
 constexpr size_t fwd_wide_smem_bytes(int cmid) {
   return sizeof(float) * kWCin * kWSX + sizeof(uint4) * kWNt * kWKs * 32 +
          sizeof(float) * 4 * (size_t)cmid;
 }
 
 constexpr size_t bwd_wide_dx_smem_bytes(int cmid) {
-  return sizeof(float) * (kWCin * kWSX + kCout * kWTile) +
-         sizeof(uint4) * (kWNt * kWKs * 32 + kWNt * 8 * 32) +
-         sizeof(float4) * (size_t)cmid;
+  return sizeof(float) * (2 * kWPrep + kWCin * kWSX + kCout * kWTile) +
+         sizeof(float4) * (size_t)cmid + 4 * sizeof(uint64_t);
 }
 
 constexpr size_t kWSumsSmemBytes =
-    sizeof(float) * (2 * kWCin * kWSTile + 2 * kCout * kWSTile +
-                     2 * kWCin * kSX);
+    sizeof(float) * (12 * kWImg + kWCin * kWSXS + 3 * kCout * kWSTile);
 
 }  // namespace
 
@@ -1367,10 +1789,9 @@ extern "C" int pf_head_fwd_wide(const float* x, const float* g1t,
   return (int)cudaGetLastError();
 }
 
-// Rows of the scratch pf_head_bwd_wide sizes [rows, Cin*Cmid + 4*Cmid + 2]
-// with: the x extent of the sums kernel's grid, two blocks per SM for each
-// of the Cmid / 128 chunks (about 8,000 pixels a block at the zeng training
-// shape, as K2's), fewer if there are fewer 64-pixel tiles.
+// Rows of the per-block sums pf_head_bwd_wide takes (the x extent of the
+// sums kernel's grid): one block per SM for each of the Cmid / 128 chunks,
+// fewer if there are fewer 64-pixel tiles.
 extern "C" int pf_head_bwd_wide_blocks(long long n, int hw, int cmid) {
   int device = 0, sms = 0;
   if (cmid <= 0 || cmid % kWSumChunk != 0 ||
@@ -1380,54 +1801,86 @@ extern "C" int pf_head_bwd_wide_blocks(long long n, int hw, int cmid) {
     return -1;
   }
   const long long ntiles = n * ((hw + kWSTile - 1) / kWSTile);
-  const long long want = 2LL * sms;
-  return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
+  return (int)(ntiles < sms ? (ntiles > 0 ? ntiles : 1) : sms);
+}
+
+// The weight images of the wide backward (see pf_head_wide_prep_kernel):
+// w1t [Cmid,64] -> img [Cmid/64][4][64*64]; Cmid a multiple of 64.
+extern "C" int pf_head_wide_prep(const float* w1t, float* img, int cmid,
+                                 void* stream) {
+  if (cmid <= 0 || cmid % 64 != 0 || cmid > kWMaxCmid ||
+      ((uintptr_t)img & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  pf_head_wide_prep_kernel<<<cmid * kWCin / 256, 256, 0,
+                             (cudaStream_t)stream>>>(w1t, img, cmid);
+  return (int)cudaGetLastError();
 }
 
 // The ResNet50-flavour backward: x [N,64,HW], g [N,2,HW], w1t [Cmid,64],
-// gis, c1 [Cmid], w2gis [Cmid,2]; dx [N,64,HW]; partial [blocks, cols]
-// scratch; sums [cols] = dw1 [64,Cmid] | M0 [Cmid,2] | M1 [Cmid,2] | db2.
-// Three launches: dx, the sums per block, their fixed-order reduction.
+// gis, c1 [Cmid], w2gis [Cmid,2]; dx [N,64,HW]; sums [cols] = dw1 [64,Cmid]
+// | M0 [Cmid,2] | M1 [Cmid,2] | db2, cols = 64*Cmid + 4*Cmid + 2. Scratch:
+// partial [blocks, cols] per-block sums, img [Cmid/64][4][64*64] weight
+// images (16-byte aligned). Four launches: the weight prep, dx, the sums
+// per block, their fixed-order reduction.
 extern "C" int pf_head_bwd_wide(const float* x, const float* g,
                                 const float* w1t, const float* gis,
                                 const float* c1, const float* w2gis,
-                                float* dx, float* partial, float* sums,
-                                long long n, int cin, int hw, int cmid,
-                                int cout, int blocks, void* stream) {
+                                float* dx, float* partial, float* img,
+                                float* sums, long long n, int cin, int hw,
+                                int cmid, int cout, int blocks,
+                                void* stream) {
   const int tpi = hw > 0 ? (hw + kWTile - 1) / kWTile : 0;
   if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
       cmid > kWMaxCmid || hw <= 0 || n <= 0 || blocks <= 0 ||
-      n * tpi > (1LL << 30)) {
+      n * tpi > (1LL << 30) || ((uintptr_t)img & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const bool vec = hw % 4 == 0 &&
                    (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int cols = kWCin * cmid + 4 * cmid + kCout;
   const size_t dx_smem = bwd_wide_dx_smem_bytes(cmid);
   auto dx_kernel = vec ? pf_head_bwd_wide_dx_kernel<true>
                        : pf_head_bwd_wide_dx_kernel<false>;
   auto sums_kernel = vec ? pf_head_bwd_wide_sums_kernel<true>
                          : pf_head_bwd_wide_sums_kernel<false>;
+  int device = 0, sms = 0;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(dx_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)dx_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(sums_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kWSumsSmemBytes)) != cudaSuccess) {
+                                  (int)kWSumsSmemBytes)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess) {
     return (int)err;
   }
-  dx_kernel<<<(int)(n * tpi), kWThreads, dx_smem, s>>>(x, g, w1t, gis, c1,
-                                                       w2gis, dx, hw, tpi,
-                                                       cmid);
+  if ((err = (cudaError_t)pf_head_wide_prep(w1t, img, cmid, stream)) !=
+      cudaSuccess) {
+    return (int)err;
+  }
+  // Persistent dx blocks, one per SM.
+  const int ntiles = (int)(n * tpi);
+  dx_kernel<<<ntiles < sms ? ntiles : sms, kWThreads, dx_smem, s>>>(
+      x, g, img, gis, c1, w2gis, dx, hw, tpi, ntiles, cmid);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int stpi = (hw + kWSTile - 1) / kWSTile;
   sums_kernel<<<dim3(blocks, cmid / kWSumChunk), kWThreads, kWSumsSmemBytes,
-                s>>>(x, g, w1t, gis, c1, w2gis, partial, hw, stpi,
-                     n * stpi, cmid);
+                s>>>(x, g, img, gis, c1, w2gis, partial, hw, stpi, n * stpi,
+                     cmid);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int cols = kWCin * cmid + 4 * cmid + kCout;
   reduce_rows_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, sums, blocks,
                                                         cols);
+  return (int)cudaGetLastError();
+}
+
+// For the card tests: d [64][64] = a [64][64] b[64][64]^T on one warpgroup
+// through wgmma tf32 (see wgmma_tile_test_kernel for mode).
+extern "C" int wgmma_tf32_tile(const float* a, const float* b, float* d,
+                               int mode, void* stream) {
+  wgmma_tile_test_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(a, b, d, mode);
   return (int)cudaGetLastError();
 }

@@ -42,10 +42,14 @@ _SIGNATURES = {
     'pf_head_bwd_partial_cols': [],
     'pf_head_fwd_wide': [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    'pf_head_bwd_wide': [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+    'pf_head_bwd_wide': [ctypes.c_void_p] * 10 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     'pf_head_bwd_wide_blocks': [ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int],
+    'pf_head_wide_prep': [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    + [ctypes.c_void_p],
+    'wgmma_tf32_tile': [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    + [ctypes.c_void_p],
 }
 # The largest Cmid the kernels take (kFwdMaxCmid and kWMaxCmid in the
 # source); the wide ones (Cin 64) take multiples of 128.
@@ -64,6 +68,64 @@ def _kernel_width(cin: int, cmid: int, cout: int) -> str:
     if cin == _WIDE_CIN and cmid % _WIDE_CMID_STEP == 0:
         return 'wide'
     return ''
+
+
+def wide_sums_cols(cin: int, cmid: int, cout: int) -> int:
+    """Columns of the wide backward's sums: dw1 | M0 | M1 | db2."""
+    return cin * cmid + 2 * cmid * cout + cout
+
+
+def tf32_rna(t: Tensor) -> Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest,
+    ties away from zero, the low 13 mantissa bits zero."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: Tensor) -> Tuple[Tensor, Tensor]:
+    """(big, small) of float32 t for 3xTF32: big = tf32(t), small =
+    tf32(t - big), as the kernels split their operands."""
+    big = tf32_rna(t)
+    return big, tf32_rna(t.float() - big)
+
+
+def _image_offsets(permuted: bool) -> Tensor:
+    """[64, 64] offsets (floats) of element (row r, K index k) in a wgmma
+    operand image of ``csrc/fused_head.cu`` (``img_at``): core matrices of 8
+    rows x 4 K values, (K quad, row group) at (kc * 8 + rg) * 32. With
+    ``permuted`` k is first placed at its accumulator-to-A position
+    (``perm_k``: within each 8, positions 0..3 hold 0,2,4,6, 4..7 hold
+    1,3,5,7)."""
+    r = torch.arange(64)[:, None]
+    k = torch.arange(64)[None, :]
+    if permuted:
+        k = (k & ~7) | ((k & 1) << 2) | ((k >> 1) & 3)
+    return (((k >> 2) * 8 + (r >> 3)) * 8 + (r & 7)) * 4 + (k & 3)
+
+
+def wide_weight_images(w1t: Tensor) -> Tensor:
+    """Plain version of the wide backward's weight prep
+    (``pf_head_wide_prep_kernel``): w1t [Cmid,64] -> [Cmid/64, 4, 4096],
+    per 64 channels the images of w1t (rows = channels, K = Cin) big and
+    small, then of w1 = w1t^T (rows = Cin, K = channels permuted) big and
+    small."""
+    cmid, cin = w1t.shape
+    big, small = split_tf32(w1t)
+    plain, perm = _image_offsets(False), _image_offsets(True)
+    out = torch.empty((cmid // 64, 4, 64 * 64), dtype=torch.float32,
+                      device=w1t.device)
+    for c in range(cmid // 64):
+        for i, half in enumerate((big, small)):
+            chunk = half[c * 64:(c + 1) * 64]                     # [ch, Cin]
+            out[c, i, plain.reshape(-1).to(w1t.device)] = chunk.reshape(-1)
+            out[c, 2 + i, perm.reshape(-1).to(w1t.device)] = \
+                chunk.t().reshape(-1)
+    return out
+
+
+def from_image(image: Tensor, permuted: bool) -> Tensor:
+    """The [64, 64] matrix (rows, K) that a 4096-float image holds."""
+    return image[_image_offsets(permuted).to(image.device)]
 
 
 _WIDTHS = ('Cout=2 with Cin=16 and Cmid a multiple of 16, or Cin=64 and '
@@ -183,8 +245,9 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     """The backward pass (see :func:`pf_head_bwd_plain`); on the card one
     launch of K2 (its products on the tensor cores in 3xTF32) with its
     fixed-order reduction of the per-block sums. Takes Cin=16, Cmid=128
-    (the ResNet34-flavour head: one kernel), or Cin=64 and Cmid a multiple
-    of 128 (the ResNet50-flavour one, Cmid 512: a dx kernel and a sums
+    (the ResNet34-flavour head: one kernel, mma.sync), or Cin=64 and Cmid
+    a multiple of 128 (the ResNet50-flavour one, Cmid 512, on wgmma: the
+    weight prep of :func:`wide_weight_images`, a dx kernel and a sums
     kernel over 128-channel chunks); Cout=2."""
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
@@ -213,18 +276,22 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     else:
         entry = 'pf_head_bwd_wide'
         blocks = lib.pf_head_bwd_wide_blocks(n, h * w, cmid)
-        cols = cin * cmid + 2 * cmid * cout + cout
+        cols = wide_sums_cols(cin, cmid, cout)
     if blocks <= 0:
         raise RuntimeError(f'{entry}: no CUDA device')
     dx = torch.empty_like(x)
-    partial = torch.empty((blocks, cols), dtype=torch.float32,
+    partial = torch.empty((blocks * cols,), dtype=torch.float32,
                           device=x.device)
     sums = torch.empty((cols,), dtype=torch.float32, device=x.device)
+    # The wide entry's split weight images (see wide_weight_images).
+    img = () if width == 'narrow' else (torch.empty(
+        (cmid // 64, 4, 64 * 64), dtype=torch.float32, device=x.device),)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = getattr(lib, entry)(
         x.data_ptr(), g.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
         c1.data_ptr(), w2gis.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        sums.data_ptr(), n, cin, h * w, cmid, cout, blocks, stream)
+        *(t.data_ptr() for t in img), sums.data_ptr(), n, cin, h * w, cmid,
+        cout, blocks, stream)
     _cuda.check_status(status, entry)
     if width == 'narrow':
         fused_pf_head_bwd.launches += 1

@@ -1,27 +1,35 @@
 """Where a hand-written kernel spends its time on the card, and how it
 compares with another version of its source.
 
-    python -m bihome_torch.profile_kernels --kernel k1|k2|k4 \\
-        [--baseline FILE] [--cmid 128] [--batch_size 64] [--rounds 2]
+    python -m bihome_torch.profile_kernels --kernel k1|k2|k2w|k4 \\
+        [--baseline FILE] [--cmid C] [--batch_size 64] [--rounds 2] \\
+        [--no_cuts]
 
 No kernel profiler runs on the machine with the card, so this builds
-variants of the kernel's source (``csrc/fused_head.cu`` for K1 and K2,
-``csrc/warp.cu`` for K4) with one part cut out or done another way, each
-with nvcc (the port's flags) into its own library under
-``build/kernels/``, and times each against the kernel as built at the
-main path's shape with the timer of chip_smoke.py
+variants of the kernel's source (``csrc/fused_head.cu`` for K1, K2 and
+the ResNet50-flavour K2, ``k2w``; ``csrc/warp.cu`` for K4) with one part
+cut out or done another way, each with nvcc (the port's flags) into its
+own library under ``build/kernels/``, and times each against the kernel
+as built at the main path's shape with the timer of chip_smoke.py
 (``bihome_torch/utils/timing.py``), in turns. What a cut saves is what
 that part costs where it does not overlap the rest; the savings need not
 add up. The cut variants compute wrong results on purpose: only their
-times mean anything. ``--baseline FILE`` builds another version
-of the same source (an earlier commit's, unpacked under ``build/``) and
-times it beside the kernel as built, with the host cost per call of each
-(the C entry point through ctypes, without the Python wrapper). It also
-prints what the compiler made of the kernel (its 16-byte-copy or float2
-variant): its SASS instruction count by opcode, from cuobjdump. Shapes:
-K1 and K2 x [2B,16,128,128], Cmid 128 (K1: ``--cmid``), Cout 2 (K2 with a
-cotangent); K4 the loss warp, 2B images of 128x128x1 at P = 16,384 points
-each. Needs a CUDA device.
+times mean anything. ``--baseline FILE`` builds another version of the
+same source (an earlier commit's, unpacked under ``build/``) and times it
+beside the kernel as built, with the host cost per call of each (the C
+entry point through ctypes, without the Python wrapper). It also prints
+what the compiler made of the kernel (its 16-byte-copy or float2
+variant): its SASS instruction count by opcode, from cuobjdump (for k2w
+of its dx and sums kernels). For k2w, whose C entry launches several
+kernels, it also reads each kernel's device time apart under
+torch.profiler (:func:`bihome_torch.utils.timing.kernel_ms`), for the
+kernel as built, the baseline and each cut variant; times the kernel as
+built with its sums grid at twice the blocks; and holds the sums of those
+three against float64 (:func:`k2w_sums_errors`). Shapes: K1 and K2 x
+[2B,16,128,128], Cmid 128 (K1: ``--cmid``), Cout 2 (K2 with a
+cotangent); k2w x [2B,64,128,128], Cmid 512; K4 the loss warp, 2B images
+of 128x128x1 at P = 16,384 points each. ``--no_cuts`` times only the
+kernel as built and the baseline. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from bihome_torch import geometry
 from bihome_torch.ops import _cuda
 from bihome_torch.ops import fused_head as fh
 from bihome_torch.ops import warp
-from bihome_torch.utils.timing import host_us, time_ms
+from bihome_torch.utils.timing import host_us, kernel_ms, time_ms
 
 
 def _cut(old: str, new: str, then=None):
@@ -59,6 +67,19 @@ _NO_MMA = ('no tensor-core products', lambda src: re.sub(
 _SINGLE_PASS = ('single-pass products (big*big only)', _cut(
     '  mma_tf32(hs, ab, bs, chs);\n  mma_tf32(hs, as, bb, hs);\n',
     '  for (int r = 0; r < 4; ++r) hs[r] = chs[r];\n'))
+# The ResNet50-flavour K2 (k2w): its wgmma products cut (each accumulator
+# keeps what it held), or only the big*big pass of each 3xTF32 product.
+K2W_NO_PRODUCTS = ('no wgmma products', lambda src: re.sub(
+    r'asm volatile\(\s*"\{\\n\.reg \.pred p;.*?\);', '(void)scale_d;', src,
+    flags=re.S))
+K2W_SINGLE_PASS = ('single-pass wgmma products (big*big only)', _cut(
+    'for (int pass = 0; pass < 3; ++pass)',
+    'for (int pass = 2; pass < 3; ++pass)',
+    _cut('pass != 0 ||', 'pass != 2 ||')))
+K2W_NO_STREAM = ('dx: no weight chunk copies after the first', _cut(
+    'const bool more = c + 1 < nch || next < ntiles;',
+    'const bool more = false;', _cut(
+        '      mbar_wait(s_bar', '      if (step == 0) mbar_wait(s_bar')))
 
 # Each turns the source into a variant without one part of the kernel, or
 # with it done another way.
@@ -122,13 +143,24 @@ CUTS = {
             '          m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
         _NO_MMA,
     ]),
+    'k2w': dict([K2W_NO_PRODUCTS, K2W_SINGLE_PASS, K2W_NO_STREAM]),
     'k4': {},
 }
-SOURCES = {'k1': 'fused_head', 'k2': 'fused_head', 'k4': 'warp'}
-# The kernel whose SASS is counted (its mangled name starts so).
-SASS_NAMES = {'k1': 'pf_head_fwd_kernelILb1', 'k2': 'pf_head_bwd_kernelILb1',
-              'k4': 'bilinear_sample_bwd_uv_c1_kernelILb1'}
+SOURCES = {'k1': 'fused_head', 'k2': 'fused_head', 'k2w': 'fused_head',
+           'k4': 'warp'}
+# The kernels whose SASS is counted (their mangled names start so).
+SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
+              'k2': ('pf_head_bwd_kernelILb1',),
+              'k2w': ('pf_head_bwd_wide_dx_kernelILb1',
+                      'pf_head_bwd_wide_sums_kernelILb1'),
+              'k4': ('bilinear_sample_bwd_uv_c1_kernelILb1',)}
+# The kernels of the k2w entry point, timed apart.
+K2W_KERNELS = ('pf_head_wide_prep_kernel', 'pf_head_bwd_wide_dx_kernel',
+               'pf_head_bwd_wide_sums_kernel', 'reduce_rows_kernel')
 SIGNATURES = {'fused_head': fh._SIGNATURES, 'warp': warp._SIGNATURES}
+# The k2w kernel as built, its sums grid at twice the C entry's blocks.
+K2W_GRID2 = 'as built, sums grid at twice the blocks'
+K2W_SUMS = ('dw1', 'm0', 'm1', 'db2')
 
 
 def _build(sources: dict, entry_points: str) -> dict:
@@ -152,6 +184,8 @@ def _build(sources: dict, entry_points: str) -> dict:
             raise RuntimeError(f'nvcc failed for {name}:\n{log}')
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in SIGNATURES[entry_points].items():
+            if not hasattr(lib, fn):  # an earlier source may lack an entry
+                continue
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -204,7 +238,7 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
                 'K4')
         return f'K4 at images [{n},{ps},{ps},1], P = {p}', make
 
-    cin, cout, hw = 16, 2, 128 * 128
+    cin, cout, hw = (64 if kernel == 'k2w' else 16), 2, 128 * 128
     x = torch.relu(torch.randn((n, cin, hw), generator=gen)).to(dev)
     w1t = (torch.randn((cmid, cin), generator=gen) * 0.3).to(dev)
     c1 = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
@@ -225,6 +259,34 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
     w2gis = (torch.randn((cmid, cout), generator=gen) * 0.3).to(dev)
     dx = torch.empty_like(x)
 
+    if kernel == 'k2w':
+        cols = fh.wide_sums_cols(cin, cmid, cout)
+        img = torch.empty((cmid // 64, 4, 64 * 64), device=dev)
+
+        def make(lib, grid=1):
+            # grid: the sums kernel's blocks as a multiple of the entry's
+            # own count.
+            blocks = grid * lib.pf_head_bwd_wide_blocks(n, hw, cmid)
+            partial = torch.empty((blocks, cols), device=dev)
+            sums = torch.empty(cols, device=dev)
+            scratch = (partial.data_ptr(), img.data_ptr())
+            if not hasattr(lib, 'pf_head_wide_prep'):
+                # An earlier source (no weight prep): no img pointer.
+                lib.pf_head_bwd_wide.argtypes = \
+                    fh._SIGNATURES['pf_head_bwd_wide'][1:]
+                scratch = scratch[:1]
+
+            def run():
+                _cuda.check_status(lib.pf_head_bwd_wide(
+                    x.data_ptr(), g.data_ptr(), w1t.data_ptr(),
+                    gis.data_ptr(), c1.data_ptr(), w2gis.data_ptr(),
+                    dx.data_ptr(), *scratch, sums.data_ptr(), n, cin, hw,
+                    cmid, cout, blocks, stream()), 'K2 wide')
+            run.sums = sums
+            return run
+        make.inputs = (x, g, w1t, gis, c1, w2gis)
+        return f'K2 wide at x [{n},{cin},128,128], Cmid {cmid}', make
+
     def make(lib):
         blocks = lib.pf_head_bwd_blocks(n, hw)
         partial = torch.empty((blocks, lib.pf_head_bwd_partial_cols()),
@@ -238,17 +300,63 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
     return f'K2 at x [{n},{cin},128,128], Cmid {cmid}', make
 
 
+def k2w_sums_errors(inputs, runs: dict, images: int = 16) -> None:
+    """Print each k2w run's sums (dw1 | M0 | M1 | db2) against the plain
+    moment pass in float64 (``images`` images at a time), as error over
+    max|ref| per moment; how far the as-built sums and those of its sums
+    grid at twice the blocks (the same tiles, summed in another order) lie
+    apart; and how far mask flips could move dw1: the sum of |x e| over
+    middle values whose float64 pre-activation lies within 1e-5 of the
+    ReLU kink."""
+    x, g, w1t, gis, c1, w2gis = (t.double() for t in inputs)
+    n, cin, hw = x.shape
+    cmid, cout = w2gis.shape
+    ref, slack, near = [0.0] * 4, 0.0, 0
+    for i in range(0, n, images):
+        xi, gi = x[i:i + images], g[i:i + images]
+        _, m0, m1, db2, dw1 = fh.pf_head_bwd_plain(
+            xi[..., None], gi[..., None], w1t, gis, c1, w2gis)
+        ref = [r + p for r, p in zip(ref, (dw1, m0, m1, db2))]
+        pre = gis[:, None] * torch.einsum('ck,nks->ncs', w1t, xi) \
+            + c1[:, None]
+        kink = pre.abs() < 1e-5
+        near += int(kink.sum())
+        eun = torch.einsum('co,nos->ncs', w2gis, gi).abs() * kink
+        slack = slack + torch.einsum('nks,ncs->kc', xi.abs(), eun)
+    ref = [r.flatten() for r in ref]
+    sizes = [r.numel() for r in ref]
+    scale = [float(r.abs().max()) for r in ref]
+    got = {}
+    for label, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        got[label] = torch.split(run.sums.double(), sizes)
+        print(f'  {label}: sums against float64 (error / max|ref|): '
+              + ', '.join(f'{k} {float((a - b).abs().max()) / s:.3e}'
+                          for k, a, b, s in zip(K2W_SUMS, got[label], ref,
+                                                scale)))
+    print(f'  as built against {K2W_GRID2} (/ max|ref|): ' + ', '.join(
+        f'{k} {float((a - b).abs().max()) / s:.3e}' for k, a, b, s in zip(
+            K2W_SUMS, got['as built'], got[K2W_GRID2], scale))
+        + f'; {near} middle values within 1e-5 of the kink, whose mask '
+        f'flips could move dw1 by up to {float(slack.max()) / scale[0]:.3e}')
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernel', choices=sorted(CUTS), default='k2')
     parser.add_argument('--baseline', type=Path, default=None,
                         help='another version of the kernel\'s source file, '
                         'timed beside the one in csrc/')
-    parser.add_argument('--cmid', type=int, default=128,
-                        help='K1\'s middle width (K2 takes 128 only)')
+    parser.add_argument('--cmid', type=int, default=None,
+                        help='K1\'s middle width (default 128; K2 takes 128 '
+                        'only, k2w 512)')
     parser.add_argument('--batch_size', type=int, default=64)
     parser.add_argument('--rounds', type=int, default=2)
+    parser.add_argument('--no_cuts', action='store_true',
+                        help='time only the kernel as built and the baseline')
     args = parser.parse_args(argv)
+    cmid = args.cmid or (512 if args.kernel == 'k2w' else 128)
     if not torch.cuda.is_available():
         raise SystemExit('profile_kernels needs a CUDA device')
     name, source = args.kernel, SOURCES[args.kernel]
@@ -258,17 +366,23 @@ def main(argv=None) -> None:
     if args.baseline is not None:
         labels[f'{name}_baseline'] = f'baseline {args.baseline}'
         sources[f'{name}_baseline'] = args.baseline.read_text()
-    for i, (cut_name, cut) in enumerate(CUTS[name].items()):
+    for i, (cut_name, cut) in enumerate(
+            {} if args.no_cuts else CUTS[name].items()):
         labels[f'{name}_variant{i}'] = cut_name
         sources[f'{name}_variant{i}'] = cut(src)
     libs = {labels[k]: lib for k, lib in _build(sources, source).items()}
-    counts = sass_counts(_cuda.BUILD_DIR / f'lib{name}_as_built.so',
-                         SASS_NAMES[name])
-    print(f'{name.upper()} SASS: {sum(counts.values())} instructions; '
-          + ', '.join(f'{op} {k}' for op, k in counts.most_common(12)))
+    for kernel in SASS_NAMES[name]:
+        counts = sass_counts(_cuda.BUILD_DIR / f'lib{name}_as_built.so',
+                             kernel)
+        print(f'{name.upper()} SASS of {kernel}: {sum(counts.values())} '
+              'instructions; ' + ', '.join(
+                  f'{op} {k}' for op, k in counts.most_common(12))
+              + f'; HGMMA {counts["HGMMA"]}, HMMA {counts["HMMA"]}')
 
-    describe, make = _runner_factory(name, args.batch_size, args.cmid)
+    describe, make = _runner_factory(name, args.batch_size, cmid)
     runs = {label: make(lib) for label, lib in libs.items()}
+    if name == 'k2w':
+        runs[K2W_GRID2] = make(libs['as built'], grid=2)
     times = {label: [] for label in runs}
     for _ in range(args.rounds):
         for label, run in runs.items():
@@ -291,6 +405,17 @@ def main(argv=None) -> None:
         print('  host us per call (C entry point, in turns): ' + '; '.join(
             f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
             for label, readings in hosts.items()))
+    if name == 'k2w':
+        for label, run in runs.items():
+            parts = kernel_ms(run, K2W_KERNELS)
+            print(f'  {label}: device ms per call by kernel (profiler): '
+                  + ', '.join(f'{k} {parts[k]:.4f}' for k in K2W_KERNELS
+                              if k in parts)
+                  + f'; sum {sum(parts.values()):.4f}')
+        k2w_sums_errors(make.inputs, {
+            label: run for label, run in runs.items()
+            if label in ('as built', K2W_GRID2)
+            or label.startswith('baseline')})
 
 
 if __name__ == '__main__':

@@ -34,16 +34,23 @@ def _sleep_cycles_per_ms() -> float:
     return _STATE['cycles']
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn`` in ms (see the module
-    docstring)."""
+def _warm(fn, calls: int = 3) -> torch.Tensor:
+    """Run ``fn`` ``calls`` times, each behind the L2-evicting write, and
+    synchronize; returns the 100 MB buffer of that write."""
     if 'flush' not in _STATE:
         _STATE['flush'] = torch.empty(25_000_000, device='cuda')
     flush = _STATE['flush']
-    for _ in range(warmup):
+    for _ in range(calls):
         flush.zero_()
         fn()
     torch.cuda.synchronize()
+    return flush
+
+
+def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` in ms (see the module
+    docstring)."""
+    flush = _warm(fn, warmup)
     t0 = time.perf_counter()
     for _ in range(3):
         flush.zero_()
@@ -74,3 +81,29 @@ def host_us(fn, calls: int = 200) -> float:
     elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
     return elapsed * 1e6 / calls
+
+
+def kernel_ms(fn, names, reps: int = 20) -> dict:
+    """Device ms per call of ``fn`` of each kernel whose name contains one
+    of ``names``, under ``torch.profiler`` (the sum of the kernel's device
+    time over ``reps`` calls, each behind the L2-evicting write of
+    :func:`time_ms`, divided by ``reps``). Keys are the matching entries
+    of ``names``; a kernel of ``fn`` that matches none is left out."""
+    flush = _warm(fn)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.key:
+                out[name] = (out.get(name, 0.0)
+                             + e.self_device_time_total / 1e3 / reps)
+                break
+    return out

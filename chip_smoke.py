@@ -57,7 +57,10 @@
    K3 only, and delta_hat against the CPU plain path within 1e-2 px.
 11. The ResNet50-flavour slice. K1 and K2 at the wide PF head (x
    [128,64,128,128], Cmid 512, their own kernels) against their plain
-   versions, timed and bounded as in step 3. zeng-biHomE with the
+   versions, timed and bounded as in step 3; the wide K2 (weight prep,
+   dx and sums kernels on wgmma, the fixed-order reduction) also with
+   each kernel's time apart (torch.profiler) beside the floor of its
+   design, four 3xTF32 products. zeng-biHomE with the
    ResNet50-flavour Rethinking backbone (R50_SET): eval at batch 64
    (K1 and K3; the first 4 pairs of batch 0 against the CPU plain path),
    train at batch 64 (exactly K1-K4), then the one-step check of step 6
@@ -89,7 +92,7 @@ import time
 
 import torch
 
-from bihome_torch.utils.timing import host_us, time_ms
+from bihome_torch.utils.timing import host_us, kernel_ms, time_ms
 
 CONFIG = 'config/s-coco/zeng-bihome-lr-1e-3.yaml'
 BATCH = 64
@@ -135,6 +138,9 @@ PDS_STEPS = 3
 # K3 and K4, never K1, K2 or K5).
 R50_SET = ('MODEL.BACKBONE.RESNET_BLOCK=ResNet50',)
 R50_STEP_BATCH = 2
+# The kernels of one wide K2 call (csrc/fused_head.cu), timed apart.
+WIDE_K2_PARTS = ('pf_head_wide_prep_kernel', 'pf_head_bwd_wide_dx_kernel',
+                 'pf_head_bwd_wide_sums_kernel', 'reduce_rows_kernel')
 R50_KERNELS = ('fused_pf_head_fwd_wide', 'fused_pf_head_bwd_wide',
                'bilinear_sample_batched', 'bilinear_sample_bwd_uv')
 ZHANG_RUNS = ('config/pds-coco/zhang-orig-lr-1e-2.yaml',
@@ -497,6 +503,21 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
           f'{flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB); fp32-core bound '
           f'{bfp:.4f} ({byfp}); host us per call: kernel '
           f'{host["kernel"]:.1f}')
+    extra = {}
+    if cin == 64:
+        # The wide K2 computes mid twice (its dx and sums kernels): four
+        # 3xTF32 products, the floor of its design above the bound's three.
+        parts = kernel_ms(lambda: fh.fused_pf_head_bwd(*margs), WIDE_K2_PARTS)
+        floor = 4 / 3 * tc3
+        print('K2 wide by kernel (ms, torch.profiler): ' + ', '.join(
+            f'{k} {parts.get(v, float("nan")):.4f}'
+            for k, v in zip(('prep', 'dx', 'sums', 'reduce'), WIDE_K2_PARTS))
+            + f'; sum {sum(parts.values()):.4f}, total {ms:.4f}, bound '
+            f'{bms:.4f}, floor of four products {floor:.4f}')
+        if len(parts) != len(WIDE_K2_PARTS):
+            raise AssertionError(f'K2 wide: the profiler saw {sorted(parts)}'
+                                 f' of {WIDE_K2_PARTS}')
+        extra = {'kernel_ms': parts}
     return {'name': 'fused_pf_head_bwd', 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:110',
@@ -508,7 +529,7 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
                 raw_errs.values()), 'kink_pixels': len(bad), 'ms': ms,
             'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': None,
-            'host_us': host}
+            'host_us': host, **extra}
 
 
 def _loss_warp_points(dev, gen, n, ps):
@@ -1032,7 +1053,7 @@ def main():
     for name, log in logs.items():
         for line in log.splitlines():
             if ('entry function' in line or 'registers' in line
-                    or 'spill' in line):
+                    or 'spill' in line or 'wgmma' in line):
                 print(f'  {name}: {line.strip()}')
     done('build')
 

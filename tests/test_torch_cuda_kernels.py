@@ -8,7 +8,9 @@ it runs where only torch is installed:
 Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts
 (K1's 256-pixel and K2's 64-pixel tiles, the ResNet50-flavour kernels'
 128-pixel tiles and 64-pixel sums tiles, K3's and K4's pairs of points),
-K1 at Cmid 512 and Cin 16, misaligned inputs, points far outside,
+K1 at Cmid 512 and Cin 16, the wide K2 at Cmid 1024 and with fewer tiles
+than SMs, its sums bit for bit across two calls, one wgmma tile and the
+weight prep it reads, misaligned inputs, points far outside,
 exactly on the border or on integer coordinates, input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
@@ -209,14 +211,42 @@ def test_pf_head_train_gradients_match_plain(cuda):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol)
 
 
+def _kink_slack(x, g, w1t, gis, c1, w2gis):
+    """How far each output of the PF-head backward (dx, m0, m1, db2, dw1)
+    may move where a middle value's float64 pre-activation lies within
+    1e-5 of the ReLU kink: there the kernel and the plain version, whose
+    sums run in other orders, may take the mask differently, and each such
+    value moves dx, M0, M1 and dw1 by at most its whole term."""
+    x, g, w1t, gis, c1, w2gis = (t.double() for t in (x, g, w1t, gis, c1,
+                                                       w2gis))
+    n, cin = x.shape[:2]
+    x3, g3 = x.reshape(n, cin, -1), g.reshape(n, g.shape[1], -1)
+    mid = torch.einsum('ck,nks->ncs', w1t, x3)
+    near = ((gis[:, None] * mid + c1[:, None]).abs() < 1e-5).double()
+    e = near * torch.einsum('co,nos->ncs', w2gis, g3).abs()
+    return (torch.einsum('ck,ncs->nks', w1t.abs(), e).reshape(x.shape),
+            torch.einsum('ncs,nos->co', near, g3.abs()),
+            torch.einsum('ncs,nos->co', near * mid.abs(), g3.abs()),
+            torch.zeros(g.shape[1], dtype=x.dtype, device=x.device),
+            torch.einsum('nks,ncs->kc', x3.abs(), e))
+
+
 # The ResNet50-flavour kernels (Cin 64): K1 and K2's dx kernel walk
 # 128-pixel tiles, K2's sums kernel 64-pixel tiles over 128-channel chunks.
 # HW = 323 and 1 are not multiples of 4 (4-byte copies), 48 is smaller than
-# a tile, 400 and 4420 end in ragged tiles; Cmid 128 is one chunk, 512 the
-# head's four. Each has a gamma == 0 channel.
+# a tile, 400, 4420, 200 and 144 end in ragged tiles; Cmid 128 is one
+# chunk, 512 the head's four, 1024 the largest taken. 2 x 128 x 128 (256 dx
+# tiles, 512 sums tiles) and 3 x 96 x 96 (216, 432) give the persistent
+# blocks of an H100's 132 SMs more than one tile each; 1 x 12 x 12 fewer
+# tiles than SMs. Each has a gamma == 0 channel. The backward's outputs may
+# stray past the tolerance only by _kink_slack, and dx at no more than
+# max(2, 1e-4 of its pixels) pixels: the mask flips chip_smoke.py allows at
+# full size.
 @pytest.mark.parametrize('shape,cmid', [
     ((3, 17, 19), 512), ((2, 64, 64), 512), ((1, 1, 1), 512),
-    ((2, 8, 6), 128), ((3, 20, 20), 512), ((1, 68, 65), 256)])
+    ((2, 8, 6), 128), ((3, 20, 20), 512), ((1, 68, 65), 256),
+    ((2, 10, 20), 1024), ((1, 12, 12), 512), ((2, 128, 128), 512),
+    ((3, 96, 96), 512)])
 def test_wide_pf_head_kernels_match_plain(cuda, shape, cmid):
     gen = torch.Generator().manual_seed(4)
     args = _head_args(gen, *shape, cuda, cmid, cin=64)
@@ -235,11 +265,71 @@ def test_wide_pf_head_kernels_match_plain(cuda, shape, cmid):
     tol = 1e-4 * (1.0 + want.abs().max().item())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
     want_bwd = fused_head.pf_head_bwd_plain(*bargs)
-    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), got_bwd,
-                          want_bwd):
+    for name, a, b, slack in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), got_bwd,
+                                 want_bwd, _kink_slack(*bargs)):
         assert a.shape == b.shape, name
         tol = 1e-4 * (1.0 + b.abs().max().item())
-        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+        excess = ((a - b).abs().double() - tol - slack).max().item()
+        assert excess <= 0, f'{name}: {excess} past the tolerance and slack'
+        if name == 'dx':
+            off = int(((a - b).abs() > tol).any(1).sum())
+            assert off <= max(2, 1e-4 * a[:, 0].numel()), off
+
+
+def test_wide_pf_head_bwd_sums_are_bit_identical(cuda):
+    # The per-block sums are added in a fixed order, with no atomics: two
+    # calls on the same inputs give the same bits.
+    args = _bwd_args(torch.Generator().manual_seed(7), 4, 64, 64, cuda, 512,
+                     cin=64)
+    first = fused_head.fused_pf_head_bwd(*args)
+    second = fused_head.fused_pf_head_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), first, second):
+        assert torch.equal(a, b), name
+
+
+def _lib():
+    from bihome_torch.ops import _cuda
+    return _cuda.library('fused_head', fused_head._SIGNATURES)
+
+
+@pytest.mark.parametrize('mode', [0, 1, 2, 3], ids=[
+    'a-regs', 'a-smem', 'a-regs-n32', 'a-smem-n32'])
+def test_wgmma_tf32_tile_matches_matmul(cuda, mode):
+    # One 64 x 64 x 64 product on wgmma tf32 through the operand images and
+    # descriptors the wide K2 uses, A from registers (the mma.m16n8k8
+    # fragment per warp) or from shared memory, as one m64n64k8 or as two
+    # m64n32k8 halves of N, against float64 on the same TF32 values:
+    # products of TF32 values are exact, the sums fp32. A wrong descriptor
+    # or fragment layout puts whole entries off.
+    from bihome_torch.ops import _cuda
+    gen = torch.Generator().manual_seed(8)
+    a = fused_head.tf32_rna(torch.randn((64, 64), generator=gen)).to(cuda)
+    b = fused_head.tf32_rna(torch.randn((64, 64), generator=gen)).to(cuda)
+    d = torch.empty((64, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    _cuda.check_status(_lib().wgmma_tf32_tile(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), mode, stream),
+        'wgmma_tf32_tile')
+    torch.cuda.synchronize()
+    want = a.double() @ b.double().t()
+    torch.testing.assert_close(d.double(), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize('cmid', [128, 512, 1024])
+def test_wide_weight_prep_matches_plain(cuda, cmid):
+    # The prep kernel's split weight images, bit for bit against the plain
+    # version (cvt.rna against tf32_rna).
+    from bihome_torch.ops import _cuda
+    w1t = (torch.randn((cmid, 64), generator=torch.Generator().manual_seed(
+        cmid)) * 0.3).to(cuda)
+    img = torch.empty((cmid // 64, 4, 64 * 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    _cuda.check_status(_lib().pf_head_wide_prep(
+        w1t.data_ptr(), img.data_ptr(), cmid, stream), 'pf_head_wide_prep')
+    torch.cuda.synchronize()
+    assert torch.equal(img, fused_head.wide_weight_images(w1t))
 
 
 def test_wide_pf_head_kernels_reject_other_widths(cuda):

@@ -177,10 +177,13 @@ def _tf32_product(mode):
     return mm
 
 
-def _moments_tf32(mode):
+def _moments_tf32(mode, tile=None):
     """K2's one-pass moments with its three Cin x Cmid products (mid, dx,
     dw1) through :func:`_tf32_product`; the rest in float32, as the
-    kernel runs it on the fp32 cores."""
+    kernel runs it on the fp32 cores. With ``tile``, dw1, M0, M1 and db2
+    are summed per ``tile`` pixels of each image first (a fresh
+    accumulator each), then over the tiles in order, as the wide sums
+    kernel sums them."""
     mm = _tf32_product(mode)
 
     def moments(x, g, w1t, gis, c1, w2gis):
@@ -192,23 +195,30 @@ def _moments_tf32(mode):
         e = mask * (w2gis @ g2)
         dx = mm(w1t.t().contiguous(), e)                           # [Cin,M]
         dx = dx.reshape(cin, n, h, w).permute(1, 0, 2, 3)
-        return (dx, mask @ g2.t(), (mask * mid) @ g2.t(), g2.sum(1),
-                mm(x2, e.t().contiguous()))
+        step = tile or x2.shape[1]
+        sums = [0.0] * 4
+        for p in range(0, x2.shape[1], step):
+            cut = slice(p, p + step)
+            parts = (mask[:, cut] @ g2[:, cut].t(),
+                     (mask * mid)[:, cut] @ g2[:, cut].t(),
+                     g2[:, cut].sum(1),
+                     mm(x2[:, cut], e[:, cut].t().contiguous()))
+            sums = [a + b for a, b in zip(sums, parts)]
+        return (dx, *sums)
     return moments
 
 
-def test_k2_precision_3xtf32_against_single_pass():
-    # The precision choice of the K2 kernel (csrc/fused_head.cu), grounded
-    # at its widths (Cin 16, Cmid 128, Cout 2, M = 4096, batch statistics):
-    # each of the seven gradients through emulated 3xTF32 products stays
-    # within chip_smoke's 1e-3 of max|ref| of float64, and single-pass TF32
-    # strays at least 10x further. dx is compared off the pixels where a
-    # middle channel's pre-activation lies within 1e-5 of the ReLU kink in
-    # float64 (chip_smoke's rule); db1 (0 analytically) on dbeta's scale.
-    rs = np.random.RandomState(11)
-    n, h, w = 4, 32, 32
-    x = np.maximum(rs.randn(n, 16, h, w), 0.0).astype(np.float32)
-    w1, b1, gamma, beta, w2, _, _, _ = _params(rs)
+def _k2_precision(cin, cmid, n, seed, tile=None):
+    """Error / max|float64| per gradient of the K2 kernel's arithmetic
+    (batch statistics, Cout 2, x [n,Cin,32,32]) through emulated 3xTF32,
+    single-pass TF32, and the plain float32 version. dx is compared off
+    the pixels where a middle channel's pre-activation lies within 1e-5 of
+    the ReLU kink in float64 (chip_smoke's rule); db1 (0 analytically) on
+    dbeta's scale."""
+    rs = np.random.RandomState(seed)
+    h = w = 32
+    x = np.maximum(rs.randn(n, cin, h, w), 0.0).astype(np.float32)
+    w1, b1, gamma, beta, w2, _, _, _ = _params(rs, cin, cmid)
     cot = rs.randn(n, 2, h, w).astype(np.float32)
 
     def grads(dtype, moments):
@@ -243,14 +253,70 @@ def test_k2_precision_3xtf32_against_single_pass():
             out[name] = float((a - b).abs().max() / scale.abs().max())
         return out
 
-    split = errors(grads(torch.float32, _moments_tf32('split')))
-    single = errors(grads(torch.float32, _moments_tf32('single')))
-    print('error / max|float64| per gradient, 3xTF32:',
-          {k: f'{v:.2e}' for k, v in split.items()})
-    print('error / max|float64| per gradient, single-pass TF32:',
-          {k: f'{v:.2e}' for k, v in single.items()})
+    split = errors(grads(torch.float32, _moments_tf32('split', tile)))
+    single = errors(grads(torch.float32, _moments_tf32('single', tile)))
+    plain = errors(grads(torch.float32, tfh.pf_head_bwd_plain))
+    for label, errs in (('3xTF32', split), ('single-pass TF32', single),
+                        ('plain float32', plain)):
+        print(f'Cin {cin} Cmid {cmid}, error / max|float64| per gradient, '
+              f'{label}:', {k: f'{v:.2e}' for k, v in errs.items()})
+    return split, single, plain
+
+
+def test_k2_precision_3xtf32_against_single_pass():
+    # The precision choice of the K2 kernel (csrc/fused_head.cu), grounded
+    # at its widths (Cin 16, Cmid 128, Cout 2, M = 4096, batch statistics):
+    # each of the seven gradients through emulated 3xTF32 products stays
+    # within chip_smoke's 1e-3 of max|ref| of float64, and single-pass TF32
+    # strays at least 10x further.
+    split, single, _ = _k2_precision(16, 128, 4, 11)
     assert max(split.values()) <= 1e-3, split
     assert max(single.values()) >= 10 * max(split.values()), (single, split)
+
+
+def test_k2_wide_precision_3xtf32_per_tile():
+    # The same at the ResNet50-flavour head (Cin 64, Cmid 512, M = 2048),
+    # with the wide sums kernel's per-tile summation (64-pixel tiles, each
+    # summed apart, then in order): each gradient within chip_smoke's limit,
+    # max(1e-3, the plain float32 version's error), of float64, and
+    # single-pass TF32 at least 10x further off.
+    split, single, plain = _k2_precision(64, 512, 2, 13, tile=64)
+    for name, err in split.items():
+        assert err <= max(1e-3, plain[name]), (name, split, plain)
+    assert max(single.values()) >= 10 * max(split.values()), (single, split)
+
+
+@pytest.mark.parametrize('cmid', [128, 512])
+def test_wide_weight_images_round_trip(cmid):
+    # The plain version of the wide K2's weight prep: big + small rebuild
+    # w1t to 2^-22 relative, each half has its low 13 mantissa bits zero,
+    # and the images give back w1t (rows = channels) and w1 = w1t^T (rows =
+    # Cin, channels at their permuted K positions) exactly.
+    w1t = torch.from_numpy(
+        (np.random.RandomState(cmid).randn(cmid, 64) * 0.3).astype(
+            np.float32))
+    images = tfh.wide_weight_images(w1t)
+    assert images.shape == (cmid // 64, 4, 64 * 64)
+    assert not (images.view(torch.int32) & 0x1FFF).any()
+    big, small = tfh.split_tf32(w1t)
+    rebuilt = (big.double() + small.double())
+    assert ((rebuilt - w1t.double()).abs()
+            <= 2.0 ** -22 * w1t.double().abs()).all()
+    for c in range(cmid // 64):
+        rows = slice(64 * c, 64 * c + 64)
+        assert torch.equal(tfh.from_image(images[c, 0], False), big[rows])
+        assert torch.equal(tfh.from_image(images[c, 1], False), small[rows])
+        assert torch.equal(tfh.from_image(images[c, 2], True), big[rows].t())
+        assert torch.equal(tfh.from_image(images[c, 3], True),
+                           small[rows].t())
+    # The permuted K order: position t of each 8 holds channel 2t, t + 4
+    # holds 2t + 1.
+    probe = torch.arange(64 * 64, dtype=torch.float32).reshape(64, 64)
+    image = torch.zeros(64 * 64)
+    image[tfh._image_offsets(True).reshape(-1)] = probe.reshape(-1)
+    flat = image.reshape(16, 8, 8, 4)          # [K quad][row group][row][q]
+    assert flat[0, 0, 0].tolist() == [0.0, 2.0, 4.0, 6.0]
+    assert flat[1, 0, 0].tolist() == [1.0, 3.0, 5.0, 7.0]
 
 
 def test_k1_precision_3xtf32_against_single_pass():
