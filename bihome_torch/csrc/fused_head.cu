@@ -144,29 +144,40 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 }
 
 // Start the copies of pixels s0..s0+kPx-1 of rows 0..kRows-1 of one image's
-// [kRows][hw] block src into dst (row stride kStride words), by a block of
-// kThreads threads. Pixels past hw are filled with 0 (the source then
-// points at ``any``, the tensor's start, and no byte of it is read). kVec:
-// 16-byte copies (HW % 4 == 0 and src 16-byte aligned, so a chunk of 4
-// pixels is all in or all out), else 4-byte ones.
+// [kRows][hw] block src into dst (row stride kStride words), by kThreads
+// threads, of which this is number t (copy_rows: a block of kThreads, t =
+// threadIdx.x).
+// Pixels past hw are filled with 0 (the source then points at ``any``, the
+// tensor's start, and no byte of it is read). kVec: 16-byte copies (HW % 4
+// == 0 and src 16-byte aligned, so a chunk of 4 pixels is all in or all
+// out), else 4-byte ones.
 template <int kRows, int kPx, int kStride, int kThreads, bool kVec>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          const float* any, int s0, int hw) {
+__device__ __forceinline__ void copy_rows_by(int t, float* dst,
+                                             const float* src,
+                                             const float* any, int s0,
+                                             int hw) {
   if (kVec) {
-    for (int i = threadIdx.x; i < kRows * kPx / 4; i += kThreads) {
+    for (int i = t; i < kRows * kPx / 4; i += kThreads) {
       const int k = i / (kPx / 4), q = i % (kPx / 4) * 4;
       const bool in = s0 + q < hw;
       cp_async16(dst + k * kStride + q,
                  in ? src + (long long)k * hw + s0 + q : any, in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < kRows * kPx; i += kThreads) {
+    for (int i = t; i < kRows * kPx; i += kThreads) {
       const int k = i / kPx, p = i % kPx;
       const bool in = s0 + p < hw;
       cp_async4(dst + k * kStride + p,
                 in ? src + (long long)k * hw + s0 + p : any, in ? 4 : 0);
     }
   }
+}
+
+template <int kRows, int kPx, int kStride, int kThreads, bool kVec>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          const float* any, int s0, int hw) {
+  copy_rows_by<kRows, kPx, kStride, kThreads, kVec>(threadIdx.x, dst, src,
+                                                     any, s0, hw);
 }
 
 constexpr int kFwdTile = 256;         // pixels per tile, within one image
@@ -719,46 +730,29 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
 // Why the narrow kernels cannot simply be widened: at Cin 64 the forward's
 // split g1t fragments alone are (Cmid/8)(Cin/8) x 32 lanes x 16 B = 262 KB
 // at Cmid 512, and the narrow backward's split e tile and split w1t^T 264
-// KB each, beyond the 227 KB a block may hold. So the weights stream
-// through shared memory in chunks of middle channels:
-//   * forward (pf_head_fwd_wide_kernel, mma.sync): pixels are the mma's M
-//     dimension (as in K1): warp w owns 16 pixels of a 128-pixel tile and
-//     holds their split x as A fragments in registers for the whole tile
-//     (8 k-steps x 4 x 2 words), so each x value is split once. For each
-//     chunk of 64 middle channels the block stages the B fragments of the
-//     chunk's g1t, split, in shared memory (32 KB), every warp runs its 16
-//     pixels against them, and the epilogue of K1 follows (ReLU, the
-//     Cout = 2 sums in registers, 3 shuffles at the end);
-//   * backward (wgmma, described before its kernels below): a dx kernel
-//     with pixels as M, whose e goes from mid's accumulator straight into
-//     dx's A operand (no reduction across blocks), and a sums kernel with
-//     channels as M over 128-channel chunks (dw1 needs no transposed e),
-//     so mid is computed twice.
+// KB each, beyond the 227 KB a block may hold. So the weights are split
+// once per call into wgmma operand images (pf_head_wide_prep_kernel) and
+// stream through shared memory in chunks of 64 middle channels, and both
+// directions run their products on wgmma (described before their kernels
+// below):
+//   * forward (pf_head_fwd_wgmma_kernel): pixels are the product's M
+//     dimension (as in K1), two warpgroups of 64 pixels a tile, each
+//     holding its split x as A fragments in registers; the epilogue of K1
+//     (c1, ReLU, the Cout = 2 sums) runs on mid's accumulator in
+//     registers;
+//   * backward: a dx kernel with pixels as M, whose e goes from mid's
+//     accumulator straight into dx's A operand (no reduction across
+//     blocks), and a sums kernel with channels as M over 128-channel chunks
+//     (dw1 needs no transposed e), so mid is computed twice.
 
 constexpr int kWCin = 64;
 constexpr int kWKs = kWCin / 8;       // k-steps of the Cin contraction
 constexpr int kWTile = 128;           // pixels per tile: 8 warps x 16
 constexpr int kWThreads = 256;
 constexpr int kWSX = kWTile + 8;      // row stride of the x tile (words)
-constexpr int kWChunk = 64;           // middle channels per staged chunk
-constexpr int kWNt = kWChunk / 8;     // n-tiles per chunk
 constexpr int kWSumChunk = 128;       // channels per block of the sums kernel
 constexpr int kWSTile = 64;           // pixels per tile of the sums kernel
 constexpr int kWMaxCmid = 1024;
-
-// Stage the B fragments of mid^T = x^T w^T for middle channels ch0 ..
-// ch0 + kWChunk - 1 of w [Cmid][Cin] (g1t): s_b[(nt * kWKs + ks) *
-// 32 + l] = (big, small) of w[ch0 + nt*8 + l/4][ks*8 + l%4] and of k + 4.
-__device__ __forceinline__ void stage_mid_b(uint4* s_b, const float* w,
-                                            int ch0) {
-  for (int i = threadIdx.x; i < kWNt * kWKs * 32; i += kWThreads) {
-    const int l = i & 31, ks = (i >> 5) % kWKs, nt = (i >> 5) / kWKs;
-    const float* row =
-        w + (long long)(ch0 + nt * 8 + (l >> 2)) * kWCin + ks * 8 + (l & 3);
-    const Split lo = split(row[0]), hi = split(row[4]);
-    s_b[i] = make_uint4(lo.big, lo.small, hi.big, hi.small);
-  }
-}
 
 // The x tile's A fragments for warp w's 16 pixels, all k-steps, split:
 // register r is pixel 16w + gid + 8 (r & 1) at k = ks*8 + tig + 4 (r >> 1).
@@ -780,111 +774,8 @@ __device__ __forceinline__ void wide_a_fragments(const float* sx, int warp,
   }
 }
 
-// mid^T of n-tile nt of the staged chunk for the warp's pixels: hh = chh +
-// big*big, hs = big*small + small*big. Register r is pixel gid + 8 (r >> 1),
-// channel nt*8 + 2 tig + (r & 1) of the chunk.
-__device__ __forceinline__ void wide_mid(const uint4* s_b, int nt, int lane,
-                                         const uint32_t (&ab)[kWKs][4],
-                                         const uint32_t (&as)[kWKs][4],
-                                         const float* chh, float (&hh)[4],
-                                         float (&hs)[4]) {
-  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int ks = 0; ks < kWKs; ++ks) {
-    const uint4 f = s_b[(nt * kWKs + ks) * 32 + lane];
-    const uint32_t bb[2] = {f.x, f.z}, bs[2] = {f.y, f.w};
-    if (ks == 0) {
-      mma3(hh, hs, ab[ks], as[ks], bb, bs, chh, zero);
-    } else {
-      mma3(hh, hs, ab[ks], as[ks], bb, bs);
-    }
-  }
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kWThreads, 2)
-pf_head_fwd_wide_kernel(const float* __restrict__ x,
-                        const float* __restrict__ g1t,
-                        const float* __restrict__ c1,
-                        const float* __restrict__ w2,
-                        const float* __restrict__ b2, float* __restrict__ out,
-                        int hw, int tpi, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_x = smem;                                           // [Cin][kWSX]
-  uint4* s_b = reinterpret_cast<uint4*>(s_x + kWCin * kWSX);   // a chunk
-  float* s_c = reinterpret_cast<float*>(s_b + kWNt * kWKs * 32);
-
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int tile = blockIdx.x;
-  const int n = tile / tpi;
-  const int s0 = (tile - n * tpi) * kWTile;
-  copy_rows<kWCin, kWTile, kWSX, kWThreads, kVec>(
-      s_x, x + (long long)n * kWCin * hw, x, s0, hw);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  // c1 and w2 of every channel, laid out as K1's (quad q of n-tile nt:
-  // channels nt*8 + 2q and + 1, c1 at 0, 1 and w2 [o][channel] at 4..7).
-  for (int i = t; i < cmid / 2; i += kWThreads) {
-    const int ch = (i >> 2) * 8 + 2 * (i & 3);
-    float* c = s_c + i * 8;
-    c[0] = c1[ch];
-    c[1] = c1[ch + 1];
-    c[2] = 0.0f;
-    c[3] = 0.0f;
-    c[4] = w2[ch];
-    c[5] = w2[ch + 1];
-    c[6] = w2[cmid + ch];
-    c[7] = w2[cmid + ch + 1];
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-
-  uint32_t ab[kWKs][4], as[kWKs][4];
-  wide_a_fragments(s_x, warp, lane, ab, as);
-  float acc[2][2] = {};  // [pixel gid + 8 px][o], over the lane's channels
-  for (int ch0 = 0; ch0 < cmid; ch0 += kWChunk) {
-    __syncthreads();  // every warp done with the chunk before
-    stage_mid_b(s_b, g1t, ch0);
-    __syncthreads();
-#pragma unroll 2
-    for (int nt = 0; nt < kWNt; ++nt) {
-      const float* cq = s_c + ((ch0 / 8 + nt) * 4 + tig) * 8;
-      const float2 c = *reinterpret_cast<const float2*>(cq);
-      const float c1r[4] = {c.x, c.y, c.x, c.y};
-      float hh[4], hs[4];
-      wide_mid(s_b, nt, lane, ab, as, c1r, hh, hs);
-      const float4 w = *reinterpret_cast<const float4*>(cq + 4);
-      const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float a = fmaxf(hh[r] + hs[r], 0.0f);
-        const int px = r >> 1, ch = r & 1;
-        acc[px][0] = fmaf(wo[0][ch], a, acc[px][0]);
-        acc[px][1] = fmaf(wo[1][ch], a, acc[px][1]);
-      }
-    }
-  }
-
-  // Fold over the lane quad as K1 does: lane tig keeps pixel gid + 8
-  // (tig >> 1), output tig & 1.
-  const int px = tig >> 1, o = tig & 1;
-  float keep[2];
-#pragma unroll
-  for (int oo = 0; oo < 2; ++oo) {
-    const float mine = px ? acc[1][oo] : acc[0][oo];
-    const float other = px ? acc[0][oo] : acc[1][oo];
-    keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
-  }
-  const float mine = o ? keep[1] : keep[0];
-  const float other = o ? keep[0] : keep[1];
-  const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
-  const int s = s0 + warp * 16 + gid + 8 * px;
-  if (s < hw) out[((long long)n * kCout + o) * hw + s] = v + b2[o];
-}
-
 // ---------------------------------------------------------------------------
-// The wide backward on wgmma (sm_90a; PTX ISA "Asynchronous Warpgroup Level
+// The wide kernels on wgmma (sm_90a; PTX ISA "Asynchronous Warpgroup Level
 // Matrix Multiply-Accumulate", wgmma.mma_async .m64nNk8 .tf32 and its
 // matrix descriptor). Each 64 x 64 x 8 step is one
 //   wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32
@@ -909,17 +800,20 @@ pf_head_fwd_wide_kernel(const float* __restrict__ x,
 // takes three passes, small*big, big*small, then big*big, into one
 // accumulator (a second one would spill).
 //
-//   * pf_head_wide_prep_kernel splits w1t once per call into two images
-//     per 64 middle channels, written to a scratch buffer of their own
-//     (img of the C entry): w1t itself (rows = channels, K = Cin: B of the dx kernel's
-//     mid, A of the sums kernel's mid), and w1 = w1t^T (rows = Cin, K =
-//     channels, within each 8 in the order 0,2,4,6,1,3,5,7: the order in
-//     which mid's accumulator hands e on as A, register r of n-block j
-//     being A register ((r & 1) << 1) | (r >> 1) of k-step j). Each
-//     chunk's four images (big, small of each) are one contiguous 64 KB
-//     block, and the dx kernel copies each image pair with one 1-D bulk
-//     copy (cp.async.bulk, completion counted on an mbarrier): no tensor
-//     map, no split per tile;
+//   * pf_head_wide_prep_kernel splits the first conv's weights (w1t for
+//     the backward, the BN-folded g1t for the forward) once per call into
+//     two images per 64 middle channels, written to a scratch buffer of
+//     their own (img of the C entries): w1t itself (rows = channels, K =
+//     Cin: B of the forward's and the dx kernel's mid, A of the sums
+//     kernel's mid), and w1 = w1t^T (rows = Cin, K = channels, within each
+//     8 in the order 0,2,4,6,1,3,5,7: the order in which mid's accumulator
+//     hands e on as A, register r of n-block j being A register ((r & 1)
+//     << 1) | (r >> 1) of k-step j). Each chunk's four images (big, small
+//     of each) are one contiguous 64 KB block, and the forward and the dx
+//     kernel copy each image pair with one 1-D bulk copy (cp.async.bulk,
+//     completion counted on an mbarrier): no tensor map, no split per
+//     tile (the forward reads the first pair only);
+//   * forward (pf_head_fwd_wgmma_kernel), described before it below;
 //   * dx kernel (pf_head_bwd_wide_dx_kernel): persistent blocks of two
 //     warpgroups, one block per SM, walk 128-pixel tiles; warpgroup w owns
 //     pixels 64w..64w+63 and holds their split x as A fragments in
@@ -1106,8 +1000,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 
@@ -1153,6 +1055,214 @@ __global__ void pf_head_wide_prep_kernel(const float* __restrict__ w1t,
   chunk[kWImg + img_at(cl, k)] = __uint_as_float(s.small);
   chunk[2 * kWImg + img_at(k, perm_k(cl))] = __uint_as_float(s.big);
   chunk[3 * kWImg + img_at(k, perm_k(cl))] = __uint_as_float(s.small);
+}
+
+// The wide forward (K1 at Cin 64), out = w2 relu(g1t x + c1) + b2 on
+// wgmma, g1t's images made by pf_head_wide_prep_kernel once per call:
+//   * persistent blocks, one per SM, of two consumer warpgroups and one
+//     producer warp walk 128-pixel tiles (within one image); warpgroup w
+//     owns pixels 64w..64w+63 of each tile. It copies its own half of the
+//     tile's x by cp.async (zero-filled past the image's end), splits it
+//     once into A fragments in registers (wide_a_fragments), then starts
+//     the copy of its half of its next tile, which lands while the tile's
+//     products run. The warpgroups meet at no block-wide barrier after
+//     the start;
+//   * per 64-channel chunk, mid^T [64 px, 64 ch] = x^T g1t^T is 24 wgmma
+//     m64n64k8 (3 passes x 8 k-steps, small*big, big*small, then big*big
+//     into one accumulator), B from the chunk's g1t images, then the
+//     epilogue of K1 on the accumulator in registers: c1, the ReLU and 2
+//     FMAs per middle value into the lane's 2 pixels x 2 outputs;
+//   * the warpgroups take turns (two named barriers, "ping-pong"): each
+//     issues a chunk's products, hands the turn to the other, waits for
+//     its own products and runs their epilogue while the tensor cores work
+//     on the other's. Without the turns both warpgroups' products share
+//     the tensor cores, finish together, and both epilogues leave them
+//     idle together;
+//   * the weight images stream through a ring of kFBufs 32 KB buffers: the
+//     producer warp's lane 0 waits for a buffer's "empty" barrier (one
+//     arrival per consumer warp, once its products over the buffer are
+//     done) and starts the bulk copy of the next chunk into it, counted on
+//     the buffer's "full" barrier;
+//   * at a tile's end the lane quad folds its sums (3 shuffles), adds b2
+//     and stores.
+// Bound at x [128,64,128,128], Cmid 512: 3 x 137.4 GFLOP in 3xTF32 at 495
+// TFLOP/s, 0.833 ms (operations; bytes 0.165 ms). The images come from L2
+// (256 KB a tile at Cmid 512, 4.3 GB a call).
+//
+// What holds it back (H100 80GB HBM3, 700 W; python -m
+// bihome_torch.profile_kernels --kernel k1w cuts each part out and times
+// the rest): the epilogue's fp32 work slows the products rather than
+// hiding under them (run twice, it adds as much again), so the kernel
+// takes about the products' time plus the epilogue's. The weight stream
+// costs little. With a second accumulator in flight across the chunk loop
+// (chunk c + 1 issued before chunk c's epilogue) ptxas serialised every
+// wgmma (C7514: a wait after each), so each chunk's products are waited
+// for whole.
+constexpr int kFBufs = 4;                     // buffers of the weight ring
+constexpr int kFThreads = kWThreads + 32;     // + the producer warp
+constexpr uint32_t kFChunkBytes = 2 * kWImg * sizeof(float);  // 32 KB
+constexpr int kFTurn = 3;  // named barriers 3, 4: warpgroup 0's, 1's turn
+
+// mid^T of one chunk for the warpgroup's 64 pixels into d (register 4j + r:
+// pixel 16 warp + gid + 8 (r >> 1), channel 8j + 2 tig + (r & 1) of the
+// chunk), B from the chunk's g1t images at w (big, then small).
+__device__ __forceinline__ void fwd_wide_products(
+    float (&d)[32], const uint32_t (&ab)[kWKs][4],
+    const uint32_t (&as)[kWKs][4], const float* w) {
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+    for (int ks = 0; ks < kWKs; ++ks) {
+      const uint32_t(&a)[4] = pass == 0 ? as[ks] : ab[ks];
+      wgmma_rs(d, a, img_desc(w + (pass == 1 ? kWImg : 0)) + 128 * ks,
+               pass != 0 || ks != 0);
+    }
+  }
+}
+
+// K1's epilogue over one chunk's mid^T: acc[px][o] += w2[o][ch] relu(mid +
+// c1[ch]) over the lane's 16 channels; p holds (c1, w2[0], w2[1], 0) of the
+// chunk's 64 channels.
+__device__ __forceinline__ void fwd_wide_epilogue(const float (&m)[32],
+                                                  const float4* p, int tig,
+                                                  float (&acc)[2][2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 q[2] = {p[8 * j + 2 * tig], p[8 * j + 2 * tig + 1]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 v = q[r & 1];
+      const float a = fmaxf(m[4 * j + r] + v.x, 0.0f);
+      acc[r >> 1][0] = fmaf(v.y, a, acc[r >> 1][0]);
+      acc[r >> 1][1] = fmaf(v.z, a, acc[r >> 1][1]);
+    }
+  }
+}
+
+// Named barriers (bar.sync / bar.arrive id, threads): wait until
+// ``threads`` threads have arrived at barrier id, or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Start warpgroup wg's copies of its 64 pixels of a tile's x into the
+// tile's x buffer sx [Cin][kWSX] (columns 64 wg ..), by its 128 threads.
+template <bool kVec>
+__device__ __forceinline__ void load_wide_fwd_half(const float* x, float* sx,
+                                                   int tile, int tpi, int hw,
+                                                   int wg, int t) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kWTile + 64 * wg;
+  copy_rows_by<kWCin, 64, kWSX, 128, kVec>(
+      t & 127, sx + 64 * wg, x + (long long)n * kWCin * hw, x, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// out [N,2,HW] over persistent 128-pixel tiles (see above); wimg: g1t's
+// images [Cmid/64][4][64*64].
+template <bool kVec>
+__global__ void __launch_bounds__(kFThreads, 1)
+pf_head_fwd_wgmma_kernel(const float* __restrict__ x,
+                         const float* __restrict__ wimg,
+                         const float* __restrict__ c1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2, float* __restrict__ out,
+                         int hw, int tpi, int ntiles, int cmid) {
+  extern __shared__ __align__(128) float smem[];
+  float* s_w = smem;                                  // [kFBufs][2 * kWImg]
+  float* s_x = s_w + kFBufs * 2 * kWImg;              // [Cin][kWSX]
+  float4* s_p = reinterpret_cast<float4*>(s_x + kWCin * kWSX);  // [cmid]
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(s_p + cmid);   // [kFBufs]
+  uint64_t* s_empty = s_full + kFBufs;                          // [kFBufs]
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, wg = warp >> 2;
+  const int nch = cmid / 64;
+  // The block's weight steps, one per tile and chunk.
+  const int steps = ((ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * nch;
+
+  if (wg < 2) load_wide_fwd_half<kVec>(x, s_x, blockIdx.x, tpi, hw, wg, t);
+  for (int c = t; c < cmid; c += kFThreads) {
+    s_p[c] = make_float4(c1[c], w2[c], w2[cmid + c], 0.0f);
+  }
+  if (t == 0) {
+    for (int b = 0; b < kFBufs; ++b) {
+      mbar_init(s_full + b);
+      mbar_init(s_empty + b, 8);  // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers initialised, c1 and w2 in
+
+  if (wg == 2) {  // the producer warp: no block-wide barrier after this
+    if (lane == 0) {
+      for (int s = 0; s < steps; ++s) {
+        const int b = s % kFBufs;
+        if (s >= kFBufs) mbar_wait(s_empty + b, ((s / kFBufs) + 1) & 1);
+        bulk_load(s_w + b * 2 * kWImg, wimg + (long long)(s % nch) * kWPrep,
+                  kFChunkBytes, s_full + b);
+      }
+    }
+    return;
+  }
+
+  const int gid = lane >> 2, tig = lane & 3;
+  uint32_t ab[kWKs][4], as[kWKs][4];  // x^T's A fragments, split
+  float mid[32];
+  int s = 0;
+  if (wg == 1) named_arrive(kFTurn, 256);  // warpgroup 0 issues first
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // The warpgroup's half of the tile in, split into A fragments; then
+    // the copy of its half of the next tile into the same columns.
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    named_sync(1 + wg, 128);
+    wide_a_fragments(s_x, warp, lane, ab, as);
+    named_sync(1 + wg, 128);
+    if (tile + (int)gridDim.x < ntiles) {
+      load_wide_fwd_half<kVec>(x, s_x, tile + gridDim.x, tpi, hw, wg, t);
+    }
+
+    // Per chunk: this warpgroup's turn, its products issued, the other's
+    // turn, then the wait and the epilogue, which run while the tensor
+    // cores work on the other warpgroup's products.
+    float acc[2][2] = {};  // [pixel gid + 8 px][o], over the lane's channels
+    for (int c = 0; c < nch; ++c, ++s) {
+      mbar_wait(s_full + s % kFBufs, (s / kFBufs) & 1);
+      named_sync(kFTurn + wg, 256);
+      wgmma_fence();
+      fwd_wide_products(mid, ab, as, s_w + (s % kFBufs) * 2 * kWImg);
+      wgmma_commit();
+      named_arrive(kFTurn + (wg ^ 1), 256);
+      wgmma_wait<0>();
+      fence_acc(mid);
+      // The warp is done with step s's buffer.
+      __syncwarp();
+      if (lane == 0) mbar_arrive(s_empty + s % kFBufs);
+      fwd_wide_epilogue(mid, s_p + 64 * c, tig, acc);
+    }
+
+    // Fold over the lane quad: lane tig keeps pixel gid + 8 (tig >> 1),
+    // output tig & 1.
+    const int px = tig >> 1, o = tig & 1;
+    float keep[2];
+#pragma unroll
+    for (int oo = 0; oo < 2; ++oo) {
+      const float mine = px ? acc[1][oo] : acc[0][oo];
+      const float other = px ? acc[0][oo] : acc[1][oo];
+      keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+    }
+    const float mine = o ? keep[1] : keep[0];
+    const float other = o ? keep[0] : keep[1];
+    const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+    const int n = tile / tpi;
+    const int sp = (tile - n * tpi) * kWTile + warp * 16 + gid + 8 * px;
+    if (sp < hw) out[((long long)n * kCout + o) * hw + sp] = v + b2[o];
+  }
+  if (wg == 0) named_sync(kFTurn, 256);  // warpgroup 1's last turn
 }
 
 // Start the copies of a 128-pixel tile's x [Cin][128] (row stride kWSX)
@@ -1664,9 +1774,9 @@ wgmma_tile_test_kernel(const float* __restrict__ a,
   }
 }
 
-constexpr size_t fwd_wide_smem_bytes(int cmid) {
-  return sizeof(float) * kWCin * kWSX + sizeof(uint4) * kWNt * kWKs * 32 +
-         sizeof(float) * 4 * (size_t)cmid;
+constexpr size_t fwd_wgmma_smem_bytes(int cmid) {
+  return sizeof(float) * (kFBufs * 2 * kWImg + kWCin * kWSX) +
+         sizeof(float4) * (size_t)cmid + 2 * kFBufs * sizeof(uint64_t);
 }
 
 constexpr size_t bwd_wide_dx_smem_bytes(int cmid) {
@@ -1764,31 +1874,6 @@ extern "C" int pf_head_fwd(const float* x, const float* g1t, const float* c1,
   return (int)cudaGetLastError();
 }
 
-// The ResNet50-flavour forward: x [N,64,HW], g1t [Cmid,64], c1 [Cmid],
-// w2 [2,Cmid], b2 [2], out [N,2,HW]; Cmid a multiple of 128 up to 1024.
-extern "C" int pf_head_fwd_wide(const float* x, const float* g1t,
-                                const float* c1, const float* w2,
-                                const float* b2, float* out, long long n,
-                                int cin, int hw, int cmid, int cout,
-                                void* stream) {
-  const int tpi = hw > 0 ? (hw + kWTile - 1) / kWTile : 0;
-  if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
-      cmid > kWMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n == 0) return 0;
-  const bool vec = hw % 4 == 0 && ((uintptr_t)x & 15) == 0;
-  const size_t smem = fwd_wide_smem_bytes(cmid);
-  auto kernel =
-      vec ? pf_head_fwd_wide_kernel<true> : pf_head_fwd_wide_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(int)(n * tpi), kWThreads, smem, (cudaStream_t)stream>>>(
-      x, g1t, c1, w2, b2, out, hw, tpi, cmid);
-  return (int)cudaGetLastError();
-}
-
 // Rows of the per-block sums pf_head_bwd_wide takes (the x extent of the
 // sums kernel's grid): one block per SM for each of the Cmid / 128 chunks,
 // fewer if there are fewer 64-pixel tiles.
@@ -1814,6 +1899,48 @@ extern "C" int pf_head_wide_prep(const float* w1t, float* img, int cmid,
   }
   pf_head_wide_prep_kernel<<<cmid * kWCin / 256, 256, 0,
                              (cudaStream_t)stream>>>(w1t, img, cmid);
+  return (int)cudaGetLastError();
+}
+
+// The ResNet50-flavour forward: x [N,64,HW], g1t [Cmid,64], c1 [Cmid],
+// w2 [2,Cmid], b2 [2], out [N,2,HW]; Cmid a multiple of 128 up to 1024.
+// Scratch: img [Cmid/64][4][64*64] (16-byte aligned), g1t's weight images.
+// Two launches: the weight prep, the forward over persistent tiles.
+extern "C" int pf_head_fwd_wide(const float* x, const float* g1t,
+                                const float* c1, const float* w2,
+                                const float* b2, float* out, float* img,
+                                long long n, int cin, int hw, int cmid,
+                                int cout, void* stream) {
+  const int tpi = hw > 0 ? (hw + kWTile - 1) / kWTile : 0;
+  if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
+      cmid > kWMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30) ||
+      ((uintptr_t)img & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  const bool vec = hw % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const size_t smem = fwd_wgmma_smem_bytes(cmid);
+  auto kernel =
+      vec ? pf_head_fwd_wgmma_kernel<true> : pf_head_fwd_wgmma_kernel<false>;
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess) {
+    return (int)err;
+  }
+  if ((err = (cudaError_t)pf_head_wide_prep(g1t, img, cmid, stream)) !=
+      cudaSuccess) {
+    return (int)err;
+  }
+  // Persistent blocks, one per SM.
+  const int ntiles = (int)(n * tpi);
+  kernel<<<ntiles < sms ? ntiles : sms, kFThreads, smem,
+           (cudaStream_t)stream>>>(x, img, c1, w2, b2, out, hw, tpi, ntiles,
+                                   cmid);
   return (int)cudaGetLastError();
 }
 

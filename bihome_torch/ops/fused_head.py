@@ -40,7 +40,7 @@ _SIGNATURES = {
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     'pf_head_bwd_blocks': [ctypes.c_longlong, ctypes.c_int],
     'pf_head_bwd_partial_cols': [],
-    'pf_head_fwd_wide': [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+    'pf_head_fwd_wide': [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     'pf_head_bwd_wide': [ctypes.c_void_p] * 10 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -104,11 +104,12 @@ def _image_offsets(permuted: bool) -> Tensor:
 
 
 def wide_weight_images(w1t: Tensor) -> Tensor:
-    """Plain version of the wide backward's weight prep
+    """Plain version of the wide kernels' weight prep
     (``pf_head_wide_prep_kernel``): w1t [Cmid,64] -> [Cmid/64, 4, 4096],
     per 64 channels the images of w1t (rows = channels, K = Cin) big and
     small, then of w1 = w1t^T (rows = Cin, K = channels permuted) big and
-    small."""
+    small. The backward splits w1t, the forward the BN-folded g1t and reads
+    the first two images of each chunk."""
     cmid, cin = w1t.shape
     big, small = split_tf32(w1t)
     plain, perm = _image_offsets(False), _image_offsets(True)
@@ -121,6 +122,13 @@ def wide_weight_images(w1t: Tensor) -> Tensor:
             out[c, 2 + i, perm.reshape(-1).to(w1t.device)] = \
                 chunk.t().reshape(-1)
     return out
+
+
+def _wide_image_scratch(cmid: int, device) -> Tensor:
+    """The wide kernels' scratch for their split weight images (see
+    :func:`wide_weight_images`)."""
+    return torch.empty((cmid // 64, 4, 64 * 64), dtype=torch.float32,
+                       device=device)
 
 
 def from_image(image: Tensor, permuted: bool) -> Tensor:
@@ -179,10 +187,12 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
                       var: Tensor, eps: float = 1e-5) -> Tensor:
     """x [N,Cin,H,W] float32 (NCHW), conv weights in torch layout
     (w1 [Cmid,Cin,1,1], w2 [Cout,Cmid,1,1]) -> [N,Cout,H,W].
-    On the card one launch of a K1 kernel (its Cin x Cmid product on the
-    tensor cores in 3xTF32), chosen by shape: Cin=16 (the ResNet34-flavour
-    head, Cmid 128) or Cin=64 (the ResNet50-flavour one, Cmid 512); any
-    other shape raises (see :func:`_kernel_width`)."""
+    On the card one launch of K1 (its Cin x Cmid product on the tensor
+    cores in 3xTF32), chosen by shape: Cin=16 (the ResNet34-flavour head,
+    Cmid 128: one kernel, mma.sync) or Cin=64 (the ResNet50-flavour one,
+    Cmid 512, on wgmma: the weight prep of :func:`wide_weight_images` on
+    the BN-folded g1t, then the forward); any other shape raises (see
+    :func:`_kernel_width`)."""
     if x.device.type == 'cpu':
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
@@ -202,13 +212,15 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     for name, t in (('g1t', g1t), ('c1', c1), ('w2', w2m), ('b2', b2c)):
         _cuda.check_cuda_tensor(t, name, t.dim())
     out = torch.empty((n, cout, h, w), dtype=torch.float32, device=x.device)
+    img = () if width == 'narrow' else (_wide_image_scratch(cmid,
+                                                            x.device),)
     lib = _cuda.library('fused_head', _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry = 'pf_head_fwd' if width == 'narrow' else 'pf_head_fwd_wide'
     status = getattr(lib, entry)(x.data_ptr(), g1t.data_ptr(), c1.data_ptr(),
                                  w2m.data_ptr(), b2c.data_ptr(),
-                                 out.data_ptr(), n, cin, h * w, cmid, cout,
-                                 stream)
+                                 out.data_ptr(), *(t.data_ptr() for t in img),
+                                 n, cin, h * w, cmid, cout, stream)
     _cuda.check_status(status, entry)
     if width == 'narrow':
         fused_pf_head_fwd.launches += 1
@@ -283,9 +295,8 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     partial = torch.empty((blocks * cols,), dtype=torch.float32,
                           device=x.device)
     sums = torch.empty((cols,), dtype=torch.float32, device=x.device)
-    # The wide entry's split weight images (see wide_weight_images).
-    img = () if width == 'narrow' else (torch.empty(
-        (cmid // 64, 4, 64 * 64), dtype=torch.float32, device=x.device),)
+    img = () if width == 'narrow' else (_wide_image_scratch(cmid,
+                                                            x.device),)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = getattr(lib, entry)(
         x.data_ptr(), g.data_ptr(), w1t.data_ptr(), gis.data_ptr(),

@@ -1,16 +1,17 @@
 """Where a hand-written kernel spends its time on the card, and how it
 compares with another version of its source.
 
-    python -m bihome_torch.profile_kernels --kernel k1|k2|k2w|k4 \\
+    python -m bihome_torch.profile_kernels --kernel k1|k1w|k2|k2w|k4 \\
         [--baseline FILE] [--cmid C] [--batch_size 64] [--rounds 2] \\
         [--no_cuts]
 
 No kernel profiler runs on the machine with the card, so this builds
 variants of the kernel's source (``csrc/fused_head.cu`` for K1, K2 and
-the ResNet50-flavour K2, ``k2w``; ``csrc/warp.cu`` for K4) with one part
-cut out or done another way, each with nvcc (the port's flags) into its
-own library under ``build/kernels/``, and times each against the kernel
-as built at the main path's shape with the timer of chip_smoke.py
+the ResNet50-flavour K1 and K2, ``k1w`` and ``k2w``; ``csrc/warp.cu`` for
+K4) with one part cut out or done another way, each with nvcc (the port's
+flags) into its own library under ``build/kernels/``, and times each
+against the kernel as built at the main path's shape with the timer of
+chip_smoke.py
 (``bihome_torch/utils/timing.py``), in turns. What a cut saves is what
 that part costs where it does not overlap the rest; the savings need not
 add up. The cut variants compute wrong results on purpose: only their
@@ -19,17 +20,20 @@ same source (an earlier commit's, unpacked under ``build/``) and times it
 beside the kernel as built, with the host cost per call of each (the C
 entry point through ctypes, without the Python wrapper). It also prints
 what the compiler made of the kernel (its 16-byte-copy or float2
-variant): its SASS instruction count by opcode, from cuobjdump (for k2w
-of its dx and sums kernels). For k2w, whose C entry launches several
-kernels, it also reads each kernel's device time apart under
-torch.profiler (:func:`bihome_torch.utils.timing.kernel_ms`), for the
-kernel as built, the baseline and each cut variant; times the kernel as
-built with its sums grid at twice the blocks; and holds the sums of those
-three against float64 (:func:`k2w_sums_errors`). Shapes: K1 and K2 x
-[2B,16,128,128], Cmid 128 (K1: ``--cmid``), Cout 2 (K2 with a
-cotangent); k2w x [2B,64,128,128], Cmid 512; K4 the loss warp, 2B images
-of 128x128x1 at P = 16,384 points each. ``--no_cuts`` times only the
-kernel as built and the baseline. Needs a CUDA device.
+variant): its SASS instruction count by opcode, from cuobjdump (for k1w
+of its forward kernel, for k2w of its dx and sums kernels). For k1w and
+k2w, whose C entries launch several kernels, it also reads each kernel's
+device time apart under torch.profiler
+(:func:`bihome_torch.utils.timing.kernel_ms`), for the kernel as built,
+the baseline and each cut variant. For k1w it holds the outputs of the
+kernel as built and the baseline against float64 (:func:`k1w_errors`);
+for k2w it times the kernel as built with its sums grid at twice the
+blocks and holds the sums of those three against float64
+(:func:`k2w_sums_errors`). Shapes: K1 and K2 x [2B,16,128,128], Cmid 128
+(K1: ``--cmid``), Cout 2 (K2 with a cotangent); k1w and k2w x
+[2B,64,128,128], Cmid 512; K4 the loss warp, 2B images of 128x128x1 at P
+= 16,384 points each. ``--no_cuts`` times only the kernel as built and
+the baseline. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -67,12 +71,13 @@ _NO_MMA = ('no tensor-core products', lambda src: re.sub(
 _SINGLE_PASS = ('single-pass products (big*big only)', _cut(
     '  mma_tf32(hs, ab, bs, chs);\n  mma_tf32(hs, as, bb, hs);\n',
     '  for (int r = 0; r < 4; ++r) hs[r] = chs[r];\n'))
-# The ResNet50-flavour K2 (k2w): its wgmma products cut (each accumulator
-# keeps what it held), or only the big*big pass of each 3xTF32 product.
-K2W_NO_PRODUCTS = ('no wgmma products', lambda src: re.sub(
+# The ResNet50-flavour kernels (k1w, k2w): every wgmma product of the file
+# cut (each accumulator keeps what it held), or only the big*big pass of
+# each 3xTF32 product.
+WG_NO_PRODUCTS = ('no wgmma products', lambda src: re.sub(
     r'asm volatile\(\s*"\{\\n\.reg \.pred p;.*?\);', '(void)scale_d;', src,
     flags=re.S))
-K2W_SINGLE_PASS = ('single-pass wgmma products (big*big only)', _cut(
+WG_SINGLE_PASS = ('single-pass wgmma products (big*big only)', _cut(
     'for (int pass = 0; pass < 3; ++pass)',
     'for (int pass = 2; pass < 3; ++pass)',
     _cut('pass != 0 ||', 'pass != 2 ||')))
@@ -80,6 +85,24 @@ K2W_NO_STREAM = ('dx: no weight chunk copies after the first', _cut(
     'const bool more = c + 1 < nch || next < ntiles;',
     'const bool more = false;', _cut(
         '      mbar_wait(s_bar', '      if (step == 0) mbar_wait(s_bar')))
+# The wide forward's weight ring fed only the first chunk (later steps read
+# whatever its buffers hold): what streaming the images from L2 costs.
+K1W_NO_STREAM = ('no weight chunk copies after the first', _cut(
+    'for (int s = 0; s < steps; ++s) {', 'for (int s = 0; s < 1; ++s) {',
+    _cut('      mbar_wait(s_full + s % kFBufs',
+         '      if (s == 0) mbar_wait(s_full + s % kFBufs')))
+K1W_EPILOGUE = '      fwd_wide_epilogue(mid, s_p + 64 * c, tig, acc);\n'
+K1W_CUTS = [
+    WG_NO_PRODUCTS, WG_SINGLE_PASS, K1W_NO_STREAM,
+    ('no ping-pong turns', _cut(
+        '      named_sync(kFTurn + wg, 256);\n', '', _cut(
+            '      named_arrive(kFTurn + (wg ^ 1), 256);\n', '', _cut(
+                '  if (wg == 1) named_arrive(kFTurn, 256);', '', _cut(
+                    '  if (wg == 0) named_sync(kFTurn, 256);', ''))))),
+    ('no epilogue (one add per chunk)', _cut(
+        K1W_EPILOGUE, '      acc[0][0] += mid[0] + mid[31];\n')),
+    ('epilogue twice', _cut(K1W_EPILOGUE, 2 * K1W_EPILOGUE)),
+]
 
 # Each turns the source into a variant without one part of the kernel, or
 # with it done another way.
@@ -143,18 +166,23 @@ CUTS = {
             '          m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
         _NO_MMA,
     ]),
-    'k2w': dict([K2W_NO_PRODUCTS, K2W_SINGLE_PASS, K2W_NO_STREAM]),
+    'k1w': dict(K1W_CUTS),
+    'k2w': dict([WG_NO_PRODUCTS, WG_SINGLE_PASS, K2W_NO_STREAM]),
     'k4': {},
 }
-SOURCES = {'k1': 'fused_head', 'k2': 'fused_head', 'k2w': 'fused_head',
-           'k4': 'warp'}
+SOURCES = {'k1': 'fused_head', 'k1w': 'fused_head', 'k2': 'fused_head',
+           'k2w': 'fused_head', 'k4': 'warp'}
 # The kernels whose SASS is counted (their mangled names start so).
 SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
+              'k1w': ('pf_head_fwd_wgmma_kernelILb1',),
               'k2': ('pf_head_bwd_kernelILb1',),
               'k2w': ('pf_head_bwd_wide_dx_kernelILb1',
                       'pf_head_bwd_wide_sums_kernelILb1'),
               'k4': ('bilinear_sample_bwd_uv_c1_kernelILb1',)}
-# The kernels of the k2w entry point, timed apart.
+# The kernels of the k1w entry point (the last: an earlier source's), and
+# of the k2w one, timed apart.
+K1W_KERNELS = ('pf_head_wide_prep_kernel', 'pf_head_fwd_wgmma_kernel',
+               'pf_head_fwd_wide_kernel')
 K2W_KERNELS = ('pf_head_wide_prep_kernel', 'pf_head_bwd_wide_dx_kernel',
                'pf_head_bwd_wide_sums_kernel', 'reduce_rows_kernel')
 SIGNATURES = {'fused_head': fh._SIGNATURES, 'warp': warp._SIGNATURES}
@@ -166,7 +194,7 @@ K2W_SUMS = ('dw1', 'm0', 'm1', 'db2')
 def _build(sources: dict, entry_points: str) -> dict:
     """Compile each {name: source text} as lib<name> into build/kernels,
     all nvcc processes started together, and load each with the entry
-    points of csrc/<entry_points>.cu."""
+    points of csrc/<entry_points>.cu (its source text as ``source``)."""
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
@@ -188,6 +216,7 @@ def _build(sources: dict, entry_points: str) -> dict:
                 continue
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
+        lib.source = sources[name]
         libs[name] = lib
     return libs
 
@@ -238,7 +267,7 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
                 'K4')
         return f'K4 at images [{n},{ps},{ps},1], P = {p}', make
 
-    cin, cout, hw = (64 if kernel == 'k2w' else 16), 2, 128 * 128
+    cin, cout, hw = (64 if kernel in ('k1w', 'k2w') else 16), 2, 128 * 128
     x = torch.relu(torch.randn((n, cin, hw), generator=gen)).to(dev)
     w1t = (torch.randn((cmid, cin), generator=gen) * 0.3).to(dev)
     c1 = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
@@ -253,6 +282,30 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
                 b2.data_ptr(), out.data_ptr(), n, cin, hw, cmid, cout,
                 stream()), 'K1')
         return f'K1 at x [{n},{cin},128,128], Cmid {cmid}', make
+    if kernel == 'k1w':
+        w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
+        b2 = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        img = torch.empty((cmid // 64, 4, 64 * 64), device=dev)
+
+        def make(lib):
+            out = torch.empty((n, cout, hw), device=dev)
+            scratch = (img.data_ptr(),)
+            if 'pf_head_fwd_wgmma_kernel' not in lib.source:
+                # An earlier source (g1t split per tile): no img pointer.
+                lib.pf_head_fwd_wide.argtypes = \
+                    fh._SIGNATURES['pf_head_fwd_wide'][:6] \
+                    + fh._SIGNATURES['pf_head_fwd_wide'][7:]
+                scratch = ()
+
+            def run():
+                _cuda.check_status(lib.pf_head_fwd_wide(
+                    x.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), *scratch,
+                    n, cin, hw, cmid, cout, stream()), 'K1 wide')
+            run.out = out
+            return run
+        make.inputs = (x, w1t, c1, w2, b2)
+        return f'K1 wide at x [{n},{cin},128,128], Cmid {cmid}', make
 
     g = torch.randn((n, cout, hw), generator=gen).to(dev)
     gis = (torch.randn(cmid, generator=gen) * 0.2 + 1.0).to(dev)
@@ -298,6 +351,26 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
             partial.data_ptr(), sums.data_ptr(), n, cin, hw, cmid, cout,
             blocks, stream()), 'K2')
     return f'K2 at x [{n},{cin},128,128], Cmid {cmid}', make
+
+
+def k1w_errors(inputs, runs: dict, images: int = 16) -> None:
+    """Print each k1w run's output against K1's arithmetic in float64
+    (out = w2 relu(g1t x + c1) + b2, ``images`` images at a time), as the
+    largest absolute error beside max|out| (the card tests' tolerance is
+    1e-4 (1 + max|out|))."""
+    x, g1t, c1, w2, b2 = inputs
+    ref = torch.cat([
+        torch.einsum('oc,ncs->nos', w2.double(), torch.relu(
+            torch.einsum('ck,nks->ncs', g1t.double(), xi.double())
+            + c1.double()[:, None])) + b2.double()[:, None]
+        for xi in x.split(images)])
+    scale = float(ref.abs().max())
+    for label, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        err = float((run.out.double() - ref).abs().max())
+        print(f'  {label}: max abs error against float64 {err:.3e} (max|out| '
+              f'{scale:.3f}, tolerance {1e-4 * (1 + scale):.3e})')
 
 
 def k2w_sums_errors(inputs, runs: dict, images: int = 16) -> None:
@@ -350,13 +423,13 @@ def main(argv=None) -> None:
                         'timed beside the one in csrc/')
     parser.add_argument('--cmid', type=int, default=None,
                         help='K1\'s middle width (default 128; K2 takes 128 '
-                        'only, k2w 512)')
+                        'only, k1w and k2w 512)')
     parser.add_argument('--batch_size', type=int, default=64)
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--no_cuts', action='store_true',
                         help='time only the kernel as built and the baseline')
     args = parser.parse_args(argv)
-    cmid = args.cmid or (512 if args.kernel == 'k2w' else 128)
+    cmid = args.cmid or (512 if args.kernel in ('k1w', 'k2w') else 128)
     if not torch.cuda.is_available():
         raise SystemExit('profile_kernels needs a CUDA device')
     name, source = args.kernel, SOURCES[args.kernel]
@@ -405,13 +478,19 @@ def main(argv=None) -> None:
         print('  host us per call (C entry point, in turns): ' + '; '.join(
             f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
             for label, readings in hosts.items()))
-    if name == 'k2w':
+    if name in ('k1w', 'k2w'):
+        names = K1W_KERNELS if name == 'k1w' else K2W_KERNELS
         for label, run in runs.items():
-            parts = kernel_ms(run, K2W_KERNELS)
+            parts = kernel_ms(run, names)
             print(f'  {label}: device ms per call by kernel (profiler): '
-                  + ', '.join(f'{k} {parts[k]:.4f}' for k in K2W_KERNELS
+                  + ', '.join(f'{k} {parts[k]:.4f}' for k in names
                               if k in parts)
                   + f'; sum {sum(parts.values()):.4f}')
+    if name == 'k1w':
+        k1w_errors(make.inputs, {
+            label: run for label, run in runs.items()
+            if label == 'as built' or label.startswith('baseline')})
+    if name == 'k2w':
         k2w_sums_errors(make.inputs, {
             label: run for label, run in runs.items()
             if label in ('as built', K2W_GRID2)

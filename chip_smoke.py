@@ -57,10 +57,11 @@
    K3 only, and delta_hat against the CPU plain path within 1e-2 px.
 11. The ResNet50-flavour slice. K1 and K2 at the wide PF head (x
    [128,64,128,128], Cmid 512, their own kernels) against their plain
-   versions, timed and bounded as in step 3; the wide K2 (weight prep,
-   dx and sums kernels on wgmma, the fixed-order reduction) also with
-   each kernel's time apart (torch.profiler) beside the floor of its
-   design, four 3xTF32 products. zeng-biHomE with the
+   versions, timed and bounded as in step 3, each also with its kernels'
+   times apart (torch.profiler): the wide K1 (weight prep, forward on
+   wgmma), and the wide K2 (weight prep, dx and sums kernels on wgmma,
+   the fixed-order reduction) beside the floor of its design, four
+   3xTF32 products. zeng-biHomE with the
    ResNet50-flavour Rethinking backbone (R50_SET): eval at batch 64
    (K1 and K3; the first 4 pairs of batch 0 against the CPU plain path),
    train at batch 64 (exactly K1-K4), then the one-step check of step 6
@@ -138,7 +139,9 @@ PDS_STEPS = 3
 # K3 and K4, never K1, K2 or K5).
 R50_SET = ('MODEL.BACKBONE.RESNET_BLOCK=ResNet50',)
 R50_STEP_BATCH = 2
-# The kernels of one wide K2 call (csrc/fused_head.cu), timed apart.
+# The kernels of one wide K1 and one wide K2 call (csrc/fused_head.cu),
+# timed apart.
+WIDE_K1_PARTS = ('pf_head_wide_prep_kernel', 'pf_head_fwd_wgmma_kernel')
 WIDE_K2_PARTS = ('pf_head_wide_prep_kernel', 'pf_head_bwd_wide_dx_kernel',
                  'pf_head_bwd_wide_sums_kernel', 'reduce_rows_kernel')
 R50_KERNELS = ('fused_pf_head_fwd_wide', 'fused_pf_head_bwd_wide',
@@ -303,13 +306,28 @@ def check_pf_head(dev, gen, cin=16, cmid=128):
           f'{tc3:.4f}, fp32 epilogue {epilogue:.4f}, bytes {t_bytes:.4f}); '
           f'fp32-core bound {bfp:.4f} ({byfp}); host us per call: kernel '
           f'{host["kernel"]:.1f}')
+    extra = {}
+    if cin == 64:
+        # The wide K1's two kernels; 'pf_head' catches any other kernel of
+        # csrc/fused_head.cu (torch's own kernels of the BN fold aside).
+        parts = kernel_ms(lambda: fused_head.fused_pf_head_fwd(*args),
+                          WIDE_K1_PARTS + ('pf_head',))
+        print('K1 wide by kernel (ms, torch.profiler): ' + ', '.join(
+            f'{k} {parts.get(v, float("nan")):.4f}'
+            for k, v in zip(('prep', 'forward'), WIDE_K1_PARTS))
+            + f'; sum {sum(parts.values()):.4f}, total {ms:.4f}, bound '
+            f'{bms:.4f}')
+        if sorted(parts) != sorted(WIDE_K1_PARTS):
+            raise AssertionError(f'K1 wide: the profiler saw {sorted(parts)}'
+                                 f', not exactly {WIDE_K1_PARTS}')
+        extra = {'kernel_ms': parts}
     return {'name': 'fused_pf_head_fwd', 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:93',
             'shape': [n, cin, hw, hw], 'cmid': cmid,
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': None,
-            'host_us': host}
+            'host_us': host, **extra}
 
 
 def reset_counts(counters):

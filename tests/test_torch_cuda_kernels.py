@@ -9,8 +9,10 @@ Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts
 (K1's 256-pixel and K2's 64-pixel tiles, the ResNet50-flavour kernels'
 128-pixel tiles and 64-pixel sums tiles, K3's and K4's pairs of points),
 K1 at Cmid 512 and Cin 16, the wide K2 at Cmid 1024 and with fewer tiles
-than SMs, its sums bit for bit across two calls, one wgmma tile and the
-weight prep it reads, misaligned inputs, points far outside,
+than SMs, the wide K1's persistent walk at one tile past a multiple of
+the SMs, the wide kernels' outputs bit for bit across two calls, one
+wgmma tile and the weight prep they read, misaligned inputs, points far
+outside,
 exactly on the border or on integer coordinates, input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
@@ -274,6 +276,35 @@ def test_wide_pf_head_kernels_match_plain(cuda, shape, cmid):
         if name == 'dx':
             off = int(((a - b).abs() > tol).any(1).sum())
             assert off <= max(2, 1e-4 * a[:, 0].numel()), off
+
+
+# The wide K1 alone, its persistent blocks (one per SM, 132 on an H100)
+# walking one tile more than a multiple of the SMs: 133 and 265 128-pixel
+# tiles, so one block takes a tile more than the others; the last shape's
+# HW is not a multiple of 4 (4-byte copies) and its last tile is ragged.
+@pytest.mark.parametrize('shape', [(1, 133, 128), (5, 53, 128),
+                                   (1, 131, 129)])
+def test_wide_pf_head_fwd_persistent_walk(cuda, shape):
+    args = _head_args(torch.Generator().manual_seed(9), *shape, cuda, 512,
+                      cin=64)
+    before = fused_head.fused_pf_head_fwd.wide_launches
+    got = fused_head.fused_pf_head_fwd(*args)
+    torch.cuda.synchronize()
+    assert fused_head.fused_pf_head_fwd.wide_launches == before + 1
+    want = fused_head.pf_head_fwd_plain(*args)
+    tol = 1e-4 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_wide_pf_head_fwd_is_bit_identical(cuda):
+    # Each output is summed by one lane quad in a fixed order: two calls on
+    # the same inputs give the same bits.
+    args = _head_args(torch.Generator().manual_seed(10), 4, 64, 64, cuda,
+                      512, cin=64)
+    first = fused_head.fused_pf_head_fwd(*args)
+    second = fused_head.fused_pf_head_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wide_pf_head_bwd_sums_are_bit_identical(cuda):

@@ -351,6 +351,84 @@ def test_k1_precision_3xtf32_against_single_pass():
     assert split <= 1e-4 * (1.0 + scale) < single, (split, single)
 
 
+def _k1_wide_args(rs, cmid):
+    """Eval-mode inputs of the wide head (Cin 64): x [4,64,32,32] and the
+    torch-layout (w1, b1, gamma, beta, w2, b2, mean, var)."""
+    x = rs.randn(4, 64, 32, 32).astype(np.float32)
+    w1, b1, gamma, beta, w2, b2, mean, var = _params(rs, 64, cmid)
+    t = torch.from_numpy
+    return t(x), (t(w1.T.copy())[:, :, None, None], t(b1), t(gamma),
+                  t(beta), t(w2.T.copy())[:, :, None, None], t(b2), t(mean),
+                  t(var))
+
+
+def test_k1_wide_precision_3xtf32_one_accumulator():
+    # The order of the wide K1 on wgmma (csrc/fused_head.cu,
+    # pf_head_fwd_wgmma_kernel) at its widths (Cin 64, Cmid 512, Cout 2, M
+    # = 4096, eval statistics): per 64-channel chunk, mid in one float32
+    # accumulator, fed 8 K values at a time, small*big, then big*small,
+    # then big*big (cvt.rna splits, as split_tf32); then c1, the ReLU and
+    # the Cout = 2 sums over the chunks in float32. It stays within the
+    # card tests' 1e-4 (1 + max|out|) of float64, and single-pass TF32
+    # (big*big only) strays at least 10x further.
+    x, args = _k1_wide_args(np.random.RandomState(21), 512)
+    want = tfh.pf_head_fwd_plain(x.double(), *(a.double() for a in args))
+    g1t, c1 = tfh.fold_bn(*args[:4], args[6], args[7], 1e-5)
+    xb, xs = tfh.split_tf32(x.permute(0, 2, 3, 1).reshape(-1, 64))  # [M,Cin]
+    w2m = args[4].reshape(2, -1)
+
+    def forward(mode):
+        out = torch.zeros(2, xb.shape[0])
+        for c in range(0, 512, 64):
+            gb, gs = tfh.split_tf32(g1t[c:c + 64])                # [64,Cin]
+            passes = ((xb, gb),) if mode == 'single' else (
+                (xs, gb), (xb, gs), (xb, gb))
+            mid = torch.zeros(xb.shape[0], 64)
+            for a, b in passes:
+                for k in range(0, 64, 8):
+                    mid = mid + a[:, k:k + 8] @ b[:, k:k + 8].t()
+            out = out + w2m[:, c:c + 64] @ torch.relu(mid + c1[c:c + 64]).t()
+        out = out + args[5][:, None]
+        return out.reshape(2, 4, 32, 32).permute(1, 0, 2, 3)
+
+    scale = float(want.abs().max())
+    split, single = (float((forward(mode).double() - want).abs().max())
+                     for mode in ('split', 'single'))
+    print(f'K1 wide forward, max abs error against float64 (max|out| '
+          f'{scale:.2f}): 3xTF32 in one accumulator {split:.2e}, single-pass '
+          f'TF32 {single:.2e}')
+    assert split <= 1e-4 * (1.0 + scale), (split, scale)
+    assert single >= 10 * split, (single, split)
+
+
+@pytest.mark.parametrize('cmid', [128, 512])
+def test_wide_fwd_weight_images_from_folded_g1t(cmid):
+    # The wide K1 runs the weight prep on the BN-folded g1t (the scale
+    # gamma / sqrt(var + eps) applied, one gamma == 0 channel): its images
+    # rebuild g1t to 2^-22 relative, the gamma == 0 channel is a zero row
+    # in both halves, and each chunk's first 2 x 4096 floats, the one bulk
+    # copy per chunk the forward makes, are g1t's big then small image
+    # with rows = channels and K = Cin, exactly.
+    _, args = _k1_wide_args(np.random.RandomState(cmid + 1), cmid)
+    g1t, _ = tfh.fold_bn(*args[:4], args[6], args[7], 1e-5)
+    w1t = args[0].reshape(cmid, 64)
+    assert not torch.equal(g1t, w1t)
+    images = tfh.wide_weight_images(g1t)
+    assert images.shape == (cmid // 64, 4, 64 * 64)
+    big, small = tfh.split_tf32(g1t)
+    rebuilt = big.double() + small.double()
+    assert ((rebuilt - g1t.double()).abs()
+            <= 2.0 ** -22 * g1t.double().abs()).all()
+    assert not g1t[0].any() and not big[0].any() and not small[0].any()
+    copies = images.reshape(cmid // 64, 4 * 64 * 64)[:, :2 * 64 * 64]
+    for c in range(cmid // 64):
+        rows = slice(64 * c, 64 * c + 64)
+        assert torch.equal(tfh.from_image(copies[c, :4096], False),
+                           big[rows])
+        assert torch.equal(tfh.from_image(copies[c, 4096:], False),
+                           small[rows])
+
+
 @pytest.mark.parametrize('cin,cmid', [(16, 128), (64, 512)],
                          ids=['16-128', '64-512'])
 def test_train_head_updates_running_stats_like_flax(cin, cmid):
