@@ -11,9 +11,10 @@ synthesis (the eval protocol: each sample's draws come from its own
 ``torch.Generator`` seeded by (seed, sample ordinal), so synthesis does
 not depend on how samples are grouped into batches) and ``generate_pairs``
 (the training draws, one generator per batch; corners, deltas and
-photometric draws can be injected). The dict-stage ``PhotometricDistort``,
-``ChangeAwarePrep``, host-side prep, blobs and emitting ``image_2`` are not
-ported yet and raise.
+photometric draws can be injected), and ``ChangeAwarePrep`` (CLEVR-Change:
+real (original, changed) pairs, no synthetic homography). The dict-stage
+``PhotometricDistort``, host-side prep, blobs and emitting ``image_2`` are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -105,8 +106,6 @@ def check_ported(spec: PairSpec) -> None:
     missing = []
     if spec.photometric_full_keys:
         missing.append('PhotometricDistort')
-    if spec.change_aware_keys:
-        missing.append('ChangeAwarePrep')
     if spec.host_prep:
         missing.append('host-side prep transforms')
     unported_images = sorted(set(spec.emit_images) - {'image_1'})
@@ -367,6 +366,17 @@ def draw_corners_delta_batch(batch: int, image_hw: Tuple[int, int],
     return _corners_from_position(pos_x, pos_y, ps), delta
 
 
+def assemble_change_pairs(pairs: Tensor, spec: PairSpec) -> Dict[str, Tensor]:
+    """ChangeAwarePrep (``bihome_tpu/data/pipeline.py:353-367``; ref:
+    src/data/transforms.py:399-418): real (original, changed) render pairs
+    [B,2,H,W,3] -> the batch dict keyed by ``spec.change_aware_keys``, with
+    grayscale and standardize applied. There is no homography and no
+    ``delta``."""
+    k1, k2 = spec.change_aware_keys[:2]
+    imgs = pairs.float()
+    return _gray_standardize({k1: imgs[:, 0], k2: imgs[:, 1]}, spec)
+
+
 def generate_pairs(images: Tensor, spec: PairSpec,
                    generator: Optional[torch.Generator] = None,
                    corners: Optional[Tensor] = None,
@@ -378,7 +388,11 @@ def generate_pairs(images: Tensor, spec: PairSpec,
     [B,H,W,3] -> batch dict. The corners and deltas are drawn from
     ``generator`` unless both are given (integer-valued [B,4,2]), then the
     photometric draws of image_1 and image_2 unless ``photometric_params``
-    = (pd1, pd2) gives them ([B,12] or None each)."""
+    = (pd1, pd2) gives them ([B,12] or None each). With
+    ``spec.change_aware_keys`` set, ``images`` is [B,2,H,W,3] of real
+    pairs and :func:`assemble_change_pairs` runs instead (no draws)."""
+    if spec.change_aware_keys:
+        return assemble_change_pairs(images, spec)
     images = images.float()
     b = images.shape[0]
     if corners is None or delta is None:

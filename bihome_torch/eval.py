@@ -9,10 +9,12 @@ Prints ``Number of params``, ``Mean mace`` and ``Mean model time`` (ms per
 batch) like the JAX entry point. Protocol: TEST_SAMPLES_PER_EPOCH samples
 drawn with replacement by the seeded epoch sampler, each sample's pair
 synthesized from its own generator seeded by (TEST_SEED, ordinal) — so MACE
-does not depend on ``--batch_size`` — and DSAC draws seeded by
-(TEST_SEED + 1, iteration). Timing covers predict only, over batches
-generated beforehand, each call ended by ``torch.cuda.synchronize()``; the
-first iteration is dropped.
+does not depend on ``--batch_size`` — and DSAC or RANSAC draws seeded by
+(TEST_SEED + 1, iteration); RANSAC (zeng-orig's NoOp 'all_points' head)
+draws on the device, from a generator there. Timing covers predict only
+(the RANSAC fit included), over batches generated beforehand, each call
+ended by ``torch.cuda.synchronize()``; the first iteration is dropped.
+CLEVR-Change pairs carry no ground-truth homography and are refused.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises rather than falling back. Without ``--torch_ckpt`` the weights are
@@ -67,9 +69,11 @@ def load_backbone_weights(backbone: torch.nn.Module, path: str) -> None:
     weights.load_state_dict(backbone, state)
 
 
-def dsac_generator(test_seed: int, iteration: int) -> torch.Generator:
-    """Generator of the DSAC draws for eval iteration ``iteration``."""
-    return torch.Generator().manual_seed(
+def dsac_generator(test_seed: int, iteration: int,
+                   device='cpu') -> torch.Generator:
+    """Generator of the DSAC (CPU) or RANSAC (``device``) draws for eval
+    iteration ``iteration``."""
+    return torch.Generator(device=device).manual_seed(
         pipeline.sample_seed(test_seed + 1, iteration))
 
 
@@ -100,6 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     n_eval = num_iters * batch_size
 
     built = config_lib.build_model(config)
+    if built.test_pair_spec.change_aware_keys:
+        raise ValueError('CLEVR-Change pairs have no ground-truth homography:'
+                         ' there is no MACE to evaluate')
     model = built.model
     if args.torch_ckpt:
         load_backbone_weights(model.backbone, args.torch_ckpt)
@@ -125,10 +132,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         batches.append(pipeline.generate_pairs_per_sample(images, seeds, spec))
 
     maces, times = [], []
+    gen_device = device if model.draws_on_device else torch.device('cpu')
     for it, batch in enumerate(batches):
         start = time.perf_counter()
-        delta_hat = model.predict(batch,
-                                  generator=dsac_generator(test_seed, it))
+        delta_hat = model.predict(
+            batch, generator=dsac_generator(test_seed, it, gen_device))
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - start)
@@ -148,7 +156,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     return {'num_params': num_params, 'mean_mace': float(np.mean(maces_np)),
             'maces': maces_np, 'per_batch_ms': per_batch_ms,
             'batch_size': batch_size, 'num_iters': num_iters,
-            'test_seed': test_seed, 'model': model, 'batches': batches}
+            'test_seed': test_seed, 'model': model, 'batches': batches,
+            'built': built}
 
 
 if __name__ == '__main__':

@@ -3,8 +3,11 @@
 
 Ported heads:
 
-* ``NoOpHead`` with '4_points' (``assembled.py:166-184``): the backbone's
-  corner deltas against the ground truth under a tensor loss.
+* ``NoOpHead`` (``assembled.py:166-184``) with '4_points': the backbone's
+  corner deltas against the ground truth under a tensor loss; with
+  'all_points' (zeng-orig): the perspective field against the PF target,
+  its corner readout as delta_hat, and at predict the RANSAC fit of the
+  field (:mod:`bihome_torch.heads.ransac`, ``:768-776``).
 * ``PhotometricHead`` (``:188-208``): warp-then-crop of the full
   ``image_1`` by the homography of the predicted deltas, sampled directly
   at the patch grid offset to the patch corner, against ``patch_2`` under
@@ -46,7 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bihome_torch import geometry
-from bihome_torch.heads import dsac
+from bihome_torch.heads import dsac, ransac
 from bihome_torch.heads.config import HeadConfig
 from bihome_torch.models.resnet import ResNet
 from bihome_torch.ops import fused_loss
@@ -59,15 +62,21 @@ def needs_dsac(cfg: HeadConfig) -> bool:
     return cfg.name == 'PerceptualHead' and not cfg.delta_hat_keys
 
 
+def needs_ransac(cfg: HeadConfig) -> bool:
+    """Whether predict fits the perspective field by RANSAC (the NoOp
+    'all_points' head, ``bihome_tpu/heads/assembled.py:768-776``)."""
+    return cfg.name == 'NoOpHead' and cfg.target_gen == 'all_points'
+
+
 def check_ported(cfg: HeadConfig) -> None:
     """Raise for the head features this port does not have yet."""
     missing = []
     if cfg.name not in ('NoOpHead', 'PhotometricHead', 'PerceptualHead',
                         'TripletHead'):
         missing.append(f'head {cfg.name!r}')
-    if cfg.name == 'NoOpHead' and cfg.target_gen != '4_points':
-        missing.append(f'NoOpHead TARGET_GEN {cfg.target_gen!r} (RANSAC '
-                       'predict)')
+    if cfg.name == 'NoOpHead' and cfg.target_gen not in ('4_points',
+                                                         'all_points'):
+        missing.append(f'NoOpHead TARGET_GEN {cfg.target_gen!r}')
     if needs_dsac(cfg):
         if cfg.hypothesis_no != 1:
             missing.append(f'RANSAC_HYPOTHESIS_NO={cfg.hypothesis_no}')
@@ -129,6 +138,12 @@ class AssembledModel(nn.Module):
             self.auxiliary_resnet.eval()  # frozen, eval-mode BN always
         return self
 
+    @property
+    def draws_on_device(self) -> bool:
+        """Whether predict's draws are made on the field's device (RANSAC's
+        point indices) rather than on the CPU (DSAC's uniforms)."""
+        return needs_ransac(self.head)
+
     def dsac_deltas(self, pf: Tensor, uniforms: Optional[Tensor] = None,
                     generator: Optional[torch.Generator] = None) -> Tensor:
         """PF [B,h,w,2] -> corner deltas [B,4,2] of the single DSAC
@@ -147,14 +162,21 @@ class AssembledModel(nn.Module):
     @torch.inference_mode()
     def predict(self, batch: Dict[str, Tensor],
                 uniforms: Optional[Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Tensor:
+                generator: Optional[torch.Generator] = None,
+                idx: Optional[Tensor] = None) -> Tensor:
         """Batch dict (NHWC patches) -> delta_hat [B,4,2]
         (``bihome_tpu/heads/assembled.py:762-826``): the backbone's deltas,
-        or the DSAC fit of its perspective field, whose draws ``uniforms``
-        [B, points_per_hypothesis] injects (otherwise they come from
-        ``generator``)."""
+        the DSAC fit of its perspective field, whose draws ``uniforms``
+        [B, points_per_hypothesis] injects, or (NoOp 'all_points') the
+        RANSAC fit of the field, whose point indices ``idx`` [B, 4K]
+        injects; otherwise the draws come from ``generator`` (RANSAC draws
+        on the field's device, so its generator lives there)."""
         cfg = self.head
         outputs = self.backbone(batch)
+        if needs_ransac(cfg):
+            return ransac.perspective_field_to_delta(
+                outputs[cfg.learning_keys[1]], idx=idx,
+                generator=generator)[0]
         if cfg.name in ('NoOpHead', 'PhotometricHead'):
             return outputs[cfg.learning_keys[3]]
         if cfg.name == 'TripletHead':
@@ -195,9 +217,16 @@ class AssembledModel(nn.Module):
         return self.bihome_loss(batch, delta_12, delta_21)
 
     def noop_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
-        """NoOpHead, '4_points' (``assembled.py:166-184``)."""
+        """NoOpHead (``assembled.py:166-184``): with 'all_points' delta_hat
+        is the field's value at the four corner pixels."""
         gt, out, delta_gt, delta_hat = (data[k] for k in
                                         self.head.learning_keys)
+        if self.head.target_gen == 'all_points':
+            pf = delta_hat                                # [B,h,w,2] NHWC
+            h, w = pf.shape[1], pf.shape[2]
+            delta_hat = torch.stack([pf[:, 0, 0], pf[:, 0, w - 1],
+                                     pf[:, h - 1, w - 1], pf[:, h - 1, 0]],
+                                    dim=1)                # [B,4,2]
         return {'ground_truth': gt, 'network_output': out,
                 'delta_gt': delta_gt, 'delta_hat': delta_hat, 'metrics': {}}
 
@@ -301,8 +330,10 @@ class AssembledModel(nn.Module):
         patch_1, patch_2 = (data[k] for k in cfg.patch_keys)
         mask_1, mask_2 = (data[k] for k in cfg.mask_keys)
         f1, f2 = (data[k] for k in cfg.feature_keys)
-        b, ps = patch_1.shape[0], patch_1.shape[1]
-        corners = geometry.image_corners(ps, ps, batch_size=b,
+        # Patches need not be square: CLEVR-Change trains on whole 320x240
+        # renders (ref: assembled.py:108-135 takes h and w apart).
+        b, h, w = patch_1.shape[:3]
+        corners = geometry.image_corners(h, w, batch_size=b,
                                          dtype=patch_1.dtype,
                                          device=patch_1.device)
 
@@ -310,13 +341,13 @@ class AssembledModel(nn.Module):
             # FIX_MASK masks are all ones: warp(mask) is the bilinear
             # support mask in closed form (ref: assembled.py:224-240).
             hom = geometry.four_point_to_homography(corners, delta)
-            u, v = geometry.homography_grid(hom, (ps, ps))
+            u, v = geometry.homography_grid(hom, (h, w))
             warped = geometry.batched_sample(patch, u, v).reshape(patch.shape)
             if self.backbone.fix_mask:
-                wmask = geometry.ones_warp_mask(u, v, (ps, ps))
+                wmask = geometry.ones_warp_mask(u, v, (h, w))
             else:
                 wmask = geometry.batched_sample(mask, u, v)
-            return warped, wmask.reshape(b, ps, ps), hom
+            return warped, wmask.reshape(b, h, w), hom
 
         eye = torch.eye(3, dtype=patch_1.dtype, device=patch_1.device)
         p1p, m1p, h1 = warp_pair(patch_1, mask_1, data[cfg.target_keys[0]])

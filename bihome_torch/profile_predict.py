@@ -7,7 +7,10 @@ Builds the model and the batches through the eval entry point (synthetic
 images, seeded weights), then over ``--steps`` predict calls after one
 warm-up measures:
 
-* the backbone and the DSAC fit separately with CUDA events;
+* the backbone and the fit of its output separately with CUDA events: the
+  DSAC fit (zeng-biHomE), the RANSAC fit (zeng-orig, with the peak device
+  memory of the fit alone), or none (the heads whose backbone regresses
+  the deltas);
 * with ``torch.profiler``: device kernel time and kernel launches per
   predict, the device idle share of the host-clock window, and the device
   time grouped by kind of kernel, plus the top kernels by name.
@@ -26,6 +29,8 @@ import torch
 
 from bihome_torch import eval as teval
 from bihome_torch.device import resolve_device
+from bihome_torch.heads import ransac
+from bihome_torch.heads.assembled import needs_dsac, needs_ransac
 
 CONFIG = 'config/s-coco/zeng-bihome-lr-1e-3.yaml'
 # First match wins: the port's kernels by name (K4/K5 before K3, whose
@@ -69,29 +74,52 @@ def main(argv=None) -> None:
                       str(args.steps), '--skip_timing', '--device', 'cuda'])
     model, batches = run['model'], run['batches']
     seed = run['test_seed']
+    head = model.head
+    fit = ('ransac' if needs_ransac(head) else 'dsac' if needs_dsac(head)
+           else None)
+    gen_device = device if model.draws_on_device else torch.device('cpu')
 
     def predict(i, batch, timings=None):
-        gen = teval.dsac_generator(seed, i)
+        gen = teval.dsac_generator(seed, i, gen_device)
         with torch.inference_mode():
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
-            pf = model.backbone(batch)[model.head.pf_keys[0]]
+            outputs = model.backbone(batch)
             ev[1].record()
-            model.dsac_deltas(pf, generator=gen)
+            if fit == 'ransac':
+                ransac.perspective_field_to_delta(
+                    outputs[head.learning_keys[1]], generator=gen)
+            elif fit == 'dsac':
+                model.dsac_deltas(outputs[head.pf_keys[0]], generator=gen)
             ev[2].record()
         if timings is not None:
             ev[2].synchronize()
             timings['backbone'].append(ev[0].elapsed_time(ev[1]))
-            timings['dsac'].append(ev[1].elapsed_time(ev[2]))
+            if fit:
+                timings[fit].append(ev[1].elapsed_time(ev[2]))
 
     predict(0, batches[0])
     torch.cuda.synchronize()
     timings = collections.defaultdict(list)
     for i, batch in enumerate(batches):
         predict(i, batch, timings)
-    for part in ('backbone', 'dsac'):
-        print(f'{part}: median {statistics.median(timings[part]):.3f} ms '
-              f'per predict (CUDA events, {len(timings[part])} calls)')
+    for part, values in timings.items():
+        print(f'{part}: median {statistics.median(values):.3f} ms '
+              f'per predict (CUDA events, {len(values)} calls)')
+    if fit == 'ransac':
+        with torch.inference_mode():
+            pf = model.backbone(batches[0])[head.learning_keys[1]]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            gen = teval.dsac_generator(seed, 0, gen_device)
+            ransac.perspective_field_to_delta(pf, generator=gen)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f'ransac peak device memory {peak / 1e9:.3f} GB above the '
+              f'{base / 1e9:.3f} GB held (batch {args.batch_size}, '
+              f'{ransac.NUM_HYPOTHESES} hypotheses x '
+              f'{pf.shape[1] * pf.shape[2]} points)')
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]

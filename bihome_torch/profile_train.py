@@ -16,13 +16,16 @@ zeng-biHomE (a head with DSAC):
   DSAC backward (DLT, down to the perspective fields) | backbone backward
   (K2, cuDNN) | optimizer (gradient norm, Adam) | metrics
 
-For the heads without DSAC (the ResNet34 and zhang families):
+For the heads without DSAC (the ResNet34 and zhang families, zeng-orig
+and CLEVR-Change zhang, whose pool holds (original, changed) pairs):
 
-  datagen (pair synthesis with the PDS distortion, K3) | backbone forward
+  datagen (pair synthesis with the PDS distortion, K3; CLEVR-Change:
+  grayscale and standardize) | backbone forward (zeng-orig: K1)
   | head/loss forward (the head: detone-biHomE's warp K3, extractor twice
   and triplet tail; the PhotometricHead's warp of the full image, K3) |
   head/loss backward down to the backbone's deltas (with the tensor
-  loss's forward; extractor input grads, K4) | backbone backward |
+  loss's forward; extractor input grads, K4) | backbone backward (zeng-
+  orig: K2) |
   optimizer | metrics
 
 The hooks: the backbone's forward pre-hook and hook, gradient hooks on its
@@ -49,7 +52,6 @@ import torch
 
 from bihome_torch import config as config_lib
 from bihome_torch import profile_predict, train
-from bihome_torch.data import datasets
 from bihome_torch.device import resolve_device
 from bihome_torch.training import trainer
 from bihome_torch.training.train_state import Optimizer
@@ -90,7 +92,8 @@ def main(argv=None) -> None:
     model = built.model.to(device).train()
     optimizer = Optimizer([p for p in model.parameters() if p.requires_grad],
                           **config_lib.solver_kwargs(config))
-    pool = torch.from_numpy(datasets.SyntheticDataset(seed=0).pool).to(device)
+    pool = torch.from_numpy(train.make_pools(
+        config, (320, 240), args.batch_size, args.batch_size)[0]).to(device)
     gen = torch.Generator().manual_seed(0)
     dsac_gen = torch.Generator().manual_seed(1)
 

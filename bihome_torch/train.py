@@ -1,5 +1,5 @@
 """Train entry point of the port (counterpart of ``train.py:44-319`` for the
-synthetic, non-clevr, streamed-batch case).
+synthetic, device-pool case).
 
     python -m bihome_torch.train --config_file X.yaml [--synthetic]
         [--steps N] [--batch_size B] [--epochs E] [--set K=V]
@@ -12,9 +12,14 @@ each step synthesizes its pairs on the device (with the PDS photometric
 distortion where the config asks for it) and runs
 ``training.trainer.train_step`` (backbone in training mode, the head and
 its loss: zeng-biHomE's DSAC both ways and biHomE loss, detone-biHomE's
-biHomE loss on the regressed deltas, the NoOp head's MSE or L1 on them,
-the PhotometricHead's L1 on the warped full image; Adam with per-step
-MultiStepLR). Every
+biHomE loss on the regressed deltas, the NoOp head's MSE or L1 on them or
+zeng-orig's SmoothL1 on the perspective field, the PhotometricHead's L1
+on the warped full image, the TripletHead's loss; Adam with per-step
+MultiStepLR). For CLEVR-Change (DATA.NAME clevr_change, ``train.py:
+81-105, 217-232``) the pool holds (original, changed) pairs of the
+synthetic stand-in instead, drawn by the pair sampler in the YAML's
+SAMPLER.MODE with its seeds; ChangeAwarePrep feeds them to the model
+as they are, so the test pass logs a loss and no MACE. Every
 LOGGING.STEP steps the step's metrics go to
 ``<LOGGING.DIR>/metrics.jsonl``; at each epoch's end a checkpoint
 ``<LOGGING.DIR>/model_<step>.pth`` in the reference layout
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from bihome_torch import config as config_lib
-from bihome_torch.data import datasets
+from bihome_torch.data import clevr_change, datasets
 from bihome_torch.device import resolve_device
 from bihome_torch.models import backbones, weights
 from bihome_torch.training import trainer
@@ -89,6 +94,36 @@ def init_model(built: config_lib.BuiltModel) -> List[str]:
     if dropped:
         msg += f' (pruned beyond model depth: {", ".join(dropped)})'
     return [msg]
+
+
+def is_clevr(config: Dict[str, Any]) -> bool:
+    """Whether the config trains on CLEVR-Change pairs (``train.py:81``)."""
+    return 'clevr_change' in str(config['DATA'].get('NAME', ''))
+
+
+def make_pools(config: Dict[str, Any], image_size, train_samples: int,
+               test_samples: int):
+    """The host-side train and test pools (uint8): synthetic images
+    [N,H,W,3] (seeds 0 and 1), or for CLEVR-Change [N,2,H,W,3] pairs of
+    :class:`clevr_change.SyntheticChangeDataset` (seeds 0 and 1), one per
+    base scene, in the order the pair sampler draws them for an epoch of
+    ``train_samples`` / ``test_samples`` (``train.py:217-232``)."""
+    if not is_clevr(config):
+        return tuple(datasets.SyntheticDataset(image_size=image_size,
+                                               seed=seed).pool
+                     for seed in (0, 1))
+    sampler_cfg = config['DATA']['SAMPLER']
+    mode = sampler_cfg.get('MODE', 'nsc')
+    pools = []
+    for seed, samples, key in ((0, train_samples, 'TRAIN_SEED'),
+                               (1, test_samples, 'TEST_SEED')):
+        ds = clevr_change.SyntheticChangeDataset(image_size=image_size,
+                                                 seed=seed)
+        loader = clevr_change.ClevrPairLoader(
+            ds, 1, max(samples, 1), mode=mode,
+            random_seed=sampler_cfg.get(key))
+        pools.append(loader.pool(len(ds)))
+    return tuple(pools)
 
 
 def checkpoint(model: torch.nn.Module, optimizer: Optimizer,
@@ -143,15 +178,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     print(f'Number of params: {sum(p.numel() for p in trainable)} trainable, '
           f'{sum(p.numel() for p in model.parameters())} in all')
 
-    image_size = tuple(args.image_size)
-    train_ds = datasets.SyntheticDataset(image_size=image_size, seed=0)
-    test_ds = datasets.SyntheticDataset(image_size=image_size, seed=1)
-    train_pool = torch.from_numpy(train_ds.pool).to(device)
-    test_pool = torch.from_numpy(test_ds.pool).to(device)
+    train_np, test_np = make_pools(config, tuple(args.image_size),
+                                   steps_per_epoch * batch_size,
+                                   test_steps * batch_size)
+    train_pool = torch.from_numpy(train_np).to(device)
+    test_pool = torch.from_numpy(test_np).to(device)
     train_sampler = datasets.EpochSampler(
-        len(train_ds), steps_per_epoch * batch_size, random_seed=train_seed)
+        len(train_pool), steps_per_epoch * batch_size, random_seed=train_seed)
     test_sampler = datasets.EpochSampler(
-        len(test_ds), test_steps * batch_size, random_seed=test_seed)
+        len(test_pool), test_steps * batch_size, random_seed=test_seed)
     datagen_gen = torch.Generator().manual_seed(train_seed)
     dsac_gen = torch.Generator().manual_seed(train_seed + 1)
 

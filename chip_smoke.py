@@ -19,7 +19,8 @@
    shapes (batch 64, both directions stacked: 128 images). K1
    and K2, whose Cin x Cmid products run on the tensor cores in 3xTF32,
    are held to the tensor-core bound (the largest of the bytes, the
-   3xTF32 tensor work and the fp32 epilogue).
+   3xTF32 tensor work and the fp32 epilogue). K2's gradients are held to
+   float64 on the ReLU masks its dx shows it took at the kink.
 4. Drives the port's eval entry point (zeng-biHomE S-COCO config,
    synthetic images, batch 64, 4 steps) with the launch counters set to 0
    just before and read just after; fails unless K1 and K3 launched (and
@@ -34,7 +35,8 @@
    the CPU plain path in float64 (batch 4, the same conditioned weights,
    pairs and draws); then on the card with a planted fault in K4's or
    K2's output, which the same limits must catch. The CPU references
-   (here and in steps 4, 9, 10 and 11) run torch's CPU ops on one thread.
+   (here and in steps 4, 9, 10, 11 and 12) run torch's CPU ops on one
+   thread.
 7. K3 and K4 at the PhotometricHead's shape (S-COCO nguyen-orig at
    bench.py's batch 128: the full 240x320 image, P = 16,384 points per
    image offset into it) against their plain versions, timed beside
@@ -73,11 +75,28 @@
    K3 and K4 (after pds-coco/zhang-orig the one-step check at batch 8
    with K4's du negated), then eval at batch 64, K3 only, its first 4
    pairs against the CPU plain path.
-12. Prints each phase's wall time, one {"pds_distortion": ...,
-   "train_runs": [...], "phase_s": {...}} line, one {"kernels": [...]}
-   line (launches summed over every path above, and by path; K1 and K2
-   with their wide kernels' figures and launches under "at_r50_head"),
-   then as the last line {"ok": true, "device": {...}}.
+12. The zeng-orig and CLEVR-Change slice. The narrow K1 and K2 at
+   zeng-orig's OneLine shape (x [64,16,128,128], Cmid 128) and K3 and K4
+   at the CLEVR TripletHead's (whole standardized 240x320 renders, batch
+   64, P = 76,800), held and timed as in steps 3 and 7. The train entry
+   point for pds-coco/zeng-orig (batch 64, PDS_STEPS steps: exactly the
+   narrow K1, K2 and K3) with the one-step check of step 6 at batch 4 and
+   K2's dw1 zeroed as the planted fault; the eval entry point for
+   s-coco/zeng-orig (batch 64: K1 and K3; predict's RANSAC fit on the
+   card), with RANSAC's time, share of the model time and peak memory,
+   and batch 0 against the CPU plain path on the same injected draws
+   (samples whose winner and inlier set match within 1e-2 px; the others
+   counted); the train entry point for CLEVR-Change zhang (batch 64,
+   synthetic 320x240 pairs: exactly K3 and K4) with the one-step check at
+   batch CLEVR_STEP_BATCH and K4's du negated.
+13. Prints each phase's wall time, one {"pds_distortion": ...,
+   "train_runs": [...], "zeng_orig_eval": {...}, "phase_s": {...}} line,
+   one {"kernels": [...]} line (launches summed over every path above,
+   and by path; K1 and K2 with their wide kernels' figures and launches
+   under "at_r50_head" and at zeng-orig's shape under "at_zeng_orig", K3
+   and K4 at the CLEVR shape under "at_clevr", each with the launches of
+   the paths that run that shape), then as the last line {"ok": true,
+   "device": {...}}.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -85,6 +104,7 @@ device it exits non-zero before printing any result.
 
 import contextlib
 import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -161,6 +181,21 @@ STEP_CHECKS = ('config/s-coco/nguyen-orig-lr-5e-3.yaml',
                'config/pds-coco/detone-bihome-lr-5e-3.yaml',
                'config/pds-coco/zhang-orig-lr-1e-2.yaml')
 STEP_CHECK_BATCH = 8
+# The last slice: zeng-orig (the OneLine Rethinking backbone, whose PF head
+# runs the narrow K1 and K2 at x [64,16,128,128]; the NoOp 'all_points'
+# head, SmoothL1 on the field, RANSAC at predict) trained on PDS-COCO and
+# evaluated on S-COCO, and CLEVR-Change zhang (ChangeAwarePrep pairs of
+# whole 320x240 renders: the TripletHead's warps run K3 and K4 at
+# [64,240,320,1], datagen nothing), each trained at batch 64 for PDS_STEPS
+# steps with a one-step check: zeng-orig's at batch 4 with K2's dw1 zeroed
+# as the planted fault, CLEVR's at CLEVR_STEP_BATCH (the CPU's float64
+# step at 240x320) with K4's du negated.
+ZENG_ORIG = ('config/pds-coco/zeng-orig-lr-1e-3.yaml',
+             'config/s-coco/zeng-orig-lr-1e-3.yaml')
+ZENG_ORIG_KERNELS = ('fused_pf_head_fwd', 'fused_pf_head_bwd',
+                     'bilinear_sample_batched')
+CLEVR = 'config/clevr-change/zhang-clevr-nsc-lr-1e-2.yaml'
+CLEVR_STEP_BATCH = 2
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -255,14 +290,15 @@ def check_warp(dev, gen, n=BATCH):
             'host_us': host}
 
 
-def check_pf_head(dev, gen, cin=16, cmid=128):
-    """K1 at the eval shape: the DoubleLine [2B,Cin,128,128] activation,
-    M = 2,097,152 pixels, Cout 2, one gamma == 0 channel; Cin 16 / Cmid
-    128 (the ResNet34-flavour head) or Cin 64 / Cmid 512 (the ResNet50
-    one, its own kernel)."""
+def check_pf_head(dev, gen, cin=16, cmid=128, n=2 * BATCH):
+    """K1 at the eval shape: the DoubleLine [2B,Cin,128,128] activation
+    (``n`` = 2B = 128 images, M = 2,097,152 pixels; zeng-orig's OneLine
+    head takes ``n`` = B = 64), Cout 2, one gamma == 0 channel; Cin 16 /
+    Cmid 128 (the ResNet34-flavour head) or Cin 64 / Cmid 512 (the
+    ResNet50 one, its own kernel)."""
     from bihome_torch.ops import fused_head
 
-    n, cout, hw = 2 * BATCH, 2, 128
+    cout, hw = 2, 128
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
@@ -391,6 +427,123 @@ def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
     return launches, result, pairs_per_s
 
 
+def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
+                         steps=PDS_STEPS):
+    """The eval entry point of s-coco/zeng-orig on the card, counted (K1
+    and K3 must launch, no other kernel): predict is the OneLine backbone
+    and the RANSAC fit of its perspective field (64 hypotheses of 4 of the
+    16,384 field points, an inlier count each, the weighted DLT refit of
+    the winner), on the card, its draws from a generator there. Then:
+    RANSAC's time beside the backbone's (CUDA events around each, per
+    batch, the median) and its share of the model time; the peak memory
+    of the eval run and of one fit; and batch 0 against the CPU plain path
+    on the same weights, batch and injected draws. Samples whose winning
+    hypothesis and inlier set match must agree within 1e-2 px; those whose
+    winner or its inlier count differ are counted and printed (a
+    degenerate hypothesis, its pole on the field, can count a few points
+    apart in two roundings: tests/test_torch_ransac.py)."""
+    from bihome_torch import eval as teval
+    from bihome_torch.heads import ransac
+
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    result = teval.main(['--config_file', config, '--synthetic',
+                         '--batch_size', str(batch_size), '--steps',
+                         str(steps), '--device', 'cuda'])
+    launches = read_counts(counters)
+    eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f'launches on the eval path of {config} (batch {batch_size}, '
+          f'{steps} steps): {launches}')
+    expect = ('fused_pf_head_fwd', 'bilinear_sample_batched')
+    for name, count in launches.items():
+        if (count > 0) != (name in expect):
+            raise AssertionError(
+                f'{name} launched {count} times on the eval path of '
+                f'{config}; expected {"some" if name in expect else "none"}')
+    if not all(torch.isfinite(torch.as_tensor(result['maces']))):
+        raise AssertionError('non-finite MACE')
+    model, key = result['model'], result['model'].head.learning_keys[1]
+    model_ms = result['per_batch_ms']
+    parts = {'backbone': [], 'ransac': []}
+    with torch.inference_mode():
+        for i, batch in enumerate(result['batches']):
+            gen = teval.dsac_generator(result['test_seed'], i, 'cuda')
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            pf = model.backbone(batch)[key]
+            ev[1].record()
+            ransac.perspective_field_to_delta(pf, generator=gen)
+            ev[2].record()
+            ev[2].synchronize()
+            parts['backbone'].append(ev[0].elapsed_time(ev[1]))
+            parts['ransac'].append(ev[1].elapsed_time(ev[2]))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ransac.perspective_field_to_delta(
+            pf, generator=teval.dsac_generator(0, 0, 'cuda'))
+        torch.cuda.synchronize()
+        fit_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    med = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    share = med['ransac'] / model_ms
+    pairs_per_s = batch_size / (model_ms / 1e3)
+    print(f'eval {config}: Mean mace {result["mean_mace"]}  Mean model time '
+          f'{model_ms} ms/batch  pairs/s {pairs_per_s:.1f}; backbone '
+          f'{med["backbone"]:.3f} ms, RANSAC fit {med["ransac"]:.3f} ms (CUDA'
+          f' events, median of {len(parts["ransac"])}), RANSAC {share:.1%} of'
+          f' the model time; peak memory allocated {eval_peak_gb:.2f} GB in '
+          f'the eval run, {fit_peak_gb:.2f} GB above the field for one fit')
+
+    batch = result['batches'][0]
+    cpu = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        pf_card = model.backbone(batch)[key]
+    n_points = pf_card.shape[1] * pf_card.shape[2]
+    idx = ransac.draw_indices(batch_size, n_points, ransac.NUM_HYPOTHESES,
+                              torch.Generator().manual_seed(5))
+    delta_card = model.predict(batch, idx=idx.cuda()).cpu()
+    with torch.inference_mode():
+        fit_card = ransac.ransac_fit(*ransac.field_points(pf_card),
+                                     idx=idx.cuda())
+    with one_cpu_thread(), torch.inference_mode():
+        pf_cpu = cpu.backbone({k: v.cpu() for k, v in batch.items()})[key]
+        fit_cpu = ransac.ransac_fit(*ransac.field_points(pf_cpu), idx=idx)
+        delta_cpu = ransac.fit_to_delta(fit_cpu, pf_cpu.shape)
+    counts_card = fit_card.counts.cpu()
+    same_best = fit_card.best.cpu() == fit_cpu.best
+    same_count = counts_card.amax(-1) == fit_cpu.counts.amax(-1)
+    same_inliers = same_best & (fit_card.inliers.cpu()
+                                == fit_cpu.inliers).all(-1)
+    err = (delta_card - delta_cpu).abs().amax(dim=(1, 2))
+    err_match = float(err[same_inliers].max()) if same_inliers.any() else 0.0
+    differ = int((~(same_best & same_count)).sum())
+    hyps_differ = int((counts_card != fit_cpu.counts).sum())
+    print(f'RANSAC delta_hat CUDA vs CPU plain path, batch 0 ({batch_size} '
+          f'pairs, mean |pf| {float(pf_cpu.abs().mean()):.2f} px, the same '
+          f'draws): max abs err {float(err.max()):.3e} px, {err_match:.3e} '
+          f'px over the {int(same_inliers.sum())} samples whose winner and '
+          f'inlier set match (tolerance 1e-2 px); samples whose winning '
+          f'hypothesis or its inlier count differ: {differ}; hypotheses '
+          f'whose inlier count differs: {hyps_differ} of '
+          f'{counts_card.numel()}; winner inliers per sample '
+          f'{int(fit_cpu.counts.amax(-1).min())}-'
+          f'{int(fit_cpu.counts.amax(-1).max())} of {n_points}')
+    if not (delta_card.shape == (batch_size, 4, 2) and err_match <= 1e-2
+            and bool(torch.isfinite(delta_card).all())):
+        raise AssertionError(f'CUDA RANSAC predict disagrees with CPU: '
+                             f'{err_match}')
+    summary = {'config': config, 'batch': batch_size,
+               'mean_mace': result['mean_mace'], 'model_ms': model_ms,
+               'pairs_per_s': pairs_per_s, 'backbone_ms': med['backbone'],
+               'ransac_ms': med['ransac'], 'ransac_share': share,
+               'eval_peak_gb': eval_peak_gb, 'ransac_fit_peak_gb': fit_peak_gb,
+               'max_px_err': float(err.max()),
+               'max_px_err_same_inliers': err_match,
+               'samples_winner_or_count_differ': differ,
+               'hypotheses_count_differ': hyps_differ}
+    return launches, summary
+
+
 def _rel_err(got, want, scale=None):
     """max |got - want| over the largest |want| (or ``scale``)."""
     scale = float(want.abs().max()) if scale is None else scale
@@ -410,15 +563,50 @@ def _moments_float64(x, g, w1t, gis, c1, w2gis, images=16):
             *(sum(p[k] for p in parts) for k in range(1, 5)))
 
 
-def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
-    """K2 at the training shape: x [2B,Cin,128,128] (M = 2,097,152 pixels,
-    B = 64), a dense random cotangent g [2B,2,128,128], batch statistics,
-    one gamma == 0 channel; Cin 16 / Cmid 128 or Cin 64 / Cmid 512 (the
-    ResNet50-flavour head). The seven gradients through the kernel against
-    the same algebra through the plain moment pass, on the card."""
+def _kink_flips(got_dx, want_dx, bad, args64, scale):
+    """The ReLU masks the kernel took otherwise than float64, read off its
+    dx: at each pixel (n, h, w) of ``bad`` (dx off), the middle channels
+    within 1e-5 of the kink in float64 whose flipped masks leave the least
+    of dx's jump there. -> ([(n, h, w, channel, +1 / -1, mid)], the
+    largest jump they leave, over ``scale``)."""
+    x, g, w1, b1, gamma, beta, w2, mean, var = args64[:9]
+    cmid, cin = w1.shape[:2]
+    gis = gamma * torch.rsqrt(var + 1e-5)
+    c1 = gis * (b1 - mean) + beta
+    w1t = w1.reshape(cmid, cin)
+    w2gis = w2.reshape(w2.shape[0], cmid).t() * gis[:, None]
+    flips, left = [], 0.0
+    for i, j, k in bad.tolist():
+        xp, gp = x[i, :, j, k], g[i, :, j, k]
+        mid = w1t @ xp
+        pre = gis * mid + c1
+        near = (pre.abs() < 1e-5).nonzero().flatten().tolist()
+        if len(near) > 8:
+            return flips, float('inf')
+        jump = (got_dx[i, :, j, k] - want_dx[i, :, j, k]).double()
+        terms = {c: (1.0 if pre[c] <= 0 else -1.0) * w1t[c] * (w2gis[c] @ gp)
+                 for c in near}
+        rest, chosen = min(
+            (float((jump - sum(terms[c] for c in sub)).abs().max()), sub)
+            for r in range(len(near) + 1)
+            for sub in itertools.combinations(near, r))
+        left = max(left, rest / scale)
+        flips += [(i, j, k, c, 1.0 if pre[c] <= 0 else -1.0, mid[c])
+                  for c in chosen]
+    return flips, left
+
+
+def check_pf_head_bwd(dev, gen, cin=16, cmid=128, n=2 * BATCH):
+    """K2 at the training shape: x [n,Cin,128,128] (``n`` = 2B = 128, M =
+    2,097,152 pixels, B = 64; zeng-orig's OneLine head ``n`` = B), a dense
+    random cotangent g [n,2,128,128], batch statistics, one gamma == 0
+    channel; Cin 16 / Cmid 128 or Cin 64 / Cmid 512 (the ResNet50-flavour
+    head). The seven gradients through the kernel against the same algebra
+    through the plain moment pass in float64, on the card, with the ReLU
+    masks that the kernel's dx shows it took at the kink."""
     from bihome_torch.ops import fused_head as fh
 
-    n, cout, hw = 2 * BATCH, 2, 128
+    cout, hw = 2, 128
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
@@ -430,26 +618,24 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
     g = rnd(n, cout, hw, hw)
     mean, var = fh.batch_stats_affine(x, w1, b1)
     args = (x, g, w1, b1, gamma, beta, w2, mean, var, 1e-5, True)
+    args64 = [a.double() if torch.is_tensor(a) else a for a in args]
     got = fh.pf_head_backward(*args)
     # The reference: the same algebra through the plain moment pass in
-    # float64 (over 16 images at a time), since fp32 sums over 2M pixels,
-    # the plain version's as much as the kernel's, stray by 1e-4 to 2e-3
-    # of the largest gradient once the rank-Cin corrections cancel them.
-    # The plain version in float32 is measured against it too.
+    # float64 (over 16 images at a time). The plain version in float32 is
+    # measured against it too.
     want = [t.float() for t in fh.pf_head_backward(
-        *(a.double() if torch.is_tensor(a) else a for a in args),
-        moments=_moments_float64)]
+        *args64, moments=_moments_float64)]
     plain32 = fh.pf_head_backward(*args, moments=fh.pf_head_bwd_plain)
     names = ('dx', 'dw1', 'db1', 'dgamma', 'dbeta', 'dw2', 'db2')
 
-    def errors(res):
+    def errors(res, ref):
         # db1 is 0 analytically (the batch mean absorbs b1): measure it on
         # the scale of the terms that cancel in it, dbeta's.
-        return {name: _rel_err(a, b, float(want[4].abs().max())
+        return {name: _rel_err(a, b, float(ref[4].abs().max())
                                if name == 'db1' else None)
-                for name, a, b in zip(names[1:], res[1:], want[1:])}
-    errs = errors(got)
-    errs_plain = errors(plain32)
+                for name, a, b in zip(names[1:], res[1:], ref[1:])}
+    errs = errors(got, want)
+    errs_plain = errors(plain32, want)
     inv_s = torch.rsqrt(var + 1e-5)
     gis = (gamma * inv_s).contiguous()
     c1 = (gis * (b1 - mean) + beta).contiguous()
@@ -465,12 +651,36 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
     keep = ~off[:, None].expand_as(got[0])
     dx_got, dx_want = got[0][keep], want[0][keep]
     errs['dx'] = _rel_err(dx_got, dx_want, float(want[0].abs().max()))
-    err = max(errs.values())
-    # Each gradient within 1e-3 of max|ref|, or no further from float64
-    # than the plain version in float32 is: the sums over 2M pixels and the
-    # rank-Cin corrections (torch, shared by both) cancel to a few 1e-3 at
-    # the wide head in any float32 order.
-    limits = {k: max(1e-3, errs_plain.get(k, 0.0)) for k in errs}
+    # Each such flip moves the sums by one pixel's term (M0 by g, M1 by
+    # mid g, dw1 by x e), which the batch-statistics corrections carry
+    # into every gradient at up to a few 1e-3 of its largest value, in the
+    # plain version in float32 as in the kernel (the first readings
+    # printed). So the gradients are held to float64 on the kernel's own
+    # masks: float64's, turned over at the flips that explain dx's jumps,
+    # each of which must leave less than 1e-5 of max|dx|.
+    flips, left = _kink_flips(got[0], want[0], bad, args64,
+                              float(want[0].abs().max()))
+    x64, g64 = args64[0], args64[1]
+
+    def moments_on_kernel_masks(*margs):
+        dx, m0, m1, db2, dw1 = _moments_float64(*margs)
+        w2gis64 = margs[5]
+        for i, j, k, c, sign, mid in flips:
+            gp = g64[i, :, j, k]
+            m0[c] += sign * gp
+            m1[c] += sign * mid * gp
+            dw1[:, c] += sign * x64[i, :, j, k] * (w2gis64[c] @ gp)
+        return dx, m0, m1, db2, dw1
+    want_k = [t.float() for t in fh.pf_head_backward(
+        *args64, moments=moments_on_kernel_masks)]
+    errs_k = errors(got, want_k)
+    errs_k['dx'] = errs['dx']
+    err = max(errs_k.values())
+    # On the kernel's masks each gradient within 1e-4 of max|ref| (they
+    # read 1e-7 to 3e-5 at the three shapes on the H100; float32's sums
+    # over 1-2M pixels and the cancelling corrections); dx, off the kink
+    # pixels, within 1e-3 (the wide K2's reads 8.6e-5).
+    limits = {k: 1e-3 if k == 'dx' else 1e-4 for k in errs_k}
     # The kernel's own outputs (the one-pass moments) against float64.
     w2gis = (w2.reshape(cout, cmid).t() * gis[:, None]).contiguous()
     margs = (x, g, w1t, gis, c1, w2gis)
@@ -481,20 +691,24 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
     raw_errs['dx'] = _rel_err(raw[0][keep], raw64[0].float()[keep],
                               float(raw64[0].abs().max()))
     print('K2 PF head backward [%d,%d,%d,%d] Cmid=%d: error / max|ref| per '
-          'gradient against float64 %s (limit max(1e-3, the plain version '
-          'in float32: %s)); the kernel\'s moments against float64 (dx off '
-          'the kink pixels; M0 and M1 move with the mask there too): %s; dx '
-          'off by more than 1e-4 max|dx| at %d of %d pixels, each with a '
-          'middle channel within 1e-5 of the ReLU kink: %s' % (
+          'gradient against float64 %s (the plain version in float32: %s); '
+          'on the kernel\'s masks (%d kink flips read off dx, leaving %.2e '
+          'of max|dx|) %s (limit 1e-4, dx 1e-3); the kernel\'s moments '
+          'against float64 (dx off the kink pixels; M0 and M1 move with the '
+          'mask there too): %s; dx off by more than 1e-4 max|dx| at %d of %d '
+          'pixels, each with a middle channel within 1e-5 of the ReLU kink: '
+          '%s' % (
               n, cin, hw, hw, cmid, ', '.join(
                   f'{k} {v:.2e}' for k, v in errs.items()), ', '.join(
-                  f'{k} {v:.2e}' for k, v in errs_plain.items()), ', '.join(
-                  f'{k} {v:.2e}' for k, v in raw_errs.items()), len(bad),
-              off.numel(), at_kink))
-    if not (all(errs[k] <= limits[k] for k in errs) and at_kink
-            and len(bad) <= 1e-4 * off.numel()):
-        raise AssertionError(f'PF-head backward kernel disagrees: {errs}, '
-                             f'{len(bad)} pixels off, at kink {at_kink}')
+                  f'{k} {v:.2e}' for k, v in errs_plain.items()), len(flips),
+              left, ', '.join(f'{k} {v:.2e}' for k, v in errs_k.items()),
+              ', '.join(f'{k} {v:.2e}' for k, v in raw_errs.items()),
+              len(bad), off.numel(), at_kink))
+    if not (all(errs_k[k] <= limits[k] for k in errs_k) and at_kink
+            and left < 1e-5 and len(bad) <= 1e-4 * off.numel()):
+        raise AssertionError(f'PF-head backward kernel disagrees: {errs_k}, '
+                             f'{len(bad)} pixels off, at kink {at_kink}, '
+                             f'flips leave {left}')
     ms = time_ms(lambda: fh.fused_pf_head_bwd(*margs))
     plain_ms = time_ms(lambda: fh.pf_head_bwd_plain(*margs))
     host = {'kernel': host_us(lambda: fh.fused_pf_head_bwd(*margs))}
@@ -542,9 +756,11 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128):
             'shape': [n, cin, hw, hw], 'cmid': cmid,
             'max_abs_err': max(float((a - b).abs().max()) for a, b in
                                zip((dx_got, *got[1:]), (dx_want, *want[1:]))),
-            'max_rel_err': err, 'plain_fp32_max_rel_err': max(
+            'max_rel_err': err, 'max_rel_err_float64_masks': max(
+                errs.values()), 'plain_fp32_max_rel_err': max(
                 errs_plain.values()), 'moments_max_rel_err': max(
-                raw_errs.values()), 'kink_pixels': len(bad), 'ms': ms,
+                raw_errs.values()), 'kink_pixels': len(bad),
+            'kink_flips': len(flips), 'ms': ms,
             'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': None,
             'host_us': host, **extra}
@@ -699,27 +915,16 @@ def _touched_pixels(u, v, h, w):
     return int(seen.sum())
 
 
-def check_warp_nguyen(dev, gen):
-    """K3 and K4 at the PhotometricHead's shape (S-COCO nguyen-orig,
-    bench.py's batch 128): the full standardized 240x320 image_1, the
-    128x128 patch grid offset to each patch's corner, through the
-    homography of non-integer corner deltas of a few pixels, P = 16,384
-    points per image, a dense random cotangent. Returns K3's and K4's
-    figures at this shape."""
-    from bihome_torch import geometry
-    from bihome_torch.data import pipeline
+def check_warp_frame(dev, gen, name, image, u, v):
+    """K3 and K4 on whole standardized frames ``image`` [N,H,W,1] at the
+    points u, v [N,P], with a dense random cotangent, against their plain
+    versions, timed beside grid_sample and its grid gradient. Their bound
+    reads the pixels the taps touch, not the whole frame (whose bound is
+    printed beside it). Returns K3's and K4's figures at this shape."""
     from bihome_torch.ops import warp
 
-    n, h, w, ps = 128, 240, 320, 128
-    p = ps * ps
-    spec = pipeline.PairSpec(rho=32, patch_size=ps)
-    corners, _ = pipeline.draw_corners_delta_batch(n, (h, w), spec, gen)
-    corners = corners.float()
-    delta_hat = torch.rand((n, 4, 2), generator=gen) * 16 - 8
-    hom = geometry.four_point_to_homography(corners, delta_hat)
-    u, v = geometry.homography_grid(hom, (ps, ps), offset=corners[:, 0])
-    u, v = u.to(dev), v.to(dev)
-    image = torch.randn((n, h, w, 1), generator=gen).to(dev)
+    n, h, w, _ = image.shape
+    p = u.shape[1]
     g = torch.randn((n, p, 1), generator=gen).to(dev)
     out = warp.bilinear_sample_batched(image, u, v)
     want = warp.bilinear_sample_plain(image, u, v)
@@ -727,11 +932,11 @@ def check_warp_nguyen(dev, gen):
     du, dv = warp.bilinear_sample_bwd_uv(image, u, v, g)
     want_du, want_dv = warp.bilinear_sample_bwd_uv_plain(image, u, v, g)
     err4 = max(_rel_err(du, want_du), _rel_err(dv, want_dv))
-    print(f'K3 at the PhotometricHead warp [{n},{h},{w},1] P={p} (points '
-          f'offset into the full image): error / max|ref| {err3:.2e} '
-          f'(tolerance 1e-5); K4 there: {err4:.2e} (tolerance 1e-4)')
+    print(f'K3 at the {name} warp [{n},{h},{w},1] P={p}: error / max|ref| '
+          f'{err3:.2e} (tolerance 1e-5); K4 there: {err4:.2e} (tolerance '
+          f'1e-4)')
     if not (err3 <= 1e-5 and err4 <= 1e-4):
-        raise AssertionError(f'warp kernels disagree at the nguyen shape: '
+        raise AssertionError(f'warp kernels disagree at the {name} shape: '
                              f'{err3}, {err4}')
     img_nchw = image.permute(0, 3, 1, 2).contiguous()
     grid = _grid(u, v, h, w)
@@ -752,24 +957,18 @@ def check_warp_nguyen(dev, gen):
                                                retain_graph=True))
     host3 = host_us(lambda: warp.bilinear_sample_batched(image, u, v))
     host4 = host_us(lambda: warp.bilinear_sample_bwd_uv(image, u, v, g))
-    # What the warp must read of the image is the pixels its taps touch on
-    # these points (about a sixth of the frame over a (ps + 16)^2 region),
-    # not the whole frame; the bound counts those, and the frame's bound
-    # is printed beside it.
     touched = _touched_pixels(u, v, h, w)
     b3, by3 = bound_ms(4 * (touched + 3 * n * p), 15 * n * p)
     b4, by4 = bound_ms(4 * (touched + 5 * n * p), 30 * n * p)
     frame3, _ = bound_ms(4 * (n * h * w + 3 * n * p), 15 * n * p)
     frame4, _ = bound_ms(4 * (n * h * w + 5 * n * p), 30 * n * p)
-    print(f'K3 times at the PhotometricHead warp (ms): kernel {ms3:.4f}  '
-          f'plain {plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} '
-          f'({by3}; {touched / (n * h * w):.3f} of the frame touched; '
-          f'reading the whole frame {frame3:.4f}); host us per call '
-          f'{host3:.1f}')
-    print(f'K4 times at the PhotometricHead warp (ms): kernel {ms4:.4f}  '
-          f'plain {plain4:.4f}  grid_sample grid-grad {lib4:.4f}  bound '
-          f'{b4:.4f} ({by4}; whole frame {frame4:.4f}); host us per call '
-          f'{host4:.1f}')
+    print(f'K3 times at the {name} warp (ms): kernel {ms3:.4f}  plain '
+          f'{plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} ({by3}; '
+          f'{touched / (n * h * w):.3f} of the frame touched; reading the '
+          f'whole frame {frame3:.4f}); host us per call {host3:.1f}')
+    print(f'K4 times at the {name} warp (ms): kernel {ms4:.4f}  plain '
+          f'{plain4:.4f}  grid_sample grid-grad {lib4:.4f}  bound {b4:.4f} '
+          f'({by4}; whole frame {frame4:.4f}); host us per call {host4:.1f}')
     k3 = {'shape': [n, h, w, 1], 'points': p,
           'max_abs_err': float((out - want).abs().max()),
           'max_rel_err': err3, 'ms': ms3, 'plain_ms': plain3, 'bound_ms': b3,
@@ -782,6 +981,44 @@ def check_warp_nguyen(dev, gen):
           'bound_by': by4, 'library_ms': lib4,
           'host_us': {'kernel': host4}}
     return k3, k4
+
+
+def check_warp_nguyen(dev, gen):
+    """K3 and K4 at the PhotometricHead's shape (S-COCO nguyen-orig,
+    bench.py's batch 128): the full standardized 240x320 image_1, the
+    128x128 patch grid offset to each patch's corner, through the
+    homography of non-integer corner deltas of a few pixels, P = 16,384
+    points per image (about a sixth of the frame touched)."""
+    from bihome_torch import geometry
+    from bihome_torch.data import pipeline
+
+    n, h, w, ps = 128, 240, 320, 128
+    spec = pipeline.PairSpec(rho=32, patch_size=ps)
+    corners, _ = pipeline.draw_corners_delta_batch(n, (h, w), spec, gen)
+    corners = corners.float()
+    delta_hat = torch.rand((n, 4, 2), generator=gen) * 16 - 8
+    hom = geometry.four_point_to_homography(corners, delta_hat)
+    u, v = geometry.homography_grid(hom, (ps, ps), offset=corners[:, 0])
+    image = torch.randn((n, h, w, 1), generator=gen).to(dev)
+    return check_warp_frame(dev, gen, 'PhotometricHead', image, u.to(dev),
+                            v.to(dev))
+
+
+def check_warp_clevr(dev, gen):
+    """K3 and K4 at the CLEVR-Change TripletHead's shape: its warps of whole
+    standardized 240x320 renders, batch 64, by the homography of the
+    predicted deltas (non-integer, a few pixels) over the whole frame's
+    grid, P = 76,800 points per image."""
+    from bihome_torch import geometry
+
+    n, h, w = BATCH, 240, 320
+    corners = geometry.image_corners(h, w, batch_size=n)
+    delta_hat = torch.rand((n, 4, 2), generator=gen) * 16 - 8
+    hom = geometry.four_point_to_homography(corners, delta_hat)
+    u, v = geometry.homography_grid(hom, (h, w))
+    image = torch.randn((n, h, w, 1), generator=gen).to(dev)
+    return check_warp_frame(dev, gen, 'CLEVR TripletHead', image, u.to(dev),
+                            v.to(dev))
 
 
 def check_pds(dev, gen):
@@ -993,14 +1230,21 @@ def compare_train_step(result, batch=4, faults=FAULTS):
     itself for a tensor loss), the gradients within STEP_L2 relative L2
     over all tensors and within STEP_PER_TENSOR relative L2 for every
     tensor."""
+    from bihome_torch import train
     from bihome_torch.data import datasets, pipeline
 
     built, state = result['built'], result['initial_state']
     gen = torch.Generator().manual_seed(7)
-    pool = torch.from_numpy(datasets.SyntheticDataset(seed=2).pool[:batch])
-    corners, delta = pipeline.draw_corners_delta_batch(
-        batch, tuple(pool.shape[1:3]), built.pair_spec, gen)
-    pds = pipeline._draw_photometric(batch, built.pair_spec, gen)
+    if built.pair_spec.change_aware_keys:
+        # CLEVR-Change: (original, changed) pairs, nothing drawn.
+        pool = torch.from_numpy(train.make_pools(
+            built.config, (320, 240), batch, batch)[0][:batch])
+        corners = delta = pds = None
+    else:
+        pool = torch.from_numpy(datasets.SyntheticDataset(seed=2).pool[:batch])
+        corners, delta = pipeline.draw_corners_delta_batch(
+            batch, tuple(pool.shape[1:3]), built.pair_spec, gen)
+        pds = pipeline._draw_photometric(batch, built.pair_spec, gen)
     uniforms = ([torch.rand((batch, 128), generator=gen) for _ in range(2)]
                 if built.needs_dsac_rng else None)
     data = (pool, corners, delta, pds, uniforms)
@@ -1165,19 +1409,54 @@ def main():
             check_pairs=4)
     done('zhang train, eval, step check')
 
+    # The zeng-orig and CLEVR-Change slice: the narrow K1 and K2 at
+    # zeng-orig's OneLine shape (64 images), K3 and K4 at the CLEVR
+    # TripletHead's; the PDS zeng-orig train run and its step check, the
+    # S-COCO zeng-orig eval (RANSAC), the CLEVR train run and its check.
+    kernels[1]['at_zeng_orig'], kernels[2]['at_zeng_orig'] = (
+        {key: v for key, v in entry.items()
+         if key not in ('name', 'route', 'source', 'replaces')}
+        for entry in (check_pf_head(dev, gen, 16, 128, BATCH),
+                      check_pf_head_bwd(dev, gen, 16, 128, BATCH)))
+    kernels[0]['at_clevr'], kernels[3]['at_clevr'] = check_warp_clevr(dev,
+                                                                      gen)
+    done('zeng-orig and CLEVR kernel checks')
+    with tempfile.TemporaryDirectory() as log_dir:
+        paths[f'train {ZENG_ORIG[0]}'], result = run_train_path(
+            counters, log_dir, ZENG_ORIG[0], BATCH, PDS_STEPS,
+            ZENG_ORIG_KERNELS)
+    runs.append(result['summary'])
+    compare_train_step(result, 4, ('K2 dw1 zeroed',))
+    del result
+    paths[f'eval {ZENG_ORIG[1]}'], zeng_orig_eval = run_ransac_eval_path(
+        counters)
+    done('zeng-orig train, step check, eval')
+    with tempfile.TemporaryDirectory() as log_dir:
+        paths[f'train {CLEVR}'], result = run_train_path(
+            counters, log_dir, CLEVR, BATCH, PDS_STEPS, WARP_KERNELS)
+    runs.append(result['summary'])
+    compare_train_step(result, CLEVR_STEP_BATCH, ('K4 du negated',))
+    del result
+    done('CLEVR train, step check')
+
+    # Launches by path; an entry at one shape counts the paths that run it.
+    shape_paths = {'at_zeng_orig': [p for p in paths if 'zeng-orig' in p],
+                   'at_clevr': [p for p in paths if 'clevr' in p]}
     for k in kernels:
-        entries = [(k, k['name'])]
+        entries = [(k, k['name'], list(paths))]
         if 'at_r50_head' in k:
-            entries.append((k['at_r50_head'], f'{k["name"]}_wide'))
-        for entry, counter in entries:
-            by_path = {path: launches[counter]
-                       for path, launches in paths.items()}
+            entries.append((k['at_r50_head'], f'{k["name"]}_wide',
+                            list(paths)))
+        entries += [(k[at], k['name'], names)
+                    for at, names in shape_paths.items() if at in k]
+        for entry, counter, names in entries:
+            by_path = {path: paths[path][counter] for path in names}
             entry['launches'] = sum(by_path.values())
             entry['launches_by_path'] = by_path
     print(f'chip_smoke: all checks passed in '
           f'{time.perf_counter() - begin:.1f} s')
     print(json.dumps({'pds_distortion': pds_check, 'train_runs': runs,
-                      'phase_s': phase_s}))
+                      'zeng_orig_eval': zeng_orig_eval, 'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -56,15 +56,19 @@ print(len(names))
 '''
 
 
-# The modules of the PDS / ResNet34 slice, each checked by name so that a
-# rename cannot drop it from the checks above unnoticed.
+# The modules of the later slices (PDS / ResNet34; zeng-orig's RANSAC and
+# CLEVR-Change), each checked by name so that a rename cannot drop it from
+# the checks above unnoticed.
 SLICE_MODULES = ('bihome_torch/data/photometric.py',
                  'bihome_torch/ops/color.py',
                  'bihome_torch/data/pipeline.py',
                  'bihome_torch/models/backbones.py',
                  'bihome_torch/models/resnet.py',
                  'bihome_torch/heads/assembled.py',
-                 'bihome_torch/training/losses.py')
+                 'bihome_torch/training/losses.py',
+                 'bihome_torch/heads/ransac.py',
+                 'bihome_torch/data/clevr_change.py',
+                 'bihome_torch/train.py')
 
 
 @pytest.mark.parametrize('rel', SLICE_MODULES)

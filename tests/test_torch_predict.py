@@ -93,7 +93,8 @@ def test_predict_mace_matches_jax_chain(slice_outputs):
 
 
 def test_build_model_refuses_unported_families():
-    config = load_config('config/s-coco/zeng-orig-lr-1e-3.yaml')
+    config = load_config(ZENG[0])
+    config['MODEL']['HEAD']['RANSAC_HYPOTHESIS_NO'] = 2
     with pytest.raises(ValueError, match='not ported yet'):
         build_model(config)
     config = load_config(ZENG[0])
