@@ -89,10 +89,22 @@ def build_model(config: Dict[str, Any]) -> BuiltModel:
     backbone = build_backbone(model_cfg['BACKBONE'])
     model = AssembledModel(backbone, head_cfg)
     emit = _emit_images_for(head_cfg)
-    pair_spec = PairSpec.from_transforms(config['DATA']['TRANSFORMS'], emit)
-    test_pair_spec = PairSpec.from_transforms(
-        config['DATA'].get('TEST_TRANSFORM', config['DATA']['TRANSFORMS']),
-        emit)
+    # The blob occlusion applies to train and test pairs alike
+    # (``bihome_tpu/config.py:98-115``); check_ported refuses it until the
+    # port has it.
+    blob_kw = {}
+    if config['DATA'].get('AUGMENT_BLOB_POROSITY') is not None:
+        blob_kw['blob_porosity'] = float(
+            config['DATA']['AUGMENT_BLOB_POROSITY'])
+        blob_kw['blobiness'] = float(
+            config['DATA'].get('AUGMENT_BLOBINESS', 1.0))
+    pair_spec = dataclasses.replace(
+        PairSpec.from_transforms(config['DATA']['TRANSFORMS'], emit),
+        **blob_kw)
+    test_pair_spec = dataclasses.replace(
+        PairSpec.from_transforms(config['DATA'].get(
+            'TEST_TRANSFORM', config['DATA']['TRANSFORMS']), emit),
+        **blob_kw)
     check_ported(pair_spec)
     check_ported(test_pair_spec)
     return BuiltModel(model=model, head_cfg=head_cfg, pair_spec=pair_spec,

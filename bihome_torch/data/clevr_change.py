@@ -1,23 +1,62 @@
-"""CLEVR-Change pairs for the port: the pair sampler, the pair loader and
-the synthetic stand-in (counterparts of ``bihome_tpu/data/clevr_change.py:
-58-151``; ref: src/data/clevr_change/dataset.py:12-152).
+"""CLEVR-Change pairs for the port: the file-backed dataset, the pair
+sampler, the pair loader and the synthetic stand-in (counterparts of
+``bihome_tpu/data/clevr_change.py:19-151``; ref:
+src/data/clevr_change/dataset.py:12-152).
 
 An index addresses the concatenated space [originals | nsc renders | sc
 renders]; the sampler pairs each original with a changed render of the
-same scene (patch_2_idx = idx + k·N). The file-backed dataset needs image
-decoding and is not ported yet: the port's entry points take
-``--synthetic`` only.
+same scene (patch_2_idx = idx + k·N).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from bihome_torch.data.datasets import SyntheticDataset
+from bihome_torch.data.datasets import (SyntheticDataset, _decode_image,
+                                        fit_image)
 
 MODES = ('nsc', 'sc', 'both')
+
+
+def _list_images(dirpath: str) -> List[str]:
+    names = sorted(f for f in os.listdir(dirpath)
+                   if f.lower().endswith(('.jpg', '.png', '.jpeg')))
+    return [os.path.join(dirpath, f) for f in names]
+
+
+class ClevrChangeDataset:
+    """A CLEVR-Change root: ``images/`` (the originals), ``nsc_images/``
+    and ``sc_images/`` (the non-semantic and semantic change renders, in
+    the same sorted order) (``clevr_change.py:19-55``)."""
+
+    def __init__(self, dataset_root: str,
+                 image_size: Tuple[int, int] = (320, 240)):
+        self.image_size = image_size
+        self.filepaths = _list_images(os.path.join(dataset_root, 'images'))
+        self.nsc_filepaths = _list_images(
+            os.path.join(dataset_root, 'nsc_images'))
+        self.sc_filepaths = _list_images(
+            os.path.join(dataset_root, 'sc_images'))
+        if not self.filepaths:
+            raise FileNotFoundError(dataset_root)
+
+    def __len__(self) -> int:
+        return len(self.filepaths)
+
+    def load_image(self, idx: int) -> np.ndarray:
+        """[0, N) originals, [N, 2N) nsc renders, [2N, 3N) sc renders
+        (ref: clevr_change/dataset.py:74-81)."""
+        n = len(self)
+        if idx < n:
+            path = self.filepaths[idx]
+        elif idx < 2 * n:
+            path = self.nsc_filepaths[idx - n]
+        else:
+            path = self.sc_filepaths[idx - 2 * n]
+        return fit_image(_decode_image(path), self.image_size)
 
 
 class ClevrChangePairSampler:

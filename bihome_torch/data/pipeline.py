@@ -13,8 +13,9 @@ not depend on how samples are grouped into batches) and ``generate_pairs``
 (the training draws, one generator per batch; corners, deltas and
 photometric draws can be injected), and ``ChangeAwarePrep`` (CLEVR-Change:
 real (original, changed) pairs, no synthetic homography). The dict-stage
-``PhotometricDistort``, host-side prep, blobs and emitting ``image_2`` are
-not ported yet and raise.
+``PhotometricDistort``, the blob occlusion and emitting ``image_2`` are
+not ported yet and raise; the host-side prep transforms run on the host
+(:mod:`bihome_torch.data.transforms_host`), before the pairs are made.
 """
 
 from __future__ import annotations
@@ -106,8 +107,8 @@ def check_ported(spec: PairSpec) -> None:
     missing = []
     if spec.photometric_full_keys:
         missing.append('PhotometricDistort')
-    if spec.host_prep:
-        missing.append('host-side prep transforms')
+    if spec.blob_porosity > 0:
+        missing.append('blob occlusion')
     unported_images = sorted(set(spec.emit_images) - {'image_1'})
     if unported_images:
         missing.append(f'emitting {unported_images}')

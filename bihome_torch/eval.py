@@ -3,10 +3,15 @@
 
     python -m bihome_torch.eval --config_file X.yaml [--batch_size N]
         [--steps N] [--synthetic] [--image_size W H] [--set K=V]
-        [--torch_ckpt F] [--skip_timing] [--device cuda|cpu]
+        [--ckpt DIR_OR_FILE | --torch_ckpt F] [--log F] [--skip_timing]
+        [--device cuda|cpu]
 
 Prints ``Number of params``, ``Mean mace`` and ``Mean model time`` (ms per
-batch) like the JAX entry point. Protocol: TEST_SAMPLES_PER_EPOCH samples
+batch) like the JAX entry point. The images come from DATA.TEST_SPLIT
+(``datasets.make_dataset``: an image or ``.npy`` folder, a ``.bhpk``
+pack, a CIFAR-10 pickle directory, the synthetic images when the path
+does not exist) with the config's host-side prep, or with ``--synthetic``
+from the synthetic images. Protocol: TEST_SAMPLES_PER_EPOCH samples
 drawn with replacement by the seeded epoch sampler, each sample's pair
 synthesized from its own generator seeded by (TEST_SEED, ordinal) — so MACE
 does not depend on ``--batch_size`` — and DSAC or RANSAC draws seeded by
@@ -16,9 +21,13 @@ draws on the device, from a generator there. Timing covers predict only
 ended by ``torch.cuda.synchronize()``; the first iteration is dropped.
 CLEVR-Change pairs carry no ground-truth homography and are refused.
 
-Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
-raises rather than falling back. Without ``--torch_ckpt`` the weights are
-initialised from a fixed seed (no trained checkpoint ships with the repo).
+Weights: ``--ckpt`` loads a port checkpoint (a ``model_NNNNNN.pth`` or
+the newest one in a log directory, ``training/checkpoint.py``);
+``--torch_ckpt`` a reference ``.pth``; with neither, the newest port
+checkpoint in LOGGING.DIR (``eval.py:154-159``), else a fixed seed's init.
+``--log F`` appends one ``iter,mace`` line per sample (``eval.py:
+243-247``). Runs on ``cuda`` unless ``--device cpu`` is given; without a
+card it raises rather than falling back.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from bihome_torch import config as config_lib
 from bihome_torch.data import datasets, pipeline
 from bihome_torch.device import resolve_device
 from bihome_torch.models import backbones, weights
+from bihome_torch.training import checkpoint
 
 INIT_SEED = 0
 
@@ -41,9 +51,14 @@ INIT_SEED = 0
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--config_file', type=str, required=True)
+    parser.add_argument('--ckpt', type=str, default='',
+                        help='port checkpoint: a model_NNNNNN.pth or a log '
+                             'directory (its newest)')
     parser.add_argument('--torch_ckpt', type=str, default='',
                         help='reference .pth: a backbone state dict or a '
                              'training checkpoint {"model": {"0.*": ...}}')
+    parser.add_argument('--log', type=str, default='',
+                        help='append one "iter,mace" line per sample')
     parser.add_argument('--batch_size', type=int, default=1)
     parser.add_argument('--synthetic', action='store_true')
     parser.add_argument('--skip_timing', action='store_true')
@@ -81,8 +96,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the eval; returns the printed numbers plus the built model and
     the generated batches (for callers that check them further)."""
     args = parse_args(argv)
-    if not args.synthetic:
-        raise ValueError('not ported yet: real datasets; pass --synthetic')
     device = resolve_device(args.device)
     if device.type == 'cuda':
         # Full fp32, as the JAX reference computes on CPU; TF32 would keep
@@ -113,9 +126,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     else:
         backbones.init_weights(model.backbone,
                                torch.Generator().manual_seed(INIT_SEED))
+        log_dir = config['LOGGING']['DIR']
+        if args.ckpt or checkpoint.latest_checkpoint(log_dir):
+            path = args.ckpt or log_dir
+            step = checkpoint.load_weights_only(path, model)
+            print(f'Loaded checkpoint step {step} from {path}')
     model = model.to(device).eval()
 
-    ds = datasets.SyntheticDataset(image_size=tuple(args.image_size), seed=1)
+    image_size = tuple(args.image_size)
+    data_cfg = config['DATA']
+    ds = (datasets.SyntheticDataset(image_size=image_size, seed=1)
+          if args.synthetic else
+          datasets.make_dataset(data_cfg.get('TEST_SPLIT', ''),
+                                image_size=image_size, synthetic_seed=1,
+                                dataset_name=data_cfg.get('NAME', 'coco')))
+    if built.test_pair_spec.host_prep:
+        ds = datasets.HostPrepDataset(ds, built.test_pair_spec.host_prep,
+                                      random_seed=sampler_cfg.get('TEST_SEED'))
+        ds.load_image(0)        # JAX's init sample draws once
+    print(f'Test split: {datasets.describe(ds)} ({len(ds)})'
+          + ('' if args.synthetic else
+             f' from {data_cfg.get("TEST_SPLIT", "")}'))
     indices = datasets.EpochSampler(len(ds), n_eval,
                                     random_seed=test_seed).epoch_indices()
     uniq, inv = np.unique(indices, return_inverse=True)
@@ -146,6 +177,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     timed = times[1:] if len(times) > 1 else times
     per_batch_ms = float(np.mean(timed)) * 1000.0
 
+    if args.log:
+        with open(args.log, 'a') as f:
+            for it, m in enumerate(maces_np):
+                f.write(f'{it},{float(m)}\n')
     # The predict model: the backbone (the frozen loss extractor is not
     # part of predict).
     num_params = sum(p.numel() for p in model.backbone.parameters())

@@ -12,6 +12,7 @@ auxiliary extractor) are not given to the optimizer and never change.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Iterable, List, Sequence
 
 import torch
@@ -76,3 +77,29 @@ class Optimizer:
 
     def state_dict(self) -> Dict:
         return {'adam': self.adam.state_dict(), 'count': self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore the Adam moments and ``count`` (the MultiStepLR
+        position: the next update is number ``count``). The moments land on
+        each parameter's device. Raises ValueError, and changes nothing,
+        when the saved state does not fit the parameters (another count or
+        shape): the trainable set changed since it was written."""
+        adam = state['adam']
+        saved = [i for g in adam['param_groups'] for i in g['params']]
+        if len(saved) != len(self.params):
+            raise ValueError(f'optimizer state holds {len(saved)} '
+                             f'parameters, the model trains '
+                             f'{len(self.params)}')
+        for i, p in zip(saved, self.params):
+            moments = adam['state'].get(i, {})
+            for name in ('exp_avg', 'exp_avg_sq'):
+                if name in moments and moments[name].shape != p.shape:
+                    raise ValueError(
+                        f'optimizer state of parameter {i}: {name} '
+                        f'{tuple(moments[name].shape)}, the parameter '
+                        f'{tuple(p.shape)}')
+        # torch's Adam moves the moments to the parameter's device (its
+        # 'step' counters stay on the CPU) but keeps tensors that already
+        # lie there: copied, so that two optimizers never share them.
+        self.adam.load_state_dict(copy.deepcopy(adam))
+        self.count = int(state['count'])

@@ -89,8 +89,32 @@
    counted); the train entry point for CLEVR-Change zhang (batch 64,
    synthetic 320x240 pairs: exactly K3 and K4) with the one-step check at
    batch CLEVR_STEP_BATCH and K4's du negated.
-13. Prints each phase's wall time, one {"pds_distortion": ...,
-   "train_runs": [...], "zeng_orig_eval": {...}, "phase_s": {...}} line,
+13. The file-fed slice. Worker processes, started before anything else,
+   write FILE_IMAGES JPEGs at 640x480 (the synthetic generator's images,
+   quality 90) into a temporary directory while the kernels build;
+   then ``python -m bihome_torch.preprocess_offline --pack_only`` packs
+   them at 320x240 (both times printed). pds-coco zeng-biHomE trains at
+   batch 64 for PDS_STEPS steps from the JPEG folder and from the pack
+   (streamed: decoded by the loader's producer thread, or gathered by the
+   native reader, which must be the one in use; copied to the card through
+   pinned memory), counted (exactly K1-K4) and checked as in step 5; each
+   prints ms per step, pairs/s, peak memory and the loop's wait for its
+   batch, and PDS_STEPS more steps of each, and of the device-pool run of
+   step 9, are profiled for the device's idle share. Resume on the card
+   from the pack (``run_resume``): B, one epoch then resumed to two in
+   its LOGGING.DIR, must start at step RESUME_STEPS with optimizer count
+   RESUME_STEPS and match A's two epochs without a stop within
+   RESUME_REL_L2 relative L2 (epoch-1 losses, each backbone tensor; with
+   cuDNN's deterministic algorithms if the default ones miss it). The
+   S-COCO zeng-biHomE eval reads the JPEG folder with ``--ckpt`` on B's
+   directory and ``--log``: K1 and K3 only, finite MACE, delta_hat against
+   the CPU plain path (first 4 pairs) within 1e-2 px, one log line per
+   sample. Every other eval phase runs with an empty LOGGING.DIR, so its
+   weights are the seeded init.
+14. Prints each phase's wall time, one {"pds_distortion": ...,
+   "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
+   "file_runs": [...], "resume": [...], "file_eval_mace": x,
+   "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
    and by path; K1 and K2 with their wide kernels' figures and launches
    under "at_r50_head" and at zeng-orig's shape under "at_zeng_orig", K3
@@ -102,10 +126,14 @@ Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
 """
 
+import concurrent.futures
 import contextlib
 import copy
 import itertools
 import json
+import math
+import multiprocessing
+import os
 import subprocess
 import sys
 import tempfile
@@ -196,6 +224,21 @@ ZENG_ORIG_KERNELS = ('fused_pf_head_fwd', 'fused_pf_head_bwd',
                      'bilinear_sample_batched')
 CLEVR = 'config/clevr-change/zhang-clevr-nsc-lr-1e-2.yaml'
 CLEVR_STEP_BATCH = 2
+# The file-fed slice: FILE_IMAGES JPEGs at COCO's usual 640x480 (FILE_HW),
+# quality JPEG_QUALITY, the synthetic generator's images (seeded by
+# FILE_SEED), written by worker processes beside the kernel build, and a
+# 320x240 pack of them by preprocess_offline. pds-coco zeng-biHomE
+# (FILE_CONFIG) trains from each at batch 64, streamed; it resumes on the
+# card from the pack (RESUME_STEPS steps an epoch, the resumed run held
+# to the uninterrupted one within RESUME_REL_L2 relative L2 per tensor);
+# the S-COCO eval reads the JPEG folder with the resumed checkpoint.
+FILE_IMAGES = 512
+FILE_HW = (480, 640)
+FILE_SEED = 11
+JPEG_QUALITY = 90
+FILE_CONFIG = 'config/pds-coco/zeng-bihome-lr-1e-3.yaml'
+RESUME_STEPS = 2
+RESUME_REL_L2 = 1e-4
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -379,21 +422,26 @@ def read_counts(counters):
 
 def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
                   expect=('bilinear_sample_batched', 'fused_pf_head_fwd'),
-                  sets=(), check_pairs=None):
-    """The port's eval entry point on the card (config overrides ``sets``),
-    counted (the kernels in ``expect`` must launch, the others in
-    ``counters`` must not); then one batch against the plain path on the
-    CPU with the same weights and injected DSAC draws (heads without DSAC
-    ignore them): the whole batch, or its first ``check_pairs`` pairs
-    (eval-mode BN is per pair)."""
+                  sets=(), check_pairs=None, synthetic=True, extra=()):
+    """The port's eval entry point on the card (config overrides ``sets``,
+    more arguments ``extra``; the synthetic images unless ``synthetic`` is
+    off; LOGGING.DIR an empty directory, so the weights are the seeded
+    init unless ``extra`` names a checkpoint), counted (the kernels in
+    ``expect`` must launch, the others in ``counters`` must not); then one
+    batch against the plain path on the CPU with the same weights and
+    injected DSAC draws (heads without DSAC ignore them): the whole batch,
+    or its first ``check_pairs`` pairs (eval-mode BN is per pair)."""
     from bihome_torch import eval as teval
 
     reset_counts(counters)
-    args = ['--config_file', config, '--synthetic', '--batch_size',
-            str(batch_size), '--steps', str(steps), '--device', 'cuda']
+    args = ['--config_file', config, '--batch_size', str(batch_size),
+            '--steps', str(steps), '--device', 'cuda', *extra]
+    if synthetic:
+        args.append('--synthetic')
     for item in sets:
         args += ['--set', item]
-    result = teval.main(args)
+    with tempfile.TemporaryDirectory() as empty:
+        result = teval.main(args + ['--set', f'LOGGING.DIR={empty}'])
     launches = read_counts(counters)
     print(f'launches on the eval path of {config} (batch {batch_size}, '
           f'{steps} steps): {launches}')
@@ -441,15 +489,18 @@ def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
     hypothesis and inlier set match must agree within 1e-2 px; those whose
     winner or its inlier count differ are counted and printed (a
     degenerate hypothesis, its pole on the field, can count a few points
-    apart in two roundings: tests/test_torch_ransac.py)."""
+    apart in two roundings: tests/test_torch_ransac.py). LOGGING.DIR is an
+    empty directory: the weights are the seeded init."""
     from bihome_torch import eval as teval
     from bihome_torch.heads import ransac
 
     reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
-    result = teval.main(['--config_file', config, '--synthetic',
-                         '--batch_size', str(batch_size), '--steps',
-                         str(steps), '--device', 'cuda'])
+    with tempfile.TemporaryDirectory() as empty:
+        result = teval.main(['--config_file', config, '--synthetic',
+                             '--batch_size', str(batch_size), '--steps',
+                             str(steps), '--device', 'cuda', '--set',
+                             f'LOGGING.DIR={empty}'])
     launches = read_counts(counters)
     eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f'launches on the eval path of {config} (batch {batch_size}, '
@@ -1059,18 +1110,22 @@ def check_pds(dev, gen):
 
 
 def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
-                   steps=STEPS, expect=ZENG_KERNELS, sets=()):
+                   steps=STEPS, expect=ZENG_KERNELS, sets=(), synthetic=True):
     """The port's train entry point on the card (config overrides
-    ``sets``), counted: the kernels in ``expect`` must launch and the
-    others in ``counters`` must not."""
+    ``sets``; the synthetic pool on the device unless ``synthetic`` is
+    off, then the splits the config or ``sets`` name, streamed), counted:
+    the kernels in ``expect`` must launch and the others in ``counters``
+    must not."""
     from bihome_torch import train
 
     reset_counts(counters)
     torch.cuda.reset_peak_memory_stats()
-    args = ['--config_file', config, '--synthetic', '--batch_size',
-            str(batch), '--steps', str(steps), '--epochs', '1', '--device',
-            'cuda', '--set', 'MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz',
-            '--set', f'LOGGING.DIR={log_dir}']
+    args = ['--config_file', config, '--batch_size', str(batch), '--steps',
+            str(steps), '--epochs', '1', '--device', 'cuda', '--set',
+            'MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz', '--set',
+            f'LOGGING.DIR={log_dir}']
+    if synthetic:
+        args.append('--synthetic')
     for item in sets:
         args += ['--set', item]
     result = train.main(args)
@@ -1104,14 +1159,20 @@ def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
         raise AssertionError('training did not move the backbone, or moved '
                              'the frozen extractor')
     step_ms = result['median_step_ms']
+    wait_ms = result['median_wait_ms']
     pairs_per_s = batch / (step_ms / 1e3)
     print(f'train {config}: {step_ms:.2f} ms per step (median of steps '
           f'2-{steps}, each ended by a synchronize; all: '
           f'{[round(t, 2) for t in result["step_ms"]]}), pairs/s '
-          f'{pairs_per_s:.1f}, peak memory allocated {peak_gb:.2f} GB')
+          f'{pairs_per_s:.1f}, peak memory allocated {peak_gb:.2f} GB; the '
+          f'loop waited {wait_ms:.2f} ms per step for its batch (median of '
+          f'steps 2-{steps}; all: {[round(t, 2) for t in result["wait_ms"]]})'
+          f', {batch / ((step_ms + wait_ms) / 1e3):.1f} pairs/s with the '
+          f'wait')
     result['summary'] = {'config': config, 'sets': list(sets),
-                         'batch': batch,
+                         'batch': batch, 'feed': feed_name(result),
                          'ms_per_step': step_ms, 'pairs_per_s': pairs_per_s,
+                         'wait_ms_per_step': wait_ms,
                          'peak_gb': peak_gb, 'launches': launches}
     return launches, result
 
@@ -1282,11 +1343,235 @@ def compare_train_step(result, batch=4, faults=FAULTS):
     return readings
 
 
+def feed_name(result):
+    """'pool', or the dataset class a streamed train run read."""
+    from bihome_torch.data import datasets
+
+    feed = result['train_feed']
+    if not hasattr(feed, 'loader'):
+        return 'pool'
+    return datasets.describe(feed.loader.dataset)
+
+
+def _write_jpeg_chunk(root, start, count):
+    """JPEGs ``start`` .. ``start + count - 1`` of the file-fed phases:
+    the synthetic generator's images at 640x480 (seeded by FILE_SEED +
+    start), quality JPEG_QUALITY. Runs in a worker process; returns its
+    seconds."""
+    from PIL import Image
+
+    from bihome_torch.data import synthetic
+
+    begin = time.perf_counter()
+    pool = synthetic.make_image_pool(count, FILE_HW[0], FILE_HW[1],
+                                     seed=FILE_SEED + start)
+    for i, img in enumerate(pool):
+        Image.fromarray(img).save(os.path.join(root, f'{start + i:05d}.jpg'),
+                                  quality=JPEG_QUALITY)
+    return time.perf_counter() - begin
+
+
+def finish_file_data(jobs, jpeg_dir, pack_dir):
+    """Wait for the JPEG writers, then write the pack with the port's
+    preprocess_offline (--pack_only, 320x240); print the times."""
+    chunk_s = [job.result() for job in jobs]
+    names = sorted(os.listdir(jpeg_dir))
+    if len(names) != FILE_IMAGES:
+        raise AssertionError(f'{len(names)} JPEGs written, not '
+                             f'{FILE_IMAGES}')
+    jpeg_mb = sum(os.path.getsize(os.path.join(jpeg_dir, n))
+                  for n in names) / 1e6
+    begin = time.perf_counter()
+    subprocess.run([sys.executable, '-m', 'bihome_torch.preprocess_offline',
+                    '--input_dir', jpeg_dir, '--output_dir', pack_dir,
+                    '--pack_only'], check=True, timeout=600)
+    pack_s = time.perf_counter() - begin
+    pack_mb = os.path.getsize(os.path.join(pack_dir, 'pack.bhpk')) / 1e6
+    print(f'file data: {FILE_IMAGES} JPEGs {FILE_HW[1]}x{FILE_HW[0]} '
+          f'quality {JPEG_QUALITY} ({jpeg_mb:.1f} MB) written by '
+          f'{len(jobs)} processes, {sum(chunk_s):.1f} process-seconds '
+          f'(chunks of {FILE_IMAGES // len(jobs)}: {min(chunk_s):.2f}-'
+          f'{max(chunk_s):.2f} s, beside the kernel build); the 320x240 pack '
+          f'({pack_mb:.1f} MB) by preprocess_offline --pack_only in '
+          f'{pack_s:.2f} s (one process, decode and resize included)')
+    return {'jpegs': FILE_IMAGES, 'jpeg_mb': jpeg_mb,
+            'jpeg_process_s': sum(chunk_s), 'jpeg_chunk_s_max': max(chunk_s),
+            'pack_mb': pack_mb, 'pack_s': pack_s}
+
+
+def profile_feed(result, steps=PDS_STEPS):
+    """The device's idle share of ``steps`` more training steps of a
+    finished train run (its model, optimizer and split; a fresh feed of
+    ``steps`` + 1 batches, the first step outside the window), each ended
+    by a synchronize as in the train loop, under torch.profiler: device
+    kernel ms per step and 1 - device / host window."""
+    from bihome_torch import train
+    from bihome_torch.training import trainer
+
+    built, args = result['built'], result['args']
+    device = next(result['model'].parameters()).device
+    feed, _ = train.make_feeds(built.config, built, args, device,
+                               result['batch_size'], steps + 1, 0, 0, 0)
+    gen, dsac_gen = (torch.Generator().manual_seed(s) for s in (0, 1))
+    waits = []
+    batches = train.timed(feed.epoch(), waits)
+
+    def step(images):
+        trainer.train_step(result['model'], result['optimizer'], images,
+                           built.pair_spec, built.loss_name, gen, dsac_gen)
+        torch.cuda.synchronize()
+
+    step(next(batches))
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        begin = time.perf_counter()
+        for images in batches:
+            step(images)
+        wall_ms = (time.perf_counter() - begin) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    out = {'host_ms_per_step': wall_ms / steps,
+           'device_ms_per_step': device_ms / steps,
+           'launches_per_step': sum(e.count for e in kernels) / steps,
+           'idle_share': 1 - device_ms / wall_ms,
+           'wait_ms_per_step': sum(waits[1:]) / steps}
+    print(f'profiled {steps} steps of {feed_name(result)}: host '
+          f'{out["host_ms_per_step"]:.2f} ms, device kernels '
+          f'{out["device_ms_per_step"]:.2f} ms in '
+          f'{out["launches_per_step"]:.0f} launches, waits '
+          f'{out["wait_ms_per_step"]:.2f} ms per step; device idle share '
+          f'{out["idle_share"]:.3f}')
+    return out
+
+
+def _rel_l2(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    norm = float(torch.linalg.vector_norm(want))
+    return float(torch.linalg.vector_norm(got - want)) / max(norm, 1e-30)
+
+
+def run_resume(counters, pack_dir, steps=RESUME_STEPS):
+    """Resume on the card (FILE_CONFIG at batch 64 from the pack): run A
+    trains 2 epochs of ``steps`` steps; run B one epoch, then the same
+    command with --epochs 2 in its LOGGING.DIR. B must resume at epoch 1,
+    step ``steps``, optimizer count ``steps``; its losses in epoch 1 and
+    its final backbone tensors must match A's within RESUME_REL_L2
+    relative L2 (each tensor). When they do not, both runs are made again
+    with cuDNN's deterministic algorithms (this phase only) and those
+    must hold. Counted: exactly K1-K4 over the three runs. Returns the
+    launches, B's log directory (kept in ``pack_dir``'s parent) and the
+    readings."""
+    from bihome_torch import train
+
+    root = os.path.dirname(pack_dir)
+    readings = []
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        reset_counts(counters)
+        dirs = [os.path.join(root, f'resume_{name}_{int(deterministic)}')
+                for name in ('a', 'b')]
+
+        def run(log_dir, epochs):
+            return train.main([
+                '--config_file', FILE_CONFIG, '--batch_size', str(BATCH),
+                '--steps', str(steps), '--epochs', str(epochs), '--device',
+                'cuda', '--set', 'MODEL.HEAD.AUXILIARY_RESNET_PATH='
+                'aux_clfbh.npz', '--set', f'LOGGING.DIR={log_dir}',
+                '--set', f'DATA.TRAIN_SPLIT={pack_dir}',
+                '--set', f'DATA.TEST_SPLIT={pack_dir}'])
+
+        whole = run(dirs[0], 2)
+        first = run(dirs[1], 1)
+        resumed = run(dirs[1], 2)
+        launches = read_counts(counters)
+        saved = torch.load(first['checkpoint'], weights_only=True)
+        if not (resumed['start_step'] == steps
+                and saved['optimizer']['count'] == steps
+                and resumed['optimizer'].count == 2 * steps
+                and first['losses'].shape[0] == steps):
+            raise AssertionError('run B did not resume at step '
+                                 f'{steps}: {resumed["start_step"]}')
+        loss_err = _rel_l2(resumed['losses'], whole['losses'][steps:])
+        want = whole['model'].backbone.state_dict()
+        errs = {k: _rel_l2(v, want[k])
+                for k, v in resumed['model'].backbone.state_dict().items()
+                if v.is_floating_point()}
+        worst = max(errs, key=errs.get)
+        bitwise = (torch.equal(resumed['losses'], whole['losses'][steps:])
+                   and all(torch.equal(v, want[k]) for k, v in
+                           resumed['model'].backbone.state_dict().items()))
+        # Epoch 0 is the same computation in A and B, no resume between:
+        # how far two runs of it stray shows the algorithms' own spread.
+        epoch0_err = _rel_l2(first['losses'], whole['losses'][:steps])
+        reading = {'cudnn_deterministic': deterministic,
+                   'epoch0_loss_rel_l2': epoch0_err,
+                   'losses_a_epoch1': whole['losses'][steps:].tolist(),
+                   'losses_b_epoch1': resumed['losses'].tolist(),
+                   'loss_rel_l2': loss_err, 'worst_tensor': worst,
+                   'worst_rel_l2': errs[worst], 'bitwise_equal': bitwise}
+        readings.append(reading)
+        print(f'resume (cudnn.deterministic={deterministic}): B resumed at '
+              f'epoch 1, step {resumed["start_step"]}, optimizer count '
+              f'{saved["optimizer"]["count"]}; epoch-1 losses A '
+              f'{reading["losses_a_epoch1"]} B {reading["losses_b_epoch1"]} '
+              f'(relative L2 {loss_err:.3e}); worst backbone tensor {worst} '
+              f'{errs[worst]:.3e} (limit {RESUME_REL_L2}); bitwise equal: '
+              f'{bitwise}; epoch-0 losses of A and B, no resume between, '
+              f'{epoch0_err:.3e} apart')
+        if loss_err <= RESUME_REL_L2 and errs[worst] <= RESUME_REL_L2:
+            break
+    torch.backends.cudnn.deterministic = False
+    if not (loss_err <= RESUME_REL_L2 and errs[worst] <= RESUME_REL_L2):
+        raise AssertionError(f'resumed run strays from the uninterrupted '
+                             f'one: {readings}')
+    for name, count in launches.items():
+        if (count > 0) != (name in ZENG_KERNELS):
+            raise AssertionError(f'{name} launched {count} times on the '
+                                 'resume path')
+    return launches, dirs[1], readings
+
+
+def check_eval_log(log_path, n_samples):
+    lines = open(log_path).read().splitlines()
+    iters = [int(line.split(',')[0]) for line in lines]
+    maces = [float(line.split(',')[1]) for line in lines]
+    print(f'eval --log: {len(lines)} lines for {n_samples} samples')
+    if not (iters == list(range(n_samples))
+            and all(math.isfinite(m) for m in maces)):
+        raise AssertionError(f'eval --log wrote {len(lines)} lines, not '
+                             f'{n_samples}')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing run', file=sys.stderr)
         return 2
+    with contextlib.ExitStack() as stack:
+        return run(stack)
+
+
+def run(stack):
+    """Every phase; ``stack`` holds the file data's temporary directory
+    and its writer processes, which it removes and stops at the end."""
     from bihome_torch.ops import _cuda, fused_head, warp
+
+    # The file data of the file-fed phases, written by worker processes
+    # (forked before this process touches the card) while the kernels
+    # build and the phases before run.
+    data_root = stack.enter_context(tempfile.TemporaryDirectory(
+        prefix='bihome_files_'))
+    jpeg_dir, pack_dir = (os.path.join(data_root, name)
+                          for name in ('jpeg', 'pack'))
+    os.makedirs(jpeg_dir)
+    workers = min(8, os.cpu_count() or 1)
+    writer = stack.enter_context(concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context('fork')))
+    chunk = -(-FILE_IMAGES // workers)
+    jpeg_jobs = [writer.submit(_write_jpeg_chunk, jpeg_dir, start,
+                               min(chunk, FILE_IMAGES - start))
+                 for start in range(0, FILE_IMAGES, chunk)]
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -1367,6 +1652,10 @@ def main():
             paths[f'train {config}'], result = run_train_path(
                 counters, log_dir, config, batch, PDS_STEPS, expect)
         runs.append(result['summary'])
+        if config == FILE_CONFIG:
+            # The device-pool row beside the file-fed runs below.
+            file_runs = [dict(result['summary'],
+                              profile=profile_feed(result))]
         if config in STEP_CHECKS:
             compare_train_step(result, STEP_CHECK_BATCH, ('K4 du negated',))
         del result
@@ -1439,6 +1728,54 @@ def main():
     del result
     done('CLEVR train, step check')
 
+    # The file-fed slice: the JPEG folder and its pack; pds-coco
+    # zeng-biHomE trained from each (streamed, counted as the other train
+    # paths, profiled for the idle share beside the device-pool run of
+    # the PDS slice); resume on the card from the pack; the S-COCO eval
+    # from the JPEG folder with the resumed checkpoint and --log.
+    file_data = finish_file_data(jpeg_jobs, jpeg_dir, pack_dir)
+    done('file data')
+    from bihome_torch.data import datasets
+    from bihome_torch.data.pack import PackDataset
+    for name, split in (('JPEG folder', jpeg_dir), ('pack', pack_dir)):
+        sets = (f'DATA.TRAIN_SPLIT={split}', f'DATA.TEST_SPLIT={split}')
+        with tempfile.TemporaryDirectory() as log_dir:
+            paths[f'train {FILE_CONFIG} from the {name}'], result = (
+                run_train_path(counters, log_dir, FILE_CONFIG, BATCH,
+                               PDS_STEPS, ZENG_KERNELS, sets,
+                               synthetic=False))
+        dataset = result['train_feed'].loader.dataset
+        want = PackDataset if name == 'pack' else datasets.ImageFolderDataset
+        native = getattr(dataset, 'native', None)
+        if not (isinstance(dataset, want) and native in (None, True)):
+            raise AssertionError(f'the {name} run read {feed_name(result)}'
+                                 f' (native reader: {native})')
+        file_runs.append(dict(result['summary'],
+                              profile=profile_feed(result)))
+        del result
+    done('file-fed train')
+    paths[f'resume {FILE_CONFIG} from the pack'], resume_dir, resume = (
+        run_resume(counters, pack_dir))
+    done('resume')
+    log_path = os.path.join(data_root, 'mace.log')
+    paths[f'eval {CONFIG} from the JPEG folder'], eval_result, _ = (
+        run_eval_path(counters, CONFIG, BATCH, PDS_STEPS,
+                      sets=(f'DATA.TEST_SPLIT={jpeg_dir}',), check_pairs=4,
+                      synthetic=False,
+                      extra=('--ckpt', resume_dir, '--log', log_path)))
+    check_eval_log(log_path, BATCH * PDS_STEPS)
+    done('file-fed eval')
+    for row in file_runs:
+        prof = row['profile']
+        print(f'{row["config"]} at {row["batch"]} from {row["feed"]}: '
+              f'{row["ms_per_step"]:.2f} ms per step ({row["pairs_per_s"]:.1f}'
+              f' pairs/s), waits {row["wait_ms_per_step"]:.2f} ms per step, '
+              f'peak {row["peak_gb"]:.2f} GB; profiled: host '
+              f'{prof["host_ms_per_step"]:.2f} ms, device '
+              f'{prof["device_ms_per_step"]:.2f} ms, waits '
+              f'{prof["wait_ms_per_step"]:.2f} ms per step, idle share '
+              f'{prof["idle_share"]:.3f}')
+
     # Launches by path; an entry at one shape counts the paths that run it.
     shape_paths = {'at_zeng_orig': [p for p in paths if 'zeng-orig' in p],
                    'at_clevr': [p for p in paths if 'clevr' in p]}
@@ -1456,7 +1793,10 @@ def main():
     print(f'chip_smoke: all checks passed in '
           f'{time.perf_counter() - begin:.1f} s')
     print(json.dumps({'pds_distortion': pds_check, 'train_runs': runs,
-                      'zeng_orig_eval': zeng_orig_eval, 'phase_s': phase_s}))
+                      'zeng_orig_eval': zeng_orig_eval,
+                      'file_data': file_data, 'file_runs': file_runs,
+                      'resume': resume, 'file_eval_mace':
+                      eval_result['mean_mace'], 'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -57,7 +57,8 @@ print(len(names))
 
 
 # The modules of the later slices (PDS / ResNet34; zeng-orig's RANSAC and
-# CLEVR-Change), each checked by name so that a rename cannot drop it from
+# CLEVR-Change; the host data path, checkpoints and the torchvision
+# grafts), each checked by name so that a rename cannot drop it from
 # the checks above unnoticed.
 SLICE_MODULES = ('bihome_torch/data/photometric.py',
                  'bihome_torch/ops/color.py',
@@ -68,7 +69,16 @@ SLICE_MODULES = ('bihome_torch/data/photometric.py',
                  'bihome_torch/training/losses.py',
                  'bihome_torch/heads/ransac.py',
                  'bihome_torch/data/clevr_change.py',
-                 'bihome_torch/train.py')
+                 'bihome_torch/train.py',
+                 'bihome_torch/eval.py',
+                 'bihome_torch/data/datasets.py',
+                 'bihome_torch/data/transforms_host.py',
+                 'bihome_torch/data/cifar10.py',
+                 'bihome_torch/data/pack.py',
+                 'bihome_torch/training/checkpoint.py',
+                 'bihome_torch/training/train_state.py',
+                 'bihome_torch/models/torchvision_port.py',
+                 'bihome_torch/preprocess_offline.py')
 
 
 @pytest.mark.parametrize('rel', SLICE_MODULES)
