@@ -5,7 +5,8 @@ Reads the same reference-schema YAMLs. ``build_model`` assembles the
 backbone (``build_backbone``: Rethinking of either flavour, ResNet34 or
 ContentAware) with its head (NoOpHead, PhotometricHead, PerceptualHead or
 TripletHead) and the pair specs, which
-emit the full ``image_1`` where the PhotometricHead reads it;
+emit the full ``image_1`` where the PhotometricHead reads it, at the
+compute dtype of MODEL.DTYPE (float32 or bfloat16);
 ``solver_kwargs`` reads the optimizer settings. Other families raise
 ``ValueError('not ported yet: ...')``.
 """
@@ -15,11 +16,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
+import torch
 import yaml
 
 from bihome_torch.data.pipeline import PairSpec, check_ported
 from bihome_torch.heads.assembled import AssembledModel, needs_dsac
 from bihome_torch.heads.config import HeadConfig
+from bihome_torch.models import layers
 from bihome_torch.models.backbones import build_backbone
 
 
@@ -73,21 +76,76 @@ class BuiltModel:
     test_pair_spec: PairSpec
     loss_name: str
     config: Dict[str, Any]
+    dtype: torch.dtype = torch.float32
 
     @property
     def needs_dsac_rng(self) -> bool:
         return needs_dsac(self.head_cfg)
 
 
-def build_model(config: Dict[str, Any]) -> BuiltModel:
-    """Assemble the model (float32; weights from the module init — callers
-    seed or load them) and the train/test pair specs."""
+def model_family(model_cfg: Dict[str, Any], head_cfg: HeadConfig) -> str:
+    """The config family of a MODEL section, by its backbone and head:
+    'zeng-biHomE', 'zeng-orig', 'detone/nguyen-orig', 'detone-biHomE',
+    'zhang-orig', 'zhang-biHomE', the ResNet50-flavour zeng, or the
+    backbone and head names of another combination."""
+    backbone = model_cfg['BACKBONE']
+    name = backbone['NAME']
+    if name == 'Rethinking':
+        if backbone.get('RESNET_BLOCK', 'ResNet34') != 'ResNet34':
+            return (f"the {backbone['RESNET_BLOCK']}-flavour Rethinking "
+                    'backbone (the Cin 64 PF head)')
+        if head_cfg.name == 'PerceptualHead' and not head_cfg.delta_hat_keys:
+            return 'zeng-biHomE'
+        if head_cfg.name == 'NoOpHead' and head_cfg.target_gen == 'all_points':
+            return 'zeng-orig'
+    if name == 'ResNet34':
+        if head_cfg.name == 'NoOpHead':
+            return 'detone/nguyen-orig'
+        if head_cfg.name == 'PerceptualHead':
+            return 'detone-biHomE'
+    if name == 'ContentAware':
+        if head_cfg.name == 'TripletHead':
+            return 'zhang-orig'
+        if head_cfg.name == 'PerceptualHead':
+            return 'zhang-biHomE'
+    return f'the {name} backbone and the {head_cfg.name}'
+
+
+# The families that run at bfloat16: bench.py's four PDS configs
+# (bench.py:148-167) and their S-COCO twins, each held to JAX at bf16 by a
+# CPU test (tests/test_torch_bf16_*.py).
+BF16_FAMILIES = ('zeng-biHomE', 'detone/nguyen-orig', 'zhang-orig')
+
+
+def check_bf16_ported(family: str, pair_spec: PairSpec) -> None:
+    """Raise for a config this port does not run at bfloat16 yet."""
+    if family not in BF16_FAMILIES:
+        raise ValueError(f'not ported yet: MODEL.DTYPE bfloat16 with '
+                         f'{family}')
+    if pair_spec.change_aware_keys:
+        raise ValueError('not ported yet: MODEL.DTYPE bfloat16 with '
+                         'ChangeAwarePrep pairs (CLEVR-Change)')
+
+
+def build_model(config: Dict[str, Any], dtype=None) -> BuiltModel:
+    """Assemble the model (weights from the module init — callers seed or
+    load them) and the train/test pair specs. Compute dtype: ``dtype``
+    (a torch dtype or its name) if given, else MODEL.DTYPE ('float32' or
+    'bfloat16'), else float32 (``bihome_tpu/config.py:87-96``); the
+    parameters stay float32. At bfloat16 the train spec's warp source is
+    bf16 (``:109``), the test spec's float32."""
     model_cfg = config['MODEL']
-    if model_cfg.get('DTYPE', 'float32') != 'float32':
-        raise ValueError(f"not ported yet: MODEL.DTYPE {model_cfg['DTYPE']}")
+    if dtype is None:
+        dtype = model_cfg.get('DTYPE', 'float32')
+    if isinstance(dtype, str):
+        if dtype not in layers.DTYPES:
+            raise ValueError(f'MODEL.DTYPE must be one of '
+                             f'{sorted(layers.DTYPES)}, got {dtype!r}')
+        dtype = layers.DTYPES[dtype]
     head_cfg = HeadConfig.from_yaml(model_cfg['HEAD'], model_cfg['BACKBONE'])
     backbone = build_backbone(model_cfg['BACKBONE'])
-    model = AssembledModel(backbone, head_cfg)
+    model = layers.set_compute_dtype(AssembledModel(backbone, head_cfg),
+                                     dtype)
     emit = _emit_images_for(head_cfg)
     # The blob occlusion applies to train and test pairs alike
     # (``bihome_tpu/config.py:98-115``); check_ported refuses it until the
@@ -100,6 +158,7 @@ def build_model(config: Dict[str, Any]) -> BuiltModel:
             config['DATA'].get('AUGMENT_BLOBINESS', 1.0))
     pair_spec = dataclasses.replace(
         PairSpec.from_transforms(config['DATA']['TRANSFORMS'], emit),
+        warp_dtype=('bfloat16' if dtype == torch.bfloat16 else 'float32'),
         **blob_kw)
     test_pair_spec = dataclasses.replace(
         PairSpec.from_transforms(config['DATA'].get(
@@ -107,9 +166,12 @@ def build_model(config: Dict[str, Any]) -> BuiltModel:
         **blob_kw)
     check_ported(pair_spec)
     check_ported(test_pair_spec)
+    if dtype == torch.bfloat16:
+        check_bf16_ported(model_family(model_cfg, head_cfg), pair_spec)
     return BuiltModel(model=model, head_cfg=head_cfg, pair_spec=pair_spec,
                       test_pair_spec=test_pair_spec,
-                      loss_name=config['SOLVER']['LOSS'], config=config)
+                      loss_name=config['SOLVER']['LOSS'], config=config,
+                      dtype=dtype)
 
 
 def solver_kwargs(config: Dict[str, Any]) -> Dict[str, Any]:

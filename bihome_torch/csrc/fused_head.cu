@@ -75,6 +75,7 @@
 // mma.sync is ~4x the 3xTF32 bound at this shape; wgmma (asynchronous, at
 // the tensor cores' full rate) is the next step.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -713,6 +714,493 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
   float s = 0.0f;
   for (int b = 0; b < rows; ++b) s += partial[(long long)b * cols + j];
   out[j] = s;
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K2 at bfloat16 (MODEL.DTYPE bfloat16): the narrow head (Cin 16)
+// on a bf16 activation, as the TPU kernels run when the PF head hands them
+// bf16 x (bihome_tpu/models/backbones.py:69-73). Their rounding points are
+// the Pallas kernels' (bihome_tpu/ops/fused_head.py):
+//   * K1 (_fwd_kernel, :93-107, with _run_fwd's bf16 g1t, :201):
+//       out = bf16(b2 + bf16(w2)^T bf16(relu(bf16(g1t) x + c1))),
+//     the products on the tensor cores, the sums in fp32, c1 and b2 fp32;
+//   * K2 (_bwd_kernel, :130-167): mid = bf16(w1t) x, the mask and
+//     e = mask ((gis w2) g) in fp32, dx = bf16(bf16(w1) bf16(e)), and
+//     dw1 = x bf16(e)^T, M0, M1, db2 summed in fp32 (the rank-Cin
+//     corrections outside, as for the fp32 kernels).
+// A product of two bf16 values is exact in fp32, so both match the Pallas
+// kernels up to the order of the fp32 sums.
+//
+// Bounds on the H100 at the zeng training shape (x [128,16,128,128], M =
+// 2,097,152 pixels, Cmid 128; the smoke recomputes them from its inputs):
+//   * K1 reads 67.1 MB of x and writes 8.4 MB: 0.0225 ms of bytes at 3.35
+//     TB/s, against 9.7 GFLOP of tensor work at 989 TFLOP/s (0.010 ms) and
+//     an fp32 epilogue (ReLU, rounding, the Cout = 2 sums) of ~0.015 ms;
+//   * K2 reads x and g and writes dx, 142.6 MB: 0.043 ms of bytes; its
+//     three products are 25.8 GFLOP (0.026 ms on the tensor cores).
+//
+// Design: the fp32 kernels' (above), with mma.sync.m16n8k16 bf16 (K = 16,
+// one step over Cin) in place of three m16n8k8 tf32 passes, and x, g and
+// dx in bf16 (half the bytes):
+//   * K1: persistent blocks of 256 threads walk 256-pixel tiles; a tile's
+//     x [16][256] comes in by cp.async (16-byte copies when HW % 8 == 0)
+//     into a double buffer. Warp w owns pixels 32w..32w+31 (two m-tiles),
+//     whose A fragments are read once per tile as bf16 pairs; the B
+//     fragments of bf16(g1t)^T sit in shared memory in fragment order,
+//     one uint2 per lane and n-tile. The accumulator starts at c1; the
+//     ReLU, the bf16 rounding and the Cout = 2 sums run on it in registers
+//     and fold over the lane quad at the end, as in the fp32 K1;
+//   * K2: persistent blocks of 256 threads, two per SM, walk 64-pixel
+//     tiles (x [16][64] and g [2][64] by cp.async). Warp w owns middle
+//     channels 16w..16w+15 (row r of its tile is channel 16w + r): mid^T
+//     [16 ch, 8 px] = bf16(w1t) (A, registers) x the x tile (B), then the
+//     epilogue on the accumulator; bf16(e) of 16 pixels is at once the B
+//     operand of dw1 [16 k, 8 ch] += x (A, 16 pixels) e^T, and goes to a
+//     shared [pixel][channel] tile, from which warp w forms dx of pixels
+//     8w..8w+7 over all 128 channels (A = bf16(w1), registers). M0, M1
+//     and db2 stay in registers; each block writes one row of sums, added
+//     in block order by reduce_rows_kernel (deterministic).
+
+constexpr int kBFwdSX = kFwdTile + 8;  // row stride of K1's bf16 x tile
+constexpr int kBSX = kTile + 8;        // row stride of K2's bf16 x, g tiles
+constexpr int kBSE = kCmid + 8;        // row stride of K2's bf16 e tile
+constexpr int kBwdBf16SmemBytes =
+    (int)sizeof(uint16_t) *
+    (2 * kCin * kBSX + 2 * kCout * kBSX + kTile * kBSE);
+
+// d = a b + c on the tensor cores: m16n8k16, bf16 operands, fp32
+// accumulator; d may be c.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b, const float* c) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// The bf16 bits of a (round to nearest even, as torch's and XLA's casts).
+__device__ __forceinline__ uint32_t bf16_bits(float a) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(a));
+}
+
+// bf16(lo) in the low half, bf16(hi) in the high half: an mma operand
+// register holding two elements, the lower-indexed one low.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_halves(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+__device__ __forceinline__ float bf16_value(uint16_t h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+__device__ __forceinline__ float round_bf16(float a) {
+  return bf16_value((uint16_t)bf16_bits(a));
+}
+
+__device__ __forceinline__ uint32_t load_pair(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src,
+                                                 int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Pixels s0..s0+kPx-1 of rows 0..kRows-1 of one image's bf16 [kRows][hw]
+// block src into dst (row stride kStride halves); pixels past hw are 0.
+// kVec (HW % 8 == 0, src 16-byte aligned): cp.async of 8 pixels, all in or
+// all out; else plain loads and stores (cp.async has no 2-byte copy).
+template <int kRows, int kPx, int kStride, int kThreads, bool kVec>
+__device__ __forceinline__ void copy_rows_bf16(uint16_t* dst,
+                                               const uint16_t* src,
+                                               const uint16_t* any, int s0,
+                                               int hw) {
+  if (kVec) {
+    for (int i = threadIdx.x; i < kRows * kPx / 8; i += kThreads) {
+      const int k = i / (kPx / 8), q = i % (kPx / 8) * 8;
+      const bool in = s0 + q < hw;
+      cp_async16_bytes(dst + k * kStride + q,
+                       in ? src + (long long)k * hw + s0 + q : any,
+                       in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kPx; i += kThreads) {
+      const int k = i / kPx, p = i % kPx;
+      dst[k * kStride + p] =
+          s0 + p < hw ? src[(long long)k * hw + s0 + p] : (uint16_t)0;
+    }
+  }
+}
+
+// K1 bf16's shared memory in bytes: the double buffer of x; bf16(g1t)^T's
+// B fragments, a uint2 per lane and n-tile; per n-tile and lane quad c1
+// and bf16(w2) of the quad's two channels, in 8 floats (as K1's).
+constexpr size_t fwd_bf16_smem_bytes(int cmid) {
+  return sizeof(uint16_t) * 2 * kCin * kBFwdSX +
+         sizeof(uint2) * (size_t)(cmid / 8) * 32 +
+         sizeof(float) * (size_t)(cmid / 8) * 4 * 8;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_fwd_tile_bf16(const uint16_t* x,
+                                                   uint16_t* sx, int tile,
+                                                   int tpi, int hw) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kFwdTile;
+  copy_rows_bf16<kCin, kFwdTile, kBFwdSX, kFwdThreads, kVec>(
+      sx, x + (long long)n * kCin * hw, x, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+pf_head_fwd_bf16_kernel(const uint16_t* __restrict__ x,
+                        const float* __restrict__ g1t,
+                        const float* __restrict__ c1,
+                        const float* __restrict__ w2,
+                        const float* __restrict__ b2,
+                        uint16_t* __restrict__ out, int hw, int tpi,
+                        int ntiles, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  const int ntn = cmid / 8;                          // n-tiles of 8 channels
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][Cin][kBFwdSX]
+  uint2* s_b = reinterpret_cast<uint2*>(s_x + 2 * kCin * kBFwdSX);
+  float* s_c = reinterpret_cast<float*>(s_b + ntn * 32);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) load_fwd_tile_bf16<kVec>(x, s_x, tile, tpi, hw);
+  // B fragment (m16n8k16, col) of g1t^T for n-tile nt, lane l: channel
+  // nt * 8 + l / 4 at k = 2 (l % 4), + 1 (register 0) and k + 8, + 9
+  // (register 1), rounded to bf16.
+  for (int i = t; i < ntn * 32; i += kFwdThreads) {
+    const int l = i & 31, nt = i >> 5;
+    const float* row = g1t + (nt * 8 + (l >> 2)) * kCin + 2 * (l & 3);
+    s_b[i] = make_uint2(pack_bf16(row[0], row[1]), pack_bf16(row[8], row[9]));
+  }
+  // The accumulator columns of lane quad q of n-tile nt are channels
+  // nt * 8 + 2q and + 1: their c1 at 0, 1 and bf16(w2) at 4..7.
+  for (int i = t; i < ntn * 4; i += kFwdThreads) {
+    const int ch = (i >> 2) * 8 + 2 * (i & 3);
+    float* c = s_c + i * 8;
+    c[0] = c1[ch];
+    c[1] = c1[ch + 1];
+    c[2] = 0.0f;
+    c[3] = 0.0f;
+    c[4] = round_bf16(w2[ch]);
+    c[5] = round_bf16(w2[ch + 1]);
+    c[6] = round_bf16(w2[cmid + ch]);
+    c[7] = round_bf16(w2[cmid + ch + 1]);
+  }
+  const float b2_0 = b2[0], b2_1 = b2[1];
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x in; the tile before done by all
+    const int next = tile + gridDim.x;
+    if (next < ntiles) {
+      load_fwd_tile_bf16<kVec>(x, s_x + (buf ^ 1) * kCin * kBFwdSX, next,
+                               tpi, hw);
+    }
+    const uint16_t* sx = s_x + buf * kCin * kBFwdSX;
+
+    // A fragments (m16n8k16, row) of the warp's m-tiles mt (pixels 32w +
+    // 16mt + 0..15): register 0 is pixel gid at k = 2 tig, + 1; register 1
+    // pixel gid + 8; registers 2 and 3 the same at k + 8.
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const uint16_t* p = sx + 2 * tig * kBFwdSX + warp * 32 + mt * 16 + gid;
+      a[mt][0] = pack_halves(p[0], p[kBFwdSX]);
+      a[mt][1] = pack_halves(p[8], p[kBFwdSX + 8]);
+      a[mt][2] = pack_halves(p[8 * kBFwdSX], p[9 * kBFwdSX]);
+      a[mt][3] = pack_halves(p[8 * kBFwdSX + 8], p[9 * kBFwdSX + 8]);
+    }
+
+    // acc[mt][px][o]: output o of pixel gid + 8 px of m-tile mt, summed
+    // over the lane's channels. Register r of a product is pixel gid + 8
+    // (r >> 1), channel nt * 8 + 2 tig + (r & 1).
+    float acc[2][2][2] = {};
+    for (int nt = 0; nt < ntn; ++nt) {
+      const uint2 bf = s_b[nt * 32 + lane];
+      const uint32_t b[2] = {bf.x, bf.y};
+      const float* cq = s_c + (nt * 4 + tig) * 8;
+      const float2 c = *reinterpret_cast<const float2*>(cq);
+      const float4 w = *reinterpret_cast<const float4*>(cq + 4);
+      const float c1r[4] = {c.x, c.y, c.x, c.y};
+      const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float d[4];
+        mma_bf16(d, a[mt], b, c1r);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float rr = round_bf16(fmaxf(d[r], 0.0f));
+          const int px = r >> 1, ch = r & 1;
+          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);
+          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);
+        }
+      }
+    }
+
+    // Fold the sums over the lane quad, as K1 does; store bf16(sum + b2).
+    const int n = tile / tpi;
+    const int s0 = (tile - n * tpi) * kFwdTile + warp * 32 + gid;
+    const int px = tig >> 1, o = tig & 1;
+    uint16_t* on = out + ((long long)n * kCout + o) * hw;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float keep[2];
+#pragma unroll
+      for (int oo = 0; oo < 2; ++oo) {
+        const float mine = px ? acc[mt][1][oo] : acc[mt][0][oo];
+        const float other = px ? acc[mt][0][oo] : acc[mt][1][oo];
+        keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+      }
+      const float mine = o ? keep[1] : keep[0];
+      const float other = o ? keep[0] : keep[1];
+      const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+      const int s = s0 + mt * 16 + 8 * px;
+      if (s < hw) on[s] = (uint16_t)bf16_bits(v + (o ? b2_1 : b2_0));
+    }
+    buf ^= 1;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_tile_bf16(const uint16_t* x,
+                                               const uint16_t* g,
+                                               uint16_t* sx, uint16_t* sg,
+                                               long long tile, int tpi,
+                                               int hw) {
+  const long long n = tile / tpi;
+  const int s0 = (int)(tile - n * tpi) * kTile;
+  copy_rows_bf16<kCin, kTile, kBSX, kBwdThreads, kVec>(sx, x + n * kCin * hw,
+                                                       x, s0, hw);
+  copy_rows_bf16<kCout, kTile, kBSX, kBwdThreads, kVec>(
+      sg, g + n * kCout * hw, g, s0, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+pf_head_bwd_bf16_kernel(const uint16_t* __restrict__ x,
+                        const uint16_t* __restrict__ g,
+                        const float* __restrict__ w1t,
+                        const float* __restrict__ gis,
+                        const float* __restrict__ c1,
+                        const float* __restrict__ w2gis,
+                        uint16_t* __restrict__ dx,
+                        float* __restrict__ partial, int hw, int tpi,
+                        long long ntiles) {
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][Cin][kBSX]
+  uint16_t* s_g = s_x + 2 * kCin * kBSX;              // [2][Cout][kBSX]
+  uint16_t* s_e = s_g + 2 * kCout * kBSX;             // [kTile][kBSE]
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  long long tile = blockIdx.x;
+  if (tile < ntiles) load_tile_bf16<kVec>(x, g, s_x, s_g, tile, tpi, hw);
+
+  // The lane's two middle channels: rows gid and gid + 8 of the warp's
+  // tile. A of mid^T (m16n8k16, row; K = Cin): bf16(w1t) of both rows at
+  // k = 2 tig, + 1 and at k + 8, + 9.
+  const int ca = warp * 16 + gid, cb = ca + 8;
+  const uint32_t am[4] = {
+      pack_bf16(w1t[ca * kCin + 2 * tig], w1t[ca * kCin + 2 * tig + 1]),
+      pack_bf16(w1t[cb * kCin + 2 * tig], w1t[cb * kCin + 2 * tig + 1]),
+      pack_bf16(w1t[ca * kCin + 2 * tig + 8], w1t[ca * kCin + 2 * tig + 9]),
+      pack_bf16(w1t[cb * kCin + 2 * tig + 8], w1t[cb * kCin + 2 * tig + 9])};
+  // A of dx (rows k = gid, gid + 8; K = the channels, 16 per step):
+  // bf16(w1)[k][c] = bf16(w1t[c][k]) at c = 16 ks + 2 tig, + 1 and + 8, + 9.
+  uint32_t aw[kCmid / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < kCmid / 16; ++ks) {
+    const float* w = w1t + (ks * 16 + 2 * tig) * kCin + gid;
+    aw[ks][0] = pack_bf16(w[0], w[kCin]);
+    aw[ks][1] = pack_bf16(w[8], w[kCin + 8]);
+    aw[ks][2] = pack_bf16(w[8 * kCin], w[9 * kCin]);
+    aw[ks][3] = pack_bf16(w[8 * kCin + 8], w[9 * kCin + 8]);
+  }
+  const float gis_c[2] = {gis[ca], gis[cb]};
+  const float c1_c[2] = {c1[ca], c1[cb]};
+  const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
+                            {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
+
+  // Block sums. dw1 n-tile nt, register r: k = gid + 8 (r >> 1), channel
+  // 16w + 8 nt + 2 tig + (r & 1).
+  float dw[2][4] = {};
+  float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
+  float db[2] = {};
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x and g in; the tile before done by all
+    const long long next = tile + gridDim.x;
+    if (next < ntiles) {
+      load_tile_bf16<kVec>(x, g, s_x + (buf ^ 1) * kCin * kBSX,
+                           s_g + (buf ^ 1) * kCout * kBSX, next, tpi, hw);
+    }
+    const uint16_t* sx = s_x + buf * kCin * kBSX;
+    const uint16_t* sg = s_g + buf * kCout * kBSX;
+
+#pragma unroll 2
+    for (int j = 0; j < kTile / 16; ++j) {
+      const int p0 = j * 16;
+      // eb[h][row]: bf16(e) of channel ca (row 0) or cb (row 1) at pixels
+      // p0 + 8h + 2 tig, + 1.
+      uint32_t eb[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pb = p0 + 8 * h;
+        // B of mid^T (col; K = Cin, N = 8 pixels): pixel pb + gid at k =
+        // 2 tig, + 1 (register 0) and k + 8, + 9 (register 1).
+        const uint16_t* xp = sx + 2 * tig * kBSX + pb + gid;
+        const uint32_t b[2] = {pack_halves(xp[0], xp[kBSX]),
+                               pack_halves(xp[8 * kBSX], xp[9 * kBSX])};
+        float mid[4];
+        mma_bf16(mid, am, b, zero);
+        // Register r: channel (r < 2 ? ca : cb), pixel pb + 2 tig + (r & 1).
+        const int pa = pb + 2 * tig;
+        const float gv[2][2] = {
+            {bf16_value(sg[pa]), bf16_value(sg[pa + 1])},
+            {bf16_value(sg[kBSX + pa]), bf16_value(sg[kBSX + pa + 1])}};
+        float e[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int ch = r >> 1, px = r & 1;
+          const float a = fmaf(gis_c[ch], mid[r], c1_c[ch]);
+          const float mk = a > 0.0f ? 1.0f : 0.0f;
+          const float eun =
+              fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
+          e[r] = mk * eun;
+          const float mm = mk * mid[r];
+#pragma unroll
+          for (int o = 0; o < kCout; ++o) {
+            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);
+            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);
+          }
+        }
+        db[0] += gv[0][0] + gv[0][1];
+        db[1] += gv[1][0] + gv[1][1];
+        eb[h][0] = pack_bf16(e[0], e[1]);
+        eb[h][1] = pack_bf16(e[2], e[3]);
+        // bf16(e) to shared memory, [pixel][channel], for dx.
+        s_e[pa * kBSE + ca] = (uint16_t)(eb[h][0] & 0xffffu);
+        s_e[(pa + 1) * kBSE + ca] = (uint16_t)(eb[h][0] >> 16);
+        s_e[pa * kBSE + cb] = (uint16_t)(eb[h][1] & 0xffffu);
+        s_e[(pa + 1) * kBSE + cb] = (uint16_t)(eb[h][1] >> 16);
+      }
+      // dw1 [16 k, 8 ch] += x (A, row: k = gid, gid + 8; K = pixels p0 +
+      // 2 tig, + 1 and + 8, + 9) times bf16(e)^T (B, col: the lane's own
+      // eb; n-tile 0 holds channels ca of the 8 groups, n-tile 1 their cb).
+      const uint16_t* xa = sx + gid * kBSX + p0 + 2 * tig;
+      const uint32_t ax[4] = {load_pair(xa), load_pair(xa + 8 * kBSX),
+                              load_pair(xa + 8), load_pair(xa + 8 * kBSX + 8)};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint32_t b[2] = {eb[0][nt], eb[1][nt]};
+        mma_bf16(dw[nt], ax, b, dw[nt]);
+      }
+    }
+    __syncthreads();  // bf16(e) of the whole tile in shared memory
+
+    // dx for pixels 8w..8w+7: rows k = gid, gid + 8; K = the 128 channels
+    // (B, col: pixel 8w + gid at channels 16 ks + 2 tig, + 1 and + 8, + 9).
+    {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const uint16_t* ep = s_e + (warp * 8 + gid) * kBSE + 2 * tig;
+#pragma unroll
+      for (int ks = 0; ks < kCmid / 16; ++ks) {
+        const uint32_t b[2] = {load_pair(ep + 16 * ks),
+                               load_pair(ep + 16 * ks + 8)};
+        mma_bf16(d, aw[ks], b, d);
+      }
+      // Register r: k = gid + 8 (r >> 1), pixel 8w + 2 tig + (r & 1).
+      const long long n = tile / tpi;
+      const int s = (int)(tile - n * tpi) * kTile + warp * 8 + 2 * tig;
+      uint16_t* d0 = dx + (n * kCin + gid) * hw + s;
+      uint16_t* d1 = d0 + 8LL * hw;
+      if (kVec) {  // s even and HW % 8 == 0: both pixels in, or neither
+        if (s < hw) {
+          *reinterpret_cast<uint32_t*>(d0) = pack_bf16(d[0], d[1]);
+          *reinterpret_cast<uint32_t*>(d1) = pack_bf16(d[2], d[3]);
+        }
+      } else {
+        if (s < hw) {
+          d0[0] = (uint16_t)bf16_bits(d[0]);
+          d1[0] = (uint16_t)bf16_bits(d[2]);
+        }
+        if (s + 1 < hw) {
+          d0[1] = (uint16_t)bf16_bits(d[1]);
+          d1[1] = (uint16_t)bf16_bits(d[3]);
+        }
+      }
+    }
+    buf ^= 1;
+  }
+
+  // Fold M0, M1 and db2 over the 4 lanes of a group (same channels, other
+  // pixels).
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
+        m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
+      }
+    }
+  }
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+    db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
+    db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
+  }
+
+  float* row = partial + (long long)blockIdx.x * kPartial;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = gid + 8 * (r >> 1);
+      const int c = warp * 16 + 8 * nt + 2 * tig + (r & 1);
+      row[k * kCmid + c] = dw[nt][r];
+    }
+  }
+  if (tig == 0) {
+    float* m0row = row + kCin * kCmid;
+    float* m1row = m0row + kCmid * kCout;
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+      m0row[ca * kCout + o] = m0[0][o];
+      m0row[cb * kCout + o] = m0[1][o];
+      m1row[ca * kCout + o] = m1[0][o];
+      m1row[cb * kCout + o] = m1[1][o];
+    }
+  }
+  if (t == 0) {
+    row[kPartial - 2] = db[0];
+    row[kPartial - 1] = db[1];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1871,6 +2359,81 @@ extern "C" int pf_head_fwd(const float* x, const float* g1t, const float* c1,
   const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
   kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
       x, g1t, c1, w2, b2, out, hw, tpi, ntiles, cmid);
+  return (int)cudaGetLastError();
+}
+
+// K1 at bfloat16: x [N,Cin,HW] bf16, g1t [Cmid,Cin], c1 [Cmid], w2
+// [Cout,Cmid], b2 [Cout] float32 (g1t and w2 rounded to bf16 inside), out
+// [N,Cout,HW] bf16; all contiguous on the current device. The same shapes
+// as pf_head_fwd.
+extern "C" int pf_head_fwd_bf16(const void* x, const float* g1t,
+                                const float* c1, const float* w2,
+                                const float* b2, void* out, long long n,
+                                int cin, int hw, int cmid, int cout,
+                                void* stream) {
+  const int tpi = hw > 0 ? (hw + kFwdTile - 1) / kFwdTile : 0;
+  if (cin != kCin || cout != kCout || cmid <= 0 || cmid % 16 != 0 ||
+      cmid > kFwdMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  const int ntiles = (int)(n * tpi);
+  const bool vec = hw % 8 == 0 && ((uintptr_t)x & 15) == 0;
+  const size_t smem = fwd_bf16_smem_bytes(cmid);
+  auto kernel =
+      vec ? pf_head_fwd_bf16_kernel<true> : pf_head_fwd_bf16_kernel<false>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
+  kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
+      (const uint16_t*)x, g1t, c1, w2, b2, (uint16_t*)out, hw, tpi, ntiles,
+      cmid);
+  return (int)cudaGetLastError();
+}
+
+// K2 at bfloat16: x [N,Cin,HW] and g [N,Cout,HW] bf16, w1t [Cmid,Cin], gis
+// [Cmid], c1 [Cmid], w2gis [Cmid,Cout] float32; dx [N,Cin,HW] bf16; partial
+// [blocks, kPartial] scratch (blocks from pf_head_bwd_blocks); sums
+// [kPartial] float32 as pf_head_bwd's. The same shapes as pf_head_bwd.
+extern "C" int pf_head_bwd_bf16(const void* x, const void* g,
+                                const float* w1t, const float* gis,
+                                const float* c1, const float* w2gis, void* dx,
+                                float* partial, float* sums, long long n,
+                                int cin, int hw, int cmid, int cout,
+                                int blocks, void* stream) {
+  if (cin != kCin || cmid != kCmid || cout != kCout || hw <= 0 ||
+      blocks <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tpi = (hw + kTile - 1) / kTile;
+  const long long ntiles = n * tpi;
+  const bool vec = hw % 8 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
+  const size_t smem = (size_t)kBwdBf16SmemBytes;
+  auto kernel =
+      vec ? pf_head_bwd_bf16_kernel<true> : pf_head_bwd_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kBwdThreads, smem, (cudaStream_t)stream>>>(
+      (const uint16_t*)x, (const uint16_t*)g, w1t, gis, c1, w2gis,
+      (uint16_t*)dx, partial, hw, tpi, ntiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_rows_kernel<<<(kPartial + 255) / 256, 256, 0,
+                       (cudaStream_t)stream>>>(partial, sums, blocks,
+                                               kPartial);
   return (int)cudaGetLastError();
 }
 

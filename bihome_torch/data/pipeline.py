@@ -50,6 +50,9 @@ class PairSpec:
     change_aware_keys: Tuple[str, ...] = ()
     blob_porosity: float = 0.0
     blobiness: float = 1.0
+    # Dtype of patch_2's warp source ('float32' | 'bfloat16'): the train
+    # spec of a bf16 model rounds the (grayscale) source to bf16 before the
+    # warp (``bihome_tpu/data/pipeline.py:70-75,277-281``).
     warp_dtype: str = 'float32'
     host_prep: Tuple[Tuple[str, Tuple[Any, ...]], ...] = ()
     photometric_full_keys: Tuple[str, ...] = ()
@@ -114,7 +117,7 @@ def check_ported(spec: PairSpec) -> None:
         missing.append(f'emitting {unported_images}')
     if spec.target_gen not in ('4_points', 'all_points'):
         missing.append(f'target_gen {spec.target_gen!r}')
-    if spec.warp_dtype != 'float32':
+    if spec.warp_dtype not in ('float32', 'bfloat16'):
         missing.append(f'warp_dtype {spec.warp_dtype!r}')
     if missing:
         raise ValueError('not ported yet: ' + ', '.join(missing))
@@ -192,6 +195,10 @@ def generate_pairs_deterministic(
 
     patch_1 = geometry.crop_integer(patch_1_src, x0, y0, (ps, ps))
     homography = geometry.four_point_to_homography(corners, delta)
+    if spec.warp_dtype == 'bfloat16':
+        # The source in bf16; the warp samples it in float32 (as the Pallas
+        # kernel does) and the patch stays float32.
+        patch_2_src = patch_2_src.to(torch.bfloat16)
     patch_2 = _warp_patches(patch_2_src, homography, corners[:, 0].float(),
                             ps, spec.rho)
 

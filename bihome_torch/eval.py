@@ -26,8 +26,10 @@ the newest one in a log directory, ``training/checkpoint.py``);
 ``--torch_ckpt`` a reference ``.pth``; with neither, the newest port
 checkpoint in LOGGING.DIR (``eval.py:154-159``), else a fixed seed's init.
 ``--log F`` appends one ``iter,mace`` line per sample (``eval.py:
-243-247``). Runs on ``cuda`` unless ``--device cpu`` is given; without a
-card it raises rather than falling back.
+243-247``). The model computes in MODEL.DTYPE (``--set
+MODEL.DTYPE=bfloat16``, as JAX's eval reads it); its float32 weights load
+at either dtype. Runs on ``cuda`` unless ``--device cpu`` is given;
+without a card it raises rather than falling back.
 """
 
 from __future__ import annotations

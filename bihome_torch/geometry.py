@@ -161,9 +161,9 @@ def batched_sample(images: Tensor, u: Tensor, v: Tensor) -> Tensor:
     """images [B,H,W,C], u/v [B,P] -> [B,P,C]. The warp hot path, with
     gradients into the points (and the images, when they require grad):
     the hand-written CUDA kernels on the card, the plain gather on the
-    CPU (``ops/warp.BilinearSample``)."""
-    return warp.BilinearSample.apply(images.contiguous(), u.contiguous(),
-                                     v.contiguous())
+    CPU (``ops/warp.BilinearSample``). A bfloat16 image is sampled in
+    float32 (``ops/warp.sample``)."""
+    return warp.sample(images, u, v)
 
 
 def crop_integer(images: Tensor, x0: Tensor, y0: Tensor,

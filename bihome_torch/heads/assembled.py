@@ -51,6 +51,7 @@ from torch import nn
 from bihome_torch import geometry
 from bihome_torch.heads import dsac, ransac
 from bihome_torch.heads.config import HeadConfig
+from bihome_torch.models.layers import cast
 from bihome_torch.models.resnet import ResNet
 from bihome_torch.ops import fused_loss
 
@@ -117,7 +118,12 @@ def check_trainable(cfg: HeadConfig) -> None:
 
 
 class AssembledModel(nn.Module):
-    """The backbone plus its head (predict chain and training forward)."""
+    """The backbone plus its head (predict chain and training forward).
+    ``compute_dtype`` (set with the backbone's by ``build_model``) is the
+    dtype the biHomE loss casts its patches and warped masks to, as
+    ``assembled.py:503-530`` does; None at float32."""
+
+    compute_dtype = None
 
     def __init__(self, backbone: nn.Module, head: HeadConfig):
         super().__init__()
@@ -148,14 +154,16 @@ class AssembledModel(nn.Module):
                     generator: Optional[torch.Generator] = None) -> Tensor:
         """PF [B,h,w,2] -> corner deltas [B,4,2] of the single DSAC
         hypothesis. With one hypothesis softmax(-score) is identically 1,
-        so scoring is skipped, as in the JAX package."""
+        so scoring is skipped, as in the JAX package. A bfloat16 field
+        gives float32 deltas, as ``assembled.py:391-395`` does."""
         cfg = self.head
         b, h, w, _ = pf.shape
         hyps = dsac.sample_hypotheses_from_pf(
             pf, cfg.hypothesis_no, cfg.points_per_hypothesis,
             cfg.dsac_point_sampling, uniforms, generator)          # [B,1,3,3]
         four_points = geometry.image_corners(h, w, batch_size=b,
-                                             dtype=pf.dtype, device=pf.device)
+                                             dtype=hyps.dtype,
+                                             device=pf.device)
         transformed = geometry.transform_points(hyps[:, 0], four_points)
         return transformed - four_points
 
@@ -277,9 +285,13 @@ class AssembledModel(nn.Module):
         hom = geometry.four_point_to_homography(
             corners, torch.cat([delta_12, delta_21], dim=0))
         u, v = geometry.homography_grid(hom, (ps, ps))
+        # At bf16 the patches are rounded before the warp and the warped
+        # mask after it (ref: assembled.py:503-530); the warp of a bf16
+        # patch is float32 (``ops/warp.sample``).
+        both = cast(both, self.compute_dtype)
         warped = geometry.batched_sample(both, u, v).reshape(both.shape)
-        wmask = geometry.ones_warp_mask(u, v, (ps, ps)).reshape(2 * b, 1,
-                                                                ps, ps)
+        wmask = cast(geometry.ones_warp_mask(u, v, (ps, ps)),
+                     self.compute_dtype).reshape(2 * b, 1, ps, ps)
         h1, h2 = hom[:b], hom[b:]
 
         # The plain patches are data: their features carry no gradient. The

@@ -54,7 +54,11 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
                               ) -> Tensor:
     """Sample point subsets of the perspective field and fit each with the
     DLT. pf [B,h,w,2] NHWC -> homographies [B,n,3,3]; the sampled points
-    are (x, y) = (i % w, i // w) and their images (x, y) + pf[i]."""
+    are (x, y) = (i % w, i // w) and their images (x, y) + pf[i]. A
+    bfloat16 field's values go to float32 at the points (float32
+    coordinates plus the sampled values, ``bihome_tpu/heads/dsac.py:82-84``),
+    so the DLT and its homographies are float32 (float64 for a float64
+    field)."""
     b, h, w, _ = pf.shape
     n_points = h * w
     idx = sample_point_indices((b, hypothesis_no * points_per_hypothesis),
@@ -62,7 +66,8 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
                                pf.device)
     sel = torch.gather(pf.reshape(b, n_points, 2), 1,
                        idx[..., None].expand(-1, -1, 2))
-    p1 = torch.stack([idx % w, idx // w], dim=-1).to(pf.dtype)
+    p1 = torch.stack([idx % w, idx // w], dim=-1).to(
+        torch.promote_types(pf.dtype, torch.float32))
     p2 = p1 + sel
     p1 = p1.reshape(b * hypothesis_no, points_per_hypothesis, 2)
     p2 = p2.reshape(b * hypothesis_no, points_per_hypothesis, 2)

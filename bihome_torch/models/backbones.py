@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from bihome_torch.models import blocks
+from bihome_torch.models.layers import Conv2d, cast
 from bihome_torch.models.norm import BatchNorm2d
 from bihome_torch.models.resnet import ResNet
 from bihome_torch.ops import fused_head
@@ -39,14 +40,19 @@ class PFHead(nn.Sequential):
     normalises with the batch statistics (``batch_stats_affine``, the
     middle never formed) and then moves the running statistics toward
     them with momentum 0.1 and the biased variance, as
-    ``bihome_tpu/models/backbones.py:96-100`` does."""
+    ``bihome_tpu/models/backbones.py:96-100`` does. At bfloat16 the head
+    takes x in bf16 and returns bf16, as the fused TPU path does
+    (``:66-73``); its statistics stay float32."""
+
+    compute_dtype = None
 
     def __init__(self, in_channels: int, mid: int, out: int = 2):
-        super().__init__(nn.Conv2d(in_channels, mid, 1), BatchNorm2d(mid),
-                         nn.ReLU(), nn.Conv2d(mid, out, 1))
+        super().__init__(Conv2d(in_channels, mid, 1), BatchNorm2d(mid),
+                         nn.ReLU(), Conv2d(mid, out, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv1, bn, _, conv2 = self
+        x = cast(x, self.compute_dtype)
         if not self.training:
             return fused_head.FusedPFHead.apply(
                 x, conv1.weight, conv1.bias, bn.weight, bn.bias,
@@ -118,7 +124,7 @@ class RethinkingBackbone(_PairBackbone):
                              'flavour')
         w2, w3, w4 = widths
         self.layer1 = nn.Sequential(
-            nn.Conv2d(2, 64, 7, stride=2, padding=3, bias=False),
+            Conv2d(2, 64, 7, stride=2, padding=3, bias=False),
             BatchNorm2d(64), nn.ReLU())
         self.layer2 = nn.Sequential(conv(64, w2, 1), ident(w2), ident(w2))
         self.layer3 = nn.Sequential(conv(w2, w3, 2),
@@ -159,7 +165,7 @@ class ResNet34Backbone(_PairBackbone):
 
 def _conv_bn(cin: int, cout: int) -> nn.Sequential:
     """The reference's ``layerK``: a 3x3 conv and its BN."""
-    return nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1, bias=False),
+    return nn.Sequential(Conv2d(cin, cout, 3, padding=1, bias=False),
                          BatchNorm2d(cout))
 
 

@@ -14,12 +14,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from bihome_torch.models.layers import Conv2d
 from bihome_torch.models.norm import BatchNorm2d
-from bihome_torch.ops.deconv import conv_transpose_2x2
+from bihome_torch.ops.deconv import (conv_transpose_2x2,
+                                     fused_deconv_conv3x3)
 
 
-def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+def _conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
 
 class ResNet34ConvBlock(nn.Module):
@@ -33,7 +35,7 @@ class ResNet34ConvBlock(nn.Module):
             nn.ReLU(), _conv3x3(features, features), BatchNorm2d(features))
         if in_channels != features:
             self.lower_branch = nn.Sequential(
-                nn.Conv2d(in_channels, features, 1, stride=stride,
+                Conv2d(in_channels, features, 1, stride=stride,
                           bias=False),
                 BatchNorm2d(features))
         else:
@@ -67,12 +69,12 @@ class ResNet50ConvBlock(nn.Module):
         super().__init__()
         mid = in_channels // stride
         self.upper_branch = nn.Sequential(
-            nn.Conv2d(in_channels, mid, 1, stride=stride, bias=False),
+            Conv2d(in_channels, mid, 1, stride=stride, bias=False),
             BatchNorm2d(mid), nn.ReLU(), _conv3x3(mid, mid), BatchNorm2d(mid),
-            nn.ReLU(), nn.Conv2d(mid, features, 1, bias=False),
+            nn.ReLU(), Conv2d(mid, features, 1, bias=False),
             BatchNorm2d(features))
         self.lower_branch = nn.Sequential(
-            nn.Conv2d(in_channels, features, 1, stride=stride, bias=False),
+            Conv2d(in_channels, features, 1, stride=stride, bias=False),
             BatchNorm2d(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,9 +90,9 @@ class ResNet50IdentityBlock(nn.Module):
         super().__init__()
         mid = features // 4
         self.upper_branch = nn.Sequential(
-            nn.Conv2d(features, mid, 1, bias=False), BatchNorm2d(mid),
+            Conv2d(features, mid, 1, bias=False), BatchNorm2d(mid),
             nn.ReLU(), _conv3x3(mid, mid), BatchNorm2d(mid), nn.ReLU(),
-            nn.Conv2d(mid, features, 1, bias=False), BatchNorm2d(features))
+            Conv2d(mid, features, 1, bias=False), BatchNorm2d(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.upper_branch(x) + x)
@@ -99,7 +101,12 @@ class ResNet50IdentityBlock(nn.Module):
 class ResNet50DeconvBlock(nn.Module):
     """2x upsampling block, ``features`` -> ``features // 2`` channels
     (ref: src/backbones/utils.py:60-82); used by both flavours (1024, 512,
-    256 and 128 input channels in the ResNet50 one)."""
+    256 and 128 input channels in the ResNet50 one). The upper branch's
+    deconv and 3x3 conv run as one convolution
+    (``ops/deconv.fused_deconv_conv3x3``, the JAX default,
+    ``bihome_tpu/models/blocks.py:185-215``), on the same parameters."""
+
+    compute_dtype = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -107,10 +114,15 @@ class ResNet50DeconvBlock(nn.Module):
         self.upper_branch = nn.Sequential(
             conv_transpose_2x2(features, features, bias=True),
             _conv3x3(features, features), BatchNorm2d(features), nn.ReLU(),
-            nn.Conv2d(features, half, 1, bias=False), BatchNorm2d(half))
+            Conv2d(features, half, 1, bias=False), BatchNorm2d(half))
         self.lower_branch = nn.Sequential(
             conv_transpose_2x2(features, half, bias=False),
             BatchNorm2d(half))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.upper_branch(x) + self.lower_branch(x))
+        deconv, conv, *rest = self.upper_branch
+        upper = fused_deconv_conv3x3(x, deconv.weight, deconv.bias,
+                                     conv.weight, self.compute_dtype)
+        for layer in rest:
+            upper = layer(upper)
+        return torch.relu(upper + self.lower_branch(x))

@@ -9,6 +9,14 @@ larger). The port follows flax, so a JAX train state and the port's
 running statistics stay equal step for step; the two differ most at small
 M = N*H*W, where the tests run. Momentum 0.1 in torch's convention is
 flax's 0.9.
+
+A bfloat16 input is normalised as flax's ``nn.BatchNorm(dtype=bfloat16)``
+does it (``force_float32_reductions``): the statistics, the running
+statistics and the affine in float32, the output rounded to bfloat16.
+``F.batch_norm`` does exactly that for a bfloat16 input with float32
+parameters and statistics, on the CPU and on the card, so the layer
+returns its input's dtype: the compute dtype wherever a convolution feeds
+it.
 """
 
 from __future__ import annotations

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from bihome_torch.models.layers import Conv2d, Linear
 from bihome_torch.models.norm import BatchNorm2d
 from bihome_torch.ops.pool import max_pool_3x3_s2
 
@@ -34,15 +35,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, features, 3, stride=stride,
+        self.conv1 = Conv2d(in_channels, features, 3, stride=stride,
                                padding=1, bias=False)
         self.bn1 = BatchNorm2d(features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(features)
         self.downsample = None
         if stride != 1 or in_channels != features:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_channels, features, 1, stride=stride,
+                Conv2d(in_channels, features, 1, stride=stride,
                           bias=False),
                 BatchNorm2d(features))
 
@@ -66,7 +67,7 @@ class ResNet(nn.Module):
             raise ValueError(f'not ported yet: resnet {arch!r}')
         if output_layer not in (None, 1, 2, 3, 4):
             raise ValueError(f'output_layer {output_layer!r} not in 1..4')
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3,
+        self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3,
                                bias=False)
         self.bn1 = BatchNorm2d(64)
         features, cin = 64, 64
@@ -80,7 +81,7 @@ class ResNet(nn.Module):
             self.add_module(f'layer{stage + 1}', nn.Sequential(*layer))
             features *= 2
         self.depth = depth
-        self.fc = (nn.Linear(cin, num_classes) if output_layer is None
+        self.fc = (Linear(cin, num_classes) if output_layer is None
                    else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

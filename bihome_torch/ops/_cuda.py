@@ -96,15 +96,17 @@ def check_status(status: int, what: str) -> None:
         raise RuntimeError(f'{what}: CUDA error {status}')
 
 
-def check_cuda_tensor(t, name: str, dim: int) -> None:
-    """The kernels take contiguous float32 tensors on the current device."""
+def check_cuda_tensor(t, name: str, dim: int,
+                      dtype: torch.dtype = torch.float32) -> None:
+    """The kernels take contiguous tensors of ``dtype`` (float32 unless
+    stated) on the current device."""
     if t.device.type != 'cuda':
         raise ValueError(f'{name} must be a CUDA tensor, got {t.device}')
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f'{name} is on {t.device}, not the current device '
                          f'cuda:{torch.cuda.current_device()}')
-    if t.dtype != torch.float32:
-        raise ValueError(f'{name} must be float32, got {t.dtype}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name} must be {dtype}, got {t.dtype}')
     if t.dim() != dim:
         raise ValueError(f'{name} must have {dim} dims, got {tuple(t.shape)}')
     if not t.is_contiguous():

@@ -20,6 +20,15 @@ Counterpart of ``bihome_tpu/ops/fused_head.py:fused_pf_head``.
 Each kernel wrapper takes its plain-torch version for a CPU tensor and
 launches ``csrc/fused_head.cu`` (see its header for the H100 bounds and
 design) for a CUDA tensor, or raises.
+
+At bfloat16 (MODEL.DTYPE bfloat16) x, the output, the cotangent g and dx
+are bfloat16, as the Pallas kernels' are when the PF head hands them bf16
+x; the weights, statistics and the other gradients stay float32. The
+plain versions then round where the Pallas kernels round (g1t, relu(a)
+and w2 in the forward; w1t, e, w1, the stored dx, a_mat and the
+corrected dx in the backward) and sum in float32, and on the card the
+narrow (Cin 16) head launches the bf16 kernels, counted apart
+(``bf16_launches``); no bf16 call reaches the float32 kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from bihome_torch.models.layers import widen
 from bihome_torch.ops import _cuda
 
 Tensor = torch.Tensor
@@ -50,6 +60,10 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     'wgmma_tf32_tile': [ctypes.c_void_p] * 3 + [ctypes.c_int]
     + [ctypes.c_void_p],
+    'pf_head_fwd_bf16': [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    'pf_head_bwd_bf16': [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 # The largest Cmid the kernels take (kFwdMaxCmid and kWMaxCmid in the
 # source); the wide ones (Cin 64) take multiples of 128.
@@ -140,6 +154,14 @@ _WIDTHS = ('Cout=2 with Cin=16 and Cmid a multiple of 16, or Cin=64 and '
            'Cmid a multiple of 128, Cmid up to 1024')
 
 
+def _rounded(t: Tensor, dtype: torch.dtype) -> Tensor:
+    """``t`` rounded to bfloat16's values (kept in float32) where
+    ``dtype`` is bfloat16, the rounding points of the Pallas kernels at
+    bf16 (``x.dtype`` casts in ``bihome_tpu/ops/fused_head.py``); ``t``
+    itself otherwise."""
+    return t.to(dtype).float() if dtype == torch.bfloat16 else t
+
+
 def fold_bn(w1: Tensor, b1: Tensor, gamma: Tensor, beta: Tensor,
             mean: Tensor, var: Tensor, eps: float) -> Tuple[Tensor, Tensor]:
     """(g1t [Cmid,Cin], c1 [Cmid]) with relu(BN(w1 x + b1)) ==
@@ -155,9 +177,10 @@ def batch_stats_affine(x: Tensor, w1: Tensor, b1: Tensor
                        ) -> Tuple[Tensor, Tensor]:
     """Exact batch mean and biased variance of mid = w1 x + b1 over all
     pixels of x [N,Cin,H,W], from the mean and second moment of x alone
-    (ref: bihome_tpu/ops/fused_head.py:67-86). w1 [Cmid,Cin,1,1]."""
+    (ref: bihome_tpu/ops/fused_head.py:67-86). w1 [Cmid,Cin,1,1]. A
+    bfloat16 x is summed in float32 (bf16 products are exact there)."""
     n, cin = x.shape[:2]
-    x3 = x.reshape(n, cin, -1)
+    x3 = widen(x).reshape(n, cin, -1)
     m = x3.shape[0] * x3.shape[2]
     w1f = w1.reshape(w1.shape[0], cin).t()                        # [Cin,Cmid]
     ex = x3.sum(dim=(0, 2)) / m                                   # [Cin]
@@ -174,29 +197,36 @@ def pf_head_fwd_plain(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
                       beta: Tensor, w2: Tensor, b2: Tensor, mean: Tensor,
                       var: Tensor, eps: float = 1e-5) -> Tensor:
     """Plain-torch version of the same folded arithmetic; materializes the
-    [N,Cmid,H,W] middle. x [N,Cin,H,W] -> [N,Cout,H,W]."""
+    [N,Cmid,H,W] middle. x [N,Cin,H,W] -> [N,Cout,H,W] in x's dtype. At
+    bfloat16: bf16(g1t), bf16(relu(a)) and bf16(w2), float32 sums, the
+    output rounded to bf16 (``_fwd_kernel`` and ``_run_fwd:201,283``)."""
+    dt = x.dtype
     g1t, c1 = fold_bn(w1, b1, gamma, beta, mean, var, eps)
-    a = torch.einsum('jk,nkhw->njhw', g1t, x) + c1[:, None, None]
-    w2m = w2.reshape(w2.shape[0], -1)
-    return (torch.einsum('oj,njhw->nohw', w2m, torch.relu(a))
-            + b2[:, None, None])
+    a = (torch.einsum('jk,nkhw->njhw', _rounded(g1t, dt), widen(x))
+         + c1[:, None, None])
+    w2m = _rounded(w2.reshape(w2.shape[0], -1), dt)
+    return (torch.einsum('oj,njhw->nohw', w2m,
+                         _rounded(torch.relu(a), dt))
+            + b2[:, None, None]).to(dt)
 
 
 def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
                       beta: Tensor, w2: Tensor, b2: Tensor, mean: Tensor,
                       var: Tensor, eps: float = 1e-5) -> Tensor:
-    """x [N,Cin,H,W] float32 (NCHW), conv weights in torch layout
-    (w1 [Cmid,Cin,1,1], w2 [Cout,Cmid,1,1]) -> [N,Cout,H,W].
-    On the card one launch of K1 (its Cin x Cmid product on the tensor
-    cores in 3xTF32), chosen by shape: Cin=16 (the ResNet34-flavour head,
-    Cmid 128: one kernel, mma.sync) or Cin=64 (the ResNet50-flavour one,
-    Cmid 512, on wgmma: the weight prep of :func:`wide_weight_images` on
-    the BN-folded g1t, then the forward); any other shape raises (see
-    :func:`_kernel_width`)."""
+    """x [N,Cin,H,W] float32 or bfloat16 (NCHW), conv weights in torch
+    layout (w1 [Cmid,Cin,1,1], w2 [Cout,Cmid,1,1]) -> [N,Cout,H,W] in x's
+    dtype. On the card one launch of K1 (its Cin x Cmid product on the
+    tensor cores in 3xTF32), chosen by shape: Cin=16 (the ResNet34-flavour
+    head, Cmid 128: one kernel, mma.sync) or Cin=64 (the ResNet50-flavour
+    one, Cmid 512, on wgmma: the weight prep of :func:`wide_weight_images`
+    on the BN-folded g1t, then the forward); any other shape raises (see
+    :func:`_kernel_width`). A bfloat16 x launches K1 bf16 (mma.sync bf16,
+    Cin=16 only; the Cin 64 head raises)."""
     if x.device.type == 'cpu':
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
-    _cuda.check_cuda_tensor(x, 'x', 4)
+    bf16 = x.dtype == torch.bfloat16
+    _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32)
     n, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     width = _kernel_width(cin, cmid, cout)
@@ -204,6 +234,9 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
         raise ValueError(f'the PF-head kernels take {_WIDTHS}; got '
                          f'x {tuple(x.shape)}, w1 {tuple(w1.shape)}, '
                          f'w2 {tuple(w2.shape)}')
+    if bf16 and width != 'narrow':
+        raise ValueError(f'the bfloat16 PF-head kernels take Cin=16 only; '
+                         f'got x {tuple(x.shape)}')
     g1t, c1 = fold_bn(w1, b1, gamma, beta, mean, var, eps)
     g1t = g1t.float().contiguous()
     c1 = c1.float().contiguous()
@@ -211,18 +244,21 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     b2c = b2.float().contiguous()
     for name, t in (('g1t', g1t), ('c1', c1), ('w2', w2m), ('b2', b2c)):
         _cuda.check_cuda_tensor(t, name, t.dim())
-    out = torch.empty((n, cout, h, w), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
     img = () if width == 'narrow' else (_wide_image_scratch(cmid,
                                                             x.device),)
     lib = _cuda.library('fused_head', _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    entry = 'pf_head_fwd' if width == 'narrow' else 'pf_head_fwd_wide'
+    entry = {'narrow': 'pf_head_fwd', 'wide': 'pf_head_fwd_wide'}[width]
+    entry += '_bf16' if bf16 else ''
     status = getattr(lib, entry)(x.data_ptr(), g1t.data_ptr(), c1.data_ptr(),
                                  w2m.data_ptr(), b2c.data_ptr(),
                                  out.data_ptr(), *(t.data_ptr() for t in img),
                                  n, cin, h * w, cmid, cout, stream)
     _cuda.check_status(status, entry)
-    if width == 'narrow':
+    if bf16:
+        fused_pf_head_fwd.bf16_launches += 1
+    elif width == 'narrow':
         fused_pf_head_fwd.launches += 1
     else:
         fused_pf_head_fwd.wide_launches += 1
@@ -236,14 +272,18 @@ def pf_head_bwd_plain(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
 
     x [N,Cin,H,W], g [N,Cout,H,W], w1t [Cmid,Cin], gis/c1 [Cmid],
     w2gis [Cmid,Cout] -> (dx [N,Cin,H,W], m0 [Cmid,Cout], m1 [Cmid,Cout],
-    db2 [Cout], dw1 [Cin,Cmid]) as defined in ``csrc/fused_head.cu``."""
+    db2 [Cout], dw1 [Cin,Cmid]) as defined in ``csrc/fused_head.cu``. At
+    bfloat16 (x and g bf16): mid from bf16(w1t), e rounded to bf16 for dx
+    and dw1, dx = bf16(bf16(w1) e) (``_bwd_kernel``); the sums float32."""
+    dt = x.dtype
     n, cin, h, w = x.shape
-    x3 = x.reshape(n, cin, h * w)
-    g3 = g.reshape(n, g.shape[1], h * w)
+    x3 = widen(x).reshape(n, cin, h * w)
+    g3 = widen(g).reshape(n, g.shape[1], h * w)
+    w1t = _rounded(w1t, dt)
     mid = torch.einsum('ck,nks->ncs', w1t, x3)
-    mask = (gis[:, None] * mid + c1[:, None] > 0).to(x.dtype)
-    e = mask * torch.einsum('co,nos->ncs', w2gis, g3)
-    dx = torch.einsum('ck,ncs->nks', w1t, e).reshape(x.shape)
+    mask = (gis[:, None] * mid + c1[:, None] > 0).to(x3.dtype)
+    e = _rounded(mask * torch.einsum('co,nos->ncs', w2gis, g3), dt)
+    dx = torch.einsum('ck,ncs->nks', w1t, e).reshape(x.shape).to(dt)
     m0 = torch.einsum('ncs,nos->co', mask, g3)
     m1 = torch.einsum('ncs,nos->co', mask * mid, g3)
     db2 = g3.sum(dim=(0, 2))
@@ -260,21 +300,24 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     (the ResNet34-flavour head: one kernel, mma.sync), or Cin=64 and Cmid
     a multiple of 128 (the ResNet50-flavour one, Cmid 512, on wgmma: the
     weight prep of :func:`wide_weight_images`, a dx kernel and a sums
-    kernel over 128-channel chunks); Cout=2."""
+    kernel over 128-channel chunks); Cout=2. Bfloat16 x and g (Cin=16,
+    Cmid=128) launch K2 bf16 (mma.sync bf16): dx bf16, the sums float32."""
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
-    _cuda.check_cuda_tensor(x, 'x', 4)
-    _cuda.check_cuda_tensor(g, 'g', 4)
+    bf16 = x.dtype == torch.bfloat16
+    _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32)
+    _cuda.check_cuda_tensor(g, 'g', 4, x.dtype)
     n, cin, h, w = x.shape
     cmid, cout = w2gis.shape
     width = _kernel_width(cin, cmid, cout)
-    if width == 'narrow' and cmid != 128:
+    if (width == 'narrow' and cmid != 128) or (bf16 and width != 'narrow'):
         width = ''
     if not width or tuple(g.shape) != (n, cout, h, w) \
             or tuple(w1t.shape) != (cmid, cin):
         raise ValueError(f'the PF-head backward kernels take Cin=16, '
-                         f'Cmid=128, or Cin=64 and Cmid a multiple of 128 up '
-                         f'to {_MAX_CMID}, with Cout=2; got x '
+                         f'Cmid=128, or (float32 only) Cin=64 and Cmid a '
+                         f'multiple of 128 up to {_MAX_CMID}, with Cout=2; '
+                         f'got {x.dtype} x '
                          f'{tuple(x.shape)}, g {tuple(g.shape)}, w1t '
                          f'{tuple(w1t.shape)}, w2gis {tuple(w2gis.shape)}')
     for name, t in (('w1t', w1t), ('gis', gis), ('c1', c1),
@@ -282,7 +325,7 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
         _cuda.check_cuda_tensor(t, name, t.dim())
     lib = _cuda.library('fused_head', _SIGNATURES)
     if width == 'narrow':
-        entry = 'pf_head_bwd'
+        entry = 'pf_head_bwd_bf16' if bf16 else 'pf_head_bwd'
         blocks = lib.pf_head_bwd_blocks(n, h * w)
         cols = lib.pf_head_bwd_partial_cols()
     else:
@@ -304,7 +347,9 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
         *(t.data_ptr() for t in img), sums.data_ptr(), n, cin, h * w, cmid,
         cout, blocks, stream)
     _cuda.check_status(status, entry)
-    if width == 'narrow':
+    if bf16:
+        fused_pf_head_bwd.bf16_launches += 1
+    elif width == 'narrow':
         fused_pf_head_bwd.launches += 1
     else:
         fused_pf_head_bwd.wide_launches += 1
@@ -314,9 +359,11 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
             dw1.view(cin, cmid))
 
 
-# Launches of the narrow (Cin 16) and the wide (Cin 64) kernels, apart.
+# Launches of the narrow (Cin 16), the wide (Cin 64) and the bfloat16
+# (narrow) kernels, apart.
 fused_pf_head_fwd.launches = fused_pf_head_fwd.wide_launches = 0
 fused_pf_head_bwd.launches = fused_pf_head_bwd.wide_launches = 0
+fused_pf_head_fwd.bf16_launches = fused_pf_head_bwd.bf16_launches = 0
 
 
 def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,
@@ -327,9 +374,11 @@ def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,
     the output cotangent g, in the layouts of the inputs (torch conv
     weights). With ``train_stats`` the statistics are the batch's own and
     the result is the full batch-statistics BN backward
-    (ref: bihome_tpu/ops/fused_head.py:205-270). ``moments`` computes the
+    (ref: bihome_tpu/ops/fused_head.py:205-270). dx is in x's dtype, the
+    others float32. ``moments`` computes the
     one-pass sums (the K2 wrapper; :func:`pf_head_bwd_plain` to hold the
     kernel against the plain version on the card)."""
+    dt = x.dtype
     cmid, cin = w1.shape[0], w1.shape[1]
     cout = w2.shape[0]
     n = x.shape[0]
@@ -356,12 +405,13 @@ def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,
         k1 = gis * inv_s * (sum_dan / m)
         k0 = -gis * (sum_da / m) - gis * (sum_dan / m) * cn
         # Rank-Cin corrections, all linear in x (see _run_bwd).
+        # At bf16: a_mat rounded, dx rounded again (``_run_bwd:257-266``).
         a_mat = (w1f * k1[None, :]) @ w1f.t()                     # [Cin,Cin]
-        x3 = x.reshape(n, cin, -1)
+        x3 = widen(x).reshape(n, cin, -1)
         sx = x3.sum(dim=(0, 2))
         sxx = torch.matmul(x3, x3.transpose(1, 2)).sum(0)
-        corr = torch.matmul(a_mat, x3).reshape(x.shape)
-        dx = dx - corr + (w1f @ k0)[None, :, None, None]
+        corr = torch.matmul(_rounded(a_mat, dt), x3).reshape(x.shape)
+        dx = (widen(dx) - corr + (w1f @ k0)[None, :, None, None]).to(dt)
         dw1 = dw1 - (sxx @ w1f) * k1[None, :] + sx[:, None] * k0[None, :]
         db1 = db1 - k1 * (sx @ w1f) + m * k0
     return (dx, dw1.t().reshape(w1.shape), db1, sum_dan, sum_da,

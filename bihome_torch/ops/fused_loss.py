@@ -18,7 +18,10 @@ backward is the same formula as ``fused_loss.py:128-195``:
 * ``plain_grad=False`` treats f_plain = [f1; f2] as a constant (biHomE);
   True also returns its cotangent (the CA-UDHN tail).
 * the hinge's subgradient is ``t > 0`` (0 at the kink);
-* the metrics carry no gradient.
+* the metrics carry no gradient;
+* bfloat16 features and masks are summed in float32 (``fused_loss.py:
+  76-79``): the losses and metrics are float32, and each cotangent comes
+  back in its input's dtype (``:171,182,191-193``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+
+from bihome_torch.models.layers import widen
 
 Tensor = torch.Tensor
 
@@ -54,17 +59,18 @@ class TripletDoubleLine(torch.autograd.Function):
     def forward(ctx, fp_w, f_plain, w1, w2, margin, aggregation,
                 second_scale, plain_grad):
         b = fp_w.shape[0] // 2
-        f1p, f2p = fp_w[:b], fp_w[b:]
-        f1, f2 = f_plain[:b], f_plain[b:]
+        f1p, f2p = widen(fp_w[:b]), widen(fp_w[b:])
+        f1, f2 = widen(f_plain[:b]), widen(f_plain[b:])
+        w1f, w2f = widen(w1), widen(w2)
         l1 = (f1p - f2).abs()
         l2 = (f2p - f1).abs()
         l3 = (f1 - f2).abs()
         _, lm1 = hinge_aggregate(l1, l3, margin, aggregation, False)
         _, lm2 = hinge_aggregate(l2, l3, margin, aggregation, second_scale)
-        den1 = w1.sum(dim=(-2, -1))
-        den2 = w2.sum(dim=(-2, -1))
-        ln1_b = (w1 * lm1).sum(dim=(-2, -1)) / den1.clamp_min(1.0)
-        ln2_b = (w2 * lm2).sum(dim=(-2, -1)) / den2.clamp_min(1.0)
+        den1 = w1f.sum(dim=(-2, -1))
+        den2 = w2f.sum(dim=(-2, -1))
+        ln1_b = (w1f * lm1).sum(dim=(-2, -1)) / den1.clamp_min(1.0)
+        ln2_b = (w2f * lm2).sum(dim=(-2, -1)) / den2.clamp_min(1.0)
         metrics = (l1.mean(), l2.mean(), l3.mean(), f1.mean(), f2.mean(),
                    f1p.mean(), den1.min(), den2.min())
         ctx.save_for_backward(fp_w, f_plain, w1, w2, ln1_b, ln2_b, den1,
@@ -75,11 +81,13 @@ class TripletDoubleLine(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g1, g2, *_metric_grads):
-        fp_w, f_plain, w1, w2, ln1_b, ln2_b, den1, den2 = ctx.saved_tensors
+        fp_w, f_plain, w1_in, w2_in, ln1_b, ln2_b, den1, den2 = \
+            ctx.saved_tensors
         margin, aggregation, second_scale, plain_grad = ctx.cfg
         b = fp_w.shape[0] // 2
-        f1p, f2p = fp_w[:b], fp_w[b:]
-        f1, f2 = f_plain[:b], f_plain[b:]
+        f1p, f2p = widen(fp_w[:b]), widen(fp_w[b:])
+        f1, f2 = widen(f_plain[:b]), widen(f_plain[b:])
+        w1, w2 = widen(w1_in), widen(w2_in)
         den1e = den1.clamp_min(1.0)
         den2e = den2.clamp_min(1.0)
         e1 = f1p - f2
@@ -94,7 +102,7 @@ class TripletDoubleLine(torch.autograd.Function):
         a2 = (g2 * w2 / den2e[:, None, None])[..., None]
         s1 = torch.sign(e1)
         s2 = torch.sign(e2)
-        d_fp = torch.cat([a1 * h1 * s1, a2 * h2 * s2], dim=0)
+        d_fp = torch.cat([a1 * h1 * s1, a2 * h2 * s2], dim=0).to(fp_w.dtype)
         d_plain = None
         if plain_grad:
             # l3 = |f1 - f2| enters both hinge terms with negative sign and
@@ -102,15 +110,15 @@ class TripletDoubleLine(torch.autograd.Function):
             s3 = torch.sign(e3)
             d_f1 = -a1 * h1 * s3 - a2 * h2 * (s2 + s3)
             d_f2 = a1 * h1 * (s3 - s1) + a2 * h2 * s3
-            d_plain = torch.cat([d_f1, d_f2], dim=0)
+            d_plain = torch.cat([d_f1, d_f2], dim=0).to(f_plain.dtype)
         # d/dw of sum(w*lm)/max(sum w, 1): the denominator's term flows only
         # where the clamp is inactive (den > 1).
         live1 = (den1 > 1.0).to(ln1_b.dtype)
         live2 = (den2 > 1.0).to(ln2_b.dtype)
-        d_w1 = g1 * (lm1 - (ln1_b * live1)[:, None, None]) / \
-            den1e[:, None, None]
-        d_w2 = g2 * (lm2 - (ln2_b * live2)[:, None, None]) / \
-            den2e[:, None, None]
+        d_w1 = (g1 * (lm1 - (ln1_b * live1)[:, None, None])
+                / den1e[:, None, None]).to(w1_in.dtype)
+        d_w2 = (g2 * (lm2 - (ln2_b * live2)[:, None, None])
+                / den2e[:, None, None]).to(w2_in.dtype)
         return d_fp, d_plain, d_w1, d_w2, None, None, None, None
 
 

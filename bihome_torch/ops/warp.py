@@ -217,3 +217,17 @@ class BilinearSample(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dimg = bilinear_sample_bwd_img(u, v, g, tuple(images.shape))
         return dimg, du, dv
+
+
+def sample(images: torch.Tensor, u: torch.Tensor,
+           v: torch.Tensor) -> torch.Tensor:
+    """:class:`BilinearSample` on images [N,H,W,C], u/v [N,P] -> [N,P,C].
+    A bfloat16 image is upcast to float32 first and sampled by the float32
+    kernels, as ``bihome_tpu/ops/warp_pallas.py:214-217`` upcasts before
+    the Pallas kernels: the bf16 paths warp with the Pallas kernel's (and
+    the CPU gather's) arithmetic, not with XLA's bf16 tent contraction
+    (``bihome_tpu/geometry.py:_tent_c1``, the TPU's default warp)."""
+    if images.dtype == torch.bfloat16:
+        images = images.float()
+    return BilinearSample.apply(images.contiguous(), u.contiguous(),
+                                v.contiguous())

@@ -3,6 +3,7 @@
     python -m bihome_torch.train --config_file X.yaml [--synthetic]
         [--steps N] [--batch_size B] [--epochs E] [--set K=V]
         [--image_size W H] [--device cuda|cpu]
+        [--dtype float32|bfloat16]
 
 Reads the same reference-schema YAML. The images come from the config's
 DATA.TRAIN_SPLIT / TEST_SPLIT (``datasets.make_dataset``: an image or
@@ -41,7 +42,11 @@ the uninterrupted run would have (the pair and DSAC generators, the
 samplers and the host-prep crops restored); SOLVER.RESTART_LEARNING_RATE
 starts the optimizer afresh. Without a checkpoint, MODEL.PRETRAINED
 warm-starts the model from a port checkpoint where keys and shapes
-match. The weights start from a fixed seed; a torchvision ``.pth`` named
+match. ``--dtype`` overrides MODEL.DTYPE (``train.py:49-50,399-400``):
+at bfloat16 the activations are bf16 (the kernels' bf16 forms on the
+card) and the parameters, optimizer state and checkpoints float32, so a
+checkpoint written at one dtype loads at the other. The weights start
+from a fixed seed; a torchvision ``.pth`` named
 by MODEL.BACKBONE.PRETRAINED_RESNET_PATH (with PRETRAINED_RESNET) goes
 into the backbone's encoder, and MODEL.HEAD.AUXILIARY_RESNET_PATH (an
 ``aux_*.npz`` or a torchvision ``.pth``) into the PerceptualHead's
@@ -86,6 +91,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         metavar='KEY=VALUE', help='dotted config override')
     parser.add_argument('--device', type=str, default='cuda',
                         choices=('cuda', 'cpu'))
+    parser.add_argument('--dtype', choices=('float32', 'bfloat16'),
+                        default='', help='override MODEL.DTYPE')
     return parser.parse_args(argv)
 
 
@@ -314,6 +321,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         torch.backends.cudnn.allow_tf32 = False
     config = config_lib.load_config(args.config_file)
     config_lib.apply_overrides(config, args.set)
+    if args.dtype:
+        config['MODEL']['DTYPE'] = args.dtype
     sampler_cfg = config['DATA']['SAMPLER']
     log_cfg = config['LOGGING']
     batch_size = args.batch_size or sampler_cfg['BATCH_SIZE']
@@ -338,7 +347,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     trainable = [p for p in model.parameters() if p.requires_grad]
     optimizer = Optimizer(trainable, **config_lib.solver_kwargs(config))
     print(f'Number of params: {sum(p.numel() for p in trainable)} trainable, '
-          f'{sum(p.numel() for p in model.parameters())} in all')
+          f'{sum(p.numel() for p in model.parameters())} in all; compute '
+          f'dtype {str(built.dtype).replace("torch.", "")}')
 
     log_dir = log_cfg['DIR']
     checkpointer = checkpoint.CheckPointer(log_dir)

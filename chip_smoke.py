@@ -111,12 +111,36 @@
    the CPU plain path (first 4 pairs) within 1e-2 px, one log line per
    sample. Every other eval phase runs with an empty LOGGING.DIR, so its
    weights are the seeded init.
-14. Prints each phase's wall time, one {"pds_distortion": ...,
+14. The bf16 slice (MODEL.DTYPE bfloat16). In step 3, K1 and K2 bf16 at
+   the zeng shape (bf16 x [128,16,128,128], Cmid 128, the shape of the
+   bf16 train and eval paths) against their plain bf16 versions, timed
+   and bounded (bytes, bf16 tensor work at 989 TFLOP/s, the fp32
+   epilogue); K2's inputs with the pixels near the ReLU kink zeroed, so
+   that both take the same masks; the plain versions with each bf16
+   rounding point left out must fail the same limits. After step 11,
+   bench.py's four PDS
+   configs train with ``--dtype bfloat16`` at its batches (BF16_RUNS,
+   PDS_STEPS + PDS_STEPS steps), counted: zeng-biHomE launches K1 bf16,
+   K2 bf16, K3 and K4 and neither float32 K1 nor K2, the others what
+   their float32 runs launch; each prints its ms per step, pairs/s and
+   peak memory beside its float32 run of this call. After zeng's run one
+   bf16 step (batch 4) against the CPU's bf16 step, with K2 bf16's dw1
+   zeroed as the planted fault (``compare_train_step_bf16``): the whole
+   step, held to the spread of two bf16 roundings, then the step from the
+   card's own pairs and PF-head input on, held tightly, the CPU's float32
+   step the control it must reject. Then the bf16 evals (S-COCO
+   zeng-biHomE at 64: K1 bf16 and K3; PDS detone-orig at 128: K3),
+   delta_hat against the CPU plain path at bf16, whole and from the card's
+   own input of the PF head or the regressor's fc, the CPU's float32 the
+   control again.
+15. Prints each phase's wall time, one {"pds_distortion": ...,
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
+   "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
    "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
-   and by path; K1 and K2 with their wide kernels' figures and launches
+   and by path, the bf16 K1 and K2 rows apart; K1 and K2 with their wide
+   kernels' figures and launches
    under "at_r50_head" and at zeng-orig's shape under "at_zeng_orig", K3
    and K4 at the CLEVR shape under "at_clevr", each with the launches of
    the paths that run that shape), then as the last line {"ok": true,
@@ -150,6 +174,7 @@ STEPS = 4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_TC_FLOP_PER_S = 495e12       # dense TF32 on the tensor cores
+BF16_TC_FLOP_PER_S = 989e12       # dense bf16 on the tensor cores
 # The one-step check (compare_train_step): the PF head's output conv scale
 # of the conditioned network, the gradient limits, and the planted faults
 # that must fail them. Readings (relative L2 over all gradients, worst
@@ -239,6 +264,70 @@ JPEG_QUALITY = 90
 FILE_CONFIG = 'config/pds-coco/zeng-bihome-lr-1e-3.yaml'
 RESUME_STEPS = 2
 RESUME_REL_L2 = 1e-4
+# The bf16 slice (MODEL.DTYPE bfloat16, ``--dtype bfloat16``). K1 and K2
+# bf16 against their plain bf16 versions (the Pallas kernels' rounding
+# points, float32 sums): K1 within BF16_K1_L2 relative L2 and every output
+# within BF16_K1_MAX of the largest (4 bf16 ulps); K2's dx within
+# BF16_K2_DX_L2, its sums within BF16_K2_SUMS_L2; at most a BF16_DIFFER
+# share of K1's outputs and K2's dx other bf16 values than the plain
+# version's (first readings 2.65e-5, 3.05e-5, sums at most 1.4e-5; 8.6e-5
+# and 1.1e-4 of the values differ). Each rounding point of the plain
+# version left out in turn (``skipped_rounding``) must fail those limits:
+# a kernel that missed one would. bench.py's four PDS
+# configs (bench.py:148-167) train at its batches at bf16, beside their
+# float32 runs above (zeng-biHomE must launch the bf16 K1 and K2 and
+# neither float32 one); the bf16 evals (S-COCO zeng-biHomE at 64, PDS
+# detone-orig at 128) hold the card's delta_hat within BF16_PREDICT_REL of
+# the CPU's at bf16; one bf16 step of zeng-biHomE at batch 4 against the
+# CPU's bf16 step (BF16_STEP_LOSS, BF16_STEP_PER_TENSOR) with K2 bf16's
+# dw1 zeroed as the planted fault. Those limits are set by the spread of
+# two legitimate bf16 roundings of the random 50-layer network: another
+# float32 summation order flips a bf16 rounding, each flip reaches
+# hundreds of sums in the next convolution, and through the batch
+# statistics the two sides decorrelate to the size of bf16 noise. First
+# readings (H100): the card's step against the CPU's at bf16 1.45e-2 of
+# the loss's terms, worst tensor 0.594 relative L2; the CPU's own float32
+# step 2.33e-2 and 0.702 from its bf16 one; dw1 zeroed 2.88. delta_hat
+# 1.33e-2 (zeng) and 5.84e-3 (detone) from the CPU's at bf16, where the
+# CPU's float32 stands 1.40e-2 and 4.87e-3 away.
+BF16_K1_L2 = 3e-4
+BF16_K1_MAX = 1.6e-2
+BF16_K2_DX_L2 = 3e-4
+BF16_K2_SUMS_L2 = 1e-4
+BF16_DIFFER = 5e-4
+BF16_ZENG_KERNELS = ('fused_pf_head_fwd_bf16', 'fused_pf_head_bwd_bf16',
+                     'bilinear_sample_batched', 'bilinear_sample_bwd_uv')
+BF16_RUNS = (('config/pds-coco/zeng-bihome-lr-1e-3.yaml', 64,
+              BF16_ZENG_KERNELS),
+             ('config/pds-coco/zhang-orig-lr-1e-2.yaml', 64, WARP_KERNELS),
+             ('config/pds-coco/nguyen-orig-lr-5e-3.yaml', 128,
+              ('bilinear_sample_batched',)),
+             ('config/pds-coco/detone-orig-lr-5e-3.yaml', 128,
+              ('bilinear_sample_batched',)))
+BF16_EVALS = ((CONFIG, 64, ('bilinear_sample_batched',
+                            'fused_pf_head_fwd_bf16')),
+              ('config/pds-coco/detone-orig-lr-5e-3.yaml', 128,
+               ('bilinear_sample_batched',)))
+BF16_PREDICT_REL = 5e-2
+BF16_STEP_LOSS = 5e-2
+BF16_STEP_PER_TENSOR = 1.0
+# The tail checks: the step and the evals from the card's own input of
+# the model's tail on (the PF head; the ResNet34 regressor's fc, its last
+# stage printed beside it), the card against the CPU at bf16, which the
+# CPU at float32 must miss. First readings (H100): the step's head and
+# input gradients 4.17e-3 relative L2 (float32 8.15e-2), its loss 6.84e-3
+# of the terms (float32 3.04e-3: the bf16 extractor's rounding noise,
+# which the loss cannot tell from float32's); zeng's delta_hat 5.75e-6
+# (float32 2.51e-3), detone's from the fc 0 (3.69e-3). From detone's last
+# stage the card stood 3.17e-3 from the CPU and float32 4.66e-3: after a
+# few cuDNN bf16 convolutions the card and the CPU part as far as bf16
+# and float32 do, so no tail holds them there.
+TAIL_MODULES = {'RethinkingBackbone': ('layer8',),
+                'ResNet34Backbone': ('resnet34.fc', 'resnet34.layer4')}
+BF16_TAIL_LOSS = 2e-2
+BF16_TAIL_L2 = 2e-2
+BF16_TAIL_PER_TENSOR = 5e-2
+BF16_TAIL_PREDICT = 1e-3
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -466,6 +555,11 @@ def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
     batch_cpu = {key: v[:k].cpu() for key, v in batch.items()}
     with one_cpu_thread():
         delta_cpu = model_cpu.predict(batch_cpu, uniforms=uniforms[:k])
+    if result['built'].dtype == torch.bfloat16:
+        result['bf16_predict'] = check_bf16_predict(
+            delta_cuda[:k], delta_cpu, model, model_cpu, batch_cpu,
+            uniforms[:k])
+        return launches, result, pairs_per_s
     err = (delta_cuda[:k] - delta_cpu).abs().max().item()
     print(f'delta_hat CUDA vs CPU plain path, batch 0 (first {k} pairs): '
           f'max abs err {err:.3e} px (max |delta_hat| '
@@ -473,6 +567,64 @@ def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
     if not (delta_cuda.shape == (batch_size, 4, 2) and err <= 1e-2):
         raise AssertionError(f'CUDA predict disagrees with CPU: {err}')
     return launches, result, pairs_per_s
+
+
+def check_bf16_predict(delta_cuda, delta_cpu, model, model_cpu, batch_cpu,
+                       uniforms):
+    """A bf16 model's delta_hat on the card against the CPU plain path at
+    bf16, within BF16_PREDICT_REL relative L2, the CPU's float32 prediction
+    of the same model beside it (the spread of two roundings); the
+    backbone's outputs on the card are bf16. Then the same from the card's
+    own input of the model's tail (``tail_from``: the PF head, or the
+    ResNet34 regressor's fc) on: the card within BF16_TAIL_PREDICT of the
+    CPU at bf16, which the CPU at float32 must miss (the regressor's last
+    stage too, printed only)."""
+    from bihome_torch.models import layers
+
+    model32 = layers.set_compute_dtype(copy.deepcopy(model_cpu),
+                                       torch.float32)
+    with one_cpu_thread():
+        delta32 = model32.predict(batch_cpu, uniforms=uniforms)
+    rel, rel32 = _rel_l2(delta_cuda, delta_cpu), _rel_l2(delta32, delta_cpu)
+    batch_card = {k: v.cuda() for k, v in batch_cpu.items()}
+    with torch.no_grad():
+        dtypes = {k: v.dtype for k, v in model.backbone(batch_card).items()}
+    print(f'bf16 delta_hat, card vs CPU plain path at bf16 ({len(delta_cpu)}'
+          f' pairs): relative L2 {rel:.2e} (limit {BF16_PREDICT_REL:.0e}); '
+          f'CPU float32 vs CPU bf16 {rel32:.2e}; max |delta_hat| '
+          f'{delta_cpu.abs().max().item():.2f}; backbone outputs {dtypes}')
+    if not (rel <= BF16_PREDICT_REL
+            and set(dtypes.values()) == {torch.bfloat16}):
+        raise AssertionError(f'bf16 predict on the card disagrees with the '
+                             f'CPU: {rel} (float32 {rel32}), {dtypes}')
+    tails = {}
+    for name in TAIL_MODULES[type(model.backbone).__name__]:
+        inputs, tail = [], {}
+        with torch.no_grad():
+            with tail_from(model, inputs, name):
+                model.predict(batch_card, uniforms=uniforms.cuda())
+            with tail_from(model, inputs, name):
+                tail['card'] = model.predict(batch_card,
+                                             uniforms=uniforms.cuda()).cpu()
+            with one_cpu_thread():
+                for side, m in (('CPU bf16', model_cpu),
+                                ('CPU float32', model32)):
+                    with tail_from(m, inputs, name):
+                        tail[side] = m.predict(batch_cpu, uniforms=uniforms)
+        tails[name] = {side: _rel_l2(tail[side], tail['CPU bf16'])
+                       for side in ('card', 'CPU float32')}
+        print(f'bf16 delta_hat from the card\'s input of {name} '
+              f'{[list(x.shape) for x in inputs]}: card vs CPU at bf16 '
+              f'{tails[name]["card"]:.2e}, CPU float32 vs CPU at bf16 '
+              f'{tails[name]["CPU float32"]:.2e}')
+    held = tails[TAIL_MODULES[type(model.backbone).__name__][0]]
+    print(f'bf16 tail prediction check: the card within '
+          f'{BF16_TAIL_PREDICT:.0e} {held["card"] <= BF16_TAIL_PREDICT}, '
+          f'float32 beyond it {held["CPU float32"] > BF16_TAIL_PREDICT}')
+    if not held['card'] <= BF16_TAIL_PREDICT < held['CPU float32']:
+        raise AssertionError(f'the bf16 tail prediction check fails: '
+                             f'{tails}')
+    return {'rel_l2': rel, 'float32_rel_l2': rel32, 'tails': tails}
 
 
 def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
@@ -817,6 +969,238 @@ def check_pf_head_bwd(dev, gen, cin=16, cmid=128, n=2 * BATCH):
             'host_us': host, **extra}
 
 
+@contextlib.contextmanager
+def skipped_rounding(k):
+    """The plain PF head with its ``k``-th bf16 rounding point in call
+    order left out (forward: g1t, w2, relu(a); backward: w1t, e, a_mat):
+    the planted fault of the K1 and K2 bf16 checks (and of the CPU test of
+    the plain versions against the Pallas kernels)."""
+    from bihome_torch.ops import fused_head as fh
+
+    rounded, calls = fh._rounded, [0]
+
+    def skipping(t, dtype):
+        calls[0] += 1
+        return t if calls[0] - 1 == k else rounded(t, dtype)
+    fh._rounded = skipping
+    try:
+        yield
+    finally:
+        fh._rounded = rounded
+
+
+def check_pf_head_bf16(dev, gen, n=2 * BATCH):
+    """K1 bf16 at the zeng shape: a bf16 [n,16,128,128] activation (``n`` =
+    2B = 128 for the DoubleLine train and eval batches of 64), Cmid 128,
+    against its plain bf16 version (the Pallas kernel's rounding points,
+    float32 sums) on the card: relative L2 within BF16_K1_L2 and every
+    output within BF16_K1_MAX of the largest (4 bf16 ulps); the two round
+    the same float32 values to bf16, summed in other orders."""
+    from bihome_torch.ops import fused_head
+
+    cin, cmid, cout, hw = 16, 128, 2, 128
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+    x = rnd(n, cin, hw, hw).to(torch.bfloat16)
+    w1, b1 = rnd(cmid, cin, 1, 1, scale=0.3), rnd(cmid, scale=0.2)
+    gamma, beta = rnd(cmid, scale=0.2, shift=1.0), rnd(cmid, scale=0.1)
+    gamma[0] = 0.0
+    w2, b2 = rnd(cout, cmid, 1, 1, scale=0.3), rnd(cout, scale=0.1)
+    mean = rnd(cmid, scale=0.1)
+    var = (torch.rand(cmid, generator=gen) + 0.5).to(dev)
+    args = (x, w1, b1, gamma, beta, w2, b2, mean, var)
+    before = fused_head.fused_pf_head_fwd.bf16_launches
+    got = fused_head.fused_pf_head_fwd(*args)
+    if fused_head.fused_pf_head_fwd.bf16_launches != before + 1:
+        raise AssertionError('K1 bf16 did not launch')
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f'K1 bf16 returned {got.dtype}')
+
+    def readings(want):
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        read = {'rel_l2': _rel_l2(got, want), 'max_abs_err': err,
+                'differ': float((got != want).float().mean())}
+        holds = (read['rel_l2'] <= BF16_K1_L2 and err <= BF16_K1_MAX * scale
+                 and read['differ'] <= BF16_DIFFER)
+        return read, holds, scale
+    (read, holds, scale), planted = readings(
+        fused_head.pf_head_fwd_plain(*args)), {}
+    l2, err = read['rel_l2'], read['max_abs_err']
+    print(f'K1 bf16 PF head [{n},{cin},{hw},{hw}] Cmid={cmid}: relative L2 '
+          f'{l2:.2e} (limit {BF16_K1_L2:.0e}), max abs err {err:.3e} (max '
+          f'|out| {scale:.2f}; limit {BF16_K1_MAX:.2e} of it), '
+          f'{read["differ"]:.2e} of {got.numel()} outputs differ (limit '
+          f'{BF16_DIFFER:.0e})')
+    if not holds:
+        raise AssertionError(f'K1 bf16 disagrees with plain: {read}')
+    for k, point in enumerate(('g1t', 'w2', 'relu(a)')):
+        with skipped_rounding(k):
+            planted[point], holds, _ = readings(
+                fused_head.pf_head_fwd_plain(*args))
+        print(f'K1 bf16 against the plain version without bf16({point}): '
+              f'relative L2 {planted[point]["rel_l2"]:.2e}, '
+              f'{planted[point]["differ"]:.2e} differ, caught {not holds}')
+        if holds:
+            raise AssertionError(f'the K1 bf16 check misses bf16({point})')
+    ms = time_ms(lambda: fused_head.fused_pf_head_fwd(*args))
+    plain_ms = time_ms(lambda: fused_head.pf_head_fwd_plain(*args))
+    host = {'kernel': host_us(lambda: fused_head.fused_pf_head_fwd(*args))}
+    m = n * hw * hw
+    nbytes = 2 * m * (cin + cout) + 4 * (cmid * cin + 3 * cmid + cout * cmid
+                                         + cout + cmid)
+    # The Cin x Cmid and Cmid x Cout products (bf16 on the tensor cores;
+    # K1 bf16 runs the second one on the fp32 cores), and the epilogue on
+    # the fp32 cores: the ReLU and Cout FMAs per middle value (1 + 2 Cout).
+    tc = 2 * m * (cin * cmid + cmid * cout) / BF16_TC_FLOP_PER_S * 1e3
+    epilogue = m * cmid * (1 + 2 * cout) / FP32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bms = max(t_bytes, tc, epilogue)
+    by = 'bytes' if bms == t_bytes else 'operations'
+    print(f'K1 bf16 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  bound '
+          f'{bms:.4f} ({by}: bytes {t_bytes:.4f}, bf16 tensor work '
+          f'{tc:.4f}, fp32 epilogue {epilogue:.4f}; {nbytes / 1e6:.1f} MB); '
+          f'host us per call: kernel {host["kernel"]:.1f}')
+    return {'name': 'fused_pf_head_fwd_bf16', 'route': 'cuda',
+            'source': 'bihome_torch/csrc/fused_head.cu',
+            'replaces': 'bihome_tpu/ops/fused_head.py:93',
+            'shape': [n, cin, hw, hw], 'cmid': cmid, 'dtype': 'bfloat16',
+            'max_abs_err': err, 'rel_l2': l2, 'differ': read['differ'],
+            'rounding_left_out': planted, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bms, 'bound_by': by, 'library_ms': None,
+            'host_us': host}
+
+
+def _off_the_kink(x, w1t, gis, c1, margin=1e-4, chunk=16):
+    """Zero the pixels of bf16 x [N,Cin,H,W] whose pre-ReLU value of some
+    middle channel, gis * (bf16(w1t) x) + c1 in float64, lies within
+    ``margin`` of 0 (a zeroed pixel's is c1, which must be farther). Then
+    every float32 order of the sums takes the same ReLU masks, and K2 bf16
+    and its plain version can be held to each other's sums. Returns the
+    number of pixels zeroed."""
+    if not bool((c1.abs() > margin).all()):
+        raise AssertionError('a c1 within the margin of the kink')
+    w = w1t.to(torch.bfloat16).double()
+    zeroed = 0
+    for i in range(0, x.shape[0], chunk):
+        xc = x[i:i + chunk]
+        pre = (torch.einsum('ck,nkhw->nchw', w, xc.double())
+               * gis.double()[:, None, None]
+               + c1.double()[:, None, None])
+        near = (pre.abs() < margin).any(1)                     # [n,h,w]
+        zeroed += int(near.sum())
+        xc.masked_fill_(near[:, None], 0.0)
+    return zeroed
+
+
+def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH):
+    """K2 bf16 at the zeng training shape: bf16 x (a ReLU output) and a
+    dense bf16 cotangent g [n,2,128,128], Cmid 128, batch statistics, one
+    gamma == 0 channel, against its plain bf16 version on the card: dx
+    within BF16_K2_DX_L2 relative L2, and dw1, M0, M1, db2 within
+    BF16_K2_SUMS_L2. The pixels with a pre-ReLU value within 1e-4 of the
+    kink are zeroed first (``_off_the_kink``), so both take the same ReLU
+    masks: the sums then differ by float32 order and by bf16(e)'s rare
+    rounding flips only."""
+    from bihome_torch.ops import fused_head as fh
+
+    cin, cmid, cout, hw = 16, 128, 2, 128
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+    x = torch.relu(rnd(n, cin, hw, hw)).to(torch.bfloat16)
+    w1, b1 = rnd(cmid, cin, 1, 1, scale=0.3), rnd(cmid, scale=0.2)
+    gamma, beta = rnd(cmid, scale=0.2, shift=1.0), rnd(cmid, scale=0.1)
+    gamma[0] = 0.0
+    w2 = rnd(cout, cmid, 1, 1, scale=0.3)
+    g = rnd(n, cout, hw, hw).to(torch.bfloat16)
+    mean, var = fh.batch_stats_affine(x, w1, b1)
+    inv_s = torch.rsqrt(var + 1e-5)
+    gis = (gamma * inv_s).contiguous()
+    c1 = (gis * (b1 - mean) + beta).contiguous()
+    w1t = w1.reshape(cmid, cin).contiguous()
+    zeroed = _off_the_kink(x, w1t, gis, c1)
+    w2gis = (w2.reshape(cout, cmid).t() * gis[:, None]).contiguous()
+    margs = (x, g, w1t, gis, c1, w2gis)
+    before = fh.fused_pf_head_bwd.bf16_launches
+    got = fh.fused_pf_head_bwd(*margs)
+    if fh.fused_pf_head_bwd.bf16_launches != before + 1:
+        raise AssertionError('K2 bf16 did not launch')
+    want = fh.pf_head_bwd_plain(*margs)
+    if got[0].dtype != torch.bfloat16:
+        raise AssertionError(f'K2 bf16 returned dx in {got[0].dtype}')
+    def held(got, want, names):
+        """Relative L2 of each output and the share of dx's bf16 values
+        that differ; whether they keep within the limits."""
+        errs = {k: _rel_l2(a, b) for k, a, b in zip(names, got, want)
+                if k != 'db1'}
+        errs['dx differ'] = float((got[0] != want[0]).float().mean())
+        limits = {k: BF16_K2_SUMS_L2 for k in errs}
+        limits.update({'dx': BF16_K2_DX_L2, 'dx differ': BF16_DIFFER})
+        return errs, all(errs[k] <= limits[k] for k in errs)
+    names = ('dx', 'm0', 'm1', 'db2', 'dw1')
+    errs, holds = held(got, want, names)
+    print(f'K2 bf16 PF head backward [{n},{cin},{hw},{hw}] Cmid={cmid} '
+          f'({zeroed} pixels within 1e-4 of the kink zeroed): relative L2 '
+          + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+          + f' (limits dx {BF16_K2_DX_L2:.0e}, sums {BF16_K2_SUMS_L2:.0e}, '
+          f'dx differ {BF16_DIFFER:.0e}); of {got[0].numel()} dx values')
+    if not holds:
+        raise AssertionError(f'K2 bf16 disagrees with plain: {errs}')
+    # The whole backward (corrections included) on both; then the plain
+    # version with each of its rounding points left out, which must fail.
+    args = (x, g, w1, b1, gamma, beta, w2, mean, var, 1e-5, True)
+    full = fh.pf_head_backward(*args)
+    names = ('dx', 'dw1', 'db1', 'dgamma', 'dbeta', 'dw2', 'db2')
+    full_errs, holds = held(full, fh.pf_head_backward(
+        *args, moments=fh.pf_head_bwd_plain), names)
+    print('K2 bf16 with the corrections against the plain version: relative '
+          'L2 ' + ', '.join(f'{k} {v:.2e}' for k, v in full_errs.items()))
+    if not holds:
+        raise AssertionError(f'K2 bf16 backward disagrees: {full_errs}')
+    planted = {}
+    for k, point in enumerate(('w1t', 'e', 'a_mat')):
+        with skipped_rounding(k):
+            planted[point], holds = held(full, fh.pf_head_backward(
+                *args, moments=fh.pf_head_bwd_plain), names)
+        print(f'K2 bf16 against the plain version without bf16({point}): '
+              + ', '.join(f'{key} {v:.2e}' for key, v in
+                          planted[point].items()) + f'; caught {not holds}')
+        if holds:
+            raise AssertionError(f'the K2 bf16 check misses bf16({point})')
+    ms = time_ms(lambda: fh.fused_pf_head_bwd(*margs))
+    plain_ms = time_ms(lambda: fh.pf_head_bwd_plain(*margs))
+    host = {'kernel': host_us(lambda: fh.fused_pf_head_bwd(*margs))}
+    m = n * hw * hw
+    nbytes = 2 * m * (2 * cin + cout) + 4 * (
+        cmid * cin + 2 * cmid + cmid * cout + cin * cmid + 2 * cmid * cout
+        + cout)
+    # mid, dx, dw1 and M0 = sum mask g on the tensor cores (bf16: mask is
+    # 0/1 and g bf16, both exact there, as the Pallas kernel's dot has
+    # it); per middle value on the fp32 cores: a (2), mask (1), e (2 Cout
+    # + 1), M1 (1 + 2 Cout); db2: Cout.
+    tc = m * (6 * cin * cmid + 2 * cmid * cout) / BF16_TC_FLOP_PER_S * 1e3
+    epilogue = m * (cmid * (5 + 4 * cout) + cout) / FP32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bms = max(t_bytes, tc, epilogue)
+    by = 'bytes' if bms == t_bytes else 'operations'
+    print(f'K2 bf16 times (ms): kernel {ms:.4f}  plain {plain_ms:.4f}  bound '
+          f'{bms:.4f} ({by}: bytes {t_bytes:.4f}, bf16 tensor work {tc:.4f},'
+          f' fp32 epilogue {epilogue:.4f}; {nbytes / 1e6:.1f} MB); host us '
+          f'per call: kernel {host["kernel"]:.1f}')
+    return {'name': 'fused_pf_head_bwd_bf16', 'route': 'cuda',
+            'source': 'bihome_torch/csrc/fused_head.cu',
+            'replaces': 'bihome_tpu/ops/fused_head.py:110',
+            'shape': [n, cin, hw, hw], 'cmid': cmid, 'dtype': 'bfloat16',
+            'max_abs_err': max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, want)),
+            'rel_l2': errs, 'with_corrections_rel_l2': full_errs,
+            'rounding_left_out': planted,
+            'kink_pixels_zeroed': zeroed, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bms, 'bound_by': by, 'library_ms': None,
+            'host_us': host}
+
 def _loss_warp_points(dev, gen, n, ps):
     """The loss warp's sample points: the patch grid through homographies
     of corner offsets of a few pixels, as delta_hat gives them."""
@@ -1110,20 +1494,25 @@ def check_pds(dev, gen):
 
 
 def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
-                   steps=STEPS, expect=ZENG_KERNELS, sets=(), synthetic=True):
+                   steps=STEPS, expect=ZENG_KERNELS, sets=(), synthetic=True,
+                   extra=()):
     """The port's train entry point on the card (config overrides
-    ``sets``; the synthetic pool on the device unless ``synthetic`` is
-    off, then the splits the config or ``sets`` name, streamed), counted:
-    the kernels in ``expect`` must launch and the others in ``counters``
-    must not."""
+    ``sets``, more arguments ``extra``; the synthetic pool on the device
+    unless ``synthetic`` is off, then the splits the config or ``sets``
+    name, streamed), counted: the kernels in ``expect`` must launch and the
+    others in ``counters`` must not."""
     from bihome_torch import train
 
     reset_counts(counters)
+    # Each run starts from an empty allocator cache, not the blocks the
+    # phases before it left (up to the R50 run's ~30 GB).
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = ['--config_file', config, '--batch_size', str(batch), '--steps',
             str(steps), '--epochs', '1', '--device', 'cuda', '--set',
             'MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz', '--set',
-            f'LOGGING.DIR={log_dir}']
+            f'LOGGING.DIR={log_dir}', *extra]
     if synthetic:
         args.append('--synthetic')
     for item in sets:
@@ -1168,8 +1557,10 @@ def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
           f'loop waited {wait_ms:.2f} ms per step for its batch (median of '
           f'steps 2-{steps}; all: {[round(t, 2) for t in result["wait_ms"]]})'
           f', {batch / ((step_ms + wait_ms) / 1e3):.1f} pairs/s with the '
-          f'wait')
+          f'wait; {reserved_gb:.2f} GB reserved by the phases before')
     result['summary'] = {'config': config, 'sets': list(sets),
+                         'dtype': str(result['built'].dtype).replace(
+                             'torch.', ''),
                          'batch': batch, 'feed': feed_name(result),
                          'ms_per_step': step_ms, 'pairs_per_s': pairs_per_s,
                          'wait_ms_per_step': wait_ms,
@@ -1201,25 +1592,68 @@ def _condition(model):
             model.backbone.layer8[3].bias.mul_(PF_SCALE)
 
 
-def one_step_grads(built, state, data, device, dtype=torch.float32):
+@contextlib.contextmanager
+def tail_from(model, inputs, name=None):
+    """The input of the model's tail (its backbone's module ``name``, by
+    default the first TAIL_MODULES names) recorded into ``inputs`` call by
+    call when that list is empty; else replaced, call by call, by its
+    tensors, moved to the device and dtype the model hands the tail
+    (float32 of the bf16 values in a float32 model), as leaves that take a
+    gradient where autograd records. Yields the leaves fed."""
+    name = name or TAIL_MODULES[type(model.backbone).__name__][0]
+    record, fed = not inputs, []
+
+    def hook(module, args):
+        if record:
+            inputs.append(args[0].detach().clone())
+            return None
+        leaf = inputs[len(fed)].to(device=args[0].device,
+                                   dtype=args[0].dtype, copy=True)
+        fed.append(leaf.requires_grad_(torch.is_grad_enabled()))
+        return (leaf,) + tuple(args[1:])
+    handle = model.backbone.get_submodule(name).register_forward_pre_hook(
+        hook)
+    try:
+        yield fed
+    finally:
+        handle.remove()
+
+
+def one_step_grads(built, state, data, device, dtype=torch.float32,
+                   config=None, tail=None, pairs=None):
     """Loss and backbone gradients (float64, on the CPU) of one conditioned
-    training step from ``state`` on ``device`` in ``dtype``; ``data`` =
-    (uint8 pool rows, corners, delta, the photometric draws (pd1, pd2),
-    DSAC uniforms or None). No optimizer."""
+    training step from ``state`` on ``device`` in ``dtype`` (parameters
+    and inputs; the model's compute dtype is its config's MODEL.DTYPE),
+    with the model of ``config`` (default the run's); ``data`` = (uint8
+    pool rows, corners, delta, the photometric draws (pd1, pd2), DSAC
+    uniforms or None). No optimizer. With ``tail`` (a list), the tail's
+    inputs are recorded into it when it is empty (``tail_from``); else the
+    tail runs from its tensors, and the gradients are the tail's
+    parameters' and its inputs' (``input0``, ...). With ``pairs`` (a
+    dict), the generated pairs are recorded into it (on the CPU) when it
+    is empty; else they are its tensors, not generated here."""
     from bihome_torch import config as config_lib
     from bihome_torch.data import pipeline
     from bihome_torch.training import losses
 
     pool, corners, delta, pds, uniforms = data
-    model = config_lib.build_model(built.config).model
+    built = config_lib.build_model(config or built.config)
+    model = built.model
     model.load_state_dict(state)
     _condition(model)
     model = model.to(device=device, dtype=dtype).train()
-    batch = pipeline.generate_pairs(pool.to(device), built.pair_spec,
-                                    corners=corners, delta=delta,
-                                    photometric_params=pds)
-    out = model({k: v.to(dtype) for k, v in batch.items()},
-                uniforms=uniforms)
+    if pairs:
+        batch = {k: v.to(device) for k, v in pairs.items()}
+    else:
+        batch = pipeline.generate_pairs(pool.to(device), built.pair_spec,
+                                        corners=corners, delta=delta,
+                                        photometric_params=pds)
+        if pairs is not None:
+            pairs.update({k: v.cpu() for k, v in batch.items()})
+    with (tail_from(model, tail) if tail is not None
+          else contextlib.nullcontext([])) as fed:
+        out = model({k: v.to(dtype) for k, v in batch.items()},
+                    uniforms=uniforms)
     loss = losses.compute_loss(built.loss_name, out)
     loss.backward()
     if 'loss_comp/ln1' in out['metrics']:
@@ -1231,9 +1665,12 @@ def one_step_grads(built, state, data, device, dtype=torch.float32):
         scale = abs(loss.item())
     # layer8.0.bias (the PF head's first conv bias) is left out: its
     # gradient is 0 analytically under batch statistics.
-    return loss.item(), scale, {n: p.grad.cpu().double() for n, p in
-                                model.backbone.named_parameters()
-                                if n != 'layer8.0.bias'}
+    params = model.backbone.named_parameters()
+    grads = {n: p.grad.cpu().double() for n, p in params
+             if n != 'layer8.0.bias' and (p.grad is not None or not fed)}
+    grads.update({f'input{i}': x.grad.cpu().double()
+                  for i, x in enumerate(fed)})
+    return loss.item(), scale, grads
 
 
 def step_errors(got, ref):
@@ -1291,24 +1728,8 @@ def compare_train_step(result, batch=4, faults=FAULTS):
     itself for a tensor loss), the gradients within STEP_L2 relative L2
     over all tensors and within STEP_PER_TENSOR relative L2 for every
     tensor."""
-    from bihome_torch import train
-    from bihome_torch.data import datasets, pipeline
-
     built, state = result['built'], result['initial_state']
-    gen = torch.Generator().manual_seed(7)
-    if built.pair_spec.change_aware_keys:
-        # CLEVR-Change: (original, changed) pairs, nothing drawn.
-        pool = torch.from_numpy(train.make_pools(
-            built.config, (320, 240), batch, batch)[0][:batch])
-        corners = delta = pds = None
-    else:
-        pool = torch.from_numpy(datasets.SyntheticDataset(seed=2).pool[:batch])
-        corners, delta = pipeline.draw_corners_delta_batch(
-            batch, tuple(pool.shape[1:3]), built.pair_spec, gen)
-        pds = pipeline._draw_photometric(batch, built.pair_spec, gen)
-    uniforms = ([torch.rand((batch, 128), generator=gen) for _ in range(2)]
-                if built.needs_dsac_rng else None)
-    data = (pool, corners, delta, pds, uniforms)
+    data = step_data(built, batch)
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
 
     with one_cpu_thread():
@@ -1341,6 +1762,133 @@ def compare_train_step(result, batch=4, faults=FAULTS):
         raise AssertionError(f'the step check misses a planted fault: '
                              f'{caught}')
     return readings
+
+
+def step_data(built, batch):
+    """The one-step checks' inputs: (uint8 pool rows, corners, delta, the
+    photometric draws, DSAC uniforms or None), drawn from seed 7."""
+    from bihome_torch import train
+    from bihome_torch.data import datasets, pipeline
+
+    gen = torch.Generator().manual_seed(7)
+    if built.pair_spec.change_aware_keys:
+        # CLEVR-Change: (original, changed) pairs, nothing drawn.
+        pool = torch.from_numpy(train.make_pools(
+            built.config, (320, 240), batch, batch)[0][:batch])
+        corners = delta = pds = None
+    else:
+        pool = torch.from_numpy(datasets.SyntheticDataset(seed=2).pool[:batch])
+        corners, delta = pipeline.draw_corners_delta_batch(
+            batch, tuple(pool.shape[1:3]), built.pair_spec, gen)
+        pds = pipeline._draw_photometric(batch, built.pair_spec, gen)
+    uniforms = ([torch.rand((batch, 128), generator=gen) for _ in range(2)]
+                if built.needs_dsac_rng else None)
+    return pool, corners, delta, pds, uniforms
+
+
+def compare_train_step_bf16(result, batch=4):
+    """One bf16 training step of the run's config on the card against the
+    CPU plain path at bf16 (the kernels' plain bf16 versions, torch's CPU
+    bf16 convolutions): the run's initial weights, conditioned, the same
+    pairs and draws, as ``compare_train_step``. Limits: the loss within
+    BF16_STEP_LOSS of the sum of its terms' magnitudes, every backbone
+    tensor's gradient within BF16_STEP_PER_TENSOR relative L2. Then the
+    card's step with K2 bf16's dw1 zeroed, which the limits must catch.
+    The CPU's float32 step is measured against the same reference and
+    printed beside it: the spread of two legitimate roundings."""
+    built, state = result['built'], result['initial_state']
+    data = step_data(built, batch)
+    cuda, cpu = torch.device('cuda'), torch.device('cpu')
+    config32 = copy.deepcopy(built.config)
+    config32['MODEL']['DTYPE'] = 'float32'
+    with one_cpu_thread():
+        ref = one_step_grads(built, state, data, cpu)
+        runs = {'CPU float32': one_step_grads(built, state, data, cpu,
+                                              config=config32)}
+    runs['card'] = one_step_grads(built, state, data, cuda)
+    fault = 'K2 dw1 zeroed'
+    with planted_fault(fault):
+        runs[fault] = one_step_grads(built, state, data, cuda)
+    readings = {}
+    for name, run in runs.items():
+        loss_err, l2, per, worst = readings[name] = step_errors(run, ref)
+        print(f'one bf16 train step of {result["summary"]["config"]} (batch '
+              f'{batch}), {name} against the CPU plain path at bf16: loss '
+              f'{run[0]:.6f} vs {ref[0]:.6f} (terms {ref[1]:.4f}), error / '
+              f'terms {loss_err:.2e} (limit {BF16_STEP_LOSS:.2g}); backbone '
+              f'gradients relative L2 {l2:.2e}, worst tensor {per:.2e} '
+              f'({worst}; limit {BF16_STEP_PER_TENSOR:.2g})')
+
+    def holds(name):
+        loss_err, _, per, _ = readings[name]
+        return loss_err <= BF16_STEP_LOSS and per <= BF16_STEP_PER_TENSOR
+    if not holds('card'):
+        raise AssertionError('the bf16 training step on the card strays from '
+                             'the CPU plain path at bf16')
+    print(f'planted fault caught by the bf16 step check: {not holds(fault)}')
+    if holds(fault):
+        raise AssertionError(f'the bf16 step check misses {fault}')
+    whole = {name: dict(zip(('loss_err', 'rel_l2', 'worst_rel_l2',
+                             'worst_tensor'), r))
+             for name, r in readings.items()}
+    return {'whole_step': whole,
+            'tail': compare_tail_step_bf16(result, built, state, data)}
+
+
+def compare_tail_step_bf16(result, built, state, data):
+    """The same step from the card's own pairs and PF-head input on: both
+    recorded on the card (the bf16 datagen's gray values can round to
+    other bf16 values on the two sides), then the head, the DSAC fit and
+    the loss (the frozen extractor on the pairs and the warped patches)
+    run from them on the card, on the CPU at bf16 (the reference) and on
+    the CPU at float32 (the control), the gradients those of the head's
+    parameters and of its input. Past the backbone's depth two bf16
+    roundings stay close: the card must keep within BF16_TAIL_LOSS and
+    BF16_TAIL_PER_TENSOR, and the float32 control and the card with K2
+    bf16's dw1 zeroed must not."""
+    cuda, cpu = torch.device('cuda'), torch.device('cpu')
+    config32 = copy.deepcopy(built.config)
+    config32['MODEL']['DTYPE'] = 'float32'
+    inputs, pairs = [], {}
+    one_step_grads(built, state, data, cuda, tail=inputs, pairs=pairs)
+    inputs = [x.cpu() for x in inputs]
+
+    def run(device, **kwargs):
+        return one_step_grads(built, state, data, device, tail=inputs,
+                              pairs=pairs, **kwargs)
+    with one_cpu_thread():
+        ref = run(cpu)
+        runs = {'CPU float32': run(cpu, config=config32)}
+    runs['card'] = run(cuda)
+    fault = 'K2 dw1 zeroed'
+    with planted_fault(fault):
+        runs[fault] = run(cuda)
+    readings = {}
+    for name, run in runs.items():
+        loss_err, l2, per, worst = readings[name] = step_errors(run, ref)
+        print(f'the bf16 step of {result["summary"]["config"]} from the '
+              f'card\'s PF-head input {[list(x.shape) for x in inputs]}, '
+              f'{name} against the CPU at bf16: loss error / terms '
+              f'{loss_err:.2e} (limit {BF16_TAIL_LOSS:.0e}); head and input '
+              f'gradients relative L2 {l2:.2e} (limit {BF16_TAIL_L2:.0e}), '
+              f'worst tensor {per:.2e} ({worst}; limit '
+              f'{BF16_TAIL_PER_TENSOR:.0e})')
+
+    def holds(name):
+        loss_err, l2, per, _ = readings[name]
+        return (loss_err <= BF16_TAIL_LOSS and l2 <= BF16_TAIL_L2
+                and per <= BF16_TAIL_PER_TENSOR)
+    caught = {name: not holds(name) for name in ('CPU float32', fault)}
+    print(f'the tail check holds the card: {holds("card")}; catches the '
+          f'float32 control and the planted fault: {caught}')
+    if not holds('card'):
+        raise AssertionError('the bf16 step from the card\'s PF-head input '
+                             'strays from the CPU at bf16')
+    if not all(caught.values()):
+        raise AssertionError(f'the bf16 tail check misses {caught}')
+    return {name: dict(zip(('loss_err', 'rel_l2', 'worst_rel_l2',
+                            'worst_tensor'), r))
+            for name, r in readings.items()}
 
 
 def feed_name(result):
@@ -1618,6 +2166,11 @@ def run(stack):
     kernels[0]['max_abs_err'] = max(kernels[0]['max_abs_err'],
                                     kernels[0]['at_datagen_128']['max_abs_err'])
     kernels += bwd_kernels
+    # The bf16 kernels draw from a generator of their own, so the phases
+    # after them get the draws they got before the bf16 slice.
+    gen_bf16 = torch.Generator().manual_seed(12)
+    kernels += [check_pf_head_bf16(dev, gen_bf16),
+                check_pf_head_bwd_bf16(dev, gen_bf16)]
     done('kernel checks')
     # Each kernel's launch counter: K1 and K2 count their narrow (Cin 16)
     # and wide (Cin 64) kernels apart.
@@ -1631,7 +2184,11 @@ def run(stack):
                                    'wide_launches'),
         'bilinear_sample_bwd_uv': (warp.bilinear_sample_bwd_uv, 'launches'),
         'bilinear_sample_bwd_img': (warp.bilinear_sample_bwd_img,
-                                    'launches')}
+                                    'launches'),
+        'fused_pf_head_fwd_bf16': (fused_head.fused_pf_head_fwd,
+                                   'bf16_launches'),
+        'fused_pf_head_bwd_bf16': (fused_head.fused_pf_head_bwd,
+                                   'bf16_launches')}
     paths = {}
     paths['eval'], _, _ = run_eval_path(counters)
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1697,6 +2254,37 @@ def run(stack):
             counters, config, BATCH, PDS_STEPS, ('bilinear_sample_batched',),
             check_pairs=4)
     done('zhang train, eval, step check')
+
+    # The bf16 slice: bench.py's four PDS configs trained at bf16 at its
+    # batches, beside their float32 runs above; the one bf16 step check
+    # after zeng-biHomE's; the bf16 evals.
+    f32_rows = {(r['config'], r['batch']): r for r in runs
+                if r['dtype'] == 'float32' and not r['sets']}
+    bf16_runs, bf16_evals = [], {}
+    for config, batch, expect in BF16_RUNS:
+        with tempfile.TemporaryDirectory() as log_dir:
+            paths[f'train {config} bf16'], result = run_train_path(
+                counters, log_dir, config, batch, PDS_STEPS, expect,
+                extra=('--dtype', 'bfloat16'))
+        row, f32 = result['summary'], f32_rows[(config, batch)]
+        row['float32'] = {k: f32[k] for k in ('ms_per_step', 'pairs_per_s',
+                                              'peak_gb')}
+        bf16_runs.append(row)
+        print(f'{config} at {batch}: bf16 {row["ms_per_step"]:.2f} ms per '
+              f'step, {row["pairs_per_s"]:.1f} pairs/s, peak '
+              f'{row["peak_gb"]:.2f} GB; float32 (this call) '
+              f'{f32["ms_per_step"]:.2f} ms, {f32["pairs_per_s"]:.1f} pairs/s,'
+              f' {f32["peak_gb"]:.2f} GB')
+        if config == BF16_RUNS[0][0]:
+            bf16_step = compare_train_step_bf16(result)
+        del result
+    for config, batch, expect in BF16_EVALS:
+        paths[f'eval {config} bf16'], result, _ = run_eval_path(
+            counters, config, batch, PDS_STEPS, expect,
+            ('MODEL.DTYPE=bfloat16',), check_pairs=4)
+        bf16_evals[config] = result['bf16_predict']
+        del result
+    done('bf16 train, step check, eval')
 
     # The zeng-orig and CLEVR-Change slice: the narrow K1 and K2 at
     # zeng-orig's OneLine shape (64 images), K3 and K4 at the CLEVR
@@ -1796,7 +2384,9 @@ def run(stack):
                       'zeng_orig_eval': zeng_orig_eval,
                       'file_data': file_data, 'file_runs': file_runs,
                       'resume': resume, 'file_eval_mace':
-                      eval_result['mean_mace'], 'phase_s': phase_s}))
+                      eval_result['mean_mace'], 'bf16_runs': bf16_runs,
+                      'bf16_step': bf16_step, 'bf16_evals': bf16_evals,
+                      'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ than SMs, the wide K1's persistent walk at one tile past a multiple of
 the SMs, the wide kernels' outputs bit for bit across two calls, one
 wgmma tile and the weight prep they read, misaligned inputs, points far
 outside,
-exactly on the border or on integer coordinates, input validation. Tolerances: 1e-3 absolute on 0..255 pixels (warp
+exactly on the border or on integer coordinates, input validation; K1
+and K2 at bfloat16 against their plain bf16 versions (tolerances beside
+those tests). Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
 backward (the kernel sums over pixels per block, then over blocks);
@@ -318,6 +320,114 @@ def test_wide_pf_head_bwd_sums_are_bit_identical(cuda):
     for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), first, second):
         assert torch.equal(a, b), name
 
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _bf16_counts():
+    return (fused_head.fused_pf_head_fwd.launches,
+            fused_head.fused_pf_head_fwd.bf16_launches,
+            fused_head.fused_pf_head_bwd.launches,
+            fused_head.fused_pf_head_bwd.bf16_launches)
+
+
+# K1 and K2 at bf16 on the shapes of the float32 tests: HW = 323, 1 and
+# 4420 are not multiples of 8 (plain loads instead of 16-byte copies), 48
+# and 400 are; the misaligned x is 2 bytes off a 16-byte boundary. Both
+# round the same float32 values to bf16, summed in other orders: relative
+# L2 within 2e-3 (K1) and 5e-3 (K2's dx), every output within 4 bf16 ulps
+# of the largest, the sums within 1e-3 relative L2; pixels within 1e-4 of
+# the ReLU kink are zeroed first, so both take the same masks.
+@pytest.mark.parametrize('shape,cmid,misalign', [
+    ((3, 17, 19), 128, False), ((2, 128, 128), 128, False),
+    ((1, 1, 1), 128, False), ((2, 8, 6), 128, False),
+    ((3, 20, 20), 128, False), ((1, 68, 65), 128, False),
+    ((2, 33, 31), 512, False), ((2, 16, 16), 128, True)])
+def test_pf_head_bf16_kernel_matches_plain(cuda, shape, cmid, misalign):
+    args = list(_head_args(torch.Generator().manual_seed(11), *shape, cuda,
+                           cmid))
+    x = args[0].to(torch.bfloat16)
+    if misalign:
+        flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        x = flat[1:].view(x.shape)
+        x.copy_(args[0])
+    args[0] = x
+    before = _bf16_counts()
+    got = fused_head.fused_pf_head_fwd(*args)
+    torch.cuda.synchronize()
+    assert _bf16_counts() == (before[0], before[1] + 1, *before[2:])
+    want = fused_head.pf_head_fwd_plain(*args)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _rel_l2(got, want) <= 2e-3
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2 * want.float().abs().max().item() + 1e-6
+
+
+def _bf16_bwd_args(gen, n, h, w, cuda):
+    x, g, w1t, gis, c1, w2gis = _bwd_args(gen, n, h, w, cuda)
+    x = torch.relu(x).to(torch.bfloat16)
+    pre = (torch.einsum('ck,nkhw->nchw', w1t.to(torch.bfloat16).double(),
+                        x.double()) * gis.double()[:, None, None]
+           + c1.double()[:, None, None])
+    assert bool((c1.abs() > 1e-4).all())
+    x.masked_fill_((pre.abs() < 1e-4).any(1)[:, None], 0.0)
+    return x, g.to(torch.bfloat16), w1t, gis, c1, w2gis
+
+
+@pytest.mark.parametrize('shape', [(3, 17, 19), (2, 128, 128), (1, 1, 1),
+                                   (2, 8, 6), (3, 20, 20), (1, 68, 65)])
+def test_pf_head_bwd_bf16_kernel_matches_plain(cuda, shape):
+    args = _bf16_bwd_args(torch.Generator().manual_seed(12), *shape, cuda)
+    before = _bf16_counts()
+    got = fused_head.fused_pf_head_bwd(*args)
+    torch.cuda.synchronize()
+    assert _bf16_counts() == (*before[:3], before[3] + 1)
+    want = fused_head.pf_head_bwd_plain(*args)
+    assert got[0].dtype == want[0].dtype == torch.bfloat16
+    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), got, want):
+        assert a.shape == b.shape, name
+        assert _rel_l2(a, b) <= (5e-3 if name == 'dx' else 1e-3), name
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    assert err <= 1.6e-2 * want[0].float().abs().max().item() + 1e-6
+
+
+def test_pf_head_bf16_train_gradients_match_plain(cuda):
+    gen = torch.Generator().manual_seed(13)
+    x, w1, b1, gamma, beta, w2, b2, _, _ = _head_args(gen, 2, 32, 32, cuda)
+    x = torch.relu(x).to(torch.bfloat16)
+    mean, var = fused_head.batch_stats_affine(x, w1, b1)
+    g = torch.randn((2, 2, 32, 32), generator=gen).to(cuda, torch.bfloat16)
+    args = (x, g, w1, b1, gamma, beta, w2, mean, var, 1e-5, True)
+    got = fused_head.pf_head_backward(*args)
+    want = fused_head.pf_head_backward(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    for name, a, b in zip(('dx', 'dw1', 'db1', 'dgamma', 'dbeta', 'dw2',
+                           'db2'), got, want):
+        assert a.dtype == b.dtype, name
+        if name == 'db1':                   # 0 analytically
+            continue
+        assert _rel_l2(a.cpu(), b) <= (5e-3 if name == 'dx' else 1e-3), name
+
+
+def test_pf_head_bf16_kernels_reject_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(14)
+    wide = list(_head_args(gen, 1, 4, 4, cuda, 512, cin=64))
+    wide[0] = wide[0].to(torch.bfloat16)
+    with pytest.raises(ValueError, match='bfloat16 PF-head kernels take '
+                                         'Cin=16'):
+        fused_head.fused_pf_head_fwd(*wide)
+    x, g, w1t, gis, c1, w2gis = _bf16_bwd_args(gen, 1, 4, 4, cuda)
+    with pytest.raises(ValueError, match='must be torch.bfloat16'):
+        fused_head.fused_pf_head_bwd(x, g.float(), w1t, gis, c1, w2gis)
+    wx, wg, ww1t, wgis, wc1, ww2gis = _bwd_args(gen, 1, 4, 4, cuda, 512,
+                                                cin=64)
+    with pytest.raises(ValueError, match='float32 only'):
+        fused_head.fused_pf_head_bwd(wx.to(torch.bfloat16),
+                                     wg.to(torch.bfloat16), ww1t, wgis, wc1,
+                                     ww2gis)
 
 def _lib():
     from bihome_torch.ops import _cuda
