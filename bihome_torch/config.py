@@ -83,50 +83,6 @@ class BuiltModel:
         return needs_dsac(self.head_cfg)
 
 
-def model_family(model_cfg: Dict[str, Any], head_cfg: HeadConfig) -> str:
-    """The config family of a MODEL section, by its backbone and head:
-    'zeng-biHomE', 'zeng-orig', 'detone/nguyen-orig', 'detone-biHomE',
-    'zhang-orig', 'zhang-biHomE', the ResNet50-flavour zeng, or the
-    backbone and head names of another combination."""
-    backbone = model_cfg['BACKBONE']
-    name = backbone['NAME']
-    if name == 'Rethinking':
-        if backbone.get('RESNET_BLOCK', 'ResNet34') != 'ResNet34':
-            return (f"the {backbone['RESNET_BLOCK']}-flavour Rethinking "
-                    'backbone (the Cin 64 PF head)')
-        if head_cfg.name == 'PerceptualHead' and not head_cfg.delta_hat_keys:
-            return 'zeng-biHomE'
-        if head_cfg.name == 'NoOpHead' and head_cfg.target_gen == 'all_points':
-            return 'zeng-orig'
-    if name == 'ResNet34':
-        if head_cfg.name == 'NoOpHead':
-            return 'detone/nguyen-orig'
-        if head_cfg.name == 'PerceptualHead':
-            return 'detone-biHomE'
-    if name == 'ContentAware':
-        if head_cfg.name == 'TripletHead':
-            return 'zhang-orig'
-        if head_cfg.name == 'PerceptualHead':
-            return 'zhang-biHomE'
-    return f'the {name} backbone and the {head_cfg.name}'
-
-
-# The families that run at bfloat16: bench.py's four PDS configs
-# (bench.py:148-167) and their S-COCO twins, each held to JAX at bf16 by a
-# CPU test (tests/test_torch_bf16_*.py).
-BF16_FAMILIES = ('zeng-biHomE', 'detone/nguyen-orig', 'zhang-orig')
-
-
-def check_bf16_ported(family: str, pair_spec: PairSpec) -> None:
-    """Raise for a config this port does not run at bfloat16 yet."""
-    if family not in BF16_FAMILIES:
-        raise ValueError(f'not ported yet: MODEL.DTYPE bfloat16 with '
-                         f'{family}')
-    if pair_spec.change_aware_keys:
-        raise ValueError('not ported yet: MODEL.DTYPE bfloat16 with '
-                         'ChangeAwarePrep pairs (CLEVR-Change)')
-
-
 def build_model(config: Dict[str, Any], dtype=None) -> BuiltModel:
     """Assemble the model (weights from the module init — callers seed or
     load them) and the train/test pair specs. Compute dtype: ``dtype``
@@ -166,8 +122,6 @@ def build_model(config: Dict[str, Any], dtype=None) -> BuiltModel:
         **blob_kw)
     check_ported(pair_spec)
     check_ported(test_pair_spec)
-    if dtype == torch.bfloat16:
-        check_bf16_ported(model_family(model_cfg, head_cfg), pair_spec)
     return BuiltModel(model=model, head_cfg=head_cfg, pair_spec=pair_spec,
                       test_pair_spec=test_pair_spec,
                       loss_name=config['SOLVER']['LOSS'], config=config,

@@ -2275,6 +2275,585 @@ constexpr size_t bwd_wide_dx_smem_bytes(int cmid) {
 constexpr size_t kWSumsSmemBytes =
     sizeof(float) * (12 * kWImg + kWCin * kWSXS + 3 * kCout * kWSTile);
 
+
+// ---------------------------------------------------------------------------
+// The ResNet50-flavour head at bfloat16 (Cin 64, Cmid a multiple of 128 up
+// to 512, Cout 2): K1 and K2 on bf16 x, as the TPU kernels run when the
+// PF head hands the wide head bf16 x (bihome_tpu/models/backbones.py:66-73,
+// the grid of _TP_WIDE = 4096-pixel programs). The rounding points are the
+// narrow bf16 kernels' (above):
+//   * K1: out = bf16(b2 + bf16(w2)^T bf16(relu(bf16(g1t) x + c1)));
+//   * K2: mid = bf16(w1t) x, the mask and e in fp32, dx = bf16(bf16(w1)
+//     bf16(e)), dw1 = x bf16(e)^T, M0, M1 and db2 summed in fp32 (the
+//     rank-Cin corrections outside, as for every K2).
+//
+// Bounds on the H100 at the R50 zeng training shape (x [128,64,128,128],
+// M = 2,097,152 pixels, Cmid 512; the smoke recomputes them from its
+// inputs), at 989 TFLOP/s of bf16 tensor work, 67 TFLOP/s on the fp32
+// cores and 3.35 TB/s:
+//   * K1: the Cin x Cmid product is 137.4 GFLOP (0.139 ms), the epilogue
+//     (ReLU, rounding, the Cout = 2 sums) 5 flops per middle value (5.4
+//     GFLOP, 0.080 ms), the bytes 268 MB of x and 8.4 MB out (0.083 ms):
+//     operations, ~0.139 ms;
+//   * K2: three such products (mid, dx, dw1), 412 GFLOP (0.417 ms), the
+//     epilogue ~13 flops per middle value (0.208 ms), the bytes x, g and
+//     dx, 545 MB (0.163 ms): operations, ~0.42 ms. The design below
+//     computes mid twice (a floor of ~0.56 ms of tensor work).
+//
+// Design: mma.sync.m16n8k16 bf16 (a product of two bf16 values is exact
+// in fp32, so only the order of the fp32 sums differs from the Pallas
+// kernels). No weight split and no prep kernel: bf16 operands need none,
+// and each block packs bf16(g1t) or bf16(w1t) into shared memory in mma
+// fragment order itself (64 KB per operand at Cmid 512), so every B load
+// is one conflict-free 8-byte load per lane.
+//   * K1 (pf_head_fwd_wide_bf16_kernel): the narrow K1 bf16 at K = 64 (four
+//     k-steps): persistent blocks of 256 threads, one per SM, walk 256-pixel
+//     tiles (x [64][256] by cp.async into a double buffer); warp w owns
+//     pixels 32w..32w+31 (two m-tiles), their A fragments read once per
+//     tile; per 8-channel n-tile the accumulator starts at c1 and the
+//     ReLU, the rounding and the Cout = 2 sums run on it in registers;
+//   * K2 as the float32 wide K2, in two kernels: at Cin 64 a block's dw1
+//     partials (64 x Cmid fp32, 128 KB at Cmid 512) do not fit the narrow
+//     K2's registers, and dw1 wants channels as M where dx wants pixels:
+//       - dx (pf_head_bwd_wide_bf16_dx_kernel): persistent blocks, one per
+//         SM, walk 256-pixel tiles; warp w owns 32 pixels (two m-tiles) and
+//         holds their x as A fragments. Per 16 channels: mid^T [px, ch] =
+//         x^T bf16(w1t)^T (two n-tiles), the epilogue (mask, e) on the
+//         accumulator, and bf16(e) packed straight into the A fragment of
+//         dx^T [px, Cin] += bf16(e) bf16(w1) (the accumulator layout of two
+//         n-tiles is the A layout of one k-step). dx goes through shared
+//         memory (the x tile it came from) to 16-byte stores;
+//       - sums (pf_head_bwd_wide_bf16_sums_kernel): the grid's y takes
+//         128-channel chunks, warp w 16 of them, with bf16(w1t) rows as A in
+//         registers; blocks walk 64-pixel tiles. Per 16 pixels: mid [ch,
+//         px] = bf16(w1t) x (two n-tiles), the epilogue (mask, e; M0, M1
+//         and db2 summed per lane in fp32), and bf16(e) packed into the A
+//         fragment of dw1^T [ch, Cin] += bf16(e) x^T. Each block writes one
+//         row of sums, added in block order by reduce_rows_kernel
+//         (deterministic, no atomics).
+//     So mid is computed twice, as in the float32 wide K2.
+//
+// What holds them back (H100 80GB HBM3, 700 W; python -m
+// bihome_torch.profile_kernels --kernel k1wb|k2wb cuts each part out and
+// times the rest): K1 takes ~0.66 ms (4.6x its bound); without its
+// products ~0.23, without its epilogue ~0.40: the mma.sync products and
+// the fp32 epilogue add up, as in the narrow bf16 K1. K2 takes ~2.5 ms
+// (5.9x its bound): the dx kernel ~0.87, the sums kernel ~1.64 (its M0
+// and M1 sums ~0.21 of it); without the products ~0.78 in all. These are
+// first kernels: one block of 8 warps per SM for K1 and dx (their
+// operand fragments take 141 and 209 KB of shared memory), B fragments
+// loaded per product, no overlap of a tile's epilogue with the next
+// tile's products.
+
+constexpr int kWBMaxCmid = 512;
+constexpr int kWBTile = 256;          // K1 and dx: pixels per tile
+constexpr int kWBSX = kWBTile + 8;    // their x tile's row stride (halves)
+constexpr int kWBSTile = kWSTile;     // sums: pixels per tile (64)
+constexpr int kWBSSX = kWBSTile + 8;  // its x and g tiles' row stride
+constexpr int kWBKs = kWCin / 16;     // k-steps of the Cin contraction
+
+// B fragments (m16n8k16, col; K = Cin, N = 8 channels) of a [cmid][64]
+// float32 matrix w (g1t or w1t), rounded to bf16, into s_b in fragment
+// order: entry (nt * kWBKs + ks) * 32 + lane holds channel nt * 8 + lane /
+// 4 at k = 16 ks + 2 (lane % 4), + 1 and + 8, + 9.
+__device__ __forceinline__ void pack_cin_fragments(uint2* s_b,
+                                                   const float* __restrict__ w,
+                                                   int cmid) {
+  for (int i = threadIdx.x; i < cmid / 8 * kWBKs * 32; i += blockDim.x) {
+    const int l = i & 31, ks = (i >> 5) % kWBKs, nt = (i >> 5) / kWBKs;
+    const float* row = w + (nt * 8 + (l >> 2)) * kWCin + ks * 16 + 2 * (l & 3);
+    s_b[i] = make_uint2(pack_bf16(row[0], row[1]), pack_bf16(row[8], row[9]));
+  }
+}
+
+// A fragments (m16n8k16, row; M = 16 pixels, K = Cin) of pixels p .. p + 15
+// of a bf16 [64][stride] x tile, all k-steps: register 0 is pixel p + gid
+// at k = 16 ks + 2 tig, + 1; register 1 pixel p + gid + 8; registers 2 and
+// 3 the same at k + 8.
+template <int kStride>
+__device__ __forceinline__ void cin_a_fragments(const uint16_t* sx, int p,
+                                                int lane,
+                                                uint32_t (&a)[kWBKs][4]) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kWBKs; ++ks) {
+    const uint16_t* q = sx + (ks * 16 + 2 * tig) * kStride + p + gid;
+    a[ks][0] = pack_halves(q[0], q[kStride]);
+    a[ks][1] = pack_halves(q[8], q[kStride + 8]);
+    a[ks][2] = pack_halves(q[8 * kStride], q[9 * kStride]);
+    a[ks][3] = pack_halves(q[8 * kStride + 8], q[9 * kStride + 8]);
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load_wide_bf16_tile(const uint16_t* x,
+                                                    uint16_t* sx, int tile,
+                                                    int tpi, int hw) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kWBTile;
+  copy_rows_bf16<kWCin, kWBTile, kWBSX, kFwdThreads, kVec>(
+      sx, x + (long long)n * kWCin * hw, x, s0, hw);
+}
+
+// K1's shared memory: the double buffer of x, bf16(g1t)'s B fragments, and
+// per n-tile and lane quad c1 and bf16(w2) of the quad's two channels.
+constexpr size_t fwd_wide_bf16_smem_bytes(int cmid) {
+  return sizeof(uint16_t) * 2 * kWCin * kWBSX +
+         sizeof(uint2) * (size_t)(cmid / 8) * kWBKs * 32 +
+         sizeof(float) * (size_t)(cmid / 8) * 4 * 8;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+pf_head_fwd_wide_bf16_kernel(const uint16_t* __restrict__ x,
+                             const float* __restrict__ g1t,
+                             const float* __restrict__ c1,
+                             const float* __restrict__ w2,
+                             const float* __restrict__ b2,
+                             uint16_t* __restrict__ out, int hw, int tpi,
+                             int ntiles, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  const int ntn = cmid / 8;
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][64][kWBSX]
+  uint2* s_b = reinterpret_cast<uint2*>(s_x + 2 * kWCin * kWBSX);
+  float* s_c = reinterpret_cast<float*>(s_b + ntn * kWBKs * 32);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  int tile = blockIdx.x;
+  if (tile < ntiles) load_wide_bf16_tile<kVec>(x, s_x, tile, tpi, hw);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  pack_cin_fragments(s_b, g1t, cmid);
+  for (int i = t; i < ntn * 4; i += kFwdThreads) {
+    const int ch = (i >> 2) * 8 + 2 * (i & 3);
+    float* c = s_c + i * 8;
+    c[0] = c1[ch];
+    c[1] = c1[ch + 1];
+    c[2] = 0.0f;
+    c[3] = 0.0f;
+    c[4] = round_bf16(w2[ch]);
+    c[5] = round_bf16(w2[ch + 1]);
+    c[6] = round_bf16(w2[cmid + ch]);
+    c[7] = round_bf16(w2[cmid + ch + 1]);
+  }
+  const float b2_0 = b2[0], b2_1 = b2[1];
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x in; the tile before done by all
+    const int next = tile + gridDim.x;
+    if (next < ntiles) {
+      load_wide_bf16_tile<kVec>(x, s_x + (buf ^ 1) * kWCin * kWBSX, next,
+                                tpi, hw);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint16_t* sx = s_x + buf * kWCin * kWBSX;
+    uint32_t a[2][kWBKs][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      cin_a_fragments<kWBSX>(sx, warp * 32 + mt * 16, lane, a[mt]);
+    }
+
+    // acc[mt][px][o]: output o of pixel gid + 8 px of m-tile mt, summed
+    // over the lane's channels (register r of a product: pixel gid + 8
+    // (r >> 1), channel nt * 8 + 2 tig + (r & 1)).
+    float acc[2][2][2] = {};
+    for (int nt = 0; nt < ntn; ++nt) {
+      uint32_t b[kWBKs][2];
+#pragma unroll
+      for (int ks = 0; ks < kWBKs; ++ks) {
+        const uint2 bf = s_b[(nt * kWBKs + ks) * 32 + lane];
+        b[ks][0] = bf.x;
+        b[ks][1] = bf.y;
+      }
+      const float* cq = s_c + (nt * 4 + tig) * 8;
+      const float2 c = *reinterpret_cast<const float2*>(cq);
+      const float4 w = *reinterpret_cast<const float4*>(cq + 4);
+      const float c1r[4] = {c.x, c.y, c.x, c.y};
+      const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float d[4];
+        mma_bf16(d, a[mt][0], b[0], c1r);
+#pragma unroll
+        for (int ks = 1; ks < kWBKs; ++ks) mma_bf16(d, a[mt][ks], b[ks], d);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float rr = round_bf16(fmaxf(d[r], 0.0f));
+          const int px = r >> 1, ch = r & 1;
+          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);
+          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);
+        }
+      }
+    }
+
+    // Fold the sums over the lane quad; store bf16(sum + b2).
+    const int n = tile / tpi;
+    const int s0 = (tile - n * tpi) * kWBTile + warp * 32 + gid;
+    const int px = tig >> 1, o = tig & 1;
+    uint16_t* on = out + ((long long)n * kCout + o) * hw;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float keep[2];
+#pragma unroll
+      for (int oo = 0; oo < 2; ++oo) {
+        const float mine = px ? acc[mt][1][oo] : acc[mt][0][oo];
+        const float other = px ? acc[mt][0][oo] : acc[mt][1][oo];
+        keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+      }
+      const float mine = o ? keep[1] : keep[0];
+      const float other = o ? keep[0] : keep[1];
+      const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+      const int s = s0 + mt * 16 + 8 * px;
+      if (s < hw) on[s] = (uint16_t)bf16_bits(v + (o ? b2_1 : b2_0));
+    }
+    buf ^= 1;
+  }
+}
+
+// The dx kernel's shared memory: the double buffers of x [64][kWBSX] and g
+// [2][kWBSX]; bf16(w1t)'s B fragments for mid (K = Cin) and bf16(w1)'s for
+// dx (K = 16 channels, N = 8 of Cin), 64 KB each at Cmid 512; and per
+// channel (gis, c1, w2gis[0], w2gis[1]).
+constexpr size_t bwd_wide_bf16_dx_smem_bytes(int cmid) {
+  return sizeof(uint16_t) * 2 * (kWCin + kCout) * kWBSX +
+         2 * sizeof(uint2) * (size_t)(cmid / 8) * kWBKs * 32 +
+         sizeof(float4) * (size_t)cmid;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+pf_head_bwd_wide_bf16_dx_kernel(const uint16_t* __restrict__ x,
+                                const uint16_t* __restrict__ g,
+                                const float* __restrict__ w1t,
+                                const float* __restrict__ gis,
+                                const float* __restrict__ c1,
+                                const float* __restrict__ w2gis,
+                                uint16_t* __restrict__ dx, int hw, int tpi,
+                                int ntiles, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  const int ntn = cmid / 8;
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][64][kWBSX]
+  uint16_t* s_g = s_x + 2 * kWCin * kWBSX;            // [2][2][kWBSX]
+  uint2* s_bm = reinterpret_cast<uint2*>(s_g + 2 * kCout * kWBSX);
+  uint2* s_bd = s_bm + ntn * kWBKs * 32;
+  float4* s_k = reinterpret_cast<float4*>(s_bd + ntn * kWBKs * 32);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  int tile = blockIdx.x;
+  auto load = [&](int tl, int b) {
+    const int n = tl / tpi;
+    const int s0 = (tl - n * tpi) * kWBTile;
+    copy_rows_bf16<kWCin, kWBTile, kWBSX, kFwdThreads, kVec>(
+        s_x + b * kWCin * kWBSX, x + (long long)n * kWCin * hw, x, s0, hw);
+    copy_rows_bf16<kCout, kWBTile, kWBSX, kFwdThreads, kVec>(
+        s_g + b * kCout * kWBSX, g + (long long)n * kCout * hw, g, s0, hw);
+  };
+  if (tile < ntiles) load(tile, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  pack_cin_fragments(s_bm, w1t, cmid);
+  // B fragments of dx (col; K = channels 16 ks .. 16 ks + 15, N = Cin 8 nt
+  // .. 8 nt + 7): entry (ks * 8 + nt) * 32 + lane holds bf16(w1)[n][c] =
+  // bf16(w1t[c][n]) at n = 8 nt + lane / 4, c = 16 ks + 2 (lane % 4), + 1
+  // and + 8, + 9.
+  for (int i = t; i < cmid / 16 * 8 * 32; i += kFwdThreads) {
+    const int l = i & 31, nt = (i >> 5) & 7, ks = i >> 8;
+    const float* w = w1t + (ks * 16 + 2 * (l & 3)) * kWCin + nt * 8 + (l >> 2);
+    s_bd[i] = make_uint2(pack_bf16(w[0], w[kWCin]),
+                         pack_bf16(w[8 * kWCin], w[9 * kWCin]));
+  }
+  for (int c = t; c < cmid; c += kFwdThreads) {
+    s_k[c] = make_float4(gis[c], c1[c], w2gis[c * kCout],
+                         w2gis[c * kCout + 1]);
+  }
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x and g in; the tile before done by all
+    const int next = tile + gridDim.x;
+    if (next < ntiles) load(next, buf ^ 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    uint16_t* sx = s_x + buf * kWCin * kWBSX;
+    const uint16_t* sg = s_g + buf * kCout * kWBSX;
+
+    uint32_t ax[2][kWBKs][4];
+    // gv[mt][px][o]: g[o] at pixel gid + 8 px of m-tile mt.
+    float gv[2][2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int p = warp * 32 + mt * 16;
+      cin_a_fragments<kWBSX>(sx, p, lane, ax[mt]);
+#pragma unroll
+      for (int px = 0; px < 2; ++px) {
+#pragma unroll
+        for (int o = 0; o < kCout; ++o) {
+          gv[mt][px][o] = bf16_value(sg[o * kWBSX + p + gid + 8 * px]);
+        }
+      }
+    }
+
+    // dacc[mt][nt][r]: dx^T of pixel gid + 8 (r >> 1) of m-tile mt, Cin
+    // index 8 nt + 2 tig + (r & 1).
+    float dacc[2][8][4] = {};
+    for (int ks = 0; ks < cmid / 16; ++ks) {
+      // ae[mt]: the A fragment (K = channels 16 ks .. 16 ks + 15) of
+      // bf16(e), from mid's accumulators of n-tiles 2 ks (registers 0, 1)
+      // and 2 ks + 1 (registers 2, 3).
+      uint32_t ae[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nt = 2 * ks + h;
+        uint32_t b[kWBKs][2];
+#pragma unroll
+        for (int k = 0; k < kWBKs; ++k) {
+          const uint2 bf = s_bm[(nt * kWBKs + k) * 32 + lane];
+          b[k][0] = bf.x;
+          b[k][1] = bf.y;
+        }
+        const int ch = nt * 8 + 2 * tig;
+        const float4 kc[2] = {s_k[ch], s_k[ch + 1]};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int k = 0; k < kWBKs; ++k) mma_bf16(d, ax[mt][k], b[k], d);
+          // Register r: pixel gid + 8 (r >> 1), channel ch + (r & 1).
+          float e[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 q = kc[r & 1];
+            const float* gp = gv[mt][r >> 1];
+            const float eun = fmaf(q.z, gp[0], q.w * gp[1]);
+            e[r] = fmaf(q.x, d[r], q.y) > 0.0f ? eun : 0.0f;
+          }
+          ae[mt][2 * h] = pack_bf16(e[0], e[1]);
+          ae[mt][2 * h + 1] = pack_bf16(e[2], e[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint2 bf = s_bd[(ks * 8 + nt) * 32 + lane];
+        const uint32_t b[2] = {bf.x, bf.y};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(dacc[mt][nt], ae[mt], b, dacc[mt][nt]);
+        }
+      }
+    }
+
+    // dx through the x tile (every warp has read its fragments) to
+    // 16-byte stores.
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int k = nt * 8 + 2 * tig + (r & 1);
+          const int p = warp * 32 + mt * 16 + gid + 8 * (r >> 1);
+          sx[k * kWBSX + p] = (uint16_t)bf16_bits(dacc[mt][nt][r]);
+        }
+      }
+    }
+    __syncthreads();
+    {
+      const int n = tile / tpi;
+      const int s0 = (tile - n * tpi) * kWBTile;
+      uint16_t* dn = dx + (long long)n * kWCin * hw;
+      if (kVec) {
+        for (int i = t; i < kWCin * kWBTile / 8; i += kFwdThreads) {
+          const int k = i / (kWBTile / 8), q = i % (kWBTile / 8) * 8;
+          if (s0 + q < hw) {
+            *reinterpret_cast<uint4*>(dn + (long long)k * hw + s0 + q) =
+                *reinterpret_cast<const uint4*>(sx + k * kWBSX + q);
+          }
+        }
+      } else {
+        for (int i = t; i < kWCin * kWBTile; i += kFwdThreads) {
+          const int k = i / kWBTile, p = i % kWBTile;
+          if (s0 + p < hw) dn[(long long)k * hw + s0 + p] = sx[k * kWBSX + p];
+        }
+      }
+    }
+    buf ^= 1;
+  }
+}
+
+constexpr size_t kWBSumsSmemBytes =
+    sizeof(uint16_t) * 2 * (kWCin + kCout) * kWBSSX;
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+pf_head_bwd_wide_bf16_sums_kernel(const uint16_t* __restrict__ x,
+                                  const uint16_t* __restrict__ g,
+                                  const float* __restrict__ w1t,
+                                  const float* __restrict__ gis,
+                                  const float* __restrict__ c1,
+                                  const float* __restrict__ w2gis,
+                                  float* __restrict__ partial, int hw,
+                                  int tpi, long long ntiles, int cmid) {
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][64][kWBSSX]
+  uint16_t* s_g = s_x + 2 * kWCin * kWBSSX;           // [2][2][kWBSSX]
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  auto load = [&](long long tl, int b) {
+    const long long n = tl / tpi;
+    const int s0 = (int)(tl - n * tpi) * kWBSTile;
+    copy_rows_bf16<kWCin, kWBSTile, kWBSSX, kBwdThreads, kVec>(
+        s_x + b * kWCin * kWBSSX, x + n * kWCin * hw, x, s0, hw);
+    copy_rows_bf16<kCout, kWBSTile, kWBSSX, kBwdThreads, kVec>(
+        s_g + b * kCout * kWBSSX, g + n * kCout * hw, g, s0, hw);
+  };
+  long long tile = blockIdx.x;
+  if (tile < ntiles) load(tile, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // The lane's two channels, rows gid and gid + 8 of the warp's 16; A of
+  // mid [ch, px] (row; K = Cin): bf16(w1t) of both at k = 16 ks + 2 tig,
+  // + 1 and + 8, + 9.
+  const int ca = blockIdx.y * kWSumChunk + warp * 16 + gid, cb = ca + 8;
+  uint32_t am[kWBKs][4];
+#pragma unroll
+  for (int ks = 0; ks < kWBKs; ++ks) {
+    const float* wa = w1t + ca * kWCin + ks * 16 + 2 * tig;
+    const float* wb = w1t + cb * kWCin + ks * 16 + 2 * tig;
+    am[ks][0] = pack_bf16(wa[0], wa[1]);
+    am[ks][1] = pack_bf16(wb[0], wb[1]);
+    am[ks][2] = pack_bf16(wa[8], wa[9]);
+    am[ks][3] = pack_bf16(wb[8], wb[9]);
+  }
+  const float gis_c[2] = {gis[ca], gis[cb]};
+  const float c1_c[2] = {c1[ca], c1[cb]};
+  const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
+                            {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
+
+  // dw[nt][r]: dw1^T of channel (r < 2 ? ca : cb) and Cin index 8 nt + 2
+  // tig + (r & 1).
+  float dw[8][4] = {};
+  float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
+  float db[2] = {};
+
+  int buf = 0;
+  for (; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this tile's x and g in; the tile before done by all
+    const long long next = tile + gridDim.x;
+    if (next < ntiles) load(next, buf ^ 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint16_t* sx = s_x + buf * kWCin * kWBSSX;
+    const uint16_t* sg = s_g + buf * kCout * kWBSSX;
+
+#pragma unroll 1
+    for (int p0 = 0; p0 < kWBSTile; p0 += 16) {
+      uint32_t ae[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pb = p0 + 8 * h;
+        // B of mid (col; K = Cin, N = 8 pixels): pixel pb + gid at k =
+        // 16 ks + 2 tig, + 1 (register 0) and + 8, + 9 (register 1).
+        float mid[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int ks = 0; ks < kWBKs; ++ks) {
+          const uint16_t* xp = sx + (ks * 16 + 2 * tig) * kWBSSX + pb + gid;
+          const uint32_t b[2] = {pack_halves(xp[0], xp[kWBSSX]),
+                                 pack_halves(xp[8 * kWBSSX], xp[9 * kWBSSX])};
+          mma_bf16(mid, am[ks], b, mid);
+        }
+        // Register r: channel (r < 2 ? ca : cb), pixel pb + 2 tig + (r & 1).
+        const int pa = pb + 2 * tig;
+        const float gv[2][2] = {
+            {bf16_value(sg[pa]), bf16_value(sg[pa + 1])},
+            {bf16_value(sg[kWBSSX + pa]), bf16_value(sg[kWBSSX + pa + 1])}};
+        float e[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int ch = r >> 1, px = r & 1;
+          const float a = fmaf(gis_c[ch], mid[r], c1_c[ch]);
+          const float mk = a > 0.0f ? 1.0f : 0.0f;
+          const float eun =
+              fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
+          e[r] = mk * eun;
+          const float mm = mk * mid[r];
+#pragma unroll
+          for (int o = 0; o < kCout; ++o) {
+            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);
+            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);
+          }
+        }
+        db[0] += gv[0][0] + gv[0][1];
+        db[1] += gv[1][0] + gv[1][1];
+        // A of dw1^T (row: channels ca, cb; K = pixels p0 + 2 tig, + 1
+        // and + 8, + 9): this n-tile's half.
+        ae[2 * h] = pack_bf16(e[0], e[1]);
+        ae[2 * h + 1] = pack_bf16(e[2], e[3]);
+      }
+      // dw1^T [16 ch, 8 Cin] += bf16(e) (A) x^T (B, col: K = pixels p0 +
+      // 2 tig, + 1 and + 8, + 9 at Cin 8 nt + gid).
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint16_t* xp = sx + (nt * 8 + gid) * kWBSSX + p0 + 2 * tig;
+        const uint32_t b[2] = {load_pair(xp), load_pair(xp + 8)};
+        mma_bf16(dw[nt], ae, b, dw[nt]);
+      }
+    }
+    buf ^= 1;
+  }
+
+  // Fold M0, M1 and db2 over the 4 lanes of a group (same channels, other
+  // pixels).
+#pragma unroll
+  for (int sh = 1; sh < 4; sh <<= 1) {
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+      for (int o = 0; o < kCout; ++o) {
+        m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
+        m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
+      }
+    }
+    db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
+    db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
+  }
+
+  const long long cols = (long long)kWCin * cmid + 4LL * cmid + kCout;
+  float* row = partial + (long long)blockIdx.x * cols;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = nt * 8 + 2 * tig + (r & 1);
+      row[(long long)k * cmid + (r < 2 ? ca : cb)] = dw[nt][r];
+    }
+  }
+  if (tig == 0) {
+    float* m0row = row + (long long)kWCin * cmid;
+    float* m1row = m0row + 2 * cmid;
+#pragma unroll
+    for (int o = 0; o < kCout; ++o) {
+      m0row[ca * kCout + o] = m0[0][o];
+      m0row[cb * kCout + o] = m0[1][o];
+      m1row[ca * kCout + o] = m1[0][o];
+      m1row[cb * kCout + o] = m1[1][o];
+    }
+  }
+  if (blockIdx.y == 0 && t == 0) {
+    row[cols - 2] = db[0];
+    row[cols - 1] = db[1];
+  }
+}
+
 }  // namespace
 
 // Number of blocks pf_head_bwd launches for n images of hw pixels (the
@@ -2561,6 +3140,106 @@ extern "C" int pf_head_bwd_wide(const float* x, const float* g,
   sums_kernel<<<dim3(blocks, cmid / kWSumChunk), kWThreads, kWSumsSmemBytes,
                 s>>>(x, g, img, gis, c1, w2gis, partial, hw, stpi, n * stpi,
                      cmid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  reduce_rows_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, sums, blocks,
+                                                        cols);
+  return (int)cudaGetLastError();
+}
+
+// K1 at bfloat16 on the ResNet50-flavour head: x [N,64,HW] bf16, g1t
+// [Cmid,64], c1 [Cmid], w2 [2,Cmid], b2 [2] float32 (g1t and w2 rounded to
+// bf16 inside), out [N,2,HW] bf16; Cmid a multiple of 128 up to 512; all
+// contiguous on the current device.
+extern "C" int pf_head_fwd_wide_bf16(const void* x, const float* g1t,
+                                     const float* c1, const float* w2,
+                                     const float* b2, void* out, long long n,
+                                     int cin, int hw, int cmid, int cout,
+                                     void* stream) {
+  const int tpi = hw > 0 ? (hw + kWBTile - 1) / kWBTile : 0;
+  if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
+      cmid > kWBMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  const int ntiles = (int)(n * tpi);
+  const bool vec = hw % 8 == 0 && ((uintptr_t)x & 15) == 0;
+  const size_t smem = fwd_wide_bf16_smem_bytes(cmid);
+  auto kernel = vec ? pf_head_fwd_wide_bf16_kernel<true>
+                    : pf_head_fwd_wide_bf16_kernel<false>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
+  kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
+      (const uint16_t*)x, g1t, c1, w2, b2, (uint16_t*)out, hw, tpi, ntiles,
+      cmid);
+  return (int)cudaGetLastError();
+}
+
+// K2 at bfloat16 on the ResNet50-flavour head: x [N,64,HW] and g [N,2,HW]
+// bf16, w1t [Cmid,64], gis, c1 [Cmid], w2gis [Cmid,2] float32; dx
+// [N,64,HW] bf16; partial [blocks, cols] scratch (blocks from
+// pf_head_bwd_wide_blocks); sums [cols] float32 as pf_head_bwd_wide's.
+// Cmid a multiple of 128 up to 512. Three launches: dx, the sums per
+// block, their fixed-order reduction.
+extern "C" int pf_head_bwd_wide_bf16(const void* x, const void* g,
+                                     const float* w1t, const float* gis,
+                                     const float* c1, const float* w2gis,
+                                     void* dx, float* partial, float* sums,
+                                     long long n, int cin, int hw, int cmid,
+                                     int cout, int blocks, void* stream) {
+  const int tpi = hw > 0 ? (hw + kWBTile - 1) / kWBTile : 0;
+  if (cin != kWCin || cout != kCout || cmid <= 0 || cmid % kWSumChunk != 0 ||
+      cmid > kWBMaxCmid || hw <= 0 || n <= 0 || blocks <= 0 ||
+      n * tpi > (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool vec = hw % 8 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int cols = kWCin * cmid + 4 * cmid + kCout;
+  const size_t dx_smem = bwd_wide_bf16_dx_smem_bytes(cmid);
+  auto dx_kernel = vec ? pf_head_bwd_wide_bf16_dx_kernel<true>
+                       : pf_head_bwd_wide_bf16_dx_kernel<false>;
+  auto sums_kernel = vec ? pf_head_bwd_wide_bf16_sums_kernel<true>
+                         : pf_head_bwd_wide_bf16_sums_kernel<false>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(dx_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)dx_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(sums_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kWBSumsSmemBytes)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, dx_kernel, kFwdThreads, dx_smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // Persistent dx blocks, as many as fit on the card at once.
+  const int ntiles = (int)(n * tpi);
+  dx_kernel<<<ntiles < sms * per_sm ? ntiles : sms * per_sm, kFwdThreads,
+              dx_smem, s>>>((const uint16_t*)x, (const uint16_t*)g, w1t, gis,
+                            c1, w2gis, (uint16_t*)dx, hw, tpi, ntiles, cmid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int stpi = (hw + kWBSTile - 1) / kWBSTile;
+  sums_kernel<<<dim3(blocks, cmid / kWSumChunk), kBwdThreads,
+                kWBSumsSmemBytes, s>>>((const uint16_t*)x, (const uint16_t*)g,
+                                       w1t, gis, c1, w2gis, partial, hw, stpi,
+                                       n * stpi, cmid);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   reduce_rows_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, sums, blocks,
                                                         cols);

@@ -57,8 +57,9 @@ def ransac_fit(points1: Tensor, points2: Tensor,
 
     Hypotheses whose H is not finite (a draw that repeats a point) have no
     inliers; the winner is the first hypothesis with the most inliers; it
-    is refit with its inlier mask as the DLT weights, or with all-ones
-    weights if it has fewer than 4 inliers."""
+    is refit with its inlier mask as the DLT weights (float32, or float64
+    for float64 points, as ``ransac.py:57``), or with all-ones weights if
+    it has fewer than 4 inliers."""
     b, n_points, _ = points1.shape
     k = num_hypotheses
     if idx is None:
@@ -79,7 +80,7 @@ def ransac_fit(points1: Tensor, points2: Tensor,
     best = torch.argmax(counts, dim=-1)                           # [B]
     best_inliers = inliers.reshape(b, k, n_points)[
         torch.arange(b, device=best.device), best]                # [B,N]
-    w = best_inliers.to(points1.dtype)
+    w = best_inliers.to(torch.promote_types(points1.dtype, torch.float32))
     w = torch.where(w.sum(-1, keepdim=True) < 4, torch.ones_like(w), w)
     return RansacFit(geometry.find_homography_dlt(points1, points2, w), best,
                      counts, best_inliers)
@@ -88,14 +89,18 @@ def ransac_fit(points1: Tensor, points2: Tensor,
 def field_points(pf: Tensor) -> Tuple[Tensor, Tensor]:
     """PF [B,H,W,2] -> (pixel coordinates, coordinates + field), each
     [B,H*W,2] in row-major order (``ransac.py:71-76``). The field may be a
-    permuted view of an NCHW tensor."""
+    permuted view of an NCHW tensor. The grid is float32 (float64 for a
+    float64 field), as JAX's, so a bfloat16 field is widened before the
+    addition: ``coords + pf`` in bf16 would round the mapping to bf16's
+    spacing (0.5 px at coordinates 64-127, 2 px past 256)."""
     b, h_dim, w_dim, _ = pf.shape
+    dtype = torch.promote_types(pf.dtype, torch.float32)
     ys, xs = torch.meshgrid(
-        torch.arange(h_dim, dtype=pf.dtype, device=pf.device),
-        torch.arange(w_dim, dtype=pf.dtype, device=pf.device), indexing='ij')
+        torch.arange(h_dim, dtype=dtype, device=pf.device),
+        torch.arange(w_dim, dtype=dtype, device=pf.device), indexing='ij')
     coords = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)   # [N,2]
     coords = coords[None].expand(b, h_dim * w_dim, 2)
-    return coords, coords + pf.reshape(b, -1, 2)
+    return coords, coords + pf.reshape(b, -1, 2).to(dtype)
 
 
 def fit_to_delta(fit: RansacFit, pf_shape) -> Tensor:

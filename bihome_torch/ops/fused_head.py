@@ -26,9 +26,11 @@ are bfloat16, as the Pallas kernels' are when the PF head hands them bf16
 x; the weights, statistics and the other gradients stay float32. The
 plain versions then round where the Pallas kernels round (g1t, relu(a)
 and w2 in the forward; w1t, e, w1, the stored dx, a_mat and the
-corrected dx in the backward) and sum in float32, and on the card the
-narrow (Cin 16) head launches the bf16 kernels, counted apart
-(``bf16_launches``); no bf16 call reaches the float32 kernels.
+corrected dx in the backward) and sum in float32, at either width. On the
+card the narrow (Cin 16) head launches the narrow bf16 kernels and the
+wide (Cin 64) head the wide bf16 ones, each counted apart
+(``bf16_launches``, ``wide_bf16_launches``); no bf16 call reaches the
+float32 kernels.
 """
 
 from __future__ import annotations
@@ -65,23 +67,37 @@ _SIGNATURES = {
     'pf_head_bwd_bf16': [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
+_SIGNATURES['pf_head_fwd_wide_bf16'] = _SIGNATURES['pf_head_fwd_bf16']
+_SIGNATURES['pf_head_bwd_wide_bf16'] = _SIGNATURES['pf_head_bwd_bf16']
 # The largest Cmid the kernels take (kFwdMaxCmid and kWMaxCmid in the
-# source); the wide ones (Cin 64) take multiples of 128.
+# source; the wide bf16 ones kWBMaxCmid); the wide ones (Cin 64) take
+# multiples of 128.
 _MAX_CMID = 1024
+_WIDE_BF16_MAX_CMID = 512
 _WIDE_CIN, _WIDE_CMID_STEP = 64, 128
 
 
-def _kernel_width(cin: int, cmid: int, cout: int) -> str:
+def _kernel_width(cin: int, cmid: int, cout: int, bf16: bool) -> str:
     """'narrow' (the ResNet34-flavour kernels: Cin 16, Cmid a multiple of
     16), 'wide' (the ResNet50-flavour ones: Cin 64, Cmid a multiple of
-    128), or '' for a shape neither takes; Cout 2, Cmid up to 1024."""
+    128), or '' for a shape neither takes; Cout 2, Cmid up to 1024 (512
+    for the wide bf16 kernels)."""
     if cout != 2 or not 0 < cmid <= _MAX_CMID:
         return ''
     if cin == 16 and cmid % 16 == 0:
         return 'narrow'
-    if cin == _WIDE_CIN and cmid % _WIDE_CMID_STEP == 0:
+    if (cin == _WIDE_CIN and cmid % _WIDE_CMID_STEP == 0
+            and not (bf16 and cmid > _WIDE_BF16_MAX_CMID)):
         return 'wide'
     return ''
+
+
+def _counter(width: str, bf16: bool) -> str:
+    """The wrappers' launch counter of a kernel: ``launches`` (narrow
+    float32), ``wide_launches``, ``bf16_launches`` (narrow bf16) or
+    ``wide_bf16_launches``."""
+    return ('wide_' if width == 'wide' else '') + (
+        'bf16_' if bf16 else '') + 'launches'
 
 
 def wide_sums_cols(cin: int, cmid: int, cout: int) -> int:
@@ -151,7 +167,8 @@ def from_image(image: Tensor, permuted: bool) -> Tensor:
 
 
 _WIDTHS = ('Cout=2 with Cin=16 and Cmid a multiple of 16, or Cin=64 and '
-           'Cmid a multiple of 128, Cmid up to 1024')
+           'Cmid a multiple of 128, Cmid up to 1024 (512 for Cin=64 at '
+           'bfloat16)')
 
 
 def _rounded(t: Tensor, dtype: torch.dtype) -> Tensor:
@@ -221,7 +238,8 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     one, Cmid 512, on wgmma: the weight prep of :func:`wide_weight_images`
     on the BN-folded g1t, then the forward); any other shape raises (see
     :func:`_kernel_width`). A bfloat16 x launches K1 bf16 (mma.sync bf16,
-    Cin=16 only; the Cin 64 head raises)."""
+    no weight prep) of its width: the narrow one, or the wide one (Cmid up
+    to 512)."""
     if x.device.type == 'cpu':
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
@@ -229,14 +247,11 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32)
     n, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
-    width = _kernel_width(cin, cmid, cout)
+    width = _kernel_width(cin, cmid, cout, bf16)
     if not width or w1.reshape(cmid, -1).shape[1] != cin:
         raise ValueError(f'the PF-head kernels take {_WIDTHS}; got '
-                         f'x {tuple(x.shape)}, w1 {tuple(w1.shape)}, '
-                         f'w2 {tuple(w2.shape)}')
-    if bf16 and width != 'narrow':
-        raise ValueError(f'the bfloat16 PF-head kernels take Cin=16 only; '
-                         f'got x {tuple(x.shape)}')
+                         f'{x.dtype} x {tuple(x.shape)}, w1 '
+                         f'{tuple(w1.shape)}, w2 {tuple(w2.shape)}')
     g1t, c1 = fold_bn(w1, b1, gamma, beta, mean, var, eps)
     g1t = g1t.float().contiguous()
     c1 = c1.float().contiguous()
@@ -245,8 +260,9 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     for name, t in (('g1t', g1t), ('c1', c1), ('w2', w2m), ('b2', b2c)):
         _cuda.check_cuda_tensor(t, name, t.dim())
     out = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
-    img = () if width == 'narrow' else (_wide_image_scratch(cmid,
-                                                            x.device),)
+    # The wide float32 kernel splits g1t into its weight images first.
+    img = (_wide_image_scratch(cmid, x.device),) if (
+        width == 'wide' and not bf16) else ()
     lib = _cuda.library('fused_head', _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry = {'narrow': 'pf_head_fwd', 'wide': 'pf_head_fwd_wide'}[width]
@@ -256,12 +272,9 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
                                  out.data_ptr(), *(t.data_ptr() for t in img),
                                  n, cin, h * w, cmid, cout, stream)
     _cuda.check_status(status, entry)
-    if bf16:
-        fused_pf_head_fwd.bf16_launches += 1
-    elif width == 'narrow':
-        fused_pf_head_fwd.launches += 1
-    else:
-        fused_pf_head_fwd.wide_launches += 1
+    counter = _counter(width, bf16)
+    setattr(fused_pf_head_fwd, counter,
+            getattr(fused_pf_head_fwd, counter) + 1)
     return out
 
 
@@ -300,8 +313,11 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     (the ResNet34-flavour head: one kernel, mma.sync), or Cin=64 and Cmid
     a multiple of 128 (the ResNet50-flavour one, Cmid 512, on wgmma: the
     weight prep of :func:`wide_weight_images`, a dx kernel and a sums
-    kernel over 128-channel chunks); Cout=2. Bfloat16 x and g (Cin=16,
-    Cmid=128) launch K2 bf16 (mma.sync bf16): dx bf16, the sums float32."""
+    kernel over 128-channel chunks); Cout=2. Bfloat16 x and g launch K2
+    bf16 of their width (mma.sync bf16, no weight prep): the narrow one
+    (Cin=16, Cmid=128) or the wide one (Cin=64, Cmid a multiple of 128 up
+    to 512: a dx kernel and a sums kernel, as the float32 wide K2); dx
+    bf16, the sums float32."""
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
     bf16 = x.dtype == torch.bfloat16
@@ -309,15 +325,15 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     _cuda.check_cuda_tensor(g, 'g', 4, x.dtype)
     n, cin, h, w = x.shape
     cmid, cout = w2gis.shape
-    width = _kernel_width(cin, cmid, cout)
-    if (width == 'narrow' and cmid != 128) or (bf16 and width != 'narrow'):
+    width = _kernel_width(cin, cmid, cout, bf16)
+    if width == 'narrow' and cmid != 128:
         width = ''
     if not width or tuple(g.shape) != (n, cout, h, w) \
             or tuple(w1t.shape) != (cmid, cin):
         raise ValueError(f'the PF-head backward kernels take Cin=16, '
-                         f'Cmid=128, or (float32 only) Cin=64 and Cmid a '
-                         f'multiple of 128 up to {_MAX_CMID}, with Cout=2; '
-                         f'got {x.dtype} x '
+                         f'Cmid=128, or Cin=64 and Cmid a multiple of 128 up '
+                         f'to {_MAX_CMID} ({_WIDE_BF16_MAX_CMID} at '
+                         f'bfloat16), with Cout=2; got {x.dtype} x '
                          f'{tuple(x.shape)}, g {tuple(g.shape)}, w1t '
                          f'{tuple(w1t.shape)}, w2gis {tuple(w2gis.shape)}')
     for name, t in (('w1t', w1t), ('gis', gis), ('c1', c1),
@@ -329,7 +345,7 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
         blocks = lib.pf_head_bwd_blocks(n, h * w)
         cols = lib.pf_head_bwd_partial_cols()
     else:
-        entry = 'pf_head_bwd_wide'
+        entry = 'pf_head_bwd_wide_bf16' if bf16 else 'pf_head_bwd_wide'
         blocks = lib.pf_head_bwd_wide_blocks(n, h * w, cmid)
         cols = wide_sums_cols(cin, cmid, cout)
     if blocks <= 0:
@@ -338,8 +354,8 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     partial = torch.empty((blocks * cols,), dtype=torch.float32,
                           device=x.device)
     sums = torch.empty((cols,), dtype=torch.float32, device=x.device)
-    img = () if width == 'narrow' else (_wide_image_scratch(cmid,
-                                                            x.device),)
+    img = (_wide_image_scratch(cmid, x.device),) if (
+        width == 'wide' and not bf16) else ()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = getattr(lib, entry)(
         x.data_ptr(), g.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
@@ -347,23 +363,20 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
         *(t.data_ptr() for t in img), sums.data_ptr(), n, cin, h * w, cmid,
         cout, blocks, stream)
     _cuda.check_status(status, entry)
-    if bf16:
-        fused_pf_head_bwd.bf16_launches += 1
-    elif width == 'narrow':
-        fused_pf_head_bwd.launches += 1
-    else:
-        fused_pf_head_bwd.wide_launches += 1
+    counter = _counter(width, bf16)
+    setattr(fused_pf_head_bwd, counter,
+            getattr(fused_pf_head_bwd, counter) + 1)
     dw1, m0, m1, db2 = torch.split(sums, [cin * cmid, cmid * cout,
                                           cmid * cout, cout])
     return (dx, m0.view(cmid, cout), m1.view(cmid, cout), db2,
             dw1.view(cin, cmid))
 
 
-# Launches of the narrow (Cin 16), the wide (Cin 64) and the bfloat16
-# (narrow) kernels, apart.
-fused_pf_head_fwd.launches = fused_pf_head_fwd.wide_launches = 0
-fused_pf_head_bwd.launches = fused_pf_head_bwd.wide_launches = 0
-fused_pf_head_fwd.bf16_launches = fused_pf_head_bwd.bf16_launches = 0
+# Launches of the narrow (Cin 16) and the wide (Cin 64) kernels, float32
+# and bfloat16, apart (see _counter).
+for _fn in (fused_pf_head_fwd, fused_pf_head_bwd):
+    _fn.launches = _fn.wide_launches = 0
+    _fn.bf16_launches = _fn.wide_bf16_launches = 0
 
 
 def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,

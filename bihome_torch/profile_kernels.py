@@ -1,15 +1,16 @@
 """Where a hand-written kernel spends its time on the card, and how it
 compares with another version of its source.
 
-    python -m bihome_torch.profile_kernels --kernel k1|k1w|k2|k2w|k4 \\
+    python -m bihome_torch.profile_kernels --kernel k1|k1w|k1wb|k2|k2w|k2wb|k4 \\
         [--baseline FILE] [--cmid C] [--batch_size 64] [--rounds 2] \\
         [--no_cuts]
 
 No kernel profiler runs on the machine with the card, so this builds
 variants of the kernel's source (``csrc/fused_head.cu`` for K1, K2 and
-the ResNet50-flavour K1 and K2, ``k1w`` and ``k2w``; ``csrc/warp.cu`` for
-K4) with one part cut out or done another way, each with nvcc (the port's
-flags) into its own library under ``build/kernels/``, and times each
+the ResNet50-flavour K1 and K2, ``k1w`` and ``k2w``, and their bf16
+forms, ``k1wb`` and ``k2wb``; ``csrc/warp.cu`` for K4) with one part cut
+out or done another way, each with nvcc (the port's flags) into its own
+library under ``build/kernels/``, and times each
 against the kernel as built at the main path's shape with the timer of
 chip_smoke.py
 (``bihome_torch/utils/timing.py``), in turns. What a cut saves is what
@@ -31,7 +32,8 @@ for k2w it times the kernel as built with its sums grid at twice the
 blocks and holds the sums of those three against float64
 (:func:`k2w_sums_errors`). Shapes: K1 and K2 x [2B,16,128,128], Cmid 128
 (K1: ``--cmid``), Cout 2 (K2 with a cotangent); k1w and k2w x
-[2B,64,128,128], Cmid 512; K4 the loss warp, 2B images of 128x128x1 at P
+[2B,64,128,128], Cmid 512 (k1wb and k2wb in bf16, k2wb's dx, sums and
+reduction kernels also timed apart); K4 the loss warp, 2B images of 128x128x1 at P
 = 16,384 points each. ``--no_cuts`` times only the kernel as built and
 the baseline. Needs a CUDA device.
 """
@@ -104,6 +106,32 @@ K1W_CUTS = [
     ('epilogue twice', _cut(K1W_EPILOGUE, 2 * K1W_EPILOGUE)),
 ]
 
+# The ResNet50-flavour kernels at bf16 (k1wb, k2wb; mma.sync m16n8k16):
+# every bf16 product cut, K1's epilogue (the ReLU, the rounding and the
+# Cout = 2 sums) cut to one add, K1's stores, K2's M0 and M1 sums. Each cut
+# also strikes the narrow bf16 kernels' same lines, which these entry
+# points do not launch.
+_NO_MMA_BF16 = ('no tensor-core products', lambda src: re.sub(
+    r'asm\("mma\.sync\.aligned\.m16n8k16.*?\);',
+    'for (int i = 0; i < 4; ++i) d[i] = c[i];', src, count=1, flags=re.S))
+K1WB_CUTS = [
+    _NO_MMA_BF16,
+    ('no epilogue (one add per value)', _cut(
+        '          const float rr = round_bf16(fmaxf(d[r], 0.0f));\n'
+        '          const int px = r >> 1, ch = r & 1;\n'
+        '          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);\n'
+        '          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);\n',
+        '          acc[mt][r >> 1][r & 1] += d[r];\n')),
+    ('no stores', _cut('if (s < hw) on[s] = (uint16_t)',
+                       'if (s < hw && v == -1.25e-30f) on[s] = (uint16_t)')),
+]
+K2WB_CUTS = [
+    _NO_MMA_BF16,
+    ('sums: no M0/M1', _cut(
+        '            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);\n'
+        '            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
+]
+
 # Each turns the source into a variant without one part of the kernel, or
 # with it done another way.
 CUTS = {
@@ -168,16 +196,23 @@ CUTS = {
     ]),
     'k1w': dict(K1W_CUTS),
     'k2w': dict([WG_NO_PRODUCTS, WG_SINGLE_PASS, K2W_NO_STREAM]),
+    'k1wb': dict(K1WB_CUTS),
+    'k2wb': dict(K2WB_CUTS),
     'k4': {},
 }
 SOURCES = {'k1': 'fused_head', 'k1w': 'fused_head', 'k2': 'fused_head',
-           'k2w': 'fused_head', 'k4': 'warp'}
+           'k2w': 'fused_head', 'k1wb': 'fused_head', 'k2wb': 'fused_head',
+           'k4': 'warp'}
+WIDE = ('k1w', 'k2w', 'k1wb', 'k2wb')
 # The kernels whose SASS is counted (their mangled names start so).
 SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
               'k1w': ('pf_head_fwd_wgmma_kernelILb1',),
               'k2': ('pf_head_bwd_kernelILb1',),
               'k2w': ('pf_head_bwd_wide_dx_kernelILb1',
                       'pf_head_bwd_wide_sums_kernelILb1'),
+              'k1wb': ('pf_head_fwd_wide_bf16_kernelILb1',),
+              'k2wb': ('pf_head_bwd_wide_bf16_dx_kernelILb1',
+                       'pf_head_bwd_wide_bf16_sums_kernelILb1'),
               'k4': ('bilinear_sample_bwd_uv_c1_kernelILb1',)}
 # The kernels of the k1w entry point (the last: an earlier source's), and
 # of the k2w one, timed apart.
@@ -185,6 +220,8 @@ K1W_KERNELS = ('pf_head_wide_prep_kernel', 'pf_head_fwd_wgmma_kernel',
                'pf_head_fwd_wide_kernel')
 K2W_KERNELS = ('pf_head_wide_prep_kernel', 'pf_head_bwd_wide_dx_kernel',
                'pf_head_bwd_wide_sums_kernel', 'reduce_rows_kernel')
+K2WB_KERNELS = ('pf_head_bwd_wide_bf16_dx_kernel',
+                'pf_head_bwd_wide_bf16_sums_kernel', 'reduce_rows_kernel')
 SIGNATURES = {'fused_head': fh._SIGNATURES, 'warp': warp._SIGNATURES}
 # The k2w kernel as built, its sums grid at twice the C entry's blocks.
 K2W_GRID2 = 'as built, sums grid at twice the blocks'
@@ -267,10 +304,22 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
                 'K4')
         return f'K4 at images [{n},{ps},{ps},1], P = {p}', make
 
-    cin, cout, hw = (64 if kernel in ('k1w', 'k2w') else 16), 2, 128 * 128
+    cin, cout, hw = (64 if kernel in WIDE else 16), 2, 128 * 128
     x = torch.relu(torch.randn((n, cin, hw), generator=gen)).to(dev)
     w1t = (torch.randn((cmid, cin), generator=gen) * 0.3).to(dev)
     c1 = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
+    if kernel == 'k1wb':
+        xb = x.to(torch.bfloat16)
+        w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
+        b2 = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        out = torch.empty((n, cout, hw), dtype=torch.bfloat16, device=dev)
+
+        def make(lib):
+            return lambda: _cuda.check_status(lib.pf_head_fwd_wide_bf16(
+                xb.data_ptr(), w1t.data_ptr(), c1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), out.data_ptr(), n, cin, hw, cmid, cout,
+                stream()), 'K1 wide bf16')
+        return f'K1 wide bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k1':
         w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
         b2 = (torch.randn(cout, generator=gen) * 0.1).to(dev)
@@ -312,6 +361,21 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
     w2gis = (torch.randn((cmid, cout), generator=gen) * 0.3).to(dev)
     dx = torch.empty_like(x)
 
+    if kernel == 'k2wb':
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        dxb = torch.empty_like(xb)
+        cols = fh.wide_sums_cols(cin, cmid, cout)
+
+        def make(lib):
+            blocks = lib.pf_head_bwd_wide_blocks(n, hw, cmid)
+            partial = torch.empty((blocks, cols), device=dev)
+            sums = torch.empty(cols, device=dev)
+            return lambda: _cuda.check_status(lib.pf_head_bwd_wide_bf16(
+                xb.data_ptr(), gb.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
+                c1.data_ptr(), w2gis.data_ptr(), dxb.data_ptr(),
+                partial.data_ptr(), sums.data_ptr(), n, cin, hw, cmid, cout,
+                blocks, stream()), 'K2 wide bf16')
+        return f'K2 wide bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k2w':
         cols = fh.wide_sums_cols(cin, cmid, cout)
         img = torch.empty((cmid // 64, 4, 64 * 64), device=dev)
@@ -423,13 +487,13 @@ def main(argv=None) -> None:
                         'timed beside the one in csrc/')
     parser.add_argument('--cmid', type=int, default=None,
                         help='K1\'s middle width (default 128; K2 takes 128 '
-                        'only, k1w and k2w 512)')
+                        'only, k1w, k2w, k1wb and k2wb 512)')
     parser.add_argument('--batch_size', type=int, default=64)
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--no_cuts', action='store_true',
                         help='time only the kernel as built and the baseline')
     args = parser.parse_args(argv)
-    cmid = args.cmid or (512 if args.kernel in ('k1w', 'k2w') else 128)
+    cmid = args.cmid or (512 if args.kernel in WIDE else 128)
     if not torch.cuda.is_available():
         raise SystemExit('profile_kernels needs a CUDA device')
     name, source = args.kernel, SOURCES[args.kernel]
@@ -478,8 +542,9 @@ def main(argv=None) -> None:
         print('  host us per call (C entry point, in turns): ' + '; '.join(
             f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
             for label, readings in hosts.items()))
-    if name in ('k1w', 'k2w'):
-        names = K1W_KERNELS if name == 'k1w' else K2W_KERNELS
+    if name in ('k1w', 'k2w', 'k2wb'):
+        names = {'k1w': K1W_KERNELS, 'k2w': K2W_KERNELS,
+                 'k2wb': K2WB_KERNELS}[name]
         for label, run in runs.items():
             parts = kernel_ms(run, names)
             print(f'  {label}: device ms per call by kernel (profiler): '

@@ -133,21 +133,43 @@
    delta_hat against the CPU plain path at bf16, whole and from the card's
    own input of the PF head or the regressor's fc, the CPU's float32 the
    control again.
-15. Prints each phase's wall time, one {"pds_distortion": ...,
+15. The bf16 slice of every config (MODEL.DTYPE bfloat16 on the configs
+   step 14 leaves out), after step 12's CLEVR run, from a generator of its
+   own: K1 and K2 bf16 at the R50 head (bf16 x [128,64,128,128], Cmid
+   512; their own kernels, counted under ``wide_bf16_launches``), held,
+   planted and timed as in step 14; then BF16_EVERY_RUNS train with
+   ``--dtype bfloat16`` (R50 zeng, PDS zeng-orig, detone-biHomE and
+   zhang-biHomE at 64, S-COCO nguyen-orig at 128, CLEVR-Change at 64;
+   PDS_STEPS steps each), counted (R50 zeng exactly the wide K1 and K2
+   bf16, K3 and K4; zeng-orig the narrow K1 and K2 bf16 and K3; the others
+   K3 and K4), each row beside its float32 run of this call; R50 zeng's
+   step from the card's PF-head input against the CPU at bf16 (batch
+   R50_STEP_BATCH), the CPU's float32 and the card with K2 bf16's dw1
+   zeroed the controls it must reject (``compare_tail_step_bf16``); the
+   bf16 evals of R50 zeng at 64 (the wide K1 bf16 and K3; delta_hat
+   against the CPU at bf16, whole and from the PF head's input) and of
+   S-COCO zeng-orig at 64 (the narrow K1 bf16 and K3; the RANSAC fit of
+   the card's bf16 field against the CPU's fit of the same field on the
+   same draws).
+16. Prints each phase's wall time, one {"pds_distortion": ...,
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
    "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
    "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
-   and by path, the bf16 K1 and K2 rows apart; K1 and K2 with their wide
+   and by path, the narrow and wide bf16 K1 and K2 rows apart; K1 and K2
+   with their wide
    kernels' figures and launches
    under "at_r50_head" and at zeng-orig's shape under "at_zeng_orig", K3
    and K4 at the CLEVR shape under "at_clevr", each with the launches of
    the paths that run that shape), then as the last line {"ok": true,
    "device": {...}}.
 
-Any failed check raises, so the script exits non-zero. Without a CUDA
-device it exits non-zero before printing any result.
+The seeded synthetic pools of the ``--synthetic`` train runs are made
+once per image size and sample count (``train.make_pools`` memoized for
+the script's run). Any failed check raises, so the script exits
+non-zero. Without a CUDA device it exits non-zero before printing any
+result.
 """
 
 import concurrent.futures
@@ -311,6 +333,26 @@ BF16_EVALS = ((CONFIG, 64, ('bilinear_sample_batched',
 BF16_PREDICT_REL = 5e-2
 BF16_STEP_LOSS = 5e-2
 BF16_STEP_PER_TENSOR = 1.0
+# The bf16 slice of every config: K1 and K2 bf16 at the R50 head (x
+# [128,64,128,128] bf16, Cmid 512, their own kernels, counted under
+# ``wide_bf16_launches``), held as the narrow ones; then, after every
+# float32 run, the configs BF16_RUNS leaves out train at bf16 beside
+# their float32 rows of the same call (BF16_EVERY_RUNS: config, batch,
+# kernels, overrides), R50 zeng's step from the card's PF-head input
+# against the CPU at bf16 (``compare_tail_step_bf16``, batch
+# R50_STEP_BATCH), and the bf16 evals of R50 zeng (the wide K1 bf16, as
+# BF16_EVALS) and of S-COCO zeng-orig (RANSAC on the bf16 field).
+R50_BF16_KERNELS = ('fused_pf_head_fwd_wide_bf16',
+                    'fused_pf_head_bwd_wide_bf16', 'bilinear_sample_batched',
+                    'bilinear_sample_bwd_uv')
+BF16_EVERY_RUNS = (
+    (CONFIG, BATCH, R50_BF16_KERNELS, R50_SET),
+    (ZENG_ORIG[0], BATCH, ('fused_pf_head_fwd_bf16', 'fused_pf_head_bwd_bf16',
+                           'bilinear_sample_batched'), ()),
+    ('config/pds-coco/detone-bihome-lr-5e-3.yaml', BATCH, WARP_KERNELS, ()),
+    ('config/pds-coco/zhang-bihome-lr-1e-2.yaml', BATCH, WARP_KERNELS, ()),
+    ('config/s-coco/nguyen-orig-lr-5e-3.yaml', 128, WARP_KERNELS, ()),
+    (CLEVR, BATCH, WARP_KERNELS, ()))
 # The tail checks: the step and the evals from the card's own input of
 # the model's tail on (the PF head; the ResNet34 regressor's fc, its last
 # stage printed beside it), the card against the CPU at bf16, which the
@@ -328,6 +370,12 @@ BF16_TAIL_LOSS = 2e-2
 BF16_TAIL_L2 = 2e-2
 BF16_TAIL_PER_TENSOR = 5e-2
 BF16_TAIL_PREDICT = 1e-3
+# R50 zeng's step from its PF-head input (Cin 64, Cmid 512: the wide bf16
+# kernels) holds the gradients to tighter limits: its float32 control
+# stands nearer the bf16 reference than the ResNet34 head's. First
+# readings (H100): the card 6.00e-3 relative L2, worst tensor 8.48e-3; the
+# CPU's float32 1.78e-2 and 3.31e-2; K2 bf16's dw1 zeroed 1.29.
+BF16_R50_TAIL = (1e-2, 2e-2)
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -628,7 +676,9 @@ def check_bf16_predict(delta_cuda, delta_cpu, model, model_cpu, batch_cpu,
 
 
 def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
-                         steps=PDS_STEPS):
+                         steps=PDS_STEPS,
+                         expect=('fused_pf_head_fwd',
+                                 'bilinear_sample_batched'), sets=()):
     """The eval entry point of s-coco/zeng-orig on the card, counted (K1
     and K3 must launch, no other kernel): predict is the OneLine backbone
     and the RANSAC fit of its perspective field (64 hypotheses of 4 of the
@@ -642,7 +692,11 @@ def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
     winner or its inlier count differ are counted and printed (a
     degenerate hypothesis, its pole on the field, can count a few points
     apart in two roundings: tests/test_torch_ransac.py). LOGGING.DIR is an
-    empty directory: the weights are the seeded init."""
+    empty directory: the weights are the seeded init. At bf16 (``sets``
+    MODEL.DTYPE=bfloat16; ``expect`` the narrow K1 bf16) the CPU fits the
+    card's own bf16 field: two bf16 backbones part by more than the
+    tolerance (``check_bf16_predict``), and the check is of the fit on a
+    bf16 field, which both widen to float32 before the mapping."""
     from bihome_torch import eval as teval
     from bihome_torch.heads import ransac
 
@@ -652,12 +706,12 @@ def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
         result = teval.main(['--config_file', config, '--synthetic',
                              '--batch_size', str(batch_size), '--steps',
                              str(steps), '--device', 'cuda', '--set',
-                             f'LOGGING.DIR={empty}'])
+                             f'LOGGING.DIR={empty}',
+                             *(a for item in sets for a in ('--set', item))])
     launches = read_counts(counters)
     eval_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f'launches on the eval path of {config} (batch {batch_size}, '
-          f'{steps} steps): {launches}')
-    expect = ('fused_pf_head_fwd', 'bilinear_sample_batched')
+    print(f'launches on the eval path of {config} {list(sets)} (batch '
+          f'{batch_size}, {steps} steps): {launches}')
     for name, count in launches.items():
         if (count > 0) != (name in expect):
             raise AssertionError(
@@ -708,10 +762,15 @@ def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
     with torch.inference_mode():
         fit_card = ransac.ransac_fit(*ransac.field_points(pf_card),
                                      idx=idx.cuda())
+    bf16 = pf_card.dtype == torch.bfloat16
     with one_cpu_thread(), torch.inference_mode():
-        pf_cpu = cpu.backbone({k: v.cpu() for k, v in batch.items()})[key]
+        pf_cpu = (pf_card.cpu() if bf16 else
+                  cpu.backbone({k: v.cpu() for k, v in batch.items()})[key])
         fit_cpu = ransac.ransac_fit(*ransac.field_points(pf_cpu), idx=idx)
         delta_cpu = ransac.fit_to_delta(fit_cpu, pf_cpu.shape)
+    if bf16 and not (fit_card.homography.dtype == fit_cpu.homography.dtype
+                     == torch.float32):
+        raise AssertionError('the fit of a bf16 field is not float32')
     counts_card = fit_card.counts.cpu()
     same_best = fit_card.best.cpu() == fit_cpu.best
     same_count = counts_card.amax(-1) == fit_cpu.counts.amax(-1)
@@ -721,8 +780,10 @@ def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
     err_match = float(err[same_inliers].max()) if same_inliers.any() else 0.0
     differ = int((~(same_best & same_count)).sum())
     hyps_differ = int((counts_card != fit_cpu.counts).sum())
+    field = "the card's bf16 field, " if bf16 else ''
     print(f'RANSAC delta_hat CUDA vs CPU plain path, batch 0 ({batch_size} '
-          f'pairs, mean |pf| {float(pf_cpu.abs().mean()):.2f} px, the same '
+          f'pairs, {field}mean |pf| '
+          f'{float(pf_cpu.float().abs().mean()):.2f} px, the same '
           f'draws): max abs err {float(err.max()):.3e} px, {err_match:.3e} '
           f'px over the {int(same_inliers.sum())} samples whose winner and '
           f'inlier set match (tolerance 1e-2 px); samples whose winning '
@@ -735,7 +796,7 @@ def run_ransac_eval_path(counters, config=ZENG_ORIG[1], batch_size=BATCH,
             and bool(torch.isfinite(delta_card).all())):
         raise AssertionError(f'CUDA RANSAC predict disagrees with CPU: '
                              f'{err_match}')
-    summary = {'config': config, 'batch': batch_size,
+    summary = {'config': config, 'sets': list(sets), 'batch': batch_size,
                'mean_mace': result['mean_mace'], 'model_ms': model_ms,
                'pairs_per_s': pairs_per_s, 'backbone_ms': med['backbone'],
                'ransac_ms': med['ransac'], 'ransac_share': share,
@@ -989,16 +1050,26 @@ def skipped_rounding(k):
         fh._rounded = rounded
 
 
-def check_pf_head_bf16(dev, gen, n=2 * BATCH):
+def _bf16_kernel(cin, direction):
+    """(the kernels line's name, the wrapper's launch counter) of K1 or K2
+    bf16 at the narrow (Cin 16) or the wide (Cin 64) head."""
+    if cin == 64:
+        return f'fused_pf_head_{direction}_wide_bf16', 'wide_bf16_launches'
+    return f'fused_pf_head_{direction}_bf16', 'bf16_launches'
+
+
+def check_pf_head_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
     """K1 bf16 at the zeng shape: a bf16 [n,16,128,128] activation (``n`` =
     2B = 128 for the DoubleLine train and eval batches of 64), Cmid 128,
-    against its plain bf16 version (the Pallas kernel's rounding points,
-    float32 sums) on the card: relative L2 within BF16_K1_L2 and every
-    output within BF16_K1_MAX of the largest (4 bf16 ulps); the two round
-    the same float32 values to bf16, summed in other orders."""
+    or at the R50 head's (Cin 64, Cmid 512, its own kernel), against its
+    plain bf16 version (the Pallas kernel's rounding points, float32 sums)
+    on the card: relative L2 within BF16_K1_L2 and every output within
+    BF16_K1_MAX of the largest (4 bf16 ulps); the two round the same
+    float32 values to bf16, summed in other orders."""
     from bihome_torch.ops import fused_head
 
-    cin, cmid, cout, hw = 16, 128, 2, 128
+    cout, hw = 2, 128
+    name, counter = _bf16_kernel(cin, 'fwd')
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
@@ -1010,10 +1081,10 @@ def check_pf_head_bf16(dev, gen, n=2 * BATCH):
     mean = rnd(cmid, scale=0.1)
     var = (torch.rand(cmid, generator=gen) + 0.5).to(dev)
     args = (x, w1, b1, gamma, beta, w2, b2, mean, var)
-    before = fused_head.fused_pf_head_fwd.bf16_launches
+    before = getattr(fused_head.fused_pf_head_fwd, counter)
     got = fused_head.fused_pf_head_fwd(*args)
-    if fused_head.fused_pf_head_fwd.bf16_launches != before + 1:
-        raise AssertionError('K1 bf16 did not launch')
+    if getattr(fused_head.fused_pf_head_fwd, counter) != before + 1:
+        raise AssertionError(f'{name} did not launch')
     if got.dtype != torch.bfloat16:
         raise AssertionError(f'K1 bf16 returned {got.dtype}')
 
@@ -1062,7 +1133,7 @@ def check_pf_head_bf16(dev, gen, n=2 * BATCH):
           f'{bms:.4f} ({by}: bytes {t_bytes:.4f}, bf16 tensor work '
           f'{tc:.4f}, fp32 epilogue {epilogue:.4f}; {nbytes / 1e6:.1f} MB); '
           f'host us per call: kernel {host["kernel"]:.1f}')
-    return {'name': 'fused_pf_head_fwd_bf16', 'route': 'cuda',
+    return {'name': name, 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:93',
             'shape': [n, cin, hw, hw], 'cmid': cmid, 'dtype': 'bfloat16',
@@ -1094,18 +1165,20 @@ def _off_the_kink(x, w1t, gis, c1, margin=1e-4, chunk=16):
     return zeroed
 
 
-def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH):
+def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
     """K2 bf16 at the zeng training shape: bf16 x (a ReLU output) and a
-    dense bf16 cotangent g [n,2,128,128], Cmid 128, batch statistics, one
-    gamma == 0 channel, against its plain bf16 version on the card: dx
-    within BF16_K2_DX_L2 relative L2, and dw1, M0, M1, db2 within
+    dense bf16 cotangent g [n,2,128,128], Cmid 128, or at the R50 head's
+    (Cin 64, Cmid 512, its own kernels), batch statistics, one gamma == 0
+    channel, against its plain bf16 version on the card: dx within
+    BF16_K2_DX_L2 relative L2, and dw1, M0, M1, db2 within
     BF16_K2_SUMS_L2. The pixels with a pre-ReLU value within 1e-4 of the
-    kink are zeroed first (``_off_the_kink``), so both take the same ReLU
-    masks: the sums then differ by float32 order and by bf16(e)'s rare
-    rounding flips only."""
+    kink are zeroed first (``_off_the_kink``; a beta whose c1 lies there
+    is moved off it), so both take the same ReLU masks: the sums then
+    differ by float32 order and by bf16(e)'s rare rounding flips only."""
     from bihome_torch.ops import fused_head as fh
 
-    cin, cmid, cout, hw = 16, 128, 2, 128
+    cout, hw = 2, 128
+    name, counter = _bf16_kernel(cin, 'bwd')
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
@@ -1118,15 +1191,17 @@ def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH):
     mean, var = fh.batch_stats_affine(x, w1, b1)
     inv_s = torch.rsqrt(var + 1e-5)
     gis = (gamma * inv_s).contiguous()
+    # A zeroed pixel's pre-ReLU value is c1: keep every c1 off the kink.
+    beta = beta + 3e-4 * ((gis * (b1 - mean) + beta).abs() <= 1e-4)
     c1 = (gis * (b1 - mean) + beta).contiguous()
     w1t = w1.reshape(cmid, cin).contiguous()
     zeroed = _off_the_kink(x, w1t, gis, c1)
     w2gis = (w2.reshape(cout, cmid).t() * gis[:, None]).contiguous()
     margs = (x, g, w1t, gis, c1, w2gis)
-    before = fh.fused_pf_head_bwd.bf16_launches
+    before = getattr(fh.fused_pf_head_bwd, counter)
     got = fh.fused_pf_head_bwd(*margs)
-    if fh.fused_pf_head_bwd.bf16_launches != before + 1:
-        raise AssertionError('K2 bf16 did not launch')
+    if getattr(fh.fused_pf_head_bwd, counter) != before + 1:
+        raise AssertionError(f'{name} did not launch')
     want = fh.pf_head_bwd_plain(*margs)
     if got[0].dtype != torch.bfloat16:
         raise AssertionError(f'K2 bf16 returned dx in {got[0].dtype}')
@@ -1189,7 +1264,7 @@ def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH):
           f'{bms:.4f} ({by}: bytes {t_bytes:.4f}, bf16 tensor work {tc:.4f},'
           f' fp32 epilogue {epilogue:.4f}; {nbytes / 1e6:.1f} MB); host us '
           f'per call: kernel {host["kernel"]:.1f}')
-    return {'name': 'fused_pf_head_bwd_bf16', 'route': 'cuda',
+    return {'name': name, 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:110',
             'shape': [n, cin, hw, hw], 'cmid': cmid, 'dtype': 'bfloat16',
@@ -1835,7 +1910,8 @@ def compare_train_step_bf16(result, batch=4):
             'tail': compare_tail_step_bf16(result, built, state, data)}
 
 
-def compare_tail_step_bf16(result, built, state, data):
+def compare_tail_step_bf16(result, built, state, data,
+                           limits=(BF16_TAIL_L2, BF16_TAIL_PER_TENSOR)):
     """The same step from the card's own pairs and PF-head input on: both
     recorded on the card (the bf16 datagen's gray values can round to
     other bf16 values on the two sides), then the head, the DSAC fit and
@@ -1844,8 +1920,10 @@ def compare_tail_step_bf16(result, built, state, data):
     the CPU at float32 (the control), the gradients those of the head's
     parameters and of its input. Past the backbone's depth two bf16
     roundings stay close: the card must keep within BF16_TAIL_LOSS and
-    BF16_TAIL_PER_TENSOR, and the float32 control and the card with K2
-    bf16's dw1 zeroed must not."""
+    ``limits`` (the gradients' relative L2 over all tensors and per
+    tensor; BF16_TAIL_L2 and BF16_TAIL_PER_TENSOR unless stated), and the
+    float32 control and the card with K2 bf16's dw1 zeroed must not."""
+    tail_l2, tail_per_tensor = limits
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
     config32 = copy.deepcopy(built.config)
     config32['MODEL']['DTYPE'] = 'float32'
@@ -1870,14 +1948,14 @@ def compare_tail_step_bf16(result, built, state, data):
               f'card\'s PF-head input {[list(x.shape) for x in inputs]}, '
               f'{name} against the CPU at bf16: loss error / terms '
               f'{loss_err:.2e} (limit {BF16_TAIL_LOSS:.0e}); head and input '
-              f'gradients relative L2 {l2:.2e} (limit {BF16_TAIL_L2:.0e}), '
+              f'gradients relative L2 {l2:.2e} (limit {tail_l2:.0e}), '
               f'worst tensor {per:.2e} ({worst}; limit '
-              f'{BF16_TAIL_PER_TENSOR:.0e})')
+              f'{tail_per_tensor:.0e})')
 
     def holds(name):
         loss_err, l2, per, _ = readings[name]
-        return (loss_err <= BF16_TAIL_LOSS and l2 <= BF16_TAIL_L2
-                and per <= BF16_TAIL_PER_TENSOR)
+        return (loss_err <= BF16_TAIL_LOSS and l2 <= tail_l2
+                and per <= tail_per_tensor)
     caught = {name: not holds(name) for name in ('CPU float32', fault)}
     print(f'the tail check holds the card: {holds("card")}; catches the '
           f'float32 control and the planted fault: {caught}')
@@ -2143,6 +2221,22 @@ def run(stack):
         mark[0] = now
         print(f'phase {phase}: {phase_s[phase]} s')
 
+    # The seeded synthetic pools of ``--synthetic`` are the same in every
+    # train run of one image size and sample count: make each once.
+    from bihome_torch import train as train_cli
+    make_pools, pools = train_cli.make_pools, {}
+
+    def cached_pools(config, image_size, train_samples, test_samples):
+        key = (json.dumps(config['DATA']['SAMPLER'], sort_keys=True)
+               if train_cli.is_clevr(config) else None, tuple(image_size),
+               train_samples, test_samples)
+        if key not in pools:
+            pools[key] = make_pools(config, image_size, train_samples,
+                                    test_samples)
+        return pools[key]
+    train_cli.make_pools = cached_pools
+    stack.callback(setattr, train_cli, 'make_pools', make_pools)
+
     logs = _cuda.build(['warp', 'fused_head'])
     print(f'built {sorted(logs)}')
     for name, log in logs.items():
@@ -2173,7 +2267,7 @@ def run(stack):
                 check_pf_head_bwd_bf16(dev, gen_bf16)]
     done('kernel checks')
     # Each kernel's launch counter: K1 and K2 count their narrow (Cin 16)
-    # and wide (Cin 64) kernels apart.
+    # and wide (Cin 64) kernels, float32 and bf16, apart.
     counters = {
         'bilinear_sample_batched': (warp.bilinear_sample_batched, 'launches'),
         'fused_pf_head_fwd': (fused_head.fused_pf_head_fwd, 'launches'),
@@ -2188,7 +2282,11 @@ def run(stack):
         'fused_pf_head_fwd_bf16': (fused_head.fused_pf_head_fwd,
                                    'bf16_launches'),
         'fused_pf_head_bwd_bf16': (fused_head.fused_pf_head_bwd,
-                                   'bf16_launches')}
+                                   'bf16_launches'),
+        'fused_pf_head_fwd_wide_bf16': (fused_head.fused_pf_head_fwd,
+                                        'wide_bf16_launches'),
+        'fused_pf_head_bwd_wide_bf16': (fused_head.fused_pf_head_bwd,
+                                        'wide_bf16_launches')}
     paths = {}
     paths['eval'], _, _ = run_eval_path(counters)
     with tempfile.TemporaryDirectory() as log_dir:
@@ -2258,23 +2356,31 @@ def run(stack):
     # The bf16 slice: bench.py's four PDS configs trained at bf16 at its
     # batches, beside their float32 runs above; the one bf16 step check
     # after zeng-biHomE's; the bf16 evals.
-    f32_rows = {(r['config'], r['batch']): r for r in runs
-                if r['dtype'] == 'float32' and not r['sets']}
     bf16_runs, bf16_evals = [], {}
-    for config, batch, expect in BF16_RUNS:
+
+    def bf16_train(config, batch, expect, sets=()):
+        """A train run at bf16, its row beside the float32 row of this
+        call (the same config, batch and overrides)."""
         with tempfile.TemporaryDirectory() as log_dir:
-            paths[f'train {config} bf16'], result = run_train_path(
-                counters, log_dir, config, batch, PDS_STEPS, expect,
-                extra=('--dtype', 'bfloat16'))
-        row, f32 = result['summary'], f32_rows[(config, batch)]
+            paths[f'train {" ".join((config, *sets))} bf16'], result = (
+                run_train_path(counters, log_dir, config, batch, PDS_STEPS,
+                               expect, sets, extra=('--dtype', 'bfloat16')))
+        row = result['summary']
+        f32 = next(r for r in runs if r['dtype'] == 'float32' and (
+            r['config'], r['batch'], r['sets']) == (config, batch,
+                                                    list(sets)))
         row['float32'] = {k: f32[k] for k in ('ms_per_step', 'pairs_per_s',
                                               'peak_gb')}
         bf16_runs.append(row)
-        print(f'{config} at {batch}: bf16 {row["ms_per_step"]:.2f} ms per '
-              f'step, {row["pairs_per_s"]:.1f} pairs/s, peak '
-              f'{row["peak_gb"]:.2f} GB; float32 (this call) '
-              f'{f32["ms_per_step"]:.2f} ms, {f32["pairs_per_s"]:.1f} pairs/s,'
-              f' {f32["peak_gb"]:.2f} GB')
+        print(f'{config} {list(sets)} at {batch}: bf16 '
+              f'{row["ms_per_step"]:.2f} ms per step, '
+              f'{row["pairs_per_s"]:.1f} pairs/s, peak {row["peak_gb"]:.2f} '
+              f'GB; float32 (this call) {f32["ms_per_step"]:.2f} ms, '
+              f'{f32["pairs_per_s"]:.1f} pairs/s, {f32["peak_gb"]:.2f} GB')
+        return result
+
+    for config, batch, expect in BF16_RUNS:
+        result = bf16_train(config, batch, expect)
         if config == BF16_RUNS[0][0]:
             bf16_step = compare_train_step_bf16(result)
         del result
@@ -2315,6 +2421,37 @@ def run(stack):
     compare_train_step(result, CLEVR_STEP_BATCH, ('K4 du negated',))
     del result
     done('CLEVR train, step check')
+
+    # The bf16 slice of every config: K1 and K2 bf16 at the R50 head, from
+    # a generator of their own (the phases before keep their draws); the
+    # configs of BF16_EVERY_RUNS trained at bf16 beside their float32 rows
+    # above, R50 zeng's step from its PF-head input; the bf16 evals of R50
+    # zeng (the wide K1 bf16) and S-COCO zeng-orig (RANSAC on the bf16
+    # field).
+    gen_every = torch.Generator().manual_seed(13)
+    kernels += [check_pf_head_bf16(dev, gen_every, 2 * BATCH, 64, 512),
+                check_pf_head_bwd_bf16(dev, gen_every, 2 * BATCH, 64, 512)]
+    done('wide bf16 kernel checks')
+    for config, batch, expect, sets in BF16_EVERY_RUNS:
+        result = bf16_train(config, batch, expect, sets)
+        if sets == R50_SET:
+            built = result['built']
+            bf16_step['r50_tail'] = compare_tail_step_bf16(
+                result, built, result['initial_state'],
+                step_data(built, R50_STEP_BATCH), BF16_R50_TAIL)
+        del result
+    done('bf16 train of every config, R50 step check')
+    paths[f'eval {r50} bf16'], result, _ = run_eval_path(
+        counters, CONFIG, BATCH, PDS_STEPS,
+        ('bilinear_sample_batched', 'fused_pf_head_fwd_wide_bf16'),
+        R50_SET + ('MODEL.DTYPE=bfloat16',), check_pairs=4)
+    bf16_evals[r50] = result['bf16_predict']
+    del result
+    paths[f'eval {ZENG_ORIG[1]} bf16'], bf16_evals[ZENG_ORIG[1]] = (
+        run_ransac_eval_path(counters, expect=('fused_pf_head_fwd_bf16',
+                                               'bilinear_sample_batched'),
+                             sets=('MODEL.DTYPE=bfloat16',)))
+    done('bf16 evals of R50 zeng and zeng-orig')
 
     # The file-fed slice: the JPEG folder and its pack; pds-coco
     # zeng-biHomE trained from each (streamed, counted as the other train

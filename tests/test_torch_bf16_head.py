@@ -19,6 +19,16 @@ JAX reference at bfloat16.
   4.1e-2 to 0.52 of dx's values). The seeds keep every pre-ReLU value
   more than 1e-5 off the kink (100 times the float32 rounding of its
   sum), where the two sides could take different masks.
+* The same at the ResNet50-flavour head (Cin 64, Cmid 512) at M = 4096
+  pixels, one ``_TP_WIDE`` program, x a ReLU output, with the same limits
+  and planted rounding points. At 2M pre-ReLU values no seed keeps off
+  the kink, so beta is moved off it channel by channel (neither statistic
+  depends on beta); in training the seed's bf16(g1t) must come out the
+  same from either side's batch variance (one flip there moves a whole
+  channel: seed 53 reads 1.2e-2 of y's values other than JAX's). Readings:
+  eval y 0, dx 3.7e-5 (2.7e-4 of its values); train y 3.6e-5 (4.9e-4 of
+  its values), dx 9.9e-5 (8.1e-4); left out, each rounding point reads
+  2.4e-3 to 3.9e-3 on y or 2.4e-2 to 0.54 of dx's values.
 * The fused deconv + conv3x3 (``bihome_torch.ops.deconv``) against
   ``bihome_tpu.ops.deconv.fused_deconv_conv3x3`` at bf16 (the composite
   kernel rounded to bf16, one convolution, the bias field added in bf16):
@@ -168,6 +178,73 @@ def test_plain_bf16_head_matches_pallas_kernels(train):
     # Each rounding point left out (in call order: g1t, w2, relu(a)
     # forward; w1t, e and, with batch statistics, a_mat backward) must fail
     # the same limits.
+    for k in range(6 if train else 5):
+        with skipped_rounding(k):
+            planted = _head_errors(_port_head(*args, cot, train), want, train)
+        print(f'rounding point {k} left out: ' + ', '.join(
+            f'{key} {v:.2e}' for key, v in planted.items()))
+        assert not _head_holds(planted), (k, planted)
+
+
+def _off_the_kink(args, train, margin=1e-5):
+    """``args`` with beta moved, in steps of 10 margins, in each channel
+    where some pixel's pre-ReLU value (float64, bf16 x) lies within 2
+    margins of 0: at Cin 64 / Cmid 512 the 4096 pixels' 2M pre-ReLU values
+    put some within 1e-5 of the kink for any seed. Neither statistic
+    depends on beta, so no other value moves."""
+    x, w1, b1, gamma, beta, w2, b2, mean, var = args
+    xb = np.asarray(torch.from_numpy(x).to(BF16).double())
+    mid = xb.reshape(-1, x.shape[-1]) @ w1.astype(np.float64) + b1
+    mu, v = (mid.mean(0), mid.var(0)) if train else (mean, var)
+    z = (mid - mu) / np.sqrt(v + 1e-5) * gamma
+    beta = beta.astype(np.float64)
+    for c in range(beta.size):
+        while np.abs(z[:, c] + beta[c]).min() <= 2 * margin:
+            beta[c] += 10 * margin
+    return x, w1, b1, gamma, beta.astype(np.float32), w2, b2, mean, var
+
+
+@pytest.mark.parametrize('train', [False, True], ids=['eval', 'train'])
+def test_plain_bf16_wide_head_matches_pallas_kernels(train):
+    """The ResNet50-flavour head (Cin 64, Cmid 512) at M = 4096 pixels, one
+    _TP_WIDE program of the Pallas kernels, with the narrow test's limits
+    and planted rounding points. x is a ReLU output (the decoder's); beta
+    keeps every pre-ReLU value more than 1e-5 off the kink
+    (:func:`_off_the_kink`)."""
+    args, cot = _head_inputs(seed=58 if train else 52, n=1, hw=64, cin=64,
+                             cmid=512)
+    args = _off_the_kink((np.maximum(args[0], 0.0), *args[1:]), train)
+    x, w1, b1, gamma, beta, w2, b2, mean, var = args
+    assert _pre_relu_margin(x, w1, b1, gamma, beta, mean, var, train) > 1e-5
+
+    def jloss(*a):
+        y, mu, v = jfh.fused_pf_head(*a, jnp.asarray(mean), jnp.asarray(var),
+                                     train=train)
+        return jnp.sum(y * jnp.asarray(cot)), (y, v)
+
+    jargs = [jnp.asarray(x).astype(jnp.bfloat16)] + [
+        jnp.asarray(a) for a in (w1, b1, gamma, beta, w2, b2)]
+    grads, (want, var_j) = jax.grad(jloss, argnums=tuple(range(7)),
+                                    has_aux=True)(*jargs)
+    assert want.dtype == jnp.bfloat16 and grads[0].dtype == jnp.bfloat16
+    want = (np.asarray(want, np.float32),
+            [np.asarray(g, np.float32) for g in grads])
+    got = _port_head(*args, cot, train)
+    # bf16(g1t) the same from either side's statistics (the two sums of the
+    # variance differ in float32's last bits; a g1t value on a bf16
+    # rounding boundary would flip a whole channel's products: seed 53 has
+    # one such, and 1.2e-2 of y's values then differ).
+    t = torch.from_numpy
+    g1t = [tfh.fold_bn(t(np.ascontiguousarray(w1.T)), t(b1), t(gamma),
+                       t(beta), t(mean), t(np.array(v, np.float32)),
+                       1e-5)[0].to(BF16) for v in (got[2][1], var_j)]
+    assert torch.equal(*g1t)
+    assert tfh.fused_pf_head_fwd.wide_bf16_launches == 0
+    assert tfh.fused_pf_head_bwd.wide_bf16_launches == 0
+    errs = _head_errors(got, want, train)
+    print('wide head, port against JAX at bf16: ' + ', '.join(
+        f'{k} {v:.2e}' for k, v in errs.items()))
+    assert _head_holds(errs), errs
     for k in range(6 if train else 5):
         with skipped_rounding(k):
             planted = _head_errors(_port_head(*args, cot, train), want, train)

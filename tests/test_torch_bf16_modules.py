@@ -5,7 +5,10 @@ reference's flax modules built with ``dtype=jnp.bfloat16``.
   bf16 in, statistics and affine in float32, bf16 out; eval and train
   (output, the running statistics, the gradients of x, scale and bias).
 * A ResNet34 block with a strided projection (``models/blocks.py``)
-  against ``blocks.ResNet34ConvBlock(dtype=bf16)``, eval and train.
+  against ``blocks.ResNet34ConvBlock(dtype=bf16)``, eval and train; the
+  same for the ResNet50 flavour's bottleneck with a strided projection
+  (``ResNet50ConvBlock``) and its 2x upsampling block
+  (``ResNet50DeconvBlock``, the deconv and 3x3 conv fused on both sides).
 * Max-pool on bf16 input with real ties (a ReLU output quantized to
   halves): forward exactly, each window's cotangent routed to the same
   element.
@@ -23,10 +26,11 @@ on the other side of a bf16 rounding boundary then differs by one bf16 ulp
 pool and the datagen: the float32 tests' tolerances except at such
 elements, which are counted (relative L2 1e-3 where the outputs are bf16;
 5e-3 for BN's dx in training mode, where flax rounds twice, see there).
-The block: 1e-2 relative L2 on outputs and gradients (two convolutions
-and two batch normalisations deep; readings 0 in eval mode, at most
-5.5e-3 in training), which the same block at float32 must miss (it reads
-up to 5.8e-2 and 4.6e-2). ContentAware: the masks exactly, the
+The blocks: 1e-2 relative L2 on outputs and gradients (two or three
+convolutions and batch normalisations deep; readings 0 in eval mode, at
+most 5.5e-3 in training for the ResNet34 block, 5.9e-3 for the ResNet50
+ones), which the same block at float32 must miss (it reads up to 5.8e-2
+and 4.6e-2; the ResNet50 ones 5.7e-2 to 0.106). ContentAware: the masks exactly, the
 features 2e-3 relative L2 (JAX at float32 stands 6.3e-3 to 6.8e-3 from
 JAX at bf16), the deltas of the ResNet34 regressor (36 layers at bf16)
 2e-2 in eval mode and 5e-2 in training (see there).
@@ -127,14 +131,18 @@ def test_batch_norm_bf16_matches_flax(train):
                                atol=1e-6)
 
 
-def _block_state(variables):
-    """flax ResNet34ConvBlock tree -> the port block's state dict."""
+def _block_state(variables, fields=weights._R34):
+    """flax block tree (a ResNet34ConvBlock's, or the block of
+    ``fields``) -> the port block's state dict."""
     state = {}
-    for name, (prefix, kind) in weights._R34.items():
+    for name, (prefix, kind) in fields.items():
         params = variables['params'][name]
-        if kind == 'conv':
+        if kind in ('conv', 'ct'):
             state[f'{prefix}.weight'] = torch.from_numpy(
                 weights._kernel(np.asarray(params['kernel'])))
+            if 'bias' in params:
+                state[f'{prefix}.bias'] = torch.from_numpy(np.asarray(
+                    params['bias']))
             continue
         stats = variables['batch_stats'][name]
         for src, dst in (('scale', 'weight'), ('bias', 'bias')):
@@ -191,6 +199,65 @@ def test_resnet34_block_bf16_matches_flax(train):
     print(f'block against JAX at bf16, relative L2: {readings}')
     # The port at bf16 within BLOCK_L2 everywhere; the port at float32
     # (the control, no rounding) misses it somewhere.
+    assert max(readings[str(BF16)].values()) <= BLOCK_L2
+    assert max(readings[str(torch.float32)].values()) > BLOCK_L2
+
+
+# The ResNet50-flavour Rethinking backbone's blocks: a bottleneck with a
+# strided projection and the 2x upsampling block (its deconv and 3x3 conv
+# fused into one convolution on both sides).
+R50_BLOCKS = {
+    'bottleneck': (lambda: jblocks.ResNet50ConvBlock(
+        features=32, stride=2, dtype=jnp.bfloat16),
+        lambda: tblocks.ResNet50ConvBlock(16, 32, 2), weights._R50,
+        (2, 16, 16, 16), (2, 8, 8, 32)),
+    'deconv': (lambda: jblocks.ResNet50DeconvBlock(dtype=jnp.bfloat16),
+               lambda: tblocks.ResNet50DeconvBlock(16), weights._DECONV50,
+               (2, 8, 8, 16), (2, 16, 16, 8))}
+
+
+@pytest.mark.parametrize('block', sorted(R50_BLOCKS))
+@pytest.mark.parametrize('train', [False, True], ids=['eval', 'train'])
+def test_resnet50_blocks_bf16_match_flax(train, block):
+    """As the ResNet34 block's test: outputs and gradients within
+    BLOCK_L2 of flax at bf16, which the port's block at float32 misses."""
+    jnet, tnet, fields, xshape, yshape = R50_BLOCKS[block]
+    rs = np.random.RandomState(6)
+    x = np.maximum(rs.randn(*xshape), 0).astype(np.float32)
+    net = jnet()
+    variables = randomize_variables(
+        net.init(jax.random.PRNGKey(0), jnp.asarray(x)), rs)
+    cot = rs.randn(*yshape).astype(np.float32)
+
+    def jfn(xj, params):
+        y, _ = net.apply({'params': params,
+                          'batch_stats': variables['batch_stats']}, xj,
+                         train=train, mutable=['batch_stats'])
+        return jnp.sum(y.astype(jnp.float32) * cot), y
+
+    (gx, gp), want = jax.grad(jfn, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), variables['params'])
+    assert want.dtype == jnp.bfloat16
+    want = {'y': np.asarray(want, np.float32),
+            'dx': np.asarray(gx, np.float32)}
+    for name, (prefix, kind) in fields.items():
+        if kind != 'bn':
+            want[prefix] = weights._kernel(np.asarray(gp[name]['kernel']))
+    readings = {}
+    for dtype in (BF16, torch.float32):
+        module = layers.set_compute_dtype(tnet(), dtype)
+        module.load_state_dict(_block_state(variables, fields), strict=False)
+        module.train(train)
+        xt = _nchw(x).requires_grad_(True)
+        got = module(xt)
+        assert got.dtype == dtype
+        (got.float() * _nchw(cot)).sum().backward()
+        params = dict(module.named_parameters())
+        readings[str(dtype)] = {
+            k: rel_l2(_nhwc(got) if k == 'y' else _nhwc(xt.grad) if k == 'dx'
+                      else params[f'{k}.weight'].grad.numpy(), w)
+            for k, w in want.items()}
+    print(f'{block} against JAX at bf16, relative L2: {readings}')
     assert max(readings[str(BF16)].values()) <= BLOCK_L2
     assert max(readings[str(torch.float32)].values()) > BLOCK_L2
 

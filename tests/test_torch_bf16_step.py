@@ -27,6 +27,9 @@ PF head's input on, that input handed to both sides, tells the rounding
 apart: there the port stands within half of JAX float32's distance from
 JAX bf16 (readings 2.8e-2 against 0.27 on the loss, 0.108 against 0.438
 on the head's and its input's gradients).
+
+Every other config builds at bf16 and takes one finite CPU train step;
+a config refused at float32 is refused at bf16 by the same message.
 """
 
 import os
@@ -335,30 +338,61 @@ def test_train_cli_trains_at_bfloat16_on_cpu(tmp_path):
     assert 'Mean mace' in proc.stdout
 
 
-@pytest.mark.parametrize('sets,name', [
-    (('MODEL.BACKBONE.RESNET_BLOCK=ResNet50',),
-     'the ResNet50-flavour Rethinking backbone'),
-    (('MODEL.HEAD.NAME=NoOpHead', 'MODEL.HEAD.TARGET_GEN=all_points'),
-     'zeng-orig')], ids=['r50', 'zeng-orig'])
-def test_build_model_refuses_unported_bf16_configs_by_name(sets, name):
-    config = tconfig.load_config(ZENG[0])
-    tconfig.apply_overrides(config, list(sets) + ['MODEL.DTYPE=bfloat16'])
-    with pytest.raises(ValueError, match=f'not ported yet: MODEL.DTYPE '
-                                         f'bfloat16 with {name}'):
-        tconfig.build_model(config)
-    tconfig.apply_overrides(config, ['MODEL.DTYPE=float32'])
-    tconfig.build_model(config)
+# The configs beyond bench.py's four and their S-COCO twins (R50 zeng's
+# Cin 64 head, zeng-orig, the PhotometricHead, the biHomE loss on
+# regressed deltas, CLEVR-Change pairs): each builds at bf16 and takes one
+# CPU train step (batch 2, 32x32 patches, rho 8, 64x64 synthetic images;
+# CLEVR-Change 64x48 change pairs) with a finite loss.
+BF16_CONFIGS = {
+    'r50': (ZENG[0], ('MODEL.BACKBONE.RESNET_BLOCK=ResNet50',)),
+    'zeng-orig': ('config/pds-coco/zeng-orig-lr-1e-3.yaml', ()),
+    's-coco-nguyen-orig': ('config/s-coco/nguyen-orig-lr-5e-3.yaml', ()),
+    'pds-detone-bihome': ('config/pds-coco/detone-bihome-lr-5e-3.yaml', ()),
+    'pds-zhang-bihome': ('config/pds-coco/zhang-bihome-lr-1e-2.yaml', ()),
+    'clevr-change': ('config/clevr-change/zhang-clevr-nsc-lr-1e-2.yaml', ())}
 
 
-@pytest.mark.parametrize('path,name', [
-    ('config/s-coco/nguyen-orig-lr-5e-3.yaml',
-     'the ResNet34 backbone and the PhotometricHead'),
-    ('config/pds-coco/detone-bihome-lr-5e-3.yaml', 'detone-biHomE'),
-    ('config/pds-coco/zhang-bihome-lr-1e-2.yaml', 'zhang-biHomE'),
-    ('config/clevr-change/zhang-clevr-nsc-lr-1e-2.yaml',
-     'ChangeAwarePrep pairs')])
-def test_build_model_refuses_other_families_at_bf16(path, name):
+def _bf16_config(path, sets):
     config = tconfig.load_config(os.path.join(REPO, path))
-    with pytest.raises(ValueError, match=f'not ported yet: MODEL.DTYPE '
-                                         f'bfloat16 with {name}'):
-        tconfig.build_model(config, dtype='bfloat16')
+    tconfig.apply_overrides(config, list(sets))
+    config['MODEL']['HEAD']['PATCH_SIZE'] = 32
+    for key in ('TRANSFORMS', 'TEST_TRANSFORM'):
+        prep = config['DATA'].get(key, [{}])[0].get('HomographyNetPrep')
+        if prep:
+            prep[:2] = [8, 32]
+    return config
+
+
+@pytest.mark.parametrize('name', sorted(BF16_CONFIGS))
+def test_build_model_trains_every_config_at_bf16(name):
+    from bihome_torch.data import clevr_change, synthetic
+    from bihome_torch.models import backbones
+    path, sets = BF16_CONFIGS[name]
+    built = tconfig.build_model(_bf16_config(path, sets), dtype='bfloat16')
+    assert built.dtype == torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    backbones.init_weights(built.model.backbone, gen)
+    if built.pair_spec.change_aware_keys:
+        ds = clevr_change.SyntheticChangeDataset(num_images=2,
+                                                 image_size=(64, 48))
+        images = torch.from_numpy(np.stack([
+            np.stack([ds.load_image(i), ds.load_image(i + 2)])
+            for i in range(2)]))
+    else:
+        images = torch.from_numpy(synthetic.make_image_pool(2, 64, 64))
+    opt = Optimizer([p for p in built.model.parameters() if p.requires_grad],
+                    **tconfig.solver_kwargs(built.config))
+    metrics = trainer.train_step(built.model, opt, images, built.pair_spec,
+                                 built.loss_name, datagen_generator=gen,
+                                 dsac_generator=gen)
+    assert np.isfinite(float(metrics['loss/train']))
+
+
+def test_build_model_refuses_at_bf16_what_it_refuses_at_float32():
+    config = _bf16_config(ZENG[0], ('MODEL.HEAD.RANSAC_HYPOTHESIS_NO=2',))
+    messages = []
+    for dtype in ('float32', 'bfloat16'):
+        with pytest.raises(ValueError, match='not ported yet') as err:
+            tconfig.build_model(config, dtype=dtype)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]

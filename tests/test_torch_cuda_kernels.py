@@ -15,7 +15,8 @@ wgmma tile and the weight prep they read, misaligned inputs, points far
 outside,
 exactly on the border or on integer coordinates, input validation; K1
 and K2 at bfloat16 against their plain bf16 versions (tolerances beside
-those tests). Tolerances: 1e-3 absolute on 0..255 pixels (warp
+those tests), and the ResNet50-flavour (Cin 64) K1 and K2 at bfloat16 on
+ragged and misaligned shapes. Tolerances: 1e-3 absolute on 0..255 pixels (warp
 forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
 backward (the kernel sums over pixels per block, then over blocks);
@@ -366,13 +367,14 @@ def test_pf_head_bf16_kernel_matches_plain(cuda, shape, cmid, misalign):
     assert err <= 1.6e-2 * want.float().abs().max().item() + 1e-6
 
 
-def _bf16_bwd_args(gen, n, h, w, cuda):
-    x, g, w1t, gis, c1, w2gis = _bwd_args(gen, n, h, w, cuda)
+def _bf16_bwd_args(gen, n, h, w, cuda, cmid=128, cin=16):
+    x, g, w1t, gis, c1, w2gis = _bwd_args(gen, n, h, w, cuda, cmid, cin)
     x = torch.relu(x).to(torch.bfloat16)
+    # A zeroed pixel's pre-ReLU value is c1: keep c1 off the kink too.
+    c1 = torch.where(c1.abs() > 1e-4, c1, c1 + 3e-4)
     pre = (torch.einsum('ck,nkhw->nchw', w1t.to(torch.bfloat16).double(),
                         x.double()) * gis.double()[:, None, None]
            + c1.double()[:, None, None])
-    assert bool((c1.abs() > 1e-4).all())
     x.masked_fill_((pre.abs() < 1e-4).any(1)[:, None], 0.0)
     return x, g.to(torch.bfloat16), w1t, gis, c1, w2gis
 
@@ -414,20 +416,96 @@ def test_pf_head_bf16_train_gradients_match_plain(cuda):
 
 def test_pf_head_bf16_kernels_reject_what_they_do_not_take(cuda):
     gen = torch.Generator().manual_seed(14)
-    wide = list(_head_args(gen, 1, 4, 4, cuda, 512, cin=64))
+    wide = list(_head_args(gen, 1, 4, 4, cuda, 1024, cin=64))
     wide[0] = wide[0].to(torch.bfloat16)
-    with pytest.raises(ValueError, match='bfloat16 PF-head kernels take '
-                                         'Cin=16'):
+    with pytest.raises(ValueError, match='512 for Cin=64 at bfloat16'):
         fused_head.fused_pf_head_fwd(*wide)
     x, g, w1t, gis, c1, w2gis = _bf16_bwd_args(gen, 1, 4, 4, cuda)
     with pytest.raises(ValueError, match='must be torch.bfloat16'):
         fused_head.fused_pf_head_bwd(x, g.float(), w1t, gis, c1, w2gis)
-    wx, wg, ww1t, wgis, wc1, ww2gis = _bwd_args(gen, 1, 4, 4, cuda, 512,
+    wx, wg, ww1t, wgis, wc1, ww2gis = _bwd_args(gen, 1, 4, 4, cuda, 1024,
                                                 cin=64)
-    with pytest.raises(ValueError, match='float32 only'):
+    with pytest.raises(ValueError, match='512 at bfloat16'):
         fused_head.fused_pf_head_bwd(wx.to(torch.bfloat16),
                                      wg.to(torch.bfloat16), ww1t, wgis, wc1,
                                      ww2gis)
+
+
+def _wide_bf16_counts():
+    return tuple(getattr(fn, attr)
+                 for fn in (fused_head.fused_pf_head_fwd,
+                            fused_head.fused_pf_head_bwd)
+                 for attr in ('launches', 'wide_launches', 'bf16_launches',
+                              'wide_bf16_launches'))
+
+
+# The ResNet50-flavour K1 and K2 at bf16 (Cin 64): K1 and the dx kernel
+# walk 256-pixel tiles, the sums kernel 64-pixel ones; HW = 323, 1 and 4225
+# are not multiples of 8 (plain loads and stores), 48 and 400 are (48 one
+# image smaller than a tile, 400 ending in a ragged tile); Cmid 128 and
+# 512; the misaligned x is 2 bytes off a 16-byte boundary. Tolerances as
+# the narrow bf16 tests'; each call must count under wide_bf16_launches
+# and nowhere else.
+@pytest.mark.parametrize('shape,cmid,misalign', [
+    ((3, 17, 19), 512, False), ((2, 64, 64), 512, False),
+    ((1, 1, 1), 512, False), ((2, 8, 6), 128, False),
+    ((3, 20, 20), 512, False), ((1, 65, 65), 256, False),
+    ((2, 16, 16), 512, True)])
+def test_wide_pf_head_bf16_kernels_match_plain(cuda, shape, cmid, misalign):
+    gen = torch.Generator().manual_seed(15)
+    args = list(_head_args(gen, *shape, cuda, cmid, cin=64))
+    x = args[0].to(torch.bfloat16)
+    if misalign:
+        flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        x = flat[1:].view(x.shape)
+        x.copy_(args[0])
+    args[0] = x
+    before = list(_wide_bf16_counts())
+    got = fused_head.fused_pf_head_fwd(*args)
+    torch.cuda.synchronize()
+    before[3] += 1
+    assert list(_wide_bf16_counts()) == before
+    want = fused_head.pf_head_fwd_plain(*args)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _rel_l2(got, want) <= 2e-3
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2 * want.float().abs().max().item() + 1e-6
+
+    bargs = list(_bf16_bwd_args(gen, *shape, cuda, cmid, cin=64))
+    if misalign:
+        flat = torch.empty(bargs[0].numel() + 1, dtype=torch.bfloat16,
+                           device=cuda)
+        flat[1:].view(bargs[0].shape).copy_(bargs[0])
+        bargs[0] = flat[1:].view(bargs[0].shape)
+    got = fused_head.fused_pf_head_bwd(*bargs)
+    torch.cuda.synchronize()
+    before[7] += 1
+    assert list(_wide_bf16_counts()) == before
+    want = fused_head.pf_head_bwd_plain(*bargs)
+    assert got[0].dtype == want[0].dtype == torch.bfloat16
+    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), got, want):
+        assert a.shape == b.shape, name
+        assert _rel_l2(a, b) <= (5e-3 if name == 'dx' else 1e-3), name
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    assert err <= 1.6e-2 * want[0].float().abs().max().item() + 1e-6
+
+
+def test_wide_pf_head_bf16_kernels_are_bit_identical(cuda):
+    # K1's outputs are summed by one lane quad in a fixed order, dx by one
+    # lane, and K2's per-block sums are added in a fixed order with no
+    # atomics: two calls on the same inputs give the same bits.
+    gen = torch.Generator().manual_seed(16)
+    args = list(_head_args(gen, 4, 64, 64, cuda, 512, cin=64))
+    args[0] = args[0].to(torch.bfloat16)
+    assert torch.equal(fused_head.fused_pf_head_fwd(*args),
+                       fused_head.fused_pf_head_fwd(*args))
+    bargs = _bf16_bwd_args(gen, 4, 64, 64, cuda, 512, cin=64)
+    first = fused_head.fused_pf_head_bwd(*bargs)
+    second = fused_head.fused_pf_head_bwd(*bargs)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), first, second):
+        assert torch.equal(a, b), name
+
 
 def _lib():
     from bihome_torch.ops import _cuda

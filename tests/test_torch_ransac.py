@@ -98,12 +98,13 @@ def _jax_counts(points1, points2, idx, threshold=10.0):
             np.asarray(h).reshape(B, K, 3, 3))
 
 
-def _jax_delta(pf, key, idx=None):
-    """JAX's perspective_field_to_delta(pf, key); with ``idx`` its draws
-    replaced by ``idx`` (the call runs eagerly, so the patch holds)."""
+def _jax_delta(pf, key, idx=None, dtype='float32'):
+    """JAX's perspective_field_to_delta(pf, key) on ``pf`` in ``dtype``;
+    with ``idx`` its draws replaced by ``idx`` (the call runs eagerly, so
+    the patch holds)."""
     if idx is None:
         return tuple(map(np.asarray, jransac.perspective_field_to_delta(
-            jnp.asarray(pf), key)))
+            jnp.asarray(pf).astype(dtype), key)))
     original = jax.random.randint
 
     def injected(_key, shape, _low, _high):
@@ -117,10 +118,11 @@ def _jax_delta(pf, key, idx=None):
         jax.random.randint = original
 
 
-def _port(pf, idx):
-    """The port's fit and delta on NHWC ``pf`` given as a permuted NCHW
-    view, as the backbone returns it."""
+def _port(pf, idx, dtype='float32'):
+    """The port's fit and delta on NHWC ``pf`` (in ``dtype``) given as a
+    permuted NCHW view, as the backbone returns it."""
     nchw = torch.from_numpy(np.ascontiguousarray(pf.transpose(0, 3, 1, 2)))
+    nchw = nchw.to(getattr(torch, dtype))
     idx = np.array(idx)
     field = nchw.permute(0, 2, 3, 1)
     coords, mapping = transac.field_points(field)
@@ -129,7 +131,7 @@ def _port(pf, idx):
     delta, hom = transac.perspective_field_to_delta(
         field, idx=torch.from_numpy(np.asarray(idx)))
     assert torch.equal(fit.homography, hom)
-    return fit, delta.numpy(), hom.numpy()
+    return fit, delta.float().numpy(), hom.float().numpy()
 
 
 # Pixels a, c, d of the draw [a, c, d, c]: the closed-form solve divides by
@@ -156,11 +158,12 @@ def _pole_on_field(h, coords):
     return np.isfinite(den).all(-1) & ~one_sign
 
 
-def _check(pf, key, idx, injected=False):
+def _check(pf, key, idx, injected=False, dtype='float32'):
     coords, mapping = _points(pf)
     want_counts, finite, want_hyps = _jax_counts(coords, mapping, idx)
-    want_delta, want_h = _jax_delta(pf, key, idx if injected else None)
-    fit, delta, hom = _port(pf, idx)
+    want_delta, want_h = _jax_delta(pf, key, idx if injected else None,
+                                    dtype)
+    fit, delta, hom = _port(pf, idx, dtype)
     got_counts = fit.counts.numpy()
     pole = _pole_on_field(want_hyps, coords)
     differ = got_counts != want_counts
@@ -272,3 +275,17 @@ def test_draws_come_from_the_generator_when_not_injected():
         int(idx.max()) < N
     assert torch.equal(transac.ransac_fit(coords, mapping, idx=idx).counts,
                        fits[0].counts)
+
+
+def test_bfloat16_field_is_widened_to_float32_as_jax_widens_it():
+    # A bf16 field (the PF head's output under MODEL.DTYPE bfloat16): JAX
+    # adds it to its float32 pixel grid, so the mapping is float32
+    # (ransac.py:73-76), and refits with float32 weights (:57); both sides
+    # then fit the bf16 field's values as the float32 tests do. Rounding
+    # the mapping to bf16 instead (0.125 px apart at coordinates 16-31 of
+    # this 24x32 field; 0.5 px at 64-127, 2 px past 256) moves the fit.
+    key, idx = _key_idx(10)
+    pf = torch.from_numpy(_field(11, outliers=0.1)).to(torch.bfloat16)
+    assert _port(pf.float().numpy(), idx, 'bfloat16')[0].homography.dtype \
+        == torch.float32
+    _check(pf.float().numpy(), key, idx, dtype='bfloat16')
