@@ -734,39 +734,115 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
 // Bounds on the H100 at the zeng training shape (x [128,16,128,128], M =
 // 2,097,152 pixels, Cmid 128; the smoke recomputes them from its inputs):
 //   * K1 reads 67.1 MB of x and writes 8.4 MB: 0.0225 ms of bytes at 3.35
-//     TB/s, against 9.7 GFLOP of tensor work at 989 TFLOP/s (0.010 ms) and
-//     an fp32 epilogue (ReLU, rounding, the Cout = 2 sums) of ~0.015 ms;
-//   * K2 reads x and g and writes dx, 142.6 MB: 0.043 ms of bytes; its
-//     three products are 25.8 GFLOP (0.026 ms on the tensor cores).
+//     TB/s, against 9.7 GFLOP of tensor work at 989 TFLOP/s (0.010 ms); its
+//     fp32 work is gone (the ReLU and the rounding are one cvt per two
+//     middle values, the Cmid x Cout product is on the tensor cores);
+//   * K2 reads x and g and writes dx, 142.6 MB: 0.043 ms of bytes; its four
+//     products (mid, dx, dw1 and M0 = sum mask g) are 26.9 GFLOP (0.027 ms
+//     on the tensor cores); the rest, per middle value a, the mask, e and
+//     M1 (5 + 4 Cout flops), is 0.052 ms at 67 TFLOP/s on the fp32 cores.
+//     The bound is that: operations.
 //
-// Design: the fp32 kernels' (above), with mma.sync.m16n8k16 bf16 (K = 16,
-// one step over Cin) in place of three m16n8k8 tf32 passes, and x, g and
-// dx in bf16 (half the bytes):
-//   * K1: persistent blocks of 256 threads walk 256-pixel tiles; a tile's
-//     x [16][256] comes in by cp.async (16-byte copies when HW % 8 == 0)
-//     into a double buffer. Warp w owns pixels 32w..32w+31 (two m-tiles),
-//     whose A fragments are read once per tile as bf16 pairs; the B
-//     fragments of bf16(g1t)^T sit in shared memory in fragment order,
-//     one uint2 per lane and n-tile. The accumulator starts at c1; the
-//     ReLU, the bf16 rounding and the Cout = 2 sums run on it in registers
-//     and fold over the lane quad at the end, as in the fp32 K1;
-//   * K2: persistent blocks of 256 threads, two per SM, walk 64-pixel
-//     tiles (x [16][64] and g [2][64] by cp.async). Warp w owns middle
-//     channels 16w..16w+15 (row r of its tile is channel 16w + r): mid^T
-//     [16 ch, 8 px] = bf16(w1t) (A, registers) x the x tile (B), then the
-//     epilogue on the accumulator; bf16(e) of 16 pixels is at once the B
-//     operand of dw1 [16 k, 8 ch] += x (A, 16 pixels) e^T, and goes to a
-//     shared [pixel][channel] tile, from which warp w forms dx of pixels
-//     8w..8w+7 over all 128 channels (A = bf16(w1), registers). M0, M1
-//     and db2 stay in registers; each block writes one row of sums, added
-//     in block order by reduce_rows_kernel (deterministic).
+// Both kernels use mma.sync.m16n8k16 bf16 (K = 16: one step over Cin),
+// ldmatrix/stmatrix for the operands that live in shared memory, and
+// persistent blocks that keep a ring of kB*Stages tiles in flight by
+// cp.async (16-byte copies when HW % 8 == 0 and the pointers are 16-byte
+// aligned, else plain loads; pixels past an image's end are zero-filled).
+// One __syncthreads per tile both publishes the next tile's copies and
+// frees the slot the tile before used.
+//
+// K1 (pf_head_fwd_bf16_kernel): 8 warps, tiles of 128 kB1MT pixels, warp
+// w owns kB1MT m-tiles of 16 pixels and walks all Cmid channels 16 at a
+// time, the next step's weights loaded while a step computes:
+//   * mid^T [16 px, 8 ch] = x^T (A: one ldmatrix.x4.trans per m-tile and
+//     tile, from the [Cin][px] tile) bf16(g1t)^T (B, from shared memory in
+//     fragment order), the accumulator started at c1;
+//   * cvt.rn.relu.bf16x2.f32 turns two accumulator values into the packed
+//     bf16(relu(a)) pair (NaN stays NaN, as jnp.maximum keeps it), and the
+//     accumulators of n-tiles 2j and 2j + 1 are then exactly the A fragment
+//     of one m16n8k16 step over their 16 channels: out^T [16 px, 8] +=
+//     bf16(relu(a))^T bf16(w2)^T (Cout 2 padded to 8 with zero columns);
+//   * two output accumulators per m-tile (even and odd 16-channel steps)
+//     keep two independent chains of products in flight; they are added,
+//     b2 with them, at the tile's end and the lane quad's first lane
+//     stores its pixels' two outputs;
+//   * four m-tiles a warp measured faster than two (the shared weight
+//     loads serve more products). With mid on wgmma (m64n64k16, A from
+//     registers, B the g1t image), one m-tile ahead of the epilogue, and
+//     the Cmid x Cout product on mma.sync or wgmma m64n8k16, K1 measured
+//     slower (0.0745 against 0.0594 ms in one call): its fences, groups
+//     and waits cost more than the products they free.
+//
+// What holds them back (H100 80GB HBM3, 700 W; python -m
+// bihome_torch.profile_kernels --kernel k1b|k2b cuts each part out and
+// times the rest): mma.sync's products do not overlap the fp32 and
+// shared-memory work around them. mma.sync m16n8k16 bf16 reaches 630
+// TFLOP/s with 8 independent products a warp (profile_kernels
+// --mma_rate), which would take K2's 7.3 M products 0.047 ms, yet cutting
+// them saves 0.10 of its 0.23 ms; the rest is the epilogue, about 8
+// fp32 instructions per middle value (e, the mask, M1: 0.07 ms at one
+// instruction per cycle on each SM sub-partition). K1 is bound neither
+// by its loads (cut, they save 0.004 of 0.059 ms) nor by its products
+// alone (0.020). The next step for both is wgmma with enough in flight
+// that its waits hide (a warp-specialised producer, two tiles of
+// accumulators).
+//
+// K2 (pf_head_bwd_bf16_kernel): 8 warps, two blocks per SM, tiles of 128
+// pixels, warp w owns middle channels 16w..16w+15 (rows gid and gid + 8 of
+// its tiles are channels ca = 16w + gid and cb = ca + 8):
+//   * mid^T [16 ch, 8 px] = bf16(w1t) (A, registers) x the x tile (B: one
+//     ldmatrix.x4.trans per 16 pixels);
+//   * the mask without a's FMA: fmaf(gis, mid, c1) > 0 is monotone in mid,
+//     so it is mid > t for a threshold t found once per channel by
+//     bisection over the floats (relu_threshold); w1t's rows are negated
+//     where gis < 0 (exact in bf16 and in the products), and M1 is negated
+//     back at the end. This is the same mask bit for bit, except for an
+//     infinite mid on a channel with gis == 0 (fmaf gives NaN there);
+//   * per middle value the fp32 cores do the mask (set.gt: 1.0f or 0), e =
+//     mask ((gis w2) g) (a multiply, an FMA and the mask's multiply, as
+//     the Pallas kernel rounds it) and M1 (mask mid, 2 FMAs), from g staged as fp32 per warp once per tile (one 16-byte load
+//     gives a lane both outputs at its two pixels); db2 is summed there;
+//   * M0 = sum mask g runs on the tensor cores: the mask packs as exact bf16
+//     0/1 (the high halves of two set.gt results, one byte permutation)
+//     into the A fragment of one m16n8k16 step over 16 pixels (the
+//     accumulators of two 8-pixel halves of mid are that fragment), B is g
+//     (Cout 2 padded to 8), and mask g is exact, so M0 is exact up to the
+//     order of its fp32 sums. M1's operand mask mid is fp32 and stays on the
+//     fp32 cores: a two-term bf16 split of it costs more instructions per
+//     value than the two FMAs it would save;
+//   * the 16-pixel chunks are software-pipelined: chunk j + 1's ldmatrix,
+//     mid' products and g loads are issued before chunk j's epilogue;
+//   * bf16(e) of 16 pixels (packed by cvt.rn.bf16x2.f32) is at once the B
+//     operand of dw1 [16 k, 8 ch] += x (A: one ldmatrix.x4 per 16 pixels)
+//     e^T, and goes by one stmatrix.x4.trans into a [pixel][channel] tile
+//     (double-buffered), from which, after the tile's barrier, warp w
+//     forms dx of pixels 16w..16w+15 over all 128 channels (A = bf16(w1),
+//     from shared memory in fragment order; B by ldmatrix.x4; the two
+//     8-pixel halves' chains of products interleaved). Spread over the
+//     next tile's chunks instead, dx measured slower (an issue-bound
+//     kernel gets no gaps to fill). All shared rows of x, g and e are 272
+//     bytes apart, so every ldmatrix and stmatrix is free of bank
+//     conflicts;
+//   * dw1, M0, M1 and db2 stay in registers across the block's tiles; each
+//     block writes one row of sums, added in block order by
+//     reduce_rows_kernel (deterministic, no atomics).
 
-constexpr int kBFwdSX = kFwdTile + 8;  // row stride of K1's bf16 x tile
-constexpr int kBSX = kTile + 8;        // row stride of K2's bf16 x, g tiles
-constexpr int kBSE = kCmid + 8;        // row stride of K2's bf16 e tile
+constexpr int kB1MT = 4;                  // K1 bf16: m-tiles of 16 px a warp
+constexpr int kB1Tile = 8 * 16 * kB1MT;   // K1 bf16: pixels per tile
+constexpr int kB1Stages = 4;              // K1 bf16: tiles in the ring
+constexpr int kB1SX = kB1Tile + 8;        // row stride of its x tiles
+constexpr int kB2Tile = 128;              // K2 bf16: pixels per tile
+constexpr int kB2Stages = 4;              // K2 bf16: tiles in the ring
+constexpr int kB2SX = kB2Tile + 8;        // row stride of its x, g tiles
+constexpr int kB2SE = kCmid + 8;          // row stride of its e tile
+// K2 bf16's shared memory: the ring of x and g tiles, the two e tiles, g
+// as fp32 per warp, and bf16(w1)'s A fragments for dx (a uint4 per k-step
+// and lane).
 constexpr int kBwdBf16SmemBytes =
-    (int)sizeof(uint16_t) *
-    (2 * kCin * kBSX + 2 * kCout * kBSX + kTile * kBSE);
+    (int)sizeof(uint16_t) * (kB2Stages * (kCin + kCout) * kB2SX +
+                             2 * kB2Tile * kB2SE) +
+    (int)sizeof(float4) * (kBwdThreads / 32) * (kB2Tile / 2) +
+    (int)sizeof(uint4) * (kCmid / 16) * 32;
 
 // d = a b + c on the tensor cores: m16n8k16, bf16 operands, fp32
 // accumulator; d may be c.
@@ -788,6 +864,20 @@ __device__ __forceinline__ uint32_t bf16_bits(float a) {
 // register holding two elements, the lower-indexed one low.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// pack_bf16 in one instruction (cvt puts its first operand high).
+__device__ __forceinline__ uint32_t cvt_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// pack_bf16(relu(lo), relu(hi)) in one instruction; NaN stays NaN.
+__device__ __forceinline__ uint32_t cvt_relu_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t pack_halves(uint16_t lo, uint16_t hi) {
@@ -812,6 +902,48 @@ __device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory into mma fragments: lanes
+// 8i..8i+7 give the addresses of matrix i's rows; register i of a lane is
+// its (row lane / 4, elements 2 (lane % 4), + 1) of matrix i, or with
+// ``trans`` its (rows 2 (lane % 4), + 1, element lane / 4). Volatile, and
+// ordered with the barriers and cp.async waits (volatile too), but without
+// a memory clobber, so that the compiler keeps plain loads in registers
+// across them.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The inverse of ldsm_x4_trans: register i of each lane (fragment layout)
+// into matrix i, transposed (element (row, col) to memory row col).
+__device__ __forceinline__ void stsm_x4_trans(void* p,
+                                              const uint32_t (&r)[4]) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n"
+      ::"r"(s), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]));
 }
 
 // Pixels s0..s0+kPx-1 of rows 0..kRows-1 of one image's bf16 [kRows][hw]
@@ -840,13 +972,43 @@ __device__ __forceinline__ void copy_rows_bf16(uint16_t* dst,
   }
 }
 
-// K1 bf16's shared memory in bytes: the double buffer of x; bf16(g1t)^T's
-// B fragments, a uint2 per lane and n-tile; per n-tile and lane quad c1
-// and bf16(w2) of the quad's two channels, in 8 floats (as K1's).
+// copy_rows_bf16 with the copies of each thread unrolled at compile time
+// (the narrow bf16 kernels issue one or two per thread and tile, and the
+// loop form costs more instructions than the copies).
+template <int kRows, int kPx, int kStride, int kThreads, bool kVec>
+__device__ __forceinline__ void copy_tile_bf16(uint16_t* dst,
+                                               const uint16_t* src,
+                                               const uint16_t* any, int s0,
+                                               int hw) {
+  constexpr int kChunks = kRows * kPx / 8;
+  if (!kVec) {
+    copy_rows_bf16<kRows, kPx, kStride, kThreads, false>(dst, src, any, s0,
+                                                          hw);
+    return;
+  }
+#pragma unroll
+  for (int it = 0; it < (kChunks + kThreads - 1) / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    if (kChunks % kThreads == 0 || i < kChunks) {
+      const int k = i / (kPx / 8), q = i % (kPx / 8) * 8;
+      const bool in = s0 + q < hw;
+      cp_async16_bytes(dst + k * kStride + q,
+                       in ? src + (long long)k * hw + s0 + q : any,
+                       in ? 16 : 0);
+    }
+  }
+}
+
+// K1 bf16's shared memory in bytes: the ring of x tiles; per 16-channel
+// step j, bf16(g1t)^T's B fragments of n-tiles 2j and 2j + 1 (a uint4 per
+// lane), the accumulators' c1 start of both n-tiles (two float4 per lane
+// quad, in accumulator order, so that they are the products' C operands as
+// loaded), and bf16(w2)^T's B fragment (a uint2 per lane); two steps more
+// than Cmid has, which the step loop's prefetch reads and does not use.
 constexpr size_t fwd_bf16_smem_bytes(int cmid) {
-  return sizeof(uint16_t) * 2 * kCin * kBFwdSX +
-         sizeof(uint2) * (size_t)(cmid / 8) * 32 +
-         sizeof(float) * (size_t)(cmid / 8) * 4 * 8;
+  return sizeof(uint16_t) * kB1Stages * kCin * kB1SX +
+         (size_t)(cmid / 16 + 2) * (32 * sizeof(uint4) + 8 * sizeof(float4) +
+                                    32 * sizeof(uint2));
 }
 
 template <bool kVec>
@@ -854,10 +1016,54 @@ __device__ __forceinline__ void load_fwd_tile_bf16(const uint16_t* x,
                                                    uint16_t* sx, int tile,
                                                    int tpi, int hw) {
   const int n = tile / tpi;
-  const int s0 = (tile - n * tpi) * kFwdTile;
-  copy_rows_bf16<kCin, kFwdTile, kBFwdSX, kFwdThreads, kVec>(
+  const int s0 = (tile - n * tpi) * kB1Tile;
+  copy_tile_bf16<kCin, kB1Tile, kB1SX, kFwdThreads, kVec>(
       sx, x + (long long)n * kCin * hw, x, s0, hw);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The shared operands of K1 bf16's 16-channel step j: bf16(g1t)^T's B
+// fragments of n-tiles 2j and 2j + 1, their c1 starts (C operands) and
+// bf16(w2)^T's B fragment.
+struct FwdStep {
+  uint4 b;
+  float4 c0, c8;
+  uint2 w;
+};
+
+__device__ __forceinline__ void fwd_bf16_load_step(FwdStep& f,
+                                                   const uint4* s_b,
+                                                   const float4* s_c,
+                                                   const uint2* s_w, int j,
+                                                   int lane) {
+  const int tig = lane & 3;
+  f.b = s_b[j * 32 + lane];
+  f.c0 = s_c[(j * 4 + tig) * 2];
+  f.c8 = s_c[(j * 4 + tig) * 2 + 1];
+  f.w = s_w[j * 32 + lane];
+}
+
+// K1 bf16's step for the warp's kB1MT m-tiles: mid^T of n-tiles 2j and
+// 2j + 1 from c1, bf16(relu) of both as one A fragment, and out^T += that
+// bf16(w2)^T into acc[mt][parity].
+__device__ __forceinline__ void fwd_bf16_step(const FwdStep& f,
+                                              const uint32_t (&a)[kB1MT][4],
+                                              float (&acc)[kB1MT][2][4],
+                                              int parity) {
+  const uint32_t b0[2] = {f.b.x, f.b.y}, b1[2] = {f.b.z, f.b.w};
+  const uint32_t bw[2] = {f.w.x, f.w.y};
+  const float c0[4] = {f.c0.x, f.c0.y, f.c0.z, f.c0.w};
+  const float c8[4] = {f.c8.x, f.c8.y, f.c8.z, f.c8.w};
+#pragma unroll
+  for (int mt = 0; mt < kB1MT; ++mt) {
+    float d0[4], d1[4];
+    mma_bf16(d0, a[mt], b0, c0);
+    mma_bf16(d1, a[mt], b1, c8);
+    const uint32_t r[4] = {cvt_relu_bf16x2(d0[0], d0[1]),
+                           cvt_relu_bf16x2(d0[2], d0[3]),
+                           cvt_relu_bf16x2(d1[0], d1[1]),
+                           cvt_relu_bf16x2(d1[2], d1[3])};
+    mma_bf16(acc[mt][parity], r, bw, acc[mt][parity]);
+  }
 }
 
 template <bool kVec>
@@ -870,128 +1076,317 @@ pf_head_fwd_bf16_kernel(const uint16_t* __restrict__ x,
                         uint16_t* __restrict__ out, int hw, int tpi,
                         int ntiles, int cmid) {
   extern __shared__ __align__(16) float smem[];
-  const int ntn = cmid / 8;                          // n-tiles of 8 channels
-  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][Cin][kBFwdSX]
-  uint2* s_b = reinterpret_cast<uint2*>(s_x + 2 * kCin * kBFwdSX);
-  float* s_c = reinterpret_cast<float*>(s_b + ntn * 32);
+  const int steps = cmid / 16;                          // 16-channel steps
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [stage][Cin][kB1SX]
+  uint4* s_b = reinterpret_cast<uint4*>(s_x + kB1Stages * kCin * kB1SX);
+  float4* s_c = reinterpret_cast<float4*>(s_b + (steps + 2) * 32);
+  uint2* s_w = reinterpret_cast<uint2*>(s_c + (steps + 2) * 8);
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
 
-  int tile = blockIdx.x;
-  if (tile < ntiles) load_fwd_tile_bf16<kVec>(x, s_x, tile, tpi, hw);
-  // B fragment (m16n8k16, col) of g1t^T for n-tile nt, lane l: channel
-  // nt * 8 + l / 4 at k = 2 (l % 4), + 1 (register 0) and k + 8, + 9
-  // (register 1), rounded to bf16.
-  for (int i = t; i < ntn * 32; i += kFwdThreads) {
-    const int l = i & 31, nt = i >> 5;
-    const float* row = g1t + (nt * 8 + (l >> 2)) * kCin + 2 * (l & 3);
-    s_b[i] = make_uint2(pack_bf16(row[0], row[1]), pack_bf16(row[8], row[9]));
+  for (int s = 0; s < kB1Stages - 1; ++s) {
+    const int tile = blockIdx.x + s * gridDim.x;
+    if (tile < ntiles) {
+      load_fwd_tile_bf16<kVec>(x, s_x + s * kCin * kB1SX, tile, tpi, hw);
+    }
+    cp_async_commit();
   }
-  // The accumulator columns of lane quad q of n-tile nt are channels
-  // nt * 8 + 2q and + 1: their c1 at 0, 1 and bf16(w2) at 4..7.
-  for (int i = t; i < ntn * 4; i += kFwdThreads) {
-    const int ch = (i >> 2) * 8 + 2 * (i & 3);
-    float* c = s_c + i * 8;
-    c[0] = c1[ch];
-    c[1] = c1[ch + 1];
-    c[2] = 0.0f;
-    c[3] = 0.0f;
-    c[4] = round_bf16(w2[ch]);
-    c[5] = round_bf16(w2[ch + 1]);
-    c[6] = round_bf16(w2[cmid + ch]);
-    c[7] = round_bf16(w2[cmid + ch + 1]);
+  // Step j, lane l: B (m16n8k16, col) of g1t^T for n-tiles 2j and 2j + 1,
+  // channel 16j + 8h + l / 4 at k = 2 (l % 4), + 1 and k + 8, + 9.
+  for (int i = t; i < steps * 32; i += kFwdThreads) {
+    const int l = i & 31, j = i >> 5;
+    const float* r0 = g1t + (16 * j + (l >> 2)) * kCin + 2 * (l & 3);
+    const float* r1 = r0 + 8 * kCin;
+    s_b[i] = make_uint4(pack_bf16(r0[0], r0[1]), pack_bf16(r0[8], r0[9]),
+                        pack_bf16(r1[0], r1[1]), pack_bf16(r1[8], r1[9]));
+    // B of out^T [16 px, 8] += relu^T w2^T: output l / 4 (0 past Cout) at
+    // channels 16j + 2 (l % 4), + 1 and + 8, + 9.
+    const int o = l >> 2, ch = 16 * j + 2 * (l & 3);
+    s_w[i] = o < kCout ? make_uint2(pack_bf16(w2[o * cmid + ch],
+                                              w2[o * cmid + ch + 1]),
+                                    pack_bf16(w2[o * cmid + ch + 8],
+                                              w2[o * cmid + ch + 9]))
+                       : make_uint2(0u, 0u);
+  }
+  // Accumulator columns of lane quad q at step j: channels 16j + 2q, + 1
+  // (n-tile 2j) and + 8, + 9 (n-tile 2j + 1), at both of its pixels.
+  for (int i = t; i < steps * 4; i += kFwdThreads) {
+    const int ch = (i >> 2) * 16 + 2 * (i & 3);
+    s_c[2 * i] = make_float4(c1[ch], c1[ch + 1], c1[ch], c1[ch + 1]);
+    s_c[2 * i + 1] = make_float4(c1[ch + 8], c1[ch + 9], c1[ch + 8],
+                                 c1[ch + 9]);
   }
   const float b2_0 = b2[0], b2_1 = b2[1];
 
-  int buf = 0;
-  for (; tile < ntiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  int i = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++i) {
+    cp_async_wait<kB1Stages - 2>();
     __syncthreads();  // this tile's x in; the tile before done by all
-    const int next = tile + gridDim.x;
-    if (next < ntiles) {
-      load_fwd_tile_bf16<kVec>(x, s_x + (buf ^ 1) * kCin * kBFwdSX, next,
-                               tpi, hw);
+    {
+      const int next = tile + (kB1Stages - 1) * gridDim.x;
+      if (next < ntiles) {
+        load_fwd_tile_bf16<kVec>(
+            x, s_x + (i + kB1Stages - 1) % kB1Stages * kCin * kB1SX, next,
+            tpi, hw);
+      }
+      cp_async_commit();
     }
-    const uint16_t* sx = s_x + buf * kCin * kBFwdSX;
+    const uint16_t* sx = s_x + i % kB1Stages * kCin * kB1SX;
 
-    // A fragments (m16n8k16, row) of the warp's m-tiles mt (pixels 32w +
-    // 16mt + 0..15): register 0 is pixel gid at k = 2 tig, + 1; register 1
-    // pixel gid + 8; registers 2 and 3 the same at k + 8.
-    uint32_t a[2][4];
+    // A (m16n8k16, row) of x^T for m-tile mt (pixels kB1MT 16 w + 16 mt +
+    // 0..15): matrices (Cin 0-7, px 0-7), (Cin 0-7, px 8-15), (Cin 8-15, px
+    // 0-7), (Cin 8-15, px 8-15), transposed.
+    uint32_t a[kB1MT][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const uint16_t* p = sx + 2 * tig * kBFwdSX + warp * 32 + mt * 16 + gid;
-      a[mt][0] = pack_halves(p[0], p[kBFwdSX]);
-      a[mt][1] = pack_halves(p[8], p[kBFwdSX + 8]);
-      a[mt][2] = pack_halves(p[8 * kBFwdSX], p[9 * kBFwdSX]);
-      a[mt][3] = pack_halves(p[8 * kBFwdSX + 8], p[9 * kBFwdSX + 8]);
+    for (int mt = 0; mt < kB1MT; ++mt) {
+      ldsm_x4_trans(a[mt], sx + ((lane & 7) + ((lane >> 4) << 3)) * kB1SX +
+                               (warp * kB1MT + mt) * 16 +
+                               ((lane >> 3) & 1) * 8);
     }
 
-    // acc[mt][px][o]: output o of pixel gid + 8 px of m-tile mt, summed
-    // over the lane's channels. Register r of a product is pixel gid + 8
-    // (r >> 1), channel nt * 8 + 2 tig + (r & 1).
-    float acc[2][2][2] = {};
-    for (int nt = 0; nt < ntn; ++nt) {
-      const uint2 bf = s_b[nt * 32 + lane];
-      const uint32_t b[2] = {bf.x, bf.y};
-      const float* cq = s_c + (nt * 4 + tig) * 8;
-      const float2 c = *reinterpret_cast<const float2*>(cq);
-      const float4 w = *reinterpret_cast<const float4*>(cq + 4);
-      const float c1r[4] = {c.x, c.y, c.x, c.y};
-      const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
+    // acc[mt][parity]: out^T of m-tile mt over the even or odd steps (two
+    // independent chains of products). Register r: pixel gid + 8 (r >> 1),
+    // output 2 tig + (r & 1). The next step's operands are loaded while a
+    // step computes (the padding steps make the last loads safe).
+    float acc[kB1MT][2][4] = {};
+    FwdStep cur, nxt;
+    fwd_bf16_load_step(cur, s_b, s_c, s_w, 0, lane);
+    for (int j = 0; j < steps; j += 2) {
+      fwd_bf16_load_step(nxt, s_b, s_c, s_w, j + 1, lane);
+      fwd_bf16_step(cur, a, acc, 0);
+      fwd_bf16_load_step(cur, s_b, s_c, s_w, j + 2, lane);
+      if (j + 1 < steps) fwd_bf16_step(nxt, a, acc, 1);
+    }
+
+    // The quad's first lane holds its pixels' outputs: store bf16(sum + b2).
+    if (tig == 0) {
+      const int n = tile / tpi;
+      const int s0 = (tile - n * tpi) * kB1Tile + warp * kB1MT * 16 + gid;
+      uint16_t* o0 = out + (long long)n * kCout * hw;
+      uint16_t* o1 = o0 + hw;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        float d[4];
-        mma_bf16(d, a[mt], b, c1r);
+      for (int mt = 0; mt < kB1MT; ++mt) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float rr = round_bf16(fmaxf(d[r], 0.0f));
-          const int px = r >> 1, ch = r & 1;
-          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);
-          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);
+        for (int px = 0; px < 2; ++px) {
+          const int s = s0 + mt * 16 + 8 * px;
+          const float v0 = acc[mt][0][2 * px] + acc[mt][1][2 * px];
+          const float v1 = acc[mt][0][2 * px + 1] + acc[mt][1][2 * px + 1];
+          if (s < hw) {
+            o0[s] = (uint16_t)bf16_bits(v0 + b2_0);
+            o1[s] = (uint16_t)bf16_bits(v1 + b2_1);
+          }
         }
       }
     }
-
-    // Fold the sums over the lane quad, as K1 does; store bf16(sum + b2).
-    const int n = tile / tpi;
-    const int s0 = (tile - n * tpi) * kFwdTile + warp * 32 + gid;
-    const int px = tig >> 1, o = tig & 1;
-    uint16_t* on = out + ((long long)n * kCout + o) * hw;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      float keep[2];
-#pragma unroll
-      for (int oo = 0; oo < 2; ++oo) {
-        const float mine = px ? acc[mt][1][oo] : acc[mt][0][oo];
-        const float other = px ? acc[mt][0][oo] : acc[mt][1][oo];
-        keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
-      }
-      const float mine = o ? keep[1] : keep[0];
-      const float other = o ? keep[0] : keep[1];
-      const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
-      const int s = s0 + mt * 16 + 8 * px;
-      if (s < hw) on[s] = (uint16_t)bf16_bits(v + (o ? b2_1 : b2_0));
-    }
-    buf ^= 1;
   }
+}
+
+// Ordered integer of a float (not NaN): -0 and +0 both 0.
+__device__ __forceinline__ long long float_key(float f) {
+  const int b = __float_as_int(f);
+  return b >= 0 ? (long long)b : -(long long)(b & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_float(long long k) {
+  return k >= 0 ? __int_as_float((int)k)
+                : __int_as_float((int)(0x80000000u | (uint32_t)(-k)));
+}
+
+// The threshold t with fmaf(g, m, c1) > 0 exactly when m > t, for g =
+// |gis| (monotone in m for g > 0): the largest float at which it is not
+// positive, by bisection over the ordered floats. g == 0: c1 > 0 for every
+// finite m (-inf or +inf); NaN g or c1, or no m positive: +inf.
+__device__ float relu_threshold(float g, float c1) {
+  const float inf = __int_as_float(0x7f800000);
+  if (g == 0.0f) return c1 > 0.0f ? -inf : inf;
+  if (!(fmaf(g, inf, c1) > 0.0f)) return inf;
+  long long lo = float_key(-inf), hi = float_key(inf);
+  while (hi - lo > 1) {  // not positive at lo, positive at hi
+    const long long m = lo + (hi - lo) / 2;
+    if (fmaf(g, key_float(m), c1) > 0.0f) {
+      hi = m;
+    } else {
+      lo = m;
+    }
+  }
+  return key_float(lo);
+}
+
+// 1.0f where a > b, else 0.0f (NaN: 0), in one instruction.
+__device__ __forceinline__ float set_gt(float a, float b) {
+  float r;
+  asm("set.gt.f32.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The bf16 pair (lo, hi) of two masks from set_gt (1.0f or 0.0f): their
+// high halves, which are bf16 1.0 or 0, in one byte permutation.
+__device__ __forceinline__ uint32_t mask_pair(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 template <bool kVec>
 __device__ __forceinline__ void load_tile_bf16(const uint16_t* x,
                                                const uint16_t* g,
                                                uint16_t* sx, uint16_t* sg,
-                                               long long tile, int tpi,
-                                               int hw) {
-  const long long n = tile / tpi;
-  const int s0 = (int)(tile - n * tpi) * kTile;
-  copy_rows_bf16<kCin, kTile, kBSX, kBwdThreads, kVec>(sx, x + n * kCin * hw,
-                                                       x, s0, hw);
-  copy_rows_bf16<kCout, kTile, kBSX, kBwdThreads, kVec>(
-      sg, g + n * kCout * hw, g, s0, hw);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+                                               int tile, int tpi, int hw) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kB2Tile;
+  copy_tile_bf16<kCin, kB2Tile, kB2SX, kBwdThreads, kVec>(
+      sx, x + (long long)n * kCin * hw, x, s0, hw);
+  copy_tile_bf16<kCout, kB2Tile, kB2SX, kBwdThreads, kVec>(
+      sg, g + (long long)n * kCout * hw, g, s0, hw);
+}
+
+// The operands of one of K2 bf16's 16-pixel chunks (p0..p0+15 of a tile),
+// loaded one chunk ahead of its epilogue: mid'^T of both 8-pixel halves
+// (registers as the accumulator: channel (r < 2 ? ca : cb), pixel p0 + 8h
+// + 2 tig + (r & 1)), x's A fragment of dw1, g as fp32 at the lane's two
+// pixel pairs ((g0, g0, g1, g1)), and g's B fragment of M0.
+struct BwdChunk {
+  float mid[2][4];
+  uint32_t ax[4];
+  float4 gv[2];
+  uint32_t bg[2];
+};
+
+__device__ __forceinline__ void bwd_bf16_load_chunk(
+    BwdChunk& c, const uint16_t* xq, const float4* gf, const uint16_t* sg,
+    int p0, int lane, const uint32_t (&am)[4]) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // Matrices (Cin 0-7, px p0..+7), (Cin 8-15, p0..), (Cin 0-7, p0 + 8..),
+  // (Cin 8-15, p0 + 8..): transposed they are B of mid'^T for the two
+  // 8-pixel halves, as they are A of dw1 [16 k, 16 px].
+  uint32_t bx[4];
+  ldsm_x4_trans(bx, xq + p0);
+  ldsm_x4(c.ax, xq + p0);
+  mma_bf16(c.mid[0], am, bx, zero);
+  mma_bf16(c.mid[1], am, bx + 2, zero);
+  c.gv[0] = gf[p0 / 2 + tig];
+  c.gv[1] = gf[p0 / 2 + 4 + tig];
+  // B of M0 (col: output gid at pixels p0 + 2 tig, + 1 and + 8, + 9).
+  const uint16_t* gp = sg + gid * kB2SX + p0 + 2 * tig;
+  c.bg[0] = gid < kCout ? load_pair(gp) : 0u;
+  c.bg[1] = gid < kCout ? load_pair(gp + 8) : 0u;
+}
+
+// K2 bf16's epilogue and products for one chunk of the warp's 16 channels:
+// e, the mask, M1' and the chunk's share of dw1 and M0, and bf16(e) into
+// the [pixel][channel] tile se.
+__device__ __forceinline__ void bwd_bf16_chunk(
+    const BwdChunk& c, uint16_t* se, int p0, int lane, int warp,
+    const float (&thr)[2], const float (&w2_c)[2][2], float (&dw)[2][4],
+    float (&m0)[4], float (&m1)[2][2]) {
+  uint32_t eb[2][2], mk[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float e[4], on[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int ch = r >> 1;
+      const float g0 = (r & 1) ? c.gv[h].y : c.gv[h].x;
+      const float g1 = (r & 1) ? c.gv[h].w : c.gv[h].z;
+      on[r] = set_gt(c.mid[h][r], thr[ch]);
+      e[r] = on[r] * fmaf(w2_c[ch][0], g0, w2_c[ch][1] * g1);
+      const float mm = on[r] * c.mid[h][r];
+      m1[ch][0] = fmaf(mm, g0, m1[ch][0]);
+      m1[ch][1] = fmaf(mm, g1, m1[ch][1]);
+    }
+    eb[h][0] = cvt_bf16x2(e[0], e[1]);
+    eb[h][1] = cvt_bf16x2(e[2], e[3]);
+    mk[h][0] = mask_pair(on[0], on[1]);
+    mk[h][1] = mask_pair(on[2], on[3]);
+  }
+  // dw1 [16 k, 8 ch] += x (A) times bf16(e)^T (B, col: the lane's own eb;
+  // n-tile 0 holds channels ca of the 8 groups, n-tile 1 their cb).
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const uint32_t b[2] = {eb[0][nt], eb[1][nt]};
+    mma_bf16(dw[nt], c.ax, b, dw[nt]);
+  }
+  // M0 [16 ch, 8] += mask (A: rows ca, cb; K = the 16 pixels) times g.
+  {
+    const uint32_t a[4] = {mk[0][0], mk[0][1], mk[1][0], mk[1][1]};
+    mma_bf16(m0, a, c.bg, m0);
+  }
+  // bf16(e) into the [pixel][channel] tile: matrices (ca rows, px p0..),
+  // (cb rows, p0..), (ca, p0 + 8..), (cb, p0 + 8..), transposed.
+  {
+    const uint32_t r[4] = {eb[0][0], eb[0][1], eb[1][0], eb[1][1]};
+    stsm_x4_trans(se + (p0 + (lane & 7) + ((lane >> 4) << 3)) * kB2SE +
+                      warp * 16 + ((lane >> 3) & 1) * 8,
+                  r);
+  }
+}
+
+// K2 bf16's dx for pixels 16w..16w+15 of a tile whose bf16(e) is in se:
+// rows k = gid, gid + 8; K = the 128 channels. A = bf16(w1) from s_aw in
+// fragment order; B (col) by ldmatrix: pixel gid of half h at channels
+// 32 kk + 8 i.., registers 2i, 2i + 1 the k-steps 2 kk and 2 kk + 1. The
+// two halves' chains of products are interleaved.
+__device__ __forceinline__ void bwd_bf16_dx(const uint16_t* se,
+                                            const uint4* s_aw, int lane,
+                                            int warp, float (&dxa)[2][4]) {
+  uint4 aw[kCmid / 16];
+#pragma unroll
+  for (int ks = 0; ks < kCmid / 16; ++ks) aw[ks] = s_aw[ks * 32 + lane];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dxa[h][r] = 0.0f;
+  }
+  const uint16_t* ep = se + (warp * 16 + (lane & 7)) * kB2SE + (lane >> 3) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kCmid / 32; ++kk) {
+    const uint32_t a0[4] = {aw[2 * kk].x, aw[2 * kk].y, aw[2 * kk].z,
+                            aw[2 * kk].w};
+    const uint32_t a1[4] = {aw[2 * kk + 1].x, aw[2 * kk + 1].y,
+                            aw[2 * kk + 1].z, aw[2 * kk + 1].w};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t b[4];
+      ldsm_x4(b, ep + 8 * h * kB2SE + 32 * kk);
+      mma_bf16(dxa[h], a0, b, dxa[h]);
+      mma_bf16(dxa[h], a1, b + 2, dxa[h]);
+    }
+  }
+}
+
+// Store K2 bf16's dx of pixels 16w..16w+15 of tile ``tile``: register r of
+// half h is k = gid + 8 (r >> 1), pixel 16w + 8h + 2 tig + (r & 1).
+template <bool kVec>
+__device__ __forceinline__ void bwd_bf16_dx_store(uint16_t* dx,
+                                                  const float (&dxa)[2][4],
+                                                  int tile, int tpi, int hw,
+                                                  int lane, int warp) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kB2Tile + warp * 16 + 2 * tig;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* d = dxa[h];
+    const int s = s0 + 8 * h;
+    uint16_t* d0 = dx + ((long long)n * kCin + gid) * hw + s;
+    uint16_t* d1 = d0 + 8LL * hw;
+    if (kVec) {  // s even and HW % 8 == 0: both pixels in, or neither
+      if (s < hw) {
+        *reinterpret_cast<uint32_t*>(d0) = cvt_bf16x2(d[0], d[1]);
+        *reinterpret_cast<uint32_t*>(d1) = cvt_bf16x2(d[2], d[3]);
+      }
+    } else {
+      if (s < hw) {
+        d0[0] = (uint16_t)bf16_bits(d[0]);
+        d1[0] = (uint16_t)bf16_bits(d[2]);
+      }
+      if (s + 1 < hw) {
+        d0[1] = (uint16_t)bf16_bits(d[1]);
+        d1[1] = (uint16_t)bf16_bits(d[3]);
+      }
+    }
+  }
 }
 
 template <bool kVec>
@@ -1004,174 +1399,139 @@ pf_head_bwd_bf16_kernel(const uint16_t* __restrict__ x,
                         const float* __restrict__ w2gis,
                         uint16_t* __restrict__ dx,
                         float* __restrict__ partial, int hw, int tpi,
-                        long long ntiles) {
+                        int ntiles) {
   extern __shared__ __align__(16) float smem[];
-  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][Cin][kBSX]
-  uint16_t* s_g = s_x + 2 * kCin * kBSX;              // [2][Cout][kBSX]
-  uint16_t* s_e = s_g + 2 * kCout * kBSX;             // [kTile][kBSE]
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [stage][Cin][kB2SX]
+  uint16_t* s_g = s_x + kB2Stages * kCin * kB2SX;     // [stage][Cout][kB2SX]
+  uint16_t* s_e = s_g + kB2Stages * kCout * kB2SX;    // [2][kB2Tile][kB2SE]
+  // Per warp: g as fp32, (g0, g0, g1, g1) of each pixel pair.
+  float4* s_gf = reinterpret_cast<float4*>(s_e + 2 * kB2Tile * kB2SE);
+  uint4* s_aw = reinterpret_cast<uint4*>(s_gf + kBwdThreads / 32 * kB2Tile / 2);
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
 
-  long long tile = blockIdx.x;
-  if (tile < ntiles) load_tile_bf16<kVec>(x, g, s_x, s_g, tile, tpi, hw);
-
-  // The lane's two middle channels: rows gid and gid + 8 of the warp's
-  // tile. A of mid^T (m16n8k16, row; K = Cin): bf16(w1t) of both rows at
-  // k = 2 tig, + 1 and at k + 8, + 9.
-  const int ca = warp * 16 + gid, cb = ca + 8;
-  const uint32_t am[4] = {
-      pack_bf16(w1t[ca * kCin + 2 * tig], w1t[ca * kCin + 2 * tig + 1]),
-      pack_bf16(w1t[cb * kCin + 2 * tig], w1t[cb * kCin + 2 * tig + 1]),
-      pack_bf16(w1t[ca * kCin + 2 * tig + 8], w1t[ca * kCin + 2 * tig + 9]),
-      pack_bf16(w1t[cb * kCin + 2 * tig + 8], w1t[cb * kCin + 2 * tig + 9])};
-  // A of dx (rows k = gid, gid + 8; K = the channels, 16 per step):
-  // bf16(w1)[k][c] = bf16(w1t[c][k]) at c = 16 ks + 2 tig, + 1 and + 8, + 9.
-  uint32_t aw[kCmid / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < kCmid / 16; ++ks) {
-    const float* w = w1t + (ks * 16 + 2 * tig) * kCin + gid;
-    aw[ks][0] = pack_bf16(w[0], w[kCin]);
-    aw[ks][1] = pack_bf16(w[8], w[kCin + 8]);
-    aw[ks][2] = pack_bf16(w[8 * kCin], w[9 * kCin]);
-    aw[ks][3] = pack_bf16(w[8 * kCin + 8], w[9 * kCin + 8]);
+  for (int s = 0; s < kB2Stages - 1; ++s) {
+    const int tile = blockIdx.x + s * gridDim.x;
+    if (tile < ntiles) {
+      load_tile_bf16<kVec>(x, g, s_x + s * kCin * kB2SX,
+                           s_g + s * kCout * kB2SX, tile, tpi, hw);
+    }
+    cp_async_commit();
   }
-  const float gis_c[2] = {gis[ca], gis[cb]};
-  const float c1_c[2] = {c1[ca], c1[cb]};
+
+  // The lane's two middle channels ca, cb: rows gid and gid + 8 of the
+  // warp's tiles. mid' = sign(gis) mid, so that the mask is mid' > thr.
+  const int ca = warp * 16 + gid, cb = ca + 8;
+  float sgn[2], thr[2];
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    const int c = ch ? cb : ca;
+    sgn[ch] = gis[c] < 0.0f ? -1.0f : 1.0f;
+    thr[ch] = relu_threshold(fabsf(gis[c]), c1[c]);
+  }
+  // A of mid'^T (m16n8k16, row; K = Cin): sign * bf16(w1t) of both rows at
+  // k = 2 tig, + 1 and at k + 8, + 9.
+  const float* wa = w1t + ca * kCin + 2 * tig;
+  const float* wb = w1t + cb * kCin + 2 * tig;
+  const uint32_t am[4] = {pack_bf16(sgn[0] * wa[0], sgn[0] * wa[1]),
+                          pack_bf16(sgn[1] * wb[0], sgn[1] * wb[1]),
+                          pack_bf16(sgn[0] * wa[8], sgn[0] * wa[9]),
+                          pack_bf16(sgn[1] * wb[8], sgn[1] * wb[9])};
+  // A of dx for k-step ks = t / 32 and lane t % 32 (rows k = gid, gid + 8;
+  // K = the channels, 16 per step): bf16(w1)[k][c] = bf16(w1t[c][k]) at
+  // c = 16 ks + 2 tig, + 1 and + 8, + 9.
+  for (int i = t; i < kCmid / 16 * 32; i += kBwdThreads) {
+    const int l = i & 31;
+    const float* w = w1t + ((i >> 5) * 16 + 2 * (l & 3)) * kCin + (l >> 2);
+    s_aw[i] = make_uint4(pack_bf16(w[0], w[kCin]),
+                         pack_bf16(w[8], w[kCin + 8]),
+                         pack_bf16(w[8 * kCin], w[9 * kCin]),
+                         pack_bf16(w[8 * kCin + 8], w[9 * kCin + 8]));
+  }
   const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
                             {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
 
   // Block sums. dw1 n-tile nt, register r: k = gid + 8 (r >> 1), channel
-  // 16w + 8 nt + 2 tig + (r & 1).
+  // 16w + 8 nt + 2 tig + (r & 1). M0 (tensor cores), register r: channel
+  // (r < 2 ? ca : cb), output 2 tig + (r & 1) (tig 0 holds Cout 2). M1'
+  // per lane, [channel ca / cb][o]; db2 per lane.
   float dw[2][4] = {};
-  float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
+  float m0[4] = {};
+  float m1[2][2] = {};
   float db[2] = {};
-  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float4* gf = s_gf + warp * (kB2Tile / 2);
 
-  int buf = 0;
-  for (; tile < ntiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // this tile's x and g in; the tile before done by all
-    const long long next = tile + gridDim.x;
-    if (next < ntiles) {
-      load_tile_bf16<kVec>(x, g, s_x + (buf ^ 1) * kCin * kBSX,
-                           s_g + (buf ^ 1) * kCout * kBSX, next, tpi, hw);
-    }
-    const uint16_t* sx = s_x + buf * kCin * kBSX;
-    const uint16_t* sg = s_g + buf * kCout * kBSX;
-
-#pragma unroll 2
-    for (int j = 0; j < kTile / 16; ++j) {
-      const int p0 = j * 16;
-      // eb[h][row]: bf16(e) of channel ca (row 0) or cb (row 1) at pixels
-      // p0 + 8h + 2 tig, + 1.
-      uint32_t eb[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int pb = p0 + 8 * h;
-        // B of mid^T (col; K = Cin, N = 8 pixels): pixel pb + gid at k =
-        // 2 tig, + 1 (register 0) and k + 8, + 9 (register 1).
-        const uint16_t* xp = sx + 2 * tig * kBSX + pb + gid;
-        const uint32_t b[2] = {pack_halves(xp[0], xp[kBSX]),
-                               pack_halves(xp[8 * kBSX], xp[9 * kBSX])};
-        float mid[4];
-        mma_bf16(mid, am, b, zero);
-        // Register r: channel (r < 2 ? ca : cb), pixel pb + 2 tig + (r & 1).
-        const int pa = pb + 2 * tig;
-        const float gv[2][2] = {
-            {bf16_value(sg[pa]), bf16_value(sg[pa + 1])},
-            {bf16_value(sg[kBSX + pa]), bf16_value(sg[kBSX + pa + 1])}};
-        float e[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int ch = r >> 1, px = r & 1;
-          const float a = fmaf(gis_c[ch], mid[r], c1_c[ch]);
-          const float mk = a > 0.0f ? 1.0f : 0.0f;
-          const float eun =
-              fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
-          e[r] = mk * eun;
-          const float mm = mk * mid[r];
-#pragma unroll
-          for (int o = 0; o < kCout; ++o) {
-            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);
-            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);
-          }
-        }
-        db[0] += gv[0][0] + gv[0][1];
-        db[1] += gv[1][0] + gv[1][1];
-        eb[h][0] = pack_bf16(e[0], e[1]);
-        eb[h][1] = pack_bf16(e[2], e[3]);
-        // bf16(e) to shared memory, [pixel][channel], for dx.
-        s_e[pa * kBSE + ca] = (uint16_t)(eb[h][0] & 0xffffu);
-        s_e[(pa + 1) * kBSE + ca] = (uint16_t)(eb[h][0] >> 16);
-        s_e[pa * kBSE + cb] = (uint16_t)(eb[h][1] & 0xffffu);
-        s_e[(pa + 1) * kBSE + cb] = (uint16_t)(eb[h][1] >> 16);
-      }
-      // dw1 [16 k, 8 ch] += x (A, row: k = gid, gid + 8; K = pixels p0 +
-      // 2 tig, + 1 and + 8, + 9) times bf16(e)^T (B, col: the lane's own
-      // eb; n-tile 0 holds channels ca of the 8 groups, n-tile 1 their cb).
-      const uint16_t* xa = sx + gid * kBSX + p0 + 2 * tig;
-      const uint32_t ax[4] = {load_pair(xa), load_pair(xa + 8 * kBSX),
-                              load_pair(xa + 8), load_pair(xa + 8 * kBSX + 8)};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const uint32_t b[2] = {eb[0][nt], eb[1][nt]};
-        mma_bf16(dw[nt], ax, b, dw[nt]);
-      }
-    }
-    __syncthreads();  // bf16(e) of the whole tile in shared memory
-
-    // dx for pixels 8w..8w+7: rows k = gid, gid + 8; K = the 128 channels
-    // (B, col: pixel 8w + gid at channels 16 ks + 2 tig, + 1 and + 8, + 9).
+  cp_async_wait<kB2Stages - 2>();
+  __syncthreads();  // the first tile in; s_aw written
+  int i = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++i) {
     {
-      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const uint16_t* ep = s_e + (warp * 8 + gid) * kBSE + 2 * tig;
-#pragma unroll
-      for (int ks = 0; ks < kCmid / 16; ++ks) {
-        const uint32_t b[2] = {load_pair(ep + 16 * ks),
-                               load_pair(ep + 16 * ks + 8)};
-        mma_bf16(d, aw[ks], b, d);
+      // The tile kB2Stages - 1 ahead, into the slot of the tile before.
+      const int next = tile + (kB2Stages - 1) * gridDim.x;
+      const int slot = (i + kB2Stages - 1) % kB2Stages;
+      if (next < ntiles) {
+        load_tile_bf16<kVec>(x, g, s_x + slot * kCin * kB2SX,
+                             s_g + slot * kCout * kB2SX, next, tpi, hw);
       }
-      // Register r: k = gid + 8 (r >> 1), pixel 8w + 2 tig + (r & 1).
-      const long long n = tile / tpi;
-      const int s = (int)(tile - n * tpi) * kTile + warp * 8 + 2 * tig;
-      uint16_t* d0 = dx + (n * kCin + gid) * hw + s;
-      uint16_t* d1 = d0 + 8LL * hw;
-      if (kVec) {  // s even and HW % 8 == 0: both pixels in, or neither
-        if (s < hw) {
-          *reinterpret_cast<uint32_t*>(d0) = pack_bf16(d[0], d[1]);
-          *reinterpret_cast<uint32_t*>(d1) = pack_bf16(d[2], d[3]);
-        }
-      } else {
-        if (s < hw) {
-          d0[0] = (uint16_t)bf16_bits(d[0]);
-          d1[0] = (uint16_t)bf16_bits(d[2]);
-        }
-        if (s + 1 < hw) {
-          d0[1] = (uint16_t)bf16_bits(d[1]);
-          d1[1] = (uint16_t)bf16_bits(d[3]);
-        }
-      }
+      cp_async_commit();
     }
-    buf ^= 1;
+    const uint16_t* sx = s_x + i % kB2Stages * kCin * kB2SX;
+    const uint16_t* sg = s_g + i % kB2Stages * kCout * kB2SX;
+    uint16_t* se = s_e + (i & 1) * kB2Tile * kB2SE;
+
+    // g as fp32 for this warp; db2.
+#pragma unroll
+    for (int it = 0; it < kB2Tile / 64; ++it) {
+      const int q = lane + 32 * it;
+      const uint32_t g0 = load_pair(sg + 2 * q);
+      const uint32_t g1 = load_pair(sg + kB2SX + 2 * q);
+      const float4 v = make_float4(
+          __uint_as_float(g0 << 16), __uint_as_float(g0 & 0xffff0000u),
+          __uint_as_float(g1 << 16), __uint_as_float(g1 & 0xffff0000u));
+      gf[q] = v;
+      db[0] += v.x + v.y;
+      db[1] += v.z + v.w;
+    }
+    __syncwarp();
+
+    // The 16-pixel chunks, software-pipelined: chunk j + 1's operands and
+    // mid' products are issued before chunk j's epilogue.
+    const uint16_t* xq = sx + (lane & 15) * kB2SX + ((lane >> 4) << 3);
+    BwdChunk c[2];
+    bwd_bf16_load_chunk(c[0], xq, gf, sg, 0, lane, am);
+#pragma unroll
+    for (int j = 0; j < kB2Tile / 16; ++j) {
+      if (j + 1 < kB2Tile / 16) {
+        bwd_bf16_load_chunk(c[(j + 1) & 1], xq, gf, sg, 16 * (j + 1), lane,
+                            am);
+      }
+      bwd_bf16_chunk(c[j & 1], se, 16 * j, lane, warp, thr, w2_c, dw, m0,
+                     m1);
+    }
+    cp_async_wait<kB2Stages - 2>();
+    __syncthreads();  // bf16(e) of the whole tile in; the next tile's x, g in
+
+    float dxa[2][4];
+    bwd_bf16_dx(se, s_aw, lane, warp, dxa);
+    bwd_bf16_dx_store<kVec>(dx, dxa, tile, tpi, hw, lane, warp);
   }
 
-  // Fold M0, M1 and db2 over the 4 lanes of a group (same channels, other
-  // pixels).
+  // Fold M1' over the 4 lanes of a group (same channels, other pixels),
+  // db2 over warp 0's lanes.
 #pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
+  for (int sh = 1; sh < 4; sh <<= 1) {
 #pragma unroll
-    for (int o = 0; o < kCout; ++o) {
+    for (int ch = 0; ch < 2; ++ch) {
 #pragma unroll
-      for (int sh = 1; sh < 4; sh <<= 1) {
-        m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
+      for (int o = 0; o < kCout; ++o) {
         m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
       }
     }
   }
 #pragma unroll
-  for (int sh = 1; sh < 4; sh <<= 1) {
+  for (int sh = 1; sh < 32; sh <<= 1) {
     db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
     db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
   }
@@ -1191,10 +1551,10 @@ pf_head_bwd_bf16_kernel(const uint16_t* __restrict__ x,
     float* m1row = m0row + kCmid * kCout;
 #pragma unroll
     for (int o = 0; o < kCout; ++o) {
-      m0row[ca * kCout + o] = m0[0][o];
-      m0row[cb * kCout + o] = m0[1][o];
-      m1row[ca * kCout + o] = m1[0][o];
-      m1row[cb * kCout + o] = m1[1][o];
+      m0row[ca * kCout + o] = m0[o];
+      m0row[cb * kCout + o] = m0[2 + o];
+      m1row[ca * kCout + o] = sgn[0] * m1[0][o];
+      m1row[cb * kCout + o] = sgn[1] * m1[1][o];
     }
   }
   if (t == 0) {
@@ -2854,18 +3214,42 @@ pf_head_bwd_wide_bf16_sums_kernel(const uint16_t* __restrict__ x,
   }
 }
 
+// What the narrow entries would otherwise query on every call, once per
+// device: the SM count, and (bf16 kernels) the shared-memory limit set and
+// how many blocks fit on an SM. The entries are called with the GIL
+// released, but every write stores the value any other call would.
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];                    // 0: not yet queried
+bool g_bwd_bf16_ready[kMaxDevices][2];      // [device][vec]: limit set
+int g_fwd_bf16_fit[kMaxDevices][2][kFwdMaxCmid / 16 + 1];  // 0: not known
+
+// The current device and its SM count (cached).
+cudaError_t current_sms(int* device, int* sms) {
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device < 0 || *device >= kMaxDevices) {
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                  *device);
+  }
+  if (g_sms[*device] == 0) {
+    int v = 0;
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, *device);
+    if (err != cudaSuccess) return err;
+    g_sms[*device] = v;
+  }
+  *sms = g_sms[*device];
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Number of blocks pf_head_bwd launches for n images of hw pixels (the
-// wrapper sizes the [blocks, pf_head_bwd_partial_cols()] scratch with it):
-// two per SM, fewer if there are fewer tiles.
+// Number of blocks pf_head_bwd and pf_head_bwd_bf16 launch for n images of
+// hw pixels (the wrapper sizes the [blocks, pf_head_bwd_partial_cols()]
+// scratch with it): two per SM, fewer if there are fewer 64-pixel tiles (a
+// bf16 block without a tile writes a row of zeros).
 extern "C" int pf_head_bwd_blocks(long long n, int hw) {
   int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess) {
-    return -1;
-  }
+  if (current_sms(&device, &sms) != cudaSuccess) return -1;
   const long long ntiles = n * ((hw + kTile - 1) / kTile);
   const long long want = 2LL * sms;
   return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
@@ -2950,7 +3334,7 @@ extern "C" int pf_head_fwd_bf16(const void* x, const float* g1t,
                                 const float* b2, void* out, long long n,
                                 int cin, int hw, int cmid, int cout,
                                 void* stream) {
-  const int tpi = hw > 0 ? (hw + kFwdTile - 1) / kFwdTile : 0;
+  const int tpi = hw > 0 ? (hw + kB1Tile - 1) / kB1Tile : 0;
   if (cin != kCin || cout != kCout || cmid <= 0 || cmid % 16 != 0 ||
       cmid > kFwdMaxCmid || hw <= 0 || n < 0 || n * tpi > (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
@@ -2962,19 +3346,24 @@ extern "C" int pf_head_fwd_bf16(const void* x, const float* g1t,
   auto kernel =
       vec ? pf_head_fwd_bf16_kernel<true> : pf_head_fwd_bf16_kernel<false>;
   int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess ||
-      (err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
-    return (int)err;
+  cudaError_t err = current_sms(&device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  int* fit = device < kMaxDevices ? &g_fwd_bf16_fit[device][vec][cmid / 16]
+                                  : &per_sm;
+  if (*fit == 0) {
+    // The limit at the largest Cmid, so that it is set once per device.
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)fwd_bf16_smem_bytes(kFwdMaxCmid))) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
+      return (int)err;
+    }
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    *fit = per_sm;
   }
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
+  // Persistent blocks: as many as fit on the card at once.
+  const int blocks = ntiles < sms * *fit ? ntiles : sms * *fit;
   kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
       (const uint16_t*)x, g1t, c1, w2, b2, (uint16_t*)out, hw, tpi, ntiles,
       cmid);
@@ -2991,21 +3380,27 @@ extern "C" int pf_head_bwd_bf16(const void* x, const void* g,
                                 float* partial, float* sums, long long n,
                                 int cin, int hw, int cmid, int cout,
                                 int blocks, void* stream) {
-  if (cin != kCin || cmid != kCmid || cout != kCout || hw <= 0 ||
-      blocks <= 0) {
+  const int tpi = hw > 0 ? (hw + kB2Tile - 1) / kB2Tile : 0;
+  if (cin != kCin || cmid != kCmid || cout != kCout || hw <= 0 || n < 0 ||
+      blocks <= 0 || n * tpi > (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int tpi = (hw + kTile - 1) / kTile;
-  const long long ntiles = n * tpi;
+  const int ntiles = (int)(n * tpi);
   const bool vec = hw % 8 == 0 &&
                    (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
-  const size_t smem = (size_t)kBwdBf16SmemBytes;
   auto kernel =
       vec ? pf_head_bwd_bf16_kernel<true> : pf_head_bwd_bf16_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kBwdThreads, smem, (cudaStream_t)stream>>>(
+  if (device >= kMaxDevices || !g_bwd_bf16_ready[device][vec]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBwdBf16SmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    if (device < kMaxDevices) g_bwd_bf16_ready[device][vec] = true;
+  }
+  kernel<<<blocks, kBwdThreads, kBwdBf16SmemBytes, (cudaStream_t)stream>>>(
       (const uint16_t*)x, (const uint16_t*)g, w1t, gis, c1, w2gis,
       (uint16_t*)dx, partial, hw, tpi, ntiles);
   err = cudaGetLastError();

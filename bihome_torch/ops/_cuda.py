@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -97,17 +97,26 @@ def check_status(status: int, what: str) -> None:
 
 
 def check_cuda_tensor(t, name: str, dim: int,
-                      dtype: torch.dtype = torch.float32) -> None:
+                      dtype: torch.dtype = torch.float32,
+                      index: Optional[int] = None) -> None:
     """The kernels take contiguous tensors of ``dtype`` (float32 unless
-    stated) on the current device."""
-    if t.device.type != 'cuda':
+    stated) on the current device (``index``, if the caller has it)."""
+    if not t.is_cuda:
         raise ValueError(f'{name} must be a CUDA tensor, got {t.device}')
-    if t.device.index != torch.cuda.current_device():
+    if index is None:
+        index = torch.cuda.current_device()
+    if t.get_device() != index:
         raise ValueError(f'{name} is on {t.device}, not the current device '
-                         f'cuda:{torch.cuda.current_device()}')
+                         f'cuda:{index}')
     if t.dtype != dtype:
         raise ValueError(f'{name} must be {dtype}, got {t.dtype}')
     if t.dim() != dim:
         raise ValueError(f'{name} must have {dim} dims, got {tuple(t.shape)}')
     if not t.is_contiguous():
         raise ValueError(f'{name} must be contiguous')
+
+
+def stream_ptr(index: int) -> int:
+    """The current CUDA stream of device ``index`` as the pointer the C
+    entry points take (without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,9 +1,10 @@
 """Where a hand-written kernel spends its time on the card, and how it
 compares with another version of its source.
 
-    python -m bihome_torch.profile_kernels --kernel k1|k1w|k1wb|k2|k2w|k2wb|k4 \\
-        [--baseline FILE] [--cmid C] [--batch_size 64] [--rounds 2] \\
-        [--no_cuts]
+    python -m bihome_torch.profile_kernels \\
+        --kernel k1|k1b|k1w|k1wb|k2|k2b|k2w|k2wb|k4 [--baseline FILE] \\
+        [--source FILE] [--cmid C] [--batch_size 64] [--rounds 2] \\
+        [--no_cuts] [--phases] [--mma_rate] [--sass DIR]
 
 No kernel profiler runs on the machine with the card, so this builds
 variants of the kernel's source (``csrc/fused_head.cu`` for K1, K2 and
@@ -36,6 +37,24 @@ blocks and holds the sums of those three against float64
 reduction kernels also timed apart); K4 the loss warp, 2B images of 128x128x1 at P
 = 16,384 points each. ``--no_cuts`` times only the kernel as built and
 the baseline. Needs a CUDA device.
+
+``k1b`` and ``k2b`` are the narrow (Cin 16) K1 and K2 at bf16, at the
+zeng shape (x [2B,16,128,128] bf16, Cmid 128). Their cut lists hold the
+cuts of the first bf16 design and of the current one; a cut whose lines are not
+in the source profiled is skipped with a note, so ``--source FILE``
+(another version of the file, profiled as "as built") cuts an earlier
+design too. For both the profiler also prints ptxas's report of the
+kernel (registers, spills, shared memory) and, with ``--baseline``, the
+host us per call of the Python wrapper as built and of the baseline's
+wrapper (``ops/fused_head.py`` beside the baseline's ``csrc/``, run on
+the baseline's library). ``--phases`` (k2b) times the PF head's whole
+backward at bf16 in parts with CUDA events: ``pf_head_backward`` with
+and without the batch-statistics corrections, K2 alone through its
+wrapper, each statement of the corrections, and the forward's
+``batch_stats_affine`` (:func:`bwd_phases`). ``--mma_rate`` first
+prints the rate and latency of mma.sync m16n8k16 bf16 on the card
+(:func:`mma_rate`); ``--sass DIR`` writes the SASS of the kernel as built
+there.
 """
 
 from __future__ import annotations
@@ -43,24 +62,31 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import importlib.util
 import re
 import subprocess
+import types
 from pathlib import Path
 
 import torch
 
 from bihome_torch import geometry
+from bihome_torch.models.layers import widen
 from bihome_torch.ops import _cuda
 from bihome_torch.ops import fused_head as fh
 from bihome_torch.ops import warp
 from bihome_torch.utils.timing import host_us, kernel_ms, time_ms
 
 
+class NotInSource(RuntimeError):
+    """A cut's lines are not in the source it is applied to."""
+
+
 def _cut(old: str, new: str, then=None):
     """Replace ``old`` by ``new`` in the source (then apply ``then``)."""
     def apply(src: str) -> str:
         if old not in src:
-            raise RuntimeError(f'profile_kernels: {old!r} not in the source')
+            raise NotInSource(f'profile_kernels: {old!r} not in the source')
         src = src.replace(old, new)
         return then(src) if then else src
     return apply
@@ -132,6 +158,128 @@ K2WB_CUTS = [
         '            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
 ]
 
+# The narrow kernels at bf16 (k1b, k2b): the first design ("first:", 64-pixel
+# K2 tiles, e through a [pixel][channel] tile stored 16 bits at a time) and
+# the current one (rings of cp.async stages, ldmatrix/stmatrix, M0 and K1's
+# Cmid x Cout product on the tensor cores). A cut applies to the source whose narrow
+# bf16 section (NARROW_BF16) it changes and is skipped on the other.
+NARROW_BF16 = ('// K1 and K2 at bfloat16 (MODEL.DTYPE bfloat16)',
+               '// The ResNet50-flavour head: Cin = 64')
+K1B_CUTS = [
+    ('first: no epilogue (one add per value)', _cut(
+        '          const float rr = round_bf16(fmaxf(d[r], 0.0f));\n'
+        '          const int px = r >> 1, ch = r & 1;\n'
+        '          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);\n'
+        '          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);\n'
+        '        }\n      }\n    }\n\n    // Fold the sums over the lane quad',
+        '          acc[mt][r >> 1][r & 1] += d[r];\n'
+        '        }\n      }\n    }\n\n    // Fold the sums over the lane quad')),
+    ('first: no stores', _cut(
+        '      if (s < hw) on[s] = (uint16_t)bf16_bits(v + (o ? b2_1 : b2_0));\n'
+        '    }\n    buf ^= 1;',
+        '      if (s < hw && v == -1.25e-30f) on[s] = (uint16_t)bf16_bits(v + '
+        '(o ? b2_1 : b2_0));\n    }\n    buf ^= 1;')),
+    ('first: no x loads after the first tile', _cut(
+        '    if (next < ntiles) {\n      load_fwd_tile_bf16<kVec>',
+        '    if (next < 0) {\n      load_fwd_tile_bf16<kVec>')),
+    ('no tensor-core products', _NO_MMA_BF16[1]),
+    ('no ReLU and rounding (accumulator bits as A)', _cut(
+        '    const uint32_t r[4] = {cvt_relu_bf16x2(d0[0], d0[1]),\n'
+        '                           cvt_relu_bf16x2(d0[2], d0[3]),\n'
+        '                           cvt_relu_bf16x2(d1[0], d1[1]),\n'
+        '                           cvt_relu_bf16x2(d1[2], d1[3])};\n',
+        '    const uint32_t r[4] = {__float_as_uint(d0[0]), '
+        '__float_as_uint(d0[3]), __float_as_uint(d1[0]), '
+        '__float_as_uint(d1[3])};\n')),
+    ('no Cmid x Cout product', _cut(
+        '    mma_bf16(acc[mt][parity], r, bw, acc[mt][parity]);\n',
+        '    acc[mt][parity][0] += __uint_as_float(r[0] ^ r[1] ^ r[2] ^ r[3] '
+        '^ bw[0]);\n')),
+    ('step loop unrolled at Cmid 128 (wrong elsewhere)', _cut(
+        '    for (int j = 0; j < steps; j += 2) {\n      fwd_bf16_load_step(',
+        '#pragma unroll\n    for (int j = 0; j < 8; j += 2) {\n'
+        '      fwd_bf16_load_step(')),
+    ('no stores', _cut(
+        '          if (s < hw) {\n            o0[s] =',
+        '          if (s < hw && v0 == -1.25e-30f) {\n            o0[s] =')),
+    ('no x loads after the first tile', _cut(
+        '      if (next < ntiles) {\n        load_fwd_tile_bf16<kVec>(',
+        '      if (next < 0) {\n        load_fwd_tile_bf16<kVec>(')),
+    ('two stages in the ring (one tile ahead)', _cut(
+        'constexpr int kB1Stages = 4;', 'constexpr int kB1Stages = 2;')),
+    ('two m-tiles a warp (256-pixel tiles)', _cut(
+        'constexpr int kB1MT = 4;', 'constexpr int kB1MT = 2;')),
+    ('no tile barrier (races; time only)', _cut(
+        "    __syncthreads();  // this tile's x in; the tile before done by "
+        "all\n    {\n      const int next = tile + (kB1Stages - 1)",
+        "    {\n      const int next = tile + (kB1Stages - 1)")),
+]
+K2B_CUTS = [
+    _NO_MMA_BF16,
+    ('first: sums: no M0/M1', _cut(
+        '            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);\n'
+        '            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n'
+        '          }\n        }\n'
+        '        db[0] += gv[0][0] + gv[0][1];\n'
+        '        db[1] += gv[1][0] + gv[1][1];\n'
+        '        eb[h][0] = pack_bf16(e[0], e[1]);\n',
+        '          }\n        }\n'
+        '        db[0] += gv[0][0] + gv[0][1];\n'
+        '        db[1] += gv[1][0] + gv[1][1];\n'
+        '        eb[h][0] = pack_bf16(e[0], e[1]);\n')),
+    ('first: no x, g loads after the first tile', _cut(
+        '    if (next < ntiles) {\n      load_tile_bf16<kVec>',
+        '    if (next < 0) {\n      load_tile_bf16<kVec>')),
+    ('first: no dx phase products (its e loads and mma)', _cut(
+        '      for (int ks = 0; ks < kCmid / 16; ++ks) {\n'
+        '        const uint32_t b[2] = {load_pair(ep + 16 * ks),',
+        '      for (int ks = 0; ks < 0; ++ks) {\n'
+        '        const uint32_t b[2] = {load_pair(ep + 16 * ks),')),
+    ('first: no dx stores', _cut(
+        '        if (s < hw) {\n'
+        '          *reinterpret_cast<uint32_t*>(d0) = pack_bf16(d[0], d[1]);',
+        '        if (s < hw && d[0] == -1.25e-30f) {\n'
+        '          *reinterpret_cast<uint32_t*>(d0) = pack_bf16(d[0], d[1]);')),
+    ('first: no e stores to shared memory', _cut(
+        '        s_e[pa * kBSE + ca] = (uint16_t)(eb[h][0] & 0xffffu);\n'
+        '        s_e[(pa + 1) * kBSE + ca] = (uint16_t)(eb[h][0] >> 16);\n'
+        '        s_e[pa * kBSE + cb] = (uint16_t)(eb[h][1] & 0xffffu);\n'
+        '        s_e[(pa + 1) * kBSE + cb] = (uint16_t)(eb[h][1] >> 16);\n',
+        '')),
+    ('no M1 sums', _cut(
+        '      m1[ch][0] = fmaf(mm, g0, m1[ch][0]);\n'
+        '      m1[ch][1] = fmaf(mm, g1, m1[ch][1]);\n', '')),
+    ('no M0 product (and its mask pairs)', _cut(
+        '    mma_bf16(m0, a, c.bg, m0);\n', '')),
+    ('no e tile (stmatrix)', _cut(
+        '    stsm_x4_trans(se + (p0 + (lane & 7) + ((lane >> 4) << 3)) '
+        '* kB2SE +', '    if (r[0] == 0x7fc00001u) stsm_x4_trans(se + '
+        '(p0 + (lane & 7) + ((lane >> 4) << 3)) * kB2SE +')),
+    ('no tile barrier (races; time only)', _cut(
+        '    __syncthreads();  // bf16(e) of the whole tile in; the next '
+        'tile\'s x, g in\n', '')),
+    ('no dx products (their ldmatrix and mma)', _cut(
+        '    bwd_bf16_dx(se, s_aw, lane, warp, dxa);\n',
+        '    for (int h = 0; h < 2; ++h)\n'
+        '      for (int r = 0; r < 4; ++r) dxa[h][r] = 0.0f;\n')),
+    ('no dx stores', _cut(
+        '    bwd_bf16_dx_store<kVec>(dx, dxa, tile, tpi, hw, lane, warp);\n',
+        '    if (dxa[0][0] == -1.25e-30f) bwd_bf16_dx_store<kVec>(dx, dxa, '
+        'tile, tpi, hw, lane, warp);\n')),
+    ('no x, g loads after the first tile', _cut(
+        '      if (next < ntiles) {\n        load_tile_bf16<kVec>(',
+        '      if (next < 0) {\n        load_tile_bf16<kVec>(')),
+    ('two stages in the ring (one tile ahead)', _cut(
+        'constexpr int kB2Stages = 4;', 'constexpr int kB2Stages = 2;')),
+]
+
+
+def _narrow_bf16(src: str) -> str:
+    """The narrow bf16 kernels' section of fused_head.cu."""
+    head, tail = NARROW_BF16
+    return src[src.index(head):src.index(tail)] if head in src else ''
+
+
 # Each turns the source into a variant without one part of the kernel, or
 # with it done another way.
 CUTS = {
@@ -198,14 +346,16 @@ CUTS = {
     'k2w': dict([WG_NO_PRODUCTS, WG_SINGLE_PASS, K2W_NO_STREAM]),
     'k1wb': dict(K1WB_CUTS),
     'k2wb': dict(K2WB_CUTS),
+    'k1b': dict(K1B_CUTS),
+    'k2b': dict(K2B_CUTS),
     'k4': {},
 }
-SOURCES = {'k1': 'fused_head', 'k1w': 'fused_head', 'k2': 'fused_head',
-           'k2w': 'fused_head', 'k1wb': 'fused_head', 'k2wb': 'fused_head',
-           'k4': 'warp'}
+SOURCES = {k: 'warp' if k == 'k4' else 'fused_head' for k in CUTS}
 WIDE = ('k1w', 'k2w', 'k1wb', 'k2wb')
 # The kernels whose SASS is counted (their mangled names start so).
 SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
+              'k1b': ('pf_head_fwd_bf16_kernelILb1',),
+              'k2b': ('pf_head_bwd_bf16_kernelILb1',),
               'k1w': ('pf_head_fwd_wgmma_kernelILb1',),
               'k2': ('pf_head_bwd_kernelILb1',),
               'k2w': ('pf_head_bwd_wide_dx_kernelILb1',
@@ -254,25 +404,34 @@ def _build(sources: dict, entry_points: str) -> dict:
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         lib.source = sources[name]
+        lib.log = log
         libs[name] = lib
     return libs
+
+
+def sass_text(so: Path, kernel: str) -> str:
+    """The SASS (cuobjdump) of the function whose mangled name contains
+    ``kernel`` in ``so``."""
+    cuobjdump = Path(_cuda._nvcc()).with_name('cuobjdump')
+    sass = subprocess.run([str(cuobjdump), '-sass', str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    lines, inside = [], False
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            inside = kernel in line
+        if inside:
+            lines.append(line)
+    return '\n'.join(lines)
 
 
 def sass_counts(so: Path, kernel: str) -> collections.Counter:
     """Opcode counts of the SASS of the function whose mangled name
     starts with ``kernel`` in ``so``."""
-    cuobjdump = Path(_cuda._nvcc()).with_name('cuobjdump')
-    sass = subprocess.run([str(cuobjdump), '-sass', str(so)], check=True,
-                          capture_output=True, text=True).stdout
     counts = collections.Counter()
-    inside = False
-    for line in sass.splitlines():
-        if 'Function :' in line:
-            inside = kernel in line
-            continue
+    for line in sass_text(so, kernel).splitlines():
         m = re.match(r'\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)',
                      line)
-        if inside and m:
+        if m:
             counts[m.group(1)] += 1
     return counts
 
@@ -308,6 +467,22 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
     x = torch.relu(torch.randn((n, cin, hw), generator=gen)).to(dev)
     w1t = (torch.randn((cmid, cin), generator=gen) * 0.3).to(dev)
     c1 = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
+    if kernel == 'k1b':
+        xb = x.to(torch.bfloat16)
+        w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
+        b2 = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+
+        def make(lib):
+            out = torch.empty((n, cout, hw), dtype=torch.bfloat16, device=dev)
+
+            def run():
+                _cuda.check_status(lib.pf_head_fwd_bf16(
+                    xb.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, cin, hw,
+                    cmid, cout, stream()), 'K1 bf16')
+            run.outs = {'out': out}
+            return run
+        return f'K1 bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k1wb':
         xb = x.to(torch.bfloat16)
         w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
@@ -361,6 +536,25 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
     w2gis = (torch.randn((cmid, cout), generator=gen) * 0.3).to(dev)
     dx = torch.empty_like(x)
 
+    if kernel == 'k2b':
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+
+        def make(lib):
+            blocks = lib.pf_head_bwd_blocks(n, hw)
+            partial = torch.empty((blocks, lib.pf_head_bwd_partial_cols()),
+                                  device=dev)
+            sums = torch.empty(partial.shape[1], device=dev)
+            dxb = torch.empty_like(xb)
+
+            def run():
+                _cuda.check_status(lib.pf_head_bwd_bf16(
+                    xb.data_ptr(), gb.data_ptr(), w1t.data_ptr(),
+                    gis.data_ptr(), c1.data_ptr(), w2gis.data_ptr(),
+                    dxb.data_ptr(), partial.data_ptr(), sums.data_ptr(), n,
+                    cin, hw, cmid, cout, blocks, stream()), 'K2 bf16')
+            run.outs = {'dx': dxb, 'sums': sums}
+            return run
+        return f'K2 bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k2wb':
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
         dxb = torch.empty_like(xb)
@@ -479,12 +673,220 @@ def k2w_sums_errors(inputs, runs: dict, images: int = 16) -> None:
         f'flips could move dw1 by up to {float(slack.max()) / scale[0]:.3e}')
 
 
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """ptxas's lines (registers, spills, shared memory) about the function
+    whose mangled name starts with ``kernel``, from nvcc's -Xptxas=-v log."""
+    lines, inside = [], False
+    for line in log.splitlines():
+        if 'Compiling entry function' in line or 'Function properties' in line:
+            inside = kernel in line
+        if inside:
+            lines.append(line.strip())
+    return lines
+
+
+def _wrapper_module(path: Path, lib, label: str):
+    """``ops/fused_head.py`` at ``path`` loaded as a module of its own whose
+    kernels run on ``lib`` (a library built by this profiler)."""
+    spec = importlib.util.spec_from_file_location(
+        f'profiled_fused_head_{label}', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    shim = {k: v for k, v in vars(_cuda).items() if not k.startswith('__')}
+    shim['library'] = lambda name, signatures: lib
+    mod._cuda = types.SimpleNamespace(**shim)
+    return mod
+
+
+def _head_inputs(batch: int, cmid: int = 128, seed: int = 1):
+    """The narrow PF head's inputs at the zeng shape at bf16: x (a ReLU
+    output) [2B,16,128,128], its cotangent g [2B,2,128,128], the torch
+    conv weights, BN parameters and x's batch statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device('cuda')
+    n, cin, cout, hw = 2 * batch, 16, 2, 128
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+    x = torch.relu(rnd(n, cin, hw, hw)).to(torch.bfloat16)
+    g = rnd(n, cout, hw, hw).to(torch.bfloat16)
+    w1, b1 = rnd(cmid, cin, 1, 1, scale=0.3), rnd(cmid, scale=0.2)
+    gamma, beta = rnd(cmid, scale=0.2, shift=1.0), rnd(cmid, scale=0.1)
+    w2, b2 = rnd(cout, cmid, 1, 1, scale=0.3), rnd(cout, scale=0.1)
+    mean, var = fh.batch_stats_affine(x, w1, b1)
+    return x, g, w1, b1, gamma, beta, w2, b2, mean, var
+
+
+def wrapper_calls(kernel: str, batch: int, cmid: int, wrappers: dict):
+    """{label: a call of the Python wrapper of K1 bf16 (k1b) or K2 bf16
+    (k2b) in module ``wrappers[label]``} at the zeng shape."""
+    x, g, w1, b1, gamma, beta, w2, b2, mean, var = _head_inputs(batch, cmid)
+    if kernel == 'k1b':
+        return {label: (lambda m=m: m.fused_pf_head_fwd(
+            x, w1, b1, gamma, beta, w2, b2, mean, var))
+            for label, m in wrappers.items()}
+    gis = gamma * torch.rsqrt(var + 1e-5)
+    c1 = (gis * (b1 - mean) + beta).contiguous()
+    w1t = w1.reshape(cmid, 16).contiguous()
+    w2gis = (w2.reshape(2, cmid).t() * gis[:, None]).contiguous()
+    return {label: (lambda m=m: m.fused_pf_head_bwd(x, g, w1t, gis, c1, w2gis))
+            for label, m in wrappers.items()}
+
+
+def bwd_phases(batch: int, fh=fh) -> None:
+    """Device ms of the PF head's backward at bf16 at the zeng shape, in
+    parts (CUDA events, ``time_ms``): the whole ``pf_head_backward`` with
+    the batch-statistics corrections and without them, K2 bf16 alone, the
+    statements of the corrections (``ops/fused_head.py``,
+    ``pf_head_backward``'s ``train_stats`` branch, repeated here one by one
+    on the same tensors), and the forward's ``batch_stats_affine``; ``fh``
+    the wrapper module whose kernels run."""
+    x, g, w1, b1, gamma, beta, w2, _, mean, var = _head_inputs(batch)
+    eps, dt = 1e-5, x.dtype
+    n, cin, cmid = x.shape[0], x.shape[1], w1.shape[0]
+    m = x.numel() // cin
+    inv_s = torch.rsqrt(var + eps)
+    gis = gamma * inv_s
+    cn = inv_s * (b1 - mean)
+    c1 = (gamma * cn + beta).contiguous()
+    w1t = w1.reshape(cmid, cin).contiguous()
+    w1f = w1t.t()
+    w2f = w2.reshape(2, cmid).t()
+    w2gis = (w2f * gis[:, None]).contiguous()
+    dx, m0, m1, _, _ = fh.fused_pf_head_bwd(x, g, w1t, gis, c1, w2gis)
+    sum_da, sum_da_mid = (w2f * m0).sum(1), (w2f * m1).sum(1)
+    sum_dan = inv_s * sum_da_mid + cn * sum_da
+    k1 = gis * inv_s * (sum_dan / m)
+    k0 = -gis * (sum_da / m) - gis * (sum_dan / m) * cn
+    a_mat = (w1f * k1[None, :]) @ w1f.t()
+    x3 = widen(x).reshape(n, cin, -1)
+    corr = torch.matmul(fh._rounded(a_mat, dt), x3).reshape(x.shape)
+    args = (x, g, w1, b1, gamma, beta, w2, mean, var, eps)
+    parts = {
+        'pf_head_backward, batch statistics (K2 + corrections)':
+            lambda: fh.pf_head_backward(*args, True),
+        'pf_head_backward, given statistics (no corrections)':
+            lambda: fh.pf_head_backward(*args, False),
+        'K2 bf16 alone (fused_pf_head_bwd)':
+            lambda: fh.fused_pf_head_bwd(x, g, w1t, gis, c1, w2gis),
+        'corrections: widen(x) [N,Cin,HW] float32':
+            lambda: widen(x).reshape(n, cin, -1),
+        'corrections: sx = x3.sum':
+            lambda: x3.sum(dim=(0, 2)),
+        'corrections: sxx = x3 x3^T summed':
+            lambda: torch.matmul(x3, x3.transpose(1, 2)).sum(0),
+        'corrections: corr = bf16(a_mat) x3':
+            lambda: torch.matmul(fh._rounded(a_mat, dt), x3).reshape(x.shape),
+        'corrections: dx = bf16(widen(dx) - corr + w1 k0)':
+            lambda: (widen(dx) - corr
+                     + (w1f @ k0)[None, :, None, None]).to(dt),
+        'forward: batch_stats_affine(x, w1, b1)':
+            lambda: fh.batch_stats_affine(x, w1, b1),
+    }
+    print(f'PF head backward at bf16, x {list(x.shape)}, Cmid {cmid}, on '
+          f'{torch.cuda.get_device_name(0)}: device ms per call (CUDA events, '
+          f'L2 flushed; two readings)')
+    for label, fn in parts.items():
+        print(f'  {label:56s} '
+              + ' '.join(f'{time_ms(fn):.4f}' for _ in range(2)))
+
+
+# What mma.sync m16n8k16 bf16 (the narrow bf16 kernels' product) reaches on
+# the card: each warp issues ``iters`` rounds of kChains independent
+# products (kChains 1: each waits for the one before, the latency).
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+template <int kChains>
+__global__ void mma_rate_kernel(float* out, int iters) {
+  const uint32_t a[4] = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u};
+  const uint32_t b[2] = {0x3f803f80u, 0x3f803f80u};
+  float acc[kChains][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(acc[c][0]), "+f"(acc[c][1]), "+f"(acc[c][2]),
+            "+f"(acc[c][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+    }
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) s += acc[c][0] + acc[c][3];
+  if (s == 1.25f) out[0] = s;
+}
+extern "C" int mma_rate(float* out, int blocks, int threads, int iters,
+                        int chains, void* stream) {
+  if (chains == 1) {
+    mma_rate_kernel<1><<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  } else {
+    mma_rate_kernel<8><<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_rate() -> None:
+    """Print mma.sync m16n8k16 bf16's rate on the card: TFLOP/s with 8
+    independent products per warp at 2, 4 and 8 warps per SM
+    sub-partition, and the latency of one product (ns) with one warp per
+    SM and each product waiting for the one before."""
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _cuda.BUILD_DIR / 'mma_rate.cu'
+    cu.write_text(MMA_RATE_SRC)
+    so = _cuda.BUILD_DIR / 'libmma_rate.so'
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-o', str(so),
+                    str(cu)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.mma_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    out = torch.zeros(1, device='cuda')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    iters = 4096
+
+    def timed(blocks, threads, chains):
+        run = lambda: _cuda.check_status(lib.mma_rate(
+            out.data_ptr(), blocks, threads, iters, chains, stream), 'mma')
+        run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    print(f'mma.sync m16n8k16 bf16 on {torch.cuda.get_device_name(0)} '
+          f'({sms} SMs):')
+    for per_sm in (1, 2, 4):
+        ms = timed(sms * per_sm, 256, 8)
+        flops = sms * per_sm * 8 * iters * 8 * 2 * 16 * 8 * 16
+        print(f'  8 chains a warp, {2 * per_sm} warps per sub-partition: '
+              f'{flops / ms / 1e9:.1f} TFLOP/s')
+    ms = timed(sms, 32, 1)
+    print(f'  one warp per SM, dependent products: {ms * 1e6 / iters:.2f} '
+          f'ns per product')
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernel', choices=sorted(CUTS), default='k2')
     parser.add_argument('--baseline', type=Path, default=None,
                         help='another version of the kernel\'s source file, '
                         'timed beside the one in csrc/')
+    parser.add_argument('--source', type=Path, default=None,
+                        help='the source file profiled as "as built" '
+                        '(default: the one in csrc/)')
     parser.add_argument('--cmid', type=int, default=None,
                         help='K1\'s middle width (default 128; K2 takes 128 '
                         'only, k1w, k2w, k1wb and k2wb 512)')
@@ -492,12 +894,23 @@ def main(argv=None) -> None:
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--no_cuts', action='store_true',
                         help='time only the kernel as built and the baseline')
+    parser.add_argument('--mma_rate', action='store_true',
+                        help='first print what mma.sync m16n8k16 bf16 '
+                        'reaches on the card')
+    parser.add_argument('--sass', type=Path, default=None,
+                        help='a directory to write the SASS of the kernel as '
+                        'built into')
+    parser.add_argument('--phases', action='store_true',
+                        help='k2b: also time the PF head\'s whole bf16 '
+                        'backward in parts')
     args = parser.parse_args(argv)
     cmid = args.cmid or (512 if args.kernel in WIDE else 128)
     if not torch.cuda.is_available():
         raise SystemExit('profile_kernels needs a CUDA device')
+    if args.mma_rate:
+        mma_rate()
     name, source = args.kernel, SOURCES[args.kernel]
-    src = (_cuda.CSRC / f'{source}.cu').read_text()
+    src = (args.source or _cuda.CSRC / f'{source}.cu').read_text()
     labels = {f'{name}_as_built': 'as built'}
     sources = {f'{name}_as_built': src}
     if args.baseline is not None:
@@ -505,16 +918,32 @@ def main(argv=None) -> None:
         sources[f'{name}_baseline'] = args.baseline.read_text()
     for i, (cut_name, cut) in enumerate(
             {} if args.no_cuts else CUTS[name].items()):
+        try:
+            variant = cut(src)
+            if name in ('k1b', 'k2b') and (
+                    _narrow_bf16(variant) == _narrow_bf16(src)):
+                raise NotInSource(cut_name)
+        except NotInSource:
+            print(f'cut skipped, its lines are not in this source: {cut_name}')
+            continue
+        sources[f'{name}_variant{i}'] = variant
         labels[f'{name}_variant{i}'] = cut_name
-        sources[f'{name}_variant{i}'] = cut(src)
     libs = {labels[k]: lib for k, lib in _build(sources, source).items()}
     for kernel in SASS_NAMES[name]:
-        counts = sass_counts(_cuda.BUILD_DIR / f'lib{name}_as_built.so',
-                             kernel)
+        so = _cuda.BUILD_DIR / f'lib{name}_as_built.so'
+        counts = sass_counts(so, kernel)
+        if args.sass is not None:
+            args.sass.mkdir(parents=True, exist_ok=True)
+            (args.sass / f'{kernel}.sass').write_text(sass_text(so, kernel))
         print(f'{name.upper()} SASS of {kernel}: {sum(counts.values())} '
               'instructions; ' + ', '.join(
                   f'{op} {k}' for op, k in counts.most_common(12))
               + f'; HGMMA {counts["HGMMA"]}, HMMA {counts["HMMA"]}')
+        if name in ('k1b', 'k2b'):
+            for label in ('as built', f'baseline {args.baseline}'):
+                if label in libs:
+                    print(f'  ptxas, {label}: '
+                          + ' | '.join(ptxas_report(libs[label].log, kernel)))
 
     describe, make = _runner_factory(name, args.batch_size, cmid)
     runs = {label: make(lib) for label, lib in libs.items()}
@@ -542,6 +971,34 @@ def main(argv=None) -> None:
         print('  host us per call (C entry point, in turns): ' + '; '.join(
             f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
             for label, readings in hosts.items()))
+    if name in ('k1b', 'k2b'):
+        wrappers = {'as built': _wrapper_module(
+            Path(fh.__file__), libs['as built'], 'as_built')}
+        parent = (args.baseline.parent.parent / 'ops' / 'fused_head.py'
+                  if args.baseline is not None else None)
+        if parent is not None and parent.exists():
+            wrappers['baseline'] = _wrapper_module(
+                parent, libs[f'baseline {args.baseline}'], 'baseline')
+        calls = wrapper_calls(name, args.batch_size, cmid, wrappers)
+        hosts = {label: [] for label in calls}
+        for _ in range(3):
+            for label, call in calls.items():
+                hosts[label].append(host_us(call))
+        print('  host us per call of the Python wrapper (in turns): '
+              + '; '.join(f'{label} ' + ' '.join(f'{us:.2f}' for us in ts)
+                          for label, ts in hosts.items()))
+        base_label = f'baseline {args.baseline}'
+        if base_label in runs:
+            for run in (runs['as built'], runs[base_label]):
+                run()
+            torch.cuda.synchronize()
+            print('  as built against the baseline, relative L2 (share of '
+                  'values that differ): ' + ', '.join(
+                      f'{k} {_rel_l2(a, runs[base_label].outs[k]):.3e} '
+                      f'({float((a != runs[base_label].outs[k]).float().mean()):.2e})'
+                      for k, a in runs['as built'].outs.items()))
+        if args.phases and name == 'k2b':
+            bwd_phases(args.batch_size, wrappers['as built'])
     if name in ('k1w', 'k2w', 'k2wb'):
         names = {'k1w': K1W_KERNELS, 'k2w': K2W_KERNELS,
                  'k2wb': K2WB_KERNELS}[name]

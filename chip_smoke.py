@@ -1122,8 +1122,10 @@ def check_pf_head_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
     nbytes = 2 * m * (cin + cout) + 4 * (cmid * cin + 3 * cmid + cout * cmid
                                          + cout + cmid)
     # The Cin x Cmid and Cmid x Cout products (bf16 on the tensor cores;
-    # K1 bf16 runs the second one on the fp32 cores), and the epilogue on
-    # the fp32 cores: the ReLU and Cout FMAs per middle value (1 + 2 Cout).
+    # the wide K1 bf16 runs the second one on the fp32 cores, the narrow
+    # one on the tensor cores), and an fp32 epilogue counted as the ReLU
+    # and Cout FMAs per middle value (1 + 2 Cout). Either way the narrow
+    # bound is its bytes.
     tc = 2 * m * (cin * cmid + cmid * cout) / BF16_TC_FLOP_PER_S * 1e3
     epilogue = m * cmid * (1 + 2 * cout) / FP32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3

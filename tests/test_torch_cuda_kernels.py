@@ -396,6 +396,24 @@ def test_pf_head_bwd_bf16_kernel_matches_plain(cuda, shape):
     assert err <= 1.6e-2 * want[0].float().abs().max().item() + 1e-6
 
 
+def test_pf_head_bf16_kernels_are_bit_identical(cuda):
+    # K1 bf16's outputs are summed by one lane quad's products in a fixed
+    # order, K2 bf16's dx by one lane, and its per-block sums are added in
+    # a fixed order with no atomics: two calls on the same inputs give the
+    # same bits. 8 x 128 x 128 pixels are many tiles per persistent block.
+    gen = torch.Generator().manual_seed(17)
+    args = list(_head_args(gen, 8, 128, 128, cuda))
+    args[0] = args[0].to(torch.bfloat16)
+    assert torch.equal(fused_head.fused_pf_head_fwd(*args),
+                       fused_head.fused_pf_head_fwd(*args))
+    bargs = _bf16_bwd_args(gen, 8, 128, 128, cuda)
+    first = fused_head.fused_pf_head_bwd(*bargs)
+    second = fused_head.fused_pf_head_bwd(*bargs)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dx', 'm0', 'm1', 'db2', 'dw1'), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_pf_head_bf16_train_gradients_match_plain(cuda):
     gen = torch.Generator().manual_seed(13)
     x, w1, b1, gamma, beta, w2, b2, _, _ = _head_args(gen, 2, 32, 32, cuda)
