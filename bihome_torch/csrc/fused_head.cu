@@ -739,9 +739,10 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
 //     middle values, the Cmid x Cout product is on the tensor cores);
 //   * K2 reads x and g and writes dx, 142.6 MB: 0.043 ms of bytes; its four
 //     products (mid, dx, dw1 and M0 = sum mask g) are 26.9 GFLOP (0.027 ms
-//     on the tensor cores); the rest, per middle value a, the mask, e and
-//     M1 (5 + 4 Cout flops), is 0.052 ms at 67 TFLOP/s on the fp32 cores.
-//     The bound is that: operations.
+//     on the tensor cores); the rest, per middle value the mask (mid
+//     against a per-channel threshold, no a = gis mid + c1), e and M1 (2 +
+//     4 Cout flops), is 0.040 ms at 67 TFLOP/s on the fp32 cores. The
+//     bound is the bytes.
 //
 // Both kernels use mma.sync.m16n8k16 bf16 (K = 16: one step over Cin),
 // ldmatrix/stmatrix for the operands that live in shared memory, and
@@ -800,8 +801,9 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial,
 //     infinite mid on a channel with gis == 0 (fmaf gives NaN there);
 //   * per middle value the fp32 cores do the mask (set.gt: 1.0f or 0), e =
 //     mask ((gis w2) g) (a multiply, an FMA and the mask's multiply, as
-//     the Pallas kernel rounds it) and M1 (mask mid, 2 FMAs), from g staged as fp32 per warp once per tile (one 16-byte load
-//     gives a lane both outputs at its two pixels); db2 is summed there;
+//     the Pallas kernel rounds it) and M1 (mask mid, 2 FMAs), from g
+//     staged as fp32 per warp once per tile (one 16-byte load gives a lane
+//     both outputs at its two pixels); db2 is summed there;
 //   * M0 = sum mask g runs on the tensor cores: the mask packs as exact bf16
 //     0/1 (the high halves of two set.gt results, one byte permutation)
 //     into the A fragment of one m16n8k16 step over 16 pixels (the
@@ -3214,45 +3216,32 @@ pf_head_bwd_wide_bf16_sums_kernel(const uint16_t* __restrict__ x,
   }
 }
 
-// What the narrow entries would otherwise query on every call, once per
-// device: the SM count, and (bf16 kernels) the shared-memory limit set and
-// how many blocks fit on an SM. The entries are called with the GIL
-// released, but every write stores the value any other call would.
-constexpr int kMaxDevices = 64;
-int g_sms[kMaxDevices];                    // 0: not yet queried
-bool g_bwd_bf16_ready[kMaxDevices][2];      // [device][vec]: limit set
-int g_fwd_bf16_fit[kMaxDevices][2][kFwdMaxCmid / 16 + 1];  // 0: not known
-
-// The current device and its SM count (cached).
-cudaError_t current_sms(int* device, int* sms) {
-  cudaError_t err = cudaGetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (*device < 0 || *device >= kMaxDevices) {
-    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                  *device);
+// Blocks of a narrow backward over n images of hw pixels in tiles of
+// `tile`: two per SM, fewer if there are fewer tiles.
+int bwd_blocks(long long n, int hw, int tile) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return -1;
   }
-  if (g_sms[*device] == 0) {
-    int v = 0;
-    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, *device);
-    if (err != cudaSuccess) return err;
-    g_sms[*device] = v;
-  }
-  *sms = g_sms[*device];
-  return cudaSuccess;
+  const long long ntiles = n * ((hw + tile - 1) / tile);
+  const long long want = 2LL * sms;
+  return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
 }
 
 }  // namespace
 
-// Number of blocks pf_head_bwd and pf_head_bwd_bf16 launch for n images of
-// hw pixels (the wrapper sizes the [blocks, pf_head_bwd_partial_cols()]
-// scratch with it): two per SM, fewer if there are fewer 64-pixel tiles (a
-// bf16 block without a tile writes a row of zeros).
+// Number of blocks pf_head_bwd (pf_head_bwd_bf16: pf_head_bwd_bf16_blocks)
+// launches for n images of hw pixels (the wrapper sizes the [blocks,
+// pf_head_bwd_partial_cols()] scratch with it): two per SM, fewer if there
+// are fewer tiles.
 extern "C" int pf_head_bwd_blocks(long long n, int hw) {
-  int device = 0, sms = 0;
-  if (current_sms(&device, &sms) != cudaSuccess) return -1;
-  const long long ntiles = n * ((hw + kTile - 1) / kTile);
-  const long long want = 2LL * sms;
-  return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
+  return bwd_blocks(n, hw, kTile);
+}
+
+extern "C" int pf_head_bwd_bf16_blocks(long long n, int hw) {
+  return bwd_blocks(n, hw, kB2Tile);
 }
 
 extern "C" int pf_head_bwd_partial_cols() { return kPartial; }
@@ -3345,25 +3334,21 @@ extern "C" int pf_head_fwd_bf16(const void* x, const float* g1t,
   const size_t smem = fwd_bf16_smem_bytes(cmid);
   auto kernel =
       vec ? pf_head_fwd_bf16_kernel<true> : pf_head_fwd_bf16_kernel<false>;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = current_sms(&device, &sms);
-  if (err != cudaSuccess) return (int)err;
-  int* fit = device < kMaxDevices ? &g_fwd_bf16_fit[device][vec][cmid / 16]
-                                  : &per_sm;
-  if (*fit == 0) {
-    // The limit at the largest Cmid, so that it is set once per device.
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)fwd_bf16_smem_bytes(kFwdMaxCmid))) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
-      return (int)err;
-    }
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    *fit = per_sm;
-  }
   // Persistent blocks: as many as fit on the card at once.
-  const int blocks = ntiles < sms * *fit ? ntiles : sms * *fit;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
   kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
       (const uint16_t*)x, g1t, c1, w2, b2, (uint16_t*)out, hw, tpi, ntiles,
       cmid);
@@ -3372,8 +3357,8 @@ extern "C" int pf_head_fwd_bf16(const void* x, const float* g1t,
 
 // K2 at bfloat16: x [N,Cin,HW] and g [N,Cout,HW] bf16, w1t [Cmid,Cin], gis
 // [Cmid], c1 [Cmid], w2gis [Cmid,Cout] float32; dx [N,Cin,HW] bf16; partial
-// [blocks, kPartial] scratch (blocks from pf_head_bwd_blocks); sums
-// [kPartial] float32 as pf_head_bwd's. The same shapes as pf_head_bwd.
+// [blocks, kPartial] scratch (blocks from pf_head_bwd_bf16_blocks);
+// sums [kPartial] float32 as pf_head_bwd's. The same shapes as pf_head_bwd.
 extern "C" int pf_head_bwd_bf16(const void* x, const void* g,
                                 const float* w1t, const float* gis,
                                 const float* c1, const float* w2gis, void* dx,
@@ -3390,16 +3375,9 @@ extern "C" int pf_head_bwd_bf16(const void* x, const void* g,
                    (((uintptr_t)x | (uintptr_t)g | (uintptr_t)dx) & 15) == 0;
   auto kernel =
       vec ? pf_head_bwd_bf16_kernel<true> : pf_head_bwd_bf16_kernel<false>;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdBf16SmemBytes);
   if (err != cudaSuccess) return (int)err;
-  if (device >= kMaxDevices || !g_bwd_bf16_ready[device][vec]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kBwdBf16SmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    if (device < kMaxDevices) g_bwd_bf16_ready[device][vec] = true;
-  }
   kernel<<<blocks, kBwdThreads, kBwdBf16SmemBytes, (cudaStream_t)stream>>>(
       (const uint16_t*)x, (const uint16_t*)g, w1t, gis, c1, w2gis,
       (uint16_t*)dx, partial, hw, tpi, ntiles);

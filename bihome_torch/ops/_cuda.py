@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import torch
 
@@ -97,17 +97,14 @@ def check_status(status: int, what: str) -> None:
 
 
 def check_cuda_tensor(t, name: str, dim: int,
-                      dtype: torch.dtype = torch.float32,
-                      index: Optional[int] = None) -> None:
+                      dtype: torch.dtype = torch.float32) -> None:
     """The kernels take contiguous tensors of ``dtype`` (float32 unless
-    stated) on the current device (``index``, if the caller has it)."""
-    if not t.is_cuda:
+    stated) on the current device."""
+    if t.device.type != 'cuda':
         raise ValueError(f'{name} must be a CUDA tensor, got {t.device}')
-    if index is None:
-        index = torch.cuda.current_device()
-    if t.get_device() != index:
+    if t.device.index != torch.cuda.current_device():
         raise ValueError(f'{name} is on {t.device}, not the current device '
-                         f'cuda:{index}')
+                         f'cuda:{torch.cuda.current_device()}')
     if t.dtype != dtype:
         raise ValueError(f'{name} must be {dtype}, got {t.dtype}')
     if t.dim() != dim:

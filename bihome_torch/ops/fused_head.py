@@ -51,6 +51,7 @@ _SIGNATURES = {
     'pf_head_bwd': [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     'pf_head_bwd_blocks': [ctypes.c_longlong, ctypes.c_int],
+    'pf_head_bwd_bf16_blocks': [ctypes.c_longlong, ctypes.c_int],
     'pf_head_bwd_partial_cols': [],
     'pf_head_fwd_wide': [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
@@ -244,9 +245,7 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
     bf16 = x.dtype == torch.bfloat16
-    index = torch.cuda.current_device()
-    _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32,
-                            index)
+    _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32)
     n, cin, h, w = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     width = _kernel_width(cin, cmid, cout, bf16)
@@ -260,13 +259,13 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     w2m = w2.reshape(cout, cmid).float().contiguous()
     b2c = b2.float().contiguous()
     for name, t in (('g1t', g1t), ('c1', c1), ('w2', w2m), ('b2', b2c)):
-        _cuda.check_cuda_tensor(t, name, t.dim(), index=index)
+        _cuda.check_cuda_tensor(t, name, t.dim())
     out = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
     # The wide float32 kernel splits g1t into its weight images first.
     img = (_wide_image_scratch(cmid, x.device),) if (
         width == 'wide' and not bf16) else ()
     lib = _cuda.library('fused_head', _SIGNATURES)
-    stream = _cuda.stream_ptr(index)
+    stream = _cuda.stream_ptr(x.device.index)
     entry = {'narrow': 'pf_head_fwd', 'wide': 'pf_head_fwd_wide'}[width]
     entry += '_bf16' if bf16 else ''
     status = getattr(lib, entry)(x.data_ptr(), g1t.data_ptr(), c1.data_ptr(),
@@ -278,27 +277,6 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     setattr(fused_pf_head_fwd, counter,
             getattr(fused_pf_head_fwd, counter) + 1)
     return out
-
-
-_BWD_GRIDS = {}
-
-
-def _bwd_grid(lib, width: str, index: int, n: int, hw: int, cin: int,
-              cmid: int, cout: int) -> Tuple[int, int]:
-    """(blocks, columns) of the backward's per-block sums, asked of the
-    library once per device and shape."""
-    key = (width, index, n, hw, cin, cmid, cout)
-    grid = _BWD_GRIDS.get(key)
-    if grid is None:
-        if width == 'narrow':
-            grid = (lib.pf_head_bwd_blocks(n, hw),
-                    lib.pf_head_bwd_partial_cols())
-        else:
-            grid = (lib.pf_head_bwd_wide_blocks(n, hw, cmid),
-                    wide_sums_cols(cin, cmid, cout))
-        if grid[0] > 0:
-            _BWD_GRIDS[key] = grid
-    return grid
 
 
 def pf_head_bwd_plain(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
@@ -344,10 +322,8 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
     bf16 = x.dtype == torch.bfloat16
-    index = torch.cuda.current_device()
-    _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32,
-                            index)
-    _cuda.check_cuda_tensor(g, 'g', 4, x.dtype, index)
+    _cuda.check_cuda_tensor(x, 'x', 4, x.dtype if bf16 else torch.float32)
+    _cuda.check_cuda_tensor(g, 'g', 4, x.dtype)
     n, cin, h, w = x.shape
     cmid, cout = w2gis.shape
     width = _kernel_width(cin, cmid, cout, bf16)
@@ -363,13 +339,16 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
                          f'{tuple(w1t.shape)}, w2gis {tuple(w2gis.shape)}')
     for name, t in (('w1t', w1t), ('gis', gis), ('c1', c1),
                     ('w2gis', w2gis)):
-        _cuda.check_cuda_tensor(t, name, t.dim(), index=index)
+        _cuda.check_cuda_tensor(t, name, t.dim())
     lib = _cuda.library('fused_head', _SIGNATURES)
     if width == 'narrow':
         entry = 'pf_head_bwd_bf16' if bf16 else 'pf_head_bwd'
+        blocks = getattr(lib, entry + '_blocks')(n, h * w)
+        cols = lib.pf_head_bwd_partial_cols()
     else:
         entry = 'pf_head_bwd_wide_bf16' if bf16 else 'pf_head_bwd_wide'
-    blocks, cols = _bwd_grid(lib, width, index, n, h * w, cin, cmid, cout)
+        blocks = lib.pf_head_bwd_wide_blocks(n, h * w, cmid)
+        cols = wide_sums_cols(cin, cmid, cout)
     if blocks <= 0:
         raise RuntimeError(f'{entry}: no CUDA device')
     dx = torch.empty_like(x)
@@ -378,7 +357,7 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     sums = torch.empty((cols,), dtype=torch.float32, device=x.device)
     img = (_wide_image_scratch(cmid, x.device),) if (
         width == 'wide' and not bf16) else ()
-    stream = _cuda.stream_ptr(index)
+    stream = _cuda.stream_ptr(x.device.index)
     status = getattr(lib, entry)(
         x.data_ptr(), g.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
         c1.data_ptr(), w2gis.data_ptr(), dx.data_ptr(), partial.data_ptr(),

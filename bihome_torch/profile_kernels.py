@@ -3,7 +3,7 @@ compares with another version of its source.
 
     python -m bihome_torch.profile_kernels \\
         --kernel k1|k1b|k1w|k1wb|k2|k2b|k2w|k2wb|k4 [--baseline FILE] \\
-        [--source FILE] [--cmid C] [--batch_size 64] [--rounds 2] \\
+        [--cmid C] [--batch_size 64] [--rounds 2] \\
         [--no_cuts] [--phases] [--mma_rate] [--sass DIR]
 
 No kernel profiler runs on the machine with the card, so this builds
@@ -39,13 +39,9 @@ reduction kernels also timed apart); K4 the loss warp, 2B images of 128x128x1 at
 the baseline. Needs a CUDA device.
 
 ``k1b`` and ``k2b`` are the narrow (Cin 16) K1 and K2 at bf16, at the
-zeng shape (x [2B,16,128,128] bf16, Cmid 128). Their cut lists hold the
-cuts of the first bf16 design and of the current one; a cut whose lines are not
-in the source profiled is skipped with a note, so ``--source FILE``
-(another version of the file, profiled as "as built") cuts an earlier
-design too. For both the profiler also prints ptxas's report of the
-kernel (registers, spills, shared memory) and, with ``--baseline``, the
-host us per call of the Python wrapper as built and of the baseline's
+zeng shape (x [2B,16,128,128] bf16, Cmid 128). For both the profiler also
+prints ptxas's report of the kernel (registers, spills, shared memory)
+and, with ``--baseline``, the host us per call of the Python wrapper as built and of the baseline's
 wrapper (``ops/fused_head.py`` beside the baseline's ``csrc/``, run on
 the baseline's library). ``--phases`` (k2b) times the PF head's whole
 backward at bf16 in parts with CUDA events: ``pf_head_backward`` with
@@ -78,15 +74,11 @@ from bihome_torch.ops import warp
 from bihome_torch.utils.timing import host_us, kernel_ms, time_ms
 
 
-class NotInSource(RuntimeError):
-    """A cut's lines are not in the source it is applied to."""
-
-
 def _cut(old: str, new: str, then=None):
     """Replace ``old`` by ``new`` in the source (then apply ``then``)."""
     def apply(src: str) -> str:
         if old not in src:
-            raise NotInSource(f'profile_kernels: {old!r} not in the source')
+            raise RuntimeError(f'profile_kernels: {old!r} not in the source')
         src = src.replace(old, new)
         return then(src) if then else src
     return apply
@@ -158,31 +150,10 @@ K2WB_CUTS = [
         '            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
 ]
 
-# The narrow kernels at bf16 (k1b, k2b): the first design ("first:", 64-pixel
-# K2 tiles, e through a [pixel][channel] tile stored 16 bits at a time) and
-# the current one (rings of cp.async stages, ldmatrix/stmatrix, M0 and K1's
-# Cmid x Cout product on the tensor cores). A cut applies to the source whose narrow
-# bf16 section (NARROW_BF16) it changes and is skipped on the other.
-NARROW_BF16 = ('// K1 and K2 at bfloat16 (MODEL.DTYPE bfloat16)',
-               '// The ResNet50-flavour head: Cin = 64')
+# The narrow kernels at bf16 (k1b, k2b: rings of cp.async stages,
+# ldmatrix/stmatrix, M0 and K1's Cmid x Cout product on the tensor cores).
 K1B_CUTS = [
-    ('first: no epilogue (one add per value)', _cut(
-        '          const float rr = round_bf16(fmaxf(d[r], 0.0f));\n'
-        '          const int px = r >> 1, ch = r & 1;\n'
-        '          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);\n'
-        '          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);\n'
-        '        }\n      }\n    }\n\n    // Fold the sums over the lane quad',
-        '          acc[mt][r >> 1][r & 1] += d[r];\n'
-        '        }\n      }\n    }\n\n    // Fold the sums over the lane quad')),
-    ('first: no stores', _cut(
-        '      if (s < hw) on[s] = (uint16_t)bf16_bits(v + (o ? b2_1 : b2_0));\n'
-        '    }\n    buf ^= 1;',
-        '      if (s < hw && v == -1.25e-30f) on[s] = (uint16_t)bf16_bits(v + '
-        '(o ? b2_1 : b2_0));\n    }\n    buf ^= 1;')),
-    ('first: no x loads after the first tile', _cut(
-        '    if (next < ntiles) {\n      load_fwd_tile_bf16<kVec>',
-        '    if (next < 0) {\n      load_fwd_tile_bf16<kVec>')),
-    ('no tensor-core products', _NO_MMA_BF16[1]),
+    _NO_MMA_BF16,
     ('no ReLU and rounding (accumulator bits as A)', _cut(
         '    const uint32_t r[4] = {cvt_relu_bf16x2(d0[0], d0[1]),\n'
         '                           cvt_relu_bf16x2(d0[2], d0[3]),\n'
@@ -216,36 +187,6 @@ K1B_CUTS = [
 ]
 K2B_CUTS = [
     _NO_MMA_BF16,
-    ('first: sums: no M0/M1', _cut(
-        '            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);\n'
-        '            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n'
-        '          }\n        }\n'
-        '        db[0] += gv[0][0] + gv[0][1];\n'
-        '        db[1] += gv[1][0] + gv[1][1];\n'
-        '        eb[h][0] = pack_bf16(e[0], e[1]);\n',
-        '          }\n        }\n'
-        '        db[0] += gv[0][0] + gv[0][1];\n'
-        '        db[1] += gv[1][0] + gv[1][1];\n'
-        '        eb[h][0] = pack_bf16(e[0], e[1]);\n')),
-    ('first: no x, g loads after the first tile', _cut(
-        '    if (next < ntiles) {\n      load_tile_bf16<kVec>',
-        '    if (next < 0) {\n      load_tile_bf16<kVec>')),
-    ('first: no dx phase products (its e loads and mma)', _cut(
-        '      for (int ks = 0; ks < kCmid / 16; ++ks) {\n'
-        '        const uint32_t b[2] = {load_pair(ep + 16 * ks),',
-        '      for (int ks = 0; ks < 0; ++ks) {\n'
-        '        const uint32_t b[2] = {load_pair(ep + 16 * ks),')),
-    ('first: no dx stores', _cut(
-        '        if (s < hw) {\n'
-        '          *reinterpret_cast<uint32_t*>(d0) = pack_bf16(d[0], d[1]);',
-        '        if (s < hw && d[0] == -1.25e-30f) {\n'
-        '          *reinterpret_cast<uint32_t*>(d0) = pack_bf16(d[0], d[1]);')),
-    ('first: no e stores to shared memory', _cut(
-        '        s_e[pa * kBSE + ca] = (uint16_t)(eb[h][0] & 0xffffu);\n'
-        '        s_e[(pa + 1) * kBSE + ca] = (uint16_t)(eb[h][0] >> 16);\n'
-        '        s_e[pa * kBSE + cb] = (uint16_t)(eb[h][1] & 0xffffu);\n'
-        '        s_e[(pa + 1) * kBSE + cb] = (uint16_t)(eb[h][1] >> 16);\n',
-        '')),
     ('no M1 sums', _cut(
         '      m1[ch][0] = fmaf(mm, g0, m1[ch][0]);\n'
         '      m1[ch][1] = fmaf(mm, g1, m1[ch][1]);\n', '')),
@@ -272,12 +213,6 @@ K2B_CUTS = [
     ('two stages in the ring (one tile ahead)', _cut(
         'constexpr int kB2Stages = 4;', 'constexpr int kB2Stages = 2;')),
 ]
-
-
-def _narrow_bf16(src: str) -> str:
-    """The narrow bf16 kernels' section of fused_head.cu."""
-    head, tail = NARROW_BF16
-    return src[src.index(head):src.index(tail)] if head in src else ''
 
 
 # Each turns the source into a variant without one part of the kernel, or
@@ -540,7 +475,9 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
 
         def make(lib):
-            blocks = lib.pf_head_bwd_blocks(n, hw)
+            # An earlier source sized the bf16 grid as the fp32 one's.
+            blocks = getattr(lib, 'pf_head_bwd_bf16_blocks',
+                             lib.pf_head_bwd_blocks)(n, hw)
             partial = torch.empty((blocks, lib.pf_head_bwd_partial_cols()),
                                   device=dev)
             sums = torch.empty(partial.shape[1], device=dev)
@@ -884,9 +821,6 @@ def main(argv=None) -> None:
     parser.add_argument('--baseline', type=Path, default=None,
                         help='another version of the kernel\'s source file, '
                         'timed beside the one in csrc/')
-    parser.add_argument('--source', type=Path, default=None,
-                        help='the source file profiled as "as built" '
-                        '(default: the one in csrc/)')
     parser.add_argument('--cmid', type=int, default=None,
                         help='K1\'s middle width (default 128; K2 takes 128 '
                         'only, k1w, k2w, k1wb and k2wb 512)')
@@ -910,7 +844,7 @@ def main(argv=None) -> None:
     if args.mma_rate:
         mma_rate()
     name, source = args.kernel, SOURCES[args.kernel]
-    src = (args.source or _cuda.CSRC / f'{source}.cu').read_text()
+    src = (_cuda.CSRC / f'{source}.cu').read_text()
     labels = {f'{name}_as_built': 'as built'}
     sources = {f'{name}_as_built': src}
     if args.baseline is not None:
@@ -918,15 +852,7 @@ def main(argv=None) -> None:
         sources[f'{name}_baseline'] = args.baseline.read_text()
     for i, (cut_name, cut) in enumerate(
             {} if args.no_cuts else CUTS[name].items()):
-        try:
-            variant = cut(src)
-            if name in ('k1b', 'k2b') and (
-                    _narrow_bf16(variant) == _narrow_bf16(src)):
-                raise NotInSource(cut_name)
-        except NotInSource:
-            print(f'cut skipped, its lines are not in this source: {cut_name}')
-            continue
-        sources[f'{name}_variant{i}'] = variant
+        sources[f'{name}_variant{i}'] = cut(src)
         labels[f'{name}_variant{i}'] = cut_name
     libs = {labels[k]: lib for k, lib in _build(sources, source).items()}
     for kernel in SASS_NAMES[name]:

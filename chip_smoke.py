@@ -1255,10 +1255,16 @@ def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
         + cout)
     # mid, dx, dw1 and M0 = sum mask g on the tensor cores (bf16: mask is
     # 0/1 and g bf16, both exact there, as the Pallas kernel's dot has
-    # it); per middle value on the fp32 cores: a (2), mask (1), e (2 Cout
-    # + 1), M1 (1 + 2 Cout); db2: Cout.
+    # it); per middle value on the fp32 cores, as each kernel does it. The
+    # narrow one: the mask (1, mid against a per-channel threshold, so no
+    # a = gis mid + c1), e (2 Cout: (gis w2) g and the mask's multiply),
+    # M1 (1 + 2 Cout). Counted with a's FMA and e at 2 Cout + 1, as before
+    # the threshold, its bound was 0.0521 ms of operations at the zeng
+    # shape; it is now the bytes (0.0426 ms; fp32 0.040). The wide ones: a
+    # (2), the mask (1), e (2 Cout + 1), M1 (1 + 2 Cout). db2: Cout.
     tc = m * (6 * cin * cmid + 2 * cmid * cout) / BF16_TC_FLOP_PER_S * 1e3
-    epilogue = m * (cmid * (5 + 4 * cout) + cout) / FP32_FLOP_PER_S * 1e3
+    per_mid = 2 + 4 * cout if cin == 16 else 5 + 4 * cout
+    epilogue = m * (cmid * per_mid + cout) / FP32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bms = max(t_bytes, tc, epilogue)
     by = 'bytes' if bms == t_bytes else 'operations'
