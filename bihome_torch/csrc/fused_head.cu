@@ -75,6 +75,8 @@
 // mma.sync is ~4x the 3xTF32 bound at this shape; wgmma (asynchronous, at
 // the tensor cores' full rate) is the next step.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -882,16 +884,8 @@ __device__ __forceinline__ uint32_t cvt_relu_bf16x2(float lo, float hi) {
   return r;
 }
 
-__device__ __forceinline__ uint32_t pack_halves(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
 __device__ __forceinline__ float bf16_value(uint16_t h) {
   return __uint_as_float((uint32_t)h << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float a) {
-  return bf16_value((uint16_t)bf16_bits(a));
 }
 
 __device__ __forceinline__ uint32_t load_pair(const uint16_t* p) {
@@ -2658,237 +2652,487 @@ constexpr size_t kWSumsSmemBytes =
 //     GFLOP, 0.080 ms), the bytes 268 MB of x and 8.4 MB out (0.083 ms):
 //     operations, ~0.139 ms;
 //   * K2: three such products (mid, dx, dw1), 412 GFLOP (0.417 ms), the
-//     epilogue ~13 flops per middle value (0.208 ms), the bytes x, g and
-//     dx, 545 MB (0.163 ms): operations, ~0.42 ms. The design below
-//     computes mid twice (a floor of ~0.56 ms of tensor work).
+//     fp32 work 2 + 4 Cout = 10 flops per middle value with the threshold
+//     mask (0.160 ms), the bytes x, g and dx, 545 MB (0.163 ms):
+//     operations, ~0.42 ms. The design below computes mid twice (a floor
+//     of ~0.56 ms of tensor work).
 //
-// Design: mma.sync.m16n8k16 bf16 (a product of two bf16 values is exact
-// in fp32, so only the order of the fp32 sums differs from the Pallas
-// kernels). No weight split and no prep kernel: bf16 operands need none,
-// and each block packs bf16(g1t) or bf16(w1t) into shared memory in mma
-// fragment order itself (64 KB per operand at Cmid 512), so every B load
-// is one conflict-free 8-byte load per lane.
-//   * K1 (pf_head_fwd_wide_bf16_kernel): the narrow K1 bf16 at K = 64 (four
-//     k-steps): persistent blocks of 256 threads, one per SM, walk 256-pixel
-//     tiles (x [64][256] by cp.async into a double buffer); warp w owns
-//     pixels 32w..32w+31 (two m-tiles), their A fragments read once per
-//     tile; per 8-channel n-tile the accumulator starts at c1 and the
-//     ReLU, the rounding and the Cout = 2 sums run on it in registers;
-//   * K2 as the float32 wide K2, in two kernels: at Cin 64 a block's dw1
-//     partials (64 x Cmid fp32, 128 KB at Cmid 512) do not fit the narrow
-//     K2's registers, and dw1 wants channels as M where dx wants pixels:
-//       - dx (pf_head_bwd_wide_bf16_dx_kernel): persistent blocks, one per
-//         SM, walk 256-pixel tiles; warp w owns 32 pixels (two m-tiles) and
-//         holds their x as A fragments. Per 16 channels: mid^T [px, ch] =
-//         x^T bf16(w1t)^T (two n-tiles), the epilogue (mask, e) on the
-//         accumulator, and bf16(e) packed straight into the A fragment of
-//         dx^T [px, Cin] += bf16(e) bf16(w1) (the accumulator layout of two
-//         n-tiles is the A layout of one k-step). dx goes through shared
-//         memory (the x tile it came from) to 16-byte stores;
-//       - sums (pf_head_bwd_wide_bf16_sums_kernel): the grid's y takes
-//         128-channel chunks, warp w 16 of them, with bf16(w1t) rows as A in
-//         registers; blocks walk 64-pixel tiles. Per 16 pixels: mid [ch,
-//         px] = bf16(w1t) x (two n-tiles), the epilogue (mask, e; M0, M1
-//         and db2 summed per lane in fp32), and bf16(e) packed into the A
-//         fragment of dw1^T [ch, Cin] += bf16(e) x^T. Each block writes one
-//         row of sums, added in block order by reduce_rows_kernel
+// Design: every product on wgmma bf16 (m64nNk16; a product of two bf16
+// values is exact in fp32, so only the order of the fp32 sums differs from
+// the Pallas kernels). Each 16-bit operand in shared memory is a "tile" of
+// 64-column rows, 128 bytes each, in the 128-byte swizzle (tile_at: the
+// 16-byte piece p of row r at p ^ (r % 8)), which every 8 rows read or
+// written at one column piece spreads over all banks. wgmma reads such a
+// tile K-major (rows = M or N, columns = K) or, through its transpose
+// bit, MN-major (rows = K, columns = M or N), so one copy serves both
+// ways:
+//   * the x tile [Cin][64 px], as it lies in device memory, is B of mid
+//     [ch, px] (MN-major) and B of dw1^T [ch, Cin] (K-major), and by
+//     ldmatrix.trans the register A of mid^T [px, ch];
+//   * a chunk of bf16(w1t) [64 ch][Cin] is B of mid^T (K-major) and B of
+//     dx^T [px, Cin] (MN-major: K = channels), and by ldmatrix the
+//     register A of mid;
+//   * g [Cout (8 rows, 2 used)][64 px] is B of M0 [ch, 8] (K-major).
+// An accumulator [64, 64] is, per 16 columns, the register A operand of
+// the next product's k16 step (as in FlashAttention-3's P V), so e and
+// relu(a) go from mid's accumulator to the next product in registers; x^T
+// (K1, dx) and bf16(w1t') (sums) are A from registers too (ldmatrix), so
+// each product reads only its B operand from shared memory (an m64n64k16
+// with both operands there needs all of the SM's 128 bytes a cycle).
+// Warpgroups walk 64-pixel tiles (within one image; past its end
+// zero-filled, computed and not stored) through rings of stages, the
+// block's weights resident in shared memory. Where HW % 8 == 0 (and x, g,
+// dx are 16-byte aligned) one thread starts each stage's copies on the
+// tensor memory accelerator (2-D tensor maps of x and g, which write the
+// tiles in their swizzle and zero-fill past the image's end), counted on
+// the stage's mbarrier; else the warpgroup copies them with plain loads.
+// The mask is the narrow K2 bf16's (relu_threshold above): mid' =
+// sign(gis) mid against a per-channel threshold, w1t's rows negated
+// where gis < 0 and w2gis' = sign(gis) w2gis, so e' = sign(gis) e
+// (exact), dx = sum w1t' e' needs no sign, and dw1 and M1 take theirs at
+// the end.
+//   * K1 (pf_head_fwd_wide_bf16_kernel): blocks of three warpgroups, one
+//     per SM, each warpgroup on its own tiles and ring (no barrier between
+//     them after the start). Per pair of 64-channel chunks: mid^T [64 px,
+//     64 ch] = x^T g1t^T of both (4 m64n64k16 each), then per chunk and 16
+//     channels c1 added and bf16(relu) formed by cvt.rn.relu.bf16x2
+//     straight into the A operand of out^T [64 px, 8] += relu bf16(w2)^T
+//     (m64n8k16, w2 padded to 8 rows), issued at once, so the second
+//     chunk's mid and the out^T products run under the epilogue; b2 added
+//     at the store;
+//   * K2 in two kernels, as the float32 wide K2: dw1 wants channels as M
+//     (its e as A from mid's accumulator, K = pixels) and dx pixels as M
+//     (K = channels), and one pass holding dw1 for all Cmid 512 channels
+//     in registers (64 x 512 fp32, 128 KB: half the register file) beside
+//     two warpgroups' mid and dx accumulators (32 KB each) would leave
+//     ~64 registers a thread for the operands, addresses and the epilogue
+//     even with setmaxnreg at 240/240/24, with no room to keep two chunks
+//     in flight. So mid is computed twice:
+//       - dx (pf_head_bwd_wide_bf16_dx_kernel): blocks of three
+//         warpgroups, one per SM, on their own tiles and rings, all of
+//         bf16(w1t') resident (64 KB at Cmid 512). Per chunk: mid'^T (4
+//         m64n64k16), then per 16 channels the mask and e' packed into the
+//         A operand of dx^T [64 px, Cin] += bf16(e') bf16(w1t') (one
+//         m64n64k16, B MN-major), issued at once; the next chunk's mid
+//         goes out behind the last of them. dx goes by stmatrix.trans into
+//         the x tile it came from and out by 16-byte stores;
+//       - sums (pf_head_bwd_wide_bf16_sums_kernel): blocks of two
+//         warpgroups, one per SM, 128 channels each (their bf16(w1t')
+//         tiles resident; the grid's y takes 256-channel groups), on one
+//         ring of 128-pixel tiles (two 64-pixel sub-tiles, one loaded by
+//         each warpgroup; g staged once as fp32 per pixel pair, db2 summed
+//         there). Per sub-tile and 64-channel half (a unit): mid [64 ch, 64
+//         px] (4 m64n64k16, B = x MN-major), the epilogue (the mask, e',
+//         M1' on the fp32 cores), and dw1'^T [64 ch, Cin] += bf16(e') x^T
+//         (4 m64n64k16) and M0 [64 ch, 8] += mask g^T (4 m64n8k16; the
+//         mask is exact bf16 0/1). The warpgroups take turns (named
+//         barriers): in its turn one issues the dw1 and M0 products of its
+//         unit before and the mid of the next, then runs that epilogue
+//         while the other's products run. Each block writes one row of
+//         sums, added in block order by reduce_rows_kernel
 //         (deterministic, no atomics).
-//     So mid is computed twice, as in the float32 wide K2.
 //
 // What holds them back (H100 80GB HBM3, 700 W; python -m
 // bihome_torch.profile_kernels --kernel k1wb|k2wb cuts each part out and
-// times the rest): K1 takes ~0.66 ms (4.6x its bound); without its
-// products ~0.23, without its epilogue ~0.40: the mma.sync products and
-// the fp32 epilogue add up, as in the narrow bf16 K1. K2 takes ~2.5 ms
-// (5.9x its bound): the dx kernel ~0.87, the sums kernel ~1.64 (its M0
-// and M1 sums ~0.21 of it); without the products ~0.78 in all. These are
-// first kernels: one block of 8 warps per SM for K1 and dx (their
-// operand fragments take 141 and 209 KB of shared memory), B fragments
-// loaded per product, no overlap of a tile's epilogue with the next
-// tile's products.
+// times the rest): the products and the fp32 work add up rather than
+// overlap, as they did on mma.sync, whatever the schedule: more
+// warpgroups a block, chunks in flight two at a time, products issued
+// per 16 channels under the epilogue, turns between warpgroups each moved
+// the times by a few percent. At x [128,64,128,128], Cmid 512: K1 ~0.29
+// ms, ~0.12 without products, ~0.26 without its epilogue; the dx kernel
+// ~0.62 (~0.21 without products, ~0.39 without the epilogue: the products
+// alone at ~70% of the tensor cores' rate); the sums kernel ~0.78 (~0.35
+// without products; M1's fp32 sums ~0.07, M0's products ~0.04).
 
 constexpr int kWBMaxCmid = 512;
-constexpr int kWBTile = 256;          // K1 and dx: pixels per tile
-constexpr int kWBSX = kWBTile + 8;    // their x tile's row stride (halves)
-constexpr int kWBSTile = kWSTile;     // sums: pixels per tile (64)
-constexpr int kWBSSX = kWBSTile + 8;  // its x and g tiles' row stride
-constexpr int kWBKs = kWCin / 16;     // k-steps of the Cin contraction
+constexpr int kWBTile = 64;                    // pixels per warpgroup tile
+constexpr int kWBTileBytes = kWCin * kWBTile * 2;  // an x tile: 8 KB
+constexpr int kWBChunkBytes = 64 * kWCin * 2;  // a 64-channel weight tile
+constexpr int kK1WG = 3;        // warpgroups of a K1 block
+constexpr int kDxWG = 3;        // of a dx block
+constexpr int kWBStages = 3;    // K1 and dx: tiles in a warpgroup's ring
+constexpr int kSumsSub = 2;     // sums: 64-pixel sub-tiles of a tile
+constexpr int kSumsAhead = 2;   // sums: tiles loaded ahead
+constexpr int kWBSStages = kSumsAhead + 2;  // its ring
+// A ring stage of K1 and dx: the x tile, then a g tile (8 rows of 64
+// pixels, 1 KB); of the sums kernel: kSumsSub of those, then g as fp32
+// per pixel pair (512 bytes a sub-tile, 1 KB aligned).
+constexpr int kWBStage = kWBTileBytes + 1024;
+constexpr int kWBSStage =
+    kSumsSub * kWBStage + (kSumsSub * 512 + 1023) / 1024 * 1024;
 
-// B fragments (m16n8k16, col; K = Cin, N = 8 channels) of a [cmid][64]
-// float32 matrix w (g1t or w1t), rounded to bf16, into s_b in fragment
-// order: entry (nt * kWBKs + ks) * 32 + lane holds channel nt * 8 + lane /
-// 4 at k = 16 ks + 2 (lane % 4), + 1 and + 8, + 9.
-__device__ __forceinline__ void pack_cin_fragments(uint2* s_b,
-                                                   const float* __restrict__ w,
-                                                   int cmid) {
-  for (int i = threadIdx.x; i < cmid / 8 * kWBKs * 32; i += blockDim.x) {
-    const int l = i & 31, ks = (i >> 5) % kWBKs, nt = (i >> 5) / kWBKs;
-    const float* row = w + (nt * 8 + (l >> 2)) * kWCin + ks * 16 + 2 * (l & 3);
-    s_b[i] = make_uint2(pack_bf16(row[0], row[1]), pack_bf16(row[8], row[9]));
+// Byte offset of element (r, c) of a bf16 tile of 64-column rows (128
+// bytes a row, the tile 1024-byte aligned) in the 128-byte swizzle: the
+// 16-byte piece c / 8 of row r at piece (c / 8) ^ (r % 8).
+__host__ __device__ constexpr int tile_at(int r, int c) {
+  return (r << 7) + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+
+// wgmma descriptor of a tile (layout type 1: the 128-byte swizzle; 8-row
+// groups 1024 bytes apart (SBO); LBO unused: each operand's K extent
+// (K-major use: rows = M or N, columns = K) or M/N extent (MN-major use:
+// rows = K, columns = M or N) lies within a row). A K-major k16 step is
+// 32 bytes along the rows (add kKStep to the descriptor), an MN-major one
+// two row groups (add kMNStep).
+__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+constexpr int kKStep = 2;
+constexpr int kMNStep = 128;
+
+// The dynamic shared memory from its first 1024-byte boundary (the tiles'
+// alignment; the launches ask for 1 KB more).
+__device__ __forceinline__ uint8_t* smem_1k(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// d = a b (scale_d 0) or d += a b on bf16 wgmma, [64, 64] x k16: A and B
+// from tile descriptors, kTA / kTB 1 where that operand is MN-major.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[32], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WG_D32_OPS(d)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// The same with A from registers (per warp the mma.m16n8k16 A fragment of
+// its 16 rows).
+template <int kTB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : WG_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTB));
+}
+
+// [64, 8] x k16 (m64n8k16), A from registers, B K-major.
+__device__ __forceinline__ void wgmma_bf16_rs_n8(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// k-step ks of the A operand (K = the 64 columns of an accumulator d
+// [64, 64]): columns 16 ks .. 16 ks + 15 are its column groups 2 ks and 2
+// ks + 1, each two rows of pairs. slot(j, h): register of group j's row
+// half h (gid, gid + 8) in k-step j / 2.
+__device__ __forceinline__ int a_slot(int j, int h) {
+  return ((j & 1) << 1) | h;
+}
+
+// Pixels s0..s0+63 of rows 0..kRows-1 of one image's bf16 [kRows][hw]
+// block src into the tile dst (tile_at); pixels past hw are 0. By a
+// warpgroup's 128 threads (t), with plain loads and stores: the path of
+// an HW that is not a multiple of 8 (or a misaligned x, g or dx), which
+// the tensor maps below cannot describe.
+template <int kRows>
+__device__ __forceinline__ void load_tile64(uint8_t* dst, const uint16_t* src,
+                                            int s0, int hw, int t) {
+  for (int i = t; i < kRows * 64; i += 128) {
+    const int r = i >> 6, c = i & 63;
+    *reinterpret_cast<uint16_t*>(dst + tile_at(r, c)) =
+        s0 + c < hw ? src[(long long)r * hw + s0 + c] : (uint16_t)0;
   }
 }
 
-// A fragments (m16n8k16, row; M = 16 pixels, K = Cin) of pixels p .. p + 15
-// of a bf16 [64][stride] x tile, all k-steps: register 0 is pixel p + gid
-// at k = 16 ks + 2 tig, + 1; register 1 pixel p + gid + 8; registers 2 and
-// 3 the same at k + 8.
-template <int kStride>
-__device__ __forceinline__ void cin_a_fragments(const uint16_t* sx, int p,
-                                                int lane,
-                                                uint32_t (&a)[kWBKs][4]) {
-  const int gid = lane >> 2, tig = lane & 3;
+// The A operand of mid^T [px, ch] (K = Cin) for the warp's 16 pixels of
+// an x tile (rows Cin, columns px), all four k-steps, by ldmatrix.trans:
+// k-step ks, matrices (Cin 16 ks.., px 16 warp..), (Cin 16 ks.., px + 8),
+// (Cin 16 ks + 8.., px), (Cin 16 ks + 8.., px + 8).
+__device__ __forceinline__ void x_fragments(const uint8_t* tile, int warp,
+                                            int lane, uint32_t (&a)[4][4]) {
+  const int m = lane >> 3;
 #pragma unroll
-  for (int ks = 0; ks < kWBKs; ++ks) {
-    const uint16_t* q = sx + (ks * 16 + 2 * tig) * kStride + p + gid;
-    a[ks][0] = pack_halves(q[0], q[kStride]);
-    a[ks][1] = pack_halves(q[8], q[kStride + 8]);
-    a[ks][2] = pack_halves(q[8 * kStride], q[9 * kStride]);
-    a[ks][3] = pack_halves(q[8 * kStride + 8], q[9 * kStride + 8]);
+  for (int ks = 0; ks < 4; ++ks) {
+    ldsm_x4_trans(a[ks], tile + tile_at(16 * ks + 8 * (m >> 1) + (lane & 7),
+                                        16 * warp + 8 * (m & 1)));
   }
 }
 
-template <bool kVec>
-__device__ __forceinline__ void load_wide_bf16_tile(const uint16_t* x,
-                                                    uint16_t* sx, int tile,
-                                                    int tpi, int hw) {
+// The tensor maps of x as [N * 64 rows][HW] and g as [N * 2 rows][HW]
+// (bf16): boxes of 64 pixels by all 64 (x) or 2 (g) rows, which the tensor
+// memory accelerator writes in the 128-byte swizzle of tile_at, pixels
+// past HW as 0 (bf16_tile_map).
+struct WideMaps {
+  CUtensorMap x, g;
+};
+
+// The barrier expects ``bytes`` more (and counts one arrival).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// The box at (pixel c0, row c1) of a tensor map into dst, counted on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The x (and g) tile of tile ``tile`` (64 pixels of one image) into a ring
+// stage. kVec: by the tensor memory accelerator, started by thread t == 0
+// and counted on bar (wait_stage); else by the warpgroup's 128 threads,
+// done on return.
+template <bool kVec, bool kG>
+__device__ __forceinline__ void load_wide_bf16_stage(
+    uint8_t* st, const WideMaps& maps, uint64_t* bar, const uint16_t* x,
+    const uint16_t* g, int tile, int tpi, int hw, int t) {
   const int n = tile / tpi;
   const int s0 = (tile - n * tpi) * kWBTile;
-  copy_rows_bf16<kWCin, kWBTile, kWBSX, kFwdThreads, kVec>(
-      sx, x + (long long)n * kWCin * hw, x, s0, hw);
+  if (kVec) {
+    if (t == 0) {
+      mbar_expect_tx(bar, kWBTileBytes + (kG ? kCout * 128 : 0));
+      tma_load_2d(st, &maps.x, s0, n * kWCin, bar);
+      if (kG) tma_load_2d(st + kWBTileBytes, &maps.g, s0, n * kCout, bar);
+    }
+  } else {
+    load_tile64<kWCin>(st, x + (long long)n * kWCin * hw, s0, hw, t);
+    if (kG) {
+      load_tile64<kCout>(st + kWBTileBytes, g + (long long)n * kCout * hw, s0,
+                         hw, t);
+    }
+  }
 }
 
-// K1's shared memory: the double buffer of x, bf16(g1t)'s B fragments, and
-// per n-tile and lane quad c1 and bf16(w2) of the quad's two channels.
+// Wait until the i-th tile of a ring of kStages stages has landed (kVec: on
+// its stage's barrier; the plain loads are done when they return).
+template <bool kVec, int kStages>
+__device__ __forceinline__ void wait_stage(uint64_t* bars, int i) {
+  if (kVec) mbar_wait(bars + i % kStages, (i / kStages) & 1);
+}
+
+// The x and g sub-tiles of sums tile ``tile`` (64 kSumsSub pixels of one
+// image; tpi such tiles an image) into a ring stage. kVec: all by the
+// tensor memory accelerator, started by the block's thread 0 and counted
+// on bar; else sub-tile q by warpgroup q's 128 threads (t).
+template <bool kVec>
+__device__ __forceinline__ void load_sums_stage(uint8_t* st,
+                                                const WideMaps& maps,
+                                                uint64_t* bar,
+                                                const uint16_t* x,
+                                                const uint16_t* g, int tile,
+                                                int tpi, int hw, int q,
+                                                int t) {
+  const int n = tile / tpi;
+  const int s0 = (tile - n * tpi) * kWBTile * kSumsSub;
+  if (kVec) {
+    if (q == 0 && t == 0) {
+      mbar_expect_tx(bar, kSumsSub * (kWBTileBytes + kCout * 128));
+#pragma unroll
+      for (int k = 0; k < kSumsSub; ++k) {
+        tma_load_2d(st + k * kWBStage, &maps.x, s0 + kWBTile * k, n * kWCin,
+                    bar);
+        tma_load_2d(st + k * kWBStage + kWBTileBytes, &maps.g,
+                    s0 + kWBTile * k, n * kCout, bar);
+      }
+    }
+  } else {
+    load_tile64<kWCin>(st + q * kWBStage, x + (long long)n * kWCin * hw,
+                       s0 + kWBTile * q, hw, t);
+    load_tile64<kCout>(st + q * kWBStage + kWBTileBytes,
+                       g + (long long)n * kCout * hw, s0 + kWBTile * q, hw, t);
+  }
+}
+
+// bf16(sign * w[c][k]) of rows c0..c0+rows-1 of a float32 [*][64] matrix
+// into 64-channel tiles at dst (row c - c0 of tile (c - c0) / 64), by
+// ``threads`` threads; sign -1 where neg[c] < 0 (neg null: no signs).
+__device__ __forceinline__ void pack_weight_tiles(uint8_t* dst,
+                                                  const float* __restrict__ w,
+                                                  const float* neg, int c0,
+                                                  int rows, int threads) {
+  for (int i = threadIdx.x; i < rows * kWCin; i += threads) {
+    const int c = i >> 6, k = i & 63;
+    const float v = w[(long long)(c0 + c) * kWCin + k];
+    const float s = neg != nullptr && neg[c0 + c] < 0.0f ? -v : v;
+    *reinterpret_cast<uint16_t*>(dst + (c >> 6) * kWBChunkBytes +
+                                 tile_at(c & 63, k)) = (uint16_t)bf16_bits(s);
+  }
+}
+
+// K1's shared memory: bf16(g1t) tiles, bf16(w2) tiles [8][64] per chunk
+// (rows 2..7 zero), each warpgroup's ring of x tiles, c1, and each ring's
+// barriers.
 constexpr size_t fwd_wide_bf16_smem_bytes(int cmid) {
-  return sizeof(uint16_t) * 2 * kWCin * kWBSX +
-         sizeof(uint2) * (size_t)(cmid / 8) * kWBKs * 32 +
-         sizeof(float) * (size_t)(cmid / 8) * 4 * 8;
+  return 1024 + (size_t)(cmid / 64) * (kWBChunkBytes + 1024) +
+         (size_t)kK1WG * kWBStages * (kWBTileBytes + sizeof(uint64_t)) +
+         sizeof(float) * (size_t)cmid;
 }
 
 template <bool kVec>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-pf_head_fwd_wide_bf16_kernel(const uint16_t* __restrict__ x,
+__global__ void __launch_bounds__(kK1WG * 128, 1)
+pf_head_fwd_wide_bf16_kernel(const __grid_constant__ WideMaps maps,
+                             const uint16_t* __restrict__ x,
                              const float* __restrict__ g1t,
                              const float* __restrict__ c1,
                              const float* __restrict__ w2,
                              const float* __restrict__ b2,
                              uint16_t* __restrict__ out, int hw, int tpi,
                              int ntiles, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  const int ntn = cmid / 8;
-  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][64][kWBSX]
-  uint2* s_b = reinterpret_cast<uint2*>(s_x + 2 * kWCin * kWBSX);
-  float* s_c = reinterpret_cast<float*>(s_b + ntn * kWBKs * 32);
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const int nch = cmid / 64;
+  uint8_t* s_w = smem_1k(smem_raw);                  // [nch] g1t tiles
+  uint8_t* s_w2 = s_w + nch * kWBChunkBytes;         // [nch][8][64]
+  uint8_t* s_ring = s_w2 + nch * 1024;
+  float* s_c1 = reinterpret_cast<float*>(s_ring + kK1WG * kWBStages *
+                                                      kWBTileBytes);
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_c1 + cmid);
 
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
+  const int wg = t >> 7, tw = t & 127;
+  const int lane = t & 31, warp = (t >> 5) & 3;
   const int gid = lane >> 2, tig = lane & 3;
+  const int stride = gridDim.x * kK1WG;
+  uint8_t* ring = s_ring + wg * kWBStages * kWBTileBytes;
+  uint64_t* bars = s_bar + wg * kWBStages;
 
-  int tile = blockIdx.x;
-  if (tile < ntiles) load_wide_bf16_tile<kVec>(x, s_x, tile, tpi, hw);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  pack_cin_fragments(s_b, g1t, cmid);
-  for (int i = t; i < ntn * 4; i += kFwdThreads) {
-    const int ch = (i >> 2) * 8 + 2 * (i & 3);
-    float* c = s_c + i * 8;
-    c[0] = c1[ch];
-    c[1] = c1[ch + 1];
-    c[2] = 0.0f;
-    c[3] = 0.0f;
-    c[4] = round_bf16(w2[ch]);
-    c[5] = round_bf16(w2[ch + 1]);
-    c[6] = round_bf16(w2[cmid + ch]);
-    c[7] = round_bf16(w2[cmid + ch + 1]);
+  int tile = blockIdx.x * kK1WG + wg;
+  if (kVec && tw == 0) {
+    for (int s = 0; s < kWBStages; ++s) mbar_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  for (int s = 0; s < kWBStages - 1; ++s) {
+    const int tl = tile + s * stride;
+    if (tl < ntiles) {
+      load_wide_bf16_stage<kVec, false>(ring + s * kWBTileBytes, maps,
+                                        bars + s, x, nullptr, tl, tpi, hw, tw);
+    }
+  }
+  pack_weight_tiles(s_w, g1t, nullptr, 0, cmid, kK1WG * 128);
+  for (int i = t; i < cmid * 8; i += kK1WG * 128) {
+    const int c = i >> 3, o = i & 7;
+    *reinterpret_cast<uint16_t*>(s_w2 + (c >> 6) * 1024 + tile_at(o, c & 63)) =
+        o < kCout ? (uint16_t)bf16_bits(w2[o * cmid + c]) : (uint16_t)0;
+  }
+  for (int c = t; c < cmid; c += kK1WG * 128) s_c1[c] = c1[c];
   const float b2_0 = b2[0], b2_1 = b2[1];
+  fence_async_smem();
+  __syncthreads();  // the weights in; no block-wide barrier after this
 
-  int buf = 0;
-  for (; tile < ntiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // this tile's x in; the tile before done by all
-    const int next = tile + gridDim.x;
-    if (next < ntiles) {
-      load_wide_bf16_tile<kVec>(x, s_x + (buf ^ 1) * kWCin * kWBSX, next,
-                                tpi, hw);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const uint16_t* sx = s_x + buf * kWCin * kWBSX;
-    uint32_t a[2][kWBKs][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      cin_a_fragments<kWBSX>(sx, warp * 32 + mt * 16, lane, a[mt]);
-    }
-
-    // acc[mt][px][o]: output o of pixel gid + 8 px of m-tile mt, summed
-    // over the lane's channels (register r of a product: pixel gid + 8
-    // (r >> 1), channel nt * 8 + 2 tig + (r & 1)).
-    float acc[2][2][2] = {};
-    for (int nt = 0; nt < ntn; ++nt) {
-      uint32_t b[kWBKs][2];
-#pragma unroll
-      for (int ks = 0; ks < kWBKs; ++ks) {
-        const uint2 bf = s_b[(nt * kWBKs + ks) * 32 + lane];
-        b[ks][0] = bf.x;
-        b[ks][1] = bf.y;
+  int i = 0;
+  for (; tile < ntiles; tile += stride, ++i) {
+    wait_stage<kVec, kWBStages>(bars, i);
+    fence_async_smem();
+    named_sync(1 + wg, 128);  // this tile's x in; the tile before done
+    {
+      const int next = tile + (kWBStages - 1) * stride;
+      if (next < ntiles) {
+        load_wide_bf16_stage<kVec, false>(
+            ring + (i + kWBStages - 1) % kWBStages * kWBTileBytes, maps,
+            bars + (i + kWBStages - 1) % kWBStages, x, nullptr, next, tpi,
+            hw, tw);
       }
-      const float* cq = s_c + (nt * 4 + tig) * 8;
-      const float2 c = *reinterpret_cast<const float2*>(cq);
-      const float4 w = *reinterpret_cast<const float4*>(cq + 4);
-      const float c1r[4] = {c.x, c.y, c.x, c.y};
-      const float wo[2][2] = {{w.x, w.y}, {w.z, w.w}};  // [o][channel]
+    }
+    uint32_t xa[4][4];
+    x_fragments(ring + i % kWBStages * kWBTileBytes, warp, lane, xa);
+
+    // mid[h]: mid^T of chunk c + h (register 4j + r: pixel 16 warp + gid +
+    // 8 (r >> 1), channel 64 (c + h) + 8j + 2 tig + (r & 1)); ra[h]: its
+    // bf16(relu(mid + c1)) as the A operand of out^T, per k-step; acc:
+    // out^T (register r: pixel gid + 8 (r >> 1), output 2 tig + (r & 1)).
+    float mid[2][32];
+    uint32_t ra[2][4][4];
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < nch; c += 2) {
+      wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        float d[4];
-        mma_bf16(d, a[mt][0], b[0], c1r);
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t wb = tile_desc(s_w + (c + h) * kWBChunkBytes);
 #pragma unroll
-        for (int ks = 1; ks < kWBKs; ++ks) mma_bf16(d, a[mt][ks], b[ks], d);
+        for (int ks = 0; ks < kWCin / 16; ++ks) {
+          wgmma_bf16_rs<0>(mid[h], xa[ks], wb + kKStep * ks, ks != 0);
+        }
+        wgmma_commit();
+      }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float rr = round_bf16(fmaxf(d[r], 0.0f));
-          const int px = r >> 1, ch = r & 1;
-          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);
-          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);
+      for (int h = 0; h < 2; ++h) {
+        // mid of chunk c + h in (and every product before it). Each 16
+        // channels' out^T product is issued as soon as its operand is
+        // formed.
+        wgmma_wait<1>();
+        fence_acc(mid[h]);
+        const uint64_t wo = tile_desc(s_w2 + (c + h) * 1024);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+          for (int j = 2 * ks; j < 2 * ks + 2; ++j) {
+            const float2 cc = *reinterpret_cast<const float2*>(
+                s_c1 + 64 * (c + h) + 8 * j + 2 * tig);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              ra[h][ks][a_slot(j, hh)] =
+                  cvt_relu_bf16x2(mid[h][4 * j + 2 * hh] + cc.x,
+                                  mid[h][4 * j + 2 * hh + 1] + cc.y);
+            }
+          }
+          wgmma_fence();
+          wgmma_bf16_rs_n8(acc, ra[h][ks], wo + kKStep * ks, 1);
+        }
+        wgmma_commit();
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (tig == 0) {
+      const int n = tile / tpi;
+      const int s = (tile - n * tpi) * kWBTile + 16 * warp + gid;
+      uint16_t* o0 = out + (long long)n * kCout * hw;
+      uint16_t* o1 = o0 + hw;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (s + 8 * h < hw) {
+          o0[s + 8 * h] = (uint16_t)bf16_bits(acc[2 * h] + b2_0);
+          o1[s + 8 * h] = (uint16_t)bf16_bits(acc[2 * h + 1] + b2_1);
         }
       }
     }
-
-    // Fold the sums over the lane quad; store bf16(sum + b2).
-    const int n = tile / tpi;
-    const int s0 = (tile - n * tpi) * kWBTile + warp * 32 + gid;
-    const int px = tig >> 1, o = tig & 1;
-    uint16_t* on = out + ((long long)n * kCout + o) * hw;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      float keep[2];
-#pragma unroll
-      for (int oo = 0; oo < 2; ++oo) {
-        const float mine = px ? acc[mt][1][oo] : acc[mt][0][oo];
-        const float other = px ? acc[mt][0][oo] : acc[mt][1][oo];
-        keep[oo] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
-      }
-      const float mine = o ? keep[1] : keep[0];
-      const float other = o ? keep[0] : keep[1];
-      const float v = mine + __shfl_xor_sync(0xffffffffu, other, 1);
-      const int s = s0 + mt * 16 + 8 * px;
-      if (s < hw) on[s] = (uint16_t)bf16_bits(v + (o ? b2_1 : b2_0));
-    }
-    buf ^= 1;
   }
 }
 
-// The dx kernel's shared memory: the double buffers of x [64][kWBSX] and g
-// [2][kWBSX]; bf16(w1t)'s B fragments for mid (K = Cin) and bf16(w1)'s for
-// dx (K = 16 channels, N = 8 of Cin), 64 KB each at Cmid 512; and per
-// channel (gis, c1, w2gis[0], w2gis[1]).
+// The dx kernel's shared memory: bf16(w1t') tiles, (thr, w2gis'[0],
+// w2gis'[1], 0) per channel, each warpgroup's ring of x and g tiles.
 constexpr size_t bwd_wide_bf16_dx_smem_bytes(int cmid) {
-  return sizeof(uint16_t) * 2 * (kWCin + kCout) * kWBSX +
-         2 * sizeof(uint2) * (size_t)(cmid / 8) * kWBKs * 32 +
-         sizeof(float4) * (size_t)cmid;
+  return 1024 + (size_t)(cmid / 64) * kWBChunkBytes +
+         sizeof(float4) * (size_t)cmid +
+         (size_t)kDxWG * kWBStages * (kWBStage + sizeof(uint64_t));
+}
+
+// The sign of gis[c] (the mask's orientation; +1 at 0) and w2gis' of it.
+__device__ __forceinline__ float4 mask_params(const float* gis,
+                                              const float* c1,
+                                              const float* w2gis, int c) {
+  const float s = gis[c] < 0.0f ? -1.0f : 1.0f;
+  return make_float4(relu_threshold(fabsf(gis[c]), c1[c]),
+                     s * w2gis[c * kCout], s * w2gis[c * kCout + 1], s);
 }
 
 template <bool kVec>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-pf_head_bwd_wide_bf16_dx_kernel(const uint16_t* __restrict__ x,
+__global__ void __launch_bounds__(kDxWG * 128, 1)
+pf_head_bwd_wide_bf16_dx_kernel(const __grid_constant__ WideMaps maps,
+                                const uint16_t* __restrict__ x,
                                 const uint16_t* __restrict__ g,
                                 const float* __restrict__ w1t,
                                 const float* __restrict__ gis,
@@ -2896,323 +3140,544 @@ pf_head_bwd_wide_bf16_dx_kernel(const uint16_t* __restrict__ x,
                                 const float* __restrict__ w2gis,
                                 uint16_t* __restrict__ dx, int hw, int tpi,
                                 int ntiles, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  const int ntn = cmid / 8;
-  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][64][kWBSX]
-  uint16_t* s_g = s_x + 2 * kWCin * kWBSX;            // [2][2][kWBSX]
-  uint2* s_bm = reinterpret_cast<uint2*>(s_g + 2 * kCout * kWBSX);
-  uint2* s_bd = s_bm + ntn * kWBKs * 32;
-  float4* s_k = reinterpret_cast<float4*>(s_bd + ntn * kWBKs * 32);
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const int nch = cmid / 64;
+  uint8_t* s_w = smem_1k(smem_raw);                  // [nch] w1t' tiles
+  float4* s_p = reinterpret_cast<float4*>(s_w + nch * kWBChunkBytes);
+  uint8_t* s_ring = reinterpret_cast<uint8_t*>(s_p + cmid);
+  uint64_t* s_bar =
+      reinterpret_cast<uint64_t*>(s_ring + kDxWG * kWBStages * kWBStage);
 
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
+  const int wg = t >> 7, tw = t & 127;
+  const int lane = t & 31, warp = (t >> 5) & 3;
   const int gid = lane >> 2, tig = lane & 3;
+  const int stride = gridDim.x * kDxWG;
+  uint8_t* ring = s_ring + wg * kWBStages * kWBStage;
+  uint64_t* bars = s_bar + wg * kWBStages;
 
-  int tile = blockIdx.x;
-  auto load = [&](int tl, int b) {
-    const int n = tl / tpi;
-    const int s0 = (tl - n * tpi) * kWBTile;
-    copy_rows_bf16<kWCin, kWBTile, kWBSX, kFwdThreads, kVec>(
-        s_x + b * kWCin * kWBSX, x + (long long)n * kWCin * hw, x, s0, hw);
-    copy_rows_bf16<kCout, kWBTile, kWBSX, kFwdThreads, kVec>(
-        s_g + b * kCout * kWBSX, g + (long long)n * kCout * hw, g, s0, hw);
-  };
-  if (tile < ntiles) load(tile, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  pack_cin_fragments(s_bm, w1t, cmid);
-  // B fragments of dx (col; K = channels 16 ks .. 16 ks + 15, N = Cin 8 nt
-  // .. 8 nt + 7): entry (ks * 8 + nt) * 32 + lane holds bf16(w1)[n][c] =
-  // bf16(w1t[c][n]) at n = 8 nt + lane / 4, c = 16 ks + 2 (lane % 4), + 1
-  // and + 8, + 9.
-  for (int i = t; i < cmid / 16 * 8 * 32; i += kFwdThreads) {
-    const int l = i & 31, nt = (i >> 5) & 7, ks = i >> 8;
-    const float* w = w1t + (ks * 16 + 2 * (l & 3)) * kWCin + nt * 8 + (l >> 2);
-    s_bd[i] = make_uint2(pack_bf16(w[0], w[kWCin]),
-                         pack_bf16(w[8 * kWCin], w[9 * kWCin]));
+  int tile = blockIdx.x * kDxWG + wg;
+  if (kVec && tw == 0) {
+    for (int s = 0; s < kWBStages; ++s) mbar_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int c = t; c < cmid; c += kFwdThreads) {
-    s_k[c] = make_float4(gis[c], c1[c], w2gis[c * kCout],
-                         w2gis[c * kCout + 1]);
+  for (int s = 0; s < kWBStages - 1; ++s) {
+    const int tl = tile + s * stride;
+    if (tl < ntiles) {
+      load_wide_bf16_stage<kVec, true>(ring + s * kWBStage, maps, bars + s, x,
+                                       g, tl, tpi, hw, tw);
+    }
   }
+  pack_weight_tiles(s_w, w1t, gis, 0, cmid, kDxWG * 128);
+  for (int c = t; c < cmid; c += kDxWG * 128) {
+    s_p[c] = mask_params(gis, c1, w2gis, c);
+  }
+  fence_async_smem();
+  __syncthreads();  // the weights in; no block-wide barrier after this
 
-  int buf = 0;
-  for (; tile < ntiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // this tile's x and g in; the tile before done by all
-    const int next = tile + gridDim.x;
-    if (next < ntiles) load(next, buf ^ 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    uint16_t* sx = s_x + buf * kWCin * kWBSX;
-    const uint16_t* sg = s_g + buf * kCout * kWBSX;
-
-    uint32_t ax[2][kWBKs][4];
-    // gv[mt][px][o]: g[o] at pixel gid + 8 px of m-tile mt.
-    float gv[2][2][2];
+  int i = 0;
+  for (; tile < ntiles; tile += stride, ++i) {
+    wait_stage<kVec, kWBStages>(bars, i);
+    fence_async_smem();
+    named_sync(1 + wg, 128);  // this tile in; the tile before stored
+    {
+      const int next = tile + (kWBStages - 1) * stride;
+      if (next < ntiles) {
+        load_wide_bf16_stage<kVec, true>(
+            ring + (i + kWBStages - 1) % kWBStages * kWBStage, maps,
+            bars + (i + kWBStages - 1) % kWBStages, x, g, next, tpi, hw, tw);
+      }
+    }
+    uint8_t* st = ring + i % kWBStages * kWBStage;
+    uint32_t xa[4][4];
+    x_fragments(st, warp, lane, xa);
+    // g at the lane's pixels 16 warp + gid + 8 h: gv[h][o].
+    float gv[2][2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int p = warp * 32 + mt * 16;
-      cin_a_fragments<kWBSX>(sx, p, lane, ax[mt]);
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int px = 0; px < 2; ++px) {
-#pragma unroll
-        for (int o = 0; o < kCout; ++o) {
-          gv[mt][px][o] = bf16_value(sg[o * kWBSX + p + gid + 8 * px]);
-        }
+      for (int o = 0; o < kCout; ++o) {
+        gv[h][o] = bf16_value(*reinterpret_cast<const uint16_t*>(
+            st + kWBTileBytes + tile_at(o, 16 * warp + gid + 8 * h)));
       }
     }
 
-    // dacc[mt][nt][r]: dx^T of pixel gid + 8 (r >> 1) of m-tile mt, Cin
-    // index 8 nt + 2 tig + (r & 1).
-    float dacc[2][8][4] = {};
-    for (int ks = 0; ks < cmid / 16; ++ks) {
-      // ae[mt]: the A fragment (K = channels 16 ks .. 16 ks + 15) of
-      // bf16(e), from mid's accumulators of n-tiles 2 ks (registers 0, 1)
-      // and 2 ks + 1 (registers 2, 3).
-      uint32_t ae[2][4];
+    // mid: mid'^T of chunk c (register 4j + r: pixel 16 warp + gid + 8 (r
+    // >> 1), channel 64 c + 8j + 2 tig + (r & 1)); ea: its bf16(e') as the
+    // A operand of dx^T, per k-step; dxa: dx^T (register 4j + r: that
+    // pixel, Cin index 8j + 2 tig + (r & 1)). Chunk c + 1's mid is issued
+    // behind chunk c's dx products.
+    float mid[32];
+    uint32_t ea[4][4];
+    float dxa[32];
+    wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int nt = 2 * ks + h;
-        uint32_t b[kWBKs][2];
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_bf16_rs<0>(mid, xa[ks], tile_desc(s_w) + kKStep * ks, ks != 0);
+    }
+    wgmma_commit();
+    for (int c = 0; c < nch; ++c) {
+      // mid' of chunk c in, and every product before it. Each 16 channels'
+      // dx products are issued as soon as their e' is formed, and run
+      // while the epilogue forms the next 16 channels'.
+      wgmma_wait<0>();
+      fence_acc(mid);
+      const uint64_t wd = tile_desc(s_w + c * kWBChunkBytes);
 #pragma unroll
-        for (int k = 0; k < kWBKs; ++k) {
-          const uint2 bf = s_bm[(nt * kWBKs + k) * 32 + lane];
-          b[k][0] = bf.x;
-          b[k][1] = bf.y;
-        }
-        const int ch = nt * 8 + 2 * tig;
-        const float4 kc[2] = {s_k[ch], s_k[ch + 1]};
+      for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int j = 2 * ks; j < 2 * ks + 2; ++j) {
+          const float4* q = s_p + 64 * c + 8 * j + 2 * tig;
+          const float4 p[2] = {q[0], q[1]};
 #pragma unroll
-          for (int k = 0; k < kWBKs; ++k) mma_bf16(d, ax[mt][k], b[k], d);
-          // Register r: pixel gid + 8 (r >> 1), channel ch + (r & 1).
-          float e[4];
+          for (int hh = 0; hh < 2; ++hh) {
+            float e[2];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float4 q = kc[r & 1];
-            const float* gp = gv[mt][r >> 1];
-            const float eun = fmaf(q.z, gp[0], q.w * gp[1]);
-            e[r] = fmaf(q.x, d[r], q.y) > 0.0f ? eun : 0.0f;
+            for (int cc = 0; cc < 2; ++cc) {
+              const float on = set_gt(mid[4 * j + 2 * hh + cc], p[cc].x);
+              e[cc] = on * fmaf(p[cc].y, gv[hh][0], p[cc].z * gv[hh][1]);
+            }
+            ea[ks][a_slot(j, hh)] = cvt_bf16x2(e[0], e[1]);
           }
-          ae[mt][2 * h] = pack_bf16(e[0], e[1]);
-          ae[mt][2 * h + 1] = pack_bf16(e[2], e[3]);
+        }
+        wgmma_fence();
+        wgmma_bf16_rs<1>(dxa, ea[ks], wd + kMNStep * ks, c != 0 || ks != 0);
+      }
+      if (c + 1 < nch) {
+        const uint64_t wb = tile_desc(s_w + (c + 1) * kWBChunkBytes);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wgmma_bf16_rs<0>(mid, xa[ks], wb + kKStep * ks, ks != 0);
         }
       }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint2 bf = s_bd[(ks * 8 + nt) * 32 + lane];
-        const uint32_t b[2] = {bf.x, bf.y};
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(dacc[mt][nt], ae[mt], b, dacc[mt][nt]);
-        }
-      }
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    fence_acc(dxa);
+    named_sync(1 + wg, 128);  // every product of the tile done: x free
 
-    // dx through the x tile (every warp has read its fragments) to
-    // 16-byte stores.
-    __syncthreads();
+    // dx^T by stmatrix.trans into the x tile ([Cin][px], tile_at): per
+    // call Cin groups j, j + 1 at pixels 16 warp + 0..7 and + 8..15; lane l
+    // gives row l & 7 of matrix l >> 3.
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int k = nt * 8 + 2 * tig + (r & 1);
-          const int p = warp * 32 + mt * 16 + gid + 8 * (r >> 1);
-          sx[k * kWBSX + p] = (uint16_t)bf16_bits(dacc[mt][nt][r]);
-        }
-      }
+    for (int j = 0; j < 8; j += 2) {
+      const uint32_t r[4] = {cvt_bf16x2(dxa[4 * j], dxa[4 * j + 1]),
+                             cvt_bf16x2(dxa[4 * j + 2], dxa[4 * j + 3]),
+                             cvt_bf16x2(dxa[4 * j + 4], dxa[4 * j + 5]),
+                             cvt_bf16x2(dxa[4 * j + 6], dxa[4 * j + 7])};
+      const int m = lane >> 3;
+      stsm_x4_trans(st + tile_at(8 * (j + (m >> 1)) + (lane & 7),
+                                 16 * warp + 8 * (m & 1)),
+                    r);
     }
-    __syncthreads();
+    named_sync(1 + wg, 128);
     {
       const int n = tile / tpi;
       const int s0 = (tile - n * tpi) * kWBTile;
       uint16_t* dn = dx + (long long)n * kWCin * hw;
       if (kVec) {
-        for (int i = t; i < kWCin * kWBTile / 8; i += kFwdThreads) {
-          const int k = i / (kWBTile / 8), q = i % (kWBTile / 8) * 8;
-          if (s0 + q < hw) {
-            *reinterpret_cast<uint4*>(dn + (long long)k * hw + s0 + q) =
-                *reinterpret_cast<const uint4*>(sx + k * kWBSX + q);
+#pragma unroll
+        for (int k = tw; k < kWCin * 8; k += 128) {
+          const int r = k >> 3, b = k & 7;
+          if (s0 + 8 * b < hw) {
+            *reinterpret_cast<uint4*>(dn + (long long)r * hw + s0 + 8 * b) =
+                *reinterpret_cast<const uint4*>(st + tile_at(r, 8 * b));
           }
         }
       } else {
-        for (int i = t; i < kWCin * kWBTile; i += kFwdThreads) {
-          const int k = i / kWBTile, p = i % kWBTile;
-          if (s0 + p < hw) dn[(long long)k * hw + s0 + p] = sx[k * kWBSX + p];
+        for (int k = tw; k < kWCin * 64; k += 128) {
+          const int r = k >> 6, p = k & 63;
+          if (s0 + p < hw) {
+            dn[(long long)r * hw + s0 + p] =
+                *reinterpret_cast<const uint16_t*>(st + tile_at(r, p));
+          }
         }
       }
     }
-    buf ^= 1;
   }
 }
 
+// The sums kernel's blocks: kSumsWG warpgroups of 128 channels each, on
+// one ring of x and g tiles, taking turns at the tensor cores (named
+// barriers kSumsTurn + w: warpgroup w's turn).
+constexpr int kSumsWG = 2;
+constexpr int kSumsTurn = 1;
+static_assert(kSumsWG == kSumsSub, "each warpgroup loads one sub-tile");
+
 constexpr size_t kWBSumsSmemBytes =
-    sizeof(uint16_t) * 2 * (kWCin + kCout) * kWBSSX;
+    1024 + 2 * kSumsWG * kWBChunkBytes +
+    (size_t)kWBSStages * (kWBSStage + sizeof(uint64_t));
+
+// The sums kernel's epilogue over pixels 16 ks .. 16 ks + 15 of mid' [64
+// ch, 64 px] of one half (register 4j + r: channel 16 warp + gid + 8 (r >>
+// 1) of the half, pixel 8j + 2 tig + (r & 1)): the mask, e' and M1'
+// (fp32), and bf16(e') and the mask as k-step ks of the A operands (K =
+// pixels) of dw1'^T and M0.
+__device__ __forceinline__ void sums_epilogue(const float (&mid)[32],
+                                              const float4* gf, int tig,
+                                              const float4 (&p)[2], int ks,
+                                              float (&m1)[2][2],
+                                              uint32_t (&ea)[4][4],
+                                              uint32_t (&ma)[4][4]) {
+#pragma unroll
+  for (int j = 2 * ks; j < 2 * ks + 2; ++j) {
+    // (g0, g1) of pixels 8j + 2 tig and + 1.
+    const float4 gq = gf[4 * j + tig];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float e[2], on[2];
+#pragma unroll
+      for (int px = 0; px < 2; ++px) {
+        const float v = mid[4 * j + 2 * hh + px];
+        const float g0 = px ? gq.z : gq.x, g1 = px ? gq.w : gq.y;
+        on[px] = set_gt(v, p[hh].x);
+        e[px] = on[px] * fmaf(p[hh].y, g0, p[hh].z * g1);
+        const float mm = on[px] * v;
+        m1[hh][0] = fmaf(mm, g0, m1[hh][0]);
+        m1[hh][1] = fmaf(mm, g1, m1[hh][1]);
+      }
+      ea[j >> 1][a_slot(j, hh)] = cvt_bf16x2(e[0], e[1]);
+      ma[j >> 1][a_slot(j, hh)] = mask_pair(on[0], on[1]);
+    }
+  }
+}
+
+// dw1'^T and M0 of half h over one 64-pixel sub-tile (x and g tiles at
+// xg), A from the epilogue's registers.
+__device__ __forceinline__ void sums_products(float (&dw)[32], float (&m0)[4],
+                                              const uint32_t (&ea)[4][4],
+                                              const uint32_t (&ma)[4][4],
+                                              const uint8_t* xg) {
+  const uint64_t xd = tile_desc(xg), gd = tile_desc(xg + kWBTileBytes);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_bf16_rs<0>(dw, ea[ks], xd + kKStep * ks, 1);
+    wgmma_bf16_rs_n8(m0, ma[ks], gd + kKStep * ks, 1);
+  }
+}
 
 template <bool kVec>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-pf_head_bwd_wide_bf16_sums_kernel(const uint16_t* __restrict__ x,
+__global__ void __launch_bounds__(kSumsWG * 128, 1)
+pf_head_bwd_wide_bf16_sums_kernel(const __grid_constant__ WideMaps maps,
+                                  const uint16_t* __restrict__ x,
                                   const uint16_t* __restrict__ g,
                                   const float* __restrict__ w1t,
                                   const float* __restrict__ gis,
                                   const float* __restrict__ c1,
                                   const float* __restrict__ w2gis,
                                   float* __restrict__ partial, int hw,
-                                  int tpi, long long ntiles, int cmid) {
-  extern __shared__ __align__(16) float smem[];
-  uint16_t* s_x = reinterpret_cast<uint16_t*>(smem);  // [2][64][kWBSSX]
-  uint16_t* s_g = s_x + 2 * kWCin * kWBSSX;           // [2][2][kWBSSX]
+                                  int tpi, int ntiles, int cmid) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* s_w = smem_1k(smem_raw);  // [kSumsWG][2] w1t' tiles
+  uint8_t* s_ring = s_w + 2 * kSumsWG * kWBChunkBytes;
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_ring + kWBSStages *
+                                                             kWBSStage);
 
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
+  const int wg = t >> 7, tw = t & 127;
+  const int lane = t & 31, warp = (t >> 5) & 3;
   const int gid = lane >> 2, tig = lane & 3;
+  // The block's row of sums (its tiles: row, row + rows, ...); its
+  // channels from cb, warpgroup wg's cw..cw+127. A warpgroup past Cmid
+  // (Cmid an odd multiple of 128) computes on zero weights and stores
+  // nothing: no branch around its products, which ptxas would serialise.
+  const int row = blockIdx.x, rows = gridDim.x;
+  const int cb = blockIdx.y * 128 * kSumsWG;
+  const int cw = cb + 128 * wg;
+  const bool active = cw < cmid;
 
-  auto load = [&](long long tl, int b) {
-    const long long n = tl / tpi;
-    const int s0 = (int)(tl - n * tpi) * kWBSTile;
-    copy_rows_bf16<kWCin, kWBSTile, kWBSSX, kBwdThreads, kVec>(
-        s_x + b * kWCin * kWBSSX, x + n * kWCin * hw, x, s0, hw);
-    copy_rows_bf16<kCout, kWBSTile, kWBSSX, kBwdThreads, kVec>(
-        s_g + b * kCout * kWBSSX, g + n * kCout * hw, g, s0, hw);
-  };
-  long long tile = blockIdx.x;
-  if (tile < ntiles) load(tile, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  // The lane's two channels, rows gid and gid + 8 of the warp's 16; A of
-  // mid [ch, px] (row; K = Cin): bf16(w1t) of both at k = 16 ks + 2 tig,
-  // + 1 and + 8, + 9.
-  const int ca = blockIdx.y * kWSumChunk + warp * 16 + gid, cb = ca + 8;
-  uint32_t am[kWBKs][4];
-#pragma unroll
-  for (int ks = 0; ks < kWBKs; ++ks) {
-    const float* wa = w1t + ca * kWCin + ks * 16 + 2 * tig;
-    const float* wb = w1t + cb * kWCin + ks * 16 + 2 * tig;
-    am[ks][0] = pack_bf16(wa[0], wa[1]);
-    am[ks][1] = pack_bf16(wb[0], wb[1]);
-    am[ks][2] = pack_bf16(wa[8], wa[9]);
-    am[ks][3] = pack_bf16(wb[8], wb[9]);
+  // Rows 2..7 of each g tile stay 0 (B of M0 has 8 rows); the first
+  // sub-tile (x and g) starts at 0 (the first turn's products, and the
+  // last ones of a block without tiles, read it with zero A operands).
+  for (int i = t; i < kWBSStages * kSumsSub * 48; i += kSumsWG * 128) {
+    const int s = i / 48, r = 2 + (i % 48) / 8, b = i % 8;
+    *reinterpret_cast<uint4*>(s_ring + s / kSumsSub * kWBSStage +
+                              s % kSumsSub * kWBStage + kWBTileBytes +
+                              tile_at(r, 8 * b)) = make_uint4(0, 0, 0, 0);
   }
-  const float gis_c[2] = {gis[ca], gis[cb]};
-  const float c1_c[2] = {c1[ca], c1[cb]};
-  const float w2_c[2][2] = {{w2gis[ca * kCout], w2gis[ca * kCout + 1]},
-                            {w2gis[cb * kCout], w2gis[cb * kCout + 1]}};
+  for (int i = t; i < kWBStage / 16; i += kSumsWG * 128) {
+    reinterpret_cast<uint4*>(s_ring)[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (kVec && t == 0) {
+    for (int s = 0; s < kWBSStages; ++s) mbar_init(s_bar + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async_smem();
+  __syncthreads();  // before the loads write the same bytes
+  int tile = row;
+  for (int s = 0; s < kSumsAhead; ++s) {
+    const int tl = tile + s * rows;
+    if (tl < ntiles) {
+      load_sums_stage<kVec>(s_ring + s * kWBSStage, maps, s_bar + s, x, g, tl,
+                            tpi, hw, wg, tw);
+    }
+  }
+  pack_weight_tiles(s_w, w1t, gis, cb, min(128 * kSumsWG, cmid - cb),
+                    kSumsWG * 128);
+  if (!active) {
+    for (int i = tw; i < 2 * kWBChunkBytes / 16; i += 128) {
+      reinterpret_cast<uint4*>(s_w + 2 * wg * kWBChunkBytes)[i] =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  // The lane's channels: half h, row half hh: cw + 64 h + 16 warp + gid +
+  // 8 hh; (thr, w2gis'[0], w2gis'[1], sign) of each.
+  float4 p[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      p[h][hh] = active ? mask_params(gis, c1, w2gis,
+                                      cw + 64 * h + 16 * warp + gid + 8 * hh)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
 
-  // dw[nt][r]: dw1^T of channel (r < 2 ? ca : cb) and Cin index 8 nt + 2
-  // tig + (r & 1).
-  float dw[8][4] = {};
-  float m0[2][2] = {}, m1[2][2] = {};  // [channel ca / cb][o]
-  float db[2] = {};
-
-  int buf = 0;
-  for (; tile < ntiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // this tile's x and g in; the tile before done by all
-    const long long next = tile + gridDim.x;
-    if (next < ntiles) load(next, buf ^ 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const uint16_t* sx = s_x + buf * kWCin * kWBSSX;
-    const uint16_t* sg = s_g + buf * kCout * kWBSSX;
-
-#pragma unroll 1
-    for (int p0 = 0; p0 < kWBSTile; p0 += 16) {
-      uint32_t ae[4];
+  // Block sums: dw[h] dw1'^T of half h (register 4j + r: channel row gid +
+  // 8 (r >> 1), Cin index 8j + 2 tig + (r & 1)); m0[h] M0 (register r:
+  // that channel, output 2 tig + (r & 1): tig 0 holds Cout 2); m1[h][hh][o]
+  // M1' per lane; db per thread of warp 0.
+  float dw[2][32];
+  float m0[2][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int pb = p0 + 8 * h;
-        // B of mid (col; K = Cin, N = 8 pixels): pixel pb + gid at k =
-        // 16 ks + 2 tig, + 1 (register 0) and + 8, + 9 (register 1).
-        float mid[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int ks = 0; ks < kWBKs; ++ks) {
-          const uint16_t* xp = sx + (ks * 16 + 2 * tig) * kWBSSX + pb + gid;
-          const uint32_t b[2] = {pack_halves(xp[0], xp[kWBSSX]),
-                                 pack_halves(xp[8 * kWBSSX], xp[9 * kWBSSX])};
-          mma_bf16(mid, am[ks], b, mid);
-        }
-        // Register r: channel (r < 2 ? ca : cb), pixel pb + 2 tig + (r & 1).
-        const int pa = pb + 2 * tig;
-        const float gv[2][2] = {
-            {bf16_value(sg[pa]), bf16_value(sg[pa + 1])},
-            {bf16_value(sg[kWBSSX + pa]), bf16_value(sg[kWBSSX + pa + 1])}};
-        float e[4];
+    for (int r = 0; r < 32; ++r) dw[h][r] = 0.0f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int ch = r >> 1, px = r & 1;
-          const float a = fmaf(gis_c[ch], mid[r], c1_c[ch]);
-          const float mk = a > 0.0f ? 1.0f : 0.0f;
-          const float eun =
-              fmaf(w2_c[ch][0], gv[0][px], w2_c[ch][1] * gv[1][px]);
-          e[r] = mk * eun;
-          const float mm = mk * mid[r];
+    for (int r = 0; r < 4; ++r) m0[h][r] = 0.0f;
+  }
+  float m1[2][2][2] = {};
+  float db[2] = {0.0f, 0.0f};
+  // A of mid [ch, px] (K = Cin): bf16(w1t') of the warp's 16 channels of
+  // half h, all k-steps, by ldmatrix: matrices (ch 16 warp.., Cin 16 ks..),
+  // (ch + 8, Cin), (ch, Cin 16 ks + 8..), (ch + 8, Cin + 8).
+  uint32_t aw[2][4][4];
 #pragma unroll
-          for (int o = 0; o < kCout; ++o) {
-            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);
-            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);
-          }
-        }
-        db[0] += gv[0][0] + gv[0][1];
-        db[1] += gv[1][0] + gv[1][1];
-        // A of dw1^T (row: channels ca, cb; K = pixels p0 + 2 tig, + 1
-        // and + 8, + 9): this n-tile's half.
-        ae[2 * h] = pack_bf16(e[0], e[1]);
-        ae[2 * h + 1] = pack_bf16(e[2], e[3]);
-      }
-      // dw1^T [16 ch, 8 Cin] += bf16(e) (A) x^T (B, col: K = pixels p0 +
-      // 2 tig, + 1 and + 8, + 9 at Cin 8 nt + gid).
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint16_t* xp = sx + (nt * 8 + gid) * kWBSSX + p0 + 2 * tig;
-        const uint32_t b[2] = {load_pair(xp), load_pair(xp + 8)};
-        mma_bf16(dw[nt], ae, b, dw[nt]);
+    for (int ks = 0; ks < 4; ++ks) {
+      const int m = lane >> 3;
+      ldsm_x4(aw[h][ks], s_w + (2 * wg + h) * kWBChunkBytes +
+                             tile_at(16 * warp + 8 * (m & 1) + (lane & 7),
+                                     16 * ks + 8 * (m >> 1)));
+    }
+  }
+  float mid[32];
+  // The epilogue's A operands of dw1 and M0; 0 until the first epilogue,
+  // so that the first tile's first turn adds nothing.
+  uint32_t ea[4][4] = {}, ma[4][4] = {};
+  // The sub-tile (x, g) of the last unit, whose dw1 and M0 are still to
+  // issue.
+  const uint8_t* pend = s_ring;
+  if (wg == 1) named_arrive(kSumsTurn, 128 * kSumsWG);  // warpgroup 0 first
+  int i = 0;
+  for (; tile < ntiles; tile += rows, ++i) {
+    wait_stage<kVec, kWBSStages>(s_bar, i);
+    fence_async_smem();
+    __syncthreads();  // this tile in; every product of the tile 2 back done
+    {
+      // Into the slot of the tile two back.
+      const int next = tile + kSumsAhead * rows;
+      if (next < ntiles) {
+        load_sums_stage<kVec>(
+            s_ring + (i + kSumsAhead) % kWBSStages * kWBSStage, maps,
+            s_bar + (i + kSumsAhead) % kWBSStages, x, g, next, tpi, hw, wg,
+            tw);
       }
     }
-    buf ^= 1;
-  }
+    uint8_t* st = s_ring + i % kWBSStages * kWBSStage;
+    float4* gf = reinterpret_cast<float4*>(st + kSumsSub * kWBStage);
+    if (t < 32) {
+      // g as fp32, (g0, g1) of pixels 2t and 2t + 1 of each sub-tile; db2.
+#pragma unroll
+      for (int q = 0; q < kSumsSub; ++q) {
+        const uint8_t* gt = st + q * kWBStage + kWBTileBytes;
+        const uint32_t g0 = load_pair(
+            reinterpret_cast<const uint16_t*>(gt + tile_at(0, 2 * t)));
+        const uint32_t g1 = load_pair(
+            reinterpret_cast<const uint16_t*>(gt + tile_at(1, 2 * t)));
+        const float4 v = make_float4(
+            __uint_as_float(g0 << 16), __uint_as_float(g1 << 16),
+            __uint_as_float(g0 & 0xffff0000u),
+            __uint_as_float(g1 & 0xffff0000u));
+        gf[32 * q + t] = v;
+        db[0] += v.x + v.z;
+        db[1] += v.y + v.w;
+      }
+    }
+    __syncthreads();  // gf written
 
-  // Fold M0, M1 and db2 over the 4 lanes of a group (same channels, other
-  // pixels).
+    // Units (sub-tile q, half h): in this warpgroup's turn, the dw1 and M0
+    // products of the unit before and the mid' of this one; then, while
+    // the other warpgroup's products run, its epilogue. Each 16 pixels'
+    // operands of dw1 and M0 go out with the next unit's products.
+#pragma unroll
+    for (int u = 0; u < 2 * kSumsSub; ++u) {
+      const int q = u >> 1, h = u & 1;
+      named_sync(kSumsTurn + wg, 128 * kSumsWG);
+      wgmma_fence();
+      if (u > 0) {
+        sums_products(dw[h ^ 1], m0[h ^ 1], ea, ma,
+                      st + ((u - 1) >> 1) * kWBStage);
+      } else {
+        sums_products(dw[1], m0[1], ea, ma, pend);
+      }
+      const uint64_t xd = tile_desc(st + q * kWBStage);
+#pragma unroll
+      for (int ks = 0; ks < kWCin / 16; ++ks) {
+        wgmma_bf16_rs<1>(mid, aw[h][ks], xd + kMNStep * ks, ks != 0);
+      }
+      wgmma_commit();
+      named_arrive(kSumsTurn + (wg ^ 1), 128 * kSumsWG);
+      wgmma_wait<0>();
+      fence_acc(mid);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        sums_epilogue(mid, gf + 32 * q, tig, p[h], ks, m1[h], ea, ma);
+      }
+    }
+    pend = st + (kSumsSub - 1) * kWBStage;
+  }
+  wgmma_fence();
+  sums_products(dw[1], m0[1], ea, ma, pend);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dw[0]);
+  fence_acc(dw[1]);
+  fence_acc(m0[0]);
+  fence_acc(m0[1]);
+  if (wg == 0) named_sync(kSumsTurn, 128 * kSumsWG);  // warpgroup 1's last
+
+  // Fold M1' over the 4 lanes of a group (same channels, other pixels),
+  // db2 over warp 0.
 #pragma unroll
   for (int sh = 1; sh < 4; sh <<= 1) {
 #pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int o = 0; o < kCout; ++o) {
-        m0[ch][o] += __shfl_xor_sync(0xffffffffu, m0[ch][o], sh);
-        m1[ch][o] += __shfl_xor_sync(0xffffffffu, m1[ch][o], sh);
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int o = 0; o < kCout; ++o) {
+          m1[h][hh][o] += __shfl_xor_sync(0xffffffffu, m1[h][hh][o], sh);
+        }
       }
     }
+  }
+#pragma unroll
+  for (int sh = 1; sh < 32; sh <<= 1) {
     db[0] += __shfl_xor_sync(0xffffffffu, db[0], sh);
     db[1] += __shfl_xor_sync(0xffffffffu, db[1], sh);
   }
 
   const long long cols = (long long)kWCin * cmid + 4LL * cmid + kCout;
-  float* row = partial + (long long)blockIdx.x * cols;
+  float* prow = partial + (long long)row * cols;
+  float* m0row = prow + (long long)kWCin * cmid;
+  float* m1row = m0row + 2 * cmid;
+  if (active) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = cw + 64 * h + 16 * warp + gid + 8 * hh;
+        const float s = p[h][hh].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int k = 8 * j + 2 * tig + cc;
+            prow[(long long)k * cmid + c] = s * dw[h][4 * j + 2 * hh + cc];
+          }
+        }
+        if (tig == 0) {
+#pragma unroll
+          for (int o = 0; o < kCout; ++o) {
+            m0row[c * kCout + o] = m0[h][2 * hh + o];
+            m1row[c * kCout + o] = s * m1[h][hh][o];
+          }
+        }
+      }
+    }
+  }
+  if (cb == 0 && t == 0) {
+    prow[cols - 2] = db[0];
+    prow[cols - 1] = db[1];
+  }
+}
+
+// One 64 x 64 x 64 product d = a b^T on bf16 wgmma, for the card tests: a
+// [64][64] (M x K), b [64][64] (N x K) bf16, d [64][64] fp32, one
+// warpgroup, each operand in a tile as the kernels above hold theirs.
+// mode 0: A and B K-major tiles; 1: A and B MN-major ([K][M], [K][N]);
+// 2: A from registers, B K-major; 3: A from registers, B MN-major; 4: A
+// from registers, B K-major, N = 8 (m64n8k16: d's columns 0..7, the rest
+// 0).
+__global__ void __launch_bounds__(128, 1)
+wgmma_bf16_tile_test_kernel(const uint16_t* __restrict__ a,
+                            const uint16_t* __restrict__ b,
+                            float* __restrict__ d, int mode) {
+  __shared__ __align__(1024) uint8_t s_a[kWBTileBytes];
+  __shared__ __align__(1024) uint8_t s_b[kWBTileBytes];
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool mn = mode == 1 || mode == 3;  // B MN-major (A too at mode 1)
+  for (int i = t; i < 64 * 64; i += 128) {
+    const int r = i >> 6, k = i & 63;
+    *reinterpret_cast<uint16_t*>(s_a + (mode == 1 ? tile_at(k, r)
+                                                  : tile_at(r, k))) = a[i];
+    *reinterpret_cast<uint16_t*>(s_b + (mn ? tile_at(k, r) : tile_at(r, k))) =
+        b[i];
+  }
+  fence_async_smem();
+  __syncthreads();
+  uint32_t af[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint16_t* p = a + (warp * 16 + gid) * 64 + ks * 16 + 2 * tig;
+    af[ks][0] = load_pair(p);
+    af[ks][1] = load_pair(p + 8 * 64);
+    af[ks][2] = load_pair(p + 8);
+    af[ks][3] = load_pair(p + 8 * 64 + 8);
+  }
+  float acc[32];
+  float n8[4];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    switch (mode) {
+      case 0:
+        wgmma_bf16_ss<0, 0>(acc, tile_desc(s_a) + kKStep * ks,
+                            tile_desc(s_b) + kKStep * ks, ks != 0);
+        break;
+      case 1:
+        wgmma_bf16_ss<1, 1>(acc, tile_desc(s_a) + kMNStep * ks,
+                            tile_desc(s_b) + kMNStep * ks, ks != 0);
+        break;
+      case 2:
+        wgmma_bf16_rs<0>(acc, af[ks], tile_desc(s_b) + kKStep * ks,
+                         ks != 0);
+        break;
+      case 3:
+        wgmma_bf16_rs<1>(acc, af[ks], tile_desc(s_b) + kMNStep * ks,
+                         ks != 0);
+        break;
+      default:
+        wgmma_bf16_rs_n8(n8, af[ks], tile_desc(s_b) + kKStep * ks, ks != 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_acc(n8);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int k = nt * 8 + 2 * tig + (r & 1);
-      row[(long long)k * cmid + (r < 2 ? ca : cb)] = dw[nt][r];
+      const float v = mode == 4 ? (j == 0 ? n8[r] : 0.0f) : acc[4 * j + r];
+      d[(warp * 16 + gid + 8 * (r >> 1)) * 64 + 8 * j + 2 * tig + (r & 1)] = v;
     }
-  }
-  if (tig == 0) {
-    float* m0row = row + (long long)kWCin * cmid;
-    float* m1row = m0row + 2 * cmid;
-#pragma unroll
-    for (int o = 0; o < kCout; ++o) {
-      m0row[ca * kCout + o] = m0[0][o];
-      m0row[cb * kCout + o] = m0[1][o];
-      m1row[ca * kCout + o] = m1[0][o];
-      m1row[cb * kCout + o] = m1[1][o];
-    }
-  }
-  if (blockIdx.y == 0 && t == 0) {
-    row[cols - 2] = db[0];
-    row[cols - 1] = db[1];
   }
 }
 
@@ -3228,6 +3693,55 @@ int bwd_blocks(long long n, int hw, int tile) {
   const long long ntiles = n * ((hw + tile - 1) / tile);
   const long long want = 2LL * sms;
   return (int)(ntiles < want ? (ntiles > 0 ? ntiles : 1) : want);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda itself); null where the driver has none.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    }
+  }
+  return encode;
+}
+
+// The tensor map of a bf16 [rows][hw] array at base (16-byte aligned, hw a
+// multiple of 8): boxes of box_rows rows by 64 pixels, in the 128-byte
+// swizzle, pixels past hw read as 0 (WideMaps).
+cudaError_t bf16_tile_map(CUtensorMap* map, const void* base, long long rows,
+                          int hw, int box_rows) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)hw, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)hw * sizeof(uint16_t)};
+  const cuuint32_t box[2] = {(cuuint32_t)kWBTile, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// Blocks of the wide bf16 K1 or dx kernel (wgs warpgroups each): one per
+// SM, fewer if there are fewer warpgroup tiles; -1 without a device.
+int wide_bf16_blocks(int ntiles, int wgs) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return -1;
+  }
+  const int want = (ntiles + wgs - 1) / wgs;
+  return want < sms ? want : sms;
 }
 
 }  // namespace
@@ -3539,23 +4053,18 @@ extern "C" int pf_head_fwd_wide_bf16(const void* x, const float* g1t,
   const size_t smem = fwd_wide_bf16_smem_bytes(cmid);
   auto kernel = vec ? pf_head_fwd_wide_bf16_kernel<true>
                     : pf_head_fwd_wide_bf16_kernel<false>;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess ||
-      (err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kFwdThreads, smem)) != cudaSuccess) {
-    return (int)err;
+  WideMaps maps = {};
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && vec) {
+    err = bf16_tile_map(&maps.x, x, n * kWCin, hw, kWCin);
   }
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int blocks = ntiles < sms * per_sm ? ntiles : sms * per_sm;
-  kernel<<<blocks, kFwdThreads, smem, (cudaStream_t)stream>>>(
-      (const uint16_t*)x, g1t, c1, w2, b2, (uint16_t*)out, hw, tpi, ntiles,
-      cmid);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = wide_bf16_blocks(ntiles, kK1WG);
+  if (blocks <= 0) return (int)cudaErrorNoDevice;
+  kernel<<<blocks, kK1WG * 128, smem, (cudaStream_t)stream>>>(
+      maps, (const uint16_t*)x, g1t, c1, w2, b2, (uint16_t*)out, hw, tpi,
+      ntiles, cmid);
   return (int)cudaGetLastError();
 }
 
@@ -3586,7 +4095,8 @@ extern "C" int pf_head_bwd_wide_bf16(const void* x, const void* g,
                        : pf_head_bwd_wide_bf16_dx_kernel<false>;
   auto sums_kernel = vec ? pf_head_bwd_wide_bf16_sums_kernel<true>
                          : pf_head_bwd_wide_bf16_sums_kernel<false>;
-  int device = 0, sms = 0, per_sm = 0;
+  // x and g by the tensor memory accelerator where HW % 8 == 0.
+  WideMaps maps = {};
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(dx_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -3594,25 +4104,24 @@ extern "C" int pf_head_bwd_wide_bf16(const void* x, const void* g,
       (err = cudaFuncSetAttribute(sums_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)kWBSumsSmemBytes)) != cudaSuccess ||
-      (err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, dx_kernel, kFwdThreads, dx_smem)) != cudaSuccess) {
+      (vec && ((err = bf16_tile_map(&maps.x, x, n * kWCin, hw, kWCin)) !=
+                   cudaSuccess ||
+               (err = bf16_tile_map(&maps.g, g, n * kCout, hw, kCout)) !=
+                   cudaSuccess))) {
     return (int)err;
   }
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // Persistent dx blocks, as many as fit on the card at once.
   const int ntiles = (int)(n * tpi);
-  dx_kernel<<<ntiles < sms * per_sm ? ntiles : sms * per_sm, kFwdThreads,
-              dx_smem, s>>>((const uint16_t*)x, (const uint16_t*)g, w1t, gis,
-                            c1, w2gis, (uint16_t*)dx, hw, tpi, ntiles, cmid);
+  const int dx_blocks = wide_bf16_blocks(ntiles, kDxWG);
+  if (dx_blocks <= 0) return (int)cudaErrorNoDevice;
+  dx_kernel<<<dx_blocks, kDxWG * 128, dx_smem, s>>>(
+      maps, (const uint16_t*)x, (const uint16_t*)g, w1t, gis, c1, w2gis,
+      (uint16_t*)dx, hw, tpi, ntiles, cmid);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int stpi = (hw + kWBSTile - 1) / kWBSTile;
-  sums_kernel<<<dim3(blocks, cmid / kWSumChunk), kBwdThreads,
-                kWBSumsSmemBytes, s>>>((const uint16_t*)x, (const uint16_t*)g,
-                                       w1t, gis, c1, w2gis, partial, hw, stpi,
-                                       n * stpi, cmid);
+  const dim3 grid(blocks, (cmid + 128 * kSumsWG - 1) / (128 * kSumsWG));
+  const int stpi = (hw + kWBTile * kSumsSub - 1) / (kWBTile * kSumsSub);
+  sums_kernel<<<grid, 128 * kSumsWG, kWBSumsSmemBytes, s>>>(
+      maps, (const uint16_t*)x, (const uint16_t*)g, w1t, gis, c1, w2gis,
+      partial, hw, stpi, (int)(n * stpi), cmid);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   reduce_rows_kernel<<<(cols + 255) / 256, 256, 0, s>>>(partial, sums, blocks,
                                                         cols);
@@ -3624,5 +4133,15 @@ extern "C" int pf_head_bwd_wide_bf16(const void* x, const void* g,
 extern "C" int wgmma_tf32_tile(const float* a, const float* b, float* d,
                                int mode, void* stream) {
   wgmma_tile_test_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(a, b, d, mode);
+  return (int)cudaGetLastError();
+}
+
+// For the card tests: d [64][64] = a [64][64] b [64][64]^T (bf16 operands)
+// on one warpgroup through wgmma bf16 (see wgmma_bf16_tile_test_kernel for
+// mode).
+extern "C" int wgmma_bf16_tile(const void* a, const void* b, float* d,
+                               int mode, void* stream) {
+  wgmma_bf16_tile_test_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)a, (const uint16_t*)b, d, mode);
   return (int)cudaGetLastError();
 }

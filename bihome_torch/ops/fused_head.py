@@ -70,6 +70,7 @@ _SIGNATURES = {
 }
 _SIGNATURES['pf_head_fwd_wide_bf16'] = _SIGNATURES['pf_head_fwd_bf16']
 _SIGNATURES['pf_head_bwd_wide_bf16'] = _SIGNATURES['pf_head_bwd_bf16']
+_SIGNATURES['wgmma_bf16_tile'] = _SIGNATURES['wgmma_tf32_tile']
 # The largest Cmid the kernels take (kFwdMaxCmid and kWMaxCmid in the
 # source; the wide bf16 ones kWBMaxCmid); the wide ones (Cin 64) take
 # multiples of 128.
@@ -238,9 +239,9 @@ def fused_pf_head_fwd(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
     head, Cmid 128: one kernel, mma.sync) or Cin=64 (the ResNet50-flavour
     one, Cmid 512, on wgmma: the weight prep of :func:`wide_weight_images`
     on the BN-folded g1t, then the forward); any other shape raises (see
-    :func:`_kernel_width`). A bfloat16 x launches K1 bf16 (mma.sync bf16,
-    no weight prep) of its width: the narrow one, or the wide one (Cmid up
-    to 512)."""
+    :func:`_kernel_width`). A bfloat16 x launches K1 bf16 (no weight
+    prep) of its width: the narrow one (mma.sync bf16), or the wide one
+    (Cmid up to 512, wgmma bf16)."""
     if x.device.type == 'cpu':
         return pf_head_fwd_plain(x, w1, b1, gamma, beta, w2, b2, mean, var,
                                  eps)
@@ -315,10 +316,10 @@ def fused_pf_head_bwd(x: Tensor, g: Tensor, w1t: Tensor, gis: Tensor,
     a multiple of 128 (the ResNet50-flavour one, Cmid 512, on wgmma: the
     weight prep of :func:`wide_weight_images`, a dx kernel and a sums
     kernel over 128-channel chunks); Cout=2. Bfloat16 x and g launch K2
-    bf16 of their width (mma.sync bf16, no weight prep): the narrow one
-    (Cin=16, Cmid=128) or the wide one (Cin=64, Cmid a multiple of 128 up
-    to 512: a dx kernel and a sums kernel, as the float32 wide K2); dx
-    bf16, the sums float32."""
+    bf16 of their width (no weight prep): the narrow one (Cin=16,
+    Cmid=128, mma.sync bf16) or the wide one (Cin=64, Cmid a multiple of
+    128 up to 512, wgmma bf16: a dx kernel and a sums kernel, as the
+    float32 wide K2); dx bf16, the sums float32."""
     if x.device.type == 'cpu':
         return pf_head_bwd_plain(x, g, w1t, gis, c1, w2gis)
     bf16 = x.dtype == torch.bfloat16

@@ -39,11 +39,13 @@ reduction kernels also timed apart); K4 the loss warp, 2B images of 128x128x1 at
 the baseline. Needs a CUDA device.
 
 ``k1b`` and ``k2b`` are the narrow (Cin 16) K1 and K2 at bf16, at the
-zeng shape (x [2B,16,128,128] bf16, Cmid 128). For both the profiler also
-prints ptxas's report of the kernel (registers, spills, shared memory)
-and, with ``--baseline``, the host us per call of the Python wrapper as built and of the baseline's
-wrapper (``ops/fused_head.py`` beside the baseline's ``csrc/``, run on
-the baseline's library). ``--phases`` (k2b) times the PF head's whole
+zeng shape (x [2B,16,128,128] bf16, Cmid 128). For them and for k1wb and
+k2wb the profiler also prints ptxas's report of each kernel (registers,
+spills, shared memory), the host us per call of the Python wrapper as
+built and, with ``--baseline``, of the baseline's wrapper
+(``ops/fused_head.py`` beside the baseline's ``csrc/``, run on the
+baseline's library) and how far the outputs of the two lie apart.
+``--phases`` (k2b; k2wb at the R50 head) times the PF head's whole
 backward at bf16 in parts with CUDA events: ``pf_head_backward`` with
 and without the batch-statistics corrections, K2 alone through its
 wrapper, each statement of the corrections, and the forward's
@@ -124,32 +126,85 @@ K1W_CUTS = [
     ('epilogue twice', _cut(K1W_EPILOGUE, 2 * K1W_EPILOGUE)),
 ]
 
-# The ResNet50-flavour kernels at bf16 (k1wb, k2wb; mma.sync m16n8k16):
-# every bf16 product cut, K1's epilogue (the ReLU, the rounding and the
-# Cout = 2 sums) cut to one add, K1's stores, K2's M0 and M1 sums. Each cut
-# also strikes the narrow bf16 kernels' same lines, which these entry
-# points do not launch.
+# The ResNet50-flavour kernels at bf16 (k1wb, k2wb; wgmma bf16, 64-pixel
+# tiles per warpgroup). WG_NO_PRODUCTS cuts every wgmma of the file (here:
+# mid, K1's Cmid x Cout product, dx, dw1, M0); the rest cut one part each,
+# or change a choice of the design.
+# With the loads after the first two tiles of each ring cut, the waits
+# for them go too (the tensor memory accelerator would never complete
+# their barriers); every kernel of the source then skips those waits.
+_NO_LATER_WAITS = _cut(
+    '  if (kVec) mbar_wait(bars + i % kStages, (i / kStages) & 1);',
+    '  if (kVec && i < 2) mbar_wait(bars + i % kStages, (i / kStages) & 1);')
+K1WB_CUTS = [
+    WG_NO_PRODUCTS,
+    ('no c1, ReLU and rounding (accumulator bits as A)', _cut(
+        '                  cvt_relu_bf16x2(mid[h][4 * j + 2 * hh] + cc.x,\n'
+        '                                  mid[h][4 * j + 2 * hh + 1] + '
+        'cc.y);',
+        '                  __float_as_uint(mid[h][4 * j + 2 * hh]) ^\n'
+        '                  __float_as_uint(mid[h][4 * j + 2 * hh + 1]);')),
+    ('no Cmid x Cout product', _cut(
+        '          wgmma_bf16_rs_n8(acc, ra[h][ks], wo + kKStep * ks, 1);\n',
+        '          acc[ks] += __uint_as_float(ra[h][ks][0] ^ ra[h][ks][3]);\n'
+        )),
+    ('no stores', _cut(
+        '        if (s + 8 * h < hw) {\n          o0[s + 8 * h]',
+        '        if (s + 8 * h < hw && acc[0] == -1.25e-30f) {\n'
+        '          o0[s + 8 * h]')),
+    ('no x loads after the first tiles (time only)', _cut(
+        '      if (next < ntiles) {\n'
+        '        load_wide_bf16_stage<kVec, false>(',
+        '      if (next < 0) {\n        load_wide_bf16_stage<kVec, false>(',
+        _NO_LATER_WAITS)),
+    ('four warpgroups a block', _cut(
+        'constexpr int kK1WG = 3;', 'constexpr int kK1WG = 4;')),
+]
+K2WB_CUTS = [
+    WG_NO_PRODUCTS,
+    ('dx: no epilogue (accumulator bits as A)', _cut(
+        '              const float on = set_gt(mid[4 * j + 2 * hh + cc], '
+        'p[cc].x);\n'
+        '              e[cc] = on * fmaf(p[cc].y, gv[hh][0], p[cc].z * '
+        'gv[hh][1]);\n',
+        '              e[cc] = mid[4 * j + 2 * hh + cc];\n')),
+    ('dx: no dx stores', _cut(
+        '          if (s0 + 8 * b < hw) {\n'
+        '            *reinterpret_cast<uint4*>(dn',
+        '          if (s0 + 8 * b < hw && dxa[0] == -1.25e-30f) {\n'
+        '            *reinterpret_cast<uint4*>(dn')),
+    ('dx: no x, g loads after the first tiles (time only)', _cut(
+        '      if (next < ntiles) {\n'
+        '        load_wide_bf16_stage<kVec, true>(\n'
+        '            ring +',
+        '      if (next < 0) {\n        load_wide_bf16_stage<kVec, true>(\n'
+        '            ring +', _NO_LATER_WAITS)),
+    ('sums: no M1 sums', _cut(
+        '        m1[hh][0] = fmaf(mm, g0, m1[hh][0]);\n'
+        '        m1[hh][1] = fmaf(mm, g1, m1[hh][1]);\n', '')),
+    ('sums: no M0 products', _cut(
+        '    wgmma_bf16_rs_n8(m0, ma[ks], gd + kKStep * ks, 1);\n', '')),
+    ('sums: no turns (warpgroups issue freely)', _cut(
+        '      named_sync(kSumsTurn + wg, 128 * kSumsWG);\n', '', _cut(
+            '      named_arrive(kSumsTurn + (wg ^ 1), 128 * kSumsWG);\n', '',
+            _cut('  if (wg == 1) named_arrive(kSumsTurn, 128 * kSumsWG);', '',
+                 _cut('  if (wg == 0) named_sync(kSumsTurn, 128 * kSumsWG);',
+                      ''))))),
+    ('sums: no x, g loads after the first tiles (time only)', _cut(
+        '      if (next < ntiles) {\n        load_sums_stage<kVec>(',
+        '      if (next < 0) {\n        load_sums_stage<kVec>(',
+        _NO_LATER_WAITS)),
+    ('dx: four warpgroups a block', _cut(
+        'constexpr int kDxWG = 3;', 'constexpr int kDxWG = 4;')),
+    ('sums: loads 3 tiles ahead', _cut(
+        'constexpr int kSumsAhead = 2;', 'constexpr int kSumsAhead = 3;')),
+]
+
+# The narrow kernels' every mma.sync bf16 product cut (each accumulator
+# keeps its input).
 _NO_MMA_BF16 = ('no tensor-core products', lambda src: re.sub(
     r'asm\("mma\.sync\.aligned\.m16n8k16.*?\);',
     'for (int i = 0; i < 4; ++i) d[i] = c[i];', src, count=1, flags=re.S))
-K1WB_CUTS = [
-    _NO_MMA_BF16,
-    ('no epilogue (one add per value)', _cut(
-        '          const float rr = round_bf16(fmaxf(d[r], 0.0f));\n'
-        '          const int px = r >> 1, ch = r & 1;\n'
-        '          acc[mt][px][0] = fmaf(wo[0][ch], rr, acc[mt][px][0]);\n'
-        '          acc[mt][px][1] = fmaf(wo[1][ch], rr, acc[mt][px][1]);\n',
-        '          acc[mt][r >> 1][r & 1] += d[r];\n')),
-    ('no stores', _cut('if (s < hw) on[s] = (uint16_t)',
-                       'if (s < hw && v == -1.25e-30f) on[s] = (uint16_t)')),
-]
-K2WB_CUTS = [
-    _NO_MMA_BF16,
-    ('sums: no M0/M1', _cut(
-        '            m0[ch][o] = fmaf(mk, gv[o][px], m0[ch][o]);\n'
-        '            m1[ch][o] = fmaf(mm, gv[o][px], m1[ch][o]);\n', '')),
-]
-
 # The narrow kernels at bf16 (k1b, k2b: rings of cp.async stages,
 # ldmatrix/stmatrix, M0 and K1's Cmid x Cout product on the tensor cores).
 K1B_CUTS = [
@@ -287,6 +342,9 @@ CUTS = {
 }
 SOURCES = {k: 'warp' if k == 'k4' else 'fused_head' for k in CUTS}
 WIDE = ('k1w', 'k2w', 'k1wb', 'k2wb')
+# The bf16 kernels: ptxas's report, the Python wrapper's host cost and the
+# outputs against the baseline's are printed for them.
+BF16 = ('k1b', 'k2b', 'k1wb', 'k2wb')
 # The kernels whose SASS is counted (their mangled names start so).
 SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
               'k1b': ('pf_head_fwd_bf16_kernelILb1',),
@@ -422,13 +480,17 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
         xb = x.to(torch.bfloat16)
         w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
         b2 = (torch.randn(cout, generator=gen) * 0.1).to(dev)
-        out = torch.empty((n, cout, hw), dtype=torch.bfloat16, device=dev)
 
         def make(lib):
-            return lambda: _cuda.check_status(lib.pf_head_fwd_wide_bf16(
-                xb.data_ptr(), w1t.data_ptr(), c1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), out.data_ptr(), n, cin, hw, cmid, cout,
-                stream()), 'K1 wide bf16')
+            out = torch.empty((n, cout, hw), dtype=torch.bfloat16, device=dev)
+
+            def run():
+                _cuda.check_status(lib.pf_head_fwd_wide_bf16(
+                    xb.data_ptr(), w1t.data_ptr(), c1.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, cin, hw,
+                    cmid, cout, stream()), 'K1 wide bf16')
+            run.outs = {'out': out}
+            return run
         return f'K1 wide bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k1':
         w2 = (torch.randn((cout, cmid), generator=gen) * 0.3).to(dev)
@@ -494,18 +556,22 @@ def _runner_factory(kernel: str, batch: int, cmid: int):
         return f'K2 bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k2wb':
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
-        dxb = torch.empty_like(xb)
         cols = fh.wide_sums_cols(cin, cmid, cout)
 
         def make(lib):
             blocks = lib.pf_head_bwd_wide_blocks(n, hw, cmid)
             partial = torch.empty((blocks, cols), device=dev)
             sums = torch.empty(cols, device=dev)
-            return lambda: _cuda.check_status(lib.pf_head_bwd_wide_bf16(
-                xb.data_ptr(), gb.data_ptr(), w1t.data_ptr(), gis.data_ptr(),
-                c1.data_ptr(), w2gis.data_ptr(), dxb.data_ptr(),
-                partial.data_ptr(), sums.data_ptr(), n, cin, hw, cmid, cout,
-                blocks, stream()), 'K2 wide bf16')
+            dxb = torch.empty_like(xb)
+
+            def run():
+                _cuda.check_status(lib.pf_head_bwd_wide_bf16(
+                    xb.data_ptr(), gb.data_ptr(), w1t.data_ptr(),
+                    gis.data_ptr(), c1.data_ptr(), w2gis.data_ptr(),
+                    dxb.data_ptr(), partial.data_ptr(), sums.data_ptr(), n,
+                    cin, hw, cmid, cout, blocks, stream()), 'K2 wide bf16')
+            run.outs = {'dx': dxb, 'sums': sums}
+            return run
         return f'K2 wide bf16 at x [{n},{cin},128,128], Cmid {cmid}', make
     if kernel == 'k2w':
         cols = fh.wide_sums_cols(cin, cmid, cout)
@@ -640,13 +706,15 @@ def _wrapper_module(path: Path, lib, label: str):
     return mod
 
 
-def _head_inputs(batch: int, cmid: int = 128, seed: int = 1):
-    """The narrow PF head's inputs at the zeng shape at bf16: x (a ReLU
-    output) [2B,16,128,128], its cotangent g [2B,2,128,128], the torch
-    conv weights, BN parameters and x's batch statistics."""
+def _head_inputs(batch: int, cmid: int = 128, seed: int = 1,
+                 cin: int = 16):
+    """The PF head's inputs at bf16, at the zeng shape (Cin 16) or the R50
+    one (Cin 64): x (a ReLU output) [2B,Cin,128,128], its cotangent g
+    [2B,2,128,128], the torch conv weights, BN parameters and x's batch
+    statistics."""
     gen = torch.Generator().manual_seed(seed)
     dev = torch.device('cuda')
-    n, cin, cout, hw = 2 * batch, 16, 2, 128
+    n, cout, hw = 2 * batch, 2, 128
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
@@ -660,30 +728,35 @@ def _head_inputs(batch: int, cmid: int = 128, seed: int = 1):
 
 
 def wrapper_calls(kernel: str, batch: int, cmid: int, wrappers: dict):
-    """{label: a call of the Python wrapper of K1 bf16 (k1b) or K2 bf16
-    (k2b) in module ``wrappers[label]``} at the zeng shape."""
-    x, g, w1, b1, gamma, beta, w2, b2, mean, var = _head_inputs(batch, cmid)
-    if kernel == 'k1b':
+    """{label: a call of the Python wrapper of K1 bf16 (k1b, k1wb) or K2
+    bf16 (k2b, k2wb) in module ``wrappers[label]``} at the zeng shape (the
+    R50 head's for k1wb and k2wb)."""
+    cin = 64 if kernel in WIDE else 16
+    x, g, w1, b1, gamma, beta, w2, b2, mean, var = _head_inputs(
+        batch, cmid, cin=cin)
+    if kernel in ('k1b', 'k1wb'):
         return {label: (lambda m=m: m.fused_pf_head_fwd(
             x, w1, b1, gamma, beta, w2, b2, mean, var))
             for label, m in wrappers.items()}
     gis = gamma * torch.rsqrt(var + 1e-5)
     c1 = (gis * (b1 - mean) + beta).contiguous()
-    w1t = w1.reshape(cmid, 16).contiguous()
+    w1t = w1.reshape(cmid, cin).contiguous()
     w2gis = (w2.reshape(2, cmid).t() * gis[:, None]).contiguous()
     return {label: (lambda m=m: m.fused_pf_head_bwd(x, g, w1t, gis, c1, w2gis))
             for label, m in wrappers.items()}
 
 
-def bwd_phases(batch: int, fh=fh) -> None:
-    """Device ms of the PF head's backward at bf16 at the zeng shape, in
-    parts (CUDA events, ``time_ms``): the whole ``pf_head_backward`` with
+def bwd_phases(batch: int, fh=fh, cin: int = 16, cmid: int = 128) -> None:
+    """Device ms of the PF head's backward at bf16 at the zeng shape (or
+    the R50 head's, Cin 64 and Cmid 512: the wide K2 bf16), in parts
+    (CUDA events, ``time_ms``): the whole ``pf_head_backward`` with
     the batch-statistics corrections and without them, K2 bf16 alone, the
     statements of the corrections (``ops/fused_head.py``,
     ``pf_head_backward``'s ``train_stats`` branch, repeated here one by one
     on the same tensors), and the forward's ``batch_stats_affine``; ``fh``
     the wrapper module whose kernels run."""
-    x, g, w1, b1, gamma, beta, w2, _, mean, var = _head_inputs(batch)
+    x, g, w1, b1, gamma, beta, w2, _, mean, var = _head_inputs(
+        batch, cmid, cin=cin)
     eps, dt = 1e-5, x.dtype
     n, cin, cmid = x.shape[0], x.shape[1], w1.shape[0]
     m = x.numel() // cin
@@ -709,7 +782,7 @@ def bwd_phases(batch: int, fh=fh) -> None:
             lambda: fh.pf_head_backward(*args, True),
         'pf_head_backward, given statistics (no corrections)':
             lambda: fh.pf_head_backward(*args, False),
-        'K2 bf16 alone (fused_pf_head_bwd)':
+        f'K2{" wide" if cin == 64 else ""} bf16 alone (fused_pf_head_bwd)':
             lambda: fh.fused_pf_head_bwd(x, g, w1t, gis, c1, w2gis),
         'corrections: widen(x) [N,Cin,HW] float32':
             lambda: widen(x).reshape(n, cin, -1),
@@ -835,8 +908,8 @@ def main(argv=None) -> None:
                         help='a directory to write the SASS of the kernel as '
                         'built into')
     parser.add_argument('--phases', action='store_true',
-                        help='k2b: also time the PF head\'s whole bf16 '
-                        'backward in parts')
+                        help='k2b, k2wb: also time the PF head\'s whole '
+                        'bf16 backward in parts')
     args = parser.parse_args(argv)
     cmid = args.cmid or (512 if args.kernel in WIDE else 128)
     if not torch.cuda.is_available():
@@ -865,11 +938,16 @@ def main(argv=None) -> None:
               'instructions; ' + ', '.join(
                   f'{op} {k}' for op, k in counts.most_common(12))
               + f'; HGMMA {counts["HGMMA"]}, HMMA {counts["HMMA"]}')
-        if name in ('k1b', 'k2b'):
+        if name in BF16:
             for label in ('as built', f'baseline {args.baseline}'):
                 if label in libs:
                     print(f'  ptxas, {label}: '
                           + ' | '.join(ptxas_report(libs[label].log, kernel)))
+        # ptxas's warnings about the kernel's wgmma (C7514 and the like: a
+        # wait after every wgmma of a function) as built.
+        for line in libs['as built'].log.splitlines():
+            if 'wgmma' in line and kernel in line:
+                print(f'  ptxas, as built: {line.strip()}')
 
     describe, make = _runner_factory(name, args.batch_size, cmid)
     runs = {label: make(lib) for label, lib in libs.items()}
@@ -897,7 +975,7 @@ def main(argv=None) -> None:
         print('  host us per call (C entry point, in turns): ' + '; '.join(
             f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
             for label, readings in hosts.items()))
-    if name in ('k1b', 'k2b'):
+    if name in BF16:
         wrappers = {'as built': _wrapper_module(
             Path(fh.__file__), libs['as built'], 'as_built')}
         parent = (args.baseline.parent.parent / 'ops' / 'fused_head.py'
@@ -923,8 +1001,9 @@ def main(argv=None) -> None:
                       f'{k} {_rel_l2(a, runs[base_label].outs[k]):.3e} '
                       f'({float((a != runs[base_label].outs[k]).float().mean()):.2e})'
                       for k, a in runs['as built'].outs.items()))
-        if args.phases and name == 'k2b':
-            bwd_phases(args.batch_size, wrappers['as built'])
+        if args.phases and name in ('k2b', 'k2wb'):
+            bwd_phases(args.batch_size, wrappers['as built'],
+                       *((64, cmid) if name == 'k2wb' else ()))
     if name in ('k1w', 'k2w', 'k2wb'):
         names = {'k1w': K1W_KERNELS, 'k2w': K2W_KERNELS,
                  'k2wb': K2WB_KERNELS}[name]

@@ -239,6 +239,10 @@ R50_STEP_BATCH = 2
 WIDE_K1_PARTS = ('pf_head_wide_prep_kernel', 'pf_head_fwd_wgmma_kernel')
 WIDE_K2_PARTS = ('pf_head_wide_prep_kernel', 'pf_head_bwd_wide_dx_kernel',
                  'pf_head_bwd_wide_sums_kernel', 'reduce_rows_kernel')
+# The kernels of one wide K2 bf16 call, timed apart (K1 wide bf16 is one).
+WIDE_BF16_K2_PARTS = ('pf_head_bwd_wide_bf16_dx_kernel',
+                      'pf_head_bwd_wide_bf16_sums_kernel',
+                      'reduce_rows_kernel')
 R50_KERNELS = ('fused_pf_head_fwd_wide', 'fused_pf_head_bwd_wide',
                'bilinear_sample_batched', 'bilinear_sample_bwd_uv')
 ZHANG_RUNS = ('config/pds-coco/zhang-orig-lr-1e-2.yaml',
@@ -1121,11 +1125,11 @@ def check_pf_head_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
     m = n * hw * hw
     nbytes = 2 * m * (cin + cout) + 4 * (cmid * cin + 3 * cmid + cout * cmid
                                          + cout + cmid)
-    # The Cin x Cmid and Cmid x Cout products (bf16 on the tensor cores;
-    # the wide K1 bf16 runs the second one on the fp32 cores, the narrow
-    # one on the tensor cores), and an fp32 epilogue counted as the ReLU
-    # and Cout FMAs per middle value (1 + 2 Cout). Either way the narrow
-    # bound is its bytes.
+    # The Cin x Cmid and Cmid x Cout products (bf16 on the tensor cores in
+    # both K1 bf16), and an fp32 epilogue counted as the ReLU and Cout
+    # FMAs per middle value (1 + 2 Cout: more than the kernels do, whose
+    # Cout sums run on the tensor cores). The narrow bound is its bytes,
+    # the wide one its tensor work, with or without that count.
     tc = 2 * m * (cin * cmid + cmid * cout) / BF16_TC_FLOP_PER_S * 1e3
     epilogue = m * cmid * (1 + 2 * cout) / FP32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1255,15 +1259,17 @@ def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
         + cout)
     # mid, dx, dw1 and M0 = sum mask g on the tensor cores (bf16: mask is
     # 0/1 and g bf16, both exact there, as the Pallas kernel's dot has
-    # it); per middle value on the fp32 cores, as each kernel does it. The
-    # narrow one: the mask (1, mid against a per-channel threshold, so no
-    # a = gis mid + c1), e (2 Cout: (gis w2) g and the mask's multiply),
-    # M1 (1 + 2 Cout). Counted with a's FMA and e at 2 Cout + 1, as before
-    # the threshold, its bound was 0.0521 ms of operations at the zeng
-    # shape; it is now the bytes (0.0426 ms; fp32 0.040). The wide ones: a
-    # (2), the mask (1), e (2 Cout + 1), M1 (1 + 2 Cout). db2: Cout.
+    # it); per middle value on the fp32 cores, as each kernel does it,
+    # narrow and wide alike: the mask (1, mid against a per-channel
+    # threshold, so no a = gis mid + c1), e (2 Cout: (gis w2) g and the
+    # mask's multiply), M1 (1 + 2 Cout). db2: Cout. Counted with a's FMA
+    # and e at 2 Cout + 1, as before the threshold, the narrow bound was
+    # 0.0521 ms of operations at the zeng shape; it is now the bytes
+    # (0.0426 ms; fp32 0.040). The wide bound is the tensor work either
+    # way (0.4212 ms at the R50 shape; fp32 0.208 counted with a's FMA,
+    # 0.160 without).
     tc = m * (6 * cin * cmid + 2 * cmid * cout) / BF16_TC_FLOP_PER_S * 1e3
-    per_mid = 2 + 4 * cout if cin == 16 else 5 + 4 * cout
+    per_mid = 2 + 4 * cout
     epilogue = m * (cmid * per_mid + cout) / FP32_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bms = max(t_bytes, tc, epilogue)
@@ -1272,6 +1278,21 @@ def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
           f'{bms:.4f} ({by}: bytes {t_bytes:.4f}, bf16 tensor work {tc:.4f},'
           f' fp32 epilogue {epilogue:.4f}; {nbytes / 1e6:.1f} MB); host us '
           f'per call: kernel {host["kernel"]:.1f}')
+    extra = {}
+    if cin == 64:
+        # Its dx and sums kernels compute mid twice: four products, the
+        # floor of its design above the bound's three.
+        parts = kernel_ms(lambda: fh.fused_pf_head_bwd(*margs),
+                          WIDE_BF16_K2_PARTS)
+        print('K2 wide bf16 by kernel (ms, torch.profiler): ' + ', '.join(
+            f'{k} {parts.get(v, float("nan")):.4f}' for k, v in zip(
+                ('dx', 'sums', 'reduce'), WIDE_BF16_K2_PARTS))
+            + f'; sum {sum(parts.values()):.4f}, total {ms:.4f}, floor of '
+            f'four products {4 / 3 * tc:.4f}')
+        if len(parts) != len(WIDE_BF16_K2_PARTS):
+            raise AssertionError(f'K2 wide bf16: the profiler saw '
+                                 f'{sorted(parts)} of {WIDE_BF16_K2_PARTS}')
+        extra = {'kernel_ms': parts}
     return {'name': name, 'route': 'cuda',
             'source': 'bihome_torch/csrc/fused_head.cu',
             'replaces': 'bihome_tpu/ops/fused_head.py:110',
@@ -1282,7 +1303,7 @@ def check_pf_head_bwd_bf16(dev, gen, n=2 * BATCH, cin=16, cmid=128):
             'rounding_left_out': planted,
             'kink_pixels_zeroed': zeroed, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bms, 'bound_by': by, 'library_ms': None,
-            'host_us': host}
+            'host_us': host, **extra}
 
 def _loss_warp_points(dev, gen, n, ps):
     """The loss warp's sample points: the patch grid through homographies

@@ -1,6 +1,7 @@
 """The numeric choices of the narrow bf16 PF-head kernels, emulated on the
-CPU at the zeng width (Cmid 128) and held to the rounding points the
-port's plain versions and the Pallas kernels use.
+CPU at the zeng width (Cmid 128; the threshold mask also at the R50
+head's 512, which the wide K2 bf16 takes too) and held to the rounding
+points the port's plain versions and the Pallas kernels use.
 
 * K1 bf16 forms bf16(relu(a)) with one ``cvt.rn.relu.bf16x2.f32`` per two
   middle values (``csrc/fused_head.cu``, ``cvt_relu_bf16x2``): round to
@@ -21,6 +22,7 @@ from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -108,15 +110,22 @@ def relu_threshold(g, c1) -> np.float32:
     return _from_key(lo)
 
 
-def test_relu_threshold_reproduces_the_fma_mask():
-    rng = np.random.default_rng(1)
-    cmid = 128
+@pytest.mark.parametrize('cmid', [128, 512])
+def test_relu_threshold_reproduces_the_fma_mask(cmid):
+    # Cmid 128: the narrow K2 bf16's channels; 512: the wide one's (the
+    # R50 head), whose gamma == 0 channels give gis == 0 and whose
+    # negative gamma negative gis, as the narrow head's do.
+    rng = np.random.default_rng(1 if cmid == 128 else cmid)
     gis = (rng.standard_normal(cmid) * 0.3 + 1.0) * 10.0 ** rng.uniform(
         -3, 3, cmid) * rng.choice([-1.0, 1.0], cmid)
     c1 = rng.standard_normal(cmid) * 10.0 ** rng.uniform(-3, 3, cmid)
     gis[:4] = [0.0, 0.0, 1e-38, -7.5]
     c1[:4] = [0.5, -0.5, 1.0, 0.0]
     c1[4], c1[5] = 3e-41, -3e-41                    # subnormal offsets
+    if cmid > 128:
+        gis[cmid - 3:] = [0.0, -0.0, -1e-30]        # gamma 0; a tiny gis < 0
+        c1[cmid - 3:] = [-2.0, 3.0, 0.25]
+    assert (gis < 0).sum() > cmid // 4 and (gis == 0).sum() >= 2
     gis, c1 = gis.astype(np.float32), c1.astype(np.float32)
     for g, c in zip(gis, c1):
         sign = np.float32(-1.0 if g < 0 else 1.0)

@@ -11,7 +11,8 @@ Edge cases the chip_smoke.py shapes do not reach: ragged pixel counts
 K1 at Cmid 512 and Cin 16, the wide K2 at Cmid 1024 and with fewer tiles
 than SMs, the wide K1's persistent walk at one tile past a multiple of
 the SMs, the wide kernels' outputs bit for bit across two calls, one
-wgmma tile and the weight prep they read, misaligned inputs, points far
+wgmma tile (tf32, and bf16 in each operand layout) and the weight prep
+they read, misaligned inputs, points far
 outside,
 exactly on the border or on integer coordinates, input validation; K1
 and K2 at bfloat16 against their plain bf16 versions (tolerances beside
@@ -457,18 +458,24 @@ def _wide_bf16_counts():
                               'wide_bf16_launches'))
 
 
-# The ResNet50-flavour K1 and K2 at bf16 (Cin 64): K1 and the dx kernel
-# walk 256-pixel tiles, the sums kernel 64-pixel ones; HW = 323, 1 and 4225
-# are not multiples of 8 (plain loads and stores), 48 and 400 are (48 one
-# image smaller than a tile, 400 ending in a ragged tile); Cmid 128 and
-# 512; the misaligned x is 2 bytes off a 16-byte boundary. Tolerances as
-# the narrow bf16 tests'; each call must count under wide_bf16_launches
-# and nowhere else.
+# The ResNet50-flavour K1 and K2 at bf16 (Cin 64): every kernel walks
+# 64-pixel tiles per warpgroup through a ring of stages; HW = 323, 1, 65
+# and 4225 are not multiples of 8 (plain loads and stores), 48, 400, 72
+# and 32 are (tensor-map copies, zero-filled past the image: 48 and 32 one
+# image smaller than a tile, 400 ending in a ragged tile, 65 and 72 one
+# pixel and one 8-pixel piece past one);
+# 8 x 128 x 128 pixels give every warpgroup several trips around its ring;
+# Cmid 128, 256, 384 (an odd number of the sums grid's 128-channel
+# chunks) and 512; the misaligned x is 2 bytes off a 16-byte boundary.
+# Tolerances as the narrow bf16 tests'; each call must count under
+# wide_bf16_launches and nowhere else.
 @pytest.mark.parametrize('shape,cmid,misalign', [
     ((3, 17, 19), 512, False), ((2, 64, 64), 512, False),
     ((1, 1, 1), 512, False), ((2, 8, 6), 128, False),
     ((3, 20, 20), 512, False), ((1, 65, 65), 256, False),
-    ((2, 16, 16), 512, True)])
+    ((2, 16, 16), 512, True), ((2, 5, 13), 512, False),
+    ((3, 8, 9), 384, False), ((2, 4, 8), 256, False),
+    ((8, 128, 128), 128, False)])
 def test_wide_pf_head_bf16_kernels_match_plain(cuda, shape, cmid, misalign):
     gen = torch.Generator().manual_seed(15)
     args = list(_head_args(gen, *shape, cuda, cmid, cin=64))
@@ -550,6 +557,36 @@ def test_wgmma_tf32_tile_matches_matmul(cuda, mode):
         'wgmma_tf32_tile')
     torch.cuda.synchronize()
     want = a.double() @ b.double().t()
+    torch.testing.assert_close(d.double(), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize('mode', [0, 1, 2, 3, 4], ids=[
+    'a-smem-k-b-k', 'a-smem-mn-b-mn', 'a-regs-b-k', 'a-regs-b-mn',
+    'a-regs-b-k-n8'])
+def test_wgmma_bf16_tile_matches_matmul(cuda, mode):
+    # One 64 x 64 x 64 product on wgmma bf16 through the swizzled tiles
+    # and descriptors the wide bf16 kernels use: A from registers (x^T,
+    # w1t', e, relu, the mask: the kernels' every A), B K-major (the
+    # weights of mid^T, x of dw1, g of M0, w2 of K1's out, the last two at
+    # N = 8) or MN-major (x of the sums kernel's mid, w1 of dx); and A from
+    # shared memory in both of the tiles' layouts, against float64 on the
+    # same bf16 values:
+    # their products are exact, the sums fp32. A wrong descriptor, swizzle
+    # or transpose bit puts whole entries off.
+    from bihome_torch.ops import _cuda
+    gen = torch.Generator().manual_seed(9)
+    a = torch.randn((64, 64), generator=gen).to(cuda, torch.bfloat16)
+    b = torch.randn((64, 64), generator=gen).to(cuda, torch.bfloat16)
+    d = torch.empty((64, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    _cuda.check_status(_lib().wgmma_bf16_tile(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), mode, stream),
+        'wgmma_bf16_tile')
+    torch.cuda.synchronize()
+    want = a.double() @ b.double().t()
+    if mode == 4:
+        want[:, 8:] = 0.0
     torch.testing.assert_close(d.double(), want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
 
