@@ -5,9 +5,10 @@ sampler and the prefetching batch loader (the port's own copy of
 The pairs are made on the device (``data/pipeline.py``); the host lists
 files, decodes images (PIL; ``.npy`` files load as they are), samples
 each epoch's indices with the reference's seeded choice and streams uint8
-batches from one producer thread. When a dataset directory is missing,
-:func:`make_dataset` falls back to :class:`SyntheticDataset`, as the JAX
-package does.
+batches from one producer thread, or builds the host side of the device
+pool (:class:`PoolSource`, refreshed by :class:`PoolRefresher`). When a
+dataset directory is missing, :func:`make_dataset` falls back to
+:class:`SyntheticDataset`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Iterator, List, Optional, Tuple
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -197,6 +199,129 @@ class BatchLoader:
                     raise failure[0]
                 return
             yield item
+
+
+class PoolSource:
+    """The host side of the device pool (``train.py:210-223``): pool k is
+    the k-th call of ``make_pool`` ([n,...] uint8), which draws from the
+    RandomStates in ``random_states`` (the pool sampler, a host prep's
+    crops). Each build records those states as they were at its start, so
+    that a checkpoint can hold what rebuilds the pool in use and every
+    pool after it. Builds may run on another thread."""
+
+    def __init__(self, make_pool: Callable[[], np.ndarray],
+                 random_states: Dict[str, np.random.RandomState]):
+        self.make_pool = make_pool
+        self.random_states = random_states
+        self._starts: Dict[int, Dict[str, tuple]] = {}
+        self._lock = threading.Lock()
+
+    def build(self, k: int) -> np.ndarray:
+        """Pool ``k``, from the states the sources are in now."""
+        with self._lock:
+            self._starts[k] = {name: rs.get_state()
+                               for name, rs in self.random_states.items()}
+            for old in [j for j in self._starts if j < k - 2]:
+                del self._starts[old]
+        return self.make_pool()
+
+    def start_states(self, k: int) -> Dict[str, np.random.RandomState]:
+        """Copies of the sources as they were when pool ``k`` began (the
+        current states when no pool ``k`` was built yet)."""
+        with self._lock:
+            states = self._starts.get(k) or {
+                name: rs.get_state()
+                for name, rs in self.random_states.items()}
+        copies = {}
+        for name, state in states.items():
+            copies[name] = np.random.RandomState()
+            copies[name].set_state(state)
+        return copies
+
+    def restore(self, states: Dict[str, np.random.RandomState]) -> None:
+        """Put the sources in the states of ``states`` (as
+        :meth:`start_states` returns them)."""
+        for name, rs in states.items():
+            self.random_states[name].set_state(rs.get_state())
+
+
+def image_pool_source(dataset, pool_size: int,
+                      random_seed: Optional[int]) -> PoolSource:
+    """Pools of ``min(pool_size, len(dataset))`` images of ``dataset`` at
+    the indices of an :class:`EpochSampler` seeded by ``random_seed``, in
+    its order (``train.py:210-223, 228-239``): ``load_image`` at each, or
+    one ``gather`` of them all where the dataset has one (a pack)."""
+    sampler = EpochSampler(len(dataset), min(pool_size, len(dataset)),
+                           random_seed=random_seed)
+    states = {'sampler': sampler.random_state}
+    if isinstance(dataset, HostPrepDataset):
+        states['host_prep'] = dataset.random_state
+    gather = getattr(dataset, 'gather', None)
+
+    def make_pool():
+        indices = sampler.epoch_indices()
+        if gather is not None:
+            return gather(indices)
+        return np.stack([dataset.load_image(int(i)) for i in indices])
+    return PoolSource(make_pool, states)
+
+
+class PoolRefresher:
+    """One daemon thread building pools ``first``, ``first + 1``, ... of a
+    :class:`PoolSource` into a queue of one, so that it runs at most one
+    pool ahead of the queue (``train.py:241-252``). :meth:`get` hands over
+    the next pool, or raises what a build raised; :meth:`close` stops the
+    thread. The thread never holds up the process's exit."""
+
+    def __init__(self, source: PoolSource, first: int):
+        self._queue: 'queue.Queue' = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        args=(source, first), daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _run(self, source: PoolSource, k: int) -> None:
+        try:
+            while not self._stop.is_set():
+                self._put(source.build(k))
+                k += 1
+        except BaseException as exc:  # re-raised by get()
+            self._put(exc)
+
+    def get(self, timeout: Optional[float] = None) -> np.ndarray:
+        """The next pool, waiting for its build (at most ``timeout``
+        seconds if given, then TimeoutError)."""
+        begin = time.monotonic()
+        while True:
+            try:
+                item = self._queue.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    raise RuntimeError('the pool refresher stopped')
+                if timeout is not None and time.monotonic() - begin > timeout:
+                    raise TimeoutError(f'no pool within {timeout} s')
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop the thread (after the build it is in) and drop what it
+        queued."""
+        self._stop.set()
+        try:
+            self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout)
 
 
 def describe(ds) -> str:

@@ -234,8 +234,12 @@ def _gray_standardize(batch: Dict[str, Tensor],
 
 
 def take_images(pool: Tensor, idx: Tensor) -> Tensor:
-    """``pool[idx]``: [N,H,W,3] pool, [B] indices -> [B,H,W,3]."""
-    return pool[idx]
+    """``pool[idx]`` as one row gather (``index_select``): [N,...] pool,
+    [B] indices on the pool's device -> [B,...], bytes unchanged. JAX's
+    TPU form is a one-hot product (``bihome_tpu/data/pipeline.py:
+    329-345``), a workaround for the TPU's scalarized gather; off the TPU
+    it is ``jnp.take``, this."""
+    return pool.index_select(0, idx)
 
 
 def sample_seed(seed: int, ordinal: int) -> int:

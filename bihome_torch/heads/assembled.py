@@ -14,7 +14,9 @@ Ported heads:
   a tensor loss.
 * ``PerceptualHead`` with one DSAC hypothesis and no scoring (zeng-biHomE:
   backbone perspective fields -> sampled points -> DLT -> corner deltas,
-  ``:354-396``), or with ``DELTA_HAT_KEYS`` (detone-biHomE: the
+  ``:354-396``; at predict the all-points refit DSAC_PREDICT_REFINE and
+  the average with the inverted 2->1 fit DSAC_PREDICT_BIDIRECTIONAL,
+  ``:790-826``), or with ``DELTA_HAT_KEYS`` (detone-biHomE: the
   regression backbone's deltas of both directions, n = 1, ``:336-340``).
   Its training forward is the double-line, mask-less, l1, downsample-mask
   biHomE loss of every shipped ``*-bihome`` config (``_triplet_resnet_loss``,
@@ -83,10 +85,6 @@ def check_ported(cfg: HeadConfig) -> None:
             missing.append(f'RANSAC_HYPOTHESIS_NO={cfg.hypothesis_no}')
         if cfg.scoring_method == 'score_cnn':
             missing.append('score_cnn scoring')
-        if cfg.dsac_predict_refine:
-            missing.append('DSAC_PREDICT_REFINE')
-        if cfg.dsac_predict_bidirectional:
-            missing.append('DSAC_PREDICT_BIDIRECTIONAL')
     if missing:
         raise ValueError('not ported yet: ' + ', '.join(missing))
 
@@ -169,16 +167,20 @@ class AssembledModel(nn.Module):
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, Tensor],
-                uniforms: Optional[Tensor] = None,
+                uniforms=None,
                 generator: Optional[torch.Generator] = None,
                 idx: Optional[Tensor] = None) -> Tensor:
         """Batch dict (NHWC patches) -> delta_hat [B,4,2]
         (``bihome_tpu/heads/assembled.py:762-826``): the backbone's deltas,
-        the DSAC fit of its perspective field, whose draws ``uniforms``
-        [B, points_per_hypothesis] injects, or (NoOp 'all_points') the
-        RANSAC fit of the field, whose point indices ``idx`` [B, 4K]
-        injects; otherwise the draws come from ``generator`` (RANSAC draws
-        on the field's device, so its generator lives there)."""
+        the DSAC fit of its perspective field (:meth:`fit_delta`), or (NoOp
+        'all_points') the RANSAC fit of the field, whose point indices
+        ``idx`` [B, 4K] injects. With DSAC_PREDICT_BIDIRECTIONAL the 2->1
+        field is fitted too, inverted through the corner parametrization
+        (H12 = H21^-1) and averaged with the 1->2 fit. ``uniforms``
+        injects the DSAC draws, [B, points_per_hypothesis] for the 1->2
+        field or a sequence (1->2[, 2->1]); the draws it does not give
+        come from ``generator``, the 1->2 field's first (RANSAC draws on
+        the field's device, so its generator lives there)."""
         cfg = self.head
         outputs = self.backbone(batch)
         if needs_ransac(cfg):
@@ -191,7 +193,37 @@ class AssembledModel(nn.Module):
             return outputs[cfg.target_keys[0]]
         if cfg.delta_hat_keys:
             return outputs[cfg.delta_hat_keys[0]]
-        return self.dsac_deltas(outputs[cfg.pf_keys[0]], uniforms, generator)
+        u12, u21 = ((list(uniforms) + [None])[:2]
+                    if isinstance(uniforms, (tuple, list))
+                    else (uniforms, None))
+        delta_hat = self.fit_delta(outputs[cfg.pf_keys[0]], u12, generator)
+        if not (cfg.dsac_predict_bidirectional and len(cfg.pf_keys) > 1):
+            return delta_hat
+        pf21 = outputs[cfg.pf_keys[1]]
+        delta21 = self.fit_delta(pf21, u21, generator)
+        fp = geometry.image_corners(pf21.shape[1], pf21.shape[2],
+                                    batch_size=pf21.shape[0],
+                                    dtype=delta21.dtype, device=pf21.device)
+        h21 = geometry.four_point_to_homography(fp, delta21)
+        delta12p = geometry.transform_points(geometry.inv3x3(h21), fp) - fp
+        return 0.5 * (delta_hat + delta12p.to(delta_hat.dtype))
+
+    def fit_delta(self, pf: Tensor, uniforms: Optional[Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> Tensor:
+        """The predicted delta of one perspective field: the DSAC
+        hypothesis (:meth:`dsac_deltas`), refitted to every point with
+        DSAC_PREDICT_REFINE (:func:`dsac.refine_delta_on_pf`, at
+        DSAC_PREDICT_REFINE_THRESHOLD if it is > 0, else
+        SCORING_DISTANCE_THRESHOLD; ``assembled.py:790-800``)."""
+        cfg = self.head
+        delta = self.dsac_deltas(pf, uniforms, generator)
+        if cfg.dsac_predict_refine:
+            threshold = (cfg.dsac_predict_refine_threshold
+                         if cfg.dsac_predict_refine_threshold > 0
+                         else cfg.scoring_distance_threshold)
+            delta = dsac.refine_delta_on_pf(pf, delta, threshold,
+                                            cfg.dsac_predict_refine_iters)
+        return delta
 
     def aux_features(self, x: Tensor) -> Tensor:
         """Frozen-extractor features of NHWC patches, returned NHWC (a view

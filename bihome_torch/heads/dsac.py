@@ -1,5 +1,6 @@
-"""DSAC hypothesis sampling (counterpart of ``bihome_tpu/heads/dsac.py``
-:46-88). Scoring and refinement are not ported yet.
+"""DSAC hypothesis sampling and the predict refit (counterparts of
+``bihome_tpu/heads/dsac.py:46-88, 139-175``). Scoring of more than one
+hypothesis is not ported yet.
 
 The uniform draws are a parameter: by default they come from a
 ``torch.Generator``, and a test can pass exactly the values that
@@ -73,3 +74,36 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
     p2 = p2.reshape(b * hypothesis_no, points_per_hypothesis, 2)
     return geometry.find_homography_dlt(p1, p2).reshape(
         b, hypothesis_no, 3, 3)
+
+
+def refine_delta_on_pf(pf: Tensor, delta_hat: Tensor, threshold: float = 3.0,
+                       iters: int = 1) -> Tensor:
+    """Robust all-points refit of a predicted corner delta
+    (MODEL.HEAD.DSAC_PREDICT_REFINE, ``bihome_tpu/heads/dsac.py:139-175``):
+    ``iters`` IRLS rounds, each fitting one homography to all H*W
+    correspondences (x, y) -> (x, y) + pf with the weighted DLT, the
+    weights ``relu(1 - err / threshold) + 1e-3`` of the previous fit's
+    residuals (the first round's: the homography of ``delta_hat``).
+    pf [B,h,w,2] NHWC, delta_hat [B,4,2] -> refined [B,4,2] in
+    delta_hat's dtype. Coordinates and mapping are float32 (a bf16 field
+    widens, as in JAX; a float64 field stays float64)."""
+    b, h, w, _ = pf.shape
+    dtype = torch.promote_types(pf.dtype, torch.float32)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=dtype, device=pf.device),
+                            torch.arange(w, dtype=dtype, device=pf.device),
+                            indexing='ij')
+    coords = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+    coords = coords[None].expand(b, h * w, 2)
+    mapping = coords + pf.reshape(b, -1, 2).to(dtype)
+    fp = geometry.image_corners(h, w, batch_size=b, dtype=dtype,
+                                device=pf.device)
+    h_ref = geometry.four_point_to_homography(fp, delta_hat.to(dtype))
+    for _ in range(iters):
+        err = torch.linalg.vector_norm(
+            geometry.transform_points(h_ref, coords) - mapping, dim=-1)
+        # No weight past the inlier threshold; the floor keeps the normal
+        # equations well posed when every point is rejected.
+        wgt = torch.relu(1.0 - err / threshold) + 1e-3
+        h_ref = geometry.find_homography_dlt(coords, mapping, wgt)
+    refined = geometry.transform_points(h_ref, fp) - fp
+    return refined.to(delta_hat.dtype)

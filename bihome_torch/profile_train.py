@@ -3,10 +3,11 @@
     python -m bihome_torch.profile_train [--config_file X.yaml]
         [--batch_size 64] [--steps 6] [--set K=V]
 
-Builds the model, optimizer and image pool as ``bihome_torch.train`` does
-(synthetic images, seeded backbone, a PerceptualHead's extractor from
-``aux_clfbh.npz``), then runs ``--steps`` calls of the real
-``training.trainer.train_step`` after two warm-up calls, each split into
+Builds the model, optimizer and device pool as ``bihome_torch.train
+--synthetic`` does (the synthetic images, seeded backbone, a
+PerceptualHead's extractor from ``aux_clfbh.npz``), then runs ``--steps``
+calls of the real ``training.trainer.train_step`` on batches drawn on the
+device (``trainer.draw_pool_batch``) after two warm-up calls, each split into
 phases by CUDA events that hooks record around and inside the call. For
 zeng-biHomE (a head with DSAC):
 
@@ -92,10 +93,14 @@ def main(argv=None) -> None:
     model = built.model.to(device).train()
     optimizer = Optimizer([p for p in model.parameters() if p.requires_grad],
                           **config_lib.solver_kwargs(config))
-    pool = torch.from_numpy(train.make_pools(
-        config, (320, 240), args.batch_size, args.batch_size)[0]).to(device)
+    loader, _ = train.make_loaders(
+        config, built, train.parse_args(['--config_file', args.config_file,
+                                         '--synthetic']),
+        args.batch_size, 1, 0, 0, 0)
+    pool = train.upload(train.pool_source(loader, 1024, 0).build(0), device)
     gen = torch.Generator().manual_seed(0)
     dsac_gen = torch.Generator().manual_seed(1)
+    draws = torch.Generator(device=device).manual_seed(2)
 
     # Phase ends of the step being timed: name -> event. A phase that two
     # gradient hooks end (one per direction) keeps the later event; the
@@ -163,10 +168,10 @@ def main(argv=None) -> None:
         aux.register_full_backward_hook(aux_hook('extractor bwd'))
 
     def one_step():
-        idx = torch.randint(0, len(pool), (args.batch_size,), generator=gen)
-        return trainer.train_step(model, optimizer, pool[idx.to(device)],
-                                  built.pair_spec, built.loss_name, gen,
-                                  dsac_gen)
+        return trainer.train_step(
+            model, optimizer,
+            trainer.draw_pool_batch(pool, args.batch_size, draws),
+            built.pair_spec, built.loss_name, gen, dsac_gen)
 
     for _ in range(2):
         one_step()

@@ -164,11 +164,14 @@ RandomSource = Any      # torch.Generator | np.random.RandomState
 
 def random_state_dict(sources: Mapping[str, RandomSource]) -> Dict:
     """The state of each source as tensors and numbers (loadable with
-    ``torch.load(weights_only=True)``)."""
+    ``torch.load(weights_only=True)``); a generator that lives on a card
+    is saved with its device type, ``{"device": "cuda", "state": ...}``."""
     out = {}
     for name, src in sources.items():
         if isinstance(src, torch.Generator):
-            out[name] = src.get_state()
+            out[name] = (src.get_state() if src.device.type == 'cpu' else
+                         {'device': src.device.type,
+                          'state': src.get_state()})
         else:
             kind, keys, pos, has_gauss, cached = src.get_state()
             out[name] = {'keys': torch.from_numpy(keys.astype(np.int64)),
@@ -180,13 +183,21 @@ def random_state_dict(sources: Mapping[str, RandomSource]) -> Dict:
 def load_random_state(sources: Mapping[str, RandomSource],
                       saved: Mapping[str, Any]) -> List[str]:
     """Restore each source that ``saved`` holds; returns the names of the
-    sources it does not hold (they start from their seeds)."""
+    sources it does not hold, or holds for a generator on another device
+    type (a CPU state does not fit a card's generator, nor the reverse):
+    they start from their seeds."""
     fresh = []
     for name, src in sources.items():
         if name not in saved:
             fresh.append(name)
         elif isinstance(src, torch.Generator):
-            src.set_state(saved[name])
+            state = saved[name]
+            kind = state['device'] if isinstance(state, dict) else 'cpu'
+            if kind != src.device.type:
+                fresh.append(name)
+            else:
+                src.set_state(state['state'] if isinstance(state, dict)
+                              else state)
         else:
             s = saved[name]
             src.set_state(('MT19937', s['keys'].numpy().astype(np.uint32),

@@ -1,5 +1,7 @@
 """One training step and one eval step (counterparts of
-``bihome_tpu/training/trainer.py:47-98`` and ``:240-262``).
+``bihome_tpu/training/trainer.py:47-98`` and ``:240-262``), and the
+device-pool blocks built on them (``make_pool_train_step``,
+``make_pool_eval_step``, ``pick_steps_per_call``, ``:126-237``).
 
 The train step, in the JAX step's order: synthesize a batch of pairs on
 the device from uint8 images (``generate_pairs``, with the photometric
@@ -16,7 +18,8 @@ draws (drawn from only by heads with DSAC), or is injected (tests).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -83,3 +86,66 @@ def eval_step(model: torch.nn.Module, images: Tensor,
         return _metrics(loss_name, out, 'test')
     finally:
         model.train(was_training)
+
+
+def pick_steps_per_call(steps_per_epoch: int, log_step: int,
+                        max_steps: int = 25) -> int:
+    """Largest divisor of both epoch length and logging interval <= max
+    (``trainer.py:229-237``)."""
+    g = math.gcd(max(steps_per_epoch, 1), max(log_step, 1))
+    for d in range(min(max_steps, g), 0, -1):
+        if g % d == 0:
+            return d
+    return 1
+
+
+def draw_pool_batch(pool: Tensor, batch_size: int,
+                    generator: torch.Generator) -> Tensor:
+    """B pool rows drawn uniformly with replacement: the indices from
+    ``generator``, which lives on the pool's device (no host copy), then
+    one gather there."""
+    idx = torch.randint(0, pool.shape[0], (batch_size,),
+                        generator=generator, device=pool.device)
+    return pipeline.take_images(pool, idx)
+
+
+def pool_train_block(model: torch.nn.Module, optimizer: Optimizer,
+                     pool: Tensor, steps: int, batch_size: int,
+                     spec: pipeline.PairSpec, loss_name: str,
+                     draw_generator: torch.Generator,
+                     datagen_generator: Optional[torch.Generator] = None,
+                     dsac_generator: Optional[torch.Generator] = None
+                     ) -> Tuple[Dict[str, Tensor], List[Tensor]]:
+    """``steps`` train steps on batches drawn from a device-resident pool
+    (``make_pool_train_step`` without the mesh): each step draws its B
+    indices with :func:`draw_pool_batch`, then runs :func:`train_step`.
+    Nothing in it waits for the device. Returns the last step's metrics
+    and each step's loss (device tensors)."""
+    losses = []
+    for _ in range(steps):
+        metrics = train_step(model, optimizer,
+                             draw_pool_batch(pool, batch_size,
+                                             draw_generator),
+                             spec, loss_name, datagen_generator,
+                             dsac_generator)
+        losses.append(metrics['loss/train'])
+    return metrics, losses
+
+
+def pool_eval(model: torch.nn.Module, pool: Tensor, steps: int,
+              batch_size: int, spec: pipeline.PairSpec, loss_name: str,
+              draw_generator: torch.Generator,
+              datagen_generator: Optional[torch.Generator] = None,
+              dsac_generator: Optional[torch.Generator] = None
+              ) -> Dict[str, Tensor]:
+    """The mean eval metrics of ``steps`` batches drawn from a device pool
+    as :func:`pool_train_block` draws them (``make_pool_eval_step``,
+    ``trainer.py:194-210``)."""
+    sums: Dict[str, Tensor] = {}
+    for _ in range(steps):
+        m = eval_step(model, draw_pool_batch(pool, batch_size,
+                                             draw_generator),
+                      spec, loss_name, datagen_generator, dsac_generator)
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + v
+    return {k: v / steps for k, v in sums.items()}

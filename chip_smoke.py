@@ -26,6 +26,11 @@
    just before and read just after; fails unless K1 and K3 launched (and
    no other kernel), MACE is finite, and one batch's delta_hat matches the
    same batch, weights and DSAC draws through the plain path on the CPU.
+   Then the same eval with the flagship's predict extras
+   (PREDICT_EXTRAS: DSAC_PREDICT_REFINE at iters 1, 2 and 3,
+   DSAC_PREDICT_BIDIRECTIONAL), each counted, its first 4 pairs held to
+   the CPU on the same injected draws (one set per field) within 1e-2 px,
+   its model time printed.
 5. Drives the port's train entry point (the same config at full width,
    batch 64, 4 steps, the extractor from aux_clfbh.npz), counted the same
    way; fails unless K1-K4 launched (K5 not), the loss is finite every
@@ -95,13 +100,22 @@
    then ``python -m bihome_torch.preprocess_offline --pack_only`` packs
    them at 320x240 (both times printed). pds-coco zeng-biHomE trains at
    batch 64 for PDS_STEPS steps from the JPEG folder and from the pack
-   (streamed: decoded by the loader's producer thread, or gathered by the
-   native reader, which must be the one in use; copied to the card through
-   pinned memory), counted (exactly K1-K4) and checked as in step 5; each
-   prints ms per step, pairs/s, peak memory and the loop's wait for its
-   batch, and PDS_STEPS more steps of each, and of the device-pool run of
-   step 9, are profiled for the device's idle share. Resume on the card
-   from the pack (``run_resume``): B, one epoch then resumed to two in
+   (``--feed stream``: decoded by the loader's producer thread, or
+   gathered by the native reader, which must be the one in use; copied to
+   the card through pinned memory), counted (exactly K1-K4) and checked as
+   in step 5; each prints ms per step, pairs/s, peak memory and the loop's
+   wait for its batch, and PDS_STEPS more steps of each, and of the
+   device-pool run of step 9, are profiled for the device's idle share.
+   Then the same config from the JPEG folder and from the pack through
+   the device pool, JAX's default feed (``run_pool_path``, POOL_ARGS,
+   POOL_STEPS steps): exactly K1-K4, at least two swaps, the trace of its
+   third block written; each
+   prints ms per step, pairs/s, the first pool's load, the pool's bytes on
+   the card, the median wait per step off the swaps and each swap's wait,
+   and the profiled block's idle share, beside the streamed rows. Resume
+   on the card from the pack through the device pool (``run_resume``,
+   RESUME_POOL images swapped at each epoch's end, the card's draw
+   generator in the checkpoint): B, one epoch then resumed to two in
    its LOGGING.DIR, must start at step RESUME_STEPS with optimizer count
    RESUME_STEPS and match A's two epochs without a stop within
    RESUME_REL_L2 relative L2 (epoch-1 losses, each backbone tensor; with
@@ -155,7 +169,7 @@
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
    "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
-   "phase_s": {...}} line,
+   "predict_extras": {...}, "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
    and by path, the narrow and wide bf16 K1 and K2 rows apart; K1 and K2
    with their wide
@@ -165,11 +179,13 @@
    the paths that run that shape), then as the last line {"ok": true,
    "device": {...}}.
 
-The seeded synthetic pools of the ``--synthetic`` train runs are made
-once per image size and sample count (``train.make_pools`` memoized for
-the script's run). Any failed check raises, so the script exits
-non-zero. Without a CUDA device it exits non-zero before printing any
-result.
+The train runs go through the device pool (``--feed pool``, the
+default) unless they name ``--feed stream``, one step per block
+(``--steps_per_call 1``) unless they name another. The seeded synthetic
+images of ``--synthetic`` are made once per size
+(``synthetic.make_image_pool`` memoized for the script's run). Any failed
+check raises, so the script exits non-zero. Without a CUDA device it
+exits non-zero before printing any result.
 """
 
 import concurrent.futures
@@ -180,6 +196,7 @@ import json
 import math
 import multiprocessing
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -279,17 +296,41 @@ CLEVR_STEP_BATCH = 2
 # quality JPEG_QUALITY, the synthetic generator's images (seeded by
 # FILE_SEED), written by worker processes beside the kernel build, and a
 # 320x240 pack of them by preprocess_offline. pds-coco zeng-biHomE
-# (FILE_CONFIG) trains from each at batch 64, streamed; it resumes on the
-# card from the pack (RESUME_STEPS steps an epoch, the resumed run held
-# to the uninterrupted one within RESUME_REL_L2 relative L2 per tensor);
-# the S-COCO eval reads the JPEG folder with the resumed checkpoint.
+# (FILE_CONFIG) trains from each at batch 64, streamed (--feed stream),
+# and from each through the device pool, JAX's default feed
+# (POOL_ARGS: a pool of 256 of the 512 images, swapped every 4 steps, 2
+# steps a block, POOL_STEPS steps: swaps at steps 4 and 8, the third
+# block profiled by --profile); it resumes on the card from the pack
+# through the device pool (RESUME_STEPS steps an epoch, RESUME_POOL
+# images swapped at each epoch's end, the resumed run held to the
+# uninterrupted one within RESUME_REL_L2 relative L2 per tensor); the
+# S-COCO eval reads the JPEG folder with the resumed checkpoint.
 FILE_IMAGES = 512
 FILE_HW = (480, 640)
 FILE_SEED = 11
 JPEG_QUALITY = 90
 FILE_CONFIG = 'config/pds-coco/zeng-bihome-lr-1e-3.yaml'
 RESUME_STEPS = 2
+RESUME_POOL = 256
 RESUME_REL_L2 = 1e-4
+POOL_STEPS = 10
+POOL_ARGS = ('--feed', 'pool', '--pool_size', '256', '--pool_refresh_steps',
+             '4', '--steps_per_call', '2', '--profile')
+# The flagship's predict extras: the S-COCO zeng-biHomE eval at 64 with
+# DSAC_PREDICT_REFINE at iters 1, 2 and 3 (ITERS=2 aborted the TPU's
+# backend, tools/probe_refine_iters.py) and with
+# DSAC_PREDICT_BIDIRECTIONAL; K1 and K3 only, and delta_hat of batch 0's
+# first 4 pairs against the CPU plain path on the same injected draws (one
+# set per field) within the eval check's 1e-2 px. First readings (H100):
+# 1.73e-3, 2.12e-3 and 4.00e-3 px at iters 1-3 (each IRLS round refits to
+# 16,384 float32 points, summed in another order on each side),
+# 4.48e-5 px bidirectional.
+PREDICT_EXTRAS = {
+    f'refine iters {k}': ('MODEL.HEAD.DSAC_PREDICT_REFINE=true',
+                          f'MODEL.HEAD.DSAC_PREDICT_REFINE_ITERS={k}')
+    for k in (1, 2, 3)}
+PREDICT_EXTRAS['bidirectional'] = (
+    'MODEL.HEAD.DSAC_PREDICT_BIDIRECTIONAL=true',)
 # The bf16 slice (MODEL.DTYPE bfloat16, ``--dtype bfloat16``). K1 and K2
 # bf16 against their plain bf16 versions (the Pallas kernels' rounding
 # points, float32 sums): K1 within BF16_K1_L2 relative L2 and every output
@@ -601,18 +642,27 @@ def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
     batch = result['batches'][0]
     model_cpu = copy.deepcopy(model).cpu()
     k = check_pairs or batch_size
-    uniforms = torch.rand((batch_size, 128),
-                          generator=torch.Generator().manual_seed(5))
-    delta_cuda = model.predict(batch, uniforms=uniforms.cuda()).cpu()
+    # The DSAC draws of the 1->2 field, then of the 2->1 field (drawn
+    # from only with DSAC_PREDICT_BIDIRECTIONAL).
+    draws = torch.Generator().manual_seed(5)
+    uniforms, uniforms21 = (torch.rand((batch_size, 128), generator=draws)
+                            for _ in range(2))
     batch_cpu = {key: v[:k].cpu() for key, v in batch.items()}
-    with one_cpu_thread():
-        delta_cpu = model_cpu.predict(batch_cpu, uniforms=uniforms[:k])
     if result['built'].dtype == torch.bfloat16:
+        delta_cuda = model.predict(batch, uniforms=uniforms.cuda()).cpu()
+        with one_cpu_thread():
+            delta_cpu = model_cpu.predict(batch_cpu, uniforms=uniforms[:k])
         result['bf16_predict'] = check_bf16_predict(
             delta_cuda[:k], delta_cpu, model, model_cpu, batch_cpu,
             uniforms[:k])
         return launches, result, pairs_per_s
+    delta_cuda = model.predict(batch, uniforms=[
+        uniforms.cuda(), uniforms21.cuda()]).cpu()
+    with one_cpu_thread():
+        delta_cpu = model_cpu.predict(batch_cpu, uniforms=[
+            uniforms[:k], uniforms21[:k]])
     err = (delta_cuda[:k] - delta_cpu).abs().max().item()
+    result['delta_err'] = err
     print(f'delta_hat CUDA vs CPU plain path, batch 0 (first {k} pairs): '
           f'max abs err {err:.3e} px (max |delta_hat| '
           f'{delta_cpu.abs().max().item():.2f}; tolerance 1e-2 px)')
@@ -1601,10 +1651,11 @@ def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
                    steps=STEPS, expect=ZENG_KERNELS, sets=(), synthetic=True,
                    extra=()):
     """The port's train entry point on the card (config overrides
-    ``sets``, more arguments ``extra``; the synthetic pool on the device
-    unless ``synthetic`` is off, then the splits the config or ``sets``
-    name, streamed), counted: the kernels in ``expect`` must launch and the
-    others in ``counters`` must not."""
+    ``sets``, more arguments ``extra``, which may name the feed; one step
+    per block unless ``extra`` says otherwise; the synthetic images unless
+    ``synthetic`` is off, then the splits the config or ``sets`` name),
+    counted: the kernels in ``expect`` must launch and the others in
+    ``counters`` must not."""
     from bihome_torch import train
 
     reset_counts(counters)
@@ -1616,7 +1667,7 @@ def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
     args = ['--config_file', config, '--batch_size', str(batch), '--steps',
             str(steps), '--epochs', '1', '--device', 'cuda', '--set',
             'MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz', '--set',
-            f'LOGGING.DIR={log_dir}', *extra]
+            f'LOGGING.DIR={log_dir}', '--steps_per_call', '1', *extra]
     if synthetic:
         args.append('--synthetic')
     for item in sets:
@@ -1654,9 +1705,10 @@ def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
     step_ms = result['median_step_ms']
     wait_ms = result['median_wait_ms']
     pairs_per_s = batch / (step_ms / 1e3)
+    spc = result['steps_per_call']
     print(f'train {config}: {step_ms:.2f} ms per step (median of steps '
-          f'2-{steps}, each ended by a synchronize; all: '
-          f'{[round(t, 2) for t in result["step_ms"]]}), pairs/s '
+          f'{spc + 1}-{steps}, each block of {spc} ended by a synchronize; '
+          f'all: {[round(t, 2) for t in result["step_ms"]]}), pairs/s '
           f'{pairs_per_s:.1f}, peak memory allocated {peak_gb:.2f} GB; the '
           f'loop waited {wait_ms:.2f} ms per step for its batch (median of '
           f'steps 2-{steps}; all: {[round(t, 2) for t in result["wait_ms"]]})'
@@ -1871,14 +1923,12 @@ def compare_train_step(result, batch=4, faults=FAULTS):
 def step_data(built, batch):
     """The one-step checks' inputs: (uint8 pool rows, corners, delta, the
     photometric draws, DSAC uniforms or None), drawn from seed 7."""
-    from bihome_torch import train
     from bihome_torch.data import datasets, pipeline
 
     gen = torch.Generator().manual_seed(7)
     if built.pair_spec.change_aware_keys:
         # CLEVR-Change: (original, changed) pairs, nothing drawn.
-        pool = torch.from_numpy(train.make_pools(
-            built.config, (320, 240), batch, batch)[0][:batch])
+        pool = torch.from_numpy(clevr_pairs(built.config, batch))
         corners = delta = pds = None
     else:
         pool = torch.from_numpy(datasets.SyntheticDataset(seed=2).pool[:batch])
@@ -1888,6 +1938,19 @@ def step_data(built, batch):
     uniforms = ([torch.rand((batch, 128), generator=gen) for _ in range(2)]
                 if built.needs_dsac_rng else None)
     return pool, corners, delta, pds, uniforms
+
+
+def clevr_pairs(config, n):
+    """The first ``n`` (original, changed) pairs of the synthetic CLEVR
+    scenes (seed 0) in the order the pair sampler of ``config`` (its MODE
+    and TRAIN_SEED) draws them."""
+    from bihome_torch.data import clevr_change
+
+    sampler_cfg = config['DATA']['SAMPLER']
+    ds = clevr_change.SyntheticChangeDataset(image_size=(320, 240), seed=0)
+    return clevr_change.ClevrPairLoader(
+        ds, 1, n, mode=sampler_cfg.get('MODE', 'nsc'),
+        random_seed=sampler_cfg.get('TRAIN_SEED')).pool(n)
 
 
 def compare_train_step_bf16(result, batch=4):
@@ -1999,12 +2062,13 @@ def compare_tail_step_bf16(result, built, state, data,
 
 
 def feed_name(result):
-    """'pool', or the dataset class a streamed train run read."""
+    """'pool of' the dataset class a device-pool run read, or the class a
+    streamed run read."""
     from bihome_torch.data import datasets
 
     feed = result['train_feed']
     if not hasattr(feed, 'loader'):
-        return 'pool'
+        return f'pool of {datasets.describe(feed.dataset)}'
     return datasets.describe(feed.loader.dataset)
 
 
@@ -2056,20 +2120,28 @@ def finish_file_data(jobs, jpeg_dir, pack_dir):
 
 def profile_feed(result, steps=PDS_STEPS):
     """The device's idle share of ``steps`` more training steps of a
-    finished train run (its model, optimizer and split; a fresh feed of
-    ``steps`` + 1 batches, the first step outside the window), each ended
-    by a synchronize as in the train loop, under torch.profiler: device
-    kernel ms per step and 1 - device / host window."""
+    finished train run (its model, optimizer and split; ``steps`` + 1
+    batches, the first step outside the window: drawn from its device
+    pool, or from a fresh stream of its split), each ended by a
+    synchronize, under torch.profiler: device kernel ms per step and 1 -
+    device / host window."""
     from bihome_torch import train
     from bihome_torch.training import trainer
 
     built, args = result['built'], result['args']
     device = next(result['model'].parameters()).device
-    feed, _ = train.make_feeds(built.config, built, args, device,
-                               result['batch_size'], steps + 1, 0, 0, 0)
+    feed = result['train_feed']
+    if isinstance(feed, train.PoolFeed):
+        source = (trainer.draw_pool_batch(feed.pool, result['batch_size'],
+                                          feed.draws)
+                  for _ in range(steps + 1))
+    else:
+        feed, _ = train.make_feeds(built.config, built, args, device,
+                                   result['batch_size'], steps + 1, 0, 0, 0)
+        source = feed.epoch()
     gen, dsac_gen = (torch.Generator().manual_seed(s) for s in (0, 1))
     waits = []
-    batches = train.timed(feed.epoch(), waits)
+    batches = train.timed(source, waits)
 
     def step(images):
         trainer.train_step(result['model'], result['optimizer'], images,
@@ -2084,13 +2156,11 @@ def profile_feed(result, steps=PDS_STEPS):
         for images in batches:
             step(images)
         wall_ms = (time.perf_counter() - begin) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    share = train.profiled_share(prof, wall_ms)
     out = {'host_ms_per_step': wall_ms / steps,
-           'device_ms_per_step': device_ms / steps,
-           'launches_per_step': sum(e.count for e in kernels) / steps,
-           'idle_share': 1 - device_ms / wall_ms,
+           'device_ms_per_step': share['device_ms'] / steps,
+           'launches_per_step': share['launches'] / steps,
+           'idle_share': share['idle_share'],
            'wait_ms_per_step': sum(waits[1:]) / steps}
     print(f'profiled {steps} steps of {feed_name(result)}: host '
           f'{out["host_ms_per_step"]:.2f} ms, device kernels '
@@ -2101,6 +2171,58 @@ def profile_feed(result, steps=PDS_STEPS):
     return out
 
 
+def run_pool_path(counters, split, name, steps=POOL_STEPS):
+    """FILE_CONFIG at batch 64 from ``split`` (the JPEG folder or the
+    pack, called ``name``) through the device pool (POOL_ARGS), counted
+    (exactly K1-K4) and checked as run_train_path checks; at least two
+    swaps, and the trace of the third block written by --profile. Prints
+    the first pool's load, the pool's bytes on the card, the median wait
+    per step off the swaps and each swap's wait, and the profiled block's
+    idle share. Returns the row of ``file_runs``, its launches under
+    'launches'."""
+    sets = (f'DATA.TRAIN_SPLIT={split}', f'DATA.TEST_SPLIT={split}')
+    with tempfile.TemporaryDirectory() as log_dir:
+        launches, result = run_train_path(
+            counters, log_dir, FILE_CONFIG, BATCH, steps, ZENG_KERNELS, sets,
+            synthetic=False, extra=POOL_ARGS)
+        prof = result['profile']
+        if not (prof and os.path.getsize(prof['trace']) > 0):
+            raise AssertionError(f'--profile wrote no trace: {prof}')
+        trace_mb = os.path.getsize(prof['trace']) / 1e6
+    feed, spc = result['train_feed'], result['steps_per_call']
+    swaps = result['swap_ms']
+    if len(swaps) < 2 or not feed.refresh:
+        raise AssertionError(f'the pool run swapped at {sorted(swaps)}')
+    # A swap's wait is spread over the block after it.
+    after_swap = {s + i for s in swaps for i in range(spc)}
+    off_swaps = [w for i, w in enumerate(result['wait_ms'])
+                 if i >= spc and i not in after_swap]
+    pool_mb = feed.pool.numel() * feed.pool.element_size() / 1e6
+    row = dict(result['summary'], feed=feed_name(result),
+               launches=launches, steps_per_call=spc,
+               first_pool_s=result['first_pool_s'], pool_mb=pool_mb,
+               wait_ms_per_step=float(statistics.median(off_swaps)),
+               swap_wait_ms={str(k): v for k, v in swaps.items()},
+               trace_mb=trace_mb,
+               profile={'block': prof['block'],
+                        'host_ms_per_step': prof['wall_ms'] / prof['steps'],
+                        'device_ms_per_step': (prof['device_ms']
+                                               / prof['steps']),
+                        'launches_per_step': prof['launches'] / prof['steps'],
+                        'wait_ms_per_step': 0.0,
+                        'idle_share': prof['idle_share']})
+    print(f'pool from the {name}: first pool of {len(feed.pool)} '
+          f'images loaded in {row["first_pool_s"]:.2f} s, {pool_mb:.1f} MB on '
+          f'the card; {row["ms_per_step"]:.2f} ms per step '
+          f'({row["pairs_per_s"]:.1f} pairs/s), median wait off the swaps '
+          f'{row["wait_ms_per_step"]:.3f} ms per step; swaps (step: ms '
+          f'waited) {row["swap_wait_ms"]}; the profiled block '
+          f'{prof["block"]} ({prof["steps"]} steps): host '
+          f'{prof["wall_ms"]:.2f} ms, device {prof["device_ms"]:.2f} ms, idle '
+          f'share {prof["idle_share"]:.3f}; trace {trace_mb:.1f} MB')
+    return row
+
+
 def _rel_l2(got, want):
     got, want = got.double().cpu(), want.double().cpu()
     norm = float(torch.linalg.vector_norm(want))
@@ -2108,9 +2230,12 @@ def _rel_l2(got, want):
 
 
 def run_resume(counters, pack_dir, steps=RESUME_STEPS):
-    """Resume on the card (FILE_CONFIG at batch 64 from the pack): run A
-    trains 2 epochs of ``steps`` steps; run B one epoch, then the same
-    command with --epochs 2 in its LOGGING.DIR. B must resume at epoch 1,
+    """Resume on the card (FILE_CONFIG at batch 64 from the pack, through
+    the device pool: RESUME_POOL images, swapped every ``steps`` steps, so
+    at each epoch's end, and each checkpoint holds the card's draw
+    generator): run A trains 2 epochs of ``steps`` steps; run B one epoch,
+    then the same command with --epochs 2 in its LOGGING.DIR. B must
+    resume at epoch 1,
     step ``steps``, optimizer count ``steps``; its losses in epoch 1 and
     its final backbone tensors must match A's within RESUME_REL_L2
     relative L2 (each tensor). When they do not, both runs are made again
@@ -2135,7 +2260,9 @@ def run_resume(counters, pack_dir, steps=RESUME_STEPS):
                 'cuda', '--set', 'MODEL.HEAD.AUXILIARY_RESNET_PATH='
                 'aux_clfbh.npz', '--set', f'LOGGING.DIR={log_dir}',
                 '--set', f'DATA.TRAIN_SPLIT={pack_dir}',
-                '--set', f'DATA.TEST_SPLIT={pack_dir}'])
+                '--set', f'DATA.TEST_SPLIT={pack_dir}', '--feed', 'pool',
+                '--pool_size', str(RESUME_POOL), '--pool_refresh_steps',
+                str(steps), '--steps_per_call', '1'])
 
         whole = run(dirs[0], 2)
         first = run(dirs[1], 1)
@@ -2143,6 +2270,8 @@ def run_resume(counters, pack_dir, steps=RESUME_STEPS):
         launches = read_counts(counters)
         saved = torch.load(first['checkpoint'], weights_only=True)
         if not (resumed['start_step'] == steps
+                and sorted(whole['swap_ms']) == [steps, 2 * steps]
+                and saved['random']['train_draws']['device'] == 'cuda'
                 and saved['optimizer']['count'] == steps
                 and resumed['optimizer'].count == 2 * steps
                 and first['losses'].shape[0] == steps):
@@ -2250,21 +2379,18 @@ def run(stack):
         mark[0] = now
         print(f'phase {phase}: {phase_s[phase]} s')
 
-    # The seeded synthetic pools of ``--synthetic`` are the same in every
-    # train run of one image size and sample count: make each once.
-    from bihome_torch import train as train_cli
-    make_pools, pools = train_cli.make_pools, {}
+    # The seeded synthetic images of ``--synthetic`` are the same in every
+    # run of one image size: make each set once.
+    from bihome_torch.data import synthetic
+    make_image_pool, made = synthetic.make_image_pool, {}
 
-    def cached_pools(config, image_size, train_samples, test_samples):
-        key = (json.dumps(config['DATA']['SAMPLER'], sort_keys=True)
-               if train_cli.is_clevr(config) else None, tuple(image_size),
-               train_samples, test_samples)
-        if key not in pools:
-            pools[key] = make_pools(config, image_size, train_samples,
-                                    test_samples)
-        return pools[key]
-    train_cli.make_pools = cached_pools
-    stack.callback(setattr, train_cli, 'make_pools', make_pools)
+    def cached_image_pool(*args, **kwargs):
+        key = (args, tuple(sorted(kwargs.items())))
+        if key not in made:
+            made[key] = make_image_pool(*args, **kwargs)
+        return made[key]
+    synthetic.make_image_pool = cached_image_pool
+    stack.callback(setattr, synthetic, 'make_image_pool', make_image_pool)
 
     logs = _cuda.build(['warp', 'fused_head'])
     print(f'built {sorted(logs)}')
@@ -2323,6 +2449,18 @@ def run(stack):
     compare_train_step(result)
     del result
     done('zeng eval, train, step check')
+    predict_extras = {}
+    for name, sets in PREDICT_EXTRAS.items():
+        paths[f'eval {CONFIG} {name}'], result, pairs_per_s = run_eval_path(
+            counters, CONFIG, BATCH, PDS_STEPS, sets=sets, check_pairs=4)
+        predict_extras[name] = {'model_ms': result['per_batch_ms'],
+                                'pairs_per_s': pairs_per_s,
+                                'mean_mace': result['mean_mace'],
+                                'delta_err_px': result['delta_err']}
+        del result
+    print(f'predict extras (S-COCO zeng-biHomE at {BATCH}): '
+          f'{json.dumps(predict_extras)}')
+    done('predict extras')
 
     # The PDS slice: K3 and K4 at the PhotometricHead's shape, the
     # distortion on the card, the train runs of PDS_RUNS with the one-step
@@ -2497,7 +2635,7 @@ def run(stack):
             paths[f'train {FILE_CONFIG} from the {name}'], result = (
                 run_train_path(counters, log_dir, FILE_CONFIG, BATCH,
                                PDS_STEPS, ZENG_KERNELS, sets,
-                               synthetic=False))
+                               synthetic=False, extra=('--feed', 'stream')))
         dataset = result['train_feed'].loader.dataset
         want = PackDataset if name == 'pack' else datasets.ImageFolderDataset
         native = getattr(dataset, 'native', None)
@@ -2508,6 +2646,14 @@ def run(stack):
                               profile=profile_feed(result)))
         del result
     done('file-fed train')
+    # The pool from the pack too: its pools take one native gather, so the
+    # refresher's decode does not contend with the loop's host work.
+    for name, split in (('JPEG folder', jpeg_dir), ('pack', pack_dir)):
+        pool_run = run_pool_path(counters, split, name)
+        paths[f'train {FILE_CONFIG} through the pool of the {name}'] = (
+            pool_run.pop('launches'))
+        file_runs.append(pool_run)
+    done('file-fed pool train')
     paths[f'resume {FILE_CONFIG} from the pack'], resume_dir, resume = (
         run_resume(counters, pack_dir))
     done('resume')
@@ -2552,6 +2698,7 @@ def run(stack):
                       'resume': resume, 'file_eval_mace':
                       eval_result['mean_mace'], 'bf16_runs': bf16_runs,
                       'bf16_step': bf16_step, 'bf16_evals': bf16_evals,
+                      'predict_extras': predict_extras,
                       'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

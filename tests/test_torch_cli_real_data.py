@@ -5,10 +5,11 @@ the CPU (the plain versions of the kernels).
   from a JPEG folder, an ``.npy`` folder, a ``.bhpk`` pack and a CIFAR-10
   pickle directory (train and eval) and a CLEVR-Change layout (train),
   and print the dataset class each split got.
-* Streamed against pooled: a folder of ``.npy`` files holding the
-  synthetic pool's own images gives exactly the losses and test records
-  of ``--synthetic`` (the same epoch indices, the same pairs), and eval
-  the same MACE. Tolerance: exact.
+* Files against ``--synthetic``, through either feed: a folder of
+  ``.npy`` files holding the synthetic images gives exactly the losses
+  and records (but the wall-clock throughput) of ``--synthetic``, streamed
+  (the same epoch indices, the same pairs) and pooled (the same pools,
+  the same draws), and eval the same MACE. Tolerance: exact.
 * ``eval --ckpt`` on a log directory and on a file gives the MACE of
   ``--torch_ckpt``; without either, eval loads the newest checkpoint in
   LOGGING.DIR; ``--log`` appends one line per sample.
@@ -151,12 +152,18 @@ def pool_folders(tmp_path_factory):
     shutil.rmtree(root, ignore_errors=True)
 
 
-def test_streamed_files_equal_the_device_pool(pool_folders, tmp_path):
+def _without_throughput(records):
+    return [{k: v for k, v in r.items()
+             if k != 'throughput/pairs_per_sec_per_chip'} for r in records]
+
+
+@pytest.mark.parametrize('feed', ['stream', 'pool'])
+def test_streamed_files_equal_the_device_pool(feed, pool_folders, tmp_path):
     """pds-coco detone-orig: the PDS distortion's draws come from the same
-    generator in both routes."""
+    generator in both runs."""
     train_dir, test_dir = pool_folders
     common = ['--config_file', PDS_DETONE, '--steps', '1', '--batch_size',
-              '2', '--epochs', '2', '--device', 'cpu',
+              '2', '--epochs', '2', '--device', 'cpu', '--feed', feed,
               '--set', 'LOGGING.STEP=1']
     pooled = train.main(common + ['--synthetic', '--set',
                                   f'LOGGING.DIR={tmp_path / "a"}'])
@@ -165,7 +172,9 @@ def test_streamed_files_equal_the_device_pool(pool_folders, tmp_path):
         '--set', f'DATA.TRAIN_SPLIT={train_dir}',
         '--set', f'DATA.TEST_SPLIT={test_dir}'])
     assert torch.equal(pooled['losses'], streamed['losses'])
-    assert pooled['records'] == streamed['records']
+    assert (_without_throughput(pooled['records'])
+            == _without_throughput(streamed['records']))
+    assert 'throughput/pairs_per_sec_per_chip' in streamed['records'][-2]
     assert len(streamed['wait_ms']) == 2
     maces = [teval.main(['--config_file', PDS_DETONE, '--steps', '2',
                          '--batch_size', '2', '--device', 'cpu',

@@ -1,11 +1,13 @@
-"""Resume through the port's train entry point, on the CPU, streamed from
-an ``.npy`` folder the test writes (the epoch sampler's RandomState in
-the loop), for s-coco detone-orig and pds-coco zeng-biHomE (its pair and
-DSAC generators too), at batch 2, one step per epoch:
+"""Resume through the port's train entry point, on the CPU, streamed
+(``--feed stream``) from an ``.npy`` folder the test writes (the epoch
+sampler's RandomState in the loop), for s-coco detone-orig and pds-coco
+zeng-biHomE (its pair and DSAC generators too), at batch 2, one step per
+epoch (resume through the device pool: ``tests/test_torch_feed_pool.py``):
 
 * one epoch, then the same command with ``--epochs 2`` in the same
   LOGGING.DIR, gives exactly the losses, test records and weights of two
-  epochs without a stop (tolerance: exact);
+  epochs without a stop (tolerance: exact; the records but their
+  wall-clock throughput);
 * with SOLVER.RESTART_LEARNING_RATE the resumed run keeps the step and
   starts Adam empty at count 0;
 * a checkpoint whose optimizer state does not fit the trainable set
@@ -29,8 +31,11 @@ CONFIGS = ('config/s-coco/detone-orig-lr-5e-3.yaml',
 
 
 def _records(log_dir):
-    return [json.loads(x) for x in
-            (log_dir / 'metrics.jsonl').read_text().splitlines()]
+    """The logged records without the wall-clock throughput."""
+    records = [json.loads(x) for x in
+               (log_dir / 'metrics.jsonl').read_text().splitlines()]
+    return [{k: v for k, v in r.items()
+             if k != 'throughput/pairs_per_sec_per_chip'} for r in records]
 
 
 @pytest.mark.parametrize('config', CONFIGS)
@@ -39,7 +44,7 @@ def test_resume_continues_exactly(config, tmp_path, capsys):
 
     def run(log_dir, epochs, *sets):
         args = ['--config_file', config, '--steps', '1', '--batch_size', '2',
-                '--epochs', str(epochs), '--device', 'cpu',
+                '--epochs', str(epochs), '--device', 'cpu', '--feed', 'stream',
                 '--set', f'LOGGING.DIR={log_dir}', '--set', 'LOGGING.STEP=1',
                 '--set', f'DATA.TRAIN_SPLIT={split}',
                 '--set', f'DATA.TEST_SPLIT={split}',

@@ -97,10 +97,6 @@ def test_build_model_refuses_unported_families():
     config['MODEL']['HEAD']['RANSAC_HYPOTHESIS_NO'] = 2
     with pytest.raises(ValueError, match='not ported yet'):
         build_model(config)
-    config = load_config(ZENG[0])
-    config['MODEL']['HEAD']['DSAC_PREDICT_REFINE'] = True
-    with pytest.raises(ValueError, match='not ported yet'):
-        build_model(config)
 
 
 def test_eval_cli_runs_on_cpu():
