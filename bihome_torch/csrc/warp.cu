@@ -288,8 +288,11 @@ bilinear_sample_bwd_uv_c1_kernel(const float* __restrict__ img,
 // like K3's input, with atomicAdd. The wrapper zeroes dimg first. The
 // order of the atomics changes from run to run, so the float sums differ
 // in their last bits between runs. Bound on the H100: bytes (dimg written
-// and read back by the atomics, u, v, g read); zeng training never asks for
-// this gradient, because the sampled patches are data.
+// and read back by the atomics, u, v, g read). It runs where the sampled
+// image takes a gradient: the biHomE loss's upsample-patch-{2,4}x
+// strategies (the warped patches upsampled 4 or 16 points per pixel), its
+// MASK_KEYS masks (C = 2, riding with the patch) and the TripletHead's
+// learned masks (FIX_MASK false); the shipped configs warp only data.
 __global__ void bilinear_sample_bwd_img_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ g, float* __restrict__ dimg, int h, int w,

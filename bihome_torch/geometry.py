@@ -217,6 +217,30 @@ def ones_warp_mask(u: Tensor, v: Tensor, source_hw: Tuple[int, int]
     return gu * gv
 
 
+def warp_image(image: Tensor, homography: Tensor,
+               target_hw: Optional[Tuple[int, int]] = None,
+               inverse: bool = True) -> Tensor:
+    """Warp NHWC images by homographies (ref: src/data/utils.py:54-67):
+    with ``inverse`` dst(x) = src(H·x), sampled directly with H; else
+    dst(x) = src(H^-1·x), cv2.warpPerspective(img, H). image [B,H,W,C],
+    homography [B,3,3] -> [B,th,tw,C] (float32 for a bfloat16 image,
+    :func:`batched_sample`)."""
+    if target_hw is None:
+        target_hw = (image.shape[1], image.shape[2])
+    sampling = homography if inverse else inv3x3(homography)
+    u, v = homography_grid(sampling, target_hw)
+    out = batched_sample(image, u, v)                              # [B,P,C]
+    return out.reshape(image.shape[0], target_hw[0], target_hw[1],
+                       image.shape[-1])
+
+
+def warp_perspective(image: Tensor, m: Tensor,
+                     target_hw: Optional[Tuple[int, int]] = None) -> Tensor:
+    """cv2.warpPerspective / kornia.warp_perspective: dst(x) =
+    src(M^-1 · x). image [B,H,W,C], m [B,3,3]."""
+    return warp_image(image, m, target_hw=target_hw, inverse=False)
+
+
 def _normalize_point_cloud(points: Tensor) -> Tuple[Tensor, Tensor]:
     """Zero mean, mean distance sqrt(2). Returns (normalized [B,N,2],
     transform [B,3,3])."""

@@ -16,15 +16,25 @@ Ported heads:
   backbone perspective fields -> sampled points -> DLT -> corner deltas,
   ``:354-396``; at predict the all-points refit DSAC_PREDICT_REFINE and
   the average with the inverted 2->1 fit DSAC_PREDICT_BIDIRECTIONAL,
-  ``:790-826``), or with ``DELTA_HAT_KEYS`` (detone-biHomE: the
-  regression backbone's deltas of both directions, n = 1, ``:336-340``).
-  Its training forward is the double-line, mask-less, l1, downsample-mask
-  biHomE loss of every shipped ``*-bihome`` config (``_triplet_resnet_loss``,
-  ``:482-728``): one warp of both patches with the closed-form support
-  mask, the frozen extractor run twice (plain patches without gradient,
-  warped patches with input gradients), the fused triplet tail and the
-  ``TRIPLET_MU`` homography consistency term, plus the metrics of
-  ``:652-725`` under the same keys.
+  ``:790-826``), or with ``DELTA_HAT_KEYS`` (the regression backbone's
+  deltas, n = 1, ``:336-340``). Its training forward is the biHomE loss
+  (``_triplet_resnet_loss``, ``:482-728``) with every variant of that
+  function: one warp of the patches (double-line: both directions
+  stacked), the warped all-ones mask in closed form, or with MASK_KEYS
+  the backbone's masks as a second channel of the same warp; the
+  SAMPLING_STRATEGY upsample-patch-{2,4}x bilinear upsampling before the
+  extractor (``:42-53, 137-142``); the extractor run twice (plain patches
+  without gradient, warped patches with input gradients), through the
+  WITH_PROJECTION_HEAD Dense layers, in training-mode BN under
+  AUXILIARY_RESNET_BN_TRAIN; the masks pooled to the features'
+  resolution; then the one-line loss (l1 or cosine, the float margin,
+  MASK_CRD, the scores), the fused double-line l1 tail, or the
+  open-coded double-line tail (l1, l2 or cosine distances, both
+  aggregations, 'inf' or a float margin), plus ``TRIPLET_MU`` times the
+  homography consistency term, the 'dual' term on the ContentAware
+  backbone's feature extractor, and the metrics of ``:652-725`` under
+  the same keys. TRIPLET_LOSS '' is ``_multihead_loss`` (``:398-424``):
+  the feature pair for the trainer's tensor loss.
 * ``TripletHead`` (Zhang et al.'s CA-UDHN loss, ``:212-326``): both
   patches warped by the predicted deltas, the support mask in closed form
   under FIX_MASK (else the predicted masks warped too), the backbone's
@@ -34,17 +44,19 @@ Ported heads:
 * ``predict`` for all four (``:762-826``).
 
 ``forward`` returns the JAX keys: ``{'ground_truth', 'network_output',
-'delta_gt', 'delta_hat', 'metrics'}`` for the tensor-loss heads, ``{'loss',
-'delta_gt', 'delta_hat', 'metrics'}`` for the biHomE loss. Other heads and
-variants raise ``not ported yet``. The PerceptualHead's auxiliary
-extractor is frozen: its parameters never require grad and it stays in
-eval mode (``auxiliary_resnet_bn_train`` False, ``heads/config.py:40``)
-even when the model is put in training mode.
+'delta_gt', 'delta_hat', 'metrics'}`` for the tensor-loss heads (and the
+multihead loss), ``{'loss', 'delta_gt', 'delta_hat', 'metrics'}`` for
+the biHomE loss. Other heads, more than one hypothesis and score_cnn
+scoring raise ``not ported yet``. The PerceptualHead's auxiliary
+extractor takes no parameter gradient, whatever AUXILIARY_RESNET_FREEZE
+says (the JAX train step cuts it out of autodiff in every step); its BN
+stays in eval mode unless AUXILIARY_RESNET_BN_TRAIN (``heads/config.py``).
+The projection head's parameters train.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +65,7 @@ from torch import nn
 from bihome_torch import geometry
 from bihome_torch.heads import dsac, ransac
 from bihome_torch.heads.config import HeadConfig
-from bihome_torch.models.layers import cast
+from bihome_torch.models.layers import Linear, cast
 from bihome_torch.models.resnet import ResNet
 from bihome_torch.ops import fused_loss
 
@@ -89,30 +101,82 @@ def check_ported(cfg: HeadConfig) -> None:
         raise ValueError('not ported yet: ' + ', '.join(missing))
 
 
-def check_trainable(cfg: HeadConfig) -> None:
-    """Raise for the biHomE loss variants the training forward does not
-    have (the tensor-loss heads have none)."""
-    if cfg.name != 'PerceptualHead':
-        return
-    missing = []
-    if cfg.triplet_loss != 'double-line':
-        missing.append(f'TRIPLET_LOSS {cfg.triplet_loss!r}')
-    if cfg.mask_keys:
-        missing.append('MASK_KEYS')
-    if cfg.triplet_distance != 'l1':
-        missing.append(f'TRIPLET_DISTANCE {cfg.triplet_distance!r}')
-    if cfg.sampling_strategy != 'downsample-mask':
-        missing.append(f'SAMPLING_STRATEGY {cfg.sampling_strategy!r}')
-    if cfg.with_projection_head:
-        missing.append('WITH_PROJECTION_HEAD')
-    if not cfg.auxiliary_resnet_freeze:
-        missing.append('AUXILIARY_RESNET_FREEZE false')
-    if cfg.auxiliary_resnet_bn_train:
-        missing.append('AUXILIARY_RESNET_BN_TRAIN')
-    if len(cfg.delta_hat_keys or cfg.pf_keys) != 2:
-        missing.append('a one-line backbone')
-    if missing:
-        raise ValueError('not ported yet: ' + ', '.join(missing))
+def _linspace(stop: float, num: int, device) -> Tensor:
+    """``jnp.linspace(0, stop, num)`` in float32, bit for bit as XLA
+    compiles it: point i is i * fl(fl(1 / (num - 1)) * stop), the last
+    exactly ``stop``. ``torch.linspace`` rounds most points otherwise (by
+    up to 7.6e-6 over 128 pixels)."""
+    div = num - 1
+    step = (torch.tensor(1.0) / div * stop).to(device)
+    head = torch.arange(div, dtype=torch.float32, device=device) * step
+    return torch.cat([head, torch.full((1,), float(stop), device=device)])
+
+
+def upsample_grid(b: int, h: int, w: int, scale: int, device
+                  ) -> Tuple[Tensor, Tensor]:
+    """(u, v) [b, h*scale * w*scale]: the align_corners output grid of a
+    ``scale``-times upsample in input pixels, one row broadcast over the
+    batch (``assembled.py:46-51``)."""
+    oh, ow = h * scale, w * scale
+    xs = _linspace(w - 1.0, ow, device)
+    ys = _linspace(h - 1.0, oh, device)
+    return (xs.repeat(oh).expand(b, -1),
+            ys.repeat_interleave(ow).expand(b, -1))
+
+
+def upsample_align_corners(x: Tensor, scale: int) -> Tensor:
+    """Bilinear 2x/4x upsample of NHWC ``x`` with torch's align_corners
+    semantics (``assembled.py:42-53``, ref: PerceptualHead.py:317-318):
+    :func:`upsample_grid` sampled by :func:`geometry.batched_sample` (K3;
+    K5 backward where ``x`` requires grad; the grid is constant, so no
+    K4). The broadcast grid is materialised [N,P] for the kernels."""
+    b, h, w, c = x.shape
+    u, v = upsample_grid(b, h, w, scale, x.device)
+    return geometry.batched_sample(x, u, v).reshape(b, h * scale,
+                                                    w * scale, c)
+
+
+def pool_mask(mask: Tensor, factor: int) -> Tensor:
+    """AvgPool2d(kernel = stride = ``factor``) of a [B,h,w,1] mask ->
+    [B,h/factor,w/factor] (``assembled.py:56-60``, ref:
+    PerceptualHead.py:447-459)."""
+    m = mask[..., 0]
+    return m if factor <= 1 else F.avg_pool2d(m[:, None], factor)[:, 0]
+
+
+def triplet_distances(fa: Tensor, fb: Tensor, distance: str) -> Tensor:
+    """Per-pixel distance of NHWC feature maps: channel-resolved for 'l1',
+    channel-reduced for 'l2' and 'cosine' (``assembled.py:436-450``, ref:
+    PerceptualHead.py:543-606)."""
+    if distance == 'l1':
+        return (fa - fb).abs()                                # [.,h,w,C]
+    if distance == 'l2':
+        return ((fa - fb) ** 2).mean(-1)                      # [.,h,w]
+    if distance == 'cosine':
+        num = (fa * fb).sum(-1)
+        den = (torch.linalg.vector_norm(fa, dim=-1)
+               * torch.linalg.vector_norm(fb, dim=-1)).clamp_min(1e-8)
+        return 1.0 - num / den
+    raise ValueError(distance)
+
+
+def hinge(l_pos: Tensor, l_anchor: Tensor, margin) -> Tensor:
+    """``_triplet_margin_aggregate`` (``assembled.py:452-481``) for the
+    channel-reduced distances ('l2', 'cosine': [.,h,w]), where the
+    aggregation has nothing to sum: l_pos - l_anchor under the margin
+    'inf', else the hinge max(l_pos - l_anchor + margin, 0). (The
+    channel-resolved 'l1' goes through the fused tail.)"""
+    diff = l_pos - l_anchor
+    return diff if isinstance(margin, str) else (diff + margin).clamp_min(0.0)
+
+
+def masked_mean(loss_mat: Tensor, weights: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """(sum over the batch of sum(w * loss) / max(sum w, 1), the per-sample
+    sums of w [B])."""
+    den = weights.sum(dim=(-2, -1))
+    return ((weights * loss_mat).sum(dim=(-2, -1))
+            / den.clamp_min(1.0)).sum(), den
 
 
 class AssembledModel(nn.Module):
@@ -128,18 +192,37 @@ class AssembledModel(nn.Module):
         check_ported(head)
         self.backbone = backbone
         self.head = head
-        self.auxiliary_resnet = None
+        self.auxiliary_resnet = self.projection_head = None
         if head.name == 'PerceptualHead':
+            # The extractor never takes a parameter gradient, whatever
+            # AUXILIARY_RESNET_FREEZE says: the JAX train step cuts it out
+            # of autodiff in every step (trainer.py:62-73).
             self.auxiliary_resnet = ResNet(
                 arch=head.auxiliary_resnet,
                 output_layer=head.auxiliary_resnet_output_layer)
             self.auxiliary_resnet.requires_grad_(False)
-            self.auxiliary_resnet.eval()
+            if head.with_projection_head:
+                # Linear layers at even indices, a ReLU between two (the
+                # reference's layout, PerceptualHead.py:43-48; flax's
+                # projection_{i}, assembled.py:75-79).
+                layers = []
+                for i, (cin, cout) in enumerate(head.with_projection_head):
+                    layers += [nn.ReLU()] if i else []
+                    layers.append(Linear(cin, cout))
+                self.projection_head = nn.Sequential(*layers)
+        self.train()
 
     def train(self, mode: bool = True) -> 'AssembledModel':
+        """The extractor's BN runs on batch statistics, and updates its
+        running ones, only in a training forward with
+        AUXILIARY_RESNET_BN_TRAIN, and never in the multihead loss
+        (``assembled.py:100, 406``)."""
         super().train(mode)
         if self.auxiliary_resnet is not None:
-            self.auxiliary_resnet.eval()  # frozen, eval-mode BN always
+            cfg = self.head
+            self.auxiliary_resnet.train(
+                mode and cfg.auxiliary_resnet_bn_train
+                and cfg.triplet_loss != '')
         return self
 
     @property
@@ -226,10 +309,12 @@ class AssembledModel(nn.Module):
         return delta
 
     def aux_features(self, x: Tensor) -> Tensor:
-        """Frozen-extractor features of NHWC patches, returned NHWC (a view
-        of the NCHW maps)."""
+        """Extractor features of NHWC patches, returned NHWC (a view of the
+        NCHW maps), through the projection head where the config has one
+        (``_aux_features``, ``assembled.py:86-107``)."""
         nchw = x.permute(0, 3, 1, 2).contiguous()
-        return self.auxiliary_resnet(nchw).permute(0, 2, 3, 1)
+        f = self.auxiliary_resnet(nchw).permute(0, 2, 3, 1)
+        return f if self.projection_head is None else self.projection_head(f)
 
     def forward(self, batch: Dict[str, Tensor],
                 uniforms: Optional[Sequence[Tensor]] = None,
@@ -238,10 +323,10 @@ class AssembledModel(nn.Module):
         """The training forward: the backbone, then the head. For the
         PerceptualHead with DSAC, ``uniforms`` = (12 draws, 21 draws), each
         [B, points_per_hypothesis], injects the draws of the two
-        directions; otherwise both come from ``generator``, 12 first. The
-        other heads draw nothing."""
+        directions (the 2->1 field is fitted only for a double-line loss);
+        otherwise they come from ``generator``, 12 first. The other heads
+        draw nothing."""
         cfg = self.head
-        check_trainable(cfg)
         outputs = self.backbone(batch)
         data = {**batch, **outputs}
         if cfg.name == 'NoOpHead':
@@ -250,11 +335,21 @@ class AssembledModel(nn.Module):
             return self.photometric_head(data)
         if cfg.name == 'TripletHead':
             return self.triplet_head(data)
+        doubleline = 'double-line' in cfg.triplet_loss
+        scores = None
         if cfg.delta_hat_keys:
-            delta_12, delta_21 = (data[k] for k in cfg.delta_hat_keys)
+            delta_12 = data[cfg.delta_hat_keys[0]]
+            delta_21 = data[cfg.delta_hat_keys[1]] if doubleline else None
         else:
             delta_12, delta_21 = self.dsac_both(outputs, uniforms, generator)
-        return self.bihome_loss(batch, delta_12, delta_21)
+            # The one hypothesis's softmax score, identically 1
+            # (assembled.py:373).
+            pf = outputs[cfg.pf_keys[0]]
+            scores = torch.ones((pf.shape[0], 1), dtype=pf.dtype,
+                                device=pf.device)
+        if cfg.triplet_loss == '':
+            return self.multihead_loss(data, delta_12, scores)
+        return self.bihome_loss(data, delta_12, delta_21, scores)
 
     def noop_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
         """NoOpHead (``assembled.py:166-184``): with 'all_points' delta_hat
@@ -293,74 +388,235 @@ class AssembledModel(nn.Module):
     def dsac_both(self, outputs: Dict[str, Tensor],
                   uniforms: Optional[Sequence[Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
-        """(delta_12, delta_21) [B,4,2] from the two perspective fields,
-        the 1->2 direction's draws first."""
+        """(delta_12, delta_21) [B,4,2] from the perspective fields, the
+        1->2 direction's draws first; delta_21 is None unless the loss is
+        double-line."""
         cfg = self.head
         u12, u21 = uniforms if uniforms is not None else (None, None)
-        return (self.dsac_deltas(outputs[cfg.pf_keys[0]], u12, generator),
-                self.dsac_deltas(outputs[cfg.pf_keys[1]], u21, generator))
+        delta_12 = self.dsac_deltas(outputs[cfg.pf_keys[0]], u12, generator)
+        if 'double-line' not in cfg.triplet_loss:
+            return delta_12, None
+        return delta_12, self.dsac_deltas(outputs[cfg.pf_keys[1]], u21,
+                                          generator)
 
-    def bihome_loss(self, batch: Dict[str, Tensor], delta_12: Tensor,
-                    delta_21: Tensor) -> Dict[str, object]:
-        """The biHomE double-line loss for the corner deltas of both
-        directions (``_triplet_resnet_loss``, ``assembled.py:482-728``)."""
-        cfg = self.head
-        e1, e2 = cfg.patch_keys
-        patch_1, patch_2 = batch[e1], batch[e2]
-        b, ps = patch_1.shape[0], patch_1.shape[1]
+    @staticmethod
+    def _homographies(delta: Tensor, ps: int) -> Tensor:
+        """H [N,3,3] mapping the patch corners to the corners plus the
+        deltas [N,4,2], in float32 (float64 for float64 deltas: the CPU
+        references), as ``_warp`` builds it at any compute dtype."""
+        corners = geometry.image_corners(
+            ps, ps, batch_size=delta.shape[0],
+            dtype=torch.promote_types(delta.dtype, torch.float32),
+            device=delta.device)
+        return geometry.four_point_to_homography(corners, delta)
 
-        # One warp of both patches; the warped all-ones mask in closed form
-        # (ref: assembled.py:121-135, 511-525).
-        both = torch.cat([patch_1, patch_2], dim=0)
-        corners = geometry.image_corners(ps, ps, batch_size=2 * b,
-                                         dtype=both.dtype, device=both.device)
-        hom = geometry.four_point_to_homography(
-            corners, torch.cat([delta_12, delta_21], dim=0))
+    def _warp_pair(self, image: Tensor, delta: Tensor, masked: bool):
+        """The loss warp (``_warp`` / ``_warp_with_support``,
+        ``assembled.py:110-135``) of [N,ps,ps,C] by the homographies of
+        the corner deltas [N,4,2] -> (warped patch [N,ps,ps,1] float32,
+        warped mask [N,ps,ps,1], H [N,3,3]). ``masked``: the mask is the
+        image's second channel, warped with it (K3, K4 and K5 at C = 2
+        where the mask takes a gradient); else the mask is all ones and
+        its warp the bilinear support mask in closed form, in the compute
+        dtype."""
+        n, ps = image.shape[0], image.shape[1]
+        hom = self._homographies(delta, ps)
+        if masked:
+            warped = geometry.warp_image(image, hom)
+            return warped[..., :1], warped[..., 1:], hom
         u, v = geometry.homography_grid(hom, (ps, ps))
-        # At bf16 the patches are rounded before the warp and the warped
-        # mask after it (ref: assembled.py:503-530); the warp of a bf16
-        # patch is float32 (``ops/warp.sample``).
-        both = cast(both, self.compute_dtype)
-        warped = geometry.batched_sample(both, u, v).reshape(both.shape)
+        warped = geometry.batched_sample(image, u, v).reshape(image.shape)
         wmask = cast(geometry.ones_warp_mask(u, v, (ps, ps)),
-                     self.compute_dtype).reshape(2 * b, 1, ps, ps)
-        h1, h2 = hom[:b], hom[b:]
+                     self.compute_dtype).reshape(n, ps, ps, 1)
+        return warped, wmask, hom
+
+    def _upsample(self, x: Tensor) -> Tensor:
+        """SAMPLING_STRATEGY upsample-patch-{2,4}x (``_maybe_upsample``,
+        ``assembled.py:137-142``); 'downsample-mask' leaves the patch."""
+        scale = {'upsample-patch-4x': 4, 'upsample-patch-2x': 2}.get(
+            self.head.sampling_strategy)
+        return x if scale is None else upsample_align_corners(x, scale)
+
+    def bihome_loss(self, data: Dict[str, Tensor], delta_12: Tensor,
+                    delta_21: Optional[Tensor] = None,
+                    scores: Optional[Tensor] = None) -> Dict[str, object]:
+        """The biHomE loss (``_triplet_resnet_loss``,
+        ``assembled.py:482-728``) for the corner deltas of one direction
+        (one-line) or both (double-line), with one hypothesis: ``scores``
+        [B,1] (DSAC's, all ones) weight the one-line loss. The patches
+        (and MASK_KEYS' masks, else ones) are cast to the compute dtype;
+        the warps and upsampling of bf16 inputs are float32
+        (``ops/warp.sample``, whose autograd casts the image gradient back
+        to the input's dtype)."""
+        cfg = self.head
+        dt = self.compute_dtype
+        doubleline = 'double-line' in cfg.triplet_loss
+        e1, e2 = cfg.patch_keys
+        patch_1, patch_2 = cast(data[e1], dt), cast(data[e2], dt)
+        b, ps = patch_1.shape[0], patch_1.shape[1]
+        masked = bool(cfg.mask_keys)
+        if masked:
+            mask_1, mask_2 = (cast(data[k], dt) for k in cfg.mask_keys)
+        else:
+            mask_1 = mask_2 = torch.ones_like(patch_1)
+
+        # One warp: both directions stacked on the batch axis (double-
+        # line), the mask riding as a second channel (MASK_KEYS).
+        src, delta = patch_1, delta_12
+        if masked:
+            src = torch.cat([patch_1, mask_1], dim=-1)
+        if doubleline:
+            src = torch.cat([src, torch.cat([patch_2, mask_2], dim=-1)
+                             if masked else patch_2])
+            delta = torch.cat([delta_12, delta_21])
+        warped, wmask, hom = self._warp_pair(src, delta, masked)
+        h1 = hom[:b]
 
         # The plain patches are data: their features carry no gradient. The
-        # warped pass carries input gradients into the warp only (the
-        # extractor's parameters never require grad).
+        # warped pass carries input gradients into the warp (and the
+        # upsampling) only; the extractor's parameters never require grad.
         with torch.no_grad():
-            feats_plain = self.aux_features(both)
-        feats_w = self.aux_features(warped)
+            feats_plain = self.aux_features(
+                self._upsample(torch.cat([patch_1, patch_2])))
+        f1, f2 = feats_plain[:b], feats_plain[b:]
+        feats_w = self.aux_features(self._upsample(warped))
+        f1p = feats_w[:b]
+        # Mask downsampling to feature resolution (always on, as the
+        # reference's `or True`, PerceptualHead.py:448).
         factor = ps // feats_w.shape[1]
-        # Mask downsampling to feature resolution (ref: assembled.py:582-
-        # 587); the unwarped masks are all ones and stay ones.
-        wmask_d = F.avg_pool2d(wmask, factor)[:, 0]
-        m1p_sq, m2p_sq = wmask_d[:b], wmask_d[b:]
-        ln1, ln2, fm = fused_loss.triplet_double_line(
-            feats_w, feats_plain, m1p_sq, m2p_sq, cfg.triplet_margin,
-            cfg.triplet_aggregation, True, False)
+        wmask_d = pool_mask(wmask, factor)
+        m1p_d, m2_d = wmask_d[:b], pool_mask(mask_2, factor)
+        m1_d = pool_mask(mask_1, factor)
+
+        metrics: Dict[str, Tensor] = {}
         eye = torch.eye(3, dtype=h1.dtype, device=h1.device)
-        ln3 = ((h1 @ h2 - eye) ** 2).sum()
-        loss = ln1 + ln2 + cfg.triplet_mu * ln3
-        (mean_l1, mean_l2, mean_l3, mean_f1, mean_f2, mean_f1p, min_den1,
-         min_den2) = fm
+        if 'one-line' in cfg.triplet_loss:
+            fa, fb, fc = f1p, f2, f1
+            if self.projection_head is not None:
+                fa, fb, fc = (f / torch.linalg.vector_norm(
+                    f, dim=-1, keepdim=True).clamp_min(1e-8)
+                    for f in (fa, fb, fc))
+            if cfg.triplet_distance == 'l1':
+                l1 = (fa - fb).abs().sum(-1)
+                l3 = (fc - fb).abs().sum(-1)
+            elif cfg.triplet_distance == 'cosine':
+                l1 = triplet_distances(fa, fb, 'cosine')
+                l3 = triplet_distances(fc, fb, 'cosine')
+            else:
+                raise ValueError(cfg.triplet_distance)
+            margin = (0.0 if isinstance(cfg.triplet_margin, str)
+                      else cfg.triplet_margin)
+            loss_mat = (l1 - l3 + margin).clamp_min(0.0)
+            if scores is not None:
+                loss_mat = loss_mat * scores.reshape(b, 1, 1)
+            loss, _ = masked_mean(loss_mat,
+                                  m1p_d if cfg.mask_crd else m1p_d * m2_d)
+        elif not doubleline:
+            raise ValueError(f'Unknown TRIPLET_LOSS: {cfg.triplet_loss}')
+        else:
+            h2 = hom[b:]
+            f2p = feats_w[b:]
+            m2p_d = wmask_d[b:]
+            ln3 = ((h1 @ h2 - eye) ** 2).sum()
+            if cfg.triplet_distance == 'l1':
+                # The fused tail (ops/fused_loss.py), which also returns
+                # the masks' cotangents.
+                ln1, ln2, fm = fused_loss.triplet_double_line(
+                    feats_w, feats_plain, m1p_d * m2_d, m2p_d * m1_d,
+                    cfg.triplet_margin, cfg.triplet_aggregation, True,
+                    False)
+                (mean_l1, mean_l2, mean_l3, mean_f1, mean_f2, mean_f1p,
+                 den1, den2) = fm
+                metrics.update({'loss_comp/l2': mean_l2,
+                                'feature_space/patch_1_f': mean_f1,
+                                'feature_space/patch_2_f': mean_f2,
+                                'feature_space/patch_1_f_prime': mean_f1p,
+                                'loss_comp/l1': mean_l1,
+                                'loss_comp/l3': mean_l3})
+            else:
+                # The open-coded tail of the channel-reduced distances
+                # (assembled.py:672-706).
+                dist = cfg.triplet_distance
+                l3 = triplet_distances(f1, f2, dist)
+                ln1, den1 = masked_mean(hinge(
+                    triplet_distances(f1p, f2, dist), l3,
+                    cfg.triplet_margin), m1p_d * m2_d)
+                ln2, den2 = masked_mean(hinge(
+                    triplet_distances(f2p, f1, dist), l3,
+                    cfg.triplet_margin), m2p_d * m1_d)
+                den1, den2 = den1.min(), den2.min()
+                metrics['loss_comp/l2'] = (f1 - f2p).abs().mean()
+            loss = ln1 + ln2 + cfg.triplet_mu * ln3
+            metrics.update({'loss_comp/ln1': ln1, 'loss_comp/ln2': ln2,
+                            'loss_comp/ln3': cfg.triplet_mu * ln3,
+                            'loss_den/l1_den': den1,
+                            'loss_den/l2_den': den2,
+                            'h/h2': ((h2 - eye) ** 2).sum()})
+        if 'dual' in cfg.triplet_loss:
+            loss = loss + self.dual_loss(
+                patch_1, patch_2, warped[:b],
+                warped[b:] if doubleline else None, mask_1[..., 0],
+                mask_2[..., 0], wmask[:b, ..., 0],
+                wmask[b:, ..., 0] if doubleline else None)
+        shared = {'feature_space/patch_1_f': lambda: f1.mean(),
+                  'feature_space/patch_2_f': lambda: f2.mean(),
+                  'feature_space/patch_1_f_prime': lambda: f1p.mean(),
+                  'loss_comp/l1': lambda: (f2 - f1p).abs().mean(),
+                  'loss_comp/l3': lambda: (f2 - f1).abs().mean(),
+                  'h/h1': lambda: ((h1 - eye) ** 2).sum()}
         with torch.no_grad():
-            metrics = {'loss_comp/ln1': ln1.detach(),
-                       'loss_comp/ln2': ln2.detach(),
-                       'loss_comp/ln3': cfg.triplet_mu * ln3,
-                       'loss_den/l1_den': min_den1,
-                       'loss_den/l2_den': min_den2,
-                       'loss_comp/l2': mean_l2,
-                       'h/h2': ((h2 - eye) ** 2).sum(),
-                       'feature_space/patch_1_f': mean_f1,
-                       'feature_space/patch_2_f': mean_f2,
-                       'feature_space/patch_1_f_prime': mean_f1p,
-                       'loss_comp/l1': mean_l1,
-                       'loss_comp/l3': mean_l3,
-                       'h/h1': ((h1 - eye) ** 2).sum()}
-        return {'loss': loss, 'delta_gt': batch.get('delta'),
+            for key, fn in shared.items():
+                if key not in metrics:
+                    metrics[key] = fn()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        return {'loss': loss, 'delta_gt': data.get('delta'),
                 'delta_hat': delta_12, 'metrics': metrics}
+
+    def dual_loss(self, p1: Tensor, p2: Tensor, p1p: Tensor,
+                  p2p: Optional[Tensor], m1: Tensor, m2: Tensor, m1p: Tensor,
+                  m2p: Optional[Tensor]) -> Tensor:
+        """The 'dual' term (``_dual_loss``, ``assembled.py:730-756``): the
+        ContentAware backbone's own feature extractor on the plain and
+        warped patches (each call updating its BN running statistics in
+        training mode), the unhinged masked l1 triplet at full
+        resolution; masks [B,h,w]."""
+        if not hasattr(self.backbone, 'extract_features'):
+            raise ValueError('the dual loss needs the ContentAware backbone')
+        ext = self.backbone.extract_features
+        f1, f2, f1p = ext(p1), ext(p2), ext(p1p)
+        l3 = (f1 - f2).abs().sum(-1)
+        loss, _ = masked_mean((f1p - f2).abs().sum(-1) - l3, m1p * m2)
+        if p2p is not None:
+            loss2, _ = masked_mean((ext(p2p) - f1).abs().sum(-1) - l3,
+                                   m2p * m1)
+            loss = loss + loss2
+        return loss
+
+    def multihead_loss(self, data: Dict[str, Tensor], delta_12: Tensor,
+                       scores: Optional[Tensor] = None) -> Dict[str, object]:
+        """TRIPLET_LOSS '' (``_multihead_loss``, ``assembled.py:398-424``):
+        the extractor's features of patch_2 and of patch_1 warped by the
+        deltas (eval-mode BN) as ground_truth and network_output for the
+        trainer's tensor loss, each weighted by ``scores`` [B,1]."""
+        cfg = self.head
+        patch_1, patch_2 = (data[k] for k in cfg.patch_keys)
+        b, ps = patch_1.shape[0], patch_1.shape[1]
+        h1 = self._homographies(delta_12, ps)
+        feats = self.aux_features(torch.cat(
+            [patch_2, geometry.warp_image(patch_1, h1)]))
+        f2, f1p = feats[:b], feats[b:]
+        if scores is not None:
+            s = scores.reshape(b, 1, 1, 1)
+            f1p, f2 = f1p * s, f2 * s
+        eye = torch.eye(3, dtype=h1.dtype, device=h1.device)
+        with torch.no_grad():
+            metrics = {'feature_space/patch_2_f': f2.mean(),
+                       'feature_space/patch_1_f_prime': f1p.mean(),
+                       'loss_comp/l1': (f2 - f1p).abs().mean(),
+                       'h/h1': ((h1 - eye) ** 2).sum()}
+        return {'ground_truth': f2, 'network_output': f1p,
+                'delta_gt': data.get('delta'), 'delta_hat': delta_12,
+                'metrics': metrics}
 
     def triplet_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
         """The TripletHead's loss (``_triplet_head_forward``,

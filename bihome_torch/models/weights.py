@@ -94,8 +94,9 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     ContentAwareBackbone tree (``mask_predictor``, absent under FIX_MASK,
     ``feature_extractor`` and ``resnet34``) or a whole AssembledModel train
     state, whose top level holds ``backbone`` and, for the PerceptualHead,
-    ``auxiliary_resnet`` (-> ``backbone.*`` and ``auxiliary_resnet.*``;
-    every ResNet mapped by ``utils/aux_store``)."""
+    ``auxiliary_resnet`` and any ``projection_{i}`` (-> ``backbone.*``,
+    ``auxiliary_resnet.*`` and ``projection_head.{2i}.*``; every ResNet
+    mapped by ``utils/aux_store``)."""
     top = {**variables['params'], **variables.get('batch_stats', {})}
     if 'resnet34' in top:
         tree = {c: variables.get(c, {}).get('resnet34', {})
@@ -117,6 +118,16 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             aux, _ = aux_store.state_dict_from_aux(sub('auxiliary_resnet'),
                                                    output_layer=4)
             out_t.update({f'auxiliary_resnet.{k}': v for k, v in aux.items()})
+        # WITH_PROJECTION_HEAD's Dense layers: Linear i at index 2i, a ReLU
+        # between two (bihome_tpu/models/torch_port.py:426-435).
+        for name, leaves in variables['params'].items():
+            if name.startswith('projection_'):
+                i = 2 * int(name[len('projection_'):])
+                out_t[f'projection_head.{i}.weight'] = torch.from_numpy(
+                    np.ascontiguousarray(np.array(leaves['kernel'],
+                                                  np.float32).T))
+                out_t[f'projection_head.{i}.bias'] = torch.from_numpy(
+                    np.array(leaves['bias'], np.float32))
         return out_t
     out: Dict[str, np.ndarray] = {}
     r50 = any('upper_bn3' in leaves for c in ('params', 'batch_stats')

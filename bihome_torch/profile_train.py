@@ -139,7 +139,8 @@ def main(argv=None) -> None:
         mark('dsac fwd')
         if timing['on']:
             for d in deltas:
-                d.register_hook(grad_mark('loss bwd to the deltas'))
+                if d is not None:             # one-line: no 2->1 fit
+                    d.register_hook(grad_mark('loss bwd to the deltas'))
         return deltas
 
     def timed_global_norm():

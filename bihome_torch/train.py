@@ -154,14 +154,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def init_model(built: config_lib.BuiltModel) -> List[str]:
-    """Seeded init of the backbone and the extractor (if the head has one),
-    then the torchvision and ``.npz`` weights the config names
-    (:func:`load_pretrained_resnets`). Returns the messages to print."""
+    """Seeded init of the backbone, the extractor and the projection head
+    (where the head has them), then the torchvision and ``.npz`` weights
+    the config names (:func:`load_pretrained_resnets`). Returns the
+    messages to print."""
     model = built.model
     gen = torch.Generator().manual_seed(INIT_SEED)
     backbones.init_weights(model.backbone, gen)
     if model.auxiliary_resnet is not None:
         backbones.init_weights(model.auxiliary_resnet, gen)
+    if model.projection_head is not None:
+        backbones.init_weights(model.projection_head, gen)
     return load_pretrained_resnets(built)
 
 

@@ -35,10 +35,13 @@ _MODEL_FILE = re.compile(r'^model_(\d{6,})\.pth$')
 
 def _parts(model: torch.nn.Module) -> List[Tuple[str, torch.nn.Module]]:
     """(key prefix, module) of the reference layout: the backbone under
-    '0.', the PerceptualHead's extractor under '1.auxiliary_resnet.'."""
+    '0.', the PerceptualHead's extractor under '1.auxiliary_resnet.' and
+    its projection head under '1.projection_head.'."""
     parts = [('0.', model.backbone)]
     if getattr(model, 'auxiliary_resnet', None) is not None:
         parts.append(('1.auxiliary_resnet.', model.auxiliary_resnet))
+    if getattr(model, 'projection_head', None) is not None:
+        parts.append(('1.projection_head.', model.projection_head))
     return parts
 
 

@@ -33,7 +33,8 @@
    its model time printed.
 5. Drives the port's train entry point (the same config at full width,
    batch 64, 4 steps, the extractor from aux_clfbh.npz), counted the same
-   way; fails unless K1-K4 launched (K5 not), the loss is finite every
+   way; fails unless K1-K4 launched (K5 not: the patches it warps are
+   data), the loss is finite every
    step, the backbone's parameters and BN statistics moved and the frozen
    extractor's did not. Prints ms per step, pairs/s and peak memory.
 6. One training step's loss and backbone gradients on the card against
@@ -165,18 +166,45 @@
    S-COCO zeng-orig at 64 (the narrow K1 bf16 and K3; the RANSAC fit of
    the card's bf16 field against the CPU's fit of the same field on the
    same draws).
-16. Prints each phase's wall time, one {"pds_distortion": ...,
+16. The K5 slice (K5_RUNS, VARIANT_RUNS), after step 15's evals, from a
+   generator of its own: K3 and K5 at the shapes of the paths that run K5
+   (128 patches of 128x128 upsampled 2x and 4x, P = 65,536 and 262,144;
+   the masked loss warp, C = 2, P = 16,384, with K4) against their plain
+   versions, timed beside grid_sample and its input and grid gradients
+   and, upsampled, beside upsample_bilinear2d (align_corners) forward and
+   backward, with their bytes bounds; then the train entry point with
+   ``--set`` overrides of the shipped configs (batch 64, PDS_STEPS steps):
+   pds zeng-biHomE with SAMPLING_STRATEGY upsample-patch-2x (float32 and
+   bf16) and -4x (float32), exactly K1-K5 (bf16: K1 and K2 bf16); pds
+   zhang-biHomE with learned masks in the biHomE loss (FIX_MASK false,
+   MASK_KEYS; float32 and bf16) and pds zhang-orig with learned masks (the
+   TripletHead), exactly K3, K4 and K5; each with the checks of step 5 and
+   its ms per step, pairs/s and peak memory. The one-step check of step 6
+   at batch 4 on zhang-biHomE with learned masks and upsample-patch-2x
+   (K5 on both of its paths), with K5's dimg negated and K4's du negated
+   as the planted faults. Then the other variants of the biHomE loss on
+   pds zhang-biHomE (l2, cosine with a margin, one-line on the OneLine
+   backbone, a projection head, the 'dual' term, TRIPLET_LOSS '' with
+   MSELoss, AUXILIARY_RESNET_BN_TRAIN with AUXILIARY_RESNET_FREEZE false),
+   VARIANT_STEPS steps each: exactly K3 and K4, a finite loss, the
+   backbone (and a projection head) moved, the extractor's parameters
+   unchanged and its BN statistics moved only under BN_TRAIN.
+17. Prints each phase's wall time, one {"pds_distortion": ...,
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
    "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
-   "predict_extras": {...}, "phase_s": {...}} line,
+   "predict_extras": {...}, "k5_runs": [...], "k5_step": {...},
+   "variant_runs": {...}, "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
    and by path, the narrow and wide bf16 K1 and K2 rows apart; K1 and K2
    with their wide
    kernels' figures and launches
    under "at_r50_head" and at zeng-orig's shape under "at_zeng_orig", K3
-   and K4 at the CLEVR shape under "at_clevr", each with the launches of
-   the paths that run that shape), then as the last line {"ok": true,
+   and K4 at the CLEVR shape under "at_clevr", K3 and K5 at the upsample
+   shapes under "at_upsample_2x" and "at_upsample_4x" and K3, K4 and K5
+   at the masked loss warp under "at_masked_loss_warp", each with the
+   launches of the paths that run that shape), then as the last line
+   {"ok": true,
    "device": {...}}.
 
 The train runs go through the device pool (``--feed pool``, the
@@ -228,8 +256,9 @@ FAULTS = ('K4 du negated', 'K2 dw1 zeroed')
 # The kernels each path must launch (all others must not): zeng-biHomE runs
 # K1-K4; the ResNet34 family has no PF head (no K1, K2), and K4 runs only
 # where a loss warps by the predicted deltas (detone-biHomE's loss warp,
-# the PhotometricHead's warp of the full image). K5 runs on no shipped
-# config: every warped source is data.
+# the PhotometricHead's warp of the full image). K5 runs only where a
+# warped source takes a gradient (K5_RUNS below); every shipped config
+# warps data.
 ZENG_KERNELS = ('fused_pf_head_fwd', 'fused_pf_head_bwd',
                 'bilinear_sample_batched', 'bilinear_sample_bwd_uv')
 WARP_KERNELS = ('bilinear_sample_batched', 'bilinear_sample_bwd_uv')
@@ -421,6 +450,49 @@ BF16_TAIL_PREDICT = 1e-3
 # readings (H100): the card 6.00e-3 relative L2, worst tensor 8.48e-3; the
 # CPU's float32 1.78e-2 and 3.31e-2; K2 bf16's dw1 zeroed 1.29.
 BF16_R50_TAIL = (1e-2, 2e-2)
+# The paths that run K5, the warp's image gradient (``--set`` overrides of
+# shipped configs): pds zeng-biHomE with the upsample-patch-2x (float32 and
+# bf16) and -4x (float32) sampling strategies, whose warped patches are
+# upsampled by K3 before the extractor, so that K5 scatters their gradient
+# at 4 and 16 points per pixel; pds zhang-biHomE with learned masks
+# (FIX_MASK false) in the biHomE loss (MASK_KEYS: each mask a second channel
+# of the loss warp, K3/K4/K5 at C = 2; float32 and bf16); pds zhang-orig
+# with learned masks (the TripletHead warps them, C = 1). Each at batch 64,
+# PDS_STEPS steps, counted: exactly its kernels. Then the one-step check at
+# batch 4 of zhang-biHomE with learned masks and upsample-patch-2x (both K5
+# paths in one step) with K5's dimg negated and K4's du negated as the
+# planted faults. Then the other variants of the biHomE loss
+# (VARIANT_RUNS) on pds zhang-biHomE, VARIANT_STEPS steps each: exactly K3
+# and K4, a finite loss, the backbone moved.
+UPSAMPLE_2X = ('MODEL.HEAD.SAMPLING_STRATEGY=upsample-patch-2x',)
+UPSAMPLE_4X = ('MODEL.HEAD.SAMPLING_STRATEGY=upsample-patch-4x',)
+LEARNED_MASKS = ('MODEL.BACKBONE.FIX_MASK=false',)
+MASK_KEYS = LEARNED_MASKS + ('MODEL.HEAD.MASK_KEYS=[mask_1, mask_2]',)
+ZHANG_BIHOME = 'config/pds-coco/zhang-bihome-lr-1e-2.yaml'
+K5 = ('bilinear_sample_bwd_img',)
+K5_RUNS = ((PDS_RUNS[0][0], UPSAMPLE_2X, ZENG_KERNELS + K5, 'float32'),
+           (PDS_RUNS[0][0], UPSAMPLE_2X, BF16_ZENG_KERNELS + K5, 'bfloat16'),
+           (PDS_RUNS[0][0], UPSAMPLE_4X, ZENG_KERNELS + K5, 'float32'),
+           (ZHANG_BIHOME, MASK_KEYS, WARP_KERNELS + K5, 'float32'),
+           (ZHANG_BIHOME, MASK_KEYS, WARP_KERNELS + K5, 'bfloat16'),
+           (ZHANG_RUNS[0], LEARNED_MASKS, WARP_KERNELS + K5, 'float32'))
+K5_FAULTS = ('K5 dimg negated', 'K4 du negated')
+VARIANT_RUNS = {
+    'l2': ('MODEL.HEAD.TRIPLET_DISTANCE=l2',),
+    'cosine': ('MODEL.HEAD.TRIPLET_DISTANCE=cosine',
+               'MODEL.HEAD.TRIPLET_MARGIN=0.1'),
+    'one-line': ('MODEL.BACKBONE.VARIANT=OneLine',
+                 'MODEL.BACKBONE.TARGET_KEYS=[delta_hat_12]',
+                 'MODEL.HEAD.DELTA_HAT_KEYS=[delta_hat_12]',
+                 'MODEL.HEAD.TRIPLET_LOSS=one-line',
+                 'MODEL.HEAD.TRIPLET_MARGIN=1.0'),
+    'projection head': (
+        'MODEL.HEAD.WITH_PROJECTION_HEAD=[[64, 64], [64, 32]]',),
+    'dual': ('MODEL.HEAD.TRIPLET_LOSS=double-line-dual',),
+    'multihead, MSELoss': ('MODEL.HEAD.TRIPLET_LOSS=', 'SOLVER.LOSS=MSELoss'),
+    'BN_TRAIN, FREEZE false': ('MODEL.HEAD.AUXILIARY_RESNET_BN_TRAIN=true',
+                               'MODEL.HEAD.AUXILIARY_RESNET_FREEZE=false')}
+VARIANT_STEPS = 2
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -1610,6 +1682,136 @@ def check_warp_clevr(dev, gen):
                             v.to(dev))
 
 
+def check_warp_k5_paths(dev, gen):
+    """K3 and K5 at the shapes of the paths that run K5, against their
+    plain versions, with a dense random cotangent: 2B = 128 patches of
+    128x128 upsampled 2x and 4x (the align_corners grid of
+    ``heads/assembled.upsample_grid``, materialised, P = 65,536 and
+    262,144: 4 and 16 points per pixel, neighbouring threads adding into
+    the same pixels), and the masked loss warp (patch and mask as C = 2,
+    the patch grid through homographies of a few pixels, P = 16,384; K4
+    there too). Each is timed beside grid_sample (forward, its input
+    gradient, its grid gradient) and, at the upsample shapes, beside
+    upsample_bilinear2d (align_corners) forward and backward. Returns
+    {shape name: (K3's, K4's or None, K5's figures)}."""
+    import torch.nn.functional as F
+    from bihome_torch.heads.assembled import upsample_grid
+    from bihome_torch.ops import warp
+
+    n, ps = 2 * BATCH, 128
+    cases = []
+    for scale in (2, 4):
+        u, v = upsample_grid(n, ps, ps, scale, dev)
+        cases.append((f'upsample_{scale}x', scale,
+                      torch.randn((n, ps, ps, 1), generator=gen).to(dev),
+                      u.contiguous(), v.contiguous()))
+    u, v = _loss_warp_points(dev, gen, n, ps)
+    masked = torch.cat([torch.randn((n, ps, ps, 1), generator=gen),
+                        torch.rand((n, ps, ps, 1), generator=gen)], dim=-1)
+    cases.append(('masked_loss_warp', None, masked.to(dev), u, v))
+    figures = {}
+    for name, scale, images, u, v in cases:
+        c = images.shape[-1]
+        p = u.shape[1]
+        shape = tuple(images.shape)
+        g = torch.randn((n, p, c), generator=gen).to(dev)
+        out = warp.bilinear_sample_batched(images, u, v)
+        want = warp.bilinear_sample_plain(images, u, v)
+        dimg = warp.bilinear_sample_bwd_img(u, v, g, shape)
+        want_img = warp.bilinear_sample_bwd_img_plain(u, v, g, shape)
+        err3, err5 = _rel_err(out, want), _rel_err(dimg, want_img)
+        err4 = 0.0
+        if scale is None:
+            du, dv = warp.bilinear_sample_bwd_uv(images, u, v, g)
+            want_du, want_dv = warp.bilinear_sample_bwd_uv_plain(images, u,
+                                                                 v, g)
+            err4 = max(_rel_err(du, want_du), _rel_err(dv, want_dv))
+        print(f'K3/K4/K5 at the {name} [{n},{ps},{ps},{c}] P={p}: error / '
+              f'max|ref| K3 {err3:.2e} (tolerance 1e-5), K4 {err4:.2e}, K5 '
+              f'{err5:.2e} (tolerance 1e-4; atomics add in no fixed order)')
+        if not (err3 <= 1e-5 and err4 <= 1e-4 and err5 <= 1e-4):
+            raise AssertionError(f'warp kernels disagree at the {name} '
+                                 f'shape: {err3}, {err4}, {err5}')
+        img_nchw = images.permute(0, 3, 1, 2).contiguous()
+        grid = _grid(u, v, ps, ps)
+        g_nchw = g.permute(0, 2, 1)[:, :, None, :].contiguous()
+        img_req = img_nchw.clone().requires_grad_(True)
+        grid_req = grid.clone().requires_grad_(True)
+        out_img = F.grid_sample(img_req, grid, mode='bilinear',
+                                padding_mode='zeros', align_corners=True)
+        out_grid = F.grid_sample(img_nchw, grid_req, mode='bilinear',
+                                 padding_mode='zeros', align_corners=True)
+        ms3 = time_ms(lambda: warp.bilinear_sample_batched(images, u, v))
+        plain3 = time_ms(lambda: warp.bilinear_sample_plain(images, u, v))
+        lib3 = time_ms(lambda: F.grid_sample(
+            img_nchw, grid, mode='bilinear', padding_mode='zeros',
+            align_corners=True))
+        ms5 = time_ms(lambda: warp.bilinear_sample_bwd_img(u, v, g, shape))
+        plain5 = time_ms(lambda: warp.bilinear_sample_bwd_img_plain(
+            u, v, g, shape))
+        lib5 = time_ms(lambda: torch.autograd.grad(out_img, img_req, g_nchw,
+                                                   retain_graph=True))
+        host5 = host_us(lambda: warp.bilinear_sample_bwd_img(u, v, g, shape))
+        host3 = host_us(lambda: warp.bilinear_sample_batched(images, u, v))
+        # K3 reads the images, u and v and writes the samples; K5 reads u,
+        # v and g and writes dimg once (its zeroing and the atomics'
+        # read-back are the kernel's own); K4 reads the images, u, v and g
+        # and writes du and dv.
+        b3, by3 = bound_ms(4 * (n * ps * ps * c + 2 * n * p + n * p * c),
+                           15 * n * p * c)
+        b5, by5 = bound_ms(4 * (2 * n * p + n * p * c + n * ps * ps * c),
+                           20 * n * p * c)
+        base = {'shape': [n, ps, ps, c], 'points': p}
+        k3 = dict(base, max_abs_err=float((out - want).abs().max()),
+                  max_rel_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3,
+                  bound_by=by3, library_ms=lib3, host_us={'kernel': host3})
+        k5 = dict(base, max_abs_err=float((dimg - want_img).abs().max()),
+                  max_rel_err=err5, ms=ms5, plain_ms=plain5, bound_ms=b5,
+                  bound_by=by5, library_ms=lib5, host_us={'kernel': host5})
+        line = (f'K3 at the {name} (ms): kernel {ms3:.4f}  plain '
+                f'{plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} '
+                f'({by3}); K5: kernel {ms5:.4f} (with zeroing dimg)  plain '
+                f'{plain5:.4f}  grid_sample input-grad {lib5:.4f}  bound '
+                f'{b5:.4f} ({by5}); host us per call K3 {host3:.1f}, K5 '
+                f'{host5:.1f}')
+        k4 = None
+        if scale is None:
+            ms4 = time_ms(lambda: warp.bilinear_sample_bwd_uv(images, u, v,
+                                                              g))
+            plain4 = time_ms(lambda: warp.bilinear_sample_bwd_uv_plain(
+                images, u, v, g))
+            lib4 = time_ms(lambda: torch.autograd.grad(
+                out_grid, grid_req, g_nchw, retain_graph=True))
+            host4 = host_us(lambda: warp.bilinear_sample_bwd_uv(images, u, v,
+                                                                g))
+            b4, by4 = bound_ms(
+                4 * (n * ps * ps * c + 2 * n * p + n * p * c + 2 * n * p),
+                30 * n * p * c)
+            k4 = dict(base, max_abs_err=max(
+                float((du - want_du).abs().max()),
+                float((dv - want_dv).abs().max())), max_rel_err=err4,
+                ms=ms4, plain_ms=plain4, bound_ms=b4, bound_by=by4,
+                library_ms=lib4, host_us={'kernel': host4})
+            line += (f'; K4: kernel {ms4:.4f}  plain {plain4:.4f}  '
+                     f'grid_sample grid-grad {lib4:.4f}  bound {b4:.4f} '
+                     f'({by4}); host us per call {host4:.1f}')
+        else:
+            oh = ps * scale
+            g_up = g.reshape(n, oh, oh, c).permute(0, 3, 1, 2).contiguous()
+            k3['upsample_ms'] = time_ms(lambda: F.interpolate(
+                img_nchw, scale_factor=scale, mode='bilinear',
+                align_corners=True))
+            k5['upsample_backward_ms'] = time_ms(
+                lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                    g_up, [oh, oh], [n, c, ps, ps], True))
+            line += (f'; upsample_bilinear2d (align_corners) forward '
+                     f'{k3["upsample_ms"]:.4f}, backward '
+                     f'{k5["upsample_backward_ms"]:.4f}')
+        print(line)
+        figures[name] = (k3, k4, k5)
+    return figures
+
+
 def check_pds(dev, gen):
     """The PDS photometric distortion on the card against the CPU plain
     path, on the same draws: the distorted full images (64 synthetic
@@ -1693,15 +1895,34 @@ def run_train_path(counters, log_dir, config=CONFIG, batch=BATCH,
     params = {f'backbone.{k}' for k, _ in model.backbone.named_parameters()}
     stats = {k for k in final if k.startswith('backbone.')
              and k.endswith(('running_mean', 'running_var'))}
-    aux_keys = [k for k in final if k.startswith('auxiliary_resnet.')]
-    aux_same = all(torch.equal(final[k].cpu(), initial[k]) for k in aux_keys)
+    # The extractor never trains; its BN statistics move only under
+    # AUXILIARY_RESNET_BN_TRAIN. The projection head's parameters train.
+    bn_train = result['built'].head_cfg.auxiliary_resnet_bn_train
+    aux_keys = [k for k in final if k.startswith('auxiliary_resnet.')
+                and not k.endswith('num_batches_tracked')]
+    aux_stats = [k for k in aux_keys
+                 if k.endswith(('running_mean', 'running_var'))]
+    aux_same = all(torch.equal(final[k].cpu(), initial[k]) for k in aux_keys
+                   if not (bn_train and k in aux_stats))
+    aux_stats_moved = any(not torch.equal(final[k].cpu(), initial[k])
+                          for k in aux_stats)
+    head = [f'projection_head.{k}' for k, _ in
+            (model.projection_head.named_parameters()
+             if model.projection_head is not None else ())]
+    head_moved = all(not torch.equal(final[k].cpu(), initial[k])
+                     for k in head)
     print(f'moved: {len(params & set(moved))}/{len(params)} backbone '
           f'parameters, {len(stats & set(moved))}/{len(stats)} BN running '
-          f'statistics; frozen extractor bitwise unchanged: '
-          f'{aux_same if aux_keys else "(no extractor)"}')
-    if not (params & set(moved) and stats & set(moved) and aux_same):
-        raise AssertionError('training did not move the backbone, or moved '
-                             'the frozen extractor')
+          f'statistics; extractor parameters bitwise unchanged: '
+          f'{aux_same if aux_keys else "(no extractor)"}, its BN '
+          f'statistics moved: {aux_stats_moved} (AUXILIARY_RESNET_BN_TRAIN '
+          f'{bn_train}); projection head moved: '
+          f'{head_moved if head else "(none)"}')
+    if not (params & set(moved) and stats & set(moved) and aux_same
+            and aux_stats_moved == (bn_train and bool(aux_stats))
+            and head_moved):
+        raise AssertionError('training did not move the backbone (or the '
+                             'projection head), or moved the extractor')
     step_ms = result['median_step_ms']
     wait_ms = result['median_wait_ms']
     pairs_per_s = batch / (step_ms / 1e3)
@@ -1846,16 +2067,21 @@ def step_errors(got, ref):
 @contextlib.contextmanager
 def planted_fault(name):
     """Spoil one kernel's output on the train path, to show that the step
-    check catches it: K4's du negated, or K2's dw1 zeroed."""
+    check catches it: K4's du negated, K5's dimg negated, or K2's dw1
+    zeroed."""
     from bihome_torch.ops import fused_head as fh
     from bihome_torch.ops import warp
 
-    if name == 'K4 du negated':
+    if name in ('K4 du negated', 'K5 dimg negated'):
         owner, attr = warp.BilinearSample, 'backward'
 
         def spoiled(ctx, g):
             dimg, du, dv = original(ctx, g)
-            return dimg, -du, dv
+            # A constant grid (the upsample) has no du, an image that is
+            # data no dimg.
+            if name == 'K4 du negated':
+                return dimg, (None if du is None else -du), dv
+            return (None if dimg is None else -dimg), du, dv
         spoiled = staticmethod(spoiled)
     else:
         owner, attr = fh, 'pf_head_backward'
@@ -1874,11 +2100,12 @@ def planted_fault(name):
         setattr(owner, attr, saved)
 
 
-def compare_train_step(result, batch=4, faults=FAULTS):
+def compare_train_step(result, batch=4, faults=FAULTS, config=None):
     """One step's loss and backbone gradients on the card (float32)
     against the plain path on the CPU in float64: the run's initial
     weights, conditioned (``_condition``), the same pairs, photometric
-    draws (PDS) and DSAC draws; no optimizer. Then the card's step again
+    draws (PDS) and DSAC draws; no optimizer; the model of ``config`` if
+    given (the run's otherwise). Then the card's step again
     under each planted fault, which must fail the same limits: the loss
     within STEP_LOSS of the sum of its terms' magnitudes (of the loss
     itself for a tensor loss), the gradients within STEP_L2 relative L2
@@ -1889,11 +2116,13 @@ def compare_train_step(result, batch=4, faults=FAULTS):
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
 
     with one_cpu_thread():
-        ref = one_step_grads(built, state, data, cpu, torch.float64)
-    runs = {'card': one_step_grads(built, state, data, cuda)}
+        ref = one_step_grads(built, state, data, cpu, torch.float64,
+                             config=config)
+    runs = {'card': one_step_grads(built, state, data, cuda, config=config)}
     for fault in faults:
         with planted_fault(fault):
-            runs[fault] = one_step_grads(built, state, data, cuda)
+            runs[fault] = one_step_grads(built, state, data, cuda,
+                                         config=config)
     readings = {}
     for name, run in runs.items():
         loss_err, l2, per, worst = readings[name] = step_errors(run, ref)
@@ -2620,6 +2849,41 @@ def run(stack):
                              sets=('MODEL.DTYPE=bfloat16',)))
     done('bf16 evals of R50 zeng and zeng-orig')
 
+    # The K5 slice, from a generator of its own: K3, K4 and K5 at the shapes
+    # of the paths that run K5; those paths (K5_RUNS), counted; the one-step
+    # check of zhang-biHomE with learned masks and upsample-patch-2x (K5 on
+    # both of its paths) with K5_FAULTS planted; the other variants of the
+    # biHomE loss (VARIANT_RUNS).
+    for name, (k3, k4, k5) in check_warp_k5_paths(
+            dev, torch.Generator().manual_seed(17)).items():
+        kernels[0][f'at_{name}'], kernels[4][f'at_{name}'] = k3, k5
+        if k4 is not None:
+            kernels[3][f'at_{name}'] = k4
+    done('K5 kernel checks')
+    k5_runs = []
+    for config, sets, expect, dtype in K5_RUNS:
+        with tempfile.TemporaryDirectory() as log_dir:
+            paths[f'train {" ".join((config, *sets))} {dtype}'], result = (
+                run_train_path(counters, log_dir, config, BATCH, PDS_STEPS,
+                               expect, sets, extra=('--dtype', dtype)))
+        k5_runs.append(result['summary'])
+        if (config, sets, dtype) == (ZHANG_BIHOME, MASK_KEYS, 'float32'):
+            upsampled = copy.deepcopy(result['built'].config)
+            upsampled['MODEL']['HEAD']['SAMPLING_STRATEGY'] = (
+                'upsample-patch-2x')
+            k5_step = compare_train_step(result, 4, K5_FAULTS, upsampled)
+        del result
+    done('K5 train, step check')
+    variant_runs = {}
+    for name, sets in VARIANT_RUNS.items():
+        with tempfile.TemporaryDirectory() as log_dir:
+            paths[f'train {ZHANG_BIHOME} {name}'], result = run_train_path(
+                counters, log_dir, ZHANG_BIHOME, BATCH, VARIANT_STEPS,
+                WARP_KERNELS, sets)
+        variant_runs[name] = result['summary']
+        del result
+    done('biHomE loss variants')
+
     # The file-fed slice: the JPEG folder and its pack; pds-coco
     # zeng-biHomE trained from each (streamed, counted as the other train
     # paths, profiled for the idle share beside the device-pool run of
@@ -2678,7 +2942,13 @@ def run(stack):
 
     # Launches by path; an entry at one shape counts the paths that run it.
     shape_paths = {'at_zeng_orig': [p for p in paths if 'zeng-orig' in p],
-                   'at_clevr': [p for p in paths if 'clevr' in p]}
+                   'at_clevr': [p for p in paths if 'clevr' in p],
+                   'at_upsample_2x': [p for p in paths
+                                      if 'upsample-patch-2x' in p],
+                   'at_upsample_4x': [p for p in paths
+                                      if 'upsample-patch-4x' in p],
+                   'at_masked_loss_warp': [p for p in paths
+                                           if 'MASK_KEYS' in p]}
     for k in kernels:
         entries = [(k, k['name'], list(paths))]
         if 'at_r50_head' in k:
@@ -2699,6 +2969,8 @@ def run(stack):
                       eval_result['mean_mace'], 'bf16_runs': bf16_runs,
                       'bf16_step': bf16_step, 'bf16_evals': bf16_evals,
                       'predict_extras': predict_extras,
+                      'k5_runs': k5_runs, 'k5_step': k5_step,
+                      'variant_runs': variant_runs,
                       'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
