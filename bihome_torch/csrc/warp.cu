@@ -30,9 +30,15 @@
 // floorf, not an integer cast, gives the top-left tap: coordinates go
 // negative near the border and a cast rounds toward zero.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -276,32 +282,98 @@ bilinear_sample_bwd_uv_c1_kernel(const float* __restrict__ img,
   }
 }
 
+// The C = 1 kernels take a call when the grid's y dimension holds the
+// images and 32-bit offsets hold a point's index and its taps.
+bool c1_path(int n, int h, int w, int c, long long p) {
+  return c == 1 && n <= 65535 && p <= (1LL << 30) &&
+         (long long)(h + 2) * w < (1LL << 31);
+}
+
+dim3 c1_grid(int n, long long p) {
+  return dim3((unsigned)((p + 2 * kC1Threads - 1) / (2 * kC1Threads)),
+              (unsigned)n);
+}
+
 // ---------------------------------------------------------------------------
 // Backward with respect to the image (K5): replaces
-// bihome_tpu/ops/warp_pallas.py:_bwd_img_kernel,
+// bihome_tpu/ops/warp_pallas.py:_bwd_img_kernel (the pallas_call of
+// _backward, warp_pallas.py:197-204),
 //
-//   dimg[b,h,w,c] = sum_p wy[p,h] * wx[p,w] * g[b,p,c],
+//   dimg[b,y,x,c] = sum_p wy[p,y] * wx[p,x] * g[b,p,c],
 //
-// which the TPU kernel contracts on the matrix unit with the sum carried
-// across its sequential grid. Here it is the scatter form: one thread per
-// point adds its 4 weighted taps (those inside the image) into dimg, NHWC
-// like K3's input, with atomicAdd. The wrapper zeroes dimg first. The
-// order of the atomics changes from run to run, so the float sums differ
-// in their last bits between runs. Bound on the H100: bytes (dimg written
-// and read back by the atomics, u, v, g read). It runs where the sampled
-// image takes a gradient: the biHomE loss's upsample-patch-{2,4}x
-// strategies (the warped patches upsampled 4 or 16 points per pixel), its
-// MASK_KEYS masks (C = 2, riding with the patch) and the TripletHead's
-// learned masks (FIX_MASK false); the shipped configs warp only data.
-__global__ void bilinear_sample_bwd_img_kernel(
+// which the TPU kernel contracts on the matrix unit, one sample's whole
+// dimg resident in VMEM while its sequential grid adds each block of points
+// into it, written once. It runs where the sampled image takes a gradient:
+// the biHomE loss's upsample-patch-{2,4}x strategies (the warped patches
+// upsampled, 4 or 16 points per pixel, on one grid shared by the batch),
+// its MASK_KEYS masks (C = 2, riding with the patch) and the TripletHead's
+// learned masks (FIX_MASK false).
+//
+// Bound on the H100: bytes. u, v and g are read once, dimg written once
+// (~20 flops a point). At the batch-128 upsample-4x shape (128 images of
+// 128x128x1, P = 262,144) g is 134.2 MB and dimg 8.4 MB; a grid
+// materialised per sample adds 268 MB, one grid row shared by the batch
+// 2.1 MB: 0.1227 ms against 0.0432 at 3.35 TB/s.
+//
+// Design (bilinear_sample_bwd_img_cluster_kernel): one thread-block cluster
+// of S blocks per sample. Each block zeroes its own float32 copy of the
+// sample's dimg (H*W*C values) in dynamic shared memory, 64 KB at
+// 128x128x1 and 128 KB at C = 2, streams 1/S of the sample's points in
+// groups of 4 consecutive points a thread, the next group's loads in flight
+// while one is added (16-byte loads of u, v and g when P % 4 == 0 and the
+// pointers are 16-byte aligned, else scalar loads, the last group of a
+// sample taking the points below P), and adds each tap into its copy with
+// a shared-memory atomic. A float atomicAdd in shared memory is no single
+// instruction on this card: it compiles to a compare-and-swap loop (LDS,
+// FADD, ATOMS.CAST.SPIN), so the atomics, not the bytes, set the time;
+// the design spends registers and threads to issue fewer of them and to
+// hide their latency. In registers first, a thread merges the taps of
+// consecutive points that land on the same 4 pixels (the same top-left tap
+// and the same valid taps), every channel at once: on the upsample grid 4
+// consecutive points share their row pair and mostly their column pair,
+// so at 4x a group of 4 flushes ~1.75 times instead of 4; a point
+// elsewhere simply flushes what is held. The copy is swizzled (swizzle()
+// below) so that the lanes of a warp, 4 points apart, hit distinct banks.
+// After cluster.sync(), block r sums rows [r*H/S, (r+1)*H/S) over the S
+// copies, read through distributed shared memory (map_shared_rank) in rank
+// order, and writes them to dimg once, with 16-byte stores where
+// W*C % 4 == 0; a last cluster.sync() keeps each copy alive until its peers
+// have read it. No global atomic and no memset: the kernel writes every
+// element of dimg (the wrapper allocates it with torch.empty), one launch a
+// call. The cross-block sum has a fixed order; within a block the shared
+// atomics add in an order that varies from run to run, so results may
+// differ in the last bits between runs.
+//
+// S: the largest of 4, 3, 2 and 1 for which every cluster of the call is
+// resident at once (cudaOccupancyMaxActiveClusters), else 1. A block's
+// zeroing and its share of the reduction are a whole image's whatever S
+// is, so more blocks per sample pay only while they fit in one wave. At
+// batch 128, C = 1 (2 blocks an SM) that is S = 2: 256 blocks on 132 SMs;
+// at C = 2 (1 block an SM) S = 1: 128 blocks, where S = 2 took two waves
+// and 1.15x the time on the H100.
+//
+// Batch stride: u and v are read at u + b * uv_stride, uv_stride = P, or 0
+// when one grid serves the whole batch (the upsample): every sample then
+// reads the same grid row, from L2 after the first.
+//
+// Limit: a sample's dimg must fit in one block's shared memory, H*W*C*4
+// bytes at most the card's opt-in maximum per block
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 bytes, 58,112 floats,
+// on the H100), and P at most 2^30. A larger sample takes the generic path,
+// bilinear_sample_bwd_img_scatter_kernel: one thread per point adds its 4
+// weighted taps (those inside the image) into dimg with global atomicAdd,
+// after the entry zeroes dimg (cudaMemsetAsync). No path of the port runs
+// it: the largest image K5 sees is 128x128x2 (128 KB).
+__global__ void bilinear_sample_bwd_img_scatter_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ g, float* __restrict__ dimg, int h, int w,
-    int c, long long p, long long total) {
+    int c, long long p, long long uv_stride, long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const long long b = i / p;
-  const float x = u[i];
-  const float y = v[i];
+  const long long j = b * uv_stride + (i - b * p);
+  const float x = u[j];
+  const float y = v[j];
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   const float wx1 = x - x0f;
@@ -326,16 +398,314 @@ __global__ void bilinear_sample_bwd_img_kernel(
   }
 }
 
-// The C = 1 kernels take a call when the grid's y dimension holds the
-// images and 32-bit offsets hold a point's index and its taps.
-bool c1_path(int n, int h, int w, int c, long long p) {
-  return c == 1 && n <= 65535 && p <= (1LL << 30) &&
-         (long long)(h + 2) * w < (1LL << 31);
+constexpr int kMaxCluster = 4;
+constexpr int kMaxDevices = 64;
+
+// Threads of a K5 block, and its blocks an SM: two blocks of 512 at C = 1
+// (64 KB of shared memory each), one of 1024 where one block fills the
+// SM's shared memory; 32 warps an SM and at most 64 registers a thread
+// either way. The atomics' compare-and-swap loops are latency-bound: on
+// the H100, 256 threads at C = 1 took 1.3-1.4x as long as 512 at each
+// shape of K5's paths, and 768 at C = 2 1.2x as long as 1024.
+template <int kC>
+__host__ __device__ constexpr int img_threads() {
+  return kC == 1 ? 512 : 1024;
 }
 
-dim3 c1_grid(int n, long long p) {
-  return dim3((unsigned)((p + 2 * kC1Threads - 1) / (2 * kC1Threads)),
-              (unsigned)n);
+template <int kC>
+__host__ __device__ constexpr int img_blocks_per_sm() {
+  return kC == 1 ? 2 : 1;
+}
+
+// The shared copy's layout: value a (pixel * C + channel) lives at
+// swizzle(a), its low 5 bits XORed with the next 5. The lanes of a warp
+// take consecutive groups of points, so their taps lie 4 * C values apart
+// (1:1 warps, the masked loss warp) or 1-2 apart (the upsample), and
+// unswizzled those would fall into 32 / (4 * C) of the 32 banks; swizzled,
+// every stride up to 32 hits 32 banks. A bijection on whole rows of 32
+// values: the copy is rounded up to them.
+__device__ __forceinline__ int swizzle(int a) { return a ^ ((a >> 5) & 31); }
+
+// The taps of a point that lie inside the image, as bits 0-3 in TapsC1's
+// order (v00, v01, v10, v11).
+__device__ __forceinline__ unsigned tap_mask(const TapsC1& t) {
+  return (unsigned)t.v00 | ((unsigned)t.v01 << 1) | ((unsigned)t.v10 << 2) |
+         ((unsigned)t.v11 << 3);
+}
+
+__device__ __forceinline__ void shared_add(float* s, int i, float a) {
+  atomicAdd(s + swizzle(i), a);
+}
+
+// A group of up to 4 consecutive points of one sample, as loaded: their
+// coordinates and (kC > 0) their cotangents, point-major.
+template <int kC>
+struct PointGroup {
+  float x[4], y[4];
+  float g[kC > 0 ? 4 * kC : 1];
+  int first, n;  // the group's first point, how many of its 4 are below P
+};
+
+template <int kC, bool kVec>
+__device__ __forceinline__ PointGroup<kC> load_group(
+    const float* __restrict__ ub, const float* __restrict__ vb,
+    const float* __restrict__ gb, int p, int q) {
+  PointGroup<kC> pg;
+  pg.first = 4 * q;
+  if (kVec) {
+    pg.n = 4;
+    const float4 uu = __ldg(reinterpret_cast<const float4*>(ub) + q);
+    const float4 vv = __ldg(reinterpret_cast<const float4*>(vb) + q);
+    pg.x[0] = uu.x; pg.x[1] = uu.y; pg.x[2] = uu.z; pg.x[3] = uu.w;
+    pg.y[0] = vv.x; pg.y[1] = vv.y; pg.y[2] = vv.z; pg.y[3] = vv.w;
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const float4 gg =
+          __ldg(reinterpret_cast<const float4*>(gb) + q * kC + j);
+      pg.g[4 * j] = gg.x; pg.g[4 * j + 1] = gg.y;
+      pg.g[4 * j + 2] = gg.z; pg.g[4 * j + 3] = gg.w;
+    }
+  } else {
+    pg.n = min(4, p - pg.first);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool in = k < pg.n;
+      const int i = pg.first + k;
+      pg.x[k] = in ? __ldg(ub + i) : 0.0f;
+      pg.y[k] = in ? __ldg(vb + i) : 0.0f;
+#pragma unroll
+      for (int ci = 0; ci < kC; ++ci) {
+        pg.g[k * kC + ci] = in ? __ldg(gb + (long long)i * kC + ci) : 0.0f;
+      }
+    }
+  }
+  return pg;
+}
+
+// The cotangent of point k of a group at channel ci.
+template <int kC>
+__device__ __forceinline__ float group_g(const PointGroup<kC>& pg,
+                                         const float* __restrict__ gb, int c,
+                                         int k, int ci) {
+  if (kC > 0) return pg.g[k * kC + ci];
+  return __ldg(gb + (long long)(pg.first + k) * c + ci);
+}
+
+// Adds the held taps a[j] (channel c0 + j) onto the pixels (top-left r0,
+// its right, below, below right) of the shared copy s, those in mask m.
+template <int kHeld>
+__device__ __forceinline__ void flush_taps(float* s, int w, int c, int c0,
+                                           int r0, unsigned m,
+                                           const float4 (&a)[kHeld]) {
+  const int i = r0 * c + c0;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    if (m & 1u) shared_add(s, i + j, a[j].x);
+    if (m & 2u) shared_add(s, i + c + j, a[j].y);
+    if (m & 4u) shared_add(s, i + w * c + j, a[j].z);
+    if (m & 8u) shared_add(s, i + (w + 1) * c + j, a[j].w);
+  }
+}
+
+// Adds the taps of a group into the shared copy s. The taps of
+// consecutive points that land on the same pixels (the same top-left tap
+// and the same valid taps) are summed in registers, every channel at once
+// where kC > 0 (one channel a pass for any C), and flushed with shared
+// atomics when the next point's differ, and at the end.
+template <int kC>
+__device__ __forceinline__ void add_group(float* s, int h, int w, int c,
+                                          const float* __restrict__ gb,
+                                          const PointGroup<kC>& pg) {
+  constexpr int kHeld = kC > 0 ? kC : 1;
+  const int passes = kC > 0 ? 1 : c;
+  for (int c0 = 0; c0 < passes; ++c0) {
+    float4 a[kHeld];
+    int r0 = 0;
+    unsigned mk = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < pg.n) {
+        const TapsC1 t = taps_c1(h, w, pg.x[k], pg.y[k]);
+        const unsigned m = tap_mask(t);
+        const float w00 = t.wy0 * t.wx0, w01 = t.wy0 * t.wx1;
+        const float w10 = t.wy1 * t.wx0, w11 = t.wy1 * t.wx1;
+        const bool same = k > 0 && t.r0 == r0 && m == mk;
+        if (k > 0 && !same) flush_taps<kHeld>(s, w, c, c0, r0, mk, a);
+#pragma unroll
+        for (int j = 0; j < kHeld; ++j) {
+          const float gv = group_g<kC>(pg, gb, c, k, c0 + j);
+          const float4 b = make_float4(w00 * gv, w01 * gv, w10 * gv, w11 * gv);
+          if (same) {
+            a[j].x += b.x; a[j].y += b.y; a[j].z += b.z; a[j].w += b.w;
+          } else {
+            a[j] = b;
+          }
+        }
+        r0 = t.r0;
+        mk = m;
+      }
+    }
+    flush_taps<kHeld>(s, w, c, c0, r0, mk, a);
+  }
+}
+
+// out[j] = v[j ^ r]: a quad of the swizzled copy back in order.
+__device__ __forceinline__ float4 unswizzle_quad(float4 v, int r) {
+  if (r & 1) v = make_float4(v.y, v.x, v.w, v.z);
+  if (r & 2) v = make_float4(v.z, v.w, v.x, v.y);
+  return v;
+}
+
+// K5: grid N * S blocks in clusters of S (cudaLaunchKernelEx), block rank r
+// of cluster b working on sample b; dynamic shared memory H*W*C floats
+// rounded up to 32. kC: the channel count (1 or 2), or 0 for any (the
+// cotangents then read as the taps are added). kVec: P % 4 == 0 and u, v,
+// g 16-byte aligned.
+template <int kC, bool kVec>
+__global__ void __launch_bounds__(img_threads<kC>(), img_blocks_per_sm<kC>())
+bilinear_sample_bwd_img_cluster_kernel(const float* __restrict__ u,
+                                       const float* __restrict__ v,
+                                       const float* __restrict__ g,
+                                       float* __restrict__ dimg, int h, int w,
+                                       int c_any, int p,
+                                       long long uv_stride) {
+  constexpr int kThreads = img_threads<kC>();
+  extern __shared__ float4 s4[];
+  float* s = reinterpret_cast<float*>(s4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nblocks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / nblocks;
+  const int c = kC > 0 ? kC : c_any;
+  const int size = h * w * c;
+  for (int i = threadIdx.x; i < (size + 31) / 32 * 8; i += kThreads) {
+    s4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __syncthreads();
+
+  const float* ub = u + (long long)b * uv_stride;
+  const float* vb = v + (long long)b * uv_stride;
+  const float* gb = g + (long long)b * p * c;
+  const int groups = (p + 3) / 4;
+  const int q_end = (int)((long long)groups * (rank + 1) / nblocks);
+  // One group a thread ahead: the next group's loads are in flight while
+  // this one's taps are added.
+  int q = (int)((long long)groups * rank / nblocks) + threadIdx.x;
+  PointGroup<kC> cur;
+  if (q < q_end) cur = load_group<kC, kVec>(ub, vb, gb, p, q);
+  while (q < q_end) {
+    const int qn = q + kThreads;
+    PointGroup<kC> next;
+    next.n = 0;
+    if (qn < q_end) next = load_group<kC, kVec>(ub, vb, gb, p, qn);
+    add_group<kC>(s, h, w, c, gb, cur);
+    cur = next;
+    q = qn;
+  }
+  cluster.sync();
+
+  // Block r's band of rows, summed over the S copies in rank order.
+  const int lo = (int)((long long)h * rank / nblocks) * w * c;
+  const int hi = (int)((long long)h * (rank + 1) / nblocks) * w * c;
+  float* out = dimg + (long long)b * size;
+  const float* peer[kMaxCluster];
+#pragma unroll
+  for (int k = 0; k < kMaxCluster; ++k) {
+    peer[k] = k < nblocks ? cluster.map_shared_rank(s, k) : s;
+  }
+  if ((w * c) % 4 == 0 && (reinterpret_cast<uintptr_t>(dimg) & 15) == 0) {
+    // Values 4t..4t+3 lie in one row of 32 of the copy, as a quad
+    // permuted by the row's swizzle.
+    for (int t4 = lo / 4 + threadIdx.x; t4 < hi / 4; t4 += kThreads) {
+      const int a = 4 * t4;
+      const int m = (a >> 5) & 31;
+      const int at = (a ^ (m & 28)) >> 2;
+      float4 acc = reinterpret_cast<const float4*>(peer[0])[at];
+#pragma unroll
+      for (int k = 1; k < kMaxCluster; ++k) {
+        if (k < nblocks) {
+          const float4 o = reinterpret_cast<const float4*>(peer[k])[at];
+          acc.x += o.x; acc.y += o.y; acc.z += o.z; acc.w += o.w;
+        }
+      }
+      reinterpret_cast<float4*>(out)[t4] = unswizzle_quad(acc, m & 3);
+    }
+  } else {
+    for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const int at = swizzle(i);
+      float acc = peer[0][at];
+#pragma unroll
+      for (int k = 1; k < kMaxCluster; ++k) {
+        if (k < nblocks) acc += peer[k][at];
+      }
+      out[i] = acc;
+    }
+  }
+  cluster.sync();
+}
+
+// The cluster kernel's launch for one call: its configuration (S blocks a
+// cluster, S from the rule of the note above unless `cluster` forces it).
+template <int kC, bool kVec>
+int launch_bwd_img_cluster(const float* u, const float* v, const float* g,
+                           float* dimg, int n, int h, int w, int c, int p,
+                           long long uv_stride, int cluster, int dev,
+                           int optin_bytes, int* chosen,
+                           cudaStream_t stream) {
+  auto kernel = bilinear_sample_bwd_img_cluster_kernel<kC, kVec>;
+  const size_t bytes = (size_t)((h * w * c + 31) / 32 * 32) * sizeof(float);
+  // The attribute once per device; the rule's S per (device, shape) seen.
+  static std::mutex mu;
+  static bool attr_set[kMaxDevices] = {};
+  static std::map<std::tuple<int, size_t, int>, int> rule;
+  std::lock_guard<std::mutex> lock(mu);
+  cudaError_t err = cudaSuccess;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin_bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(img_threads<kC>());
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int s = cluster;
+  if (s == 0) {
+    const auto key = std::make_tuple(dev, bytes, n);
+    const auto found = rule.find(key);
+    if (found != rule.end()) {
+      s = found->second;
+    } else {
+      s = 1;
+      for (int cand = 4; cand >= 1; --cand) {
+        attr.val.clusterDim.x = cand;
+        cfg.gridDim = dim3((unsigned)(n * cand));
+        int active = 0;
+        err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+        if (err != cudaSuccess) return (int)err;
+        if (active >= n) {
+          s = cand;
+          break;
+        }
+      }
+      rule[key] = s;
+    }
+  }
+  *chosen = s;
+  attr.val.clusterDim.x = s;
+  cfg.gridDim = dim3((unsigned)(n * s));
+  err = cudaLaunchKernelEx(&cfg, kernel, u, v, g, dimg, h, w, c, p,
+                           uv_stride);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -366,19 +736,49 @@ extern "C" int bilinear_sample_bwd_uv(const float* img, const float* u,
   return (int)cudaGetLastError();
 }
 
-// u/v [N,P], g [N,P,C] -> dimg [N,H,W,C] += the scattered taps (the caller
-// passes it zeroed).
+// u/v [N,P] at batch stride uv_stride (P, or 0: one grid row for the whole
+// batch), g [N,P,C] -> dimg [N,H,W,C], every element written. cluster: the
+// blocks of a sample's cluster (1-4), or 0 for the rule of K5's note.
+// *chosen: the S that ran, 0 where the generic path did.
 extern "C" int bilinear_sample_bwd_img(const float* u, const float* v,
                                        const float* g, float* dimg, int n,
                                        int h, int w, int c, long long p,
-                                       void* stream) {
+                                       long long uv_stride, int cluster,
+                                       int* chosen, void* stream) {
+  *chosen = 0;
+  if (cluster < 0 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const long long size = (long long)h * w * c;
+  if (n == 0 || size == 0) return 0;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if ((size + 31) / 32 * 32 * (long long)sizeof(float) <= optin &&
+      p <= (1LL << 30) &&
+      (long long)n * kMaxCluster < (1LL << 31) && dev < kMaxDevices) {
+    const bool vec = p % 4 == 0 &&
+                     (((uintptr_t)u | (uintptr_t)v | (uintptr_t)g) & 15) == 0;
+    auto launch = c == 1   ? (vec ? launch_bwd_img_cluster<1, true>
+                                  : launch_bwd_img_cluster<1, false>)
+                  : c == 2 ? (vec ? launch_bwd_img_cluster<2, true>
+                                  : launch_bwd_img_cluster<2, false>)
+                           : (vec ? launch_bwd_img_cluster<0, true>
+                                  : launch_bwd_img_cluster<0, false>);
+    return launch(u, v, g, dimg, n, h, w, c, (int)p, uv_stride, cluster, dev,
+                  optin, chosen, (cudaStream_t)stream);
+  }
+  err = cudaMemsetAsync(dimg, 0, (size_t)(n * size) * sizeof(float),
+                        (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   const long long total = (long long)n * p;
   if (total == 0) return 0;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  bilinear_sample_bwd_img_kernel<<<(unsigned)blocks, threads, 0,
-                                   (cudaStream_t)stream>>>(
-      u, v, g, dimg, h, w, c, p, total);
+  bilinear_sample_bwd_img_scatter_kernel<<<(unsigned)blocks, threads, 0,
+                                           (cudaStream_t)stream>>>(
+      u, v, g, dimg, h, w, c, p, uv_stride, total);
   return (int)cudaGetLastError();
 }
 

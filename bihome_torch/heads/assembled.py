@@ -129,7 +129,8 @@ def upsample_align_corners(x: Tensor, scale: int) -> Tensor:
     semantics (``assembled.py:42-53``, ref: PerceptualHead.py:317-318):
     :func:`upsample_grid` sampled by :func:`geometry.batched_sample` (K3;
     K5 backward where ``x`` requires grad; the grid is constant, so no
-    K4). The broadcast grid is materialised [N,P] for the kernels."""
+    K4). K3 takes the broadcast grid materialised [N,P]; K5 reads its
+    one row (batch stride 0, ``ops/warp.BilinearSample``)."""
     b, h, w, c = x.shape
     u, v = upsample_grid(b, h, w, scale, x.device)
     return geometry.batched_sample(x, u, v).reshape(b, h * scale,

@@ -97,8 +97,10 @@ def check_status(status: int, what: str) -> None:
 
 
 def check_cuda_tensor(t, name: str, dim: int,
-                      dtype: torch.dtype = torch.float32) -> None:
-    """The kernels take contiguous tensors of ``dtype`` (float32 unless
+                      dtype: torch.dtype = torch.float32,
+                      contiguous: bool = True) -> None:
+    """The kernels take contiguous tensors (unless ``contiguous`` is
+    False: the caller checks the layout) of ``dtype`` (float32 unless
     stated) on the current device."""
     if t.device.type != 'cuda':
         raise ValueError(f'{name} must be a CUDA tensor, got {t.device}')
@@ -109,7 +111,7 @@ def check_cuda_tensor(t, name: str, dim: int,
         raise ValueError(f'{name} must be {dtype}, got {t.dtype}')
     if t.dim() != dim:
         raise ValueError(f'{name} must have {dim} dims, got {tuple(t.shape)}')
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f'{name} must be contiguous')
 
 

@@ -34,7 +34,8 @@ _SIGNATURES = {
     'bilinear_sample_bwd_uv': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_longlong, ctypes.c_void_p],
     'bilinear_sample_bwd_img': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong, ctypes.c_void_p],
+    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+       ctypes.c_void_p],
 }
 
 
@@ -117,10 +118,10 @@ def bilinear_sample_bwd_img_plain(u: torch.Tensor, v: torch.Tensor,
     return dimg.reshape(n, h, w, c)
 
 
-def _check_points(images_shape, u, v, g=None) -> int:
+def _check_points(images_shape, u, v, g=None, contiguous=True) -> int:
     n = images_shape[0]
-    _cuda.check_cuda_tensor(u, 'u', 2)
-    _cuda.check_cuda_tensor(v, 'v', 2)
+    _cuda.check_cuda_tensor(u, 'u', 2, contiguous=contiguous)
+    _cuda.check_cuda_tensor(v, 'v', 2, contiguous=contiguous)
     if u.shape != v.shape or u.shape[0] != n:
         raise ValueError(f'u/v must be [N,P] with N={n}, got '
                          f'{tuple(u.shape)} and {tuple(v.shape)}')
@@ -172,40 +173,86 @@ def bilinear_sample_bwd_uv(images: torch.Tensor, u: torch.Tensor,
     return du, dv
 
 
+def uv_batch_stride(u: torch.Tensor, v: torch.Tensor) -> int:
+    """K5's stride between samples' points of u/v [N,P] on the card: P
+    where both are contiguous, 0 where both broadcast one row over the
+    batch (strides (0, 1), as ``expand`` gives). Raises on any other
+    layout."""
+    strides = []
+    for t, name in ((u, 'u'), (v, 'v')):
+        if t.is_contiguous():
+            strides.append(t.shape[1])
+        elif t.stride() == (0, 1):
+            strides.append(0)
+        else:
+            raise ValueError(f'{name} must be contiguous or one row broadcast '
+                             f'over the batch (strides (0, 1)), got strides '
+                             f'{t.stride()}')
+    if strides[0] != strides[1]:
+        raise ValueError('u and v must share their layout (both contiguous or '
+                         'both broadcast over the batch)')
+    return strides[0]
+
+
 def bilinear_sample_bwd_img(u: torch.Tensor, v: torch.Tensor,
                             g: torch.Tensor,
-                            image_shape: Tuple[int, int, int, int]
-                            ) -> torch.Tensor:
+                            image_shape: Tuple[int, int, int, int],
+                            cluster: int = 0) -> torch.Tensor:
     """dimg [N,H,W,C] of sum(g * bilinear_sample(images, u, v)). On the
-    card the taps are added with atomics, in no fixed order."""
+    card u and v may be contiguous or one row broadcast over the batch
+    (:func:`uv_batch_stride`); a sample whose dimg fits in a block's shared
+    memory takes the cluster kernel (one launch, no memset), a larger one
+    the generic scatter (counted in ``generic_launches`` too). The shared
+    atomics add in no fixed order. ``cluster`` forces the blocks of a
+    sample's cluster (1-4; 0: the kernel's rule), for tests and profiles;
+    ``last_cluster`` holds the count the last call ran (0: generic)."""
     if u.device.type == 'cpu':
         return bilinear_sample_bwd_img_plain(u, v, g, image_shape)
     n, h, w, c = image_shape
-    p = _check_points(image_shape, u, v, g)
-    dimg = torch.zeros((n, h, w, c), dtype=torch.float32, device=u.device)
+    p = _check_points(image_shape, u, v, g, contiguous=False)
+    stride = uv_batch_stride(u, v)
+    if not 0 <= cluster <= 4:
+        raise ValueError(f'cluster must be 0-4, got {cluster}')
+    dimg = torch.empty((n, h, w, c), dtype=torch.float32, device=g.device)
     lib = _cuda.library('warp', _SIGNATURES)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
+    chosen = ctypes.c_int(0)
     status = lib.bilinear_sample_bwd_img(
         u.data_ptr(), v.data_ptr(), g.data_ptr(), dimg.data_ptr(), n, h, w,
-        c, p, stream)
+        c, p, stride, cluster, ctypes.byref(chosen),
+        _cuda.stream_ptr(g.device.index))
     _cuda.check_status(status, 'bilinear_sample_bwd_img')
     bilinear_sample_bwd_img.launches += 1
+    bilinear_sample_bwd_img.last_cluster = chosen.value
+    if chosen.value == 0:
+        bilinear_sample_bwd_img.generic_launches += 1
     return dimg
 
 
 bilinear_sample_batched.launches = 0
 bilinear_sample_bwd_uv.launches = 0
 bilinear_sample_bwd_img.launches = 0
+bilinear_sample_bwd_img.generic_launches = 0
+bilinear_sample_bwd_img.last_cluster = 0
+
+
+def _broadcast_or_contiguous(u: torch.Tensor, v: torch.Tensor):
+    """u, v as K5 reads them: as given where both broadcast one row over
+    the batch (the upsample grid), else contiguous."""
+    if u.stride() == (0, 1) and v.stride() == (0, 1):
+        return u, v
+    return u.contiguous(), v.contiguous()
 
 
 class BilinearSample(torch.autograd.Function):
     """Differentiable :func:`bilinear_sample_batched`: forward K3, backward
-    K4 for the points and, only when the images require grad, K5."""
+    K4 for the points and, only when the images require grad, K5. Saves the
+    caller's u and v: K3 and K4 take contiguous copies, K5 a grid broadcast
+    over the batch as it is (one row read, not N)."""
 
     @staticmethod
     def forward(ctx, images, u, v):
         ctx.save_for_backward(images, u, v)
-        return bilinear_sample_batched(images, u, v)
+        return bilinear_sample_batched(images, u.contiguous(), v.contiguous())
 
     @staticmethod
     def backward(ctx, g):
@@ -213,9 +260,11 @@ class BilinearSample(torch.autograd.Function):
         g = g.contiguous()
         dimg = du = dv = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            du, dv = bilinear_sample_bwd_uv(images, u, v, g)
+            du, dv = bilinear_sample_bwd_uv(images, u.contiguous(),
+                                            v.contiguous(), g)
         if ctx.needs_input_grad[0]:
-            dimg = bilinear_sample_bwd_img(u, v, g, tuple(images.shape))
+            dimg = bilinear_sample_bwd_img(*_broadcast_or_contiguous(u, v), g,
+                                           tuple(images.shape))
         return dimg, du, dv
 
 
@@ -229,5 +278,4 @@ def sample(images: torch.Tensor, u: torch.Tensor,
     (``bihome_tpu/geometry.py:_tent_c1``, the TPU's default warp)."""
     if images.dtype == torch.bfloat16:
         images = images.float()
-    return BilinearSample.apply(images.contiguous(), u.contiguous(),
-                                v.contiguous())
+    return BilinearSample.apply(images.contiguous(), u, v)

@@ -2,14 +2,15 @@
 compares with another version of its source.
 
     python -m bihome_torch.profile_kernels \\
-        --kernel k1|k1b|k1w|k1wb|k2|k2b|k2w|k2wb|k4 [--baseline FILE] \\
+        --kernel k1|k1b|k1w|k1wb|k2|k2b|k2w|k2wb|k4|k5 [--baseline FILE] \\
         [--cmid C] [--batch_size 64] [--rounds 2] \\
         [--no_cuts] [--phases] [--mma_rate] [--sass DIR]
 
 No kernel profiler runs on the machine with the card, so this builds
 variants of the kernel's source (``csrc/fused_head.cu`` for K1, K2 and
 the ResNet50-flavour K1 and K2, ``k1w`` and ``k2w``, and their bf16
-forms, ``k1wb`` and ``k2wb``; ``csrc/warp.cu`` for K4) with one part cut
+forms, ``k1wb`` and ``k2wb``; ``csrc/warp.cu`` for K4 and K5) with one
+part cut
 out or done another way, each with nvcc (the port's flags) into its own
 library under ``build/kernels/``, and times each
 against the kernel as built at the main path's shape with the timer of
@@ -35,8 +36,13 @@ blocks and holds the sums of those three against float64
 (K1: ``--cmid``), Cout 2 (K2 with a cotangent); k1w and k2w x
 [2B,64,128,128], Cmid 512 (k1wb and k2wb in bf16, k2wb's dx, sums and
 reduction kernels also timed apart); K4 the loss warp, 2B images of 128x128x1 at P
-= 16,384 points each. ``--no_cuts`` times only the kernel as built and
-the baseline. Needs a CUDA device.
+= 16,384 points each; K5 (:func:`profile_k5`) at the four shapes of its
+paths, 2B images of 128x128: the loss warp (C = 1 and, patch and mask,
+C = 2; P = 16,384) and the upsample grid at 2x and 4x broadcast over the
+batch (P = 65,536 and 262,144), also at S forced to 1-4, with its device
+ops per call under torch.profiler (one kernel, no memset).
+``--no_cuts`` times only the kernel as built and the baseline. Needs a
+CUDA device.
 
 ``k1b`` and ``k2b`` are the narrow (Cin 16) K1 and K2 at bf16, at the
 zeng shape (x [2B,16,128,128] bf16, Cmid 128). For them and for k1wb and
@@ -272,6 +278,23 @@ K2B_CUTS = [
 
 # Each turns the source into a variant without one part of the kernel, or
 # with it done another way.
+# K5's cluster kernel: every point flushes its own taps (no merge in
+# registers), each tap a plain shared store instead of an atomic (what the
+# atomics cost), or the shared copy unswizzled (what bank conflicts cost).
+# S = 1 (one block a sample, no cluster) is a run of the kernel as built
+# (the C entry's ``cluster`` argument).
+K5_CUTS = [
+    ('no register merge', _cut(
+        'const bool same = k > 0 && t.r0 == r0 && m == mk;',
+        'const bool same = false;')),
+    ('shared atomics replaced by a plain store', _cut(
+        '  atomicAdd(s + swizzle(i), a);\n}', '  s[swizzle(i)] = a;\n}')),
+    ('no point loop (zeroing, syncs, reduction only)', _cut(
+        '  while (q < q_end) {', '  while (q < 0) {')),
+    ('no swizzle (bank conflicts)', _cut(
+        'int swizzle(int a) { return a ^ ((a >> 5) & 31); }',
+        'int swizzle(int a) { return a; }')),
+]
 CUTS = {
     'k1': dict([
         ('one accumulator for all three passes (small terms first)', _cut(
@@ -339,8 +362,9 @@ CUTS = {
     'k1b': dict(K1B_CUTS),
     'k2b': dict(K2B_CUTS),
     'k4': {},
+    'k5': dict(K5_CUTS),
 }
-SOURCES = {k: 'warp' if k == 'k4' else 'fused_head' for k in CUTS}
+SOURCES = {k: 'warp' if k in ('k4', 'k5') else 'fused_head' for k in CUTS}
 WIDE = ('k1w', 'k2w', 'k1wb', 'k2wb')
 # The bf16 kernels: ptxas's report, the Python wrapper's host cost and the
 # outputs against the baseline's are printed for them.
@@ -356,7 +380,9 @@ SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
               'k1wb': ('pf_head_fwd_wide_bf16_kernelILb1',),
               'k2wb': ('pf_head_bwd_wide_bf16_dx_kernelILb1',
                        'pf_head_bwd_wide_bf16_sums_kernelILb1'),
-              'k4': ('bilinear_sample_bwd_uv_c1_kernelILb1',)}
+              'k4': ('bilinear_sample_bwd_uv_c1_kernelILb1',),
+              'k5': ('bilinear_sample_bwd_img_cluster_kernelILi1ELb1',
+                     'bilinear_sample_bwd_img_cluster_kernelILi2ELb1')}
 # The kernels of the k1w entry point (the last: an earlier source's), and
 # of the k2w one, timed apart.
 K1W_KERNELS = ('pf_head_wide_prep_kernel', 'pf_head_fwd_wgmma_kernel',
@@ -888,6 +914,154 @@ def mma_rate() -> None:
           f'ns per product')
 
 
+K5_SHAPES = ('1:1', 'upsample 2x', 'upsample 4x', 'masked loss warp, C = 2')
+HBM_BYTES_PER_S = 3.35e12
+
+
+def k5_inputs(batch: int) -> dict:
+    """{shape: (u, v, g, (N, H, W, C))} at the shapes of K5's paths, 2B =
+    128 patches of 128x128: the loss warp's points (the patch grid through
+    homographies of corner offsets of a few pixels) at C = 1 and C = 2
+    (patch and mask), and the upsample grid at 2x and 4x broadcast over
+    the batch (``heads/assembled.upsample_grid``, as the path hands it to
+    K5); dense random cotangents."""
+    from bihome_torch.heads.assembled import upsample_grid
+
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device('cuda')
+    n, ps = 2 * batch, 128
+    corners = geometry.image_corners(ps, ps, batch_size=n)
+    delta = torch.rand((n, 4, 2), generator=gen) * 16 - 8
+    u, v = geometry.homography_grid(
+        geometry.four_point_to_homography(corners, delta), (ps, ps))
+    u, v = u.to(dev), v.to(dev)
+    cases = {}
+    for name, c in (('1:1', 1), ('masked loss warp, C = 2', 2)):
+        cases[name] = (u, v, torch.randn((n, ps * ps, c),
+                                         generator=gen).to(dev), (n, ps, ps, c))
+    for scale in (2, 4):
+        uu, vv = upsample_grid(n, ps, ps, scale, dev)
+        cases[f'upsample {scale}x'] = (
+            uu, vv, torch.randn((n, uu.shape[1], 1), generator=gen).to(dev),
+            (n, ps, ps, 1))
+    return {k: cases[k] for k in K5_SHAPES}
+
+
+def k5_call(lib, u, v, g, shape, cluster: int = 0):
+    """K5's C entry of ``lib`` on these inputs. An earlier source (the
+    scatter form: [N,P] points only, dimg zeroed by the caller) gets the grid
+    materialised and a ``zero_`` of dimg before each launch, as its wrapper
+    did."""
+    n, h, w, c = shape
+    p = u.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    dimg = torch.empty(shape, device='cuda')
+    if 'bilinear_sample_bwd_img_cluster_kernel' not in lib.source:
+        lib.bilinear_sample_bwd_img.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        uc, vc = u.contiguous(), v.contiguous()
+
+        def run():
+            dimg.zero_()
+            _cuda.check_status(lib.bilinear_sample_bwd_img(
+                uc.data_ptr(), vc.data_ptr(), g.data_ptr(), dimg.data_ptr(),
+                n, h, w, c, p, stream), 'K5 (scatter)')
+    else:
+        stride = warp.uv_batch_stride(u, v)
+        chosen = ctypes.c_int(0)
+
+        def run():
+            _cuda.check_status(lib.bilinear_sample_bwd_img(
+                u.data_ptr(), v.data_ptr(), g.data_ptr(), dimg.data_ptr(), n,
+                h, w, c, p, stride, cluster, ctypes.byref(chosen), stream),
+                'K5')
+        run.chosen = chosen
+    run.dimg = dimg
+    return run
+
+
+def device_ops_per_call(fn, calls: int = 20) -> dict:
+    """{device op name: launches per call of ``fn``} under torch.profiler
+    (kernels and memsets)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_k5(libs: dict, batch: int, rounds: int) -> None:
+    """K5 at the four shapes of its paths: the kernel as built (its S by
+    the rule, on the broadcast grid where the path gives one, and on that
+    grid materialised), at S forced to 1-4, each cut variant and the
+    baseline, in turns (``time_ms``); the errors against the plain version;
+    both bound counts; host us per call of the C entries and of the
+    wrapper; the device ops of one wrapper call under torch.profiler."""
+    dev_name = torch.cuda.get_device_name(0)
+    for shape_name, (u, v, g, shape) in k5_inputs(batch).items():
+        n, h, w, c = shape
+        p = u.shape[1]
+        broadcast = u.stride() == (0, 1)
+        runs = {}
+        for label, lib in libs.items():
+            runs[label] = k5_call(lib, u, v, g, shape)
+            if label != 'as built':
+                continue
+            if broadcast:
+                runs['as built, grid materialised'] = k5_call(
+                    lib, u.contiguous(), v.contiguous(), g, shape)
+            for s in (1, 2, 3, 4):
+                runs[f'as built, S = {s}'] = k5_call(lib, u, v, g, shape, s)
+        times = {label: [] for label in runs}
+        for _ in range(rounds):
+            for label, run in runs.items():
+                times[label].append(time_ms(run))
+            times['as built'].append(time_ms(runs['as built']))
+        want = warp.bilinear_sample_bwd_img_plain(u, v, g, shape)
+        scale = float(want.abs().max())
+        rows = n if not broadcast else 1
+        bound = {k: 4 * (2 * r * p + n * p * c + n * h * w * c)
+                 / HBM_BYTES_PER_S * 1e3 for k, r in (('grid per sample', n),
+                                                     ('one grid row', rows))}
+        print(f'K5 at the {shape_name} [{n},{h},{w},{c}] P = {p} on {dev_name}'
+              f': ms per call (every reading), the median saved against the '
+              f'kernel as built; S by the rule '
+              f'{runs["as built"].chosen.value if hasattr(runs["as built"], "chosen") else "-"}'
+              f'; bound (bytes) {bound["grid per sample"]:.4f} with a grid '
+              f'per sample, {bound["one grid row"]:.4f} with '
+              f'{"one row" if broadcast else "the grid as given"}; plain '
+              f'{time_ms(lambda: warp.bilinear_sample_bwd_img_plain(u, v, g, shape)):.4f}')
+        base = sorted(times['as built'])[len(times['as built']) // 2]
+        for label, ts in times.items():
+            mid = sorted(ts)[len(ts) // 2]
+            run = runs[label]
+            run()
+            torch.cuda.synchronize()
+            err = float((run.dimg - want).abs().max()) / scale
+            print(f'  {label:48s} {" ".join(f"{t:.4f}" for t in ts)}'
+                  + ('' if label == 'as built' else f'  saves {base - mid:.4f}')
+                  + (f'  error / max|ref| {err:.2e}'
+                     if label.startswith(('as built', 'baseline')) else ''))
+        hosts = {label: [] for label in runs
+                 if label == 'as built' or label.startswith('baseline')}
+        hosts['wrapper'] = []
+        wrapper = lambda: warp.bilinear_sample_bwd_img(u, v, g, shape)
+        for _ in range(3):
+            for label in hosts:
+                hosts[label].append(host_us(runs.get(label, wrapper)))
+        print('  host us per call (C entry, and the Python wrapper as built; '
+              'in turns): ' + '; '.join(
+                  f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
+                  for label, readings in hosts.items()))
+        print('  device ops per wrapper call (torch.profiler): ' + ', '.join(
+            f'{k} {x:g}' for k, x in device_ops_per_call(wrapper).items()))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernel', choices=sorted(CUTS), default='k2')
@@ -938,7 +1112,7 @@ def main(argv=None) -> None:
               'instructions; ' + ', '.join(
                   f'{op} {k}' for op, k in counts.most_common(12))
               + f'; HGMMA {counts["HGMMA"]}, HMMA {counts["HMMA"]}')
-        if name in BF16:
+        if name in BF16 or name == 'k5':
             for label in ('as built', f'baseline {args.baseline}'):
                 if label in libs:
                     print(f'  ptxas, {label}: '
@@ -949,6 +1123,9 @@ def main(argv=None) -> None:
             if 'wgmma' in line and kernel in line:
                 print(f'  ptxas, as built: {line.strip()}')
 
+    if name == 'k5':
+        profile_k5(libs, args.batch_size, args.rounds)
+        return
     describe, make = _runner_factory(name, args.batch_size, cmid)
     runs = {label: make(lib) for label, lib in libs.items()}
     if name == 'k2w':

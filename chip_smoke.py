@@ -168,8 +168,9 @@
    same draws).
 16. The K5 slice (K5_RUNS, VARIANT_RUNS), after step 15's evals, from a
    generator of its own: K3 and K5 at the shapes of the paths that run K5
-   (128 patches of 128x128 upsampled 2x and 4x, P = 65,536 and 262,144;
-   the masked loss warp, C = 2, P = 16,384, with K4) against their plain
+   (128 patches of 128x128 upsampled 2x and 4x, P = 65,536 and 262,144,
+   K5 on the grid broadcast over the batch as the path gives it; the
+   masked loss warp, C = 2, P = 16,384, with K4) against their plain
    versions, timed beside grid_sample and its input and grid gradients
    and, upsampled, beside upsample_bilinear2d (align_corners) forward and
    backward, with their bytes bounds; then the train entry point with
@@ -1443,7 +1444,8 @@ def check_warp_bwd(dev, gen):
     """K3, K4 and K5 at the loss-warp shape: 2B = 128 standardized 128x128
     patches, P = 16,384 points each, a dense random cotangent. K4 also on a
     block of exact-integer coordinates (its derivative there is 0); K5 also
-    on a small C = 3 case with a third of the points outside. Returns K3's
+    on a small C = 3 case with a third of the points outside, and its
+    generic path on a sample past one block's shared memory. Returns K3's
     figures at this shape, and K4's and K5's entries."""
     from bihome_torch.ops import warp
 
@@ -1482,12 +1484,25 @@ def check_warp_bwd(dev, gen):
     err5c3 = _rel_err(warp.bilinear_sample_bwd_img(u3, v3, g3, (2, 24, 30, 3)),
                       warp.bilinear_sample_bwd_img_plain(u3, v3, g3,
                                                          (2, 24, 30, 3)))
+    # K5's generic path: a sample past one block's shared memory (128 x 240
+    # x 2 floats, 245,760 bytes against the H100's 232,448).
+    big = (2, 128, 240, 2)
+    ug = (torch.rand((2, 20000), generator=gen3) * 260 - 10).to(dev)
+    vg = (torch.rand((2, 20000), generator=gen3) * 148 - 10).to(dev)
+    gg = torch.randn((2, 20000, 2), generator=gen3).to(dev)
+    generic = warp.bilinear_sample_bwd_img.generic_launches
+    err5big = _rel_err(warp.bilinear_sample_bwd_img(ug, vg, gg, big),
+                       warp.bilinear_sample_bwd_img_plain(ug, vg, gg, big))
+    took_generic = warp.bilinear_sample_bwd_img.generic_launches == generic + 1
     print(f'K5 warp image gradient: error / max|ref| {err5:.2e} (C=1), '
-          f'{err5c3:.2e} (C=3, out-of-bounds points); tolerance 1e-4 '
-          f'(atomics add in no fixed order)')
-    if not (err5 <= 1e-4 and err5c3 <= 1e-4):
+          f'{err5c3:.2e} (C=3, out-of-bounds points), {err5big:.2e} (the '
+          f'generic path at {list(big)}: {took_generic}); tolerance 1e-4 '
+          f'(shared atomics add in no fixed order)')
+    if not (err5 <= 1e-4 and err5c3 <= 1e-4 and err5big <= 1e-4
+            and took_generic):
         raise AssertionError(f'warp image-gradient kernel disagrees: '
-                             f'{err5}, {err5c3}')
+                             f'{err5}, {err5c3}, {err5big} (generic path '
+                             f'taken: {took_generic})')
 
     # One PyTorch call each for the same gradients, as yardsticks only:
     # grid_sample's backward (its convention at integers differs).
@@ -1522,6 +1537,7 @@ def check_warp_bwd(dev, gen):
                                                                g))
     shape = tuple(images.shape)
     ms5 = time_ms(lambda: warp.bilinear_sample_bwd_img(u, v, g, shape))
+    cluster5 = warp.bilinear_sample_bwd_img.last_cluster
     host5 = {'kernel': host_us(lambda: warp.bilinear_sample_bwd_img(u, v, g,
                                                                     shape))}
     plain5 = time_ms(lambda: warp.bilinear_sample_bwd_img_plain(u, v, g,
@@ -1542,7 +1558,7 @@ def check_warp_bwd(dev, gen):
     print(f'K4 times (ms): kernel {ms4:.4f}  plain {plain4:.4f}  '
           f'grid_sample grid-grad {lib4:.4f}  bound {b4:.4f} ({by4}); host '
           f'us per call: kernel {host4["kernel"]:.1f}')
-    print(f'K5 times (ms): kernel {ms5:.4f} (with zeroing dimg)  plain '
+    print(f'K5 times (ms): kernel {ms5:.4f} (S = {cluster5})  plain '
           f'{plain5:.4f}  grid_sample input-grad {lib5:.4f}  bound {b5:.4f} '
           f'({by5}); host us per call: kernel {host5["kernel"]:.1f}')
     common = {'route': 'cuda', 'source': 'bihome_torch/csrc/warp.cu'}
@@ -1558,8 +1574,10 @@ def check_warp_bwd(dev, gen):
     k5 = dict(common, name='bilinear_sample_bwd_img',
               replaces='bihome_tpu/ops/warp_pallas.py:101',
               max_abs_err=float((dimg - want_img).abs().max()),
-              max_rel_err=max(err5, err5c3), ms=ms5, plain_ms=plain5,
-              bound_ms=b5, bound_by=by5, library_ms=lib5, host_us=host5)
+              max_rel_err=max(err5, err5c3, err5big), ms=ms5,
+              plain_ms=plain5, bound_ms=b5, bound_by=by5, library_ms=lib5,
+              host_us=host5, cluster=cluster5,
+              generic_path={'shape': list(big), 'max_rel_err': err5big})
     return k3, [k4, k5]
 
 
@@ -1686,9 +1704,10 @@ def check_warp_k5_paths(dev, gen):
     """K3 and K5 at the shapes of the paths that run K5, against their
     plain versions, with a dense random cotangent: 2B = 128 patches of
     128x128 upsampled 2x and 4x (the align_corners grid of
-    ``heads/assembled.upsample_grid``, materialised, P = 65,536 and
-    262,144: 4 and 16 points per pixel, neighbouring threads adding into
-    the same pixels), and the masked loss warp (patch and mask as C = 2,
+    ``heads/assembled.upsample_grid``, P = 65,536 and 262,144: 4 and 16
+    points per pixel; K5 takes it broadcast over the batch, one row read,
+    as the path hands it over, and K3 materialised), and the masked loss
+    warp (patch and mask as C = 2,
     the patch grid through homographies of a few pixels, P = 16,384; K4
     there too). Each is timed beside grid_sample (forward, its input
     gradient, its grid gradient) and, at the upsample shapes, beside
@@ -1704,20 +1723,23 @@ def check_warp_k5_paths(dev, gen):
         u, v = upsample_grid(n, ps, ps, scale, dev)
         cases.append((f'upsample_{scale}x', scale,
                       torch.randn((n, ps, ps, 1), generator=gen).to(dev),
-                      u.contiguous(), v.contiguous()))
+                      u, v))
     u, v = _loss_warp_points(dev, gen, n, ps)
     masked = torch.cat([torch.randn((n, ps, ps, 1), generator=gen),
                         torch.rand((n, ps, ps, 1), generator=gen)], dim=-1)
     cases.append(('masked_loss_warp', None, masked.to(dev), u, v))
     figures = {}
-    for name, scale, images, u, v in cases:
+    for name, scale, images, ub, vb in cases:
+        # ub, vb as K5 gets them; u, v contiguous, as K3 and K4 get them.
+        u, v = ub.contiguous(), vb.contiguous()
         c = images.shape[-1]
         p = u.shape[1]
         shape = tuple(images.shape)
         g = torch.randn((n, p, c), generator=gen).to(dev)
         out = warp.bilinear_sample_batched(images, u, v)
         want = warp.bilinear_sample_plain(images, u, v)
-        dimg = warp.bilinear_sample_bwd_img(u, v, g, shape)
+        dimg = warp.bilinear_sample_bwd_img(ub, vb, g, shape)
+        cluster5 = warp.bilinear_sample_bwd_img.last_cluster
         want_img = warp.bilinear_sample_bwd_img_plain(u, v, g, shape)
         err3, err5 = _rel_err(out, want), _rel_err(dimg, want_img)
         err4 = 0.0
@@ -1728,7 +1750,9 @@ def check_warp_k5_paths(dev, gen):
             err4 = max(_rel_err(du, want_du), _rel_err(dv, want_dv))
         print(f'K3/K4/K5 at the {name} [{n},{ps},{ps},{c}] P={p}: error / '
               f'max|ref| K3 {err3:.2e} (tolerance 1e-5), K4 {err4:.2e}, K5 '
-              f'{err5:.2e} (tolerance 1e-4; atomics add in no fixed order)')
+              f'{err5:.2e} (tolerance 1e-4; shared atomics add in no fixed '
+              f'order; S = {cluster5}, u/v batch stride '
+              f'{warp.uv_batch_stride(ub, vb)})')
         if not (err3 <= 1e-5 and err4 <= 1e-4 and err5 <= 1e-4):
             raise AssertionError(f'warp kernels disagree at the {name} '
                                  f'shape: {err3}, {err4}, {err5}')
@@ -1746,34 +1770,40 @@ def check_warp_k5_paths(dev, gen):
         lib3 = time_ms(lambda: F.grid_sample(
             img_nchw, grid, mode='bilinear', padding_mode='zeros',
             align_corners=True))
-        ms5 = time_ms(lambda: warp.bilinear_sample_bwd_img(u, v, g, shape))
+        ms5 = time_ms(lambda: warp.bilinear_sample_bwd_img(ub, vb, g, shape))
         plain5 = time_ms(lambda: warp.bilinear_sample_bwd_img_plain(
-            u, v, g, shape))
+            ub, vb, g, shape))
         lib5 = time_ms(lambda: torch.autograd.grad(out_img, img_req, g_nchw,
                                                    retain_graph=True))
-        host5 = host_us(lambda: warp.bilinear_sample_bwd_img(u, v, g, shape))
+        host5 = host_us(lambda: warp.bilinear_sample_bwd_img(ub, vb, g,
+                                                             shape))
         host3 = host_us(lambda: warp.bilinear_sample_batched(images, u, v))
         # K3 reads the images, u and v and writes the samples; K5 reads u,
-        # v and g and writes dimg once (its zeroing and the atomics'
-        # read-back are the kernel's own); K4 reads the images, u, v and g
-        # and writes du and dv.
+        # v (one row where they broadcast over the batch; the grid per
+        # sample counted apart) and g and writes dimg once; K4 reads the
+        # images, u, v and g and writes du and dv.
         b3, by3 = bound_ms(4 * (n * ps * ps * c + 2 * n * p + n * p * c),
                            15 * n * p * c)
-        b5, by5 = bound_ms(4 * (2 * n * p + n * p * c + n * ps * ps * c),
+        rows = n if warp.uv_batch_stride(ub, vb) else 1
+        b5, by5 = bound_ms(4 * (2 * rows * p + n * p * c + n * ps * ps * c),
                            20 * n * p * c)
+        b5n, _ = bound_ms(4 * (2 * n * p + n * p * c + n * ps * ps * c),
+                          20 * n * p * c)
         base = {'shape': [n, ps, ps, c], 'points': p}
         k3 = dict(base, max_abs_err=float((out - want).abs().max()),
                   max_rel_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3,
                   bound_by=by3, library_ms=lib3, host_us={'kernel': host3})
         k5 = dict(base, max_abs_err=float((dimg - want_img).abs().max()),
                   max_rel_err=err5, ms=ms5, plain_ms=plain5, bound_ms=b5,
-                  bound_by=by5, library_ms=lib5, host_us={'kernel': host5})
+                  bound_by=by5, bound_ms_grid_per_sample=b5n,
+                  library_ms=lib5, host_us={'kernel': host5},
+                  cluster=cluster5)
         line = (f'K3 at the {name} (ms): kernel {ms3:.4f}  plain '
                 f'{plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} '
-                f'({by3}); K5: kernel {ms5:.4f} (with zeroing dimg)  plain '
-                f'{plain5:.4f}  grid_sample input-grad {lib5:.4f}  bound '
-                f'{b5:.4f} ({by5}); host us per call K3 {host3:.1f}, K5 '
-                f'{host5:.1f}')
+                f'({by3}); K5: kernel {ms5:.4f}  plain {plain5:.4f}  '
+                f'grid_sample input-grad {lib5:.4f}  bound {b5:.4f} ({by5}; '
+                f'{b5n:.4f} with a grid per sample); host us per call K3 '
+                f'{host3:.1f}, K5 {host5:.1f}')
         k4 = None
         if scale is None:
             ms4 = time_ms(lambda: warp.bilinear_sample_bwd_uv(images, u, v,

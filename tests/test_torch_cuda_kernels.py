@@ -22,7 +22,10 @@ forward); 1e-4 (1 + max|out|) (PF head forward; float32, sums in another
 order than torch's einsum); 1e-4 (1 + max|ref|) per output of the PF-head
 backward (the kernel sums over pixels per block, then over blocks);
 1e-3 (1 + max|ref|) for the warp gradients (K5 adds its taps with
-atomics, in no fixed order).
+shared-memory atomics, in no fixed order). K5 also on the grid broadcast
+over the batch, at every cluster size, past the shared-memory limit (its
+generic path), on misaligned and ragged inputs and over memory that held
+NaN.
 """
 
 import pytest
@@ -647,7 +650,7 @@ def test_warp_bwd_uv_kernel_matches_plain(cuda, channels):
     assert torch.all(du[integer_u] == 0) and torch.all(dv[integer_v] == 0)
 
 
-@pytest.mark.parametrize('channels', [1, 3])
+@pytest.mark.parametrize('channels', [1, 2, 3])
 def test_warp_bwd_img_kernel_matches_plain(cuda, channels):
     gen = torch.Generator().manual_seed(20 + channels)
     u, v = _warp_points(gen, 3, 1001, 17, 23, cuda)
@@ -657,9 +660,154 @@ def test_warp_bwd_img_kernel_matches_plain(cuda, channels):
     got = warp.bilinear_sample_bwd_img(u, v, g, shape)
     torch.cuda.synchronize()
     assert warp.bilinear_sample_bwd_img.launches == before + 1
+    assert warp.bilinear_sample_bwd_img.last_cluster >= 1
     want = warp.bilinear_sample_bwd_img_plain(u, v, g, shape)
     tol = 1e-3 * (1.0 + want.abs().max().item())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize('n,h,w,c,p,misalign', [
+    (1, 32, 40, 1, 4096, False),   # one sample: few clusters, S up to 4
+    (3, 32, 40, 1, 4096, False),   # 16-byte loads
+    (3, 32, 40, 2, 4096, False),
+    (3, 32, 40, 3, 4096, False),   # any C, cotangents read as added
+    (3, 17, 23, 1, 1002, False),   # P % 4 != 0: scalar loads, a tail group
+    (3, 32, 40, 1, 4096, True),    # misaligned u, v, g: scalar loads
+    (3, 30, 37, 2, 4096, True),    # W * C % 4 != 0: scalar reduction
+])
+def test_warp_bwd_img_cluster_kernel_edge_cases(cuda, n, h, w, c, p,
+                                                misalign):
+    gen = torch.Generator().manual_seed(n * 100 + c + p)
+    u, v = (t[:n] for t in _warp_points(gen, max(n, 2), p, h, w, cuda))
+    g = torch.randn((n, p, c), generator=gen).to(cuda)
+    if misalign:
+        u, v, g = _misaligned(u), _misaligned(v), _misaligned(g)
+        assert u.data_ptr() % 16 == 4
+    before = warp.bilinear_sample_bwd_img.launches
+    generic = warp.bilinear_sample_bwd_img.generic_launches
+    got = warp.bilinear_sample_bwd_img(u, v, g, (n, h, w, c))
+    torch.cuda.synchronize()
+    assert warp.bilinear_sample_bwd_img.launches == before + 1
+    assert warp.bilinear_sample_bwd_img.generic_launches == generic
+    assert 1 <= warp.bilinear_sample_bwd_img.last_cluster <= 4
+    want = warp.bilinear_sample_bwd_img_plain(u, v, g, (n, h, w, c))
+    tol = 1e-3 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize('cluster', [1, 2, 3, 4])
+@pytest.mark.parametrize('h', [17, 3])
+def test_warp_bwd_img_cluster_sizes(cuda, cluster, h):
+    # H rows split into bands of unequal height (none for rank 0 at H = 3
+    # and S = 4), every block's range of points split unevenly.
+    gen = torch.Generator().manual_seed(40 + cluster + h)
+    u, v = _warp_points(gen, 3, 2000, h, 24, cuda)
+    g = torch.randn((3, 2000, 1), generator=gen).to(cuda)
+    got = warp.bilinear_sample_bwd_img(u, v, g, (3, h, 24, 1),
+                                       cluster=cluster)
+    torch.cuda.synchronize()
+    assert warp.bilinear_sample_bwd_img.last_cluster == cluster
+    want = warp.bilinear_sample_bwd_img_plain(u, v, g, (3, h, 24, 1))
+    tol = 1e-3 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize('scale', [2, 4])
+def test_warp_bwd_img_broadcast_grid(cuda, scale):
+    from bihome_torch.heads.assembled import upsample_grid
+
+    gen = torch.Generator().manual_seed(50 + scale)
+    n, hw = 3, 32
+    u, v = upsample_grid(n, hw, hw, scale, cuda)
+    assert u.stride() == (0, 1) and warp.uv_batch_stride(u, v) == 0
+    g = torch.randn((n, u.shape[1], 1), generator=gen).to(cuda)
+    shape = (n, hw, hw, 1)
+    got = warp.bilinear_sample_bwd_img(u, v, g, shape)
+    full = warp.bilinear_sample_bwd_img(u.contiguous(), v.contiguous(), g,
+                                        shape)
+    torch.cuda.synchronize()
+    want = warp.bilinear_sample_bwd_img_plain(u.contiguous(), v.contiguous(),
+                                              g, shape)
+    tol = 1e-3 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    torch.testing.assert_close(got, full, rtol=0, atol=tol)
+
+
+def test_warp_bwd_img_generic_path_past_the_shared_memory_limit(cuda):
+    # 128 x 240 x 2 floats = 245,760 bytes, past the 232,448 a block of the
+    # H100 can hold: the scatter kernel, after its memset.
+    gen = torch.Generator().manual_seed(60)
+    shape = (2, 128, 240, 2)
+    u, v = _warp_points(gen, 2, 5000, 128, 240, cuda)
+    g = torch.randn((2, 5000, 2), generator=gen).to(cuda)
+    before = (warp.bilinear_sample_bwd_img.launches,
+              warp.bilinear_sample_bwd_img.generic_launches)
+    got = warp.bilinear_sample_bwd_img(u, v, g, shape)
+    torch.cuda.synchronize()
+    assert (warp.bilinear_sample_bwd_img.launches,
+            warp.bilinear_sample_bwd_img.generic_launches) == (
+                before[0] + 1, before[1] + 1)
+    assert warp.bilinear_sample_bwd_img.last_cluster == 0
+    want = warp.bilinear_sample_bwd_img_plain(u, v, g, shape)
+    tol = 1e-3 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize('shape', [(3, 32, 40, 1), (2, 128, 240, 2)])
+def test_warp_bwd_img_ignores_what_memory_held(cuda, shape):
+    # dimg is allocated in memory that held NaN just before the call: the
+    # kernel writes every element (the generic path zeroes first).
+    gen = torch.Generator().manual_seed(70)
+    n, h, w, c = shape
+    u, v = _warp_points(gen, n, 3000, h, w, cuda)
+    g = torch.randn((n, 3000, c), generator=gen).to(cuda)
+    poisoned = torch.full(shape, float('nan'), device=cuda)
+    ptr = poisoned.data_ptr()
+    del poisoned
+    got = warp.bilinear_sample_bwd_img(u, v, g, shape)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    want = warp.bilinear_sample_bwd_img_plain(u, v, g, shape)
+    assert torch.isfinite(got).all()
+    tol = 1e-3 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_warp_bwd_img_refuses_other_point_layouts(cuda):
+    gen = torch.Generator().manual_seed(80)
+    u, v = _warp_points(gen, 3, 64, 8, 8, cuda)
+    g = torch.randn((3, 64, 1), generator=gen).to(cuda)
+    row = u[:1].expand(3, -1)
+    for uu, vv in ((u.t().contiguous().t(), v.t().contiguous().t()),
+                   (torch.cat([u, u], 1)[:, ::2], v),
+                   (row, v)):
+        with pytest.raises(ValueError):
+            warp.bilinear_sample_bwd_img(uu, vv, g, (3, 8, 8, 1))
+
+
+def test_upsample_image_grad_on_card_matches_cpu(cuda):
+    from bihome_torch.heads.assembled import upsample_align_corners
+
+    gen = torch.Generator().manual_seed(90)
+    x = torch.randn((2, 16, 16, 1), generator=gen)
+    g = torch.randn((2, 64, 64, 1), generator=gen)
+    grads = []
+    for dev in ('cpu', cuda):
+        xd = x.to(dev).detach().requires_grad_(True)
+        (upsample_align_corners(xd, 4) * g.to(dev)).sum().backward()
+        grads.append(xd.grad.cpu())
+    assert warp.bilinear_sample_bwd_img.last_cluster >= 1
+    tol = 1e-3 * (1.0 + grads[0].abs().max().item())
+    torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=tol)
 
 
 def test_bilinear_sample_function_launches_k4_and_k5(cuda):
