@@ -1,6 +1,8 @@
 """Photometric distortion of the PDS-COCO configs (counterpart of
 ``bihome_tpu/data/photometric.py:34-97``, ``photometric_distort_simple``;
-ref: src/data/transforms.py:296-330).
+ref: src/data/transforms.py:296-330), and the full SSD chain of the
+dict-stage ``PhotometricDistort`` transform (``:100-145``,
+``photometric_distort_full``; ref: transforms.py:265-293).
 
 Split in two so that the device sees one copy per batch and no branch:
 
@@ -11,6 +13,10 @@ Split in two so that the device sees one copy per batch and no branch:
   batched and loop-free: brightness, the leading contrast slot, the HSV
   round trip with saturation and hue, the trailing contrast slot, the
   channel permutation.
+
+The full chain is the same apply step on draws of fixed ranges
+(:func:`draw_photometric_full_params`: brightness +-32, contrast and
+saturation 0.5-1.5, hue +-18 degrees), with no identity shortcut.
 
 As in the JAX function, exactly one contrast slot is live per sample
 (``chain_coin``) and both use the one alpha draw; the hue wraps once; the
@@ -49,13 +55,30 @@ def draw_photometric_params(batch: int, max_delta: float,
         return None
     lower = 1.0 - max_delta / 32.0 * 0.5
     upper = 1.0 + max_delta / 32.0 * 0.5
+    return _draw(batch, max_delta, (lower, upper), max_delta / 2.0,
+                 generator)
+
+
+def draw_photometric_full_params(batch: int,
+                                 generator: Optional[torch.Generator] = None
+                                 ) -> torch.Tensor:
+    """[batch, 12] draws of the full SSD chain (``photometric.py:117-133``):
+    brightness uniform(-32, 32), contrast and saturation alphas
+    uniform(0.5, 1.5), hue uniform(-18, 18), coins and permutation as
+    :func:`draw_photometric_params`."""
+    return _draw(batch, 32.0, (0.5, 1.5), 18.0, generator)
+
+
+def _draw(batch: int, brightness: float, alpha_range, hue: float,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    lower, upper = alpha_range
     u = torch.rand((batch, len(PARAMS)), generator=generator)
     params = torch.empty_like(u)
     for name in _COINS:
         params[:, _COL[name]] = (u[:, _COL[name]] < 0.5).float()
-    for name, lo, hi in (('b_delta', -max_delta, max_delta),
+    for name, lo, hi in (('b_delta', -brightness, brightness),
                          ('c_alpha', lower, upper), ('s_alpha', lower, upper),
-                         ('h_delta', -max_delta / 2.0, max_delta / 2.0)):
+                         ('h_delta', -hue, hue)):
         params[:, _COL[name]] = lo + (hi - lo) * u[:, _COL[name]]
     params[:, _COL['perm']] = torch.floor(u[:, _COL['perm']] * 6).clamp(max=5)
     return params
@@ -98,3 +121,11 @@ def apply_photometric(images: torch.Tensor,
     permuted = torch.gather(image, -1, _permutation(params[:, _COL['perm']])[
         :, None, None, :].expand_as(image))
     return torch.where(on['ln_coin'][..., None], permuted, image)
+
+
+def photometric_distort_full(images: torch.Tensor,
+                             params: torch.Tensor) -> torch.Tensor:
+    """The full SSD chain (``photometric_distort_full``) on [B,H,W,3] float
+    images with the draws ``params`` [B,12] of
+    :func:`draw_photometric_full_params`, on the images' device."""
+    return apply_photometric(images, params)

@@ -12,9 +12,14 @@ synthesis (the eval protocol: each sample's draws come from its own
 not depend on how samples are grouped into batches) and ``generate_pairs``
 (the training draws, one generator per batch; corners, deltas and
 photometric draws can be injected), and ``ChangeAwarePrep`` (CLEVR-Change:
-real (original, changed) pairs, no synthetic homography). The dict-stage
-``PhotometricDistort``, the blob occlusion and emitting ``image_2`` are
-not ported yet and raise; the host-side prep transforms run on the host
+real (original, changed) pairs, no synthetic homography). Also the
+dict-stage ``PhotometricDistort`` (the full SSD chain on each key it
+names, after the pair and before grayscale and standardize,
+``bihome_tpu/data/pipeline.py:306-315``), emitting ``image_2`` (the
+whole distorted frame warped by the pair's homography, ``:302-304``;
+eval's ``--vis`` reads it) and the blob occlusion of the training pairs
+(:mod:`bihome_torch.data.blobs`, ``:397-402``), each with injectable
+draws. The host-side prep transforms run on the host
 (:mod:`bihome_torch.data.transforms_host`), before the pairs are made.
 """
 
@@ -26,7 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from bihome_torch import geometry
-from bihome_torch.data import photometric
+from bihome_torch.data import blobs, photometric
 from bihome_torch.ops import color
 
 Tensor = torch.Tensor
@@ -108,11 +113,7 @@ class PairSpec:
 def check_ported(spec: PairSpec) -> None:
     """Raise for the datagen features this port does not have yet."""
     missing = []
-    if spec.photometric_full_keys:
-        missing.append('PhotometricDistort')
-    if spec.blob_porosity > 0:
-        missing.append('blob occlusion')
-    unported_images = sorted(set(spec.emit_images) - {'image_1'})
+    unported_images = sorted(set(spec.emit_images) - {'image_1', 'image_2'})
     if unported_images:
         missing.append(f'emitting {unported_images}')
     if spec.target_gen not in ('4_points', 'all_points'):
@@ -174,22 +175,32 @@ def _perspective_field(homography: Tensor, corners0: Tensor,
 def generate_pairs_deterministic(
         image: Tensor, corners: Tensor, delta: Tensor, spec: PairSpec,
         image_1: Optional[Tensor] = None,
-        image_2: Optional[Tensor] = None) -> Dict[str, Tensor]:
+        image_2: Optional[Tensor] = None,
+        full_params: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """Pair assembly given sampled (corners, delta): image/image_1/image_2
     [B,H,W,3] float (image_1/image_2 the distorted copies, default image),
-    corners [B,4,2] (integer-valued), delta [B,4,2]. ``image_1`` is emitted
-    when the spec asks for it."""
+    corners [B,4,2] (integer-valued), delta [B,4,2]. ``image_1`` and
+    ``image_2`` (warped by the homography) are emitted when the spec asks
+    for them. ``full_params`` [K,B,12], one row of draws per key of
+    ``spec.photometric_full_keys``, applies the full SSD chain to each key
+    the batch holds (None skips it, as JAX's ``pdf_keys=None``)."""
     check_ported(spec)
     image_1 = image if image_1 is None else image_1
     image_2 = image if image_2 is None else image_2
     ps = spec.patch_size
     x0 = corners[:, 0, 0].long()
     y0 = corners[:, 0, 1].long()
+    full_keys = spec.photometric_full_keys if full_params is not None else ()
 
     # Grayscale commutes with cropping and bilinear warping (both linear in
-    # pixel values): convert first and sample one channel instead of three.
-    patch_1_gray = 'patch_1' in spec.grayscale_keys and image_1.shape[-1] == 3
-    patch_2_gray = 'patch_2' in spec.grayscale_keys and image_2.shape[-1] == 3
+    # pixel values): convert first and sample one channel instead of three
+    # (not for a patch the non-linear full chain distorts first).
+    patch_1_gray = ('patch_1' in spec.grayscale_keys
+                    and 'patch_1' not in full_keys
+                    and image_1.shape[-1] == 3)
+    patch_2_gray = ('patch_2' in spec.grayscale_keys
+                    and 'patch_2' not in full_keys
+                    and image_2.shape[-1] == 3)
     patch_1_src = color.rgb_to_grayscale(image_1) if patch_1_gray else image_1
     patch_2_src = color.rgb_to_grayscale(image_2) if patch_2_gray else image_2
 
@@ -216,7 +227,23 @@ def generate_pairs_deterministic(
                                              batch['corners'][:, 0], ps)
     if 'image_1' in spec.emit_images:
         batch['image_1'] = image_1
-    return _gray_standardize(batch, spec)
+    if 'image_2' in spec.emit_images:
+        batch['image_2'] = geometry.warp_image(image_2, homography)
+    return _gray_standardize(_distort_full(batch, spec, full_params), spec)
+
+
+def _distort_full(batch: Dict[str, Tensor], spec: PairSpec,
+                  full_params: Optional[Tensor]) -> Dict[str, Tensor]:
+    """The full SSD chain (dict-stage PhotometricDistort) on each of the
+    spec's keys that ``batch`` holds, key i with the draws
+    ``full_params[i]`` [B,12] (``pipeline.py:306-315``), in place."""
+    if full_params is None:
+        return batch
+    for i, name in enumerate(spec.photometric_full_keys):
+        if name in batch:
+            batch[name] = photometric.photometric_distort_full(
+                batch[name], full_params[i])
+    return batch
 
 
 def _gray_standardize(batch: Dict[str, Tensor],
@@ -265,19 +292,31 @@ def _draw_photometric(batch: int, spec: PairSpec,
                  else None for on in _photometric_copies(spec))
 
 
+def draw_full_photometric(batch: int, spec: PairSpec,
+                          generator: Optional[torch.Generator]
+                          ) -> Optional[Tensor]:
+    """The full SSD chain's draws [K,batch,12] (CPU), one row per key of
+    ``spec.photometric_full_keys`` in order; None without the transform."""
+    if not spec.photometric_full_keys:
+        return None
+    return torch.stack([photometric.draw_photometric_full_params(
+        batch, generator) for _ in spec.photometric_full_keys])
+
+
 def draw_per_sample(seeds: Sequence[int], image_hw: Tuple[int, int],
                     spec: PairSpec):
     """Per-sample draws, each sample from its own ``torch.Generator``, in
     the order patch centre, corner perturbations, the photometric draws of
-    image_1 then image_2 (CPU) -> (corners [B,4,2], delta [B,4,2], pd1,
-    pd2), pd1/pd2 [B,12] or None.
+    image_1 then image_2, the full chain's (CPU) -> (corners [B,4,2],
+    delta [B,4,2], pd1, pd2, pdf), pd1/pd2 [B,12] or None, pdf [K,B,12]
+    or None.
 
     Patch centres are uniform in [rho + ps/2, dim - rho - ps/2] (ref:
     src/data/transforms.py:504-509), deltas uniform in [-rho, rho)
     (np.random.randint semantics, ref: transforms.py:538)."""
     h, w = image_hw
     ps, rho = spec.patch_size, spec.rho
-    pos, deltas, pds = [], [], []
+    pos, deltas, pds, pdfs = [], [], [], []
     for seed in seeds:
         gen = torch.Generator().manual_seed(seed)
         if ps != w:
@@ -290,10 +329,12 @@ def draw_per_sample(seeds: Sequence[int], image_hw: Tuple[int, int],
         pos.append(torch.stack([px, py]))
         deltas.append(torch.randint(-rho, rho, (4, 2), generator=gen))
         pds.append(_draw_photometric(1, spec, gen))
+        pdfs.append(draw_full_photometric(1, spec, gen))
     pos_t = torch.stack(pos)
     corners = _corners_from_position(pos_t[:, 0], pos_t[:, 1], ps)
     pd1, pd2 = (None if p[0] is None else torch.cat(p) for p in zip(*pds))
-    return corners, torch.stack(deltas), pd1, pd2
+    pdf = None if pdfs[0] is None else torch.cat(pdfs, dim=1)
+    return corners, torch.stack(deltas), pd1, pd2, pdf
 
 
 def _params_to(device, pd1: Optional[Tensor], pd2: Optional[Tensor]):
@@ -311,24 +352,34 @@ def generate_pairs_per_sample(images: Tensor, seeds: Sequence[int],
     Every sample's randomness derives only from its own seed (the eval
     protocol's batch-size invariance, ref: eval.py:360)."""
     images = images.float()
-    corners, delta, pd1, pd2 = draw_per_sample(seeds, images.shape[1:3],
-                                               spec)
+    corners, delta, pd1, pd2, pdf = draw_per_sample(seeds, images.shape[1:3],
+                                                    spec)
     return _assemble_pairs(images, corners.to(images.device),
                            delta.to(images.device), spec,
-                           *_params_to(images.device, pd1, pd2))
+                           *_params_to(images.device, pd1, pd2),
+                           full_params=_to(pdf, images.device))
+
+
+def _to(t: Optional[Tensor], device) -> Optional[Tensor]:
+    return None if t is None else t.to(device)
 
 
 def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
                     spec: PairSpec, pd1: Optional[Tensor] = None,
-                    pd2: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                    pd2: Optional[Tensor] = None,
+                    full_params: Optional[Tensor] = None
+                    ) -> Dict[str, Tensor]:
     """Photometric distortion of the two copies with the draws ``pd1`` and
     ``pd2`` ([B,12] on the images' device), then the pair
     (``bihome_tpu/data/pipeline.py:443-488``), window-first: patch_1 and
     patch_2 read only the (ps+2·rho)² window around the patch, so only the
     window is cropped, distorted and converted. The distortion is per
     pixel under per-sample draws, so this equals JAX's full-image branch
-    too, which a spec that emits ``image_1`` takes: here the whole frame is
-    distorted with pd1 and emitted beside the pair. Returns absolute-frame
+    too, which a spec that emits ``image_1`` or ``image_2`` takes: here
+    the whole frame is distorted with pd1 and emitted beside the pair
+    (image_1), or distorted with pd2 and warped by the pair's absolute
+    homography (image_2). ``full_params`` [K,B,12]: the full SSD chain's
+    draws (:func:`generate_pairs_deterministic`). Returns absolute-frame
     corners and homography."""
     check_ported(spec)
     on_1, on_2 = _photometric_copies(spec)
@@ -346,13 +397,22 @@ def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
     origin = torch.stack([ox, oy], dim=-1)[:, None, :]             # [B,1,2]
     batch = generate_pairs_deterministic(
         windows, (corners - origin).float(), delta.float(),
-        dataclasses.replace(spec, emit_images=()), win_1, win_2)
+        dataclasses.replace(spec, emit_images=()), win_1, win_2,
+        full_params)
     batch['corners'] = corners.float()
     batch['homography'] = geometry.four_point_to_homography(
         batch['corners'], batch['delta'])
+    frames = {}
     if 'image_1' in spec.emit_images:
-        image_1 = photometric.apply_photometric(images, pd1) if on_1 else images
-        batch.update(_gray_standardize({'image_1': image_1}, spec))
+        frames['image_1'] = (photometric.apply_photometric(images, pd1)
+                             if on_1 else images)
+    if 'image_2' in spec.emit_images:
+        frames['image_2'] = geometry.warp_image(
+            photometric.apply_photometric(images, pd2) if on_2 else images,
+            batch['homography'])
+    if frames:
+        batch.update(_gray_standardize(
+            _distort_full(frames, spec, full_params), spec))
     return batch
 
 
@@ -394,13 +454,20 @@ def generate_pairs(images: Tensor, spec: PairSpec,
                    corners: Optional[Tensor] = None,
                    delta: Optional[Tensor] = None,
                    photometric_params: Optional[Sequence[Optional[Tensor]]]
-                   = None) -> Dict[str, Tensor]:
+                   = None, full_params: Optional[Tensor] = None,
+                   blob_draws: Optional[Tuple[Tensor, int]] = None
+                   ) -> Dict[str, Tensor]:
     """Training pair synthesis (counterpart of
     ``bihome_tpu/data/pipeline.py:generate_pairs``): uint8/float images
     [B,H,W,3] -> batch dict. The corners and deltas are drawn from
     ``generator`` unless both are given (integer-valued [B,4,2]), then the
     photometric draws of image_1 and image_2 unless ``photometric_params``
-    = (pd1, pd2) gives them ([B,12] or None each). With
+    = (pd1, pd2) gives them ([B,12] or None each), then the full SSD
+    chain's unless ``full_params`` [K,B,12] gives them (a spec with the
+    dict-stage PhotometricDistort), then, with DATA.AUGMENT_BLOB_POROSITY
+    > 0 and B > 1, the blob occlusion's unless ``blob_draws`` = (noise
+    [B,ps,ps], shift) gives them (:mod:`bihome_torch.data.blobs`, applied
+    last, to the standardized patches, ``pipeline.py:397-402``). With
     ``spec.change_aware_keys`` set, ``images`` is [B,2,H,W,3] of real
     pairs and :func:`assemble_change_pairs` runs instead (no draws)."""
     if spec.change_aware_keys:
@@ -412,6 +479,17 @@ def generate_pairs(images: Tensor, spec: PairSpec,
             b, tuple(images.shape[1:3]), spec, generator)
     if photometric_params is None:
         photometric_params = _draw_photometric(b, spec, generator)
-    return _assemble_pairs(images, corners.long().to(images.device),
-                           delta.long().to(images.device), spec,
-                           *_params_to(images.device, *photometric_params))
+    if full_params is None:
+        full_params = draw_full_photometric(b, spec, generator)
+    batch = _assemble_pairs(images, corners.long().to(images.device),
+                            delta.long().to(images.device), spec,
+                            *_params_to(images.device, *photometric_params),
+                            full_params=_to(full_params, images.device))
+    if spec.blob_porosity > 0 and b > 1:
+        if blob_draws is None:
+            blob_draws = blobs.draw_blobs(b, batch['patch_2'].shape[1:3],
+                                          generator)
+        batch = blobs.apply_blob_augmentation(
+            batch, *blob_draws, porosity=spec.blob_porosity,
+            blobiness=spec.blobiness)
+    return batch

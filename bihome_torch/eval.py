@@ -4,7 +4,7 @@
     python -m bihome_torch.eval --config_file X.yaml [--batch_size N]
         [--steps N] [--synthetic] [--image_size W H] [--set K=V]
         [--ckpt DIR_OR_FILE | --torch_ckpt F] [--log F] [--skip_timing]
-        [--device cuda|cpu]
+        [--vis] [--vis_dir DIR] [--device cuda|cpu]
 
 Prints ``Number of params``, ``Mean mace`` and ``Mean model time`` (ms per
 batch) like the JAX entry point. The images come from DATA.TEST_SPLIT
@@ -23,10 +23,19 @@ CLEVR-Change pairs carry no ground-truth homography and are refused.
 
 Weights: ``--ckpt`` loads a port checkpoint (a ``model_NNNNNN.pth`` or
 the newest one in a log directory, ``training/checkpoint.py``);
-``--torch_ckpt`` a reference ``.pth``; with neither, the newest port
-checkpoint in LOGGING.DIR (``eval.py:154-159``), else a fixed seed's init.
-``--log F`` appends one ``iter,mace`` line per sample (``eval.py:
-243-247``). The model computes in MODEL.DTYPE (``--set
+``--torch_ckpt`` a reference ``.pth``, the backbone and the head's parts
+it holds (the extractor, the projection head, the DSAC score CNN;
+``torchvision_port.load_reference_checkpoint``, as ``eval.py:140-150``);
+with neither, the newest port checkpoint in LOGGING.DIR (``eval.py:
+154-159``), else a fixed seed's init. ``--log F`` appends one
+``iter,mace`` line per sample (``eval.py:243-247``). ``--vis`` makes the
+test pairs emit ``image_2`` (the whole frame warped by the pair's
+homography, K3 on the card) and writes, per sample n, into ``--vis_dir``
+the files of ``eval.py:46-100``: ``{n:05d}_image_vis.png`` (image_2 with
+the true corners in blue and the predicted ones in red),
+``{n:05d}_patch_1_2_mask.gif`` (patch_1 warped by delta_hat, patch_2,
+the warped mask) and ``{n:05d}_{warped,patch_2,mask_1,mask_2}.npy``
+(plus ``{n:05d}_pf.npy`` where the model predicts a perspective field). The model computes in MODEL.DTYPE (``--set
 MODEL.DTYPE=bfloat16``, as JAX's eval reads it); its float32 weights load
 at either dtype. Runs on ``cuda`` unless ``--device cpu`` is given;
 without a card it raises rather than falling back.
@@ -41,10 +50,15 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+import dataclasses
+import os
+
 from bihome_torch import config as config_lib
+from bihome_torch import geometry
 from bihome_torch.data import datasets, pipeline
 from bihome_torch.device import resolve_device
-from bihome_torch.models import backbones, weights
+from bihome_torch.models import backbones, torchvision_port
+from bihome_torch.ops import color
 from bihome_torch.training import checkpoint
 
 INIT_SEED = 0
@@ -64,6 +78,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--batch_size', type=int, default=1)
     parser.add_argument('--synthetic', action='store_true')
     parser.add_argument('--skip_timing', action='store_true')
+    parser.add_argument('--vis', action='store_true',
+                        help='write the per-sample visualization files')
+    parser.add_argument('--vis_dir', type=str, default='vis_out')
     parser.add_argument('--steps', type=int, default=0)
     parser.add_argument('--image_size', type=int, nargs=2,
                         default=(320, 240))
@@ -74,16 +91,97 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def load_backbone_weights(backbone: torch.nn.Module, path: str) -> None:
-    """Load a reference .pth into the backbone: either its own state dict
-    or a training checkpoint of nn.Sequential(backbone, head), whose
-    backbone keys carry the '0.' prefix (ref: train.py:696)."""
+def load_torch_checkpoint(model: torch.nn.Module, path: str,
+                          backbone_name: str) -> List[str]:
+    """Load a reference .pth into the model: the backbone's own state dict,
+    or a training checkpoint of nn.Sequential(backbone, head) (keys '0.*'
+    and '1.*', ref: train.py:696), whose head parts load too. Returns the
+    parts loaded."""
     state = torch.load(path, map_location='cpu', weights_only=True)
     if isinstance(state, dict) and 'model' in state:
         state = state['model']
-    if any(k.startswith('0.') for k in state):
-        state = {k[2:]: v for k, v in state.items() if k.startswith('0.')}
-    weights.load_state_dict(backbone, state)
+    return torchvision_port.load_reference_checkpoint(model, state,
+                                                      backbone_name)
+
+
+def vis_outputs(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                delta_hat: torch.Tensor) -> Dict[str, np.ndarray]:
+    """The arrays the visualization files show for one batch
+    (``eval.py:248-304``): patch_1 warped by the homography of delta_hat
+    over the patch, the warp of an all-ones mask (closed form), ones as
+    mask_2, patch_2, the corners, the deltas, image_2 where the batch has
+    it; with MASK_KEYS the backbone's mask_1 warped and its mask_2, and
+    the perspective field where the head reads one. On the CPU, numpy."""
+    head = model.head
+    patch_1 = batch['patch_1']
+    b, ps = patch_1.shape[0], patch_1.shape[1]
+    corners = geometry.image_corners(ps, ps, batch_size=b,
+                                     device=patch_1.device)
+    hom = geometry.four_point_to_homography(corners, delta_hat.float())
+    u, v = geometry.homography_grid(hom, (ps, ps))
+    out = {'warped': geometry.batched_sample(patch_1, u, v).reshape(
+               patch_1.shape),
+           'mask_1_warped': geometry.ones_warp_mask(u, v, (ps, ps)).reshape(
+               b, ps, ps, 1),
+           'mask_2': torch.ones_like(patch_1), 'patch_2': batch['patch_2'],
+           'corners': batch['corners'], 'delta': batch['delta'],
+           'delta_hat': delta_hat}
+    if 'image_2' in batch:
+        out['image_2'] = batch['image_2']
+    pf_key = head.pf_keys[0] if head.pf_keys else None
+    if head.mask_keys or pf_key:
+        with torch.no_grad():
+            bb = model.backbone(batch)
+        if head.mask_keys:
+            m1 = bb[head.mask_keys[0]]
+            out['mask_1_warped'] = geometry.batched_sample(
+                m1, u, v).reshape(m1.shape)
+            out['mask_2'] = bb[head.mask_keys[1]]
+        if pf_key is not None:
+            out['pf'] = bb[pf_key]
+    return {k: v.detach().float().cpu().numpy() for k, v in out.items()}
+
+
+def save_visualization(out_dir: str, it: int, batch_size: int,
+                       vis_batch: Dict[str, np.ndarray]) -> None:
+    """One set of files per sample n = it * batch_size + idx
+    (``eval.py:46-100``, ref: eval.py:145-332)."""
+    from PIL import Image
+    from bihome_torch.utils import visualization as vis
+    os.makedirs(out_dir, exist_ok=True)
+
+    def to_u8(img):
+        arr = color.destandardize(torch.from_numpy(img)).numpy()
+        return np.tile(arr.astype(np.uint8), (1, 1, 3))
+
+    for idx in range(batch_size):
+        n = it * batch_size + idx
+        warped = vis_batch['warped'][idx]
+        patch_2 = vis_batch['patch_2'][idx]
+        mask_1_w = vis_batch['mask_1_warped'][idx]
+        vis.save_gif(
+            os.path.join(out_dir, f'{n:05d}_patch_1_2_mask.gif'),
+            [to_u8(warped), to_u8(patch_2),
+             np.tile((np.clip(mask_1_w, 0, 1) * 255).astype(np.uint8),
+                     (1, 1, 3))])
+        np.save(os.path.join(out_dir, f'{n:05d}_warped.npy'), warped)
+        np.save(os.path.join(out_dir, f'{n:05d}_patch_2.npy'), patch_2)
+        np.save(os.path.join(out_dir, f'{n:05d}_mask_1.npy'), mask_1_w)
+        np.save(os.path.join(out_dir, f'{n:05d}_mask_2.npy'),
+                vis_batch['mask_2'][idx])
+        if 'pf' in vis_batch:
+            np.save(os.path.join(out_dir, f'{n:05d}_pf.npy'),
+                    vis_batch['pf'][idx])
+        if 'image_2' in vis_batch:
+            img2 = np.clip(vis_batch['image_2'][idx], 0, 255).astype(np.uint8)
+            if img2.shape[-1] == 1:
+                img2 = np.tile(img2, (1, 1, 3))
+            corners = vis_batch['corners'][idx]
+            img2 = vis.draw_rect(img2, corners - vis_batch['delta'][idx], 'b')
+            img2 = vis.draw_rect(
+                img2, corners - vis_batch['delta_hat'][idx], 'r')
+            Image.fromarray(img2).save(
+                os.path.join(out_dir, f'{n:05d}_image_vis.png'))
 
 
 def dsac_generator(test_seed: int, iteration: int,
@@ -122,12 +220,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if built.test_pair_spec.change_aware_keys:
         raise ValueError('CLEVR-Change pairs have no ground-truth homography:'
                          ' there is no MACE to evaluate')
+    if args.vis:
+        built.test_pair_spec = dataclasses.replace(
+            built.test_pair_spec,
+            emit_images=tuple(sorted(set(built.test_pair_spec.emit_images)
+                                     | {'image_2'})))
     model = built.model
+    # The predict model: the backbone and, with score_cnn scoring, the
+    # score CNN (the frozen loss extractor is not part of predict).
+    init_gen = torch.Generator().manual_seed(INIT_SEED)
+    backbones.init_weights(model.backbone, init_gen)
+    if model.score_cnn is not None:
+        backbones.init_weights(model.score_cnn, init_gen)
     if args.torch_ckpt:
-        load_backbone_weights(model.backbone, args.torch_ckpt)
+        parts = load_torch_checkpoint(
+            model, args.torch_ckpt, config['MODEL']['BACKBONE']['NAME'])
+        print(f'Loaded reference torch checkpoint ({", ".join(parts)}) '
+              f'from {args.torch_ckpt}')
     else:
-        backbones.init_weights(model.backbone,
-                               torch.Generator().manual_seed(INIT_SEED))
         log_dir = config['LOGGING']['DIR']
         if args.ckpt or checkpoint.latest_checkpoint(log_dir):
             path = args.ckpt or log_dir
@@ -164,7 +274,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         images = pipeline.take_images(pool, sample_to_pool[it].to(device))
         batches.append(pipeline.generate_pairs_per_sample(images, seeds, spec))
 
-    maces, times = [], []
+    maces, times, delta_hats = [], [], []
     gen_device = device if model.draws_on_device else torch.device('cpu')
     for it, batch in enumerate(batches):
         start = time.perf_counter()
@@ -175,6 +285,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         times.append(time.perf_counter() - start)
         diff = batch['delta'] - delta_hat
         maces.append(torch.linalg.vector_norm(diff, dim=-1).mean(-1).cpu())
+        delta_hats.append(delta_hat)
     maces_np = torch.cat(maces).numpy()
     timed = times[1:] if len(times) > 1 else times
     per_batch_ms = float(np.mean(timed)) * 1000.0
@@ -183,9 +294,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         with open(args.log, 'a') as f:
             for it, m in enumerate(maces_np):
                 f.write(f'{it},{float(m)}\n')
-    # The predict model: the backbone (the frozen loss extractor is not
-    # part of predict).
+    if args.vis:
+        for it, (batch, delta_hat) in enumerate(zip(batches, delta_hats)):
+            save_visualization(args.vis_dir, it, batch_size,
+                               vis_outputs(model, batch, delta_hat))
+        print(f'Visualization artifacts for {n_eval} samples written to '
+              f'{args.vis_dir}')
     num_params = sum(p.numel() for p in model.backbone.parameters())
+    if model.score_cnn is not None:
+        num_params += sum(p.numel() for p in model.score_cnn.parameters())
     print(f'Number of params: {num_params}')
     print(f'Mean mace: {float(np.mean(maces_np))}')
     if not args.skip_timing:
@@ -194,6 +311,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             'maces': maces_np, 'per_batch_ms': per_batch_ms,
             'batch_size': batch_size, 'num_iters': num_iters,
             'test_seed': test_seed, 'model': model, 'batches': batches,
+            'delta_hats': delta_hats,
             'built': built}
 
 

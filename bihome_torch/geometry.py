@@ -284,31 +284,53 @@ def solve_psd_unrolled(a: Tensor, b: Tensor) -> Tensor:
 def find_homography_dlt(points1: Tensor, points2: Tensor,
                         weights: Optional[Tensor] = None,
                         method: str = 'cholesky') -> Tensor:
-    """Batched (weighted) normalized DLT: fix h33=1 and solve the 8x8
-    normal equations with the unrolled Cholesky.
-    points1/points2 [B,N,2], weights [B,N] -> H [B,3,3]."""
-    if method != 'cholesky':
-        raise ValueError(f'not ported yet: DLT method {method!r}')
+    """Batched (weighted) normalized DLT (``bihome_tpu/geometry.py:
+    606-662``). points1/points2 [B,N,2], weights [B,N] -> H [B,3,3].
+
+    'cholesky': fix h33 = 1 and solve the 8x8 normal equations with the
+    unrolled Cholesky. 'eigh': the homogeneous DLT, the eigenvector of the
+    smallest eigenvalue of the 9x9 normal matrix (``torch.linalg.eigh``,
+    a library call as ``jnp.linalg.eigh`` is in JAX); the h33 gauge below
+    cancels its sign."""
     p1n, t1 = _normalize_point_cloud(_floating(points1))
     p2n, t2 = _normalize_point_cloud(_floating(points2))
     x, y = p1n[..., 0], p1n[..., 1]
     u, v = p2n[..., 0], p2n[..., 1]
     zeros = torch.zeros_like(x)
     ones = torch.ones_like(x)
-    ax = torch.stack([x, y, ones, zeros, zeros, zeros, -x * u, -y * u], -1)
-    ay = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v], -1)
-    a = torch.cat([ax, ay], dim=1)                                # [B,2N,8]
-    rhs = torch.cat([u, v], dim=1)                                # [B,2N]
-    if weights is not None:
-        w = torch.cat([weights, weights], dim=1).to(a.dtype)
-        ata = torch.einsum('bni,bn,bnj->bij', a, w, a)
-        atb = torch.einsum('bni,bn,bn->bi', a, w, rhs)
+    w = (None if weights is None
+         else torch.cat([weights, weights], dim=1).to(x.dtype))   # [B,2N]
+    if method == 'cholesky':
+        ax = torch.stack([x, y, ones, zeros, zeros, zeros, -x * u, -y * u],
+                         -1)
+        ay = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v],
+                         -1)
+        a = torch.cat([ax, ay], dim=1)                            # [B,2N,8]
+        rhs = torch.cat([u, v], dim=1)                            # [B,2N]
+        if w is not None:
+            ata = torch.einsum('bni,bn,bnj->bij', a, w, a)
+            atb = torch.einsum('bni,bn,bn->bi', a, w, rhs)
+        else:
+            ata = torch.einsum('bni,bnj->bij', a, a)
+            atb = torch.einsum('bni,bn->bi', a, rhs)
+        ata = ata + 1e-6 * torch.eye(8, dtype=ata.dtype, device=ata.device)
+        h8 = solve_psd_unrolled(ata, atb)
+        h = torch.cat([h8, torch.ones_like(h8[:, :1])],
+                      dim=1).reshape(-1, 3, 3)
+    elif method == 'eigh':
+        ax = torch.stack([-x, -y, -ones, zeros, zeros, zeros, u * x, u * y,
+                          u], -1)
+        ay = torch.stack([zeros, zeros, zeros, -x, -y, -ones, v * x, v * y,
+                          v], -1)
+        a = torch.cat([ax, ay], dim=1)                            # [B,2N,9]
+        if w is not None:
+            ata = torch.einsum('bni,bn,bnj->bij', a, w, a)
+        else:
+            ata = torch.einsum('bni,bnj->bij', a, a)              # [B,9,9]
+        _, eigvecs = torch.linalg.eigh(ata)
+        h = eigvecs[..., 0].reshape(-1, 3, 3)
     else:
-        ata = torch.einsum('bni,bnj->bij', a, a)
-        atb = torch.einsum('bni,bn->bi', a, rhs)
-    ata = ata + 1e-6 * torch.eye(8, dtype=ata.dtype, device=ata.device)
-    h8 = solve_psd_unrolled(ata, atb)
-    h = torch.cat([h8, torch.ones_like(h8[:, :1])], dim=1).reshape(-1, 3, 3)
+        raise ValueError(method)
     h_full = inv3x3(t2) @ h @ t1
     denom = h_full[:, 2:3, 2:3]
     denom = torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12),
@@ -320,3 +342,12 @@ def mace(delta_gt: Tensor, delta_hat: Tensor) -> Tensor:
     """Mean Average Corner Error in pixels (ref: eval.py:133-134)."""
     diff = delta_gt.reshape(-1, 2) - delta_hat.reshape(-1, 2)
     return torch.linalg.vector_norm(diff, dim=-1).mean()
+
+
+def calc_reprojection_error(source_points: Tensor, target_points: Tensor,
+                            homography: Tensor) -> Tensor:
+    """Sum of squared reprojection errors (``bihome_tpu/geometry.py:
+    684-691``, ref: src/data/utils.py:139-172): source/target [N,2]
+    (unbatched, as the reference), homography [3,3]."""
+    transformed = transform_points(homography[None], source_points[None])[0]
+    return ((transformed - target_points) ** 2).sum()

@@ -12,12 +12,20 @@ Ported heads:
   ``image_1`` by the homography of the predicted deltas, sampled directly
   at the patch grid offset to the patch corner, against ``patch_2`` under
   a tensor loss.
-* ``PerceptualHead`` with one DSAC hypothesis and no scoring (zeng-biHomE:
-  backbone perspective fields -> sampled points -> DLT -> corner deltas,
-  ``:354-396``; at predict the all-points refit DSAC_PREDICT_REFINE and
+* ``PerceptualHead`` with DSAC (zeng-biHomE: backbone perspective fields
+  -> sampled points -> DLT -> corner deltas, ``:354-396``; with
+  RANSAC_HYPOTHESIS_NO n > 1 or SCORING_METHOD score_cnn each hypothesis
+  scored by one of the four methods of :func:`dsac.score_hypotheses`, the
+  score CNN a 2-channel resnet18 on the error image; at predict the
+  best-scored hypothesis, the all-points refit DSAC_PREDICT_REFINE and
   the average with the inverted 2->1 fit DSAC_PREDICT_BIDIRECTIONAL,
   ``:790-826``), or with ``DELTA_HAT_KEYS`` (the regression backbone's
-  deltas, n = 1, ``:336-340``). Its training forward is the biHomE loss
+  deltas, n = 1, ``:336-340``). With n hypotheses the loss runs on each
+  patch n times (``jnp.repeat``, ``:491-496``): the scores weight the
+  one-line loss and the multihead features, and delta_hat is the
+  score-weighted sum of the hypotheses' deltas (``:426-432``); the
+  double-line loss does not weigh by them, as in JAX (``:726``). Its
+  training forward is the biHomE loss
   (``_triplet_resnet_loss``, ``:482-728``) with every variant of that
   function: one warp of the patches (double-line: both directions
   stacked), the warped all-ones mask in closed form, or with MASK_KEYS
@@ -46,12 +54,14 @@ Ported heads:
 ``forward`` returns the JAX keys: ``{'ground_truth', 'network_output',
 'delta_gt', 'delta_hat', 'metrics'}`` for the tensor-loss heads (and the
 multihead loss), ``{'loss', 'delta_gt', 'delta_hat', 'metrics'}`` for
-the biHomE loss. Other heads, more than one hypothesis and score_cnn
-scoring raise ``not ported yet``. The PerceptualHead's auxiliary
+the biHomE loss. Other heads raise ``not ported yet``. The
+PerceptualHead's auxiliary
 extractor takes no parameter gradient, whatever AUXILIARY_RESNET_FREEZE
 says (the JAX train step cuts it out of autodiff in every step); its BN
 stays in eval mode unless AUXILIARY_RESNET_BN_TRAIN (``heads/config.py``).
-The projection head's parameters train.
+The projection head's parameters train, and so do the score CNN's, whose
+BN always normalises with its running statistics (flax calls it with
+``train=False``, ``:385-386``).
 """
 
 from __future__ import annotations
@@ -83,6 +93,11 @@ def needs_ransac(cfg: HeadConfig) -> bool:
     return cfg.name == 'NoOpHead' and cfg.target_gen == 'all_points'
 
 
+def needs_score_cnn(cfg: HeadConfig) -> bool:
+    """Whether the head holds the DSAC score CNN (``assembled.py:80-82``)."""
+    return needs_dsac(cfg) and cfg.scoring_method == 'score_cnn'
+
+
 def check_ported(cfg: HeadConfig) -> None:
     """Raise for the head features this port does not have yet."""
     missing = []
@@ -92,11 +107,6 @@ def check_ported(cfg: HeadConfig) -> None:
     if cfg.name == 'NoOpHead' and cfg.target_gen not in ('4_points',
                                                          'all_points'):
         missing.append(f'NoOpHead TARGET_GEN {cfg.target_gen!r}')
-    if needs_dsac(cfg):
-        if cfg.hypothesis_no != 1:
-            missing.append(f'RANSAC_HYPOTHESIS_NO={cfg.hypothesis_no}')
-        if cfg.scoring_method == 'score_cnn':
-            missing.append('score_cnn scoring')
     if missing:
         raise ValueError('not ported yet: ' + ', '.join(missing))
 
@@ -135,6 +145,12 @@ def upsample_align_corners(x: Tensor, scale: int) -> Tensor:
     u, v = upsample_grid(b, h, w, scale, x.device)
     return geometry.batched_sample(x, u, v).reshape(b, h * scale,
                                                     w * scale, c)
+
+
+def per_hypothesis(x: Tensor, n: int) -> Tensor:
+    """Each sample of ``x`` n times in a row (``jnp.repeat(x, n, axis=0)``,
+    ``assembled.py:491-496``), the layout of the hypotheses' deltas."""
+    return x if n == 1 else x.repeat_interleave(n, dim=0)
 
 
 def pool_mask(mask: Tensor, factor: int) -> Tensor:
@@ -194,6 +210,7 @@ class AssembledModel(nn.Module):
         self.backbone = backbone
         self.head = head
         self.auxiliary_resnet = self.projection_head = None
+        self.score_cnn = None
         if head.name == 'PerceptualHead':
             # The extractor never takes a parameter gradient, whatever
             # AUXILIARY_RESNET_FREEZE says: the JAX train step cuts it out
@@ -211,19 +228,25 @@ class AssembledModel(nn.Module):
                     layers += [nn.ReLU()] if i else []
                     layers.append(Linear(cin, cout))
                 self.projection_head = nn.Sequential(*layers)
+            if needs_score_cnn(head):
+                self.score_cnn = ResNet('resnet18', output_layer=None,
+                                        in_channels=2, num_classes=1)
         self.train()
 
     def train(self, mode: bool = True) -> 'AssembledModel':
         """The extractor's BN runs on batch statistics, and updates its
         running ones, only in a training forward with
         AUXILIARY_RESNET_BN_TRAIN, and never in the multihead loss
-        (``assembled.py:100, 406``)."""
+        (``assembled.py:100, 406``); the score CNN's never
+        (``:385-386``)."""
         super().train(mode)
         if self.auxiliary_resnet is not None:
             cfg = self.head
             self.auxiliary_resnet.train(
                 mode and cfg.auxiliary_resnet_bn_train
                 and cfg.triplet_loss != '')
+        if self.score_cnn is not None:
+            self.score_cnn.train(False)
         return self
 
     @property
@@ -232,22 +255,66 @@ class AssembledModel(nn.Module):
         point indices) rather than on the CPU (DSAC's uniforms)."""
         return needs_ransac(self.head)
 
+    def score_image(self, img: Tensor) -> Tensor:
+        """The score CNN on the NHWC error image [B*n,h,w,2] -> [B*n,1]."""
+        return self.score_cnn(img.permute(0, 3, 1, 2).contiguous())
+
     def dsac_deltas(self, pf: Tensor, uniforms: Optional[Tensor] = None,
-                    generator: Optional[torch.Generator] = None) -> Tensor:
-        """PF [B,h,w,2] -> corner deltas [B,4,2] of the single DSAC
-        hypothesis. With one hypothesis softmax(-score) is identically 1,
-        so scoring is skipped, as in the JAX package. A bfloat16 field
-        gives float32 deltas, as ``assembled.py:391-395`` does."""
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[Tensor, Tensor]:
+        """PF [B,h,w,2] -> (corner deltas [B*n,4,2] of the n DSAC
+        hypotheses, sample-major as ``jnp.repeat`` lays out the patches;
+        their scores [B,n]) (``assembled.py:354-396``). With one hypothesis
+        and no score CNN, softmax(-score) is identically 1, so scoring is
+        skipped and only the sampled points are read, as in the JAX
+        package. Otherwise the coordinates and the mapping coords + pf
+        are float32 (float64 for a float64 field; a bfloat16 field
+        widens, as JAX's float32 meshgrid widens it), the hypotheses are
+        drawn from the two clouds and scored. The deltas are float32 for
+        a bfloat16 field, as ``:391-395`` gives them. ``uniforms``
+        [B, n * points_per_hypothesis] injects the draws."""
         cfg = self.head
         b, h, w, _ = pf.shape
-        hyps = dsac.sample_hypotheses_from_pf(
-            pf, cfg.hypothesis_no, cfg.points_per_hypothesis,
-            cfg.dsac_point_sampling, uniforms, generator)          # [B,1,3,3]
-        four_points = geometry.image_corners(h, w, batch_size=b,
+        n = cfg.hypothesis_no
+        if n == 1 and cfg.scoring_method != 'score_cnn':
+            hyps = dsac.sample_hypotheses_from_pf(
+                pf, n, cfg.points_per_hypothesis, cfg.dsac_point_sampling,
+                uniforms, generator)                              # [B,1,3,3]
+            scores = torch.ones((b, 1), dtype=pf.dtype, device=pf.device)
+        else:
+            dtype = torch.promote_types(pf.dtype, torch.float32)
+            ys, xs = torch.meshgrid(
+                torch.arange(h, dtype=dtype, device=pf.device),
+                torch.arange(w, dtype=dtype, device=pf.device), indexing='ij')
+            coords = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+            coords = coords[None].expand(b, h * w, 2)
+            mapping = coords + pf.reshape(b, -1, 2).to(dtype)
+            hyps = dsac.sample_hypotheses(
+                coords, mapping, n, cfg.points_per_hypothesis,
+                cfg.dsac_point_sampling, uniforms, generator)
+            scores, _ = dsac.score_hypotheses(
+                coords, mapping, hyps, cfg.scoring_method,
+                cfg.scoring_distance_threshold, cfg.scoring_distance_beta,
+                self.score_image if self.score_cnn is not None else None)
+        four_points = geometry.image_corners(h, w, batch_size=b * n,
                                              dtype=hyps.dtype,
                                              device=pf.device)
-        transformed = geometry.transform_points(hyps[:, 0], four_points)
-        return transformed - four_points
+        transformed = geometry.transform_points(hyps.reshape(-1, 3, 3),
+                                                four_points)
+        return transformed - four_points, scores
+
+    @staticmethod
+    def score_weighted_delta(deltas: Tensor, scores: Optional[Tensor],
+                             b: int) -> Tensor:
+        """delta_hat [B,4,2] of the hypotheses' deltas [B*n,4,2]: their sum
+        weighted by the scores [B,n] (``_score_weighted_delta``,
+        ``assembled.py:426-432``); the deltas themselves without scores
+        (n = 1)."""
+        if scores is None:
+            return deltas
+        n = scores.shape[1]
+        return (deltas.reshape(b, n, 4, 2)
+                * scores.reshape(b, n, 1, 1)).sum(1)
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, Tensor],
@@ -261,7 +328,7 @@ class AssembledModel(nn.Module):
         ``idx`` [B, 4K] injects. With DSAC_PREDICT_BIDIRECTIONAL the 2->1
         field is fitted too, inverted through the corner parametrization
         (H12 = H21^-1) and averaged with the 1->2 fit. ``uniforms``
-        injects the DSAC draws, [B, points_per_hypothesis] for the 1->2
+        injects the DSAC draws, [B, n * points_per_hypothesis] for the 1->2
         field or a sequence (1->2[, 2->1]); the draws it does not give
         come from ``generator``, the 1->2 field's first (RANSAC draws on
         the field's device, so its generator lives there)."""
@@ -294,13 +361,18 @@ class AssembledModel(nn.Module):
 
     def fit_delta(self, pf: Tensor, uniforms: Optional[Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Tensor:
-        """The predicted delta of one perspective field: the DSAC
-        hypothesis (:meth:`dsac_deltas`), refitted to every point with
-        DSAC_PREDICT_REFINE (:func:`dsac.refine_delta_on_pf`, at
-        DSAC_PREDICT_REFINE_THRESHOLD if it is > 0, else
-        SCORING_DISTANCE_THRESHOLD; ``assembled.py:790-800``)."""
+        """The predicted delta of one perspective field: the best-scored
+        DSAC hypothesis (:meth:`dsac_deltas`; ties to the first, as
+        ``jnp.argmax``), refitted to every point with DSAC_PREDICT_REFINE
+        (:func:`dsac.refine_delta_on_pf`, at DSAC_PREDICT_REFINE_THRESHOLD
+        if it is > 0, else SCORING_DISTANCE_THRESHOLD;
+        ``assembled.py:790-800``)."""
         cfg = self.head
-        delta = self.dsac_deltas(pf, uniforms, generator)
+        b = pf.shape[0]
+        deltas, scores = self.dsac_deltas(pf, uniforms, generator)
+        best = scores.argmax(dim=-1)                              # [B]
+        delta = deltas.reshape(b, -1, 4, 2)[
+            torch.arange(b, device=pf.device), best]
         if cfg.dsac_predict_refine:
             threshold = (cfg.dsac_predict_refine_threshold
                          if cfg.dsac_predict_refine_threshold > 0
@@ -323,7 +395,7 @@ class AssembledModel(nn.Module):
                 ) -> Dict[str, object]:
         """The training forward: the backbone, then the head. For the
         PerceptualHead with DSAC, ``uniforms`` = (12 draws, 21 draws), each
-        [B, points_per_hypothesis], injects the draws of the two
+        [B, n * points_per_hypothesis], injects the draws of the two
         directions (the 2->1 field is fitted only for a double-line loss);
         otherwise they come from ``generator``, 12 first. The other heads
         draw nothing."""
@@ -342,12 +414,8 @@ class AssembledModel(nn.Module):
             delta_12 = data[cfg.delta_hat_keys[0]]
             delta_21 = data[cfg.delta_hat_keys[1]] if doubleline else None
         else:
-            delta_12, delta_21 = self.dsac_both(outputs, uniforms, generator)
-            # The one hypothesis's softmax score, identically 1
-            # (assembled.py:373).
-            pf = outputs[cfg.pf_keys[0]]
-            scores = torch.ones((pf.shape[0], 1), dtype=pf.dtype,
-                                device=pf.device)
+            delta_12, delta_21, scores = self.dsac_both(outputs, uniforms,
+                                                        generator)
         if cfg.triplet_loss == '':
             return self.multihead_loss(data, delta_12, scores)
         return self.bihome_loss(data, delta_12, delta_21, scores)
@@ -389,16 +457,19 @@ class AssembledModel(nn.Module):
     def dsac_both(self, outputs: Dict[str, Tensor],
                   uniforms: Optional[Sequence[Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
-        """(delta_12, delta_21) [B,4,2] from the perspective fields, the
-        1->2 direction's draws first; delta_21 is None unless the loss is
-        double-line."""
+        """(delta_12, delta_21 [B*n,4,2], the 1->2 hypotheses' scores
+        [B,n]) from the perspective fields, the 1->2 direction's draws
+        first; delta_21 is None unless the loss is double-line (whose
+        scores weigh nothing, ``assembled.py:344-345``)."""
         cfg = self.head
         u12, u21 = uniforms if uniforms is not None else (None, None)
-        delta_12 = self.dsac_deltas(outputs[cfg.pf_keys[0]], u12, generator)
+        delta_12, scores = self.dsac_deltas(outputs[cfg.pf_keys[0]], u12,
+                                            generator)
         if 'double-line' not in cfg.triplet_loss:
-            return delta_12, None
-        return delta_12, self.dsac_deltas(outputs[cfg.pf_keys[1]], u21,
-                                          generator)
+            return delta_12, None, scores
+        delta_21, _ = self.dsac_deltas(outputs[cfg.pf_keys[1]], u21,
+                                       generator)
+        return delta_12, delta_21, scores
 
     @staticmethod
     def _homographies(delta: Tensor, ps: int) -> Tensor:
@@ -442,9 +513,10 @@ class AssembledModel(nn.Module):
                     delta_21: Optional[Tensor] = None,
                     scores: Optional[Tensor] = None) -> Dict[str, object]:
         """The biHomE loss (``_triplet_resnet_loss``,
-        ``assembled.py:482-728``) for the corner deltas of one direction
-        (one-line) or both (double-line), with one hypothesis: ``scores``
-        [B,1] (DSAC's, all ones) weight the one-line loss. The patches
+        ``assembled.py:482-728``) for the corner deltas [B*n,4,2] of one
+        direction (one-line) or both (double-line): each patch (and mask)
+        repeated once per hypothesis, as ``jnp.repeat(axis=0)``; the DSAC
+        ``scores`` [B,n] weight the one-line loss and delta_hat. The patches
         (and MASK_KEYS' masks, else ones) are cast to the compute dtype;
         the warps and upsampling of bf16 inputs are float32
         (``ops/warp.sample``, whose autograd casts the image gradient back
@@ -453,11 +525,15 @@ class AssembledModel(nn.Module):
         dt = self.compute_dtype
         doubleline = 'double-line' in cfg.triplet_loss
         e1, e2 = cfg.patch_keys
-        patch_1, patch_2 = cast(data[e1], dt), cast(data[e2], dt)
+        b_data = data[e1].shape[0]
+        n = delta_12.shape[0] // b_data
+        patch_1, patch_2 = (cast(per_hypothesis(data[k], n), dt)
+                            for k in (e1, e2))
         b, ps = patch_1.shape[0], patch_1.shape[1]
         masked = bool(cfg.mask_keys)
         if masked:
-            mask_1, mask_2 = (cast(data[k], dt) for k in cfg.mask_keys)
+            mask_1, mask_2 = (cast(per_hypothesis(data[k], n), dt)
+                              for k in cfg.mask_keys)
         else:
             mask_1 = mask_2 = torch.ones_like(patch_1)
 
@@ -571,7 +647,9 @@ class AssembledModel(nn.Module):
                     metrics[key] = fn()
             metrics = {k: v.detach() for k, v in metrics.items()}
         return {'loss': loss, 'delta_gt': data.get('delta'),
-                'delta_hat': delta_12, 'metrics': metrics}
+                'delta_hat': self.score_weighted_delta(delta_12, scores,
+                                                       b_data),
+                'metrics': metrics}
 
     def dual_loss(self, p1: Tensor, p2: Tensor, p1p: Tensor,
                   p2p: Optional[Tensor], m1: Tensor, m2: Tensor, m1p: Tensor,
@@ -597,10 +675,14 @@ class AssembledModel(nn.Module):
                        scores: Optional[Tensor] = None) -> Dict[str, object]:
         """TRIPLET_LOSS '' (``_multihead_loss``, ``assembled.py:398-424``):
         the extractor's features of patch_2 and of patch_1 warped by the
-        deltas (eval-mode BN) as ground_truth and network_output for the
-        trainer's tensor loss, each weighted by ``scores`` [B,1]."""
+        deltas [B*n,4,2] (each patch repeated once per hypothesis;
+        eval-mode BN) as ground_truth and network_output for the trainer's
+        tensor loss, each weighted by the ``scores`` [B,n]."""
         cfg = self.head
-        patch_1, patch_2 = (data[k] for k in cfg.patch_keys)
+        b_data = data[cfg.patch_keys[0]].shape[0]
+        n = delta_12.shape[0] // b_data
+        patch_1, patch_2 = (per_hypothesis(data[k], n)
+                            for k in cfg.patch_keys)
         b, ps = patch_1.shape[0], patch_1.shape[1]
         h1 = self._homographies(delta_12, ps)
         feats = self.aux_features(torch.cat(
@@ -616,7 +698,9 @@ class AssembledModel(nn.Module):
                        'loss_comp/l1': (f2 - f1p).abs().mean(),
                        'h/h1': ((h1 - eye) ** 2).sum()}
         return {'ground_truth': f2, 'network_output': f1p,
-                'delta_gt': data.get('delta'), 'delta_hat': delta_12,
+                'delta_gt': data.get('delta'),
+                'delta_hat': self.score_weighted_delta(delta_12, scores,
+                                                       b_data),
                 'metrics': metrics}
 
     def triplet_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:

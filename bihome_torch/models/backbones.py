@@ -14,6 +14,11 @@ patches); inside they run NCHW.
   predictor and a feature extractor per patch, the ResNet34 regressor on
   the masked features. Keys ``mask_predictor.layerK.{0,1}``,
   ``feature_extractor.layerK.{0,1}`` and ``resnet34.*``, the reference's.
+* ``HomographyNetBackbone`` (``:339-370``), DeTone et al.'s VGG-style
+  regressor: corner deltas [B,4,2]. Keys ``layerK.{0,2}`` (conv, BN),
+  ``fc1.0`` and ``fc2``, the reference's (as ``torch_port.
+  port_homography_net`` reads them); ``fc1`` reads the last map
+  flattened in NHWC order, as flax's does.
 """
 
 from __future__ import annotations
@@ -24,11 +29,11 @@ import torch
 from torch import nn
 
 from bihome_torch.models import blocks
-from bihome_torch.models.layers import Conv2d, cast
+from bihome_torch.models.layers import Conv2d, Linear, cast
 from bihome_torch.models.norm import BatchNorm2d
 from bihome_torch.models.resnet import ResNet
 from bihome_torch.ops import fused_head
-from bihome_torch.ops.pool import max_pool_3x3_s2
+from bihome_torch.ops.pool import max_pool_2x2_s2, max_pool_3x3_s2
 
 
 class PFHead(nn.Sequential):
@@ -274,6 +279,56 @@ class ContentAwareBackbone(nn.Module):
         return self.feature_extractor(nchw).permute(0, 2, 3, 1)
 
 
+class HomographyNetBackbone(nn.Module):
+    """'HomographyNet', DeTone et al.'s regressor
+    (``bihome_tpu/models/backbones.py:339-370``, ref:
+    src/backbones/HomographyNet.py): the two patches on the channel axis,
+    3x3 convs each followed by ReLU then BN (the reference's order), 2x2
+    max-pools after the layers the layout marks, then ``fc1`` (1024, ReLU)
+    and ``fc2`` (8) -> corner deltas [B,4,2]. IMAGE_SIZE 128 has 8 conv
+    layers and 3 pools, 512 has 12 and 5: the last map is 16x16x128
+    either way. One line only, as in JAX."""
+
+    LAYOUTS = {128: ((64, False), (64, True), (64, False), (64, True),
+                     (128, False), (128, True), (128, False), (128, False)),
+               512: ((64, False), (64, True), (64, False), (64, True),
+                     (128, False), (128, True), (128, False), (128, True),
+                     (128, False), (128, True), (128, False), (128, False))}
+
+    def __init__(self, patch_keys: Sequence[str] = ('patch_1', 'patch_2'),
+                 target_keys: Sequence[str] = ('delta_hat_12',),
+                 image_size: int = 128):
+        super().__init__()
+        if image_size not in self.LAYOUTS:
+            raise ValueError(f'HomographyNet IMAGE_SIZE must be 128 or 512, '
+                             f'got {image_size}')
+        self.patch_keys = tuple(patch_keys)
+        self.target_keys = tuple(target_keys)
+        self.pools = tuple(pool for _, pool in self.LAYOUTS[image_size])
+        cin = 2
+        for i, (width, _) in enumerate(self.LAYOUTS[image_size]):
+            self.add_module(f'layer{i + 1}', nn.Sequential(
+                Conv2d(cin, width, 3, padding=1), nn.ReLU(),
+                BatchNorm2d(width)))
+            cin = width
+        self.fc1 = nn.Sequential(Linear(16 * 16 * 128, 1024), nn.ReLU())
+        self.fc2 = Linear(1024, 8)
+
+    def forward(self, data: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        x = torch.cat([data[self.patch_keys[0]], data[self.patch_keys[1]]],
+                      dim=-1).permute(0, 3, 1, 2).contiguous()
+        for i, pool in enumerate(self.pools):
+            x = getattr(self, f'layer{i + 1}')(x)
+            if pool:
+                x = max_pool_2x2_s2(x)
+        # flax flattens NHWC: its fc1 kernel (and the reference's, permuted
+        # by port_homography_net) reads the map in (h, w, c) order.
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = self.fc2(self.fc1(x))
+        return {self.target_keys[0]: x.reshape(-1, 4, 2)}
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init: conv kernels from N(0, 2/fan_out) (the JAX package's
     ``conv_init`` scale), linear kernels from N(0, 1/fan_in) (flax
@@ -320,4 +375,8 @@ def build_backbone(cfg: Dict) -> nn.Module:
             fix_mask=bool(cfg.get('FIX_MASK', False)),
             mask_normalization_strength=float(
                 cfg.get('MASK_NORMALIZATION_STRENGTH', -1)))
+    if name == 'HomographyNet':
+        return HomographyNetBackbone(
+            kwargs['patch_keys'], kwargs['target_keys'],
+            int(cfg.get('IMAGE_SIZE', 128)))
     raise ValueError(f'not ported yet: backbone {name!r}')

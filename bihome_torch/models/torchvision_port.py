@@ -6,14 +6,17 @@ Used by the train entry point for the local ``.pth`` files the config
 names (the reference downloads ImageNet weights; no file is fetched):
 MODEL.BACKBONE.PRETRAINED_RESNET_PATH into the Rethinking encoder
 (:func:`port_rethinking_encoder`) or the ResNet34 / ContentAware
-regressor, and a torchvision MODEL.HEAD.AUXILIARY_RESNET_PATH into the
-frozen extractor (:func:`port_torchvision_resnet`). :func:`graft` loads
-the result, shape-checked, into the module.
+regressor, a torchvision MODEL.HEAD.AUXILIARY_RESNET_PATH into the
+frozen extractor and MODEL.HEAD.SCORE_CNN_PATH into the DSAC score CNN
+(:func:`port_torchvision_resnet`). :func:`graft` loads the result,
+shape-checked, into the module. :func:`load_reference_checkpoint` reads
+a reference training checkpoint into the whole model (the backbone and
+the head's parts, ``torch_port.py:385-445``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -115,3 +118,70 @@ def graft(module: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> int:
             own[key].copy_(val)
             copied += 1
     return copied
+
+
+def port_homography_net(state_dict: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """A reference HomographyNet state dict (``layerK = Seq(Conv, ReLU, BN
+    [, MaxPool])``, ``fc1.0``, ``fc2``; ref: src/backbones/HomographyNet.py)
+    for :class:`models.backbones.HomographyNetBackbone`: the same keys,
+    the fc1 kernel's columns permuted from the reference's CHW flattening
+    of the 16x16x128 map to the HWC one the port reads
+    (``torch_port.port_homography_net``, ``:335-368``)."""
+    out = {}
+    for key, val in state_dict.items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        if key == 'fc1.0.weight':
+            val = val.reshape(val.shape[0], 128, 16, 16).permute(
+                0, 2, 3, 1).reshape(val.shape[0], -1)
+        out[key] = val
+    return out
+
+
+def _with_prefix(state: Mapping[str, torch.Tensor], prefix: str
+                 ) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in state.items()
+            if k.startswith(prefix)}
+
+
+def load_reference_checkpoint(model: nn.Module,
+                              state: Mapping[str, torch.Tensor],
+                              backbone_name: str) -> List[str]:
+    """Load a reference checkpoint of ``nn.Sequential(backbone, head)``
+    (keys '0.*' and '1.*'; a bare backbone state dict is taken as '0.*')
+    into an assembled model, as ``torch_port.port_reference_checkpoint``
+    does (``:385-445``): the backbone strictly (HomographyNet through
+    :func:`port_homography_net`), then the PerceptualHead's parts that
+    the file holds, each grafted shape-checked: the extractor
+    ('1.resnet.', torchvision layout, its RGB stem summed where the
+    port's extractor takes one channel), the projection head
+    ('1.projection_head.', Linear layers at even indices) and the DSAC
+    score CNN ('1.dsac.score_cnn.resnet18.', with its 2-channel stem and
+    1-unit fc). Returns the parts loaded."""
+    from bihome_torch.models import weights
+
+    if not any(k.startswith(('0.', '1.')) for k in state):
+        state = {f'0.{k}': v for k, v in state.items()}
+    backbone = _with_prefix(state, '0.')
+    if backbone_name == 'HomographyNet':
+        backbone = port_homography_net(backbone)
+    weights.load_state_dict(model.backbone, backbone)
+    loaded = ['backbone']
+    parts = (('1.resnet.', 'auxiliary_resnet'),
+             ('1.projection_head.', 'projection_head'),
+             ('1.dsac.score_cnn.resnet18.', 'score_cnn'))
+    for prefix, name in parts:
+        module = getattr(model, name, None)
+        sub = _with_prefix(state, prefix)
+        if module is None or not sub:
+            continue
+        if name == 'auxiliary_resnet':
+            sub = port_torchvision_resnet(
+                sub, include_fc=False,
+                sum_rgb_stem=module.conv1.weight.shape[1] == 1)
+        elif name == 'score_cnn':
+            sub = port_torchvision_resnet(sub)
+        graft(module, sub)
+        loaded.append(name)
+    return loaded

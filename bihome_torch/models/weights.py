@@ -4,7 +4,9 @@
 ``bihome_tpu/models/torch_port.py:port_rethinking_full`` (both flavours;
 layout rules at ``torch_port.py:53-61``), for the ResNet34Backbone of
 ``torch_port.py:72-127,404-408`` and for the ContentAwareBackbone of
-``port_content_aware`` (``:309-332``): conv kernels HWIO -> OIHW, ConvTranspose
+``port_content_aware`` (``:309-332``), for the HomographyNetBackbone of
+``port_homography_net`` (``:335-368``) and for the DSAC score CNN
+(``:440-443``): conv kernels HWIO -> OIHW, ConvTranspose
 kernels (kh,kw,out,in) -> (in,out,kh,kw), Dense kernels transposed, BN
 scale/bias/mean/var -> weight/bias/running_mean/running_var. The port
 keeps its own copy of the block maps, since the JAX package cannot be
@@ -13,6 +15,7 @@ imported without JAX.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -84,6 +87,30 @@ def _conv_bn_layers(prefix: str, variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def _homography_net(variables: Mapping) -> Dict[str, np.ndarray]:
+    """A HomographyNetBackbone tree (``convK``/``bnK``, ``fc1``, ``fc2``)
+    -> ``layerK.0.*`` (conv), ``layerK.2.*`` (BN), ``fc1.0.*``, ``fc2.*``.
+    The fc1 kernel stays in flax's NHWC-flattened order, which the port's
+    module reads."""
+    out: Dict[str, np.ndarray] = {}
+    for name, leaves in variables.get('params', {}).items():
+        if name.startswith('fc'):
+            key = 'fc1.0' if name == 'fc1' else name
+            out[f'{key}.weight'] = np.ascontiguousarray(
+                np.asarray(leaves['kernel']).T)
+            out[f'{key}.bias'] = leaves['bias']
+        elif name.startswith('conv'):
+            out[f'layer{name[4:]}.0.weight'] = _kernel(leaves['kernel'])
+            out[f'layer{name[4:]}.0.bias'] = leaves['bias']
+        else:
+            for k, v in leaves.items():
+                out[f'layer{name[2:]}.2.{_BN_FIELDS[k]}'] = v
+    for name, leaves in variables.get('batch_stats', {}).items():
+        for k, v in leaves.items():
+            out[f'layer{name[2:]}.2.{_BN_STATS[k]}'] = v
+    return out
+
+
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``{'params', 'batch_stats'}`` tree of numpy arrays -> port
     state dict (every key but ``num_batches_tracked``).
@@ -92,11 +119,14 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     keys, including the PF head's running statistics), a ResNet34Backbone
     tree (top level ``resnet34`` -> the reference's ``resnet34.*`` keys), a
     ContentAwareBackbone tree (``mask_predictor``, absent under FIX_MASK,
-    ``feature_extractor`` and ``resnet34``) or a whole AssembledModel train
-    state, whose top level holds ``backbone`` and, for the PerceptualHead,
-    ``auxiliary_resnet`` and any ``projection_{i}`` (-> ``backbone.*``,
-    ``auxiliary_resnet.*`` and ``projection_head.{2i}.*``; every ResNet
-    mapped by ``utils/aux_store``)."""
+    ``feature_extractor`` and ``resnet34``), a HomographyNetBackbone tree
+    (``convK``, ``bnK``, ``fc1``, ``fc2`` at the top) or a whole
+    AssembledModel train state, whose top
+    level holds ``backbone`` and, for the PerceptualHead,
+    ``auxiliary_resnet``, any ``projection_{i}`` and the DSAC
+    ``score_cnn`` (-> ``backbone.*``, ``auxiliary_resnet.*``,
+    ``projection_head.{2i}.*`` and ``score_cnn.*``; every ResNet mapped by
+    ``utils/aux_store``)."""
     top = {**variables['params'], **variables.get('batch_stats', {})}
     if 'resnet34' in top:
         tree = {c: variables.get(c, {}).get('resnet34', {})
@@ -114,10 +144,11 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                     for c in ('params', 'batch_stats')}
         out_t = {f'backbone.{k}': v
                  for k, v in state_dict_from_jax(sub('backbone')).items()}
-        if 'auxiliary_resnet' in variables['params']:
-            aux, _ = aux_store.state_dict_from_aux(sub('auxiliary_resnet'),
-                                                   output_layer=4)
-            out_t.update({f'auxiliary_resnet.{k}': v for k, v in aux.items()})
+        for name in ('auxiliary_resnet', 'score_cnn'):
+            if name in variables['params']:
+                state, _ = aux_store.state_dict_from_aux(sub(name),
+                                                         output_layer=4)
+                out_t.update({f'{name}.{k}': v for k, v in state.items()})
         # WITH_PROJECTION_HEAD's Dense layers: Linear i at index 2i, a ReLU
         # between two (bihome_tpu/models/torch_port.py:426-435).
         for name, leaves in variables['params'].items():
@@ -129,6 +160,11 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 out_t[f'projection_head.{i}.bias'] = torch.from_numpy(
                     np.array(leaves['bias'], np.float32))
         return out_t
+    if any(re.fullmatch(r'(conv|bn|fc)\d+', name)
+           for c in ('params', 'batch_stats')
+           for name in variables.get(c, {})):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                for k, v in _homography_net(variables).items()}
     out: Dict[str, np.ndarray] = {}
     r50 = any('upper_bn3' in leaves for c in ('params', 'batch_stats')
               for leaves in variables.get(c, {}).values())

@@ -64,3 +64,11 @@ def rgb_to_grayscale(rgb: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
 def standardize(x: torch.Tensor, mean: float, std: float) -> torch.Tensor:
     """(x/255 - mean) / std (ref: src/data/transforms.py:357-378)."""
     return (x.float() / 255.0 - mean) / std
+
+
+def destandardize(x: torch.Tensor, mean: float = 0.443,
+                  std: float = 0.129) -> torch.Tensor:
+    """Inverse of :func:`standardize` on the 0..255 scale, rounded (half to
+    even) and clipped to [0, 255] (``bihome_tpu/ops/color.py:70-74``;
+    ref: eval.py:31-41)."""
+    return torch.round((x * std + mean) * 255.0).clamp(0.0, 255.0)

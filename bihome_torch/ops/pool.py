@@ -20,3 +20,9 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """3x3/stride-2 max-pool with 1-pixel padding, NCHW. The padding is
     -inf, as in flax ``nn.max_pool`` with explicit padding."""
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+
+def max_pool_2x2_s2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 max-pool without padding, NCHW (HomographyNet's,
+    ``bihome_tpu/models/backbones.py:365``)."""
+    return F.max_pool2d(x, kernel_size=2, stride=2)

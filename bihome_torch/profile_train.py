@@ -138,7 +138,7 @@ def main(argv=None) -> None:
         deltas = dsac_both(*a, **kw)
         mark('dsac fwd')
         if timing['on']:
-            for d in deltas:
+            for d in deltas[:2]:
                 if d is not None:             # one-line: no 2->1 fit
                     d.register_hook(grad_mark('loss bwd to the deltas'))
         return deltas

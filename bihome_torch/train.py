@@ -80,8 +80,9 @@ written at one dtype loads at the other. The weights start from a fixed
 seed; a torchvision ``.pth`` named by MODEL.BACKBONE.PRETRAINED_RESNET_PATH
 (with PRETRAINED_RESNET) goes into the backbone's encoder, and
 MODEL.HEAD.AUXILIARY_RESNET_PATH (an ``aux_*.npz`` or a torchvision
-``.pth``) into the PerceptualHead's frozen extractor (``train.py:
-322-384``). Runs on ``cuda`` unless ``--device cpu`` is given, and raises
+``.pth``) into the PerceptualHead's frozen extractor, and with
+MODEL.HEAD.SCORE_CNN_PRETRAINED a torchvision resnet18 ``.pth`` at
+SCORE_CNN_PATH into the DSAC score CNN (``train.py:322-384``). Runs on ``cuda`` unless ``--device cpu`` is given, and raises
 without a card; TF32 is off.
 """
 
@@ -154,17 +155,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def init_model(built: config_lib.BuiltModel) -> List[str]:
-    """Seeded init of the backbone, the extractor and the projection head
-    (where the head has them), then the torchvision and ``.npz`` weights
-    the config names (:func:`load_pretrained_resnets`). Returns the
-    messages to print."""
+    """Seeded init of the backbone, the extractor, the projection head and
+    the score CNN (where the head has them), then the torchvision and
+    ``.npz`` weights the config names (:func:`load_pretrained_resnets`).
+    Returns the messages to print."""
     model = built.model
     gen = torch.Generator().manual_seed(INIT_SEED)
     backbones.init_weights(model.backbone, gen)
-    if model.auxiliary_resnet is not None:
-        backbones.init_weights(model.auxiliary_resnet, gen)
-    if model.projection_head is not None:
-        backbones.init_weights(model.projection_head, gen)
+    for part in (model.auxiliary_resnet, model.projection_head,
+                 model.score_cnn):
+        if part is not None:
+            backbones.init_weights(part, gen)
     return load_pretrained_resnets(built)
 
 
@@ -177,11 +178,23 @@ def load_pretrained_resnets(built: config_lib.BuiltModel) -> List[str]:
     input, no ``fc``); MODEL.HEAD.AUXILIARY_RESNET_PATH goes into the
     extractor, an ``aux_*.npz`` pruned to its depth or a torchvision
     ``.pth`` (the stem summed over RGB when the extractor's stem has one
-    channel). Paths that do not exist leave the seeded init. Returns the
-    messages to print."""
+    channel); with MODEL.HEAD.SCORE_CNN_PRETRAINED, a torchvision resnet18
+    ``.pth`` at SCORE_CNN_PATH goes into the DSAC score CNN but for its
+    stem (2 input channels) and its fc (1 unit), which keep the seeded
+    init (``train.py:370-383``). Paths that do not exist leave the seeded
+    init. Returns the messages to print."""
     model = built.model
     backbone_cfg = built.config['MODEL']['BACKBONE']
+    head_cfg = built.config['MODEL']['HEAD']
     messages = []
+    path = head_cfg.get('SCORE_CNN_PATH')
+    if (head_cfg.get('SCORE_CNN_PRETRAINED') and model.score_cnn is not None
+            and path and os.path.exists(path)):
+        torchvision_port.graft(
+            model.score_cnn, torchvision_port.port_torchvision_resnet(
+                torchvision_port.load_torch_state_dict(path),
+                num_input_channels=2, include_fc=False))
+        messages.append(f'Score CNN ImageNet weights loaded from {path}')
     path = backbone_cfg.get('PRETRAINED_RESNET_PATH')
     if backbone_cfg.get('PRETRAINED_RESNET') and path and os.path.exists(path):
         state = torchvision_port.load_torch_state_dict(path)
@@ -197,7 +210,7 @@ def load_pretrained_resnets(built: config_lib.BuiltModel) -> List[str]:
         messages.append(f'Backbone ImageNet weights loaded from {path}')
     if model.auxiliary_resnet is None:
         return messages
-    path = built.config['MODEL']['HEAD'].get('AUXILIARY_RESNET_PATH')
+    path = head_cfg.get('AUXILIARY_RESNET_PATH')
     if not (path and os.path.exists(path)):
         return messages + ['Auxiliary resnet: seeded init (no file given)']
     if path.endswith('.npz'):

@@ -2,7 +2,7 @@
 ``bihome_tpu/training/checkpoint.py``), as ``.pth`` files.
 
 ``<dir>/model_{step:06d}.pth`` holds the reference layout
-``{"model": {"0.<backbone key>", "1.auxiliary_resnet.<key>"},
+``{"model": {"0.<backbone key>", "1.auxiliary_resnet.<key>", ...},
 "optimizer": {"adam", "count"}, "step": N}`` (``eval --torch_ckpt`` reads
 it), and beside it ``"random"``: the state of every stateful random
 source of the training run (the pair and DSAC generators, the epoch
@@ -35,13 +35,16 @@ _MODEL_FILE = re.compile(r'^model_(\d{6,})\.pth$')
 
 def _parts(model: torch.nn.Module) -> List[Tuple[str, torch.nn.Module]]:
     """(key prefix, module) of the reference layout: the backbone under
-    '0.', the PerceptualHead's extractor under '1.auxiliary_resnet.' and
-    its projection head under '1.projection_head.'."""
+    '0.', the PerceptualHead's extractor under '1.auxiliary_resnet.', its
+    projection head under '1.projection_head.' and the DSAC score CNN
+    under '1.dsac.score_cnn.resnet18.' (the reference's key)."""
     parts = [('0.', model.backbone)]
     if getattr(model, 'auxiliary_resnet', None) is not None:
         parts.append(('1.auxiliary_resnet.', model.auxiliary_resnet))
     if getattr(model, 'projection_head', None) is not None:
         parts.append(('1.projection_head.', model.projection_head))
+    if getattr(model, 'score_cnn', None) is not None:
+        parts.append(('1.dsac.score_cnn.resnet18.', model.score_cnn))
     return parts
 
 

@@ -190,21 +190,44 @@
    VARIANT_STEPS steps each: exactly K3 and K4, a finite loss, the
    backbone (and a projection head) moved, the extractor's parameters
    unchanged and its BN statistics moved only under BN_TRAIN.
-17. Prints each phase's wall time, one {"pds_distortion": ...,
+17. The DSAC slice (run_dsac_slice), from a generator of its own: K3 and
+   K4 at the loss warp of DSAC_N = 4 hypotheses ([512,128,128,1]: 2·B·n
+   patches) and K3 at image_2 ([64,240,320,3], the generic C > 1 kernel),
+   held to their plain versions and timed beside grid_sample (and its
+   grid gradient); photometric_distort_full, the blob masks (exactly) and
+   their composite, and image_2 on the card against the CPU on the same
+   draws. Then the train entry point for pds zeng-biHomE at batch 64 with
+   RANSAC_HYPOTHESIS_NO=4 and each SCORING_METHOD (DSAC_RUNS: the
+   double-line loss, where the score CNN takes no gradient and must not
+   move, and score_cnn on the one-line loss, where it must), PDS_STEPS
+   steps each, exactly K1-K4, with the checks of step 5 and the DSAC
+   forward's ms a step (CUDA events around dsac_deltas); the one-step
+   check of step 6 at batch 4 for repr_error and the one-line score_cnn
+   (the score CNN's gradients held too) with K4's du negated; the S-COCO
+   zeng-biHomE eval at n 4 with soft_inliers_ratio, alone and with
+   DSAC_PREDICT_REFINE (first 4 pairs against the CPU within 1e-2 px);
+   HomographyNet (pds detone-orig with its backbone swapped, batch 128:
+   exactly K3); pds zeng-biHomE with PhotometricDistort on both patches
+   and AUGMENT_BLOB_POROSITY 0.5 (a YAML written for the run: exactly
+   K1-K4); eval --vis (S-COCO zeng-biHomE, batch 64, one step: image_2 on
+   the card, its files written).
+18. Prints each phase's wall time, one {"pds_distortion": ...,
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
    "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
    "predict_extras": {...}, "k5_runs": [...], "k5_step": {...},
-   "variant_runs": {...}, "phase_s": {...}} line,
+   "variant_runs": {...}, "dsac": {...}, "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
    and by path, the narrow and wide bf16 K1 and K2 rows apart; K1 and K2
    with their wide
    kernels' figures and launches
    under "at_r50_head" and at zeng-orig's shape under "at_zeng_orig", K3
    and K4 at the CLEVR shape under "at_clevr", K3 and K5 at the upsample
-   shapes under "at_upsample_2x" and "at_upsample_4x" and K3, K4 and K5
-   at the masked loss warp under "at_masked_loss_warp", each with the
-   launches of the paths that run that shape), then as the last line
+   shapes under "at_upsample_2x" and "at_upsample_4x", K3, K4 and K5
+   at the masked loss warp under "at_masked_loss_warp", K3 and K4 at the
+   loss warp of 4 hypotheses under "at_dsac_n4" and K3 at image_2 under
+   "at_image_2", each with the launches of the paths that run that
+   shape), then as the last line
    {"ok": true,
    "device": {...}}.
 
@@ -494,6 +517,41 @@ VARIANT_RUNS = {
     'BN_TRAIN, FREEZE false': ('MODEL.HEAD.AUXILIARY_RESNET_BN_TRAIN=true',
                                'MODEL.HEAD.AUXILIARY_RESNET_FREEZE=false')}
 VARIANT_STEPS = 2
+# The DSAC slice: pds zeng-biHomE at batch 64 with RANSAC_HYPOTHESIS_NO
+# DSAC_N, once for each scoring method (DSAC_RUNS; the double-line loss,
+# whose scores weigh nothing, so the score CNN's parameters take no
+# gradient there, as in JAX), and on the one-line loss with the score CNN,
+# whose parameters must move. Each launches exactly K1-K4, the biHomE loss
+# warping 2·B·n = 512 patches. The one-step check (batch 4, K4's du negated
+# planted) of DSAC_STEP_CHECKS; the S-COCO evals at n 4 of DSAC_EVALS
+# (first 4 pairs against the CPU); HomographyNet (HOMOGRAPHY_NET: the
+# detone-orig config with its backbone swapped, batch 128: exactly K3);
+# the datagen leftovers (pds zeng-biHomE with PhotometricDistort on both
+# patches and AUGMENT_BLOB_POROSITY 0.5, from a YAML written for the run:
+# exactly K1-K4); and eval --vis (S-COCO zeng-biHomE, batch 64, one step:
+# image_2 through K3's generic C > 1 kernel at [64,240,320,3]).
+DSAC_N = 4
+DSAC_SET = (f'MODEL.HEAD.RANSAC_HYPOTHESIS_NO={DSAC_N}',)
+ONE_LINE_ZENG = ('MODEL.BACKBONE.VARIANT=OneLine',
+                 'MODEL.BACKBONE.TARGET_KEYS=[pf_hat_12]',
+                 'MODEL.HEAD.PF_KEYS=[pf_hat_12]',
+                 'MODEL.HEAD.TRIPLET_LOSS=one-line',
+                 'MODEL.HEAD.TRIPLET_MARGIN=1.0')
+DSAC_RUNS = {
+    method: DSAC_SET + (f'MODEL.HEAD.SCORING_METHOD={method}',)
+    for method in ('repr_error', 'inliers_ratio', 'soft_inliers_ratio',
+                   'score_cnn')}
+DSAC_RUNS['score_cnn one-line'] = (
+    DSAC_RUNS['score_cnn'] + ONE_LINE_ZENG)
+DSAC_STEP_CHECKS = ('repr_error', 'score_cnn one-line')
+DSAC_EVALS = {
+    'soft_inliers_ratio': DSAC_SET + (
+        'MODEL.HEAD.SCORING_METHOD=soft_inliers_ratio',)}
+DSAC_EVALS['soft_inliers_ratio, refine'] = DSAC_EVALS[
+    'soft_inliers_ratio'] + ('MODEL.HEAD.DSAC_PREDICT_REFINE=true',)
+HOMOGRAPHY_NET = ('config/pds-coco/detone-orig-lr-5e-3.yaml', 128,
+                  ('MODEL.BACKBONE.NAME=HomographyNet',))
+BLOB_POROSITY = 0.5
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -718,8 +776,8 @@ def run_eval_path(counters, config=CONFIG, batch_size=BATCH, steps=STEPS,
     # The DSAC draws of the 1->2 field, then of the 2->1 field (drawn
     # from only with DSAC_PREDICT_BIDIRECTIONAL).
     draws = torch.Generator().manual_seed(5)
-    uniforms, uniforms21 = (torch.rand((batch_size, 128), generator=draws)
-                            for _ in range(2))
+    uniforms, uniforms21 = (torch.rand((batch_size, dsac_draws(model.head)),
+                                       generator=draws) for _ in range(2))
     batch_cpu = {key: v[:k].cpu() for key, v in batch.items()}
     if result['built'].dtype == torch.bfloat16:
         delta_cuda = model.predict(batch, uniforms=uniforms.cuda()).cpu()
@@ -2071,10 +2129,15 @@ def one_step_grads(built, state, data, device, dtype=torch.float32,
     else:
         scale = abs(loss.item())
     # layer8.0.bias (the PF head's first conv bias) is left out: its
-    # gradient is 0 analytically under batch statistics.
+    # gradient is 0 analytically under batch statistics; so is the score
+    # CNN's fc bias (it shifts every score, and softmax ignores a shift).
     params = model.backbone.named_parameters()
     grads = {n: p.grad.cpu().double() for n, p in params
              if n != 'layer8.0.bias' and (p.grad is not None or not fed)}
+    if model.score_cnn is not None:
+        grads.update({f'score_cnn.{n}': p.grad.cpu().double()
+                      for n, p in model.score_cnn.named_parameters()
+                      if n != 'fc.bias' and p.grad is not None})
     grads.update({f'input{i}': x.grad.cpu().double()
                   for i, x in enumerate(fed)})
     return loss.item(), scale, grads
@@ -2179,6 +2242,11 @@ def compare_train_step(result, batch=4, faults=FAULTS, config=None):
     return readings
 
 
+def dsac_draws(head):
+    """The DSAC uniforms a field takes: n * points_per_hypothesis."""
+    return head.hypothesis_no * head.points_per_hypothesis
+
+
 def step_data(built, batch):
     """The one-step checks' inputs: (uint8 pool rows, corners, delta, the
     photometric draws, DSAC uniforms or None), drawn from seed 7."""
@@ -2194,7 +2262,8 @@ def step_data(built, batch):
         corners, delta = pipeline.draw_corners_delta_batch(
             batch, tuple(pool.shape[1:3]), built.pair_spec, gen)
         pds = pipeline._draw_photometric(batch, built.pair_spec, gen)
-    uniforms = ([torch.rand((batch, 128), generator=gen) for _ in range(2)]
+    uniforms = ([torch.rand((batch, dsac_draws(built.head_cfg)),
+                            generator=gen) for _ in range(2)]
                 if built.needs_dsac_rng else None)
     return pool, corners, delta, pds, uniforms
 
@@ -2586,6 +2655,278 @@ def check_eval_log(log_path, n_samples):
         raise AssertionError(f'eval --log wrote {len(lines)} lines, not '
                              f'{n_samples}')
 
+@contextlib.contextmanager
+def timed_dsac(events):
+    """CUDA events around each training-mode ``dsac_deltas`` call on the
+    card (the DSAC forward of one field), appended to ``events``."""
+    from bihome_torch.heads.assembled import AssembledModel
+
+    original = AssembledModel.dsac_deltas
+
+    def timed(self, pf, *args, **kwargs):
+        if not (self.training and pf.is_cuda):
+            return original(self, pf, *args, **kwargs)
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = original(self, pf, *args, **kwargs)
+        pair[1].record()
+        events.append(pair)
+        return out
+    AssembledModel.dsac_deltas = timed
+    try:
+        yield events
+    finally:
+        AssembledModel.dsac_deltas = original
+
+
+def dsac_ms_per_step(events, fields):
+    """The median over the steps after the first of the DSAC forward's
+    ms a step (``fields`` calls a step)."""
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    steps = [sum(ms[i:i + fields]) for i in range(0, len(ms), fields)]
+    return statistics.median(steps[1:] if len(steps) > 1 else steps)
+
+
+def check_warp_image_2(dev, gen, n=BATCH):
+    """K3 at ``image_2``'s shape (eval --vis): ``n`` RGB 240x320 frames
+    on 0..255 through the generic C > 1 kernel, each warped whole by the
+    inverse of its pair's homography (corner offsets of rho 32 at a patch
+    of 128, as the pairs draw them), P = 76,800 points per frame, against
+    the plain version, timed beside grid_sample, with the bytes bound of
+    the pixels the taps touch."""
+    import torch.nn.functional as F
+    from bihome_torch import geometry
+    from bihome_torch.data import pipeline
+    from bihome_torch.ops import warp
+
+    h, w, c = 240, 320, 3
+    spec = pipeline.PairSpec(rho=32, patch_size=128)
+    corners, delta = pipeline.draw_corners_delta_batch(n, (h, w), spec, gen)
+    hom = geometry.four_point_to_homography(corners.float(), delta.float())
+    u, v = geometry.homography_grid(geometry.inv3x3(hom), (h, w))
+    u, v = u.to(dev), v.to(dev)
+    frames = (torch.rand((n, h, w, c), generator=gen) * 255).to(dev)
+    out = warp.bilinear_sample_batched(frames, u, v)
+    want = warp.bilinear_sample_plain(frames, u, v)
+    err = float((out - want).abs().max())
+    p = u.shape[1]
+    print(f'K3 at image_2 [{n},{h},{w},{c}] P={p} (generic C > 1 kernel): '
+          f'max abs err {err:.3e} (0..255; tolerance 1e-3)')
+    if not err <= 1e-3:
+        raise AssertionError(f'warp kernel disagrees at image_2: {err}')
+    img_nchw = frames.permute(0, 3, 1, 2).contiguous()
+    grid = _grid(u, v, h, w)
+    ms = time_ms(lambda: warp.bilinear_sample_batched(frames, u, v))
+    plain = time_ms(lambda: warp.bilinear_sample_plain(frames, u, v))
+    lib = time_ms(lambda: F.grid_sample(img_nchw, grid, mode='bilinear',
+                                        padding_mode='zeros',
+                                        align_corners=True))
+    host = host_us(lambda: warp.bilinear_sample_batched(frames, u, v))
+    touched = _touched_pixels(u, v, h, w)
+    # The touched pixels of each channel read once, u and v read, the
+    # samples written; per point 4 weights and floors, per channel 4
+    # products and 3 adds.
+    b, by = bound_ms(4 * (touched * c + 2 * n * p + n * p * c),
+                     (8 + 7 * c) * n * p)
+    print(f'K3 times at image_2 (ms): kernel {ms:.4f}  plain {plain:.4f}  '
+          f'grid_sample {lib:.4f}  bound {b:.4f} ({by}; '
+          f'{touched / (n * h * w):.3f} of the frame touched); host us per '
+          f'call {host:.1f}')
+    return {'shape': [n, h, w, c], 'points': p, 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain, 'bound_ms': b, 'bound_by': by,
+            'library_ms': lib, 'host_us': {'kernel': host}}
+
+
+def check_datagen_leftovers(dev, gen, n=BATCH):
+    """The datagen leftovers on the card against the CPU plain path, on
+    the same draws: ``photometric_distort_full`` on 64 synthetic 240x320
+    frames (within 1e-3 on 0..255, as check_pds), the blob masks of 64
+    128x128 noise images (exactly: the blur is a fixed-order sum) and
+    their composite, and ``image_2`` of the S-COCO pairs (the frame warped
+    whole by K3): within 1e-3 on 0..255 of the CPU's warp by the card's
+    homography, and the two devices' homographies within 1e-3 px at the
+    patch corners that define them. (The CPU's own image_2 stands further
+    off: extrapolated to the frame's corners the two homographies part
+    by ~1e-3 px, which moves a sample on a sharp edge by ~1e-2 on 0..255;
+    both printed.)"""
+    import dataclasses
+    from bihome_torch import geometry
+    from bihome_torch.data import blobs, datasets, photometric, pipeline
+
+    cpu = torch.device('cpu')
+    pool = torch.from_numpy(datasets.SyntheticDataset(seed=4).pool[:n])
+    frames = pool.float()
+    params = photometric.draw_photometric_full_params(n, gen)
+    err_full = float((photometric.photometric_distort_full(
+        frames.to(dev), params.to(dev)).cpu()
+        - photometric.photometric_distort_full(frames, params)).abs().max())
+    noise, shift = blobs.draw_blobs(n, (128, 128), gen)
+    masks = [blobs.generate_blobs(noise.to(d), BLOB_POROSITY).cpu()
+             for d in (dev, cpu)]
+    differ = int((masks[0] != masks[1]).sum())
+    share = float(masks[1].float().mean())
+    patches = {k: torch.randn((n, 128, 128, 1), generator=gen)
+               for k in ('patch_1', 'patch_2')}
+    composite = [blobs.apply_blob_augmentation(
+        {k: v.to(d) for k, v in patches.items()}, noise, shift,
+        BLOB_POROSITY)['patch_2'].cpu() for d in (dev, cpu)]
+    err_blob = float((composite[0] - composite[1]).abs().max())
+    spec = dataclasses.replace(pipeline.PairSpec(), max_delta=0.0,
+                               emit_images=('image_2',))
+    corners, delta = pipeline.draw_corners_delta_batch(
+        n, tuple(pool.shape[1:3]), spec, gen)
+    card, host = (pipeline.generate_pairs(pool.to(d), spec, corners=corners,
+                                          delta=delta) for d in (dev, cpu))
+    image_2 = card['image_2'].cpu()
+    hom = card['homography'].cpu()
+    err_image_2 = float((image_2 - geometry.warp_image(frames, hom))
+                        .abs().max())
+    def apart(points):
+        return float((geometry.transform_points(hom, points)
+                      - geometry.transform_points(host['homography'], points))
+                     .abs().max())
+    err_hom = apart(corners.float())
+    err_frame = apart(geometry.image_corners(240, 320, batch_size=n))
+    err_direct = float((image_2 - host['image_2']).abs().max())
+    print(f'datagen leftovers on the card vs the CPU plain path, same '
+          f'draws: photometric_distort_full [{n},240,320,3] max abs err '
+          f'{err_full:.3e} (0..255, tolerance 1e-3); blob masks '
+          f'[{n},128,128] {differ} values differ (exact; {share:.3f} of '
+          f'them blob), composite max abs err {err_blob:.1e}; image_2 '
+          f'{list(image_2.shape)} max abs err {err_image_2:.3e} against the '
+          f'CPU\'s warp by the card\'s homography (0..255, tolerance 1e-3), '
+          f'the homographies {err_hom:.2e} px apart at the patch corners '
+          f'(tolerance 1e-3; {err_frame:.2e} at the frame\'s), the CPU\'s '
+          f'own image_2 {err_direct:.3e} away')
+    if not (err_full <= 1e-3 and differ == 0 and err_blob == 0
+            and err_image_2 <= 1e-3 and err_hom <= 1e-3
+            and abs(share - BLOB_POROSITY) < 0.01):
+        raise AssertionError(f'datagen leftovers disagree: {err_full}, '
+                             f'{differ}, {err_blob}, {err_image_2}, '
+                             f'{err_hom}')
+    return {'photometric_full_max_abs_err': err_full,
+            'blob_mask_values_differ': differ,
+            'image_2_max_abs_err': err_image_2,
+            'homography_corner_err_px': err_hom,
+            'homography_frame_corner_err_px': err_frame,
+            'image_2_vs_cpu_pairs_max_abs_err': err_direct}
+
+
+def leftover_config(path, log_dir):
+    """pds zeng-biHomE with PhotometricDistort on both patches after
+    HomographyNetPrep (TRANSFORMS and TEST_TRANSFORM) and
+    AUGMENT_BLOB_POROSITY BLOB_POROSITY, written into ``log_dir``: --set
+    cannot add to a list."""
+    import yaml
+    from bihome_torch import config as config_lib
+
+    config = config_lib.load_config(path)
+    for key in ('TRANSFORMS', 'TEST_TRANSFORM'):
+        transforms = list(config['DATA'][key])
+        config['DATA'][key] = (transforms[:1] + [
+            {'PhotometricDistort': [['patch_1', 'patch_2']]}]
+            + transforms[1:])
+    config['DATA']['AUGMENT_BLOB_POROSITY'] = BLOB_POROSITY
+    out = os.path.join(log_dir, 'leftovers.yaml')
+    with open(out, 'w') as f:
+        yaml.safe_dump(config, f)
+    return out
+
+
+def run_dsac_slice(counters, paths, dev, gen):
+    """The DSAC, HomographyNet and datagen-leftover runs; returns their
+    figures and K3's and K4's entries at the loss warp of n = DSAC_N (and
+    K3's at image_2)."""
+    config = PDS_RUNS[0][0]
+    n = 2 * BATCH * DSAC_N
+    image = torch.randn((n, 128, 128, 1), generator=gen).to(dev)
+    u, v = _loss_warp_points(dev, gen, n, 128)
+    at_n4 = check_warp_frame(dev, gen, f'DSAC n{DSAC_N} loss', image, u, v)
+    del image, u, v
+    at_image_2 = check_warp_image_2(dev, gen)
+    leftovers = check_datagen_leftovers(dev, gen)
+    out = {'train_runs': {}, 'evals': {}, 'leftovers': leftovers}
+    for name, sets in DSAC_RUNS.items():
+        events = []
+        with tempfile.TemporaryDirectory() as log_dir, timed_dsac(events):
+            paths[f'train {" ".join((config, *sets))}'], result = (
+                run_train_path(counters, log_dir, config, BATCH, PDS_STEPS,
+                               ZENG_KERNELS, sets))
+        row = result['summary']
+        row['dsac_fwd_ms_per_step'] = dsac_ms_per_step(
+            events, 1 if 'one-line' in name else 2)
+        model, initial = result['model'], result['initial_state']
+        if model.score_cnn is not None:
+            moved = [k for k, _ in model.score_cnn.named_parameters()
+                     if not torch.equal(model.score_cnn.state_dict()[k].cpu(),
+                                        initial[f'score_cnn.{k}'])]
+            row['score_cnn_moved'] = len(moved)
+            # The double-line loss weighs nothing by the scores: no
+            # gradient reaches the score CNN there (nor in JAX).
+            want = 'one-line' in name
+            print(f'score CNN parameters moved: {len(moved)} of '
+                  f'{len(list(model.score_cnn.parameters()))} (expected '
+                  f'{"all" if want else "none"})')
+            if bool(moved) != want:
+                raise AssertionError(f'the score CNN moved {len(moved)} '
+                                     f'tensors on the {name} run')
+        print(f'DSAC n={DSAC_N} {name}: {row["ms_per_step"]:.2f} ms per '
+              f'step, {row["pairs_per_s"]:.1f} pairs/s, peak '
+              f'{row["peak_gb"]:.2f} GB; DSAC forward '
+              f'{row["dsac_fwd_ms_per_step"]:.2f} ms per step')
+        out['train_runs'][name] = row
+        if name in DSAC_STEP_CHECKS:
+            out.setdefault('step_checks', {})[name] = compare_train_step(
+                result, 4, ('K4 du negated',))
+        del result, model
+    for name, sets in DSAC_EVALS.items():
+        paths[f'eval {" ".join((CONFIG, *sets))}'], result, pairs_per_s = (
+            run_eval_path(counters, CONFIG, BATCH, PDS_STEPS, sets=sets,
+                          check_pairs=4))
+        out['evals'][name] = {'model_ms': result['per_batch_ms'],
+                              'pairs_per_s': pairs_per_s,
+                              'mean_mace': result['mean_mace'],
+                              'delta_err_px': result['delta_err']}
+        del result
+    config, batch, sets = HOMOGRAPHY_NET
+    with tempfile.TemporaryDirectory() as log_dir:
+        paths[f'train {" ".join((config, *sets))}'], result = run_train_path(
+            counters, log_dir, config, batch, PDS_STEPS,
+            ('bilinear_sample_batched',), sets)
+    out['homography_net'] = result['summary']
+    del result
+    with tempfile.TemporaryDirectory() as log_dir:
+        path = leftover_config(PDS_RUNS[0][0], log_dir)
+        name = (f'train {PDS_RUNS[0][0]} + PhotometricDistort, '
+                f'AUGMENT_BLOB_POROSITY={BLOB_POROSITY}')
+        paths[name], result = run_train_path(
+            counters, log_dir, path, BATCH, PDS_STEPS, ZENG_KERNELS)
+    spec = result['built'].pair_spec
+    if not (spec.photometric_full_keys == ('patch_1', 'patch_2')
+            and spec.blob_porosity == BLOB_POROSITY):
+        raise AssertionError(f'the leftover run did not take its keys: '
+                             f'{spec}')
+    out['leftover_run'] = result['summary']
+    del result
+    with tempfile.TemporaryDirectory() as vis_dir:
+        paths[f'eval {CONFIG} --vis'], result, _ = run_eval_path(
+            counters, CONFIG, BATCH, 1, check_pairs=4,
+            extra=('--vis', '--vis_dir', vis_dir))
+        names = os.listdir(vis_dir)
+        want = {f'{i:05d}_{suffix}' for i in range(BATCH) for suffix in (
+            'image_vis.png', 'patch_1_2_mask.gif', 'warped.npy',
+            'patch_2.npy', 'mask_1.npy', 'mask_2.npy', 'pf.npy')}
+        shape = list(result['batches'][0]['image_2'].shape)
+        print(f'eval --vis wrote {len(names)} files for {BATCH} samples; '
+              f'image_2 {shape}')
+        if set(names) != want or shape != [BATCH, 240, 320, 3]:
+            raise AssertionError(f'eval --vis wrote {sorted(names)[:8]}..., '
+                                 f'image_2 {shape}')
+        out['vis_files'] = len(names)
+        del result
+    return out, at_n4, at_image_2
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2914,6 +3255,16 @@ def run(stack):
         del result
     done('biHomE loss variants')
 
+    # The DSAC slice, from a generator of its own: K3 and K4 at the loss
+    # warp of n = DSAC_N hypotheses and K3 at image_2, the datagen
+    # leftovers on the card against the CPU, then the runs of
+    # run_dsac_slice.
+    dsac, at_n4, at_image_2 = run_dsac_slice(
+        counters, paths, dev, torch.Generator().manual_seed(19))
+    kernels[0]['at_dsac_n4'], kernels[3]['at_dsac_n4'] = at_n4
+    kernels[0]['at_image_2'] = at_image_2
+    done('DSAC, HomographyNet, datagen leftovers')
+
     # The file-fed slice: the JPEG folder and its pack; pds-coco
     # zeng-biHomE trained from each (streamed, counted as the other train
     # paths, profiled for the idle share beside the device-pool run of
@@ -2978,7 +3329,10 @@ def run(stack):
                    'at_upsample_4x': [p for p in paths
                                       if 'upsample-patch-4x' in p],
                    'at_masked_loss_warp': [p for p in paths
-                                           if 'MASK_KEYS' in p]}
+                                           if 'MASK_KEYS' in p],
+                   'at_dsac_n4': [p for p in paths if p.startswith('train')
+                                  and DSAC_SET[0] in p],
+                   'at_image_2': [p for p in paths if '--vis' in p]}
     for k in kernels:
         entries = [(k, k['name'], list(paths))]
         if 'at_r50_head' in k:
@@ -3000,7 +3354,7 @@ def run(stack):
                       'bf16_step': bf16_step, 'bf16_evals': bf16_evals,
                       'predict_extras': predict_extras,
                       'k5_runs': k5_runs, 'k5_step': k5_step,
-                      'variant_runs': variant_runs,
+                      'variant_runs': variant_runs, 'dsac': dsac,
                       'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

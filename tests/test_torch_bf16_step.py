@@ -389,7 +389,7 @@ def test_build_model_trains_every_config_at_bf16(name):
 
 
 def test_build_model_refuses_at_bf16_what_it_refuses_at_float32():
-    config = _bf16_config(ZENG[0], ('MODEL.HEAD.RANSAC_HYPOTHESIS_NO=2',))
+    config = _bf16_config(ZENG[0], ('MODEL.HEAD.NAME=SomeHead',))
     messages = []
     for dtype in ('float32', 'bfloat16'):
         with pytest.raises(ValueError, match='not ported yet') as err:

@@ -108,14 +108,18 @@ def test_per_sample_synthesis_is_batch_invariant():
 
 
 def test_photometric_config_is_not_ported_yet():
-    """HomographyNetPrep's PDS distortion is ported
-    (tests/test_torch_photometric.py); the dict-stage full-SSD
-    ``PhotometricDistort`` transform is not yet."""
+    """HomographyNetPrep's PDS distortion (tests/test_torch_photometric.py)
+    and the dict-stage full-SSD ``PhotometricDistort`` transform
+    (tests/test_torch_datagen_leftovers.py) are both ported now; an image
+    the pipeline cannot emit is still refused."""
     tpipe.check_ported(tpipe.PairSpec.from_transforms(_transforms(ZENG[1])))
     spec = tpipe.PairSpec.from_transforms(
         _transforms(ZENG[1]) + [{'PhotometricDistort': [['patch_1']]}])
-    with pytest.raises(ValueError, match='not ported yet: PhotometricDistort'):
-        tpipe.check_ported(spec)
+    assert spec.photometric_full_keys == ('patch_1',)
+    tpipe.check_ported(spec)
+    with pytest.raises(ValueError, match='not ported yet: emitting'):
+        tpipe.check_ported(dataclasses.replace(spec,
+                                               emit_images=('image_3',)))
 
 
 def test_generate_pairs_injected_equals_assembly_and_draws_in_range():

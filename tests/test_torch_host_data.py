@@ -105,8 +105,10 @@ def write_clevr(root, n, h, w, seed=0):
 def test_blob_keys_build_into_both_specs_and_the_port_refuses_them():
     """JAX reads DATA.AUGMENT_BLOB_POROSITY / AUGMENT_BLOBINESS into both
     pair specs (``bihome_tpu/config.py:98-115``); the port reads them the
-    same way and refuses a porosity above 0 until it has the blob
-    occlusion, rather than training without it."""
+    same way. It refused a porosity above 0 until it had the blob
+    occlusion (``bihome_torch/data/blobs.py``, held to JAX's in
+    tests/test_torch_datagen_leftovers.py); now it builds it into both
+    specs as JAX does."""
     from bihome_tpu import config as jconfig
 
     def load(module, sets):
@@ -118,8 +120,10 @@ def test_blob_keys_build_into_both_specs_and_the_port_refuses_them():
     assert built.pair_spec.blob_porosity == 0.5
     assert built.test_pair_spec.blob_porosity == 0.5
     assert built.pair_spec.blobiness == 2.0
-    with pytest.raises(ValueError, match='not ported yet: blob occlusion'):
-        tconfig.build_model(load(tconfig, sets))
+    built = tconfig.build_model(load(tconfig, sets))
+    assert built.pair_spec.blob_porosity == 0.5
+    assert built.test_pair_spec.blob_porosity == 0.5
+    assert built.pair_spec.blobiness == 2.0
     for module in (jconfig, tconfig):
         built = module.build_model(load(module, []))
         assert built.pair_spec.blob_porosity == 0.0

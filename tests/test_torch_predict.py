@@ -94,7 +94,7 @@ def test_predict_mace_matches_jax_chain(slice_outputs):
 
 def test_build_model_refuses_unported_families():
     config = load_config(ZENG[0])
-    config['MODEL']['HEAD']['RANSAC_HYPOTHESIS_NO'] = 2
+    config['MODEL']['BACKBONE']['RESNET_BLOCK'] = 'ResNet18'
     with pytest.raises(ValueError, match='not ported yet'):
         build_model(config)
 

@@ -174,5 +174,5 @@ def test_build_backbone_dispatch_and_seeded_init():
     assert fc.bias.abs().max() == 0
     assert 0.8 < fc.weight.detach().std().item() * 512 ** 0.5 < 1.2
     with pytest.raises(ValueError, match='not ported yet'):
-        tbb.build_backbone({'NAME': 'HomographyNet', 'PATCH_KEYS': [],
+        tbb.build_backbone({'NAME': 'VGG16', 'PATCH_KEYS': [],
                             'TARGET_KEYS': []})
