@@ -455,7 +455,8 @@ def generate_pairs(images: Tensor, spec: PairSpec,
                    delta: Optional[Tensor] = None,
                    photometric_params: Optional[Sequence[Optional[Tensor]]]
                    = None, full_params: Optional[Tensor] = None,
-                   blob_draws: Optional[Tuple[Tensor, int]] = None
+                   blob_draws: Optional[Tuple[Tensor, int]] = None,
+                   rows: Optional[Tuple[int, int]] = None
                    ) -> Dict[str, Tensor]:
     """Training pair synthesis (counterpart of
     ``bihome_tpu/data/pipeline.py:generate_pairs``): uint8/float images
@@ -469,18 +470,34 @@ def generate_pairs(images: Tensor, spec: PairSpec,
     [B,ps,ps], shift) gives them (:mod:`bihome_torch.data.blobs`, applied
     last, to the standardized patches, ``pipeline.py:397-402``). With
     ``spec.change_aware_keys`` set, ``images`` is [B,2,H,W,3] of real
-    pairs and :func:`assemble_change_pairs` runs instead (no draws)."""
+    pairs and :func:`assemble_change_pairs` runs instead (no draws).
+
+    With ``rows`` = (lo, total) the images are rows [lo, lo + B) of a
+    global batch of ``total`` (a rank's slice): every draw made here is
+    the global batch's, in the order above, of which those rows are kept,
+    so the slices of the ranks make up the one-process batch. The blob
+    occlusion, which rolls patch_1 over the whole batch, is refused
+    there."""
     if spec.change_aware_keys:
         return assemble_change_pairs(images, spec)
     images = images.float()
     b = images.shape[0]
+    lo, total = rows if rows is not None else (0, b)
+    keep = slice(lo, lo + b)
+    if spec.blob_porosity > 0 and total != b:
+        raise NotImplementedError(
+            'the blob occlusion rolls patch_1 over the whole batch; it is '
+            'not drawn for a slice of one')
     if corners is None or delta is None:
-        corners, delta = draw_corners_delta_batch(
-            b, tuple(images.shape[1:3]), spec, generator)
+        corners, delta = (t[keep] for t in draw_corners_delta_batch(
+            total, tuple(images.shape[1:3]), spec, generator))
     if photometric_params is None:
-        photometric_params = _draw_photometric(b, spec, generator)
+        photometric_params = tuple(
+            None if p is None else p[keep]
+            for p in _draw_photometric(total, spec, generator))
     if full_params is None:
-        full_params = draw_full_photometric(b, spec, generator)
+        full_params = draw_full_photometric(total, spec, generator)
+        full_params = None if full_params is None else full_params[:, keep]
     batch = _assemble_pairs(images, corners.long().to(images.device),
                             delta.long().to(images.device), spec,
                             *_params_to(images.device, *photometric_params),

@@ -5,6 +5,8 @@
         [--steps N] [--synthetic] [--image_size W H] [--set K=V]
         [--ckpt DIR_OR_FILE | --torch_ckpt F] [--log F] [--skip_timing]
         [--vis] [--vis_dir DIR] [--device cuda|cpu]
+        [--multihost [--coordinator HOST:PORT --num_processes N
+                      --process_id R]]
 
 Prints ``Number of params``, ``Mean mace`` and ``Mean model time`` (ms per
 batch) like the JAX entry point. The images come from DATA.TEST_SPLIT
@@ -39,6 +41,17 @@ the warped mask) and ``{n:05d}_{warped,patch_2,mask_1,mask_2}.npy``
 MODEL.DTYPE=bfloat16``, as JAX's eval reads it); its float32 weights load
 at either dtype. Runs on ``cuda`` unless ``--device cpu`` is given;
 without a card it raises rather than falling back.
+
+``--multihost`` (``eval.py:224-231, 331-338``; the process group as
+``bihome_torch.train`` starts it) splits the iterations over the ranks
+in contiguous runs; each rank generates and predicts only its own (the
+draws are seeded per sample and per iteration, so they are the
+one-process run's), the per-sample MACEs are gathered to rank 0 in
+sample order, and rank 0 alone prints and writes ``--log``: the same
+mean and log as one process. (JAX's processes each evaluate every
+iteration, so its gathered log repeats every sample R times; the port
+lists each once. Its ``--vis`` files are each rank's own samples.) The
+model time printed is rank 0's.
 """
 
 from __future__ import annotations
@@ -56,9 +69,9 @@ import os
 from bihome_torch import config as config_lib
 from bihome_torch import geometry
 from bihome_torch.data import datasets, pipeline
-from bihome_torch.device import resolve_device
 from bihome_torch.models import backbones, torchvision_port
 from bihome_torch.ops import color
+from bihome_torch.parallel import dist_util, mesh
 from bihome_torch.training import checkpoint
 
 INIT_SEED = 0
@@ -88,6 +101,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         metavar='KEY=VALUE', help='dotted config override')
     parser.add_argument('--device', type=str, default='cuda',
                         choices=('cuda', 'cpu'))
+    mesh.add_arguments(parser)
     return parser.parse_args(argv)
 
 
@@ -194,9 +208,20 @@ def dsac_generator(test_seed: int, iteration: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the eval; returns the printed numbers plus the built model and
-    the generated batches (for callers that check them further)."""
+    the generated batches (for callers that check them further); under
+    ``--multihost`` the MACEs are every rank's, the batches this rank's."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = mesh.init_from_args(args)
+    try:
+        return _evaluate(args, device)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate(args: argparse.Namespace, device: torch.device
+              ) -> Dict[str, Any]:
+    main_rank = dist_util.is_main_process()
     if device.type == 'cuda':
         # Full fp32, as the JAX reference computes on CPU; TF32 would keep
         # ~3 decimal digits in every conv.
@@ -267,8 +292,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     sample_to_pool = torch.from_numpy(inv.reshape(num_iters, batch_size))
 
     spec = built.test_pair_spec
+    # This rank's iterations: a contiguous run (all of them in one process).
+    iters = np.array_split(np.arange(num_iters),
+                           dist_util.get_world_size())[dist_util.get_rank()]
     batches: List[Dict[str, torch.Tensor]] = []
-    for it in range(num_iters):
+    for it in iters:
         seeds = [pipeline.sample_seed(test_seed, it * batch_size + i)
                  for i in range(batch_size)]
         images = pipeline.take_images(pool, sample_to_pool[it].to(device))
@@ -276,7 +304,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     maces, times, delta_hats = [], [], []
     gen_device = device if model.draws_on_device else torch.device('cpu')
-    for it, batch in enumerate(batches):
+    for it, batch in zip(iters, batches):
         start = time.perf_counter()
         delta_hat = model.predict(
             batch, generator=dsac_generator(test_seed, it, gen_device))
@@ -286,27 +314,31 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         diff = batch['delta'] - delta_hat
         maces.append(torch.linalg.vector_norm(diff, dim=-1).mean(-1).cpu())
         delta_hats.append(delta_hat)
-    maces_np = torch.cat(maces).numpy()
+    local = (torch.cat(maces).numpy() if maces
+             else np.zeros(0, dtype=np.float32))
+    # Rank order is sample order: the runs of iterations are contiguous.
+    maces_np = np.concatenate(dist_util.all_gather(local))
     timed = times[1:] if len(times) > 1 else times
-    per_batch_ms = float(np.mean(timed)) * 1000.0
+    per_batch_ms = float(np.mean(timed)) * 1000.0 if timed else float('nan')
 
-    if args.log:
+    if args.log and main_rank:
         with open(args.log, 'a') as f:
             for it, m in enumerate(maces_np):
                 f.write(f'{it},{float(m)}\n')
     if args.vis:
-        for it, (batch, delta_hat) in enumerate(zip(batches, delta_hats)):
-            save_visualization(args.vis_dir, it, batch_size,
+        for it, batch, delta_hat in zip(iters, batches, delta_hats):
+            save_visualization(args.vis_dir, int(it), batch_size,
                                vis_outputs(model, batch, delta_hat))
-        print(f'Visualization artifacts for {n_eval} samples written to '
-              f'{args.vis_dir}')
+        print(f'Visualization artifacts for {len(iters) * batch_size} '
+              f'samples written to {args.vis_dir}')
     num_params = sum(p.numel() for p in model.backbone.parameters())
     if model.score_cnn is not None:
         num_params += sum(p.numel() for p in model.score_cnn.parameters())
-    print(f'Number of params: {num_params}')
-    print(f'Mean mace: {float(np.mean(maces_np))}')
-    if not args.skip_timing:
-        print(f'Mean model time: {per_batch_ms}')
+    if main_rank:
+        print(f'Number of params: {num_params}')
+        print(f'Mean mace: {float(np.mean(maces_np))}')
+        if not args.skip_timing:
+            print(f'Mean model time: {per_batch_ms}')
     return {'num_params': num_params, 'mean_mace': float(np.mean(maces_np)),
             'maces': maces_np, 'per_batch_ms': per_batch_ms,
             'batch_size': batch_size, 'num_iters': num_iters,

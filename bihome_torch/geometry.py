@@ -308,8 +308,11 @@ def find_homography_dlt(points1: Tensor, points2: Tensor,
         a = torch.cat([ax, ay], dim=1)                            # [B,2N,8]
         rhs = torch.cat([u, v], dim=1)                            # [B,2N]
         if w is not None:
-            ata = torch.einsum('bni,bn,bnj->bij', a, w, a)
-            atb = torch.einsum('bni,bn,bn->bi', a, w, rhs)
+            # Two operands each (the three-operand form's contraction
+            # order, bit for bit on the CPU): a three-operand einsum fixes
+            # the batch size in a torch.export graph.
+            ata = torch.einsum('bni,bnj->bij', a, a * w[..., None])
+            atb = torch.einsum('bni,bn->bi', a, w * rhs)
         else:
             ata = torch.einsum('bni,bnj->bij', a, a)
             atb = torch.einsum('bni,bn->bi', a, rhs)
@@ -324,7 +327,7 @@ def find_homography_dlt(points1: Tensor, points2: Tensor,
                           v], -1)
         a = torch.cat([ax, ay], dim=1)                            # [B,2N,9]
         if w is not None:
-            ata = torch.einsum('bni,bn,bnj->bij', a, w, a)
+            ata = torch.einsum('bni,bnj->bij', a, a * w[..., None])
         else:
             ata = torch.einsum('bni,bnj->bij', a, a)              # [B,9,9]
         _, eigvecs = torch.linalg.eigh(ata)

@@ -260,7 +260,8 @@ class AssembledModel(nn.Module):
         return self.score_cnn(img.permute(0, 3, 1, 2).contiguous())
 
     def dsac_deltas(self, pf: Tensor, uniforms: Optional[Tensor] = None,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[Tensor, Tensor]:
         """PF [B,h,w,2] -> (corner deltas [B*n,4,2] of the n DSAC
         hypotheses, sample-major as ``jnp.repeat`` lays out the patches;
@@ -272,14 +273,15 @@ class AssembledModel(nn.Module):
         widens, as JAX's float32 meshgrid widens it), the hypotheses are
         drawn from the two clouds and scored. The deltas are float32 for
         a bfloat16 field, as ``:391-395`` gives them. ``uniforms``
-        [B, n * points_per_hypothesis] injects the draws."""
+        [B, n * points_per_hypothesis] injects the draws; ``rows`` places
+        the batch in a global one (:func:`dsac.sample_point_indices`)."""
         cfg = self.head
         b, h, w, _ = pf.shape
         n = cfg.hypothesis_no
         if n == 1 and cfg.scoring_method != 'score_cnn':
             hyps = dsac.sample_hypotheses_from_pf(
                 pf, n, cfg.points_per_hypothesis, cfg.dsac_point_sampling,
-                uniforms, generator)                              # [B,1,3,3]
+                uniforms, generator, rows)                        # [B,1,3,3]
             scores = torch.ones((b, 1), dtype=pf.dtype, device=pf.device)
         else:
             dtype = torch.promote_types(pf.dtype, torch.float32)
@@ -291,7 +293,7 @@ class AssembledModel(nn.Module):
             mapping = coords + pf.reshape(b, -1, 2).to(dtype)
             hyps = dsac.sample_hypotheses(
                 coords, mapping, n, cfg.points_per_hypothesis,
-                cfg.dsac_point_sampling, uniforms, generator)
+                cfg.dsac_point_sampling, uniforms, generator, rows)
             scores, _ = dsac.score_hypotheses(
                 coords, mapping, hyps, cfg.scoring_method,
                 cfg.scoring_distance_threshold, cfg.scoring_distance_beta,
@@ -321,6 +323,13 @@ class AssembledModel(nn.Module):
                 uniforms=None,
                 generator: Optional[torch.Generator] = None,
                 idx: Optional[Tensor] = None) -> Tensor:
+        """:meth:`predict_delta` in inference mode."""
+        return self.predict_delta(batch, uniforms, generator, idx)
+
+    def predict_delta(self, batch: Dict[str, Tensor],
+                      uniforms=None,
+                      generator: Optional[torch.Generator] = None,
+                      idx: Optional[Tensor] = None) -> Tensor:
         """Batch dict (NHWC patches) -> delta_hat [B,4,2]
         (``bihome_tpu/heads/assembled.py:762-826``): the backbone's deltas,
         the DSAC fit of its perspective field (:meth:`fit_delta`), or (NoOp
@@ -391,14 +400,17 @@ class AssembledModel(nn.Module):
 
     def forward(self, batch: Dict[str, Tensor],
                 uniforms: Optional[Sequence[Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Dict[str, object]:
         """The training forward: the backbone, then the head. For the
         PerceptualHead with DSAC, ``uniforms`` = (12 draws, 21 draws), each
         [B, n * points_per_hypothesis], injects the draws of the two
         directions (the 2->1 field is fitted only for a double-line loss);
-        otherwise they come from ``generator``, 12 first. The other heads
-        draw nothing."""
+        otherwise they come from ``generator``, 12 first, and with
+        ``rows`` = (lo, total) they are those of rows [lo, lo + B) of a
+        global batch of ``total`` (:func:`dsac.sample_point_indices`). The
+        other heads draw nothing."""
         cfg = self.head
         outputs = self.backbone(batch)
         data = {**batch, **outputs}
@@ -415,7 +427,7 @@ class AssembledModel(nn.Module):
             delta_21 = data[cfg.delta_hat_keys[1]] if doubleline else None
         else:
             delta_12, delta_21, scores = self.dsac_both(outputs, uniforms,
-                                                        generator)
+                                                        generator, rows)
         if cfg.triplet_loss == '':
             return self.multihead_loss(data, delta_12, scores)
         return self.bihome_loss(data, delta_12, delta_21, scores)
@@ -456,7 +468,8 @@ class AssembledModel(nn.Module):
 
     def dsac_both(self, outputs: Dict[str, Tensor],
                   uniforms: Optional[Sequence[Tensor]] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  rows: Optional[Tuple[int, int]] = None):
         """(delta_12, delta_21 [B*n,4,2], the 1->2 hypotheses' scores
         [B,n]) from the perspective fields, the 1->2 direction's draws
         first; delta_21 is None unless the loss is double-line (whose
@@ -464,11 +477,11 @@ class AssembledModel(nn.Module):
         cfg = self.head
         u12, u21 = uniforms if uniforms is not None else (None, None)
         delta_12, scores = self.dsac_deltas(outputs[cfg.pf_keys[0]], u12,
-                                            generator)
+                                            generator, rows)
         if 'double-line' not in cfg.triplet_loss:
             return delta_12, None, scores
         delta_21, _ = self.dsac_deltas(outputs[cfg.pf_keys[1]], u21,
-                                       generator)
+                                       generator, rows)
         return delta_12, delta_21, scores
 
     @staticmethod

@@ -21,18 +21,25 @@ def sample_point_indices(shape: Sequence[int], n_points: int,
                          point_sampling: str,
                          uniforms: Optional[Tensor] = None,
                          generator: Optional[torch.Generator] = None,
-                         device='cpu') -> Tensor:
+                         device='cpu',
+                         rows: Optional[Tuple[int, int]] = None) -> Tensor:
     """Draw DSAC point indices, int64 of ``shape``.
 
     'reference-weighted': P(i) ∝ i on [1, N-1], index 0 never drawn (the
     reference's ``torch.multinomial(arange(N))``), by exact inverse CDF:
     k = ceil((sqrt(1 + 4uT) - 1) / 2) with T = (N-1)N, clipped to
-    [1, N-1]. 'uniform': uniform over [0, N).
+    [1, N-1]. 'uniform': uniform over [0, N). With ``rows`` = (lo, total)
+    the B = ``shape[0]`` samples are rows [lo, lo + B) of a global batch
+    of ``total`` (a rank's slice): the draws are the global batch's, of
+    which those rows are kept.
     """
+    lo, whole = rows if rows is not None else (0, shape[0])
+    drawn = (whole, *shape[1:])
+    keep = slice(lo, lo + shape[0])
     if point_sampling == 'reference-weighted':
         if uniforms is None:
-            uniforms = torch.rand(tuple(shape), generator=generator,
-                                  dtype=torch.float32)
+            uniforms = torch.rand(drawn, generator=generator,
+                                  dtype=torch.float32)[keep]
         uniforms = uniforms.to(device)
         total = float((n_points - 1) * n_points)
         k = torch.ceil((torch.sqrt(1.0 + 4.0 * uniforms * total) - 1.0) / 2.0)
@@ -41,8 +48,8 @@ def sample_point_indices(shape: Sequence[int], n_points: int,
         if uniforms is not None:
             raise ValueError("'uniform' point sampling draws integers; "
                              'uniforms cannot be injected')
-        return torch.randint(0, n_points, tuple(shape),
-                             generator=generator).to(device)
+        return torch.randint(0, n_points, drawn,
+                             generator=generator)[keep].to(device)
     raise ValueError(point_sampling)
 
 
@@ -50,16 +57,17 @@ def sample_hypotheses(points1: Tensor, points2: Tensor, hypothesis_no: int,
                       points_per_hypothesis: int,
                       point_sampling: str = 'reference-weighted',
                       uniforms: Optional[Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      rows: Optional[Tuple[int, int]] = None) -> Tensor:
     """Sample point subsets of the clouds points1/points2 [B,N,2] and fit
     each with the DLT -> homographies [B,n,3,3] (``dsac.py:23-43``). The
     draws [B, n * points_per_hypothesis] as :func:`sample_point_indices`
-    takes them; hypothesis i of sample b is the i-th run of
+    takes them (``rows`` too); hypothesis i of sample b is the i-th run of
     ``points_per_hypothesis`` indices."""
     b, n_points, _ = points1.shape
     idx = sample_point_indices((b, hypothesis_no * points_per_hypothesis),
                                n_points, point_sampling, uniforms, generator,
-                               points1.device)
+                               points1.device, rows)
     gather = idx[..., None].expand(-1, -1, 2)
     p1 = torch.gather(points1, 1, gather).reshape(
         b * hypothesis_no, points_per_hypothesis, 2)
@@ -73,7 +81,8 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
                               points_per_hypothesis: int,
                               point_sampling: str,
                               uniforms: Optional[Tensor] = None,
-                              generator: Optional[torch.Generator] = None
+                              generator: Optional[torch.Generator] = None,
+                              rows: Optional[Tuple[int, int]] = None
                               ) -> Tensor:
     """Sample point subsets of the perspective field and fit each with the
     DLT. pf [B,h,w,2] NHWC -> homographies [B,n,3,3]; the sampled points
@@ -86,7 +95,7 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
     n_points = h * w
     idx = sample_point_indices((b, hypothesis_no * points_per_hypothesis),
                                n_points, point_sampling, uniforms, generator,
-                               pf.device)
+                               pf.device, rows)
     sel = torch.gather(pf.reshape(b, n_points, 2), 1,
                        idx[..., None].expand(-1, -1, 2))
     p1 = torch.stack([idx % w, idx // w], dim=-1).to(

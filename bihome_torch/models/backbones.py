@@ -59,10 +59,14 @@ class PFHead(nn.Sequential):
         conv1, bn, _, conv2 = self
         x = cast(x, self.compute_dtype)
         if not self.training:
-            return fused_head.FusedPFHead.apply(
-                x, conv1.weight, conv1.bias, bn.weight, bn.bias,
-                conv2.weight, conv2.bias, bn.running_mean, bn.running_var,
-                bn.eps, False)
+            args = (x, conv1.weight, conv1.bias, bn.weight, bn.bias,
+                    conv2.weight, conv2.bias, bn.running_mean,
+                    bn.running_var, bn.eps)
+            if torch.is_grad_enabled():
+                return fused_head.FusedPFHead.apply(*args, False)
+            # No autograd: the registered op alone (what torch.export
+            # keeps in a serving graph).
+            return fused_head.pf_head_fwd_op(*args)
         with torch.no_grad():
             mean, var = fused_head.batch_stats_affine(x, conv1.weight,
                                                       conv1.bias)

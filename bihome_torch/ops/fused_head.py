@@ -42,6 +42,7 @@ import torch
 
 from bihome_torch.models.layers import widen
 from bihome_torch.ops import _cuda
+from bihome_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -197,13 +198,20 @@ def batch_stats_affine(x: Tensor, w1: Tensor, b1: Tensor
     """Exact batch mean and biased variance of mid = w1 x + b1 over all
     pixels of x [N,Cin,H,W], from the mean and second moment of x alone
     (ref: bihome_tpu/ops/fused_head.py:67-86). w1 [Cmid,Cin,1,1]. A
-    bfloat16 x is summed in float32 (bf16 products are exact there)."""
+    bfloat16 x is summed in float32 (bf16 products are exact there).
+    Across ranks the pixels are the global batch's: the count, sum x
+    [Cin] and sum x x^T [Cin,Cin] are all-reduced before the moments of
+    mid are formed."""
     n, cin = x.shape[:2]
     x3 = widen(x).reshape(n, cin, -1)
-    m = x3.shape[0] * x3.shape[2]
     w1f = w1.reshape(w1.shape[0], cin).t()                        # [Cin,Cmid]
-    ex = x3.sum(dim=(0, 2)) / m                                   # [Cin]
-    s = torch.matmul(x3, x3.transpose(1, 2)).sum(0) / m           # [Cin,Cin]
+    # Across ranks the count, sum x and sum x x^T of the global batch.
+    m, sx, sxx = mesh.sum_over_ranks(
+        torch.full((1,), float(x3.shape[0] * x3.shape[2]), dtype=x3.dtype,
+                   device=x.device),
+        x3.sum(dim=(0, 2)), torch.matmul(x3, x3.transpose(1, 2)).sum(0))
+    ex = sx / m                                                   # [Cin]
+    s = sxx / m                                                   # [Cin,Cin]
     mean_lin = ex @ w1f
     mean = mean_lin + b1
     e2_lin = (w1f * (s @ w1f)).sum(0)
@@ -381,6 +389,23 @@ for _fn in (fused_pf_head_fwd, fused_pf_head_bwd):
     _fn.bf16_launches = _fn.wide_bf16_launches = 0
 
 
+def _bn_sums(w2f: Tensor, m0: Tensor, m1: Tensor, inv_s: Tensor,
+             cn: Tensor) -> Tuple[Tensor, Tensor]:
+    """(sum da, sum da * n_hat) [Cmid] of the moments M0, M1 [Cmid,Cout]."""
+    sum_da = (w2f * m0).sum(1)
+    return sum_da, inv_s * (w2f * m1).sum(1) + cn * sum_da
+
+
+def moment_sums(m0: Tensor, m1: Tensor, m: int, device
+                ) -> Tuple[Tuple[Tensor, Tensor], Tuple[Tensor, ...]]:
+    """((M0, M1) of this rank, (M0, M1, the pixel count) summed over the
+    ranks): K2's moments feed the batch statistics' terms of the backward
+    (k0, k1) from the global batch, and the parameter gradients from this
+    rank's pixels alone."""
+    count = torch.full((1,), float(m), dtype=m0.dtype, device=device)
+    return (m0, m1), tuple(mesh.sum_over_ranks(m0, m1, count))
+
+
 def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,
                      gamma: Tensor, beta: Tensor, w2: Tensor, mean: Tensor,
                      var: Tensor, eps: float, train_stats: bool,
@@ -409,16 +434,20 @@ def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,
     dx, m0, m1, db2, dw1 = moments(x, g.contiguous(), w1t, gis.contiguous(),
                                    c1.contiguous(), w2gis)
 
+    if train_stats:
+        # Across ranks the statistics' own terms (k0, k1) take the global
+        # batch's moments; this rank's own give the parameter gradients
+        # (the trainer sums those over the ranks).
+        (m0, m1), (gm0, gm1, gm) = moment_sums(m0, m1, m, x.device)
     # Mask-side moments -> every BN reduction, with plain w2 (exact at
     # gamma == 0; no division anywhere).
-    sum_da = (w2f * m0).sum(1)                                    # [Cmid]
-    sum_da_mid = (w2f * m1).sum(1)
-    sum_dan = inv_s * sum_da_mid + cn * sum_da                    # dgamma
+    sum_da, sum_dan = _bn_sums(w2f, m0, m1, inv_s, cn)     # dbeta, dgamma
     dw2 = gis[:, None] * m1 + c1[:, None] * m0                    # [Cmid,Cout]
     db1 = gis * sum_da
     if train_stats:
-        k1 = gis * inv_s * (sum_dan / m)
-        k0 = -gis * (sum_da / m) - gis * (sum_dan / m) * cn
+        g_da, g_dan = _bn_sums(w2f, gm0, gm1, inv_s, cn)
+        k1 = gis * inv_s * (g_dan / gm)
+        k0 = -gis * (g_da / gm) - gis * (g_dan / gm) * cn
         # Rank-Cin corrections, all linear in x (see _run_bwd).
         # At bf16: a_mat rounded, dx rounded again (``_run_bwd:257-266``).
         a_mat = (w1f * k1[None, :]) @ w1f.t()                     # [Cin,Cin]
@@ -431,6 +460,23 @@ def pf_head_backward(x: Tensor, g: Tensor, w1: Tensor, b1: Tensor,
         db1 = db1 - k1 * (sx @ w1f) + m * k0
     return (dx, dw1.t().reshape(w1.shape), db1, sum_dan, sum_da,
             dw2.t().reshape(w2.shape), db2)
+
+
+@torch.library.custom_op('bihome::pf_head_fwd', mutates_args=())
+def pf_head_fwd_op(x: Tensor, w1: Tensor, b1: Tensor, gamma: Tensor,
+                   beta: Tensor, w2: Tensor, b2: Tensor, mean: Tensor,
+                   var: Tensor, eps: float) -> Tensor:
+    """:func:`fused_pf_head_fwd` as the registered op ``bihome::pf_head_fwd``:
+    K1 for a CUDA x, the plain version for a CPU one. ``torch.export``
+    keeps it as one node of the graph (it cannot trace the ctypes launch),
+    so an exported predict runs K1 on the card."""
+    return fused_pf_head_fwd(x, w1, b1, gamma, beta, w2, b2, mean, var, eps)
+
+
+@pf_head_fwd_op.register_fake
+def _pf_head_fwd_fake(x, w1, b1, gamma, beta, w2, b2, mean, var, eps):
+    n, _, h, w = x.shape
+    return x.new_empty((n, w2.shape[0], h, w))
 
 
 class FusedPFHead(torch.autograd.Function):
@@ -448,8 +494,8 @@ class FusedPFHead(torch.autograd.Function):
         ctx.save_for_backward(x, w1, b1, gamma, beta, w2, mean, var)
         ctx.eps = float(eps)
         ctx.train_stats = bool(train_stats)
-        return fused_pf_head_fwd(x, w1, b1, gamma, beta, w2, b2, mean, var,
-                                 eps)
+        return pf_head_fwd_op(x, w1, b1, gamma, beta, w2, b2, mean, var,
+                              float(eps))
 
     @staticmethod
     def backward(ctx, g):

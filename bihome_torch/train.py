@@ -7,6 +7,8 @@
         [--feed pool|stream] [--pool_size 1024]
         [--pool_refresh_steps 1000] [--pool_shard]
         [--steps_per_call K] [--profile]
+        [--multihost [--coordinator HOST:PORT --num_processes N
+                      --process_id R]]
 
 Reads the same reference-schema YAML. The images come from the config's
 DATA.TRAIN_SPLIT / TEST_SPLIT (``datasets.make_dataset``: an image or
@@ -36,8 +38,25 @@ Two feeds, as in JAX (``train.py:166-311``):
 Either way the loop runs blocks of K = ``--steps_per_call`` steps (0: the
 largest divisor of the epoch and LOGGING.STEP up to 25,
 ``trainer.pick_steps_per_call``; a last, shorter block runs what K leaves
-of an epoch) and waits for the device once per block. ``--pool_shard`` is
-accepted and, on one device, changes nothing (``train.py:179``).
+of an epoch) and waits for the device once per block.
+
+``--multihost`` trains data-parallel over ranks, one process each
+(``parallel.mesh.init_from_args``: ``--coordinator HOST:PORT
+--num_processes N --process_id R``, or torchrun's environment), as JAX's
+mesh step does (``train.py:163-185, 432-449``): B is the global batch,
+each rank steps on its B/R slice with the global batch's draws, batch
+statistics and summed gradients (``training/trainer.py``), and the
+logged metrics are the global batch's. Rank 0 alone writes
+``metrics.jsonl`` and the checkpoints; ``throughput/pairs_per_sec_per_chip``
+divides by the ranks. Every rank holds the whole device pool and draws
+the global batch's indices, or with ``--pool_shard`` (``train.py:
+176-181, 210-212``) rows ``[r P/R, (r+1) P/R)`` of a pool of P rounded
+down to a multiple of R, and its B/R indices from its own generator
+(seeded by the draw seed and r, JAX's ``fold_in(key, axis_index)``);
+the checkpoint then holds every rank's draw generator (``train_draws@r``),
+so a resumed run goes on as the run without a stop. On one rank
+``--pool_shard`` changes nothing. The test pass runs whole on every rank
+(JAX's replicated eval block).
 ``--profile`` writes a ``torch.profiler`` chrome trace of the third block
 into ``<LOGGING.DIR>/profile``.
 
@@ -97,11 +116,11 @@ import numpy as np
 import torch
 
 from bihome_torch import config as config_lib
-from bihome_torch.data import clevr_change, datasets
-from bihome_torch.device import resolve_device
+from bihome_torch.data import clevr_change, datasets, pipeline
 from bihome_torch.models import backbones, torchvision_port, weights
+from bihome_torch.parallel import dist_util, mesh
 from bihome_torch.training import checkpoint, trainer
-from bihome_torch.training.metrics import MetricsWriter
+from bihome_torch.training.metrics import MetricsWriter, NullWriter
 from bihome_torch.training.train_state import Optimizer
 from bihome_torch.utils import aux_store
 
@@ -143,14 +162,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--pool_refresh_steps', type=int, default=1000,
                         help='refresh the device pool every N steps')
     parser.add_argument('--pool_shard', action='store_true',
-                        help='shard the pool over the devices (no effect '
-                             'on one device)')
+                        help='shard the pool over the ranks; each rank '
+                             'draws from its own shard (no effect on one)')
     parser.add_argument('--steps_per_call', type=int, default=0,
                         help='train steps per block, one device wait each '
                              '(default: auto divisor of LOGGING.STEP)')
     parser.add_argument('--profile', action='store_true',
                         help='write a torch.profiler trace of the third '
                              'block into LOGGING.DIR/profile')
+    mesh.add_arguments(parser)
     return parser.parse_args(argv)
 
 
@@ -250,7 +270,8 @@ class PoolFeed:
     ``(k + 1) * refresh_blocks - 1``, that is the steps ``step`` with
     ``step // (steps_per_call * refresh_blocks) == k``; with ``refresh``
     off (the dataset fits in one pool) pool 0 serves every step. Batches
-    are drawn on the pool's device from ``draws``.
+    are drawn on the pool's device from ``draws``. With ``rows`` (a slice)
+    only those rows of each pool go to the device: this rank's shard.
 
     :meth:`random_sources` are the states a checkpoint holds: the draw
     generator and the pool sources as they were when the pool in use
@@ -263,8 +284,10 @@ class PoolFeed:
 
     def __init__(self, source: datasets.PoolSource, dataset,
                  device: torch.device, steps_per_call: int,
-                 refresh_blocks: int, refresh: bool, draw_seed: int):
+                 refresh_blocks: int, refresh: bool, draw_seed: int,
+                 rows: Optional[slice] = None):
         self.source = source
+        self.rows = rows
         self.dataset = dataset
         self.device = device
         self.steps_per_pool = steps_per_call * refresh_blocks
@@ -292,7 +315,7 @@ class PoolFeed:
         self.source.restore(self._start_states)
         self.index = self.pool_of(step)
         begin = time.perf_counter()
-        self.pool = upload(self.source.build(self.index), self.device)
+        self.pool = self.upload(self.source.build(self.index))
         self.first_pool_s = time.perf_counter() - begin
         if self.refresh:
             self.refresher = datasets.PoolRefresher(self.source,
@@ -304,12 +327,15 @@ class PoolFeed:
         if self.pool_of(step) == self.index:
             return 0.0
         begin = time.perf_counter()
-        self.pool = upload(self.refresher.get(self.swap_timeout),
-                           self.device)
+        self.pool = self.upload(self.refresher.get(self.swap_timeout))
         self.index += 1
         wait = (time.perf_counter() - begin) * 1e3
         self.swaps[step] = wait
         return wait
+
+    def upload(self, pool: np.ndarray) -> torch.Tensor:
+        return upload(pool if self.rows is None else pool[self.rows],
+                      self.device)
 
     def close(self) -> None:
         if self.refresher is not None:
@@ -319,15 +345,19 @@ class PoolFeed:
 class StreamFeed:
     """Batches of a host loader (``BatchLoader``, ``PackBatchLoader`` or
     the CLEVR pair loader), each copied to ``device`` as it comes: on a
-    card through pinned memory, ``non_blocking``."""
+    card through pinned memory, ``non_blocking``. With ``rows`` (a slice)
+    only those rows of each batch: this rank's slice."""
 
-    def __init__(self, loader, device: torch.device):
+    def __init__(self, loader, device: torch.device,
+                 rows: Optional[slice] = None):
         self.loader = loader
         self.device = device
+        self.rows = rows
 
     def epoch(self) -> Iterator[torch.Tensor]:
         for batch in self.loader.epoch():
-            yield upload(batch, self.device)
+            yield upload(batch if self.rows is None else batch[self.rows],
+                         self.device)
 
     def random_sources(self) -> Dict[str, Any]:
         sources = {'sampler': self.loader.sampler.random_state}
@@ -407,18 +437,31 @@ def make_feeds(config: Dict[str, Any], built: config_lib.BuiltModel,
     """The train feed and the test feed of ``args.feed`` (a
     :class:`PoolFeed` and the test pool on ``device``, or two
     :class:`StreamFeed`), the test feed None without test steps or
-    TEST_SPLIT. The pool feed is not started: :meth:`PoolFeed.start`."""
+    TEST_SPLIT. The pool feed is not started: :meth:`PoolFeed.start`.
+    Across ranks the train feed gives this rank's slice of each batch, or
+    with ``--pool_shard`` holds this rank's shard of each pool; the test
+    feed is whole on every rank."""
     train_loader, test_loader = make_loaders(
         config, built, args, batch_size, steps, test_steps, train_seed,
         test_seed)
+    world, rank = dist_util.get_world_size(), dist_util.get_rank()
     if args.feed == 'stream':
-        return (StreamFeed(train_loader, device),
+        lo, hi = mesh.shard_range(batch_size, world, rank)
+        return (StreamFeed(train_loader, device,
+                           slice(lo, hi) if world > 1 else None),
                 StreamFeed(test_loader, device) if test_loader else None)
-    refresh = len(train_loader.dataset) > args.pool_size
-    feed = PoolFeed(pool_source(train_loader, args.pool_size, train_seed),
+    pool_size, rows = args.pool_size, None
+    draw_seed = train_seed + DRAW_SEED_OFFSET
+    if args.pool_shard and world > 1:
+        pool_size = min(pool_size, len(train_loader.dataset))
+        pool_size -= pool_size % world
+        rows = slice(*mesh.shard_range(pool_size, world, rank))
+        draw_seed = pipeline.sample_seed(draw_seed, rank)
+    refresh = len(train_loader.dataset) > pool_size
+    feed = PoolFeed(pool_source(train_loader, pool_size, train_seed),
                     train_loader.dataset, device, steps_per_call,
                     max(1, args.pool_refresh_steps // steps_per_call),
-                    refresh, train_seed + DRAW_SEED_OFFSET)
+                    refresh, draw_seed, rows)
     test_pool = None
     if test_loader is not None:
         test_pool = upload(pool_source(test_loader, args.pool_size,
@@ -468,7 +511,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     logged records, the parsed arguments, the train feed, the steps per
     block, the first pool's seconds and the profiled block's figures."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = mesh.init_from_args(args)
+    try:
+        return _train(args, device)
+    finally:
+        if args.multihost:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
+    world, rank = dist_util.get_world_size(), dist_util.get_rank()
     if device.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -481,6 +533,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     sampler_cfg = config['DATA']['SAMPLER']
     log_cfg = config['LOGGING']
     batch_size = args.batch_size or sampler_cfg['BATCH_SIZE']
+    mesh.shard_range(batch_size, world, rank)       # B % R == 0
     epochs = args.epochs or config['SOLVER']['NUM_EPOCHS']
     steps_per_epoch = sampler_cfg['TRAIN_SAMPLES_PER_EPOCH'] // batch_size
     test_steps = sampler_cfg['TEST_SAMPLES_PER_EPOCH'] // batch_size
@@ -501,6 +554,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                        test_steps, train_seed, test_seed,
                                        spc)
     pooled = args.feed == 'pool'
+    # Under --pool_shard the ranks' draw generators differ: the checkpoint
+    # holds each one.
+    rank_draws = pooled and args.pool_shard and world > 1
     for line in init_model(built):
         print(line)
     model = built.model.to(device)
@@ -528,8 +584,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         return sources
 
     if start_step:
-        fresh = checkpoint.load_random_state(random_sources(),
-                                             saved.get('random', {}))
+        saved_random = dict(saved.get('random', {}))
+        if rank_draws and f'train_draws@{rank}' in saved_random:
+            saved_random['train_draws'] = saved_random[f'train_draws@{rank}']
+        fresh = checkpoint.load_random_state(random_sources(), saved_random)
         print(f'Resumed from {checkpointer.path(start_step)}: step '
               f'{start_step}, optimizer count {optimizer.count}'
               + (f'; from their seeds: {", ".join(fresh)}' if fresh else ''))
@@ -551,7 +609,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
 
-    writer = MetricsWriter(log_dir)
+    def save_checkpoint() -> Optional[str]:
+        """Rank 0 writes the checkpoint; every rank gives its draw
+        generator's state first where they differ."""
+        states = {}
+        if rank_draws:
+            mine = checkpoint.random_state_dict({'d': train_feed.draws})['d']
+            states = {f'train_draws@{r}': state for r, state in
+                      enumerate(dist_util.all_gather(mine))}
+        if not dist_util.is_main_process():
+            return None
+        return checkpointer.save(step, model, optimizer, random_sources(),
+                                 states)
+
+    writer = MetricsWriter(log_dir) if rank == 0 else NullWriter()
     step = start_step
     step_ms: List[float] = []
     wait_ms: List[float] = []
@@ -586,7 +657,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     metrics, block_losses = trainer.pool_train_block(
                         model, optimizer, train_feed.pool, n, batch_size,
                         built.pair_spec, built.loss_name, train_feed.draws,
-                        datagen_gen, dsac_gen)
+                        datagen_gen, dsac_gen, args.pool_shard)
                 else:
                     block_losses = []
                     for batch in images:
@@ -618,15 +689,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                 if pooled:
                     swap_wait = train_feed.advance(step)
                 if step % log_step == 0:
+                    metrics = trainer.global_metrics(metrics,
+                                                     built.loss_name)
                     now = time.time()
                     if last_log_time is not None:
                         metrics = dict(metrics)
                         metrics['throughput/pairs_per_sec_per_chip'] = (
-                            log_step * batch_size / (now - last_log_time))
+                            log_step * batch_size / (now - last_log_time)
+                            / world)
                     last_log_time = now
                     rec = writer.scalars(step, metrics)
-                    records.append(rec)
-                    if verbose:
+                    if rec:
+                        records.append(rec)
+                    if verbose and rec:
                         print(f'Epoch: {epoch} step: {step} '
                               f'loss: {rec["loss/train"]:.5f}')
             if batches is not None:
@@ -655,11 +730,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                             sums[k] = sums.get(k, 0.0) + v
                     means = {k: v / test_steps for k, v in sums.items()}
                 rec = writer.scalars((epoch + 1) * steps_per_epoch, means)
-                records.append(rec)
-                print(f'Test loss: {rec["loss/test"]}  '
-                      f'test mace: {rec.get("mace/test")}')
-            ckpt_path = checkpointer.save(step, model, optimizer,
-                                          random_sources())
+                if rec:
+                    records.append(rec)
+                    print(f'Test loss: {rec["loss/test"]}  '
+                          f'test mace: {rec.get("mace/test")}')
+            ckpt_path = save_checkpoint()
     finally:
         if pooled:
             train_feed.close()

@@ -222,12 +222,15 @@ class CheckPointer:
         return os.path.join(self.directory, f'model_{step:06d}.pth')
 
     def save(self, step: int, model: torch.nn.Module, optimizer: Optimizer,
-             random_sources: Optional[Mapping[str, RandomSource]] = None
-             ) -> str:
+             random_sources: Optional[Mapping[str, RandomSource]] = None,
+             random_states: Optional[Mapping[str, Any]] = None) -> str:
+        """Write step ``step``'s checkpoint; ``random_states`` adds states
+        already in :func:`random_state_dict`'s form (other ranks')."""
         data = {'model': model_state_dict(model),
                 'optimizer': optimizer.state_dict(), 'step': int(step)}
-        if random_sources:
-            data['random'] = random_state_dict(random_sources)
+        if random_sources or random_states:
+            data['random'] = random_state_dict(random_sources or {})
+            data['random'].update(random_states or {})
         path = self.path(step)
         tmp = f'{path}.{os.getpid()}.tmp'
         torch.save(data, tmp)

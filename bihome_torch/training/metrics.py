@@ -38,3 +38,14 @@ class MetricsWriter:
 
     def close(self) -> None:
         self._jsonl.close()
+
+
+class NullWriter:
+    """The writer of every rank but 0 (``bihome_tpu/training/metrics.py:
+    62-75``): the metrics are global, so rank 0 alone writes them."""
+
+    def scalars(self, step: int, values: Dict) -> None:
+        return None
+
+    def close(self) -> None:
+        pass

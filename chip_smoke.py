@@ -211,12 +211,39 @@
    and AUGMENT_BLOB_POROSITY 0.5 (a YAML written for the run: exactly
    K1-K4); eval --vis (S-COCO zeng-biHomE, batch 64, one step: image_2 on
    the card, its files written).
-18. Prints each phase's wall time, one {"pds_distortion": ...,
+18. The data-parallel slice (``run_ddp_slice``): DDP_RANKS ranks spawned
+   (NCCL with a card each where the machine has DDP_RANKS cards, else
+   gloo with both on one card, which says so: its times are no scaling
+   number). pds zeng-biHomE (R34) at global batch DDP_BATCH: rank 0's
+   first-step loss and gradients, after the sum over the ranks and before
+   Adam, against the one-process step at DDP_BATCH on the card on the
+   same weights and draws, within the limits of step 6; then with each
+   DDP_FAULTS fault planted (every rank's statistics its own, as a plain
+   DistributedDataParallel wrap computes them; the PF head's dgamma / dw2
+   from the summed moments), which must fail them. The train entry point
+   with ``--multihost`` for PDS_STEPS steps, through the whole pool and
+   with ``--pool_shard``: exactly K1-K4 in each rank, rank 0 alone
+   writing (one record a step, one checkpoint), ms per step and pairs/s
+   printed, and the whole-pool run's first logged loss (the trainer's own
+   draws, made for the global batch and sliced on each rank) within the
+   loss limit of step 6 of the first loss of step 9's one-process run of
+   the same config, batch and seeds; the eval entry point with ``--multihost`` (S-COCO zeng, batch
+   64, PDS_STEPS iterations split over the ranks, ``--ckpt`` on the first
+   run): its ``--log`` lists each sample once.
+19. The serving slice (``run_serving``): pds zeng-biHomE's predict (seeded
+   weights) exported on the card with ``serving.export_predict`` at a
+   symbolic batch, its graph holding ``bihome::pf_head_fwd``; saved and
+   loaded in a fresh process, where at SERVING_BATCHES (a datagen batch)
+   it must agree with the live serving function on the card within
+   SERVING_LIMIT_PX, give the same bits on a second call and launch K1
+   alone; then ``bench_serving``'s JSON line at batch 64.
+20. Prints each phase's wall time, one {"pds_distortion": ...,
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
    "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
    "predict_extras": {...}, "k5_runs": [...], "k5_step": {...},
-   "variant_runs": {...}, "dsac": {...}, "phase_s": {...}} line,
+   "variant_runs": {...}, "dsac": {...}, "ddp": {...}, "serving": {...},
+   "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
    and by path, the narrow and wide bf16 K1 and K2 rows apart; K1 and K2
    with their wide
@@ -552,6 +579,46 @@ DSAC_EVALS['soft_inliers_ratio, refine'] = DSAC_EVALS[
 HOMOGRAPHY_NET = ('config/pds-coco/detone-orig-lr-5e-3.yaml', 128,
                   ('MODEL.BACKBONE.NAME=HomographyNet',))
 BLOB_POROSITY = 0.5
+# The data-parallel slice: pds zeng-biHomE (R34) at global batch DDP_BATCH
+# over DDP_RANKS ranks (NCCL on a card each, else gloo on one shared card).
+DDP_CONFIG = 'config/pds-coco/zeng-bihome-lr-1e-3.yaml'
+DDP_RANKS = 2
+DDP_BATCH = 64
+DDP_FAULTS = ("each rank's BN and head statistics local",
+              'head dgamma/dw2 from the summed moments')
+DDP_KERNELS = ZENG_KERNELS
+# The serving slice: pds zeng-biHomE's predict exported at a symbolic
+# batch, loaded in a fresh process, held to the live predict at these
+# batches within SERVING_LIMIT_PX (JAX's export check).
+SERVING_BATCHES = (1, 64)
+SERVING_LIMIT_PX = 1e-3
+RANK_TIMEOUT_S = 600
+
+
+def kernel_counters():
+    """Each kernel's launch counter: K1 and K2 count their narrow (Cin 16)
+    and wide (Cin 64) kernels, float32 and bf16, apart."""
+    from bihome_torch.ops import fused_head, warp
+
+    return {
+        'bilinear_sample_batched': (warp.bilinear_sample_batched, 'launches'),
+        'fused_pf_head_fwd': (fused_head.fused_pf_head_fwd, 'launches'),
+        'fused_pf_head_fwd_wide': (fused_head.fused_pf_head_fwd,
+                                   'wide_launches'),
+        'fused_pf_head_bwd': (fused_head.fused_pf_head_bwd, 'launches'),
+        'fused_pf_head_bwd_wide': (fused_head.fused_pf_head_bwd,
+                                   'wide_launches'),
+        'bilinear_sample_bwd_uv': (warp.bilinear_sample_bwd_uv, 'launches'),
+        'bilinear_sample_bwd_img': (warp.bilinear_sample_bwd_img,
+                                    'launches'),
+        'fused_pf_head_fwd_bf16': (fused_head.fused_pf_head_fwd,
+                                   'bf16_launches'),
+        'fused_pf_head_bwd_bf16': (fused_head.fused_pf_head_bwd,
+                                   'bf16_launches'),
+        'fused_pf_head_fwd_wide_bf16': (fused_head.fused_pf_head_fwd,
+                                        'wide_bf16_launches'),
+        'fused_pf_head_bwd_wide_bf16': (fused_head.fused_pf_head_bwd,
+                                        'wide_bf16_launches')}
 
 
 def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -2927,6 +2994,412 @@ def run_dsac_slice(counters, paths, dev, gen):
         del result
     return out, at_n4, at_image_2
 
+@contextlib.contextmanager
+def planted_ddp_fault(name):
+    """One wrong split of the statistics across ranks (DDP_FAULTS): every
+    batch statistic and cotangent sum left to each rank's own slice (what
+    a plain DistributedDataParallel wrap computes), or the PF head's
+    parameter gradients (dgamma, dbeta, dw2, db1) taken from the moments
+    summed over the ranks, which the gradient sum then counts twice."""
+    from bihome_torch.ops import fused_head
+    from bihome_torch.parallel import mesh
+
+    if name == DDP_FAULTS[0]:
+        owner, attr = mesh, 'sum_over_ranks'
+
+        def spoiled(*tensors):
+            return list(tensors)
+    else:
+        owner, attr = fused_head, 'moment_sums'
+        original = fused_head.moment_sums
+
+        def spoiled(m0, m1, m, device):
+            _, summed = original(m0, m1, m, device)
+            return summed[:2], summed
+    saved = getattr(owner, attr)
+    setattr(owner, attr, spoiled)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+def ddp_step_grads(config, state, data, device):
+    """This rank's part of :func:`one_step_grads` (float32 on the card):
+    its slice of ``data``, the global batch's statistics, the gradients
+    summed over the ranks (the biHomE loss sums over the batch); returns
+    the global loss, the global sum of its terms' magnitudes and the
+    gradients as float64 on the CPU."""
+    from bihome_torch import config as config_lib
+    from bihome_torch.data import pipeline
+    from bihome_torch.parallel import dist_util, mesh
+    from bihome_torch.training import losses, trainer
+
+    pool, corners, delta, pds, uniforms = data
+    shard = mesh.shard_batch
+    built = config_lib.build_model(config)
+    model = built.model
+    model.load_state_dict(state)
+    _condition(model)
+    model = model.to(device).train()
+    batch = pipeline.generate_pairs(
+        shard(pool).to(device), built.pair_spec, corners=shard(corners),
+        delta=shard(delta),
+        photometric_params=tuple(None if p is None else shard(p)
+                                 for p in pds))
+    out = model(batch, uniforms=[shard(u) for u in uniforms])
+    loss = losses.compute_loss(built.loss_name, out)
+    loss.backward()
+    scale = trainer.loss_scale(built.loss_name, dist_util.get_world_size())
+    mesh.all_reduce_grads([p for p in model.parameters() if p.requires_grad],
+                          scale)
+    # The loss gathered apart from the statistics' sums (a planted fault
+    # replaces those).
+    parts = dist_util.all_gather(
+        [loss.item() * scale] + [out['metrics'][f'loss_comp/ln{i}'].item()
+                                 for i in (1, 2, 3)])
+    totals = [sum(col) for col in zip(*parts)]
+    grads = {n: p.grad.cpu().double()
+             for n, p in model.backbone.named_parameters()
+             if n != 'layer8.0.bias'}
+    return totals[0], sum(abs(t) for t in totals[1:]), grads
+
+
+def _ddp_rank(rank, world, ports, config, state, data, root):
+    """One rank of the data-parallel slice: the step's gradients (clean and
+    under each planted fault, saved by rank 0 into ``root``), the train
+    entry point with ``--multihost`` through the whole pool and with
+    ``--pool_shard``, then the eval entry point with ``--multihost`` on
+    the first run's checkpoint; each run counted."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from bihome_torch import eval as teval
+    from bihome_torch import train
+    from bihome_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    # The group as the entry points' --multihost --coordinator start it.
+    device = mesh.init_from_args(argparse.Namespace(
+        device='cuda', multihost=True, coordinator=f'127.0.0.1:{ports[0]}',
+        num_processes=world, process_id=rank))
+    backend = dist.get_backend()
+    try:
+        readings = {'card': ddp_step_grads(config, state, data, device)}
+        for fault in DDP_FAULTS:
+            with planted_ddp_fault(fault):
+                readings[fault] = ddp_step_grads(config, state, data, device)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        torch.save(readings, os.path.join(root, 'readings.pt'))
+    del readings
+    coordinate = ['--multihost', '--num_processes', str(world),
+                  '--process_id', str(rank), '--coordinator']
+    out = {'backend': backend, 'device': str(device), 'runs': {}}
+    for i, (name, extra) in enumerate((('whole pool', ()),
+                                       ('--pool_shard', ('--pool_shard',)))):
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        result = train.main([
+            '--config_file', DDP_CONFIG, '--synthetic', '--batch_size',
+            str(DDP_BATCH), '--steps', str(PDS_STEPS), '--epochs', '1',
+            '--device', 'cuda', '--steps_per_call', '1',
+            '--set', 'MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz',
+            '--set', f'LOGGING.DIR={os.path.join(root, f"train{i}")}',
+            '--set', 'LOGGING.STEP=1', *extra,
+            *coordinate, f'127.0.0.1:{ports[1 + i]}'])
+        out['runs'][name] = {
+            'launches': read_counts(counters),
+            'ms_per_step': result['median_step_ms'],
+            'step_ms': result['step_ms'],
+            'losses': result['losses'].tolist(),
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+        del result
+    reset_counts(counters)
+    result = teval.main([
+        '--config_file', CONFIG, '--synthetic', '--batch_size', str(BATCH),
+        '--steps', str(PDS_STEPS), '--device', 'cuda', '--skip_timing',
+        '--ckpt', os.path.join(root, 'train0'),
+        '--log', os.path.join(root, 'mace.log'),
+        *coordinate, f'127.0.0.1:{ports[3]}'])
+    out['eval'] = {'launches': read_counts(counters),
+                   'mean_mace': result['mean_mace'],
+                   'samples': len(result['maces'])}
+    return out
+
+
+def ddp_rank(rank, world, ports, config, state, data, root, queue):
+    """:func:`_ddp_rank` in a spawned process; its result or its traceback
+    goes to ``queue``."""
+    import traceback
+
+    try:
+        queue.put((rank, 'ok', _ddp_rank(rank, world, ports, config, state,
+                                          data, root)))
+    except BaseException:
+        queue.put((rank, 'error', traceback.format_exc()))
+
+
+def free_ports(n):
+    """``n`` distinct free TCP ports on localhost."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(('127.0.0.1', 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def spawn_and_collect(target, args_of, count):
+    """``count`` spawned processes running ``target(*args_of(i), queue)``;
+    their results by index. Raises if one fails or outlives
+    RANK_TIMEOUT_S; every process is stopped before returning."""
+    import queue as queue_lib
+
+    ctx = multiprocessing.get_context('spawn')
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(*args_of(i), results))
+             for i in range(count)]
+    for proc in procs:
+        proc.start()
+    got, errors = {}, []
+    try:
+        for _ in range(count):
+            index, status, value = results.get(timeout=RANK_TIMEOUT_S)
+            if status != 'ok':
+                errors.append(f'process {index}:\n{value}')
+                break
+            got[index] = value
+    except queue_lib.Empty:
+        errors.append(f'a process outlived {RANK_TIMEOUT_S} s')
+    finally:
+        for proc in procs:
+            proc.join(timeout=60 if not errors else 5)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    if errors:
+        raise AssertionError('\n'.join(errors))
+    return [got[i] for i in range(count)]
+
+
+def run_ddp_slice(paths, one_process_loss):
+    """The data-parallel slice (DDP_CONFIG at global batch DDP_BATCH over
+    DDP_RANKS spawned ranks): rank 0's first-step loss and gradients, after
+    the gradient sum and before Adam, against the one-process step at
+    DDP_BATCH on the card on the same weights and draws (the limits of
+    :func:`compare_train_step`), and each DDP_FAULTS fault failing them;
+    the train entry point with ``--multihost`` (whole pool and
+    ``--pool_shard``), K1-K4 launched in each rank, rank 0 alone writing,
+    the whole-pool run's first logged loss (the trainer's own draws, made
+    for the global batch and sliced) within STEP_LOSS of its terms of
+    ``one_process_loss``, the first loss of the one-process train run of
+    DDP_CONFIG at DDP_BATCH on the same seeds;
+    the eval entry point with ``--multihost``, its ``--log`` listing each
+    sample once. Returns the slice's figures."""
+    from bihome_torch import config as config_lib
+    from bihome_torch import train
+
+    config = config_lib.load_config(DDP_CONFIG)
+    config_lib.apply_overrides(
+        config, ['MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz'])
+    built = config_lib.build_model(config)
+    train.init_model(built)
+    state = {k: v.clone() for k, v in built.model.state_dict().items()}
+    data = step_data(built, DDP_BATCH)
+    ref = one_step_grads(built, state, data, torch.device('cuda'))
+    cards = torch.cuda.device_count()
+    shared = cards < DDP_RANKS
+    print(f'DDP slice: {DDP_RANKS} ranks, '
+          + ('gloo, both on one card (not a scaling number)' if shared
+             else 'NCCL, a card each'))
+    ports = free_ports(4)
+    with tempfile.TemporaryDirectory() as root:
+        begin = time.perf_counter()
+        ranks = spawn_and_collect(
+            ddp_rank, lambda r: (r, DDP_RANKS, ports, config, state, data,
+                                 root), DDP_RANKS)
+        wall_s = time.perf_counter() - begin
+        readings = torch.load(os.path.join(root, 'readings.pt'))
+        records = {name: open(os.path.join(root, f'train{i}',
+                                           'metrics.jsonl')).read()
+                   .splitlines() for i, name in enumerate(
+                       ('whole pool', '--pool_shard'))}
+        files = {name: sorted(os.listdir(os.path.join(root, f'train{i}')))
+                 for i, name in enumerate(('whole pool', '--pool_shard'))}
+        check_eval_log(os.path.join(root, 'mace.log'), BATCH * PDS_STEPS)
+    errors = {}
+    for name, run in readings.items():
+        loss_err, l2, per, worst = errors[name] = step_errors(run, ref)
+        print(f'DDP step ({DDP_RANKS} ranks, global batch {DDP_BATCH}), '
+              f'{name}, rank 0 against the one-process step on the card: '
+              f'loss {run[0]:.6f} vs {ref[0]:.6f}, error / terms '
+              f'{loss_err:.2e} (limit {STEP_LOSS:.2g}); gradients relative '
+              f'L2 {l2:.2e} (limit {STEP_L2:.2g}), worst tensor {per:.2e} '
+              f'({worst}; limit {STEP_PER_TENSOR:.2g})')
+
+    def holds(name):
+        loss_err, l2, per, _ = errors[name]
+        return (loss_err <= STEP_LOSS and l2 <= STEP_L2
+                and per <= STEP_PER_TENSOR)
+    if not holds('card'):
+        raise AssertionError('the DDP step strays from the one-process step')
+    caught = {fault: not holds(fault) for fault in DDP_FAULTS}
+    print(f'planted DDP faults caught: {caught}')
+    if not all(caught.values()):
+        raise AssertionError(f'the DDP check misses a planted fault: {caught}')
+    first = json.loads(records['whole pool'][0])
+    terms = sum(abs(first[f'loss_comp/ln{i}']) for i in (1, 2, 3))
+    drawn_err = abs(first['loss/train'] - one_process_loss) / terms
+    print(f'DDP train whole pool, first logged loss {first["loss/train"]:.6f}'
+          f' (global batch {DDP_BATCH}, the trainer\'s own draws) against '
+          f'the one-process run\'s {one_process_loss:.6f}: error / terms '
+          f'{drawn_err:.2e} (limit {STEP_LOSS:.2g})')
+    if not drawn_err <= STEP_LOSS:
+        raise AssertionError('the --multihost run\'s first loss strays from '
+                             'the one-process run\'s')
+    # Two epochs' records would repeat if another rank wrote: PDS_STEPS
+    # step records and one test record, one checkpoint.
+    for name, lines in records.items():
+        if len(lines) != PDS_STEPS + 1 or files[name] != [
+                'metrics.jsonl', f'model_{PDS_STEPS:06d}.pth']:
+            raise AssertionError(f'{name}: {len(lines)} records, files '
+                                 f'{files[name]}: not rank 0 alone')
+    runs = {}
+    for name in ('whole pool', '--pool_shard'):
+        for r, rank in enumerate(ranks):
+            launches = rank['runs'][name]['launches']
+            paths[f'ddp train {DDP_CONFIG} {name} rank {r}'] = launches
+            for kernel, count in launches.items():
+                if (count > 0) != (kernel in DDP_KERNELS):
+                    raise AssertionError(f'{kernel} launched {count} times '
+                                         f'in rank {r} ({name})')
+        ms = ranks[0]['runs'][name]['ms_per_step']
+        runs[name] = {'ms_per_step': ms,
+                      'pairs_per_s': DDP_BATCH / (ms / 1e3),
+                      'step_ms_by_rank': [rk['runs'][name]['step_ms']
+                                          for rk in ranks],
+                      'losses_rank0': ranks[0]['runs'][name]['losses'],
+                      'peak_gb_by_rank': [rk['runs'][name]['peak_gb']
+                                          for rk in ranks]}
+        print(f'DDP train {name}: {ms:.2f} ms per step at global batch '
+              f'{DDP_BATCH}, {DDP_BATCH / (ms / 1e3):.1f} pairs/s over '
+              f'{DDP_RANKS} ranks'
+              + (' (two ranks sharing one card over gloo: not a scaling '
+                 'number)' if shared else ''))
+    for r, rank in enumerate(ranks):
+        paths[f'ddp eval {CONFIG} rank {r}'] = rank['eval']['launches']
+    print(f'DDP eval: mean mace {ranks[0]["eval"]["mean_mace"]} over '
+          f'{ranks[0]["eval"]["samples"]} samples, the log written once')
+    return {'backend': ranks[0]['backend'], 'shared_card': shared,
+            'wall_s': wall_s,
+            'step_check': {k: list(v) for k, v in errors.items()},
+            'first_loss': {'multihost': first['loss/train'],
+                           'one_process': one_process_loss,
+                           'error_over_terms': drawn_err},
+            'runs': runs, 'eval_mace': ranks[0]['eval']['mean_mace']}
+
+
+def serving_child(index, path, inputs, queue):
+    """A fresh process: load the artifact at ``path``, call it twice on
+    each batch of ``inputs`` (counted), then ``bench_serving`` at the
+    largest batch; the outputs, whether the two calls agree bit for bit,
+    the launches and the JSON line go to ``queue``."""
+    import traceback
+
+    try:
+        from bihome_torch import bench_serving, serving
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        counters = kernel_counters()
+        reset_counts(counters)
+        predict = serving.load_exported(path)
+        outs = {}
+        for b, (p1, p2) in inputs.items():
+            p1, p2 = p1.cuda(), p2.cuda()
+            first, second = predict(p1, p2), predict(p1, p2)
+            outs[b] = (first.cpu().numpy(), bool(torch.equal(first, second)))
+        launches = read_counts(counters)
+        line = bench_serving.main(['--artifact', path, '--batch',
+                                   str(max(inputs)), '--json'])
+        queue.put((index, 'ok', {'outs': outs, 'launches': launches,
+                                 'bench': line}))
+    except BaseException:
+        queue.put((index, 'error', traceback.format_exc()))
+
+
+def run_serving(paths):
+    """The serving slice: pds zeng-biHomE's predict (seeded weights)
+    exported on the card at a symbolic batch, its graph holding
+    ``bihome::pf_head_fwd``, saved, loaded in a fresh process; at each of
+    SERVING_BATCHES (a datagen batch) within SERVING_LIMIT_PX of the live
+    serving function on the card and bit-identical across two calls, K1
+    (and no other kernel) launched; ``bench_serving``'s JSON line at the
+    largest batch."""
+    from bihome_torch import config as config_lib
+    from bihome_torch import serving, train
+    from bihome_torch.export_model import check_batch
+
+    cuda = torch.device('cuda')
+    config = config_lib.load_config(DDP_CONFIG)
+    built = config_lib.build_model(config)
+    train.init_model(built)
+    model = built.model.to(cuda).eval()
+    begin = time.perf_counter()
+    exported = serving.export_predict(built, model, 'b', device=cuda)
+    export_s = time.perf_counter() - begin
+    ops = serving.graph_ops(exported)
+    if 'bihome.pf_head_fwd.default' not in ops:
+        raise AssertionError(f'the artifact holds no bihome::pf_head_fwd: '
+                             f'{ops}')
+    live, _ = serving.make_serving_fn(built, model, 'b')
+    p1, p2 = check_batch(built, max(SERVING_BATCHES), cuda)
+    inputs, want = {}, {}
+    with torch.no_grad():
+        for b in SERVING_BATCHES:
+            inputs[b] = (p1[:b].cpu(), p2[:b].cpu())
+            want[b] = live(p1[:b], p2[:b]).cpu()
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, 'zeng.pt2')
+        serving.save_exported(exported, path)
+        size_mb = os.path.getsize(path) / 1e6
+        shapes = serving.exported_input_shapes(path)
+        child, = spawn_and_collect(serving_child,
+                                   lambda i: (i, path, inputs), 1)
+    errs = {}
+    for b in SERVING_BATCHES:
+        got, same = child['outs'][b]
+        got = torch.from_numpy(got)
+        errs[b] = float((got - want[b]).abs().max())
+        print(f'serving artifact at batch {b}: max |artifact - live| '
+              f'{errs[b]:.3e} px (limit {SERVING_LIMIT_PX:g}), two calls '
+              f'bit-identical: {same}')
+        if not (got.shape == (b, 4, 2) and errs[b] <= SERVING_LIMIT_PX
+                and same):
+            raise AssertionError(f'the artifact at batch {b} strays from '
+                                 f'the live predict ({errs[b]}) or is not '
+                                 f'deterministic ({same})')
+    launches = child['launches']
+    paths['serving artifact'] = launches
+    if launches['fused_pf_head_fwd'] == 0 or any(
+            count for name, count in launches.items()
+            if name != 'fused_pf_head_fwd'):
+        raise AssertionError(f'the artifact launched {launches}, not K1 '
+                             'alone')
+    print(f'serving: exported in {export_s:.1f} s, {size_mb:.1f} MB, inputs '
+          f'{shapes}; launches in the fresh process {launches}')
+    return {'export_s': export_s, 'size_mb': size_mb, 'err_px': errs,
+            'bench': child['bench']}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3021,27 +3494,7 @@ def run(stack):
     kernels += [check_pf_head_bf16(dev, gen_bf16),
                 check_pf_head_bwd_bf16(dev, gen_bf16)]
     done('kernel checks')
-    # Each kernel's launch counter: K1 and K2 count their narrow (Cin 16)
-    # and wide (Cin 64) kernels, float32 and bf16, apart.
-    counters = {
-        'bilinear_sample_batched': (warp.bilinear_sample_batched, 'launches'),
-        'fused_pf_head_fwd': (fused_head.fused_pf_head_fwd, 'launches'),
-        'fused_pf_head_fwd_wide': (fused_head.fused_pf_head_fwd,
-                                   'wide_launches'),
-        'fused_pf_head_bwd': (fused_head.fused_pf_head_bwd, 'launches'),
-        'fused_pf_head_bwd_wide': (fused_head.fused_pf_head_bwd,
-                                   'wide_launches'),
-        'bilinear_sample_bwd_uv': (warp.bilinear_sample_bwd_uv, 'launches'),
-        'bilinear_sample_bwd_img': (warp.bilinear_sample_bwd_img,
-                                    'launches'),
-        'fused_pf_head_fwd_bf16': (fused_head.fused_pf_head_fwd,
-                                   'bf16_launches'),
-        'fused_pf_head_bwd_bf16': (fused_head.fused_pf_head_bwd,
-                                   'bf16_launches'),
-        'fused_pf_head_fwd_wide_bf16': (fused_head.fused_pf_head_fwd,
-                                        'wide_bf16_launches'),
-        'fused_pf_head_bwd_wide_bf16': (fused_head.fused_pf_head_bwd,
-                                        'wide_bf16_launches')}
+    counters = kernel_counters()
     paths = {}
     paths['eval'], _, _ = run_eval_path(counters)
     with tempfile.TemporaryDirectory() as log_dir:
@@ -3074,6 +3527,9 @@ def run(stack):
             paths[f'train {config}'], result = run_train_path(
                 counters, log_dir, config, batch, PDS_STEPS, expect)
         runs.append(result['summary'])
+        if (config, batch) == (DDP_CONFIG, DDP_BATCH):
+            # What the --multihost run's first logged loss is held to.
+            one_process_loss = float(result['losses'][0])
         if config == FILE_CONFIG:
             # The device-pool row beside the file-fed runs below.
             file_runs = [dict(result['summary'],
@@ -3310,6 +3766,14 @@ def run(stack):
                       extra=('--ckpt', resume_dir, '--log', log_path)))
     check_eval_log(log_path, BATCH * PDS_STEPS)
     done('file-fed eval')
+
+    # The data-parallel slice (spawned ranks) and the serving slice (the
+    # artifact loaded in a spawned process).
+    torch.cuda.empty_cache()
+    ddp = run_ddp_slice(paths, one_process_loss)
+    done('DDP slice')
+    served = run_serving(paths)
+    done('serving')
     for row in file_runs:
         prof = row['profile']
         print(f'{row["config"]} at {row["batch"]} from {row["feed"]}: '
@@ -3355,6 +3819,7 @@ def run(stack):
                       'predict_extras': predict_extras,
                       'k5_runs': k5_runs, 'k5_step': k5_step,
                       'variant_runs': variant_runs, 'dsac': dsac,
+                      'ddp': ddp, 'serving': served,
                       'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
