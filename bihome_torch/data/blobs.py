@@ -13,7 +13,9 @@ tap, so the card and the CPU give the same bits and the same mask. The
 draws,
 the noise [B,H,W] and the shift in [1, B), are a parameter
 (:func:`draw_blobs` makes them from a ``torch.Generator``), so a test can
-pass exactly JAX's.
+pass exactly JAX's. Across ranks the draws are the global batch's and the
+donors come from the global batch's patch_1
+(``pipeline.generate_pairs``).
 """
 
 from __future__ import annotations
@@ -84,16 +86,27 @@ def apply_blob_augmentation(batch: Dict[str, Tensor], noise: Tensor,
                             shift: int, porosity: float = 0.5,
                             blobiness: float = 1.0,
                             patch_1_key: str = 'patch_1',
-                            patch_2_key: str = 'patch_2'
-                            ) -> Dict[str, Tensor]:
+                            patch_2_key: str = 'patch_2',
+                            donors_from: Optional[Tensor] = None,
+                            lo: int = 0) -> Dict[str, Tensor]:
     """patch_2 = where(mask, roll(patch_1, shift), patch_2) per sample,
     the masks from ``noise`` (``apply_blob_augmentation``,
     ``blobs.py:54-76``: the reference picks a random other sample, JAX and
-    the port a random cyclic shift, the same marginal distribution)."""
+    the port a random cyclic shift, the same marginal distribution).
+
+    Across ranks ``batch`` holds rows [lo, lo + B) of a global batch whose
+    patch_1 is ``donors_from`` [total,...] (every rank's, gathered), and
+    ``noise`` those rows' noise: row i takes global row (i - shift) mod
+    total, as JAX's roll over its global batch gives it
+    (``trainer.py:285-292``)."""
     p1, p2 = batch[patch_1_key], batch[patch_2_key]
     masks = generate_blobs(noise.to(device=p2.device, dtype=torch.float32),
                            porosity, blobiness)
+    if donors_from is None:
+        donors_from = p1
+    total, b = donors_from.shape[0], p2.shape[0]
+    rows = (torch.arange(lo, lo + b, device=p2.device) - shift) % total
     out = dict(batch)
     out[patch_2_key] = torch.where(masks[..., None],
-                                   torch.roll(p1, shift, dims=0), p2)
+                                   donors_from.index_select(0, rows), p2)
     return out

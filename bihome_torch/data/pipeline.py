@@ -33,6 +33,7 @@ import torch
 from bihome_torch import geometry
 from bihome_torch.data import blobs, photometric
 from bihome_torch.ops import color
+from bihome_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -466,9 +467,10 @@ def generate_pairs(images: Tensor, spec: PairSpec,
     = (pd1, pd2) gives them ([B,12] or None each), then the full SSD
     chain's unless ``full_params`` [K,B,12] gives them (a spec with the
     dict-stage PhotometricDistort), then, with DATA.AUGMENT_BLOB_POROSITY
-    > 0 and B > 1, the blob occlusion's unless ``blob_draws`` = (noise
-    [B,ps,ps], shift) gives them (:mod:`bihome_torch.data.blobs`, applied
-    last, to the standardized patches, ``pipeline.py:397-402``). With
+    > 0 and a global batch over 1, the blob occlusion's unless
+    ``blob_draws`` = (noise [B,ps,ps], shift) gives them
+    (:mod:`bihome_torch.data.blobs`, applied last, to the standardized
+    patches, ``pipeline.py:397-402``). With
     ``spec.change_aware_keys`` set, ``images`` is [B,2,H,W,3] of real
     pairs and :func:`assemble_change_pairs` runs instead (no draws).
 
@@ -476,18 +478,16 @@ def generate_pairs(images: Tensor, spec: PairSpec,
     global batch of ``total`` (a rank's slice): every draw made here is
     the global batch's, in the order above, of which those rows are kept,
     so the slices of the ranks make up the one-process batch. The blob
-    occlusion, which rolls patch_1 over the whole batch, is refused
-    there."""
+    occlusion rolls patch_1 over the global batch: its donors come from
+    every rank's patch_1, gathered in one collective
+    (``parallel.mesh.gather_over_ranks``), so each rank calls this at the
+    same point with the same ``total``."""
     if spec.change_aware_keys:
         return assemble_change_pairs(images, spec)
     images = images.float()
     b = images.shape[0]
     lo, total = rows if rows is not None else (0, b)
     keep = slice(lo, lo + b)
-    if spec.blob_porosity > 0 and total != b:
-        raise NotImplementedError(
-            'the blob occlusion rolls patch_1 over the whole batch; it is '
-            'not drawn for a slice of one')
     if corners is None or delta is None:
         corners, delta = (t[keep] for t in draw_corners_delta_batch(
             total, tuple(images.shape[1:3]), spec, generator))
@@ -502,11 +502,18 @@ def generate_pairs(images: Tensor, spec: PairSpec,
                             delta.long().to(images.device), spec,
                             *_params_to(images.device, *photometric_params),
                             full_params=_to(full_params, images.device))
-    if spec.blob_porosity > 0 and b > 1:
+    if spec.blob_porosity > 0 and total > 1:
         if blob_draws is None:
-            blob_draws = blobs.draw_blobs(b, batch['patch_2'].shape[1:3],
-                                          generator)
+            noise, shift = blobs.draw_blobs(
+                total, batch['patch_2'].shape[1:3], generator)
+            blob_draws = (noise[keep], shift)
+        donors = batch['patch_1']
+        if total != b:
+            donors = mesh.gather_over_ranks(donors)
+            if donors.shape[0] != total:
+                raise ValueError(f'rows {rows}: the blob occlusion needs '
+                                 f'the {total} rows of every rank')
         batch = blobs.apply_blob_augmentation(
             batch, *blob_draws, porosity=spec.blob_porosity,
-            blobiness=spec.blobiness)
+            blobiness=spec.blobiness, donors_from=donors, lo=lo)
     return batch

@@ -1,5 +1,5 @@
 """Residual and upsampling blocks of the Rethinking backbone (counterpart
-of ``bihome_tpu/models/blocks.py:69-233``), NCHW. BatchNorm is
+of ``bihome_tpu/models/blocks.py:69-253``), NCHW. BatchNorm is
 :class:`bihome_torch.models.norm.BatchNorm2d` (flax's biased running
 variance in training mode).
 
@@ -126,3 +126,26 @@ class ResNet50DeconvBlock(nn.Module):
         for layer in rest:
             upper = layer(upper)
         return torch.relu(upper + self.lower_branch(x))
+
+
+class ResNet34DeconvBlock(nn.Module):
+    """2x upsampling block, ResNet34 flavour, ``features`` -> ``features //
+    2`` channels: a 2x2 / stride-2 deconv with bias, a 3x3 conv and BN on
+    the upper branch, a deconv without bias and BN on the lower (ref:
+    src/backbones/utils.py:134-152; ``bihome_tpu/models/blocks.py:236-253``).
+    No shipped config builds it; it completes the block library. Its
+    flax names carry over with ``models/weights.block_state_dict`` and
+    ``weights._DECONV34``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        half = features // 2
+        self.upper_branch = nn.Sequential(
+            conv_transpose_2x2(features, half, bias=True),
+            _conv3x3(half, half), BatchNorm2d(half))
+        self.lower_branch = nn.Sequential(
+            conv_transpose_2x2(features, half, bias=False),
+            BatchNorm2d(half))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.upper_branch(x) + self.lower_branch(x))

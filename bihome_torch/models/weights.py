@@ -6,11 +6,12 @@ layout rules at ``torch_port.py:53-61``), for the ResNet34Backbone of
 ``torch_port.py:72-127,404-408`` and for the ContentAwareBackbone of
 ``port_content_aware`` (``:309-332``), for the HomographyNetBackbone of
 ``port_homography_net`` (``:335-368``) and for the DSAC score CNN
-(``:440-443``): conv kernels HWIO -> OIHW, ConvTranspose
-kernels (kh,kw,out,in) -> (in,out,kh,kw), Dense kernels transposed, BN
-scale/bias/mean/var -> weight/bias/running_mean/running_var. The port
-keeps its own copy of the block maps, since the JAX package cannot be
-imported without JAX.
+(``:440-443``), and :func:`block_state_dict` for one block of the
+library (``_BLOCK_MAPS``, ``:194-222``): conv kernels HWIO -> OIHW,
+ConvTranspose kernels (kh,kw,out,in) -> (in,out,kh,kw), Dense kernels
+transposed, BN scale/bias/mean/var -> weight/bias/running_mean/
+running_var. The port keeps its own copy of the block maps, since the
+JAX package cannot be imported without JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ _DECONV50 = {'upper_deconv': ('upper_branch.0', 'ct'),
              'upper_bn2': ('upper_branch.5', 'bn'),
              'lower_deconv': ('lower_branch.0', 'ct'),
              'lower_bn': ('lower_branch.1', 'bn')}
+_DECONV34 = {'upper_deconv': ('upper_branch.0', 'ct'),
+             'upper_conv1': ('upper_branch.1', 'conv'),
+             'upper_bn1': ('upper_branch.2', 'bn'),
+             'lower_deconv': ('lower_branch.0', 'ct'),
+             'lower_bn': ('lower_branch.1', 'bn')}
 # Sequential index of each stage's deconv block (ResNet34 flavour).
 _DECONV_INDEX = {'layer4': 6, 'layer5': 3, 'layer6': 2, 'layer7': 1}
 _BN_FIELDS = {'scale': 'weight', 'bias': 'bias'}
@@ -70,6 +76,26 @@ def _block(block: str, r50: bool):
     if idx == 'deconv':
         return f'{stage}.{_DECONV_INDEX[stage]}', _DECONV50
     return f'{stage}.{idx}', _R50 if r50 else _R34
+
+
+def block_state_dict(variables: Mapping, fields: Mapping
+                     ) -> Dict[str, torch.Tensor]:
+    """One flax block's ``{'params', 'batch_stats'}`` tree -> the port
+    block's state dict, by the block map ``fields`` (``_R34``, ``_R50``,
+    ``_DECONV50``, ``_DECONV34``: flax name -> (branch index, kind))."""
+    out: Dict[str, np.ndarray] = {}
+    for name, (path, kind) in fields.items():
+        for k, v in variables['params'][name].items():
+            if kind == 'bn':
+                out[f'{path}.{_BN_FIELDS[k]}'] = v
+            else:
+                out[f'{path}.{"weight" if k == "kernel" else k}'] = (
+                    _kernel(v) if k == 'kernel' else v)
+        if kind == 'bn':
+            for k, v in variables['batch_stats'][name].items():
+                out[f'{path}.{_BN_STATS[k]}'] = v
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
 
 
 def _conv_bn_layers(prefix: str, variables: Mapping) -> Dict[str, np.ndarray]:

@@ -24,6 +24,9 @@ batch (:func:`shard_range`):
   that they are the global batch's, as in JAX's sharded step.
 * :func:`all_reduce_grads` sums the parameter gradients over the ranks in
   one collective and scales them (see ``training/trainer.py``).
+* :func:`gather_over_ranks` concatenates every rank's slice of a batch:
+  the blob occlusion's donors are rows of the global batch's patch_1
+  (``data/pipeline.generate_pairs``).
 
 Each is a no-op in one process.
 """
@@ -173,6 +176,22 @@ def sum_over_ranks(*tensors: Tensor) -> List[Tensor]:
         out.append(flat[start:start + t.numel()].view(t.shape).to(t.dtype))
         start += t.numel()
     return out
+
+
+def gather_over_ranks(t: Tensor) -> Tensor:
+    """Every rank's ``t`` (the same shape on each), concatenated along the
+    leading axis in rank order, on ``t``'s device (one collective; gloo
+    gathers a card's tensor through the host); ``t`` itself in one
+    process."""
+    world = get_world_size()
+    if world == 1:
+        return t
+    src = t.contiguous()
+    if src.is_cuda and dist.get_backend() == 'gloo':
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src)
+    return torch.cat(parts).to(t.device)
 
 
 def all_reduce_grads(params: Sequence[torch.nn.Parameter],

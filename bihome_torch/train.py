@@ -120,7 +120,7 @@ from bihome_torch.data import clevr_change, datasets, pipeline
 from bihome_torch.models import backbones, torchvision_port, weights
 from bihome_torch.parallel import dist_util, mesh
 from bihome_torch.training import checkpoint, trainer
-from bihome_torch.training.metrics import MetricsWriter, NullWriter
+from bihome_torch.training.metrics import make_writer
 from bihome_torch.training.train_state import Optimizer
 from bihome_torch.utils import aux_store
 
@@ -622,7 +622,7 @@ def _train(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
         return checkpointer.save(step, model, optimizer, random_sources(),
                                  states)
 
-    writer = MetricsWriter(log_dir) if rank == 0 else NullWriter()
+    writer = make_writer(log_dir, rank)
     step = start_step
     step_ms: List[float] = []
     wait_ms: List[float] = []

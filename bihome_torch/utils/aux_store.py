@@ -1,13 +1,15 @@
-"""The committed auxiliary-extractor weights (``aux_*.npz``) for the port.
+"""The auxiliary-extractor weights (``aux_*.npz``) for the port.
 
-The port's own copy of ``bihome_tpu/utils/aux_store.py:52-85`` (the JAX
-package cannot be imported without JAX). The file holds flat flax paths,
+The port's own copy of ``bihome_tpu/utils/aux_store.py`` (the JAX package
+cannot be imported without JAX). The file holds flat flax paths,
 ``params/<module>/<leaf>`` and ``batch_stats/<module>/<leaf>``, for
 conv1/bn1/layer1 (and layer2 when the extractor was trained deeper); conv
 kernels are HWIO, with I = 1 for the summed grayscale stem.
 :func:`state_dict_from_aux` prunes to the model's truncation depth and maps
 the tree onto :class:`bihome_torch.models.resnet.ResNet`'s torchvision
-keys.
+keys; :func:`save_aux_npz`, its inverse, writes such a file from the
+port's state dict (``bihome_torch.pretrain_aux`` saves with it), which
+the JAX package's ``load_aux_npz`` reads.
 """
 
 from __future__ import annotations
@@ -22,8 +24,12 @@ _BN_PARAMS = {'scale': 'weight', 'bias': 'bias'}
 _BN_STATS = {'mean': 'running_mean', 'var': 'running_var'}
 # flax submodule of a block -> torchvision submodule.
 _BLOCK_MODULES = {'conv1': 'conv1', 'bn1': 'bn1', 'conv2': 'conv2',
-                  'bn2': 'bn2', 'downsample_conv': 'downsample.0',
+                  'bn2': 'bn2', 'conv3': 'conv3', 'bn3': 'bn3',
+                  'downsample_conv': 'downsample.0',
                   'downsample_bn': 'downsample.1'}
+# The flax top-level modules a file keeps (``aux_store.py:18``): all that
+# the PerceptualHead reads at AUXILIARY_RESNET_OUTPUT_LAYER <= 2.
+_KEEP_PREFIXES = ('conv1', 'bn1', 'layer1_', 'layer2_')
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
@@ -90,3 +96,42 @@ def state_dict_from_aux(variables: Mapping, output_layer: int
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32, order='C'))
              for k, v in out.items()}
     return state, sorted(dropped)
+
+
+def _flax_name(module: str) -> str:
+    """torchvision module name ('conv1', 'layer1.0.downsample.0') -> flax
+    module path ('conv1', 'layer1_0/downsample_conv')."""
+    parts = module.split('.')
+    if len(parts) == 1:
+        return module
+    flax = {v: k for k, v in _BLOCK_MODULES.items()}
+    return f'{parts[0]}_{parts[1]}/{flax[".".join(parts[2:])]}'
+
+
+def save_aux_npz(path: str, state: Mapping[str, torch.Tensor]) -> None:
+    """Write a :class:`~bihome_torch.models.resnet.ResNet` state dict as
+    the flat flax ``.npz`` of ``bihome_tpu/utils/aux_store.py:43-49``:
+    conv weights OIHW -> HWIO ``kernel``, BN weight/bias -> ``scale`` /
+    ``bias`` under ``params``, running mean/var -> ``mean`` / ``var``
+    under ``batch_stats``, float32, only the modules of
+    ``_KEEP_PREFIXES`` (no ``fc``, no layer3/4, no BN counters)."""
+    leaves = {'weight': ('params', 'kernel'), 'bias': ('params', 'bias'),
+              'running_mean': ('batch_stats', 'mean'),
+              'running_var': ('batch_stats', 'var')}
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        module, leaf = key.rsplit('.', 1)
+        if leaf not in leaves:
+            continue
+        name = _flax_name(module)
+        if not name.startswith(_KEEP_PREFIXES):
+            continue
+        value = value.detach().float().cpu().numpy()
+        collection, flax_leaf = leaves[leaf]
+        if leaf == 'weight' and value.ndim == 4:
+            value = np.transpose(value, (2, 3, 1, 0))        # OIHW -> HWIO
+        elif leaf == 'weight':
+            flax_leaf = 'scale'                              # a BN's weight
+        flat[f'{collection}/{name}/{flax_leaf}'] = np.ascontiguousarray(
+            value)
+    np.savez(path, **flat)

@@ -221,15 +221,17 @@
    DDP_FAULTS fault planted (every rank's statistics its own, as a plain
    DistributedDataParallel wrap computes them; the PF head's dgamma / dw2
    from the summed moments), which must fail them. The train entry point
-   with ``--multihost`` for PDS_STEPS steps, through the whole pool and
-   with ``--pool_shard``: exactly K1-K4 in each rank, rank 0 alone
-   writing (one record a step, one checkpoint), ms per step and pairs/s
-   printed, and the whole-pool run's first logged loss (the trainer's own
-   draws, made for the global batch and sliced on each rank) within the
-   loss limit of step 6 of the first loss of step 9's one-process run of
-   the same config, batch and seeds; the eval entry point with ``--multihost`` (S-COCO zeng, batch
-   64, PDS_STEPS iterations split over the ranks, ``--ckpt`` on the first
-   run): its ``--log`` lists each sample once.
+   with ``--multihost`` for PDS_STEPS steps, through the whole pool, with
+   ``--pool_shard`` and from step 17's blob YAML (DDP_TRAIN_RUNS): exactly
+   K1-K4 in each rank, rank 0 alone writing (one record a step, one
+   checkpoint), ms per step and pairs/s printed, and the whole-pool and
+   blob runs' first logged losses (the trainer's own draws, made for the
+   global batch and sliced on each rank; the blobs' donors gathered from
+   every rank's patch_1) within the loss limit of step 6 of the first
+   losses of the one-process runs of steps 9 and 17 on the same config,
+   batch and seeds; the eval entry point with ``--multihost`` (S-COCO
+   zeng, batch 64, PDS_STEPS iterations split over the ranks, ``--ckpt``
+   on the first run): its ``--log`` lists each sample once.
 19. The serving slice (``run_serving``): pds zeng-biHomE's predict (seeded
    weights) exported on the card with ``serving.export_predict`` at a
    symbolic batch, its graph holding ``bihome::pf_head_fwd``; saved and
@@ -237,13 +239,34 @@
    it must agree with the live serving function on the card within
    SERVING_LIMIT_PX, give the same bits on a second call and launch K1
    alone; then ``bench_serving``'s JSON line at batch 64.
-20. Prints each phase's wall time, one {"pds_distortion": ...,
+20. The pretext and extractor slice (``run_pretrain_slice``), from a
+   generator of its own: K3 at warp_gt's shape ([256,128,128,1], P =
+   16,384) against its plain version, timed beside grid_sample with its
+   bytes bound; ``python -m bihome_torch.pretrain_aux`` at its defaults
+   (batch 256, a pool of 256, 128x128 patches) for PRETRAIN_ARGS' steps,
+   for each pretext, gradcl with the basin, fine, hard-negative and rich
+   terms, and gradpdscl at --layers 2 (PRETRAIN_RUNS), counted: exactly
+   K3 (gradpds, which warps nothing, none), finite losses, every parameter
+   and BN statistic moved, the file holding exactly conv1/bn1/layer1
+   (layer2 too at --layers 2 and for rotnet's whole network, as JAX's
+   writer keeps it), each printing ms per step, pairs/s and peak memory;
+   one gradcl step with every extra term on the card against the CPU plain
+   path, both float32, on the same weights and draws, within step 6's
+   limits, then with K3's output shifted a row, which must fail them; pds
+   zeng-biHomE trained from the gradpdscl file (exactly K1-K4, the
+   extractor the file's and unchanged) and with a seeded resnet50
+   extractor (MODEL.HEAD.AUXILIARY_RESNET resnet50: exactly K1-K4), each
+   printed beside the resnet34 row of step 9. Step 18 also trains step
+   17's blob YAML with ``--multihost`` (exactly K1-K4 in each rank; its
+   first logged loss within step 6's loss limit of step 17's one-process
+   first loss).
+21. Prints each phase's wall time, one {"pds_distortion": ...,
    "train_runs": [...], "zeng_orig_eval": {...}, "file_data": {...},
    "file_runs": [...], "resume": [...], "file_eval_mace": x,
    "bf16_runs": [...], "bf16_step": {...}, "bf16_evals": {...},
    "predict_extras": {...}, "k5_runs": [...], "k5_step": {...},
    "variant_runs": {...}, "dsac": {...}, "ddp": {...}, "serving": {...},
-   "phase_s": {...}} line,
+   "pretrain": {...}, "phase_s": {...}} line,
    one {"kernels": [...]} line (launches summed over every path above,
    and by path, the narrow and wide bf16 K1 and K2 rows apart; K1 and K2
    with their wide
@@ -252,9 +275,9 @@
    and K4 at the CLEVR shape under "at_clevr", K3 and K5 at the upsample
    shapes under "at_upsample_2x" and "at_upsample_4x", K3, K4 and K5
    at the masked loss warp under "at_masked_loss_warp", K3 and K4 at the
-   loss warp of 4 hypotheses under "at_dsac_n4" and K3 at image_2 under
-   "at_image_2", each with the launches of the paths that run that
-   shape), then as the last line
+   loss warp of 4 hypotheses under "at_dsac_n4", K3 at image_2 under
+   "at_image_2" and K3 at warp_gt's shape under "at_warp_gt", each with
+   the launches of the paths that run that shape), then as the last line
    {"ok": true,
    "device": {...}}.
 
@@ -587,12 +610,44 @@ DDP_BATCH = 64
 DDP_FAULTS = ("each rank's BN and head statistics local",
               'head dgamma/dw2 from the summed moments')
 DDP_KERNELS = ZENG_KERNELS
+# The --multihost train runs: (name, config (None: step 17's blob YAML,
+# leftover_config), extra arguments).
+DDP_TRAIN_RUNS = (('whole pool', DDP_CONFIG, ()),
+                  ('--pool_shard', DDP_CONFIG, ('--pool_shard',)),
+                  ('blob', None, ()))
 # The serving slice: pds zeng-biHomE's predict exported at a symbolic
 # batch, loaded in a fresh process, held to the live predict at these
 # batches within SERVING_LIMIT_PX (JAX's export check).
 SERVING_BATCHES = (1, 64)
 SERVING_LIMIT_PX = 1e-3
 RANK_TIMEOUT_S = 600
+# The pretext and extractor slice (phase 20): the extractor's pretext
+# training at its defaults (batch 256, a pool of 256 320x240 images, 128x128
+# patches) for PRETRAIN_ARGS' steps, each pretext, gradcl with every extra
+# term, and gradpdscl at layer 2. Each launches K3 alone (the pair warp of
+# the datagen and warp_gt), except gradpds, which crops and warps nothing.
+PRETRAIN_ARGS = ('--steps', '20', '--unroll', '10')
+PRETRAIN_RUNS = {
+    'rotnet': ('--pretext', 'rotnet'),
+    'grad': ('--pretext', 'grad'),
+    'gradpi': ('--pretext', 'gradpi'),
+    'gradpds': ('--pretext', 'gradpds'),
+    'gradcl': ('--pretext', 'gradcl'),
+    'gradpdscl': ('--pretext', 'gradpdscl'),
+    'gradcl basin fine hard rich': (
+        '--pretext', 'gradcl', '--basin_weight', '0.5', '--cl_fine_weight',
+        '0.3', '--cl_hard_beta', '0.5', '--rich_target'),
+    'gradpdscl layers 2': ('--pretext', 'gradpdscl', '--layers', '2'),
+}
+PRETRAIN_KERNELS = ('bilinear_sample_batched',)
+# The one-step check of the basin-term gradcl step (float32, the card
+# against the CPU plain path on the same weights and draws) at this batch,
+# with K3's output shifted by one image row as the planted fault.
+PRETRAIN_STEP_BATCH = 8
+PRETRAIN_FAULT = 'K3 output shifted a row'
+# pds zeng-biHomE with a resnet50 extractor (seeded: no file).
+R50_EXTRACTOR = ('MODEL.HEAD.AUXILIARY_RESNET=resnet50',
+                 'MODEL.HEAD.AUXILIARY_RESNET_PATH=')
 
 
 def kernel_counters():
@@ -2975,6 +3030,8 @@ def run_dsac_slice(counters, paths, dev, gen):
         raise AssertionError(f'the leftover run did not take its keys: '
                              f'{spec}')
     out['leftover_run'] = result['summary']
+    # What the --multihost blob run's first logged loss is held to.
+    out['leftover_first_loss'] = float(result['losses'][0])
     del result
     with tempfile.TemporaryDirectory() as vis_dir:
         paths[f'eval {CONFIG} --vis'], result, _ = run_eval_path(
@@ -2993,6 +3050,224 @@ def run_dsac_slice(counters, paths, dev, gen):
         out['vis_files'] = len(names)
         del result
     return out, at_n4, at_image_2
+
+def pretrain_file_modules(path):
+    """The flax top-level module stems an extractor file holds, in order."""
+    import numpy as np
+
+    with np.load(path) as data:
+        held = {k.split('/')[1].split('_')[0] for k in data.files}
+    return [m for m in ('conv1', 'bn1', 'layer1', 'layer2') if m in held]
+
+
+def run_pretrain_path(counters, name, extra, out_dir):
+    """``python -m bihome_torch.pretrain_aux`` at its defaults with
+    PRETRAIN_ARGS and ``extra`` on the card, counted: exactly K3 (none for
+    gradpds), finite losses, every parameter and BN statistic moved, the
+    file holding exactly what JAX's writer keeps (conv1/bn1/layer1, layer2
+    too at --layers 2 and for rotnet's whole network). Returns its
+    launches, its row and the file's path."""
+    from bihome_torch import pretrain_aux
+
+    reset_counts(counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    path = os.path.join(out_dir, f'aux_{name.replace(" ", "_")}.npz')
+    result = pretrain_aux.main([*PRETRAIN_ARGS, *extra, '--device', 'cuda',
+                                '--out', path])
+    launches = read_counts(counters)
+    args = result['args']
+    expect = () if args.pretext == 'gradpds' else PRETRAIN_KERNELS
+    print(f'launches on the pretext run {name}: {launches}')
+    for kernel, count in launches.items():
+        if (count > 0) != (kernel in expect):
+            raise AssertionError(f'{kernel} launched {count} times on the '
+                                 f'pretext run {name}')
+    losses = result['losses']
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f'non-finite pretext loss: {losses.tolist()}')
+    final, initial = result['model'].state_dict(), result['initial_state']
+    still = [k for k in final if not k.endswith('num_batches_tracked')
+             and torch.equal(final[k].cpu(), initial[k])]
+    if still:
+        raise AssertionError(f'{name}: {len(still)} tensors did not move, '
+                             f'e.g. {still[:3]}')
+    deep = args.layers == 2 or args.pretext == 'rotnet'
+    want = ['conv1', 'bn1', 'layer1'] + (['layer2'] if deep else [])
+    held = pretrain_file_modules(path)
+    if held != want:
+        raise AssertionError(f'{name}: the file holds {held}, not {want}')
+    ms = result['median_step_ms']
+    row = {'pretext': name, 'args': list(extra), 'batch': args.batch,
+           'steps': args.steps, 'ms_per_step': ms,
+           'pairs_per_s': args.batch / (ms / 1e3), 'peak_gb':
+           result['peak_gb'], 'losses': [losses[0].item(),
+                                         losses[-1].item()],
+           'block_ms': result['block_ms'], 'file': held,
+           'launches': launches}
+    print(f'pretext {name}: {ms:.2f} ms per step (median of blocks 2-; '
+          f'blocks {[round(t, 2) for t in result["block_ms"]]}), '
+          f'{row["pairs_per_s"]:.1f} pairs/s, peak memory allocated '
+          f'{row["peak_gb"]:.2f} GB; loss {row["losses"][0]:.4f} -> '
+          f'{row["losses"][1]:.4f}; file {held}')
+    return launches, row, path
+
+
+@contextlib.contextmanager
+def planted_k3_shift():
+    """K3's output (every warp: the datagen's and warp_gt's) shifted by one
+    row of the 128-pixel patch grid."""
+    from bihome_torch.ops import warp
+
+    owner = warp.BilinearSample
+    original, saved = owner.forward, vars(owner)['forward']
+
+    def shifted(ctx, images, u, v):
+        return torch.roll(original(ctx, images, u, v), 128, dims=1)
+    owner.forward = staticmethod(shifted)
+    try:
+        yield
+    finally:
+        owner.forward = saved
+
+
+def pretrain_step_grads(pretext, state, pool, draws, device):
+    """One pretext step's loss and gradients (float32, training mode, no
+    optimizer) from ``state`` on ``draws``, the batch built on ``device``
+    (K3 on the card, the plain gather on the CPU)."""
+    from bihome_torch import pretrain_aux
+
+    model = pretrain_aux.build_model(pretext, torch.float32)
+    model.load_state_dict(state)
+    model.to(device).train()
+    with torch.no_grad():
+        batch = pretrain_aux.make_batch(pretext, pool.to(device), draws)
+    loss, _ = pretrain_aux.loss_and_acc(pretext, model, batch)
+    loss.backward()
+    loss = float(loss.detach())
+    return (loss, abs(loss),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def compare_pretrain_step(batch=PRETRAIN_STEP_BATCH):
+    """The gradcl step with the basin, fine and hard-negative terms and the
+    rich target on the card against the CPU plain path, both float32, on
+    the same seeded weights and draws, within the limits of
+    :func:`compare_train_step` (the loss against its own size); then the
+    card's step with K3's output shifted a row, which must fail them."""
+    from bihome_torch import pretrain_aux
+    from bihome_torch.data import synthetic
+
+    pretext = pretrain_aux.Pretext('gradcl', rich_target=True,
+                                   cl_fine_weight=0.3, cl_hard_beta=0.5,
+                                   basin_weight=0.5)
+    model = pretrain_aux.build_model(pretext, torch.float32, seed=11)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    pool = torch.from_numpy(synthetic.make_image_pool(16, 240, 320, seed=3))
+    draws = pretrain_aux.draw(pretext, batch, pool.shape[0],
+                              torch.Generator().manual_seed(13))
+    with one_cpu_thread():
+        ref = pretrain_step_grads(pretext, state, pool, draws,
+                                  torch.device('cpu'))
+    cuda = torch.device('cuda')
+    runs = {'card': pretrain_step_grads(pretext, state, pool, draws, cuda)}
+    with planted_k3_shift():
+        runs[PRETRAIN_FAULT] = pretrain_step_grads(pretext, state, pool,
+                                                   draws, cuda)
+    readings = {}
+    for name, run in runs.items():
+        loss_err, l2, per, worst = readings[name] = step_errors(run, ref)
+        print(f'one gradcl step (basin, fine, hard, rich; batch {batch}), '
+              f'{name} against the CPU plain path in float32: loss '
+              f'{run[0]:.6f} vs {ref[0]:.6f}, error / loss {loss_err:.2e} '
+              f'(limit {STEP_LOSS:.2g}); gradients relative L2 {l2:.2e} '
+              f'(limit {STEP_L2:.2g}), worst tensor {per:.2e} ({worst}; '
+              f'limit {STEP_PER_TENSOR:.2g})')
+
+    def holds(name):
+        loss_err, l2, per, _ = readings[name]
+        return (loss_err <= STEP_LOSS and l2 <= STEP_L2
+                and per <= STEP_PER_TENSOR)
+    if not holds('card'):
+        raise AssertionError('the pretext step on the card strays from the '
+                             'CPU plain path')
+    if holds(PRETRAIN_FAULT):
+        raise AssertionError('the pretext step check misses K3 shifted a '
+                             'row')
+    print(f'planted fault caught by the pretext step check: '
+          f'{PRETRAIN_FAULT}')
+    return {k: list(v) for k, v in readings.items()}
+
+
+def check_warp_gt(dev, gen, n=256, ps=128):
+    """K3 at warp_gt's shape: ``n`` standardized ps x ps patches warped by
+    ground-truth corner offsets of up to 32 px (rho) over the patch grid,
+    as ``pretrain/targets.warp_gt`` samples them."""
+    from bihome_torch import geometry
+
+    image = torch.randn((n, ps, ps, 1), generator=gen).to(dev)
+    corners = geometry.image_corners(ps, ps, batch_size=n)
+    delta = torch.randint(-32, 32, (n, 4, 2), generator=gen).float()
+    hom = geometry.four_point_to_homography(corners, delta)
+    u, v = geometry.homography_grid(hom, (ps, ps))
+    k3, _ = check_warp_frame(dev, gen, 'warp_gt', image, u.to(dev),
+                             v.to(dev))
+    return k3
+
+
+def run_pretrain_slice(counters, paths, runs, dev, gen):
+    """Phase 20: K3 at warp_gt's shape; every PRETRAIN_RUNS run; the
+    pretext step check; pds zeng-biHomE trained from the gradpdscl file
+    (K1-K4, the extractor the file's and unchanged) and with a seeded
+    resnet50 extractor (K1-K4), each beside the resnet34 row of this call.
+    Returns the slice's figures and K3's entry at warp_gt."""
+    import numpy as np
+
+    at_warp_gt = check_warp_gt(dev, gen)
+    out = {'runs': {}}
+    with tempfile.TemporaryDirectory() as root:
+        for name, extra in PRETRAIN_RUNS.items():
+            paths[f'pretrain {name}'], row, path = run_pretrain_path(
+                counters, name, extra, root)
+            out['runs'][name] = row
+            if name == 'gradpdscl':
+                pds_file = path
+        out['step_check'] = compare_pretrain_step()
+        config = PDS_RUNS[0][0]
+        r34 = next(r for r in runs if r['config'] == config
+                   and r['dtype'] == 'float32' and not r['sets'])
+        for label, sets in (('gradpdscl file', (
+                f'MODEL.HEAD.AUXILIARY_RESNET_PATH={pds_file}',)),
+                            ('resnet50 extractor', R50_EXTRACTOR)):
+            with tempfile.TemporaryDirectory() as log_dir:
+                paths[f'train {config} {label}'], result = run_train_path(
+                    counters, log_dir, config, BATCH, PDS_STEPS,
+                    ZENG_KERNELS, sets)
+            row = result['summary']
+            if label == 'gradpdscl file':
+                kernel = np.load(pds_file)['params/conv1/kernel']
+                got = result['initial_state']['auxiliary_resnet.conv1.weight']
+                if not np.array_equal(got.numpy(),
+                                      np.transpose(kernel, (3, 2, 0, 1))):
+                    raise AssertionError('the extractor is not the '
+                                         'gradpdscl file\'s')
+            else:
+                width = result['model'].auxiliary_resnet.layer1[0].conv3
+                if width.out_channels != 256:
+                    raise AssertionError('not a resnet50 extractor')
+            row['resnet34_row'] = {k: r34[k] for k in (
+                'ms_per_step', 'pairs_per_s', 'peak_gb')}
+            print(f'pds zeng-biHomE at {BATCH} with the {label}: '
+                  f'{row["ms_per_step"]:.2f} ms per step, '
+                  f'{row["pairs_per_s"]:.1f} pairs/s, peak '
+                  f'{row["peak_gb"]:.2f} GB; with aux_clfbh.npz (resnet34, '
+                  f'this call) {r34["ms_per_step"]:.2f} ms, '
+                  f'{r34["pairs_per_s"]:.1f} pairs/s, {r34["peak_gb"]:.2f} '
+                  f'GB')
+            out[label] = row
+            del result
+    return out, at_warp_gt
+
 
 @contextlib.contextmanager
 def planted_ddp_fault(name):
@@ -3068,9 +3343,10 @@ def ddp_step_grads(config, state, data, device):
 def _ddp_rank(rank, world, ports, config, state, data, root):
     """One rank of the data-parallel slice: the step's gradients (clean and
     under each planted fault, saved by rank 0 into ``root``), the train
-    entry point with ``--multihost`` through the whole pool and with
-    ``--pool_shard``, then the eval entry point with ``--multihost`` on
-    the first run's checkpoint; each run counted."""
+    entry point with ``--multihost`` for each of DDP_TRAIN_RUNS (through
+    the whole pool, with ``--pool_shard``, and step 17's blob YAML, which
+    the parent wrote into ``root``), then the eval entry point with
+    ``--multihost`` on the first run's checkpoint; each run counted."""
     import argparse
 
     import torch.distributed as dist
@@ -3097,17 +3373,17 @@ def _ddp_rank(rank, world, ports, config, state, data, root):
     if rank == 0:
         torch.save(readings, os.path.join(root, 'readings.pt'))
     del readings
+    blob_config = os.path.join(root, 'leftovers.yaml')
     coordinate = ['--multihost', '--num_processes', str(world),
                   '--process_id', str(rank), '--coordinator']
     out = {'backend': backend, 'device': str(device), 'runs': {}}
-    for i, (name, extra) in enumerate((('whole pool', ()),
-                                       ('--pool_shard', ('--pool_shard',)))):
+    for i, (name, config, extra) in enumerate(DDP_TRAIN_RUNS):
         reset_counts(counters)
         torch.cuda.reset_peak_memory_stats()
         result = train.main([
-            '--config_file', DDP_CONFIG, '--synthetic', '--batch_size',
-            str(DDP_BATCH), '--steps', str(PDS_STEPS), '--epochs', '1',
-            '--device', 'cuda', '--steps_per_call', '1',
+            '--config_file', config or blob_config, '--synthetic',
+            '--batch_size', str(DDP_BATCH), '--steps', str(PDS_STEPS),
+            '--epochs', '1', '--device', 'cuda', '--steps_per_call', '1',
             '--set', 'MODEL.HEAD.AUXILIARY_RESNET_PATH=aux_clfbh.npz',
             '--set', f'LOGGING.DIR={os.path.join(root, f"train{i}")}',
             '--set', 'LOGGING.STEP=1', *extra,
@@ -3125,7 +3401,7 @@ def _ddp_rank(rank, world, ports, config, state, data, root):
         '--steps', str(PDS_STEPS), '--device', 'cuda', '--skip_timing',
         '--ckpt', os.path.join(root, 'train0'),
         '--log', os.path.join(root, 'mace.log'),
-        *coordinate, f'127.0.0.1:{ports[3]}'])
+        *coordinate, f'127.0.0.1:{ports[1 + len(DDP_TRAIN_RUNS)]}'])
     out['eval'] = {'launches': read_counts(counters),
                    'mean_mace': result['mean_mace'],
                    'samples': len(result['maces'])}
@@ -3191,7 +3467,7 @@ def spawn_and_collect(target, args_of, count):
     return [got[i] for i in range(count)]
 
 
-def run_ddp_slice(paths, one_process_loss):
+def run_ddp_slice(paths, one_process_loss, one_process_blob_loss):
     """The data-parallel slice (DDP_CONFIG at global batch DDP_BATCH over
     DDP_RANKS spawned ranks): rank 0's first-step loss and gradients, after
     the gradient sum and before Adam, against the one-process step at
@@ -3202,7 +3478,10 @@ def run_ddp_slice(paths, one_process_loss):
     the whole-pool run's first logged loss (the trainer's own draws, made
     for the global batch and sliced) within STEP_LOSS of its terms of
     ``one_process_loss``, the first loss of the one-process train run of
-    DDP_CONFIG at DDP_BATCH on the same seeds;
+    DDP_CONFIG at DDP_BATCH on the same seeds, and the blob run's (step
+    17's YAML: the occlusion rolls patch_1 over the global batch, its
+    donors gathered from the ranks) within STEP_LOSS of its terms of
+    ``one_process_blob_loss``, step 17's one-process first loss;
     the eval entry point with ``--multihost``, its ``--log`` listing each
     sample once. Returns the slice's figures."""
     from bihome_torch import config as config_lib
@@ -3221,8 +3500,10 @@ def run_ddp_slice(paths, one_process_loss):
     print(f'DDP slice: {DDP_RANKS} ranks, '
           + ('gloo, both on one card (not a scaling number)' if shared
              else 'NCCL, a card each'))
-    ports = free_ports(4)
+    ports = free_ports(2 + len(DDP_TRAIN_RUNS))
+    names = [name for name, _, _ in DDP_TRAIN_RUNS]
     with tempfile.TemporaryDirectory() as root:
+        leftover_config(PDS_RUNS[0][0], root)
         begin = time.perf_counter()
         ranks = spawn_and_collect(
             ddp_rank, lambda r: (r, DDP_RANKS, ports, config, state, data,
@@ -3231,10 +3512,9 @@ def run_ddp_slice(paths, one_process_loss):
         readings = torch.load(os.path.join(root, 'readings.pt'))
         records = {name: open(os.path.join(root, f'train{i}',
                                            'metrics.jsonl')).read()
-                   .splitlines() for i, name in enumerate(
-                       ('whole pool', '--pool_shard'))}
+                   .splitlines() for i, name in enumerate(names)}
         files = {name: sorted(os.listdir(os.path.join(root, f'train{i}')))
-                 for i, name in enumerate(('whole pool', '--pool_shard'))}
+                 for i, name in enumerate(names)}
         check_eval_log(os.path.join(root, 'mace.log'), BATCH * PDS_STEPS)
     errors = {}
     for name, run in readings.items():
@@ -3256,16 +3536,21 @@ def run_ddp_slice(paths, one_process_loss):
     print(f'planted DDP faults caught: {caught}')
     if not all(caught.values()):
         raise AssertionError(f'the DDP check misses a planted fault: {caught}')
-    first = json.loads(records['whole pool'][0])
-    terms = sum(abs(first[f'loss_comp/ln{i}']) for i in (1, 2, 3))
-    drawn_err = abs(first['loss/train'] - one_process_loss) / terms
-    print(f'DDP train whole pool, first logged loss {first["loss/train"]:.6f}'
-          f' (global batch {DDP_BATCH}, the trainer\'s own draws) against '
-          f'the one-process run\'s {one_process_loss:.6f}: error / terms '
-          f'{drawn_err:.2e} (limit {STEP_LOSS:.2g})')
-    if not drawn_err <= STEP_LOSS:
-        raise AssertionError('the --multihost run\'s first loss strays from '
-                             'the one-process run\'s')
+    first_loss = {}
+    for name, want in (('whole pool', one_process_loss),
+                       ('blob', one_process_blob_loss)):
+        first = json.loads(records[name][0])
+        terms = sum(abs(first[f'loss_comp/ln{i}']) for i in (1, 2, 3))
+        err = abs(first['loss/train'] - want) / terms
+        first_loss[name] = {'multihost': first['loss/train'],
+                            'one_process': want, 'error_over_terms': err}
+        print(f'DDP train {name}, first logged loss '
+              f'{first["loss/train"]:.6f} (global batch {DDP_BATCH}, the '
+              f'trainer\'s own draws) against the one-process run\'s '
+              f'{want:.6f}: error / terms {err:.2e} (limit {STEP_LOSS:.2g})')
+        if not err <= STEP_LOSS:
+            raise AssertionError(f'the --multihost {name} run\'s first loss '
+                                 f'strays from the one-process run\'s')
     # Two epochs' records would repeat if another rank wrote: PDS_STEPS
     # step records and one test record, one checkpoint.
     for name, lines in records.items():
@@ -3274,7 +3559,7 @@ def run_ddp_slice(paths, one_process_loss):
             raise AssertionError(f'{name}: {len(lines)} records, files '
                                  f'{files[name]}: not rank 0 alone')
     runs = {}
-    for name in ('whole pool', '--pool_shard'):
+    for name in names:
         for r, rank in enumerate(ranks):
             launches = rank['runs'][name]['launches']
             paths[f'ddp train {DDP_CONFIG} {name} rank {r}'] = launches
@@ -3302,9 +3587,7 @@ def run_ddp_slice(paths, one_process_loss):
     return {'backend': ranks[0]['backend'], 'shared_card': shared,
             'wall_s': wall_s,
             'step_check': {k: list(v) for k, v in errors.items()},
-            'first_loss': {'multihost': first['loss/train'],
-                           'one_process': one_process_loss,
-                           'error_over_terms': drawn_err},
+            'first_loss': first_loss,
             'runs': runs, 'eval_mace': ranks[0]['eval']['mean_mace']}
 
 
@@ -3770,10 +4053,18 @@ def run(stack):
     # The data-parallel slice (spawned ranks) and the serving slice (the
     # artifact loaded in a spawned process).
     torch.cuda.empty_cache()
-    ddp = run_ddp_slice(paths, one_process_loss)
+    ddp = run_ddp_slice(paths, one_process_loss,
+                        dsac['leftover_first_loss'])
     done('DDP slice')
     served = run_serving(paths)
     done('serving')
+
+    # The pretext and extractor slice, from a generator of its own: K3 at
+    # warp_gt's shape, the pretext runs, their step check, pds zeng-biHomE
+    # from the gradpdscl file and with a resnet50 extractor.
+    pretrain, kernels[0]['at_warp_gt'] = run_pretrain_slice(
+        counters, paths, runs, dev, torch.Generator().manual_seed(20))
+    done('pretext and extractor slice')
     for row in file_runs:
         prof = row['profile']
         print(f'{row["config"]} at {row["batch"]} from {row["feed"]}: '
@@ -3796,7 +4087,9 @@ def run(stack):
                                            if 'MASK_KEYS' in p],
                    'at_dsac_n4': [p for p in paths if p.startswith('train')
                                   and DSAC_SET[0] in p],
-                   'at_image_2': [p for p in paths if '--vis' in p]}
+                   'at_image_2': [p for p in paths if '--vis' in p],
+                   'at_warp_gt': [p for p in paths
+                                  if p.startswith('pretrain')]}
     for k in kernels:
         entries = [(k, k['name'], list(paths))]
         if 'at_r50_head' in k:
@@ -3820,7 +4113,7 @@ def run(stack):
                       'k5_runs': k5_runs, 'k5_step': k5_step,
                       'variant_runs': variant_runs, 'dsac': dsac,
                       'ddp': ddp, 'serving': served,
-                      'phase_s': phase_s}))
+                      'pretrain': pretrain, 'phase_s': phase_s}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -134,24 +134,7 @@ def test_batch_norm_bf16_matches_flax(train):
 def _block_state(variables, fields=weights._R34):
     """flax block tree (a ResNet34ConvBlock's, or the block of
     ``fields``) -> the port block's state dict."""
-    state = {}
-    for name, (prefix, kind) in fields.items():
-        params = variables['params'][name]
-        if kind in ('conv', 'ct'):
-            state[f'{prefix}.weight'] = torch.from_numpy(
-                weights._kernel(np.asarray(params['kernel'])))
-            if 'bias' in params:
-                state[f'{prefix}.bias'] = torch.from_numpy(np.asarray(
-                    params['bias']))
-            continue
-        stats = variables['batch_stats'][name]
-        for src, dst in (('scale', 'weight'), ('bias', 'bias')):
-            state[f'{prefix}.{dst}'] = torch.from_numpy(np.asarray(
-                params[src]))
-        for src, dst in (('mean', 'running_mean'), ('var', 'running_var')):
-            state[f'{prefix}.{dst}'] = torch.from_numpy(np.asarray(
-                stats[src]))
-    return state
+    return weights.block_state_dict(variables, fields)
 
 
 @pytest.mark.parametrize('train', [False, True], ids=['eval', 'train'])

@@ -14,7 +14,11 @@ tests/test_trainer.py:100-139 holds equal to it. The same step with
 PDS-COCO's photometric distortion and nothing injected (the trainer's own
 draws from seeded generators, each rank keeping its rows of the global
 batch's) holds 2 ranks to one process on every logged metric, the
-gradients and the running statistics.
+gradients and the running statistics; so does that step with the blob
+occlusion (DATA.AUGMENT_BLOB_POROSITY 0.5: the noise and the shift drawn
+for the global batch, each rank's donors rows of the global patch_1,
+gathered over the ranks), whose pairs of 2 ranks also equal one process's
+bit for bit.
 
 Tolerances. 2 ranks against one process, both float32 with the same
 draws, differ only in summation order: the loss within 2e-4 of the sum
@@ -57,12 +61,15 @@ BATCH = 4
 DRAW_SEED = 31
 
 
-def _distorted_config():
+def _distorted_config(blob_porosity=0.0):
     """The small config with PDS-COCO's photometric distortion (max delta
     32), so that the drawn step draws corners, deltas, both copies'
-    distortion and the DSAC uniforms of both fields."""
+    distortion and the DSAC uniforms of both fields; with
+    ``blob_porosity`` the blob occlusion too."""
     config = _small_config(tconfig)
     config['DATA']['TRANSFORMS'][0]['HomographyNetPrep'][3] = 32
+    if blob_porosity:
+        config['DATA']['AUGMENT_BLOB_POROSITY'] = blob_porosity
     return config
 
 
@@ -121,11 +128,14 @@ def steps():
     args = (_small_config(tconfig), state, images, corners.astype(np.int64),
             delta.astype(np.int64), uniforms)
     drawn = (_distorted_config(), state, images, DRAW_SEED)
-    ranks = h.run_ranks(h.ddp_step_worker, 2, args, drawn)
+    blob = (_distorted_config(0.5), state, images, DRAW_SEED)
+    ranks = h.run_ranks(h.ddp_step_worker, 2, args, drawn, blob)
     return {'one': h.one_step(*args), 'ranks': [r['injected'] for r in ranks],
             'jax': jax_out,
             'one_drawn': h.one_step(*drawn[:3], None, None, None, DRAW_SEED),
-            'ranks_drawn': [r['drawn'] for r in ranks]}
+            'ranks_drawn': [r['drawn0'] for r in ranks],
+            'one_blob': h.one_step(*blob[:3], None, None, None, DRAW_SEED),
+            'ranks_blob': [r['drawn1'] for r in ranks]}
 
 
 def _from_jax(tree, kind):
@@ -193,18 +203,31 @@ def test_two_rank_gradients_equal_one_process(steps):
     _grads_equal(steps['ranks'], steps['one']['grads'])
 
 
+def _drawn_step_equal(steps, kind):
+    """The 2-rank step against the one-process step on the trainer's own
+    draws, made for the global batch and sliced on each rank."""
+    one = steps[f'one_{kind}']
+    for r in steps[f'ranks_{kind}']:
+        _metrics_equal(r['metrics'], one['metrics'])
+    _grads_equal(steps[f'ranks_{kind}'], one['grads'])
+    for r in steps[f'ranks_{kind}']:
+        for name, want in one['stats'].items():
+            np.testing.assert_allclose(r['stats'][name], want, rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+
+
 def test_two_rank_drawn_step_equals_one_process(steps):
     # The step's own draws (corners, deltas, both copies' distortion, the
     # DSAC uniforms of both fields), made for the global batch and sliced
     # on each rank, against the one-process step's.
-    one = steps['one_drawn']
-    for r in steps['ranks_drawn']:
-        _metrics_equal(r['metrics'], one['metrics'])
-    _grads_equal(steps['ranks_drawn'], one['grads'])
-    for r in steps['ranks_drawn']:
-        for name, want in one['stats'].items():
-            np.testing.assert_allclose(r['stats'][name], want, rtol=1e-5,
-                                       atol=1e-5, err_msg=name)
+    _drawn_step_equal(steps, 'drawn')
+
+
+def test_two_rank_drawn_step_with_blobs_equals_one_process(steps):
+    # The same step with the blob occlusion: its noise and shift drawn for
+    # the global batch, each rank's donors gathered from every rank's
+    # patch_1.
+    _drawn_step_equal(steps, 'blob')
 
 
 def test_two_rank_gradients_match_jax(steps):
@@ -305,6 +328,16 @@ def test_pair_draws_of_rows_make_up_the_global_batch():
         torch.testing.assert_close(
             torch.cat([h[key] for h in halves]), value, rtol=0, atol=0,
             msg=key)
+    # The blob occlusion rolls patch_1 over the global batch: 2 ranks, each
+    # gathering the others' patch_1, give the one-process pairs exactly.
     blob = dataclasses.replace(spec, blob_porosity=0.5)
-    with pytest.raises(NotImplementedError):
+    want = pipeline.generate_pairs(images, blob,
+                                   torch.Generator().manual_seed(5))
+    ranks = h.run_ranks(h.pair_rows_worker, 2, images.numpy(), blob, 5)
+    assert not torch.equal(want['patch_2'], pairs(0, 4, None)['patch_2'])
+    for key, value in want.items():
+        np.testing.assert_array_equal(
+            np.concatenate([r[key] for r in ranks]), value.numpy(),
+            err_msg=key)
+    with pytest.raises(ValueError):        # no process group: no donors
         pipeline.generate_pairs(images[:2], blob, rows=(0, 4))

@@ -1,7 +1,8 @@
 """The port stands alone: no module of bihome_torch, nor chip_smoke.py,
-imports jax, flax, optax or the JAX package, directly (checked on the
-source with ast) or through another module (checked by importing every
-module in a subprocess where those imports are blocked)."""
+imports jax, flax, optax, the JAX package or its ``tools/``, directly
+(checked on the source with ast) or through another module (checked by
+importing every module in a subprocess where those imports are
+blocked)."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'bihome_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'bihome_tpu', 'tools')
 SOURCES = sorted(REPO.glob('bihome_torch/**/*.py')) + [REPO / 'chip_smoke.py']
 
 

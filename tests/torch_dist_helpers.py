@@ -250,14 +250,28 @@ def one_step(config, state, images, corners, delta, uniforms, seed=None):
         'stats': {n: b for n, b in model.backbone.named_buffers()}})
 
 
-def ddp_step_worker(rank: int, world: int, injected, drawn):
+def ddp_step_worker(rank: int, world: int, injected, *drawn):
     """The step on this rank with the draws injected (``injected``, the
-    arguments of :func:`one_step`) and drawn (``drawn``: a config, a
-    state, the images and a seed)."""
-    config, state, images, seed = drawn
-    return {'injected': one_step(*injected),
-            'drawn': one_step(config, state, images, None, None, None,
-                              seed)}
+    arguments of :func:`one_step`) and drawn (each of ``drawn``: a config,
+    a state, the images and a seed)."""
+    out = {'injected': one_step(*injected)}
+    for i, (config, state, images, seed) in enumerate(drawn):
+        out[f'drawn{i}'] = one_step(config, state, images, None, None, None,
+                                    seed)
+    return out
+
+
+def pair_rows_worker(rank: int, world: int, images, spec, seed: int):
+    """``pipeline.generate_pairs`` on this rank's rows of ``images`` with
+    the global batch's draws from a generator seeded by ``seed`` (numpy)."""
+    from bihome_torch.data import pipeline
+    from bihome_torch.parallel import mesh
+    total = images.shape[0]
+    lo, hi = mesh.shard_range(total, world, rank)
+    batch = pipeline.generate_pairs(
+        torch.from_numpy(images[lo:hi]), spec,
+        torch.Generator().manual_seed(seed), rows=(lo, total))
+    return numpy_tree(batch)
 
 
 def pool_draw_worker(rank: int, world: int, pool_rows: int, batch: int,
