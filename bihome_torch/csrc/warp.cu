@@ -13,6 +13,10 @@
 // output written), 0.0066 ms at 3.35 TB/s, against ~15 flops per point; at
 // the loss warp (N=128 patches of 128x128x1) 34 MB, 0.0100 ms.
 //
+// u and v are read at u + image * uv_stride: uv_stride = P, or 0 where one
+// grid row serves the whole batch (the upsample grid, as K5 reads it), so
+// no [N,P] copy of that row is made; the output stays at image * P.
+//
 // Design for C = 1, the only C on the zeng path (bilinear_sample_c1_kernel):
 // a 2-D grid, blockIdx.y = image, so a thread finds its image without a
 // 64-bit division and addresses its taps with 32-bit offsets inside it.
@@ -24,8 +28,24 @@
 // flight for the same gathers.) The taps are gathers through the read-only
 // path (__ldg); neighbouring points map to neighbouring pixels, so they
 // mostly hit L1/L2. Their positions, weights and validity come from
-// taps_c1, which K4's C = 1 kernel shares. C > 1 keeps the generic kernel,
-// one thread per point.
+// taps(), which K4's C = 1 kernel and the C > 1 kernels share.
+//
+// Design for C > 1 (bilinear_sample_cn_kernel; C = 3 at image_2 and the RGB
+// window warp, C = 2 at the masked loss warp): the C = 1 layout, with C a
+// template parameter (2, 3 and 4; a loop over any other C) and 32-bit
+// offsets scaled by C. A thread takes 2 consecutive points (float2 loads of
+// u and v where P is even), reads each tap's C channels (one float2 at
+// C = 2, one float4 at C = 4, where the image is aligned for it; 3 scalar
+// loads at C = 3) and writes its 2C contiguous outputs with the widest
+// stores their address allows. Measured on the H100 against this form,
+// each slower at image_2 and the masked loss warp and none faster at the
+// RGB window warp (PERF.md): a row's two taps read as one run of
+// 2C floats (lanes of even and odd x0 diverge), the block's outputs staged
+// in shared memory for 16-byte stores, one output value a lane (coalesced
+// gathers and stores, but u, v and the tap arithmetic once per value), and
+// the block's source footprint copied into shared memory first (a cut of
+// profile_kernels --kernel k3). The gathers set the time: without them
+// image_2 takes 0.60 of it, without the stores 0.77.
 //
 // floorf, not an integer cast, gives the top-left tap: coordinates go
 // negative near the border and a cast rounds toward zero.
@@ -42,17 +62,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// The generic form, one thread a point with 64-bit offsets: a call past the
+// 32-bit guards of the kernels below (c1_path, cn_path) takes it.
 __global__ void bilinear_sample_kernel(const float* __restrict__ img,
                                        const float* __restrict__ u,
                                        const float* __restrict__ v,
                                        float* __restrict__ out,
                                        int h, int w, int c, long long p,
-                                       long long total) {
+                                       long long uv_stride, long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const long long b = i / p;
-  const float x = u[i];
-  const float y = v[i];
+  const long long j = b * uv_stride + (i - b * p);
+  const float x = u[j];
+  const float y = v[j];
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   const float wx1 = x - x0f;
@@ -83,22 +106,23 @@ __global__ void bilinear_sample_kernel(const float* __restrict__ img,
   }
 }
 
-// The 4 taps of one point of a single-channel image, for the C = 1
-// kernels: the bilinear weights, the offset r0 of the top-left tap (y0, x0)
-// inside the image (32-bit: their launch requires (h + 2) * w < 2^31), and
-// which taps lie inside the image. Any tap more than one pixel outside is
-// invalid either way; clamping the float first keeps the conversion
-// defined for huge coordinates.
-struct TapsC1 {
+// The 4 taps of one point, for K3's C = 1 and C > 1 kernels and K4's and
+// K5's: the bilinear weights, the pixel offset r0 of the top-left tap
+// (y0, x0) inside the image (32-bit: their launches require
+// (h + 2) * w < 2^31, times C for C > 1), and which taps lie inside the
+// image. Any tap more than one pixel outside is invalid either way;
+// clamping the float first keeps the conversion defined for huge
+// coordinates.
+struct Taps {
   float wx0, wx1, wy0, wy1;
   int r0;
   bool v00, v01, v10, v11;
 };
 
-__device__ __forceinline__ TapsC1 taps_c1(int h, int w, float x, float y) {
+__device__ __forceinline__ Taps taps(int h, int w, float x, float y) {
   const float x0f = floorf(x);
   const float y0f = floorf(y);
-  TapsC1 t;
+  Taps t;
   t.wx1 = x - x0f;
   t.wy1 = y - y0f;
   t.wx0 = 1.0f - t.wx1;
@@ -120,7 +144,7 @@ __device__ __forceinline__ TapsC1 taps_c1(int h, int w, float x, float y) {
 // The tap values (x: (y0,x0), y: (y0,x0+1), z: (y0+1,x0), w: (y0+1,x0+1)),
 // each 0 outside the image.
 __device__ __forceinline__ float4 fetch_c1(const float* __restrict__ img,
-                                           int w, const TapsC1& t) {
+                                           int w, const Taps& t) {
   const int r1 = t.r0 + w;
   return make_float4(t.v00 ? __ldg(img + t.r0) : 0.0f,
                      t.v01 ? __ldg(img + t.r0 + 1) : 0.0f,
@@ -132,7 +156,7 @@ __device__ __forceinline__ float4 fetch_c1(const float* __restrict__ img,
 // it for C = 1.
 __device__ __forceinline__ float sample_c1(const float* __restrict__ img,
                                           int h, int w, float x, float y) {
-  const TapsC1 t = taps_c1(h, w, x, y);
+  const Taps t = taps(h, w, x, y);
   const float4 v = fetch_c1(img, w, t);
   return v.x * (t.wy0 * t.wx0) + v.y * (t.wy0 * t.wx1) +
          v.z * (t.wy1 * t.wx0) + v.w * (t.wy1 * t.wx1);
@@ -141,20 +165,21 @@ __device__ __forceinline__ float sample_c1(const float* __restrict__ img,
 constexpr int kC1Threads = 256;
 
 // C = 1: grid (ceil(P / (2 * 256)), N); thread = points 2q, 2q + 1 of image
-// blockIdx.y. kVec: P even and u, v, out 8-byte aligned.
+// blockIdx.y, its u and v at batch stride uv_stride (P or 0). kVec: P even
+// and u, v, out 8-byte aligned.
 template <bool kVec>
 __global__ void __launch_bounds__(kC1Threads)
 bilinear_sample_c1_kernel(const float* __restrict__ img,
                           const float* __restrict__ u,
                           const float* __restrict__ v,
-                          float* __restrict__ out, int h, int w, int p) {
+                          float* __restrict__ out, int h, int w, int p,
+                          long long uv_stride) {
   const int q = (blockIdx.x * kC1Threads + threadIdx.x) * 2;
   if (q >= p) return;
-  const long long row = (long long)blockIdx.y * p;
   const float* im = img + (long long)blockIdx.y * h * w;
-  const float* ur = u + row;
-  const float* vr = v + row;
-  float* orow = out + row;
+  const float* ur = u + (long long)blockIdx.y * uv_stride;
+  const float* vr = v + (long long)blockIdx.y * uv_stride;
+  float* orow = out + (long long)blockIdx.y * p;
   if (kVec) {
     const float2 uu = __ldg(reinterpret_cast<const float2*>(ur + q));
     const float2 vv = __ldg(reinterpret_cast<const float2*>(vr + q));
@@ -166,6 +191,161 @@ bilinear_sample_c1_kernel(const float* __restrict__ img,
     const int end = q + 2 < p ? q + 2 : p;
     for (int i = q; i < end; ++i) {
       orow[i] = sample_c1(im, h, w, __ldg(ur + i), __ldg(vr + i));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 for C > 1 (see the header): grid (ceil(P / kCnBlockPoints), N), a
+// thread kCnPoints consecutive points of image blockIdx.y.
+//
+// Bound on the H100: bytes. At image_2 (64 RGB frames of 240x320, P =
+// 76,800, 0.79 of each frame touched) the call must move ~145 MB, 0.0433
+// ms; at the masked loss warp (128 patches of 128x128x2, P = 16,384) 50 MB,
+// 0.0150 ms; ~8 + 7C flops a point.
+
+constexpr int kCnThreads = 256;
+constexpr int kCnPoints = 2;
+constexpr int kCnBlockPoints = kCnThreads * kCnPoints;
+// A tap's channels read as one float2 (C = 2) or float4 (C = 4) where the
+// image is aligned for it (false: channel by channel).
+constexpr bool kCnVecTaps = true;
+
+// kN floats of s to p (4-byte aligned), with the widest stores that p's
+// alignment allows.
+template <int kN>
+__device__ __forceinline__ void store_floats(float* __restrict__ p,
+                                             const float (&s)[kN]) {
+  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(p);
+  if constexpr (kN % 4 == 0) {
+    if ((a & 15u) == 0) {
+#pragma unroll
+      for (int i = 0; i < kN; i += 4) {
+        *reinterpret_cast<float4*>(p + i) =
+            make_float4(s[i], s[i + 1], s[i + 2], s[i + 3]);
+      }
+      return;
+    }
+  }
+  if constexpr (kN % 2 == 0) {
+    if ((a & 7u) == 0) {
+#pragma unroll
+      for (int i = 0; i < kN; i += 2) {
+        *reinterpret_cast<float2*>(p + i) = make_float2(s[i], s[i + 1]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) p[i] = s[i];
+}
+
+// The kC channels of one tap at p into r, 0 where the tap lies outside
+// the image. kAligned: p is aligned to kC floats (kC 2 or 4), so one
+// vector load reads them.
+template <int kC, bool kAligned>
+__device__ __forceinline__ void fetch_tap(const float* __restrict__ p,
+                                          bool inside, float (&r)[kC]) {
+  if constexpr (kAligned && kC == 2) {
+    const float2 t = inside ? __ldg(reinterpret_cast<const float2*>(p))
+                            : make_float2(0.0f, 0.0f);
+    r[0] = t.x; r[1] = t.y;
+  } else if constexpr (kAligned && kC == 4) {
+    const float4 t = inside ? __ldg(reinterpret_cast<const float4*>(p))
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kC; ++i) r[i] = inside ? __ldg(p + i) : 0.0f;
+  }
+}
+
+// kC: the channel count (2, 3 or 4), or 0 for any C (c_any; a loop over
+// the channels). kVec: P a multiple of kCnPoints and u, v aligned to
+// kCnPoints floats. kAligned: the images aligned to kC floats (C 2, 4).
+template <int kC, bool kVec, bool kAligned>
+__global__ void __launch_bounds__(kCnThreads)
+bilinear_sample_cn_kernel(const float* __restrict__ img,
+                          const float* __restrict__ u,
+                          const float* __restrict__ v,
+                          float* __restrict__ out, int h, int w, int c_any,
+                          int p, long long uv_stride) {
+  constexpr int kCh = kC > 0 ? kC : 1;
+  const int c = kC > 0 ? kC : c_any;
+  const int q = (blockIdx.x * kCnThreads + threadIdx.x) * kCnPoints;
+  if (q >= p) return;
+  const float* im = img + (long long)blockIdx.y * h * w * c;
+  const float* ur = u + (long long)blockIdx.y * uv_stride;
+  const float* vr = v + (long long)blockIdx.y * uv_stride;
+  float* d = out + ((long long)blockIdx.y * p + q) * c;
+
+  float x[kCnPoints], y[kCnPoints];
+  if (kVec) {
+    if constexpr (kCnPoints == 4) {
+      const float4 uu = __ldg(reinterpret_cast<const float4*>(ur + q));
+      const float4 vv = __ldg(reinterpret_cast<const float4*>(vr + q));
+      x[0] = uu.x; x[1] = uu.y; x[2] = uu.z; x[3] = uu.w;
+      y[0] = vv.x; y[1] = vv.y; y[2] = vv.z; y[3] = vv.w;
+    } else if constexpr (kCnPoints == 2) {
+      const float2 uu = __ldg(reinterpret_cast<const float2*>(ur + q));
+      const float2 vv = __ldg(reinterpret_cast<const float2*>(vr + q));
+      x[0] = uu.x; x[1] = uu.y;
+      y[0] = vv.x; y[1] = vv.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kCnPoints; ++k) {
+        x[k] = __ldg(ur + q + k);
+        y[k] = __ldg(vr + q + k);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCnPoints; ++k) {
+      x[k] = q + k < p ? __ldg(ur + q + k) : 0.0f;
+      y[k] = q + k < p ? __ldg(vr + q + k) : 0.0f;
+    }
+  }
+
+  float o[kCnPoints * kCh];
+#pragma unroll
+  for (int k = 0; k < kCnPoints; ++k) {
+    if (q + k >= p) break;
+    const Taps t = taps(h, w, x[k], y[k]);
+    const float w00 = t.wy0 * t.wx0;
+    const float w01 = t.wy0 * t.wx1;
+    const float w10 = t.wy1 * t.wx0;
+    const float w11 = t.wy1 * t.wx1;
+    const float* p0 = im + t.r0 * c;
+    const float* p1 = p0 + w * c;
+    if constexpr (kC > 0) {
+      float t00[kC], t01[kC], t10[kC], t11[kC];
+      fetch_tap<kC, kAligned>(p0, t.v00, t00);
+      fetch_tap<kC, kAligned>(p0 + kC, t.v01, t01);
+      fetch_tap<kC, kAligned>(p1, t.v10, t10);
+      fetch_tap<kC, kAligned>(p1 + kC, t.v11, t11);
+#pragma unroll
+      for (int ci = 0; ci < kC; ++ci) {
+        o[k * kC + ci] = t00[ci] * w00 + t01[ci] * w01 + t10[ci] * w10 +
+                         t11[ci] * w11;
+      }
+    } else {
+      for (int ci = 0; ci < c; ++ci) {
+        const float t00 = t.v00 ? __ldg(p0 + ci) : 0.0f;
+        const float t01 = t.v01 ? __ldg(p0 + c + ci) : 0.0f;
+        const float t10 = t.v10 ? __ldg(p1 + ci) : 0.0f;
+        const float t11 = t.v11 ? __ldg(p1 + c + ci) : 0.0f;
+        d[k * c + ci] = t00 * w00 + t01 * w01 + t10 * w10 + t11 * w11;
+      }
+    }
+  }
+  if constexpr (kC > 0) {
+    if (q + kCnPoints <= p) {
+      store_floats<kCnPoints * kC>(d, o);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCnPoints * kC; ++i) {
+        if (q + i / kC < p) d[i] = o[i];
+      }
     }
   }
 }
@@ -196,7 +376,7 @@ bilinear_sample_c1_kernel(const float* __restrict__ img,
 // with float2 loads of u, v and g and float2 stores of du and dv when P is
 // even and every pointer 8-byte aligned, else scalar accesses, the last
 // thread of an image taking only the point below P; the taps through
-// __ldg, their positions, weights and validity from K3's taps_c1, so the
+// __ldg, their positions, weights and validity from K3's taps, so the
 // two kernels cannot drift apart. C > 1 keeps the generic kernel below:
 // one thread per point, a loop over the channels.
 __global__ void bilinear_sample_bwd_uv_kernel(
@@ -241,7 +421,7 @@ __global__ void bilinear_sample_bwd_uv_kernel(
 // K4 at one point of a single-channel image with cotangent g: (du, dv).
 __device__ __forceinline__ float2 sample_grad_c1(
     const float* __restrict__ img, int h, int w, float x, float y, float g) {
-  const TapsC1 t = taps_c1(h, w, x, y);
+  const Taps t = taps(h, w, x, y);
   const float4 v = fetch_c1(img, w, t);
   return make_float2(
       t.wx1 == 0.0f ? 0.0f : g * (t.wy0 * (v.y - v.x) + t.wy1 * (v.w - v.z)),
@@ -282,11 +462,31 @@ bilinear_sample_bwd_uv_c1_kernel(const float* __restrict__ img,
   }
 }
 
+// The C > 1 kernel for kC at these conditions (kAligned only for C 2, 4).
+template <int kC>
+auto cn_kernel(bool vec, bool aligned) {
+  if constexpr (kC == 2 || kC == 4) {
+    if (aligned) {
+      return vec ? bilinear_sample_cn_kernel<kC, true, true>
+                 : bilinear_sample_cn_kernel<kC, false, true>;
+    }
+  }
+  return vec ? bilinear_sample_cn_kernel<kC, true, false>
+             : bilinear_sample_cn_kernel<kC, false, false>;
+}
+
 // The C = 1 kernels take a call when the grid's y dimension holds the
 // images and 32-bit offsets hold a point's index and its taps.
 bool c1_path(int n, int h, int w, int c, long long p) {
   return c == 1 && n <= 65535 && p <= (1LL << 30) &&
          (long long)(h + 2) * w < (1LL << 31);
+}
+
+// The C > 1 kernels take a call when the grid's y dimension holds the
+// images and 32-bit offsets hold a point's outputs and its taps' floats.
+bool cn_path(int n, int h, int w, int c, long long p) {
+  return c > 1 && n <= 65535 && p * c < (1LL << 31) &&
+         (long long)(h + 4) * w * c < (1LL << 31);
 }
 
 dim3 c1_grid(int n, long long p) {
@@ -426,9 +626,9 @@ __host__ __device__ constexpr int img_blocks_per_sm() {
 // values: the copy is rounded up to them.
 __device__ __forceinline__ int swizzle(int a) { return a ^ ((a >> 5) & 31); }
 
-// The taps of a point that lie inside the image, as bits 0-3 in TapsC1's
+// The taps of a point that lie inside the image, as bits 0-3 in Taps's
 // order (v00, v01, v10, v11).
-__device__ __forceinline__ unsigned tap_mask(const TapsC1& t) {
+__device__ __forceinline__ unsigned tap_mask(const Taps& t) {
   return (unsigned)t.v00 | ((unsigned)t.v01 << 1) | ((unsigned)t.v10 << 2) |
          ((unsigned)t.v11 << 3);
 }
@@ -525,7 +725,7 @@ __device__ __forceinline__ void add_group(float* s, int h, int w, int c,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (k < pg.n) {
-        const TapsC1 t = taps_c1(h, w, pg.x[k], pg.y[k]);
+        const Taps t = taps(h, w, pg.x[k], pg.y[k]);
         const unsigned m = tap_mask(t);
         const float w00 = t.wy0 * t.wx0, w01 = t.wy0 * t.wx1;
         const float w10 = t.wy1 * t.wx0, w11 = t.wy1 * t.wx1;
@@ -782,26 +982,52 @@ extern "C" int bilinear_sample_bwd_img(const float* u, const float* v,
   return (int)cudaGetLastError();
 }
 
-// img [N,H,W,C], u/v [N,P] -> out [N,P,C].
+// img [N,H,W,C], u/v [N,P] at batch stride uv_stride (P, or 0: one grid row
+// for the whole batch) -> out [N,P,C]. *chosen: the kernel that ran, 1-4
+// the kernel for that C, 0 the C > 1 kernel's loop over any C, -1 the
+// generic form (a call past the 32-bit guards).
 extern "C" int bilinear_sample(const float* img, const float* u,
                                const float* v, float* out, int n, int h,
-                               int w, int c, long long p, void* stream) {
+                               int w, int c, long long p, long long uv_stride,
+                               int* chosen, void* stream) {
   const long long total = (long long)n * p;
-  if (total == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (c1_path(n, h, w, c, p)) {
+    *chosen = 1;
+    if (total == 0) return 0;
     const bool vec =
         p % 2 == 0 &&
         (((uintptr_t)u | (uintptr_t)v | (uintptr_t)out) & 7) == 0;
     auto kernel = vec ? bilinear_sample_c1_kernel<true>
                       : bilinear_sample_c1_kernel<false>;
-    kernel<<<c1_grid(n, p), kC1Threads, 0, (cudaStream_t)stream>>>(
-        img, u, v, out, h, w, (int)p);
+    kernel<<<c1_grid(n, p), kC1Threads, 0, s>>>(img, u, v, out, h, w, (int)p,
+                                               uv_stride);
     return (int)cudaGetLastError();
   }
+  if (cn_path(n, h, w, c, p)) {
+    *chosen = c <= 4 ? c : 0;
+    if (total == 0) return 0;
+    const bool vec = p % kCnPoints == 0 &&
+                     (((uintptr_t)u | (uintptr_t)v) &
+                      (sizeof(float) * kCnPoints - 1)) == 0;
+    const bool aligned =
+        kCnVecTaps && (c == 2 || c == 4) &&
+        ((uintptr_t)img & (sizeof(float) * c - 1)) == 0;
+    auto kernel = c == 2   ? cn_kernel<2>(vec, aligned)
+                  : c == 3 ? cn_kernel<3>(vec, aligned)
+                  : c == 4 ? cn_kernel<4>(vec, aligned)
+                           : cn_kernel<0>(vec, aligned);
+    const dim3 grid((unsigned)((p + kCnBlockPoints - 1) / kCnBlockPoints),
+                    (unsigned)n);
+    kernel<<<grid, kCnThreads, 0, s>>>(img, u, v, out, h, w, c, (int)p,
+                                      uv_stride);
+    return (int)cudaGetLastError();
+  }
+  *chosen = -1;
+  if (total == 0) return 0;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  bilinear_sample_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(img, u, v, out, h, w, c,
-                                                   p, total);
+  bilinear_sample_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+      img, u, v, out, h, w, c, p, uv_stride, total);
   return (int)cudaGetLastError();
 }

@@ -137,12 +137,14 @@ def _corners_from_position(pos_x: Tensor, pos_y: Tensor,
                        dim=1)
 
 
-def _warp_patches(images: Tensor, homography: Tensor, corners0: Tensor,
-                  patch_size: int, rho: int) -> Tensor:
-    """Sample the warped second patches directly from the (ps+2·rho)²
-    window around each patch: patch(i, j) = image(H · (x0+j, y0+i))."""
+def patch_windows(images: Tensor, homography: Tensor, corners0: Tensor,
+                  patch_size: int, rho: int
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(windows [B,ws,ws,C], u, v [B,ps²]): the (ps+2·rho)² window around
+    each patch and the points of its warped second patch inside it,
+    patch(i, j) = image(H · (x0+j, y0+i))."""
     ps = patch_size
-    b, h, w, c = images.shape
+    _, h, w, _ = images.shape
     ws_x = min(ps + 2 * rho, w)
     ws_y = min(ps + 2 * rho, h)
     ox = (corners0[:, 0].long() - rho).clamp(0, w - ws_x)
@@ -150,10 +152,17 @@ def _warp_patches(images: Tensor, homography: Tensor, corners0: Tensor,
     windows = geometry.crop_integer(images, ox, oy, (ws_y, ws_x)).contiguous()
     u, v = geometry.homography_grid(homography, (ps, ps),
                                     offset=corners0.float())
-    u = u - ox.float()[:, None]
-    v = v - oy.float()[:, None]
-    out = geometry.batched_sample(windows, u, v)
-    return out.reshape(b, ps, ps, c)
+    return windows, u - ox.float()[:, None], v - oy.float()[:, None]
+
+
+def _warp_patches(images: Tensor, homography: Tensor, corners0: Tensor,
+                  patch_size: int, rho: int) -> Tensor:
+    """Sample the warped second patches directly from the window around
+    each patch (:func:`patch_windows`)."""
+    b, _, _, c = images.shape
+    out = geometry.batched_sample(*patch_windows(
+        images, homography, corners0, patch_size, rho))
+    return out.reshape(b, patch_size, patch_size, c)
 
 
 def _perspective_field(homography: Tensor, corners0: Tensor,

@@ -30,7 +30,8 @@ from bihome_torch.ops import _cuda
 
 _SIGNATURES = {
     'bilinear_sample': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong, ctypes.c_void_p],
+    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+       ctypes.c_void_p],
     'bilinear_sample_bwd_uv': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_longlong, ctypes.c_void_p],
     'bilinear_sample_bwd_img': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
@@ -118,6 +119,18 @@ def bilinear_sample_bwd_img_plain(u: torch.Tensor, v: torch.Tensor,
     return dimg.reshape(n, h, w, c)
 
 
+def touched_pixels(u: torch.Tensor, v: torch.Tensor, h: int, w: int) -> int:
+    """Pixels, over all images, that some in-bounds tap of the points
+    u, v [N,P] reads: what a warp must read of its source on these points
+    (the bytes bound of a warp that touches part of each image)."""
+    _, taps = _taps(h, w, u, v)
+    offset = torch.arange(u.shape[0], device=u.device)[:, None] * (h * w)
+    seen = torch.zeros(u.shape[0] * h * w, dtype=torch.bool, device=u.device)
+    for idx, valid, _ in taps:
+        seen[(idx + offset)[valid]] = True
+    return int(seen.sum())
+
+
 def _check_points(images_shape, u, v, g=None, contiguous=True) -> int:
     n = images_shape[0]
     _cuda.check_cuda_tensor(u, 'u', 2, contiguous=contiguous)
@@ -135,20 +148,30 @@ def _check_points(images_shape, u, v, g=None, contiguous=True) -> int:
 
 def bilinear_sample_batched(images: torch.Tensor, u: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
-    """images [N,H,W,C] float32, u/v [N,P] float32 -> [N,P,C]."""
+    """images [N,H,W,C] float32, u/v [N,P] float32 -> [N,P,C]. On the card
+    u and v may be contiguous or one row broadcast over the batch
+    (:func:`uv_batch_stride`). ``last_kernel`` holds the kernel the last
+    call ran: C for the kernel of C = 1-4, 0 for the C > 1 kernel's loop
+    over any other C, -1 for the generic form (past the kernels' 32-bit
+    guards); the last two count in ``generic_launches`` too."""
     if images.device.type == 'cpu':
         return bilinear_sample_plain(images, u, v)
     _cuda.check_cuda_tensor(images, 'images', 4)
-    p = _check_points(images.shape, u, v)
+    p = _check_points(images.shape, u, v, contiguous=False)
+    stride = uv_batch_stride(u, v)
     n, h, w, c = images.shape
     out = torch.empty((n, p, c), dtype=torch.float32, device=images.device)
     lib = _cuda.library('warp', _SIGNATURES)
-    stream = torch.cuda.current_stream(images.device).cuda_stream
+    chosen = ctypes.c_int(0)
     status = lib.bilinear_sample(images.data_ptr(), u.data_ptr(),
                                  v.data_ptr(), out.data_ptr(), n, h, w, c, p,
-                                 stream)
+                                 stride, ctypes.byref(chosen),
+                                 _cuda.stream_ptr(images.device.index))
     _cuda.check_status(status, 'bilinear_sample')
     bilinear_sample_batched.launches += 1
+    bilinear_sample_batched.last_kernel = chosen.value
+    if chosen.value <= 0:
+        bilinear_sample_batched.generic_launches += 1
     return out
 
 
@@ -174,9 +197,9 @@ def bilinear_sample_bwd_uv(images: torch.Tensor, u: torch.Tensor,
 
 
 def uv_batch_stride(u: torch.Tensor, v: torch.Tensor) -> int:
-    """K5's stride between samples' points of u/v [N,P] on the card: P
-    where both are contiguous, 0 where both broadcast one row over the
-    batch (strides (0, 1), as ``expand`` gives). Raises on any other
+    """K3's and K5's stride between samples' points of u/v [N,P] on the
+    card: P where both are contiguous, 0 where both broadcast one row over
+    the batch (strides (0, 1), as ``expand`` gives). Raises on any other
     layout."""
     strides = []
     for t, name in ((u, 'u'), (v, 'v')):
@@ -229,6 +252,8 @@ def bilinear_sample_bwd_img(u: torch.Tensor, v: torch.Tensor,
 
 
 bilinear_sample_batched.launches = 0
+bilinear_sample_batched.generic_launches = 0
+bilinear_sample_batched.last_kernel = 0
 bilinear_sample_bwd_uv.launches = 0
 bilinear_sample_bwd_img.launches = 0
 bilinear_sample_bwd_img.generic_launches = 0
@@ -236,8 +261,8 @@ bilinear_sample_bwd_img.last_cluster = 0
 
 
 def _broadcast_or_contiguous(u: torch.Tensor, v: torch.Tensor):
-    """u, v as K5 reads them: as given where both broadcast one row over
-    the batch (the upsample grid), else contiguous."""
+    """u, v as K3 and K5 read them: as given where both broadcast one row
+    over the batch (the upsample grid), else contiguous."""
     if u.stride() == (0, 1) and v.stride() == (0, 1):
         return u, v
     return u.contiguous(), v.contiguous()
@@ -246,13 +271,13 @@ def _broadcast_or_contiguous(u: torch.Tensor, v: torch.Tensor):
 class BilinearSample(torch.autograd.Function):
     """Differentiable :func:`bilinear_sample_batched`: forward K3, backward
     K4 for the points and, only when the images require grad, K5. Saves the
-    caller's u and v: K3 and K4 take contiguous copies, K5 a grid broadcast
-    over the batch as it is (one row read, not N)."""
+    caller's u and v: K3 and K5 take a grid broadcast over the batch as it
+    is (one row read, not N; no [N,P] copy), K4 contiguous copies."""
 
     @staticmethod
     def forward(ctx, images, u, v):
         ctx.save_for_backward(images, u, v)
-        return bilinear_sample_batched(images, u.contiguous(), v.contiguous())
+        return bilinear_sample_batched(images, *_broadcast_or_contiguous(u, v))
 
     @staticmethod
     def backward(ctx, g):

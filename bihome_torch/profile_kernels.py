@@ -2,14 +2,15 @@
 compares with another version of its source.
 
     python -m bihome_torch.profile_kernels \\
-        --kernel k1|k1b|k1w|k1wb|k2|k2b|k2w|k2wb|k4|k5 [--baseline FILE] \\
+        --kernel k1|k1b|k1w|k1wb|k2|k2b|k2w|k2wb|k3|k4|k5 \\
+        [--baseline FILE] \\
         [--cmid C] [--batch_size 64] [--rounds 2] \\
         [--no_cuts] [--phases] [--mma_rate] [--sass DIR]
 
 No kernel profiler runs on the machine with the card, so this builds
 variants of the kernel's source (``csrc/fused_head.cu`` for K1, K2 and
 the ResNet50-flavour K1 and K2, ``k1w`` and ``k2w``, and their bf16
-forms, ``k1wb`` and ``k2wb``; ``csrc/warp.cu`` for K4 and K5) with one
+forms, ``k1wb`` and ``k2wb``; ``csrc/warp.cu`` for K3, K4 and K5) with one
 part cut
 out or done another way, each with nvcc (the port's flags) into its own
 library under ``build/kernels/``, and times each
@@ -40,7 +41,14 @@ reduction kernels also timed apart); K4 the loss warp, 2B images of 128x128x1 at
 paths, 2B images of 128x128: the loss warp (C = 1 and, patch and mask,
 C = 2; P = 16,384) and the upsample grid at 2x and 4x broadcast over the
 batch (P = 65,536 and 262,144), also at S forced to 1-4, with its device
-ops per call under torch.profiler (one kernel, no memset).
+ops per call under torch.profiler (one kernel, no memset); K3
+(:func:`profile_k3`) at the shapes of its C > 1 and upsample paths: image_2
+(64 RGB frames of 240x320, P = 76,800), the RGB window warp (64 windows of
+192x192x3 on pds-coco's geometry, P = 16,384), the masked loss warp (2B
+patches of 128x128x2, P = 16,384) and the upsample grid at 2x and 4x (2B
+patches of 128x128x1, the grid one row broadcast over the batch, and
+materialised), beside grid_sample, interpolate, the bytes bound and the
+plain version, with its host us per call and device ops per wrapper call.
 ``--no_cuts`` times only the kernel as built and the baseline. Needs a
 CUDA device.
 
@@ -295,6 +303,109 @@ K5_CUTS = [
         'int swizzle(int a) { return a ^ ((a >> 5) & 31); }',
         'int swizzle(int a) { return a; }')),
 ]
+# K3's C > 1 kernel done another way: the block's source footprint (the
+# bounding box of its points' taps inside the image, C floats a pixel)
+# copied into shared memory first where it fits in 12,000 floats, the taps
+# then read from there (else from the image, as built). Threads past P stay
+# for the block's barriers.
+_K3_TILE_PROLOGUE = """\
+  __shared__ float tile[kC > 0 ? 12000 : 1];
+  __shared__ int box[4];
+  bool tiled = false;
+  int bx0 = 0, by0 = 0, bw = 0;
+  if constexpr (kC > 0) {
+    int lo_x = w, hi_x = -1, lo_y = h, hi_y = -1;
+#pragma unroll
+    for (int k = 0; k < kCnPoints; ++k) {
+      const float fx = floorf(x[k]), fy = floorf(y[k]);
+      if (q + k < p && fx >= -1.0f && fx <= (float)(w - 1) && fy >= -1.0f &&
+          fy <= (float)(h - 1)) {
+        const int ix = (int)fx, iy = (int)fy;
+        lo_x = min(lo_x, max(ix, 0));
+        hi_x = max(hi_x, min(ix + 1, w - 1));
+        lo_y = min(lo_y, max(iy, 0));
+        hi_y = max(hi_y, min(iy + 1, h - 1));
+      }
+    }
+    if (threadIdx.x == 0) {
+      box[0] = w; box[1] = -1; box[2] = h; box[3] = -1;
+    }
+    __syncthreads();
+    lo_x = __reduce_min_sync(0xffffffffu, lo_x);
+    hi_x = __reduce_max_sync(0xffffffffu, hi_x);
+    lo_y = __reduce_min_sync(0xffffffffu, lo_y);
+    hi_y = __reduce_max_sync(0xffffffffu, hi_y);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMin(&box[0], lo_x); atomicMax(&box[1], hi_x);
+      atomicMin(&box[2], lo_y); atomicMax(&box[3], hi_y);
+    }
+    __syncthreads();
+    bx0 = box[0];
+    by0 = box[2];
+    bw = box[1] - box[0] + 1;
+    const int bh = box[3] - box[2] + 1;
+    tiled = bw > 0 && bh > 0 && bw * bh * kC <= 12000;
+    if (tiled) {
+      const int row = bw * kC;
+      for (int i = threadIdx.x; i < row * bh; i += kCnThreads) {
+        const int r = i / row;
+        tile[i] = __ldg(im + ((by0 + r) * w + bx0) * kC + (i - r * row));
+      }
+    }
+    __syncthreads();
+  }
+  if (q >= p) return;
+"""
+_K3_TILE_GATHER = """\
+    if (tiled) {
+      const int tx = (int)fminf(fmaxf(floorf(x[k]), -2.0f), (float)w + 1.0f);
+      const int ty = (int)fminf(fmaxf(floorf(y[k]), -2.0f), (float)h + 1.0f);
+      const float* s0 = tile + ((ty - by0) * bw + (tx - bx0)) * kCh;
+      const float* s1 = s0 + bw * kCh;
+#pragma unroll
+      for (int ci = 0; ci < kCh; ++ci) {
+        const float t00 = t.v00 ? s0[ci] : 0.0f;
+        const float t01 = t.v01 ? s0[kCh + ci] : 0.0f;
+        const float t10 = t.v10 ? s1[ci] : 0.0f;
+        const float t11 = t.v11 ? s1[kCh + ci] : 0.0f;
+        o[k * kCh + ci] = t00 * w00 + t01 * w01 + t10 * w10 + t11 * w11;
+      }
+    } else if constexpr (kC > 0) {
+"""
+_K3_TILE = _cut(
+    '  if (q >= p) return;\n  const float* im = img', '  const float* im = img',
+    _cut('  if (kVec) {\n    if constexpr (kCnPoints == 4)',
+         '  if (kVec && q < p) {\n    if constexpr (kCnPoints == 4)',
+         _cut('  float o[kCnPoints * kCh];\n',
+              _K3_TILE_PROLOGUE + '  float o[kCnPoints * kCh];\n',
+              _cut('    if constexpr (kC > 0) {\n      float t00[kC]',
+                   _K3_TILE_GATHER + '      float t00[kC]'))))
+# K3's C > 1 kernel (cut at its C > 1 shapes only): no tap gathers (what
+# the gathers cost), no output stores (what the stores cost), the taps
+# read channel by channel, the source tile above, other counts of points a
+# thread and of threads a block.
+K3_CUTS = [
+    ('no tap gathers', _cut(
+        '      fetch_tap<kC, kAligned>(p0, t.v00, t00);\n'
+        '      fetch_tap<kC, kAligned>(p0 + kC, t.v01, t01);\n'
+        '      fetch_tap<kC, kAligned>(p1, t.v10, t10);\n'
+        '      fetch_tap<kC, kAligned>(p1 + kC, t.v11, t11);\n',
+        '      for (int i = 0; i < kC; ++i) {\n'
+        '        t00[i] = t.v00; t01[i] = t.v01; t10[i] = t.v10; '
+        't11[i] = t.v11;\n      }\n')),
+    ('no output stores', _cut(
+        '      store_floats<kCnPoints * kC>(d, o);',
+        '      if (o[0] == -1.25e-30f) store_floats<kCnPoints * kC>(d, o);')),
+    ('taps channel by channel', _cut('constexpr bool kCnVecTaps = true;',
+                                     'constexpr bool kCnVecTaps = false;')),
+    ('source tile in shared memory', _K3_TILE),
+    ('1 point a thread', _cut('constexpr int kCnPoints = 2;',
+                              'constexpr int kCnPoints = 1;')),
+    ('4 points a thread', _cut('constexpr int kCnPoints = 2;',
+                               'constexpr int kCnPoints = 4;')),
+    ('128 threads a block', _cut('constexpr int kCnThreads = 256;',
+                                 'constexpr int kCnThreads = 128;')),
+]
 CUTS = {
     'k1': dict([
         ('one accumulator for all three passes (small terms first)', _cut(
@@ -361,10 +472,12 @@ CUTS = {
     'k2wb': dict(K2WB_CUTS),
     'k1b': dict(K1B_CUTS),
     'k2b': dict(K2B_CUTS),
+    'k3': dict(K3_CUTS),
     'k4': {},
     'k5': dict(K5_CUTS),
 }
-SOURCES = {k: 'warp' if k in ('k4', 'k5') else 'fused_head' for k in CUTS}
+SOURCES = {k: 'warp' if k in ('k3', 'k4', 'k5') else 'fused_head'
+           for k in CUTS}
 WIDE = ('k1w', 'k2w', 'k1wb', 'k2wb')
 # The bf16 kernels: ptxas's report, the Python wrapper's host cost and the
 # outputs against the baseline's are printed for them.
@@ -380,6 +493,9 @@ SASS_NAMES = {'k1': ('pf_head_fwd_kernelILb1',),
               'k1wb': ('pf_head_fwd_wide_bf16_kernelILb1',),
               'k2wb': ('pf_head_bwd_wide_bf16_dx_kernelILb1',
                        'pf_head_bwd_wide_bf16_sums_kernelILb1'),
+              'k3': ('bilinear_sample_cn_kernelILi3ELb1ELb0',
+                     'bilinear_sample_cn_kernelILi2ELb1ELb1',
+                     'bilinear_sample_c1_kernelILb1'),
               'k4': ('bilinear_sample_bwd_uv_c1_kernelILb1',),
               'k5': ('bilinear_sample_bwd_img_cluster_kernelILi1ELb1',
                      'bilinear_sample_bwd_img_cluster_kernelILi2ELb1')}
@@ -397,7 +513,7 @@ K2W_GRID2 = 'as built, sums grid at twice the blocks'
 K2W_SUMS = ('dw1', 'm0', 'm1', 'db2')
 
 
-def _build(sources: dict, entry_points: str) -> dict:
+def build_sources(sources: dict, entry_points: str) -> dict:
     """Compile each {name: source text} as lib<name> into build/kernels,
     all nvcc processes started together, and load each with the entry
     points of csrc/<entry_points>.cu (its source text as ``source``)."""
@@ -1062,6 +1178,202 @@ def profile_k5(libs: dict, batch: int, rounds: int) -> None:
             f'{k} {x:g}' for k, x in device_ops_per_call(wrapper).items()))
 
 
+K3_SHAPES = ('image_2', 'RGB window warp', 'masked loss warp', 'upsample 2x',
+             'upsample 4x')
+
+
+def k3_inputs(batch: int) -> dict:
+    """{shape: (images, u, v, touched)} at the shapes of K3's
+    C > 1 and upsample paths: ``batch`` RGB 240x320 frames on 0..255 warped
+    whole by the inverse of their pairs' homographies (image_2, eval
+    --vis), the (ps + 2 rho)^2 windows of the same frames and their warped
+    second patches' points (``data/pipeline.patch_windows``, pds-coco's
+    patch 128 and rho 32), 2B patches and masks of 128x128 on the loss
+    warp's points, and 2B patches of 128x128 at the upsample grid of 2x and
+    4x broadcast over the batch (``heads/assembled.upsample_grid``).
+    ``touched``: the bytes bound reads only the pixels the taps touch
+    (``ops/warp.touched_pixels``: the frames and windows), else the whole
+    image."""
+    from bihome_torch.data import pipeline
+    from bihome_torch.heads.assembled import upsample_grid
+
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device('cuda')
+    spec = pipeline.PairSpec(rho=32, patch_size=128)
+    corners, delta = pipeline.draw_corners_delta_batch(batch, (240, 320),
+                                                       spec, gen)
+    hom = geometry.four_point_to_homography(corners.float(), delta.float())
+    frames = (torch.rand((batch, 240, 320, 3), generator=gen) * 255).to(dev)
+    u, v = geometry.homography_grid(geometry.inv3x3(hom), (240, 320))
+    cases = {'image_2': (frames, u.to(dev), v.to(dev), True)}
+    windows, u, v = pipeline.patch_windows(frames, hom.to(dev),
+                                           corners[:, 0].float().to(dev),
+                                           128, 32)
+    cases['RGB window warp'] = (windows, u, v, True)
+    n, ps = 2 * batch, 128
+    corners = geometry.image_corners(ps, ps, batch_size=n)
+    delta = torch.rand((n, 4, 2), generator=gen) * 16 - 8
+    u, v = geometry.homography_grid(
+        geometry.four_point_to_homography(corners, delta), (ps, ps))
+    masked = torch.cat([torch.randn((n, ps, ps, 1), generator=gen),
+                        torch.rand((n, ps, ps, 1), generator=gen)], dim=-1)
+    cases['masked loss warp'] = (masked.to(dev), u.to(dev), v.to(dev),
+                                 False)
+    patches = torch.randn((n, ps, ps, 1), generator=gen).to(dev)
+    for scale in (2, 4):
+        cases[f'upsample {scale}x'] = (
+            patches, *upsample_grid(n, ps, ps, scale, dev), False)
+    return {k: cases[k] for k in K3_SHAPES}
+
+
+def footprint_bytes(u, v, h: int, w: int, c: int, points: int = 512):
+    """Per block of ``points`` consecutive points of an image (the ragged
+    tail dropped), the bytes of the bounding box of its taps inside the
+    image: what a tile of the source in shared memory would have to hold
+    for that block. Points with no tap inside are left out."""
+    n, p = u.shape
+    blocks = p // points
+    x0 = torch.floor(u[:, :blocks * points]).reshape(n, blocks, points)
+    y0 = torch.floor(v[:, :blocks * points]).reshape(n, blocks, points)
+    inside = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+    big = float(max(h, w) + 2)
+
+    def extent(lo, hi, limit):
+        low = torch.where(inside, lo.clamp(0, limit - 1), big).amin(-1)
+        high = torch.where(inside, hi.clamp(0, limit - 1), -big).amax(-1)
+        return (high - low + 1).clamp_min(0)
+    area = extent(x0, x0 + 1, w) * extent(y0, y0 + 1, h)
+    return (area * c * 4).flatten()
+
+
+def k3_call(lib, images, u, v):
+    """K3's C entry of ``lib`` on these inputs. An earlier source (no batch
+    stride: [N,P] points only) gets the grid materialised, as its wrapper
+    did."""
+    n, h, w, c = images.shape
+    p = u.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((n, p, c), device='cuda')
+    if 'bilinear_sample_cn_kernel' not in lib.source:
+        lib.bilinear_sample.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        uc, vc = u.contiguous(), v.contiguous()
+
+        def run():
+            _cuda.check_status(lib.bilinear_sample(
+                images.data_ptr(), uc.data_ptr(), vc.data_ptr(),
+                out.data_ptr(), n, h, w, c, p, stream), 'K3 (baseline)')
+    else:
+        stride = warp.uv_batch_stride(u, v)
+        chosen = ctypes.c_int(0)
+
+        def run():
+            _cuda.check_status(lib.bilinear_sample(
+                images.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+                n, h, w, c, p, stride, ctypes.byref(chosen), stream), 'K3')
+        run.chosen = chosen
+    run.out = out
+    return run
+
+
+def profile_k3(libs: dict, batch: int, rounds: int) -> None:
+    """K3 at the five shapes of its C > 1 and upsample paths: the kernel as
+    built (on the broadcast grid where the path gives one, and on that grid
+    materialised), each cut variant (C > 1 only) and the baseline, in turns
+    (``time_ms``); the errors against the plain version; the bytes bound;
+    grid_sample (and at the upsample shapes interpolate, align_corners)
+    and the plain version; host us per call of the C entries and of the
+    wrapper; the device ops of one wrapper call under torch.profiler."""
+    import torch.nn.functional as F
+
+    dev_name = torch.cuda.get_device_name(0)
+    for shape_name, (images, u, v, touched) in k3_inputs(batch).items():
+        n, h, w, c = images.shape
+        p = u.shape[1]
+        broadcast = u.stride() == (0, 1)
+        runs = {}
+        for label, lib in libs.items():
+            if c == 1 and not label.startswith(('as built', 'baseline')):
+                continue          # the cuts change only the C > 1 kernel
+            runs[label] = k3_call(lib, images, u, v)
+            if label == 'as built' and broadcast:
+                runs['as built, grid materialised'] = k3_call(
+                    lib, images, u.contiguous(), v.contiguous())
+        times = {label: [] for label in runs}
+        for _ in range(rounds):
+            for label, run in runs.items():
+                times[label].append(time_ms(run))
+            times['as built'].append(time_ms(runs['as built']))
+        want = warp.bilinear_sample_plain(images, u, v)
+        scale = float(want.abs().max())
+        pixels = warp.touched_pixels(u, v, h, w) if touched else n * h * w
+        rows = 1 if broadcast else n
+        bound = 4 * (pixels * c + 2 * rows * p + n * p * c) / HBM_BYTES_PER_S
+        bound_full = 4 * (pixels * c + 3 * n * p) / HBM_BYTES_PER_S
+        img_nchw = images.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([u * (2.0 / (w - 1)) - 1.0,
+                            v * (2.0 / (h - 1)) - 1.0], dim=-1)[:, None]
+        lib_ms = time_ms(lambda: F.grid_sample(
+            img_nchw, grid, mode='bilinear', padding_mode='zeros',
+            align_corners=True))
+        extra = ''
+        if broadcast:
+            up = p // (h * w)
+            factor = int(round(up ** 0.5))
+            extra = '; interpolate {:.4f}'.format(time_ms(
+                lambda: F.interpolate(img_nchw, scale_factor=factor,
+                                      mode='bilinear', align_corners=True)))
+        chosen = runs['as built'].chosen
+        runs['as built']()
+        plain_ms = time_ms(lambda: warp.bilinear_sample_plain(images, u, v))
+        print(f'K3 at the {shape_name} [{n},{h},{w},{c}] P = {p} on '
+              f'{dev_name} (kernel {chosen.value}): ms per call (every '
+              f'reading), the median saved against the kernel as built; '
+              f'bound (bytes) {bound * 1e3:.4f}'
+              + (f' (one grid row; {bound_full * 1e3:.4f} with a grid per '
+                 f'sample)' if broadcast else '')
+              + f', {pixels / (n * h * w):.3f} of the image read; '
+              f'grid_sample {lib_ms:.4f}{extra}; plain {plain_ms:.4f}')
+        base = sorted(times['as built'])[len(times['as built']) // 2]
+        for label, ts in times.items():
+            mid = sorted(ts)[len(ts) // 2]
+            run = runs[label]
+            run()
+            torch.cuda.synchronize()
+            err = float((run.out - want).abs().max())
+            print(f'  {label:48s} {" ".join(f"{t:.4f}" for t in ts)}'
+                  + ('' if label == 'as built' else f'  saves {base - mid:.4f}')
+                  + (f'  max abs err {err:.2e} ({err / scale:.2e} of '
+                     f'max|ref|)' if label.startswith(('as built', 'baseline'))
+                     else ''))
+        if broadcast:
+            same = torch.equal(runs['as built'].out,
+                               runs['as built, grid materialised'].out)
+            print('  one grid row against the grid materialised: '
+                  + ('bit for bit' if same else 'DIFFERENT'))
+        if c > 1:
+            kb = footprint_bytes(u, v, h, w, c).double() / 1024
+            q = torch.quantile(kb, torch.tensor([0.5, 0.9], dtype=kb.dtype,
+                                                device=kb.device))
+            print(f'  source footprint of a block of 512 points (KB): median '
+                  f'{q[0]:.1f}, p90 {q[1]:.1f}, max {kb.max():.1f}; over '
+                  f'48 KB {float((kb > 48).double().mean()):.3f}, over 227 '
+                  f'KB {float((kb > 227).double().mean()):.3f} of the blocks')
+        hosts = {label: [] for label in runs
+                 if label == 'as built' or label.startswith('baseline')}
+        hosts['wrapper'] = []
+        wrapper = lambda: warp.bilinear_sample_batched(images, u, v)
+        for _ in range(3):
+            for label in hosts:
+                hosts[label].append(host_us(runs.get(label, wrapper)))
+        print('  host us per call (C entry, and the Python wrapper as built; '
+              'in turns): ' + '; '.join(
+                  f'{label} ' + ' '.join(f'{us:.2f}' for us in readings)
+                  for label, readings in hosts.items()))
+        print('  device ops per wrapper call (torch.profiler): ' + ', '.join(
+            f'{k} {x:g}' for k, x in device_ops_per_call(wrapper).items()))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernel', choices=sorted(CUTS), default='k2')
@@ -1101,7 +1413,7 @@ def main(argv=None) -> None:
             {} if args.no_cuts else CUTS[name].items()):
         sources[f'{name}_variant{i}'] = cut(src)
         labels[f'{name}_variant{i}'] = cut_name
-    libs = {labels[k]: lib for k, lib in _build(sources, source).items()}
+    libs = {labels[k]: lib for k, lib in build_sources(sources, source).items()}
     for kernel in SASS_NAMES[name]:
         so = _cuda.BUILD_DIR / f'lib{name}_as_built.so'
         counts = sass_counts(so, kernel)
@@ -1112,7 +1424,7 @@ def main(argv=None) -> None:
               'instructions; ' + ', '.join(
                   f'{op} {k}' for op, k in counts.most_common(12))
               + f'; HGMMA {counts["HGMMA"]}, HMMA {counts["HMMA"]}')
-        if name in BF16 or name == 'k5':
+        if name in BF16 or name in ('k3', 'k5'):
             for label in ('as built', f'baseline {args.baseline}'):
                 if label in libs:
                     print(f'  ptxas, {label}: '
@@ -1125,6 +1437,9 @@ def main(argv=None) -> None:
 
     if name == 'k5':
         profile_k5(libs, args.batch_size, args.rounds)
+        return
+    if name == 'k3':
+        profile_k3(libs, args.batch_size, args.rounds)
         return
     describe, make = _runner_factory(name, args.batch_size, cmid)
     runs = {label: make(lib) for label, lib in libs.items()}

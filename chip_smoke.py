@@ -6,8 +6,9 @@
 1. Prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, and turns TF32 off for matmuls and cuDNN convolutions.
 2. Builds every CUDA kernel (K1-K5) from bihome_torch/csrc with nvcc (in
-   parallel, into build/kernels/) and prints the build time and, per
-   kernel (by its mangled name), ptxas's registers and spills.
+   parallel, into build/kernels/; beside them warp.cu with K3_FAULT
+   planted, for step 16) and prints the build time and, per kernel (by
+   its mangled name), ptxas's registers and spills.
 3. Holds each kernel against its plain-torch version on the card and
    times kernel, plain version and, where one PyTorch call computes the
    same function, that call (median device time of 50 launches, each
@@ -169,11 +170,17 @@
 16. The K5 slice (K5_RUNS, VARIANT_RUNS), after step 15's evals, from a
    generator of its own: K3 and K5 at the shapes of the paths that run K5
    (128 patches of 128x128 upsampled 2x and 4x, P = 65,536 and 262,144,
-   K5 on the grid broadcast over the batch as the path gives it; the
-   masked loss warp, C = 2, P = 16,384, with K4) against their plain
-   versions, timed beside grid_sample and its input and grid gradients
-   and, upsampled, beside upsample_bilinear2d (align_corners) forward and
-   backward, with their bytes bounds; then the train entry point with
+   K3 and K5 on the grid broadcast over the batch as the path gives it,
+   K3 also on the grid materialised, bit for bit; the masked loss warp,
+   C = 2, P = 16,384, with K4) against their plain versions, timed beside
+   grid_sample and its input and grid gradients and, upsampled, beside
+   upsample_bilinear2d (align_corners) forward and backward, with their
+   bytes bounds; K3's C > 1 kernel at the RGB window warp (64 windows of
+   192x192x3 on pds-coco's geometry, P = 16,384) against its plain
+   version and timed as image_2, and K3 built with K3_FAULT planted (one
+   channel's tap read a pixel off), which the checks at C = 3 (the
+   windows) and C = 2 (the masked loss warp) must catch; then the train
+   entry point with
    ``--set`` overrides of the shipped configs (batch 64, PDS_STEPS steps):
    pds zeng-biHomE with SAMPLING_STRATEGY upsample-patch-2x (float32 and
    bf16) and -4x (float32), exactly K1-K5 (bf16: K1 and K2 bf16); pds
@@ -192,7 +199,7 @@
    unchanged and its BN statistics moved only under BN_TRAIN.
 17. The DSAC slice (run_dsac_slice), from a generator of its own: K3 and
    K4 at the loss warp of DSAC_N = 4 hypotheses ([512,128,128,1]: 2·B·n
-   patches) and K3 at image_2 ([64,240,320,3], the generic C > 1 kernel),
+   patches) and K3 at image_2 ([64,240,320,3], its C = 3 kernel),
    held to their plain versions and timed beside grid_sample (and its
    grid gradient); photometric_distort_full, the blob masks (exactly) and
    their composite, and image_2 on the card against the CPU on the same
@@ -276,8 +283,11 @@
    shapes under "at_upsample_2x" and "at_upsample_4x", K3, K4 and K5
    at the masked loss warp under "at_masked_loss_warp", K3 and K4 at the
    loss warp of 4 hypotheses under "at_dsac_n4", K3 at image_2 under
-   "at_image_2" and K3 at warp_gt's shape under "at_warp_gt", each with
-   the launches of the paths that run that shape), then as the last line
+   "at_image_2", at the RGB window warp under "at_rgb_window" and at
+   warp_gt's shape under "at_warp_gt", each with the launches of the paths
+   that run that shape; K3's "generic_launches" over every path, which
+   must be 0: each path's K3 runs its kernel for C = 1, 2 or 3), then as
+   the last line
    {"ok": true,
    "device": {...}}.
 
@@ -645,6 +655,11 @@ PRETRAIN_KERNELS = ('bilinear_sample_batched',)
 # with K3's output shifted by one image row as the planted fault.
 PRETRAIN_STEP_BATCH = 8
 PRETRAIN_FAULT = 'K3 output shifted a row'
+# The planted fault of K3's C > 1 kernels (a library built apart): channel
+# 1's top-left tap read one pixel to the right.
+K3_FAULT = ('channel 1 tap shifted a pixel',
+            'o[k * kC + ci] = t00[ci] * w00',
+            'o[k * kC + ci] = (ci == 1 ? t01 : t00)[ci] * w00')
 # pds zeng-biHomE with a resnet50 extractor (seeded: no file).
 R50_EXTRACTOR = ('MODEL.HEAD.AUXILIARY_RESNET=resnet50',
                  'MODEL.HEAD.AUXILIARY_RESNET_PATH=')
@@ -657,6 +672,10 @@ def kernel_counters():
 
     return {
         'bilinear_sample_batched': (warp.bilinear_sample_batched, 'launches'),
+        # K3's launches of its loop over any C > 1 or its generic form: no
+        # path may launch one.
+        'bilinear_sample_batched_generic': (warp.bilinear_sample_batched,
+                                            'generic_launches'),
         'fused_pf_head_fwd': (fused_head.fused_pf_head_fwd, 'launches'),
         'fused_pf_head_fwd_wide': (fused_head.fused_pf_head_fwd,
                                    'wide_launches'),
@@ -1761,19 +1780,6 @@ def check_warp_bwd(dev, gen):
     return k3, [k4, k5]
 
 
-def _touched_pixels(u, v, h, w):
-    """Pixels, over all images, that some in-bounds tap of the points
-    [N,P] reads: what a warp must read of its source on these points."""
-    from bihome_torch.ops import warp
-
-    _, taps = warp._taps(h, w, u, v)
-    offset = torch.arange(u.shape[0], device=u.device)[:, None] * (h * w)
-    seen = torch.zeros(u.shape[0] * h * w, dtype=torch.bool, device=u.device)
-    for idx, valid, _ in taps:
-        seen[(idx + offset)[valid]] = True
-    return int(seen.sum())
-
-
 def check_warp_frame(dev, gen, name, image, u, v):
     """K3 and K4 on whole standardized frames ``image`` [N,H,W,1] at the
     points u, v [N,P], with a dense random cotangent, against their plain
@@ -1816,7 +1822,7 @@ def check_warp_frame(dev, gen, name, image, u, v):
                                                retain_graph=True))
     host3 = host_us(lambda: warp.bilinear_sample_batched(image, u, v))
     host4 = host_us(lambda: warp.bilinear_sample_bwd_uv(image, u, v, g))
-    touched = _touched_pixels(u, v, h, w)
+    touched = warp.touched_pixels(u, v, h, w)
     b3, by3 = bound_ms(4 * (touched + 3 * n * p), 15 * n * p)
     b4, by4 = bound_ms(4 * (touched + 5 * n * p), 30 * n * p)
     frame3, _ = bound_ms(4 * (n * h * w + 3 * n * p), 15 * n * p)
@@ -1885,14 +1891,15 @@ def check_warp_k5_paths(dev, gen):
     plain versions, with a dense random cotangent: 2B = 128 patches of
     128x128 upsampled 2x and 4x (the align_corners grid of
     ``heads/assembled.upsample_grid``, P = 65,536 and 262,144: 4 and 16
-    points per pixel; K5 takes it broadcast over the batch, one row read,
-    as the path hands it over, and K3 materialised), and the masked loss
-    warp (patch and mask as C = 2,
-    the patch grid through homographies of a few pixels, P = 16,384; K4
-    there too). Each is timed beside grid_sample (forward, its input
-    gradient, its grid gradient) and, at the upsample shapes, beside
-    upsample_bilinear2d (align_corners) forward and backward. Returns
-    {shape name: (K3's, K4's or None, K5's figures)}."""
+    points per pixel; K3 and K5 take it broadcast over the batch, one row
+    read, as the path hands it over; K3 also on the grid materialised,
+    which must give the same bits), and the masked loss warp (patch and
+    mask as C = 2, K3's C = 2 kernel, the patch grid through homographies
+    of a few pixels, P = 16,384; K4 there too). Each is timed beside
+    grid_sample (forward, its input gradient, its grid gradient) and, at
+    the upsample shapes, beside upsample_bilinear2d (align_corners) forward
+    and backward. Returns {shape name: (K3's, K4's or None, K5's
+    figures)}."""
     import torch.nn.functional as F
     from bihome_torch.heads.assembled import upsample_grid
     from bihome_torch.ops import warp
@@ -1910,13 +1917,24 @@ def check_warp_k5_paths(dev, gen):
     cases.append(('masked_loss_warp', None, masked.to(dev), u, v))
     figures = {}
     for name, scale, images, ub, vb in cases:
-        # ub, vb as K5 gets them; u, v contiguous, as K3 and K4 get them.
+        # ub, vb as K3 and K5 get them; u, v contiguous, as K4 gets them.
         u, v = ub.contiguous(), vb.contiguous()
         c = images.shape[-1]
         p = u.shape[1]
         shape = tuple(images.shape)
         g = torch.randn((n, p, c), generator=gen).to(dev)
-        out = warp.bilinear_sample_batched(images, u, v)
+        generic = warp.bilinear_sample_batched.generic_launches
+        out = warp.bilinear_sample_batched(images, ub, vb)
+        kernel3 = warp.bilinear_sample_batched.last_kernel
+        broadcast = warp.uv_batch_stride(ub, vb) == 0
+        if kernel3 != c or (
+                warp.bilinear_sample_batched.generic_launches != generic):
+            raise AssertionError(f'K3 at the {name} ran kernel {kernel3}, '
+                                 f'not its C = {c} kernel')
+        if broadcast and not torch.equal(
+                out, warp.bilinear_sample_batched(images, u, v)):
+            raise AssertionError(f'K3 at the {name}: one grid row and the '
+                                 f'grid materialised give other bits')
         want = warp.bilinear_sample_plain(images, u, v)
         dimg = warp.bilinear_sample_bwd_img(ub, vb, g, shape)
         cluster5 = warp.bilinear_sample_bwd_img.last_cluster
@@ -1929,10 +1947,12 @@ def check_warp_k5_paths(dev, gen):
                                                                  v, g)
             err4 = max(_rel_err(du, want_du), _rel_err(dv, want_dv))
         print(f'K3/K4/K5 at the {name} [{n},{ps},{ps},{c}] P={p}: error / '
-              f'max|ref| K3 {err3:.2e} (tolerance 1e-5), K4 {err4:.2e}, K5 '
-              f'{err5:.2e} (tolerance 1e-4; shared atomics add in no fixed '
-              f'order; S = {cluster5}, u/v batch stride '
-              f'{warp.uv_batch_stride(ub, vb)})')
+              f'max|ref| K3 {err3:.2e} (tolerance 1e-5; its C = {c} kernel'
+              + ('; one grid row bit for bit the grid materialised'
+                 if broadcast else '')
+              + f'), K4 {err4:.2e}, K5 {err5:.2e} (tolerance 1e-4; shared '
+              f'atomics add in no fixed order; S = {cluster5}, u/v batch '
+              f'stride {warp.uv_batch_stride(ub, vb)})')
         if not (err3 <= 1e-5 and err4 <= 1e-4 and err5 <= 1e-4):
             raise AssertionError(f'warp kernels disagree at the {name} '
                                  f'shape: {err3}, {err4}, {err5}')
@@ -1945,7 +1965,9 @@ def check_warp_k5_paths(dev, gen):
                                 padding_mode='zeros', align_corners=True)
         out_grid = F.grid_sample(img_nchw, grid_req, mode='bilinear',
                                  padding_mode='zeros', align_corners=True)
-        ms3 = time_ms(lambda: warp.bilinear_sample_batched(images, u, v))
+        ms3 = time_ms(lambda: warp.bilinear_sample_batched(images, ub, vb))
+        ms3_full = (time_ms(lambda: warp.bilinear_sample_batched(images, u, v))
+                    if broadcast else ms3)
         plain3 = time_ms(lambda: warp.bilinear_sample_plain(images, u, v))
         lib3 = time_ms(lambda: F.grid_sample(
             img_nchw, grid, mode='bilinear', padding_mode='zeros',
@@ -1957,14 +1979,16 @@ def check_warp_k5_paths(dev, gen):
                                                    retain_graph=True))
         host5 = host_us(lambda: warp.bilinear_sample_bwd_img(ub, vb, g,
                                                              shape))
-        host3 = host_us(lambda: warp.bilinear_sample_batched(images, u, v))
-        # K3 reads the images, u and v and writes the samples; K5 reads u,
-        # v (one row where they broadcast over the batch; the grid per
-        # sample counted apart) and g and writes dimg once; K4 reads the
+        host3 = host_us(lambda: warp.bilinear_sample_batched(images, ub, vb))
+        # K3 reads the images, u and v (one row where they broadcast over
+        # the batch; the grid per sample counted apart) and writes the
+        # samples; K5 reads u, v and g and writes dimg once; K4 reads the
         # images, u, v and g and writes du and dv.
-        b3, by3 = bound_ms(4 * (n * ps * ps * c + 2 * n * p + n * p * c),
+        rows = 1 if broadcast else n
+        b3, by3 = bound_ms(4 * (n * ps * ps * c + 2 * rows * p + n * p * c),
                            15 * n * p * c)
-        rows = n if warp.uv_batch_stride(ub, vb) else 1
+        b3n, _ = bound_ms(4 * (n * ps * ps * c + 2 * n * p + n * p * c),
+                          15 * n * p * c)
         b5, by5 = bound_ms(4 * (2 * rows * p + n * p * c + n * ps * ps * c),
                            20 * n * p * c)
         b5n, _ = bound_ms(4 * (2 * n * p + n * p * c + n * ps * ps * c),
@@ -1972,15 +1996,24 @@ def check_warp_k5_paths(dev, gen):
         base = {'shape': [n, ps, ps, c], 'points': p}
         k3 = dict(base, max_abs_err=float((out - want).abs().max()),
                   max_rel_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3,
-                  bound_by=by3, library_ms=lib3, host_us={'kernel': host3})
+                  bound_by=by3, library_ms=lib3, host_us={'kernel': host3},
+                  kernel=kernel3, uv_batch_stride=0 if broadcast else p)
+        if broadcast:
+            k3.update(grid_materialised_ms=ms3_full,
+                      bound_ms_grid_per_sample=b3n)
         k5 = dict(base, max_abs_err=float((dimg - want_img).abs().max()),
                   max_rel_err=err5, ms=ms5, plain_ms=plain5, bound_ms=b5,
                   bound_by=by5, bound_ms_grid_per_sample=b5n,
                   library_ms=lib5, host_us={'kernel': host5},
                   cluster=cluster5)
-        line = (f'K3 at the {name} (ms): kernel {ms3:.4f}  plain '
-                f'{plain3:.4f}  grid_sample {lib3:.4f}  bound {b3:.4f} '
-                f'({by3}); K5: kernel {ms5:.4f}  plain {plain5:.4f}  '
+        line = (f'K3 at the {name} (ms): kernel {ms3:.4f}'
+                + (f' (grid materialised {ms3_full:.4f})' if broadcast
+                   else '')
+                + f'  plain {plain3:.4f}  grid_sample {lib3:.4f}  bound '
+                f'{b3:.4f} ({by3}'
+                + (f'; {b3n:.4f} with a grid per sample' if broadcast
+                   else '')
+                + f'); K5: kernel {ms5:.4f}  plain {plain5:.4f}  '
                 f'grid_sample input-grad {lib5:.4f}  bound {b5:.4f} ({by5}; '
                 f'{b5n:.4f} with a grid per sample); host us per call K3 '
                 f'{host3:.1f}, K5 {host5:.1f}')
@@ -2812,15 +2845,13 @@ def dsac_ms_per_step(events, fields):
 
 def check_warp_image_2(dev, gen, n=BATCH):
     """K3 at ``image_2``'s shape (eval --vis): ``n`` RGB 240x320 frames
-    on 0..255 through the generic C > 1 kernel, each warped whole by the
+    on 0..255 through K3's C = 3 kernel, each warped whole by the
     inverse of its pair's homography (corner offsets of rho 32 at a patch
     of 128, as the pairs draw them), P = 76,800 points per frame, against
     the plain version, timed beside grid_sample, with the bytes bound of
     the pixels the taps touch."""
-    import torch.nn.functional as F
     from bihome_torch import geometry
     from bihome_torch.data import pipeline
-    from bihome_torch.ops import warp
 
     h, w, c = 240, 320, 3
     spec = pipeline.PairSpec(rho=32, patch_size=128)
@@ -2829,14 +2860,39 @@ def check_warp_image_2(dev, gen, n=BATCH):
     u, v = geometry.homography_grid(geometry.inv3x3(hom), (h, w))
     u, v = u.to(dev), v.to(dev)
     frames = (torch.rand((n, h, w, c), generator=gen) * 255).to(dev)
+    return check_warp_rgb(dev, 'image_2', frames, u, v)
+
+
+def check_warp_rgb(dev, name, frames, u, v, fault_lib=None):
+    """K3 on RGB frames or windows ``frames`` [N,H,W,3] on 0..255 at the
+    points u, v [N,P]: its C = 3 kernel (no generic launch) against the
+    plain version within 1e-3, timed beside grid_sample, with the bytes
+    bound of the pixels the taps touch; with ``fault_lib``, K3 built with
+    K3_FAULT planted must miss the same tolerance."""
+    import torch.nn.functional as F
+    from bihome_torch.ops import warp
+
+    n, h, w, c = frames.shape
+    generic = warp.bilinear_sample_batched.generic_launches
     out = warp.bilinear_sample_batched(frames, u, v)
+    kernel = warp.bilinear_sample_batched.last_kernel
     want = warp.bilinear_sample_plain(frames, u, v)
     err = float((out - want).abs().max())
     p = u.shape[1]
-    print(f'K3 at image_2 [{n},{h},{w},{c}] P={p} (generic C > 1 kernel): '
+    print(f'K3 at the {name} [{n},{h},{w},{c}] P={p} (kernel {kernel}): '
           f'max abs err {err:.3e} (0..255; tolerance 1e-3)')
-    if not err <= 1e-3:
-        raise AssertionError(f'warp kernel disagrees at image_2: {err}')
+    if not (err <= 1e-3 and kernel == c
+            and warp.bilinear_sample_batched.generic_launches == generic):
+        raise AssertionError(f'warp kernel disagrees at the {name}: {err} '
+                             f'(kernel {kernel})')
+    planted = None
+    if fault_lib is not None:
+        planted = float((k3_entry(fault_lib, frames, u, v)
+                         - want).abs().max())
+        print(f'K3 at the {name} with {K3_FAULT[0]}: max abs err '
+              f'{planted:.3e} (must exceed 1e-3)')
+        if not planted > 1e-3:
+            raise AssertionError(f'the {name} check misses {K3_FAULT[0]}')
     img_nchw = frames.permute(0, 3, 1, 2).contiguous()
     grid = _grid(u, v, h, w)
     ms = time_ms(lambda: warp.bilinear_sample_batched(frames, u, v))
@@ -2845,19 +2901,89 @@ def check_warp_image_2(dev, gen, n=BATCH):
                                         padding_mode='zeros',
                                         align_corners=True))
     host = host_us(lambda: warp.bilinear_sample_batched(frames, u, v))
-    touched = _touched_pixels(u, v, h, w)
+    touched = warp.touched_pixels(u, v, h, w)
     # The touched pixels of each channel read once, u and v read, the
     # samples written; per point 4 weights and floors, per channel 4
     # products and 3 adds.
     b, by = bound_ms(4 * (touched * c + 2 * n * p + n * p * c),
                      (8 + 7 * c) * n * p)
-    print(f'K3 times at image_2 (ms): kernel {ms:.4f}  plain {plain:.4f}  '
-          f'grid_sample {lib:.4f}  bound {b:.4f} ({by}; '
+    print(f'K3 times at the {name} (ms): kernel {ms:.4f}  plain '
+          f'{plain:.4f}  grid_sample {lib:.4f}  bound {b:.4f} ({by}; '
           f'{touched / (n * h * w):.3f} of the frame touched); host us per '
           f'call {host:.1f}')
-    return {'shape': [n, h, w, c], 'points': p, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain, 'bound_ms': b, 'bound_by': by,
-            'library_ms': lib, 'host_us': {'kernel': host}}
+    figures = {'shape': [n, h, w, c], 'points': p, 'max_abs_err': err,
+               'ms': ms, 'plain_ms': plain, 'bound_ms': b, 'bound_by': by,
+               'library_ms': lib, 'host_us': {'kernel': host},
+               'kernel': kernel}
+    if planted is not None:
+        figures['planted_fault'] = {'name': K3_FAULT[0],
+                                    'max_abs_err': planted}
+    return figures
+
+
+def k3_entry(lib, images, u, v):
+    """K3's C entry of a library built apart (``lib``) on these inputs."""
+    from bihome_torch import profile_kernels
+
+    run = profile_kernels.k3_call(lib, images, u, v)
+    run()
+    return run.out
+
+
+def start_k3_fault_build(stack):
+    """Build csrc/warp.cu with K3_FAULT planted on a thread of ``stack``'s,
+    beside the kernels' own build; returns the future of its library."""
+    from bihome_torch import profile_kernels
+    from bihome_torch.ops import _cuda
+
+    src = (_cuda.CSRC / 'warp.cu').read_text()
+    if src.count(K3_FAULT[1]) != 1:
+        raise AssertionError(f'{K3_FAULT[0]}: its line is not in warp.cu')
+    faulty = {'warp_k3_fault': src.replace(K3_FAULT[1], K3_FAULT[2])}
+    pool = stack.enter_context(concurrent.futures.ThreadPoolExecutor(1))
+    return pool.submit(lambda: profile_kernels.build_sources(
+        faulty, 'warp')['warp_k3_fault'])
+
+
+def check_warp_k3_rgb(dev, gen, fault_lib, n=BATCH):
+    """K3's C > 1 kernels on the paths that run them beside image_2: the
+    RGB window warp of a patch_2 that PhotometricDistort distorts whole
+    (``data/pipeline.patch_windows`` on pds-coco's geometry: 240x320 RGB
+    frames, patch 128, rho 32: ``n`` windows of 192x192x3, P = 16,384),
+    held and timed as image_2, and K3_FAULT planted at C = 3 there and at
+    C = 2 on the masked loss warp's shape (2B patches and masks of 128x128,
+    the loss warp's points), where the check of the K5 slice (error over
+    max|ref| within 1e-5) must catch it."""
+    from bihome_torch import geometry
+    from bihome_torch.data import pipeline
+    from bihome_torch.ops import warp
+
+    spec = pipeline.PairSpec(rho=32, patch_size=128)
+    corners, delta = pipeline.draw_corners_delta_batch(n, (240, 320), spec,
+                                                       gen)
+    hom = geometry.four_point_to_homography(corners.float(), delta.float())
+    frames = (torch.rand((n, 240, 320, 3), generator=gen) * 255).to(dev)
+    windows, u, v = pipeline.patch_windows(frames, hom.to(dev),
+                                           corners[:, 0].float().to(dev),
+                                           spec.patch_size, spec.rho)
+    figures = check_warp_rgb(dev, 'RGB window warp', windows, u, v,
+                             fault_lib)
+    m, ps = 2 * BATCH, 128
+    u2, v2 = _loss_warp_points(dev, gen, m, ps)
+    masked = torch.cat([torch.randn((m, ps, ps, 1), generator=gen),
+                        torch.rand((m, ps, ps, 1), generator=gen)],
+                       dim=-1).to(dev)
+    want = warp.bilinear_sample_plain(masked, u2, v2)
+    sound = _rel_err(warp.bilinear_sample_batched(masked, u2, v2), want)
+    planted = _rel_err(k3_entry(fault_lib, masked, u2, v2), want)
+    print(f'K3 at the masked loss warp [{m},{ps},{ps},2]: error / max|ref| '
+          f'{sound:.2e}, with {K3_FAULT[0]} {planted:.2e} (tolerance 1e-5)')
+    if not (sound <= 1e-5 < planted):
+        raise AssertionError(f'the C = 2 check misses {K3_FAULT[0]} '
+                             f'({sound}, {planted})')
+    figures['planted_fault_c2'] = {'max_rel_err': planted,
+                                   'sound_max_rel_err': sound}
+    return figures
 
 
 def check_datagen_leftovers(dev, gen, n=BATCH):
@@ -3748,7 +3874,9 @@ def run(stack):
     synthetic.make_image_pool = cached_image_pool
     stack.callback(setattr, synthetic, 'make_image_pool', make_image_pool)
 
+    k3_fault = start_k3_fault_build(stack)
     logs = _cuda.build(['warp', 'fused_head'])
+    k3_fault_lib = k3_fault.result()
     print(f'built {sorted(logs)}')
     for name, log in logs.items():
         for line in log.splitlines():
@@ -3970,6 +4098,11 @@ def run(stack):
         if k4 is not None:
             kernels[3][f'at_{name}'] = k4
     done('K5 kernel checks')
+    # K3's C > 1 kernels beside image_2, from a generator of its own: the
+    # RGB window warp, and K3_FAULT planted at C = 3 and C = 2.
+    kernels[0]['at_rgb_window'] = check_warp_k3_rgb(
+        dev, torch.Generator().manual_seed(22), k3_fault_lib)
+    done('K3 C > 1 checks')
     k5_runs = []
     for config, sets, expect, dtype in K5_RUNS:
         with tempfile.TemporaryDirectory() as log_dir:
@@ -4088,6 +4221,10 @@ def run(stack):
                    'at_dsac_n4': [p for p in paths if p.startswith('train')
                                   and DSAC_SET[0] in p],
                    'at_image_2': [p for p in paths if '--vis' in p],
+                   'at_rgb_window': [p for p in paths
+                                     if 'PhotometricDistort' in p
+                                     or (p.startswith('ddp train')
+                                         and ' blob ' in p)],
                    'at_warp_gt': [p for p in paths
                                   if p.startswith('pretrain')]}
     for k in kernels:
@@ -4101,6 +4238,14 @@ def run(stack):
             by_path = {path: paths[path][counter] for path in names}
             entry['launches'] = sum(by_path.values())
             entry['launches_by_path'] = by_path
+    generic = {path: counts['bilinear_sample_batched_generic']
+               for path, counts in paths.items()}
+    kernels[0]['generic_launches'] = sum(generic.values())
+    print(f'K3 generic launches (the loop over any C > 1 or the generic '
+          f'form) over the {len(paths)} paths: {sum(generic.values())}')
+    if any(generic.values()):
+        raise AssertionError(f'K3 took a generic kernel on '
+                             f'{[p for p, k in generic.items() if k]}')
     print(f'chip_smoke: all checks passed in '
           f'{time.perf_counter() - begin:.1f} s')
     print(json.dumps({'pds_distortion': pds_check, 'train_runs': runs,

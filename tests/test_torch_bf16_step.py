@@ -55,6 +55,7 @@ from tests.test_torch_datagen import ZENG, _injected
 from tests.test_torch_train_step import (BATCH, REPO, _draws, _indices,
                                          _jax_variables, _run_cli,
                                          _small_config)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _config(module, dtype):

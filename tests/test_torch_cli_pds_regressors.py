@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from tests import test_torch_cli_pds as cli
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PDS = ('detone-orig-lr-5e-3', 'nguyen-orig-lr-5e-3', 'zhang-orig-lr-1e-2')
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests.test_torch_cli_pds import _run
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ZENG_ORIG = ('config/pds-coco/zeng-orig-lr-1e-3.yaml',
              'config/s-coco/zeng-orig-lr-1e-3.yaml')

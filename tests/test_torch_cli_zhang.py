@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_cli_pds import _eval, _run
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = ('config/s-coco/zhang-orig-lr-1e-2.yaml',
            'config/s-coco/zhang-bihome-lr-1e-2.yaml',

@@ -25,7 +25,9 @@ backward (the kernel sums over pixels per block, then over blocks);
 shared-memory atomics, in no fixed order). K5 also on the grid broadcast
 over the batch, at every cluster size, past the shared-memory limit (its
 generic path), on misaligned and ragged inputs and over memory that held
-NaN.
+NaN. K3's C > 1 kernels at C = 2-5 on ragged, misaligned and border
+inputs, K3 on the grid broadcast over the batch (bit for bit against the
+grid materialised) and its generic form past the grid's limit.
 """
 
 import pytest
@@ -112,6 +114,129 @@ def test_warp_kernel_c1_tiling(cuda, n, p, outside, misalign):
             torch.all(dv == 0)
 
 
+def _offset_view(t, cuda, floats=1):
+    """A contiguous copy of ``t`` on the card whose data starts ``floats``
+    floats past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda)
+    out = buf[floats:floats + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _k3_counts():
+    return (warp.bilinear_sample_batched.launches,
+            warp.bilinear_sample_batched.generic_launches)
+
+
+@pytest.mark.parametrize('c', [2, 3, 4, 5])
+@pytest.mark.parametrize('n,p,misalign', [
+    (3, 1001, False),   # P odd: scalar u/v loads, blocks off 16 bytes
+    (2, 1030, False),   # P % 4 != 0, even: float2 u/v loads
+    (2, 1024, True),    # images, u and v one float off alignment
+    (5, 7, True),       # fewer points than a thread block's
+])
+def test_warp_kernel_cn_matches_plain(cuda, c, n, p, misalign):
+    # K3's C > 1 kernels: C = 2, 3 and 4 their own (last_kernel C), C = 5
+    # the loop over any C (last_kernel 0, counted in generic_launches).
+    # Points far outside (+-1e9, 3e38), on the last column and row, and
+    # straddling x = -1 and x = W - 1 (one tap of a row's run inside);
+    # the output's rows at odd images start off a 16-byte boundary at odd P.
+    gen = torch.Generator().manual_seed(100 * c + p)
+    h, w = 17, 23
+    img = torch.rand((n, h, w, c), generator=gen) * 255
+    u = torch.rand((n, p), generator=gen) * (w + 8) - 4
+    v = torch.rand((n, p), generator=gen) * (h + 8) - 4
+    edge = [(-1e9, 5.5), (1e9, 5.5), (3e38, 2.0), (-3e38, 2.0), (5.5, 1e9),
+            (w - 1.0, 7.25), (3.5, h - 1.0), (w - 1.0, h - 1.0),
+            (-0.5, 4.5), (w - 1.5, 4.5), (w - 0.5, 4.5), (2.25, -0.5)]
+    for i, (x, y) in enumerate(edge[:p]):
+        u[0, i], v[0, i] = x, y
+    if misalign:
+        img, u, v = (_offset_view(t, cuda) for t in (img, u, v))
+        assert img.data_ptr() % 16 == 4 and u.data_ptr() % 16 == 4
+    else:
+        img, u, v = img.to(cuda), u.to(cuda), v.to(cuda)
+    before = _k3_counts()
+    got = warp.bilinear_sample_batched(img, u, v)
+    torch.cuda.synchronize()
+    assert _k3_counts() == (before[0] + 1, before[1] + (c > 4))
+    assert warp.bilinear_sample_batched.last_kernel == (c if c <= 4 else 0)
+    want = warp.bilinear_sample_plain(img, u, v)
+    assert got.shape == (n, p, c)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    assert torch.all(got[0, :min(p, 5)] == 0)
+
+
+@pytest.mark.parametrize('c', [1, 3])
+def test_warp_kernel_broadcast_grid_is_bit_identical(cuda, c):
+    # One grid row for the whole batch (strides (0, 1), batch stride 0)
+    # against the same grid materialised: the same kernel on the same
+    # values, bit for bit.
+    from bihome_torch.heads.assembled import upsample_grid
+
+    gen = torch.Generator().manual_seed(110 + c)
+    n, hw = 5, 24
+    img = torch.randn((n, hw, hw, c), generator=gen).to(cuda)
+    for scale in (2, 4):
+        u, v = upsample_grid(n, hw, hw, scale, cuda)
+        assert warp.uv_batch_stride(u, v) == 0
+        got = warp.bilinear_sample_batched(img, u, v)
+        assert warp.bilinear_sample_batched.last_kernel == c
+        full = warp.bilinear_sample_batched(img, u.contiguous(),
+                                            v.contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(got, full)
+        want = warp.bilinear_sample_plain(img, u, v)
+        tol = 1e-5 * (1.0 + want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize('c', [1, 3])
+def test_warp_kernel_generic_form_past_the_grid_limit(cuda, c):
+    # 65,536 images: past the grid's y limit of the C = 1 and C > 1
+    # kernels, so the generic form (one thread a point, 64-bit offsets)
+    # takes the call, counted in generic_launches (last_kernel -1).
+    gen = torch.Generator().manual_seed(120 + c)
+    n, p = 65536, 3
+    img = (torch.rand((n, 3, 4, c), generator=gen) * 255).to(cuda)
+    u = (torch.rand((n, p), generator=gen) * 6 - 1).to(cuda)
+    v = (torch.rand((n, p), generator=gen) * 5 - 1).to(cuda)
+    before = _k3_counts()
+    got = warp.bilinear_sample_batched(img, u, v)
+    torch.cuda.synchronize()
+    assert _k3_counts() == (before[0] + 1, before[1] + 1)
+    assert warp.bilinear_sample_batched.last_kernel == -1
+    torch.testing.assert_close(got, warp.bilinear_sample_plain(img, u, v),
+                               rtol=0, atol=1e-3)
+    row_u, row_v = u[:1].expand(n, -1), v[:1].expand(n, -1)
+    torch.testing.assert_close(
+        warp.bilinear_sample_batched(img, row_u, row_v),
+        warp.bilinear_sample_plain(img, row_u, row_v), rtol=0, atol=1e-3)
+
+
+def test_upsample_on_card_hands_k3_one_grid_row(cuda, monkeypatch):
+    from bihome_torch.heads.assembled import upsample_align_corners
+
+    gen = torch.Generator().manual_seed(130)
+    x = torch.randn((3, 16, 16, 1), generator=gen)
+    seen = []
+    real = warp.bilinear_sample_batched
+
+    def spy(img, uu, vv):
+        seen.append((uu.stride(), vv.stride()))
+        return real(img, uu, vv)
+    # The wrapper counts on the name it is called by: the spy's counters.
+    spy.launches = spy.generic_launches = spy.last_kernel = 0
+    monkeypatch.setattr(warp, 'bilinear_sample_batched', spy)
+    got = upsample_align_corners(x.to(cuda), 4)
+    torch.cuda.synchronize()
+    assert seen == [((0, 1), (0, 1))]
+    assert (spy.launches, spy.generic_launches, spy.last_kernel) == (1, 0, 1)
+    want = upsample_align_corners(x, 4)
+    tol = 1e-5 * (1.0 + want.abs().max().item())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+
+
 def test_warp_kernel_rejects_bad_input(cuda):
     img = torch.zeros((2, 8, 8, 1), device=cuda)
     u = torch.zeros((2, 10), device=cuda)
@@ -121,6 +246,24 @@ def test_warp_kernel_rejects_bad_input(cuda):
         warp.bilinear_sample_batched(img, u.t().contiguous().t(), u)
     with pytest.raises(ValueError):
         warp.bilinear_sample_batched(img, u[:1], u[:1])
+
+
+def test_warp_kernel_refuses_other_point_layouts(cuda):
+    # K3 takes u and v contiguous or both one row broadcast over the batch
+    # (strides (0, 1)), at C = 1 and C > 1 alike.
+    gen = torch.Generator().manual_seed(140)
+    for c in (1, 3):
+        img = torch.rand((3, 8, 8, c), generator=gen).to(cuda)
+        u = (torch.rand((3, 64), generator=gen) * 8).to(cuda)
+        v = (torch.rand((3, 64), generator=gen) * 8).to(cuda)
+        row = u[:1].expand(3, -1)
+        for uu, vv in ((u.t().contiguous().t(), v.t().contiguous().t()),
+                       (torch.cat([u, u], 1)[:, ::2], v),
+                       (row, v)):
+            with pytest.raises(ValueError):
+                warp.bilinear_sample_batched(img, uu, vv)
+        with pytest.raises(ValueError):
+            warp.bilinear_sample_batched(img.double(), u, v)
 
 
 def _head_args(gen, n, h, w, cuda, cmid=128, cin=16):

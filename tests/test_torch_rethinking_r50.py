@@ -37,6 +37,7 @@ from bihome_tpu.models import torch_port
 from bihome_torch.models import backbones as tbb
 from bihome_torch.models import blocks, weights
 from tests.test_torch_backbone import randomize_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KEYS = ('pf_hat_12', 'pf_hat_21')
 SIZE = 64

@@ -36,6 +36,7 @@ from bihome_torch import config as tconfig
 from bihome_torch.models import weights
 from tests.test_torch_backbone import randomize_variables
 from tests.test_torch_train_step import _small_config
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DETONE = 'config/s-coco/detone-orig-lr-5e-3.yaml'
 

@@ -52,6 +52,7 @@ from bihome_torch.training import trainer
 from bihome_torch.training.train_state import Optimizer
 from tests.test_torch_backbone import randomize_variables
 from tests.test_torch_datagen import ZENG, _injected
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PF_SCALE = 0.03
