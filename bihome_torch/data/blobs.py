@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from bihome_torch import tracing
+
 Tensor = torch.Tensor
 
 
@@ -100,6 +102,8 @@ def apply_blob_augmentation(batch: Dict[str, Tensor], noise: Tensor,
     total, as JAX's roll over its global batch gives it
     (``trainer.py:285-292``)."""
     p1, p2 = batch[patch_1_key], batch[patch_2_key]
+    if noise.device.type == 'cpu':
+        tracing.count_copy(p2.device, noise.nbytes)
     masks = generate_blobs(noise.to(device=p2.device, dtype=torch.float32),
                            porosity, blobiness)
     if donors_from is None:

@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from bihome_torch import geometry
+from bihome_torch import geometry, tracing
 from bihome_torch.data import blobs, photometric
 from bihome_torch.ops import color
 from bihome_torch.parallel import mesh
@@ -352,7 +352,7 @@ def _params_to(device, pd1: Optional[Tensor], pd2: Optional[Tensor]):
     drawn = [p for p in (pd1, pd2) if p is not None]
     if not drawn:
         return pd1, pd2
-    moved = iter(torch.stack(drawn).to(device).unbind(0))
+    moved = iter(tracing.to_device(torch.stack(drawn), device).unbind(0))
     return tuple(None if p is None else next(moved) for p in (pd1, pd2))
 
 
@@ -364,14 +364,14 @@ def generate_pairs_per_sample(images: Tensor, seeds: Sequence[int],
     images = images.float()
     corners, delta, pd1, pd2, pdf = draw_per_sample(seeds, images.shape[1:3],
                                                     spec)
-    return _assemble_pairs(images, corners.to(images.device),
-                           delta.to(images.device), spec,
+    return _assemble_pairs(images, tracing.to_device(corners, images.device),
+                           tracing.to_device(delta, images.device), spec,
                            *_params_to(images.device, pd1, pd2),
                            full_params=_to(pdf, images.device))
 
 
 def _to(t: Optional[Tensor], device) -> Optional[Tensor]:
-    return None if t is None else t.to(device)
+    return None if t is None else tracing.to_device(t, device)
 
 
 def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
@@ -402,13 +402,17 @@ def _assemble_pairs(images: Tensor, corners: Tensor, delta: Tensor,
     ox = (corners[:, 0, 0] - rho).clamp(0, w - ws_x)
     oy = (corners[:, 0, 1] - rho).clamp(0, h - ws_y)
     windows = geometry.crop_integer(images, ox, oy, (ws_y, ws_x))
-    win_1 = photometric.apply_photometric(windows, pd1) if on_1 else windows
-    win_2 = photometric.apply_photometric(windows, pd2) if on_2 else windows
+    with tracing.span('datagen.photometric'):
+        win_1 = (photometric.apply_photometric(windows, pd1) if on_1
+                 else windows)
+        win_2 = (photometric.apply_photometric(windows, pd2) if on_2
+                 else windows)
     origin = torch.stack([ox, oy], dim=-1)[:, None, :]             # [B,1,2]
-    batch = generate_pairs_deterministic(
-        windows, (corners - origin).float(), delta.float(),
-        dataclasses.replace(spec, emit_images=()), win_1, win_2,
-        full_params)
+    with tracing.span('datagen.warp'):
+        batch = generate_pairs_deterministic(
+            windows, (corners - origin).float(), delta.float(),
+            dataclasses.replace(spec, emit_images=()), win_1, win_2,
+            full_params)
     batch['corners'] = corners.float()
     batch['homography'] = geometry.four_point_to_homography(
         batch['corners'], batch['delta'])
@@ -497,20 +501,24 @@ def generate_pairs(images: Tensor, spec: PairSpec,
     b = images.shape[0]
     lo, total = rows if rows is not None else (0, b)
     keep = slice(lo, lo + b)
-    if corners is None or delta is None:
-        corners, delta = (t[keep] for t in draw_corners_delta_batch(
-            total, tuple(images.shape[1:3]), spec, generator))
-    if photometric_params is None:
-        photometric_params = tuple(
-            None if p is None else p[keep]
-            for p in _draw_photometric(total, spec, generator))
-    if full_params is None:
-        full_params = draw_full_photometric(total, spec, generator)
-        full_params = None if full_params is None else full_params[:, keep]
-    batch = _assemble_pairs(images, corners.long().to(images.device),
-                            delta.long().to(images.device), spec,
-                            *_params_to(images.device, *photometric_params),
-                            full_params=_to(full_params, images.device))
+    with tracing.span('datagen.draws'):
+        if corners is None or delta is None:
+            corners, delta = (t[keep] for t in draw_corners_delta_batch(
+                total, tuple(images.shape[1:3]), spec, generator))
+        if photometric_params is None:
+            photometric_params = tuple(
+                None if p is None else p[keep]
+                for p in _draw_photometric(total, spec, generator))
+        if full_params is None:
+            full_params = draw_full_photometric(total, spec, generator)
+            full_params = (None if full_params is None
+                           else full_params[:, keep])
+        corners = tracing.to_device(corners.long(), images.device)
+        delta = tracing.to_device(delta.long(), images.device)
+        pd1, pd2 = _params_to(images.device, *photometric_params)
+        full_params = _to(full_params, images.device)
+    batch = _assemble_pairs(images, corners, delta, spec, pd1, pd2,
+                            full_params=full_params)
     if spec.blob_porosity > 0 and total > 1:
         if blob_draws is None:
             noise, shift = blobs.draw_blobs(

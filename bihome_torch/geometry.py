@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from bihome_torch import tracing
 from bihome_torch.ops import warp
 
 Tensor = torch.Tensor
@@ -24,6 +25,7 @@ def image_corners(height: int, width: int, batch_size: Optional[int] = None,
     """Corner points [(0,0),(w,0),(w,h),(0,h)], optionally batched."""
     corners = torch.tensor([[0, 0], [width, 0], [width, height], [0, height]],
                            dtype=dtype, device=device)
+    tracing.count_copy(device, corners.nbytes)
     if batch_size is not None:
         corners = corners[None].repeat(batch_size, 1, 1)
     return corners

@@ -72,7 +72,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bihome_torch import geometry
+from bihome_torch import geometry, tracing
 from bihome_torch.heads import dsac, ransac
 from bihome_torch.heads.config import HeadConfig
 from bihome_torch.models.layers import Linear, cast
@@ -117,7 +117,7 @@ def _linspace(stop: float, num: int, device) -> Tensor:
     exactly ``stop``. ``torch.linspace`` rounds most points otherwise (by
     up to 7.6e-6 over 128 pixels)."""
     div = num - 1
-    step = (torch.tensor(1.0) / div * stop).to(device)
+    step = tracing.to_device(torch.tensor(1.0) / div * stop, device)
     head = torch.arange(div, dtype=torch.float32, device=device) * step
     return torch.cat([head, torch.full((1,), float(stop), device=device)])
 
@@ -295,10 +295,11 @@ class AssembledModel(nn.Module):
             hyps = dsac.sample_hypotheses(
                 coords, mapping, n, cfg.points_per_hypothesis,
                 cfg.dsac_point_sampling, uniforms, generator, rows)
-            scores, _ = dsac.score_hypotheses(
-                coords, mapping, hyps, cfg.scoring_method,
-                cfg.scoring_distance_threshold, cfg.scoring_distance_beta,
-                self.score_image if self.score_cnn is not None else None)
+            with tracing.span('dsac.score'):
+                scores, _ = dsac.score_hypotheses(
+                    coords, mapping, hyps, cfg.scoring_method,
+                    cfg.scoring_distance_threshold, cfg.scoring_distance_beta,
+                    self.score_image if self.score_cnn is not None else None)
         four_points = geometry.image_corners(h, w, batch_size=b * n,
                                              dtype=hyps.dtype,
                                              device=pf.device)
@@ -342,12 +343,19 @@ class AssembledModel(nn.Module):
         field or a sequence (1->2[, 2->1]); the draws it does not give
         come from ``generator``, the 1->2 field's first (RANSAC draws on
         the field's device, so its generator lives there)."""
+        with tracing.span('model.backbone'):
+            outputs = self.backbone(batch)
+        with tracing.span('model.head'):
+            return self._predict_head(outputs, uniforms, generator, idx)
+
+    def _predict_head(self, outputs, uniforms, generator, idx) -> Tensor:
+        """delta_hat from the backbone's outputs (:meth:`predict_delta`)."""
         cfg = self.head
-        outputs = self.backbone(batch)
         if needs_ransac(cfg):
-            return ransac.perspective_field_to_delta(
-                outputs[cfg.learning_keys[1]], idx=idx,
-                generator=generator)[0]
+            with tracing.span('model.ransac'):
+                return ransac.perspective_field_to_delta(
+                    outputs[cfg.learning_keys[1]], idx=idx,
+                    generator=generator)[0]
         if cfg.name in ('NoOpHead', 'PhotometricHead'):
             return outputs[cfg.learning_keys[3]]
         if cfg.name == 'TripletHead':
@@ -357,11 +365,14 @@ class AssembledModel(nn.Module):
         u12, u21 = ((list(uniforms) + [None])[:2]
                     if isinstance(uniforms, (tuple, list))
                     else (uniforms, None))
-        delta_hat = self.fit_delta(outputs[cfg.pf_keys[0]], u12, generator)
+        with tracing.span('model.dsac'):
+            delta_hat = self.fit_delta(outputs[cfg.pf_keys[0]], u12,
+                                       generator)
         if not (cfg.dsac_predict_bidirectional and len(cfg.pf_keys) > 1):
             return delta_hat
         pf21 = outputs[cfg.pf_keys[1]]
-        delta21 = self.fit_delta(pf21, u21, generator)
+        with tracing.span('model.dsac'):
+            delta21 = self.fit_delta(pf21, u21, generator)
         fp = geometry.image_corners(pf21.shape[1], pf21.shape[2],
                                     batch_size=pf21.shape[0],
                                     dtype=delta21.dtype, device=pf21.device)
@@ -395,9 +406,11 @@ class AssembledModel(nn.Module):
         """Extractor features of NHWC patches, returned NHWC (a view of the
         NCHW maps), through the projection head where the config has one
         (``_aux_features``, ``assembled.py:86-107``)."""
-        nchw = x.permute(0, 3, 1, 2).contiguous()
-        f = self.auxiliary_resnet(nchw).permute(0, 2, 3, 1)
-        return f if self.projection_head is None else self.projection_head(f)
+        with tracing.span('model.extractor'):
+            nchw = x.permute(0, 3, 1, 2).contiguous()
+            f = self.auxiliary_resnet(nchw).permute(0, 2, 3, 1)
+            return (f if self.projection_head is None
+                    else self.projection_head(f))
 
     def forward(self, batch: Dict[str, Tensor],
                 uniforms: Optional[Sequence[Tensor]] = None,
@@ -412,9 +425,16 @@ class AssembledModel(nn.Module):
         ``rows`` = (lo, total) they are those of rows [lo, lo + B) of a
         global batch of ``total`` (:func:`dsac.sample_point_indices`). The
         other heads draw nothing."""
+        with tracing.span('model.backbone'):
+            outputs = self.backbone(batch)
+        tracing.mark_gradients('bwd.backbone', outputs.values())
+        with tracing.span('model.head'):
+            return self._head_forward({**batch, **outputs}, outputs,
+                                      uniforms, generator, rows)
+
+    def _head_forward(self, data, outputs, uniforms, generator, rows):
+        """The training forward after the backbone (:meth:`forward`)."""
         cfg = self.head
-        outputs = self.backbone(batch)
-        data = {**batch, **outputs}
         if cfg.name == 'NoOpHead':
             return self.noop_head(data)
         if cfg.name == 'PhotometricHead':
@@ -427,11 +447,14 @@ class AssembledModel(nn.Module):
             delta_12 = data[cfg.delta_hat_keys[0]]
             delta_21 = data[cfg.delta_hat_keys[1]] if doubleline else None
         else:
-            delta_12, delta_21, scores = self.dsac_both(outputs, uniforms,
-                                                        generator, rows)
-        if cfg.triplet_loss == '':
-            return self.multihead_loss(data, delta_12, scores)
-        return self.bihome_loss(data, delta_12, delta_21, scores)
+            with tracing.span('model.dsac'):
+                delta_12, delta_21, scores = self.dsac_both(
+                    outputs, uniforms, generator, rows)
+            tracing.mark_gradients('bwd.deltas', (delta_12, delta_21))
+        with tracing.span('model.loss'):
+            if cfg.triplet_loss == '':
+                return self.multihead_loss(data, delta_12, scores)
+            return self.bihome_loss(data, delta_12, delta_21, scores)
 
     def noop_head(self, data: Dict[str, Tensor]) -> Dict[str, object]:
         """NoOpHead (``assembled.py:166-184``): with 'all_points' delta_hat

@@ -12,7 +12,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from bihome_torch import geometry
+from bihome_torch import geometry, tracing
 
 Tensor = torch.Tensor
 
@@ -37,10 +37,11 @@ def sample_point_indices(shape: Sequence[int], n_points: int,
     drawn = (whole, *shape[1:])
     keep = slice(lo, lo + shape[0])
     if point_sampling == 'reference-weighted':
-        if uniforms is None:
-            uniforms = torch.rand(drawn, generator=generator,
-                                  dtype=torch.float32)[keep]
-        uniforms = uniforms.to(device)
+        with tracing.span('dsac.draws'):
+            if uniforms is None:
+                uniforms = torch.rand(drawn, generator=generator,
+                                      dtype=torch.float32)[keep]
+            uniforms = tracing.to_device(uniforms, device)
         total = float((n_points - 1) * n_points)
         k = torch.ceil((torch.sqrt(1.0 + 4.0 * uniforms * total) - 1.0) / 2.0)
         return k.long().clamp(1, n_points - 1)
@@ -48,8 +49,9 @@ def sample_point_indices(shape: Sequence[int], n_points: int,
         if uniforms is not None:
             raise ValueError("'uniform' point sampling draws integers; "
                              'uniforms cannot be injected')
-        return torch.randint(0, n_points, drawn,
-                             generator=generator)[keep].to(device)
+        with tracing.span('dsac.draws'):
+            return tracing.to_device(torch.randint(
+                0, n_points, drawn, generator=generator)[keep], device)
     raise ValueError(point_sampling)
 
 
@@ -73,8 +75,9 @@ def sample_hypotheses(points1: Tensor, points2: Tensor, hypothesis_no: int,
         b * hypothesis_no, points_per_hypothesis, 2)
     p2 = torch.gather(points2, 1, gather).reshape(
         b * hypothesis_no, points_per_hypothesis, 2)
-    return geometry.find_homography_dlt(p1, p2).reshape(
-        b, hypothesis_no, 3, 3)
+    with tracing.span('dsac.fit'):
+        return geometry.find_homography_dlt(p1, p2).reshape(
+            b, hypothesis_no, 3, 3)
 
 
 def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
@@ -103,8 +106,9 @@ def sample_hypotheses_from_pf(pf: Tensor, hypothesis_no: int,
     p2 = p1 + sel
     p1 = p1.reshape(b * hypothesis_no, points_per_hypothesis, 2)
     p2 = p2.reshape(b * hypothesis_no, points_per_hypothesis, 2)
-    return geometry.find_homography_dlt(p1, p2).reshape(
-        b, hypothesis_no, 3, 3)
+    with tracing.span('dsac.fit'):
+        return geometry.find_homography_dlt(p1, p2).reshape(
+            b, hypothesis_no, 3, 3)
 
 
 def refine_delta_on_pf(pf: Tensor, delta_hat: Tensor, threshold: float = 3.0,

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from bihome_torch import geometry
+from bihome_torch import geometry, tracing
 
 Tensor = torch.Tensor
 
@@ -64,7 +64,8 @@ def ransac_fit(points1: Tensor, points2: Tensor,
     k = num_hypotheses
     if idx is None:
         idx = draw_indices(b, n_points, k, generator, points1.device)
-    idx = idx.to(points1.device).long()[..., None].expand(-1, -1, 2)
+    idx = tracing.to_device(idx, points1.device).long()[..., None].expand(
+        -1, -1, 2)
     p1s = torch.gather(points1, 1, idx).reshape(b * k, 4, 2)
     p2s = torch.gather(points2, 1, idx).reshape(b * k, 4, 2)
     h = geometry.get_perspective_transform(p1s, p2s)              # [B*K,3,3]

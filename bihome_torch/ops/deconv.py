@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from bihome_torch import tracing
 from bihome_torch.models.layers import ConvTranspose2d, cast
 
 
@@ -46,7 +47,7 @@ def _tap_select(device) -> torch.Tensor:
     for a in range(3):
         for d in range(2):
             s[d - a + 2, a, d] = 1.0
-    return s.to(device)
+    return tracing.to_device(s, device)
 
 
 def compose_deconv2x2_conv3x3(wd: torch.Tensor,

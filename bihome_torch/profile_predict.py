@@ -7,13 +7,17 @@ Builds the model and the batches through the eval entry point (synthetic
 images, seeded weights), then over ``--steps`` predict calls after one
 warm-up measures:
 
-* the backbone and the fit of its output separately with CUDA events: the
-  DSAC fit (zeng-biHomE), the RANSAC fit (zeng-orig, with the peak device
-  memory of the fit alone), or none (the heads whose backbone regresses
-  the deltas);
-* with ``torch.profiler``: device kernel time and kernel launches per
-  predict, the device idle share of the host-clock window, and the device
-  time grouped by kind of kernel, plus the top kernels by name.
+* the backbone and the fit of its output separately, from the
+  program's spans (``model.backbone``, ``model.head``) recorded with a
+  CUDA event at each end: the DSAC fit (zeng-biHomE), the RANSAC fit
+  (zeng-orig, with the peak device memory of the fit alone), or none (the
+  heads whose backbone regresses the deltas);
+* the host-to-device copies a predict (``copy.h2d`` counts), their
+  bytes and the spans that make them;
+* with ``torch.profiler``, the spans on: device busy time (the union of
+  its busy intervals) and kernel launches per predict, the device idle
+  share of the host-clock window, and the device time grouped by kind of
+  kernel, plus the top kernels by name.
 
 Needs a CUDA device; it does not fall back to the CPU.
 """
@@ -28,6 +32,7 @@ import time
 import torch
 
 from bihome_torch import eval as teval
+from bihome_torch import tracing
 from bihome_torch.device import resolve_device
 from bihome_torch.heads import ransac
 from bihome_torch.heads.assembled import needs_dsac, needs_ransac
@@ -79,33 +84,28 @@ def main(argv=None) -> None:
            else None)
     gen_device = device if model.draws_on_device else torch.device('cpu')
 
-    def predict(i, batch, timings=None):
+    def predict(i, batch):
         gen = teval.dsac_generator(seed, i, gen_device)
         with torch.inference_mode():
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            outputs = model.backbone(batch)
-            ev[1].record()
-            if fit == 'ransac':
-                ransac.perspective_field_to_delta(
-                    outputs[head.learning_keys[1]], generator=gen)
-            elif fit == 'dsac':
-                model.dsac_deltas(outputs[head.pf_keys[0]], generator=gen)
-            ev[2].record()
-        if timings is not None:
-            ev[2].synchronize()
-            timings['backbone'].append(ev[0].elapsed_time(ev[1]))
-            if fit:
-                timings[fit].append(ev[1].elapsed_time(ev[2]))
+            model.predict_delta(batch, generator=gen)
 
     predict(0, batches[0])
     torch.cuda.synchronize()
     timings = collections.defaultdict(list)
+    recordings = []
     for i, batch in enumerate(batches):
-        predict(i, batch, timings)
+        with tracing.recording(device=True) as rec:
+            predict(i, batch)
+        recordings.append(rec)
+        for s in rec.spans:
+            if s['name'] in ('model.backbone', 'model.head'):
+                timings[s['name']].append(s['device_ms'][1]
+                                          - s['device_ms'][0])
+    print(f'fit of the backbone\'s output (model.head): {fit or "none"}')
     for part, values in timings.items():
-        print(f'{part}: median {statistics.median(values):.3f} ms '
-              f'per predict (CUDA events, {len(values)} calls)')
+        print(f'{part}: median {statistics.median(values):.3f} ms per '
+              f'predict (spans, CUDA events, {len(values)} calls)')
+    print(copies_line(recordings, 'predict'))
     if fit == 'ransac':
         with torch.inference_mode():
             pf = model.backbone(batches[0])[head.learning_keys[1]]
@@ -123,7 +123,8 @@ def main(argv=None) -> None:
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, \
+            tracing.recording():
         torch.cuda.synchronize()
         start = time.perf_counter()
         for i, batch in enumerate(batches):
@@ -133,17 +134,41 @@ def main(argv=None) -> None:
     summarize(prof, len(batches), wall_ms, 'predict')
 
 
+def copies_line(recordings, unit: str) -> str:
+    """The host-to-device copies (``copy.h2d`` counts) a ``unit``, the
+    median over ``recordings`` of one unit each: their number and bytes,
+    and the number under each span that makes them."""
+    totals, places = [], collections.Counter()
+    for rec in recordings:
+        names = {s['id']: s['name'] for s in rec.spans}
+        copies = [c for c in rec.counts if c['name'] == 'copy.h2d']
+        totals.append((sum(c['n'] for c in copies),
+                       sum(c['shape']['bytes'] for c in copies)))
+        for c in copies:
+            places[names.get(c['span'], 'no span')] += c['n']
+    n = statistics.median(t[0] for t in totals)
+    nbytes = statistics.median(t[1] for t in totals)
+    where = ', '.join(f'{name} {k / len(totals):g}'
+                      for name, k in sorted(places.items()))
+    return (f'host-to-device copies: median {n:g} ({nbytes:g} bytes) per '
+            f'{unit} (copy.h2d, {len(totals)} {unit}s); by span: '
+            f'{where or "none"}')
+
+
 def summarize(prof, n: int, wall_ms: float, unit: str) -> None:
-    """Print device time, launches and idle share per ``unit`` of a
+    """Print device busy time (the union of its busy intervals,
+    ``tracing.device_busy``), launches and idle share per ``unit`` of a
     profiled window of ``n`` units lasting ``wall_ms`` on the host clock,
     then the device time by kind of kernel and the top kernels."""
+    busy_s, launches = tracing.device_busy(prof)
+    device_ms = busy_s * 1e3
+    print(f'profiled {n} {unit}s: host {wall_ms / n:.3f} ms, device busy '
+          f'{device_ms / n:.3f} ms, launches {launches / n:.0f} per '
+          f'{unit}; device idle share {1 - device_ms / wall_ms:.3f}')
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     device_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    print(f'profiled {n} {unit}s: host {wall_ms / n:.3f} ms, device kernels '
-          f'{device_us / 1e3 / n:.3f} ms, launches {launches / n:.0f} per '
-          f'{unit}; device idle share {1 - device_us / 1e3 / wall_ms:.3f}')
     if device_us == 0:
         print('the profiler recorded no device time')
         return

@@ -8,8 +8,8 @@ Builds the model, optimizer and device pool as ``bihome_torch.train
 PerceptualHead's extractor from ``aux_clfbh.npz``), then runs ``--steps``
 calls of the real ``training.trainer.train_step`` on batches drawn on the
 device (``trainer.draw_pool_batch``) after two warm-up calls, each split into
-phases by CUDA events that hooks record around and inside the call. For
-zeng-biHomE (a head with DSAC):
+phases by the program's spans (``bihome_torch.tracing``), recorded with a
+CUDA event at each end. For zeng-biHomE (a head with DSAC):
 
   datagen (pair synthesis, K3) | backbone forward (K1) | DSAC both ways |
   loss forward (warp K3, extractor twice, triplet tail) | loss backward
@@ -29,17 +29,21 @@ and CLEVR-Change zhang, whose pool holds (original, changed) pairs):
   orig: K2) |
   optimizer | metrics
 
-The hooks: the backbone's forward pre-hook and hook, gradient hooks on its
-outputs (perspective fields or deltas) and, with DSAC, on the corner
-deltas (the last of each pair ends its phase), the model's forward hook,
-and wrappers of this model's ``dsac_both`` and this optimizer's
-``global_norm`` and ``step``. Hooks on the frozen extractor, where the
-head has one, time its share of the loss phases (both forward passes; its
-input-gradient backward). It then profiles the same steps with
-``torch.profiler``: device kernel time and launches per step, the device
-idle share of the host-clock window, and the device time by kind of
-kernel (each of the port's kernels by name). Needs a CUDA device; it does
-not fall back to the CPU.
+A phase ends at a span's end or at a mark that a gradient hook makes
+(:data:`BOUNDS`): ``bwd.deltas`` when the gradient has reached both
+directions' corner deltas, ``bwd.backbone`` when it has reached every
+output of the backbone. The ``model.extractor`` spans give the frozen
+extractor's share of the loss forward (both passes); its input-gradient
+backward runs inside autograd, where no span reaches. The host's time
+inside the step's spans is the time it takes to launch the step's work
+(and to wait where the step waits for the device). The ``copy.h2d``
+counts give the host-to-device copies a step, their bytes and the spans
+that make them (each a ``.to(device)`` of a host tensor). It then
+profiles the same steps with ``torch.profiler``, the spans on (so that
+its trace names the program's layers): device busy time and launches per
+step, the device idle share of the host-clock window, and the device
+time by kind of kernel (each of the port's kernels by name). Needs a
+CUDA device; it does not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -52,23 +56,42 @@ import time
 import torch
 
 from bihome_torch import config as config_lib
-from bihome_torch import profile_predict, train
+from bihome_torch import profile_predict, tracing, train
 from bihome_torch.device import resolve_device
 from bihome_torch.training import trainer
 from bihome_torch.training.train_state import Optimizer
 
 CONFIG = 'config/s-coco/zeng-bihome-lr-1e-3.yaml'
-PHASES = ('datagen', 'backbone fwd', 'dsac fwd', 'loss fwd',
-          'loss bwd to the deltas', 'dsac bwd', 'backbone bwd', 'optimizer',
-          'metrics')
-PHASES_NO_DSAC = ('datagen', 'backbone fwd', 'head/loss fwd',
-                  'head/loss bwd', 'backbone bwd', 'optimizer', 'metrics')
+# Each phase ends at a boundary of the step's spans: the end (1) or the
+# start (0) of the last span or mark of that name. The step starts where
+# the pool draw (train.draw) does.
+BOUNDS = (('datagen', 'model.backbone', 0),
+          ('backbone fwd', 'model.backbone', 1),
+          ('dsac fwd', 'model.dsac', 1),
+          ('loss fwd', 'train.forward', 1),
+          ('loss bwd to the deltas', 'bwd.deltas', 1),
+          ('dsac bwd', 'bwd.backbone', 1),
+          ('backbone bwd', 'train.backward', 1),
+          ('optimizer', 'train.optimizer', 1),
+          ('metrics', 'train.metrics', 1))
+BOUNDS_NO_DSAC = (('datagen', 'model.backbone', 0),
+                  ('backbone fwd', 'model.backbone', 1),
+                  ('head/loss fwd', 'train.forward', 1),
+                  ('head/loss bwd', 'bwd.backbone', 1),
+                  ('backbone bwd', 'train.backward', 1),
+                  ('optimizer', 'train.optimizer', 1),
+                  ('metrics', 'train.metrics', 1))
 
 
-def _event() -> torch.cuda.Event:
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
+def phase_ms(spans, bounds):
+    """Each phase's ms on the stream from one step's spans recorded with
+    device timing (``tracing.recording(device=True)``)."""
+    last = {}
+    for s in spans:
+        last[s['name']] = s['device_ms']
+    ends = [last[name][side] for _, name, side in bounds]
+    return {phase: b - a for (phase, _, _), a, b in
+            zip(bounds, [last['train.draw'][0]] + ends[:-1], ends)}
 
 
 def main(argv=None) -> None:
@@ -102,71 +125,8 @@ def main(argv=None) -> None:
     dsac_gen = torch.Generator().manual_seed(1)
     draws = torch.Generator(device=device).manual_seed(2)
 
-    # Phase ends of the step being timed: name -> event. A phase that two
-    # gradient hooks end (one per direction) keeps the later event; the
-    # optimizer's gradient norm ends the backward at its first call.
-    timing = {'on': False}
-    marks = {}
-    aux_marks = collections.defaultdict(list)
-
-    def mark(name, later=False):
-        if timing['on'] and (later or name not in marks):
-            marks[name] = _event()
-
-    def grad_mark(name):
-        def hook(_grad):
-            mark(name, later=True)
-        return hook
-
     dsac = built.needs_dsac_rng
-    phases = PHASES if dsac else PHASES_NO_DSAC
-
-    def backbone_done(_module, _inputs, outputs):
-        mark('backbone fwd')
-        if timing['on']:
-            for key in (built.head_cfg.pf_keys if dsac else outputs):
-                if outputs[key].requires_grad:   # not FIX_MASK's ones
-                    outputs[key].register_hook(grad_mark(
-                        'dsac bwd' if dsac else 'head/loss bwd'))
-    model.backbone.register_forward_pre_hook(lambda *_: mark('datagen'))
-    model.backbone.register_forward_hook(backbone_done)
-    model.register_forward_hook(lambda *_: mark(phases[2 + dsac]))
-    dsac_both, global_norm, step = (model.dsac_both, optimizer.global_norm,
-                                    optimizer.step)
-
-    def timed_dsac_both(*a, **kw):
-        deltas = dsac_both(*a, **kw)
-        mark('dsac fwd')
-        if timing['on']:
-            for d in deltas[:2]:
-                if d is not None:             # one-line: no 2->1 fit
-                    d.register_hook(grad_mark('loss bwd to the deltas'))
-        return deltas
-
-    def timed_global_norm():
-        mark('backbone bwd')
-        return global_norm()
-
-    def timed_step():
-        lr = step()
-        mark('optimizer')
-        return lr
-    if dsac:
-        model.dsac_both = timed_dsac_both
-    optimizer.global_norm = timed_global_norm
-    optimizer.step = timed_step
-
-    def aux_hook(kind):
-        def hook(*_):
-            if timing['on']:
-                aux_marks[kind].append(_event())
-        return hook
-    aux = model.auxiliary_resnet
-    if aux is not None:
-        aux.register_forward_pre_hook(aux_hook('extractor fwd'))
-        aux.register_forward_hook(aux_hook('extractor fwd'))
-        aux.register_full_backward_pre_hook(aux_hook('extractor bwd'))
-        aux.register_full_backward_hook(aux_hook('extractor bwd'))
+    bounds = BOUNDS if dsac else BOUNDS_NO_DSAC
 
     def one_step():
         return trainer.train_step(
@@ -178,42 +138,41 @@ def main(argv=None) -> None:
         one_step()
     torch.cuda.synchronize()
     events = collections.defaultdict(list)
-    host = []
+    host, in_spans, recordings = [], [], []
     for _ in range(args.steps):
         start = time.perf_counter()
-        timing['on'] = True
-        marks.clear()
-        aux_marks.clear()
-        first = _event()
-        one_step()
-        mark('metrics')
-        timing['on'] = False
-        marks['metrics'].synchronize()
+        with tracing.recording(device=True) as rec:
+            one_step()
         host.append((time.perf_counter() - start) * 1e3)
-        ends = [marks[name] for name in phases]
-        for name, a, b in zip(phases, [first] + ends[:-1], ends):
-            events[name].append(a.elapsed_time(b))
-        for kind, evs in aux_marks.items():
-            events[kind].append(sum(a.elapsed_time(b) for a, b in
-                                    zip(evs[::2], evs[1::2])))
+        recordings.append(rec)
+        in_spans.append(sum(s['end_ns'] - s['start_ns'] for s in rec.spans
+                         if s['parent'] is None) * 1e-6)
+        for name, ms in phase_ms(rec.spans, bounds).items():
+            events[name].append(ms)
+        events['extractor fwd'].append(sum(
+            s['device_ms'][1] - s['device_ms'][0] for s in rec.spans
+            if s['name'] == 'model.extractor'))
     total = 0.0
-    for name in phases:
+    for name, _, _ in bounds:
         ms = statistics.median(events[name])
         total += ms
-        print(f'{name}: median {ms:.3f} ms per step (CUDA events)')
-    for name, within in (('extractor fwd', f'{phases[2 + dsac]}, both '
-                                           'passes'),
-                         ('extractor bwd', 'loss bwd, input gradients')):
-        if events[name]:
-            print(f'  {name}: median {statistics.median(events[name]):.3f} '
-                  f'ms per step (within {within})')
+        print(f'{name}: median {ms:.3f} ms per step (spans, CUDA events)')
+    if any(events['extractor fwd']):
+        print(f'  extractor fwd: median '
+              f'{statistics.median(events["extractor fwd"]):.3f} ms per step '
+              f'(within {"loss fwd" if dsac else "head/loss fwd"}, both '
+              'passes)')
     print(f'phases sum {total:.3f} ms; host step {statistics.median(host):.3f}'
-          f' ms (median of {args.steps}, each ended by a synchronize); '
+          f' ms (median of {args.steps}, each ended by a synchronize), of '
+          f'which the host is in the step\'s spans '
+          f'{statistics.median(in_spans):.3f} ms; '
           f'pairs/s {args.batch_size / (statistics.median(host) / 1e3):.1f}')
+    print(profile_predict.copies_line(recordings, 'step'))
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, \
+            tracing.recording():
         torch.cuda.synchronize()
         start = time.perf_counter()
         for _ in range(args.steps):

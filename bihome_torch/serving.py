@@ -35,7 +35,7 @@ from typing import Dict, Tuple, Union
 import torch
 from torch import nn
 
-from bihome_torch import geometry
+from bihome_torch import geometry, tracing
 from bihome_torch.heads import ransac
 from bihome_torch.heads.assembled import needs_dsac, needs_ransac
 from bihome_torch.ops import fused_head  # noqa: F401  (registers the op)
@@ -101,6 +101,7 @@ class ServingModule(nn.Module):
         for name, value in draws.items():
             self.register_buffer(name, value)
 
+    @tracing.span('serve.call')
     def forward(self, patch_1: Tensor, patch_2: Tensor) -> Tensor:
         b, ps = patch_1.shape[0], self.patch_size
         corners = geometry.image_corners(ps, ps, batch_size=b,

@@ -58,7 +58,7 @@ so a resumed run goes on as the run without a stop. On one rank
 ``--pool_shard`` changes nothing. The test pass runs whole on every rank
 (JAX's replicated eval block).
 ``--profile`` writes a ``torch.profiler`` chrome trace of the third block
-into ``<LOGGING.DIR>/profile``.
+into ``<LOGGING.DIR>/profile``, the program's spans (``tracing``) in it.
 
 Each step synthesizes its pairs on the device (with the PDS photometric
 distortion where the config asks for it) and runs
@@ -108,6 +108,7 @@ without a card; TF32 is off.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
@@ -116,6 +117,7 @@ import numpy as np
 import torch
 
 from bihome_torch import config as config_lib
+from bihome_torch import tracing
 from bihome_torch.data import clevr_change, datasets, pipeline
 from bihome_torch.models import backbones, torchvision_port, weights
 from bihome_torch.parallel import dist_util, mesh
@@ -490,14 +492,12 @@ def blocks_of(steps: int, spc: int) -> List[int]:
 
 
 def profiled_share(prof, wall_ms: float) -> Dict[str, float]:
-    """Device kernel ms and launches of a profiled window of ``wall_ms``
-    host ms, and the device's idle share of it."""
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return {'wall_ms': wall_ms, 'device_ms': device_ms,
-            'launches': sum(e.count for e in kernels),
-            'idle_share': 1 - device_ms / wall_ms}
+    """Device busy ms (the union of its busy intervals,
+    ``tracing.device_busy``) and kernel launches of a profiled window of
+    ``wall_ms`` host ms, and the device's idle share of it."""
+    busy_s, launches = tracing.device_busy(prof)
+    return {'wall_ms': wall_ms, 'device_ms': busy_s * 1e3,
+            'launches': launches, 'idle_share': 1 - busy_s * 1e3 / wall_ms}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -653,19 +653,24 @@ def _train(args: argparse.Namespace, device: torch.device) -> Dict[str, Any]:
                     prof = torch.profiler.profile(activities=activities)
                     prof.start()
                 start = time.perf_counter()
-                if pooled:
-                    metrics, block_losses = trainer.pool_train_block(
-                        model, optimizer, train_feed.pool, n, batch_size,
-                        built.pair_spec, built.loss_name, train_feed.draws,
-                        datagen_gen, dsac_gen, args.pool_shard)
-                else:
-                    block_losses = []
-                    for batch in images:
-                        metrics = trainer.train_step(
-                            model, optimizer, batch, built.pair_spec,
-                            built.loss_name, datagen_gen, dsac_gen)
-                        block_losses.append(metrics['loss/train'])
-                sync()
+                # The profiled block records the program's spans, so that
+                # its trace names the layers.
+                with (tracing.recording() if prof is not None
+                      else contextlib.nullcontext()):
+                    if pooled:
+                        metrics, block_losses = trainer.pool_train_block(
+                            model, optimizer, train_feed.pool, n,
+                            batch_size, built.pair_spec, built.loss_name,
+                            train_feed.draws, datagen_gen, dsac_gen,
+                            args.pool_shard)
+                    else:
+                        block_losses = []
+                        for batch in images:
+                            metrics = trainer.train_step(
+                                model, optimizer, batch, built.pair_spec,
+                                built.loss_name, datagen_gen, dsac_gen)
+                            block_losses.append(metrics['loss/train'])
+                    sync()
                 block_ms = (time.perf_counter() - start) * 1e3
                 if prof is not None:
                     prof.stop()

@@ -49,7 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from bihome_torch import geometry
+from bihome_torch import geometry, tracing
 from bihome_torch.data import pipeline
 from bihome_torch.parallel import mesh
 from bihome_torch.parallel.dist_util import get_rank, get_world_size
@@ -132,27 +132,36 @@ def train_step(model: torch.nn.Module, optimizer: Optimizer,
     rank's rows. Across R ranks ``images`` are this rank's B/R rows of the
     global batch, and the draws that are not injected are the global
     batch's rows of this rank (``rows``)."""
-    model.train()
-    world = get_world_size()
-    local = images.shape[0]
-    rows = (get_rank() * local, world * local) if world > 1 else None
-    with torch.no_grad():
-        batch = pipeline.generate_pairs(images, spec, datagen_generator,
-                                        corners, delta, photometric_params,
-                                        rows=rows)
-    optimizer.zero_grad()
-    out = model(batch, uniforms=uniforms, generator=dsac_generator,
-                rows=rows)
-    loss = losses.compute_loss(loss_name, out)
-    loss.backward()
-    mesh.all_reduce_grads(optimizer.params, loss_scale(loss_name, world))
-    g_norm = optimizer.global_norm()
-    lr = optimizer.step()
-    metrics = _metrics(loss_name, out, 'train')
-    metrics.update({'g_norm/value': g_norm,
-                    'lr/value': torch.tensor(lr, dtype=torch.float32)})
-    metrics.update(out.get('metrics', {}))
-    return metrics
+    with tracing.span('train.step'):
+        model.train()
+        world = get_world_size()
+        local = images.shape[0]
+        rows = (get_rank() * local, world * local) if world > 1 else None
+        with torch.no_grad(), tracing.span('train.datagen'):
+            batch = pipeline.generate_pairs(images, spec, datagen_generator,
+                                            corners, delta,
+                                            photometric_params, rows=rows)
+        optimizer.zero_grad()
+        with tracing.span('train.forward'):
+            out = model(batch, uniforms=uniforms, generator=dsac_generator,
+                        rows=rows)
+        with tracing.span('train.loss'):
+            loss = losses.compute_loss(loss_name, out)
+        with tracing.span('train.backward'):
+            loss.backward()
+        with tracing.span('train.allreduce'):
+            mesh.all_reduce_grads(optimizer.params,
+                                  loss_scale(loss_name, world))
+        with tracing.span('train.optimizer'):
+            g_norm = optimizer.global_norm()
+            lr = optimizer.step()
+        with tracing.span('train.metrics'):
+            metrics = _metrics(loss_name, out, 'train')
+            metrics.update({'g_norm/value': g_norm,
+                            'lr/value': torch.tensor(lr,
+                                                     dtype=torch.float32)})
+            metrics.update(out.get('metrics', {}))
+        return metrics
 
 
 @torch.no_grad()
@@ -184,6 +193,7 @@ def pick_steps_per_call(steps_per_epoch: int, log_step: int,
     return 1
 
 
+@tracing.span('train.draw')
 def draw_pool_batch(pool: Tensor, batch_size: int,
                     generator: torch.Generator,
                     pool_shard: bool = False) -> Tensor:

@@ -23,7 +23,8 @@ The port alone:
 * a CLI run of s-coco detone-orig with ``--feed pool --pool_size 4
   --pool_refresh_steps 2 --steps_per_call 2 --lr 1e-4 --profile`` swaps
   pools, logs ``throughput/pairs_per_sec_per_chip`` and the learning rate
-  it was given, and writes a trace of its third block;
+  it was given, and writes a trace of its third block that names the
+  program's spans;
 * resume through the pool, with swaps inside both epochs and a host prep
   with random crops: one epoch, then the same command with ``--epochs
   2``, gives exactly the losses, weights and records (but the wall-clock
@@ -215,6 +216,11 @@ def test_cli_pool_flags_log_throughput_and_write_a_trace(tmp_path, capsys):
     trace = log_dir / 'profile' / 'trace.json'
     assert trace.exists() and 'traceEvents' in json.loads(trace.read_text())
     assert result['profile']['block'] == 2
+    # The program's spans name the layers in it: the block's two steps.
+    names = [e.get('name') for e in json.loads(trace.read_text())[
+        'traceEvents']]
+    assert names.count('train.step') == 2
+    assert names.count('model.backbone') == 2
     assert sorted(result['swap_ms']) == [2, 4, 6]
     assert len(result['train_feed'].pool) == 4
     assert result['losses'].shape == (6,) and len(result['wait_ms']) == 6
